@@ -5,19 +5,26 @@
 Phases, each fatal on failure:
   1. build   — compile the CUDA kernels of kubeai_tpu_torch/csrc with nvcc
                for sm_90a and print the build seconds;
-  2. kernels — each kernel against its plain PyTorch version on the card,
-               in bf16 at the serving path's Llama-3-8B shapes, with times,
-               the plain version's and one PyTorch library call's times,
-               and the least time the card could take (bound);
+  2. kernels — each kernel (B1 paged decode, B2 flash prefill, B3 paged
+               verify, B4 fused paged decode) against its plain PyTorch
+               version on the card, in bf16 at the serving path's
+               Llama-3-8B shapes, with times, the plain version's and one
+               PyTorch library call's times, and the least time the card
+               could take (bound); one wrong page must fail each paged
+               kernel's limit;
   3. model   — a small model (head_dim 128) on the card through the kernels
                against the same weights in f32 on the CPU through the plain
-               versions: prefill and paged-decode logits, greedy picks, and
-               lm_head logits kept in f32;
+               versions: prefill, paged-decode (both layouts) and
+               speculative-verify logits, greedy picks, and lm_head logits
+               kept in f32;
   4. serve   — EngineServer over Engine with random Llama-3-8B-shape weights
                on cuda answers concurrent /v1/chat/completions requests
-               (one streamed); every request gets its tokens and both
-               kernels' launch counters must move. Then torch.profiler
-               over two decode chunks: device time by kernel, idle share.
+               (one streamed) three times over the same weights: the
+               per_layer decode layout (B1 and B2 must launch), prompt-lookup
+               speculation (B3 must launch, B1 must not) and the fused
+               layout (B4 must launch, B1 must not). After each run
+               torch.profiler times decode chunks or verify windows: device
+               time by kernel, idle share.
 
 The last lines are the kernel JSON line, the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -50,6 +57,18 @@ FLASH_RTOL = 2e-2
 # bf16 weights and activations through a few layers.
 MODEL_ATOL = 5e-2
 MODEL_RTOL = 5e-2
+# Paged verify (B3) is held against its plain version computed in f32 on
+# the same bf16 values: the rows of a slot at position 0 average only 1-5
+# values, so their outputs are O(1) and the bf16 plain version's own
+# rounding of q * scale moves them by two bf16 steps (1.6e-2 at 2.6, read
+# on the card); in f32 the plain version leaves the kernel's output
+# rounding and sum order (7.8e-3 at 2.7, a third of this limit). Fused
+# paged decode (B4) is held against the bf16 plain version, as B1 is
+# (3.9e-3 read). The phase checks that one wrong page fails each limit.
+VERIFY_ATOL = 2e-3
+VERIFY_RTOL = 1e-2
+FUSED_ATOL = 2e-3
+FUSED_RTOL = 1e-2
 # lm_head logits on the card against an f32 product of the same bf16
 # operands on the CPU: only the sum order differs when the GEMM keeps its
 # f32 accumulator; rounding the logits to bf16 would move them by about
@@ -64,6 +83,14 @@ KERNELS = {
     "flash_causal_prefill": (
         "kubeai_tpu_torch/csrc/flash_prefill.cu",
         "kubeai_tpu/ops/pallas_attention.py:108",
+    ),
+    "paged_verify_attention": (
+        "kubeai_tpu_torch/csrc/paged_verify.cu",
+        "kubeai_tpu/ops/paged_attention.py:569",
+    ),
+    "paged_decode_attention_fused": (
+        "kubeai_tpu_torch/csrc/paged_decode_fused.cu",
+        "kubeai_tpu/ops/paged_attention.py:837",
     ),
 }
 
@@ -131,6 +158,32 @@ def phase_build() -> None:
 # ---- phase 2: kernels against their plain versions ---------------------------
 
 
+def _table(lengths, page: int, mp: int, gen):
+    """Block tables: slot b holds ceil(lengths[b] / page) pages (at most
+    mp), drawn without repeats from pages 1.. of the pool."""
+    import torch
+
+    B = len(lengths)
+    perm = torch.randperm(B * mp, generator=gen, device="cpu") + 1
+    bt = torch.full((B, mp), -1, dtype=torch.int32)
+    used = 0
+    for b in range(B):
+        need = min(-(-int(lengths[b]) // page), mp)
+        bt[b, :need] = perm[used:used + need].to(torch.int32)
+        used += need
+    return bt
+
+
+def _wrong_page_fails(name: str, got, bad, atol: float, rtol: float) -> None:
+    """The limit has teeth: the plain version over a block table with one
+    wrong page must fail it."""
+    ok, bad_err = within(got, bad, atol, rtol)
+    if ok:
+        fail(f"{name}: one wrong page stays within the limit (max |err| {bad_err:.3e})")
+    print(f"{name}: one wrong page in slot 0 gives max |err| {bad_err:.3e}, "
+          f"beyond atol {atol} rtol {rtol}", flush=True)
+
+
 def _paged_inputs(gen, B=8, H=32, KVH=8, D=128, page=64, max_len=2048):
     import torch
 
@@ -139,13 +192,7 @@ def _paged_inputs(gen, B=8, H=32, KVH=8, D=128, page=64, max_len=2048):
     lengths = torch.randint(1, max_len + 1, (B,), generator=gen, device="cpu")
     lengths[0] = max_len  # one full-length slot, one single-token slot
     lengths[1] = 1
-    perm = torch.randperm(n_pages - 1, generator=gen, device="cpu") + 1
-    bt = torch.full((B, mp), -1, dtype=torch.int32)
-    used = 0
-    for b in range(B):
-        need = -(-int(lengths[b]) // page)
-        bt[b, :need] = perm[used:used + need].to(torch.int32)
-        used += need
+    bt = _table(lengths.tolist(), page, mp, gen)
     dev = "cuda"
     q = torch.randn(B, H, D, generator=gen, device="cpu").to(dev, torch.bfloat16)
     kp = torch.randn(n_pages, page, KVH, D, generator=gen, device="cpu").to(dev, torch.bfloat16)
@@ -174,18 +221,12 @@ def check_paged_decode() -> dict:
         err = compare(f"paged_decode softcap={cap} window={win}", got, want,
                       PAGED_ATOL, PAGED_RTOL)
         if cap is None and win is None:
-            # The limit has teeth: the plain version with one page of the
-            # full-length slot 0 read from slot 2's first page must fail it.
+            # One page of the full-length slot 0 read from slot 2's first.
             bad_bt = bt.clone()
             bad_bt[0, 5] = bt[2, 0]
-            bad = ref_paged_decode_attention(q, kp, vp, bad_bt, lengths)
-            ok, bad_err = within(got, bad, PAGED_ATOL, PAGED_RTOL)
-            if ok:
-                fail(f"paged_decode: one wrong page stays within the limit "
-                     f"(max |err| {bad_err:.3e})")
-            print(f"paged_decode: one wrong page in slot 0 gives max |err| "
-                  f"{bad_err:.3e}, beyond atol {PAGED_ATOL} rtol {PAGED_RTOL}",
-                  flush=True)
+            _wrong_page_fails("paged_decode", got,
+                              ref_paged_decode_attention(q, kp, vp, bad_bt, lengths),
+                              PAGED_ATOL, PAGED_RTOL)
         ms = cuda_ms(lambda: paged_decode_attention(
             q, kp, vp, bt, lengths, logit_softcap=cap, window=win))
         plain_ms = cuda_ms(lambda: ref_paged_decode_attention(
@@ -258,11 +299,228 @@ def check_flash_prefill() -> dict:
     return main
 
 
+def check_paged_verify() -> dict:
+    """B3 at the serving shapes: 8 slots, a gamma = 4 window (K = 5),
+    positions ragged up to 2043, and slot 2's window running past the end
+    of its 32-page block table."""
+    import torch
+    import torch.nn.functional as F
+
+    from kubeai_tpu_torch.ops.paged_attention import (
+        paged_verify_attention,
+        ref_paged_verify_attention,
+    )
+
+    B, K, H, KVH, D, page, max_len = 8, 5, 32, 8, 128, 64, 2048
+    mp = max_len // page
+    gen = torch.Generator().manual_seed(5)
+    positions = torch.randint(0, max_len - K + 1, (B,), generator=gen)
+    positions[0] = max_len - K  # the whole table, up to 2043 + 4
+    positions[1] = 0
+    positions[2] = max_len - 2  # rows at 2046..2050: three past the table
+    bt = _table((positions + K).tolist(), page, mp, gen).to("cuda")
+    cg = torch.Generator("cuda").manual_seed(6)
+    q = torch.randn(B, K, H, D, generator=cg, device="cuda").to(torch.bfloat16)
+    kp = torch.randn(1 + B * mp, page, KVH, D, generator=cg, device="cuda").to(torch.bfloat16)
+    vp = torch.randn(1 + B * mp, page, KVH, D, generator=cg, device="cuda").to(torch.bfloat16)
+    pos = positions.to("cuda", torch.int32)
+    L = mp * page
+    q32, kp32, vp32 = q.float(), kp.float(), vp.float()
+    result = None
+    for cap, win in ((None, None), (30.0, None), (None, 500), (50.0, 100)):
+        kw = dict(logit_softcap=cap, window=win)
+        got = paged_verify_attention(q, kp, vp, bt, pos, **kw)
+        torch.cuda.synchronize()
+        want = ref_paged_verify_attention(q32, kp32, vp32, bt, pos, **kw)
+        err = compare(f"paged_verify softcap={cap} window={win}", got, want,
+                      VERIFY_ATOL, VERIFY_RTOL)
+        bf16_err = within(got, ref_paged_verify_attention(q, kp, vp, bt, pos, **kw),
+                          VERIFY_ATOL, VERIFY_RTOL)[1]
+        if cap is None and win is None:
+            bad_bt = bt.clone()
+            bad_bt[0, 5] = bt[3, 0]
+            _wrong_page_fails("paged_verify", got,
+                              ref_paged_verify_attention(q32, kp32, vp32, bad_bt, pos),
+                              VERIFY_ATOL, VERIFY_RTOL)
+        ms = cuda_ms(lambda: paged_verify_attention(q, kp, vp, bt, pos, **kw))
+        plain_ms = cuda_ms(lambda: ref_paged_verify_attention(q, kp, vp, bt, pos, **kw),
+                           iters=5)
+        # This data's work: each slot reads the keys its rows can see
+        # (row 0's window edge to the last row's position, inside the
+        # table) once; row k does 4 * D flops per head per key it keeps.
+        n_keys = n_pairs = 0
+        for p in positions.tolist():
+            lo = max(p - win + 1, 0) if win else 0
+            n_keys += max(min(p + K, L) - lo, 0)
+            for k in range(K):
+                row_lo = max(p + k - win + 1, 0) if win else 0
+                n_pairs += max(min(p + k, L - 1) - row_lo + 1, 0)
+        nbytes = (n_keys * KVH * D * 2 * 2 + 2 * q.numel() * 2
+                  + bt.numel() * 4 + pos.numel() * 4)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_flops = 4.0 * D * H * n_pairs / PEAK_BF16_FLOPS * 1e3
+        line = dict(softcap=cap, window=win, max_abs_err=err,
+                    max_abs_err_vs_bf16_plain=bf16_err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=max(t_bytes, t_flops), bytes=nbytes,
+                    bound_by="bytes" if t_bytes >= t_flops else "operations")
+        if cap is None and win is None:
+            # Library yardstick: SDPA over the same keys gathered dense,
+            # with the causal window mask.
+            idx = bt.long().clamp(min=0)
+            kd = kp[idx].reshape(B, L, KVH, D).transpose(1, 2).contiguous()
+            vd = vp[idx].reshape(B, L, KVH, D).transpose(1, 2).contiguous()
+            q_abs = pos.long()[:, None] + torch.arange(K, device="cuda")
+            mask = (torch.arange(L, device="cuda")[None, None, :] <= q_abs[:, :, None])[:, None]
+            qt = q.transpose(1, 2).contiguous()  # [B, H, K, D]
+            line["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kd, vd, attn_mask=mask, enable_gqa=True))
+            result = dict(line)
+        print("kernel paged_verify_attention B=%d K=%d H=%d KVH=%d D=%d page=%d "
+              "positions<=%d %s" % (B, K, H, KVH, D, page, int(positions.max()),
+                                    json.dumps(line)), flush=True)
+    return result
+
+
+def check_paged_fused() -> dict:
+    """B4 on a stacked pool of 4 layers at layer 2, the serving widths,
+    old lengths ragged up to 2047 and slot 1 empty (pos 0)."""
+    import torch
+    import torch.nn.functional as F
+
+    from kubeai_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_fused,
+        ref_paged_decode_attention_fused,
+    )
+
+    B, H, KVH, D, page, max_len, NL, layer = 8, 32, 8, 128, 64, 2048, 4, 2
+    mp = max_len // page
+    gen = torch.Generator().manual_seed(7)
+    positions = torch.randint(1, max_len, (B,), generator=gen)
+    positions[0] = max_len - 1  # the whole table with the new token
+    positions[1] = 0
+    bt = _table((positions + 1).tolist(), page, mp, gen).to("cuda")
+    cg = torch.Generator("cuda").manual_seed(8)
+    shape = (NL, 1 + B * mp, page, KVH, D)
+    q = torch.randn(B, H, D, generator=cg, device="cuda").to(torch.bfloat16)
+    kp = torch.randn(shape, generator=cg, device="cuda").to(torch.bfloat16)
+    vp = torch.randn(shape, generator=cg, device="cuda").to(torch.bfloat16)
+    kn = torch.randn(B, KVH, D, generator=cg, device="cuda").to(torch.bfloat16)
+    vn = torch.randn(B, KVH, D, generator=cg, device="cuda").to(torch.bfloat16)
+    pos = positions.to("cuda", torch.int32)
+    L = mp * page
+    result = None
+    for cap, win in ((None, None), (30.0, None), (None, 500), (50.0, 100)):
+        kw = dict(logit_softcap=cap, window=win)
+        args = (q, kp, vp, kn, vn, bt, pos, layer)
+        got = paged_decode_attention_fused(*args, **kw)
+        torch.cuda.synchronize()
+        want = ref_paged_decode_attention_fused(*args, **kw)
+        err = compare(f"paged_fused softcap={cap} window={win}", got, want,
+                      FUSED_ATOL, FUSED_RTOL)
+        # Slot 1 has no old tokens: every head's output is its v_new.
+        if not torch.equal(got[1], vn[1].repeat_interleave(H // KVH, 0)):
+            fail(f"paged_fused softcap={cap} window={win}: the empty slot is not v_new")
+        if cap is None and win is None:
+            bad_bt = bt.clone()
+            bad_bt[0, 5] = bt[2, 0]
+            _wrong_page_fails("paged_fused", got, ref_paged_decode_attention_fused(
+                q, kp, vp, kn, vn, bad_bt, pos, layer), FUSED_ATOL, FUSED_RTOL)
+            # And the layer offset has teeth: the same call on layer 1.
+            _wrong_page_fails("paged_fused (layer 1 for 2)", got,
+                              ref_paged_decode_attention_fused(
+                                  q, kp, vp, kn, vn, bt, pos, 1), FUSED_ATOL, FUSED_RTOL)
+        ms = cuda_ms(lambda: paged_decode_attention_fused(*args, **kw))
+        plain_ms = cuda_ms(lambda: ref_paged_decode_attention_fused(*args, **kw), iters=5)
+        # This data's work: the old keys the mask keeps, read once, and the
+        # new token's K/V; 4 * D flops per head per kept key.
+        lens = positions.long()
+        if win is not None:
+            lens = torch.clamp(lens, max=win - 1)
+        n_keys = int(lens.sum()) + B
+        nbytes = (n_keys * KVH * D * 2 * 2 + 2 * q.numel() * 2
+                  + bt.numel() * 4 + pos.numel() * 4)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_flops = 4.0 * D * H * n_keys / PEAK_BF16_FLOPS * 1e3
+        line = dict(softcap=cap, window=win, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=max(t_bytes, t_flops), bytes=nbytes,
+                    bound_by="bytes" if t_bytes >= t_flops else "operations")
+        if cap is None and win is None:
+            # Library yardstick: SDPA over the layer's keys gathered dense
+            # with the new token concatenated, length-masked.
+            idx = bt.long().clamp(min=0)
+            kd = torch.cat([kp[layer][idx].reshape(B, L, KVH, D), kn[:, None]], 1)
+            vd = torch.cat([vp[layer][idx].reshape(B, L, KVH, D), vn[:, None]], 1)
+            kd, vd = (x.transpose(1, 2).contiguous() for x in (kd, vd))
+            col = torch.arange(L + 1, device="cuda")
+            mask = ((col[None, :] < pos.long()[:, None]) | (col[None, :] == L))[:, None, None, :]
+            q4 = q[:, :, None, :]
+            line["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q4, kd, vd, attn_mask=mask, enable_gqa=True))
+            result = dict(line)
+        print("kernel paged_decode_attention_fused NL=%d layer=%d B=%d H=%d KVH=%d D=%d "
+              "page=%d positions<=%d %s" % (NL, layer, B, H, KVH, D, page,
+                                            int(positions.max()), json.dumps(line)),
+              flush=True)
+    return result
+
+
+def check_head_dim_64() -> None:
+    """The paged kernels' head_dim-64 build (Llama-3.2-1B's head size),
+    which the 8B-shape checks above do not run: B1, B3 and B4 against
+    their plain versions at their own limits, at a smaller size, with
+    and without softcap and window. No timing."""
+    import torch
+
+    from kubeai_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_fused,
+        paged_verify_attention,
+        ref_paged_decode_attention,
+        ref_paged_decode_attention_fused,
+        ref_paged_verify_attention,
+    )
+
+    B, K, H, KVH, D, page, max_len = 4, 5, 32, 8, 64, 64, 512
+    mp = max_len // page
+    gen = torch.Generator().manual_seed(10)
+    positions = torch.randint(1, max_len - K + 1, (B,), generator=gen)
+    positions[1] = 0
+    bt = _table((positions + K).tolist(), page, mp, gen).to("cuda")
+    cg = torch.Generator("cuda").manual_seed(11)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=cg, device="cuda").to(torch.bfloat16)
+
+    kp, vp = rnd(2, 1 + B * mp, page, KVH, D), rnd(2, 1 + B * mp, page, KVH, D)
+    q, qk, kn, vn = rnd(B, H, D), rnd(B, K, H, D), rnd(B, KVH, D), rnd(B, KVH, D)
+    pos = positions.to("cuda", torch.int32)
+    errs = []
+    for cap, win in ((None, None), (50.0, 100)):
+        kw = dict(logit_softcap=cap, window=win)
+        tag = f"D=64 softcap={cap} window={win}"
+        got = paged_decode_attention(q, kp[1], vp[1], bt, pos + 1, **kw)
+        errs.append(compare(f"paged_decode {tag}", got, ref_paged_decode_attention(
+            q, kp[1], vp[1], bt, pos + 1, **kw), PAGED_ATOL, PAGED_RTOL))
+        got = paged_verify_attention(qk, kp[1], vp[1], bt, pos, **kw)
+        errs.append(compare(f"paged_verify {tag}", got, ref_paged_verify_attention(
+            qk.float(), kp[1].float(), vp[1].float(), bt, pos, **kw),
+            VERIFY_ATOL, VERIFY_RTOL))
+        got = paged_decode_attention_fused(q, kp, vp, kn, vn, bt, pos, 1, **kw)
+        errs.append(compare(f"paged_fused {tag}", got, ref_paged_decode_attention_fused(
+            q, kp, vp, kn, vn, bt, pos, 1, **kw), FUSED_ATOL, FUSED_RTOL))
+    print(f"kernels at head_dim 64 (B1, B3, B4; plain, softcap 50 + window 100): "
+          f"max |err| {['%.3e' % e for e in errs]}", flush=True)
+
+
 def phase_kernels() -> dict:
-    return {
+    measured = {
         "paged_decode_attention": check_paged_decode(),
         "flash_causal_prefill": check_flash_prefill(),
+        "paged_verify_attention": check_paged_verify(),
+        "paged_decode_attention_fused": check_paged_fused(),
     }
+    check_head_dim_64()
+    return measured
 
 
 # ---- phase 3: a small model through the kernels against the plain path ------
@@ -304,16 +562,38 @@ def phase_model() -> None:
             ids, offs = batched_sequence_page_coords(bt, lengths.to(dev), S, page)
             batched_scatter_sequence(kp, vp, k_all, v_all, ids, offs)
             step_tok = torch.tensor([7, 11], device=dev)
+            kp_f, vp_f = kp.clone(), vp.clone()
             dlogits, kp, vp = llama.decode_step_paged(
-                params, c, step_tok, lengths.to(dev), kp, vp, bt)
+                params, c, step_tok, lengths.to(dev), kp, vp, bt,
+                attn_kernel="per_layer")
+            # The same step in the fused layout, on a copy of the pools.
+            flogits, kp_f, _ = llama.decode_step_paged(
+                params, c, step_tok, lengths.to(dev), kp_f, vp_f, bt,
+                attn_kernel="fused")
+            # A verify window over the pools the per_layer step wrote: its
+            # row 0 is that step again (same token, same position).
+            window_toks = torch.cat([step_tok[:, None], tokens[:, 1:5].to(dev)], 1)
+            vlogits, kp_v, _ = llama.decode_verify_paged(
+                params, c, window_toks, lengths.to(dev), kp.clone(), vp.clone(), bt)
         # Page 0 is scratch: padded tail positions all write there, and
         # which duplicate write lands is unspecified.
-        out[dev] = (logits, k_all, dlogits, kp[:, 1:])
-    for i, name in enumerate(("prefill logits", "prefill k_all", "decode logits",
-                              "decode k_pages")):
+        out[dev] = (logits, k_all, dlogits, kp[:, 1:], flogits, kp_f[:, 1:],
+                    vlogits, kp_v[:, 1:])
+    names = ("prefill logits", "prefill k_all", "decode logits", "decode k_pages",
+             "fused decode logits", "fused decode k_pages", "verify logits",
+             "verify k_pages")
+    for i, name in enumerate(names):
         err = compare(f"model {name}", out["cuda"][i], out["cpu"][i], MODEL_ATOL, MODEL_RTOL)
         print(f"model {name}: cuda bf16 (kernels) vs cpu f32 (plain) max |err| {err:.3e}",
               flush=True)
+    # On the card: verify row 0 (B3) against the per_layer decode step (B1),
+    # and the fused step (B4) against it.
+    for i, name in ((6, "verify row 0"), (4, "fused decode")):
+        got = out["cuda"][i][:, 0] if i == 6 else out["cuda"][i]
+        err = compare(f"model {name} vs decode on the card", got, out["cuda"][2],
+                      MODEL_ATOL, MODEL_RTOL)
+        print(f"model {name} vs per_layer decode logits, both on the card: max |err| "
+              f"{err:.3e}", flush=True)
     x = torch.randn(4, cfg.hidden_size, generator=gen).to("cuda", torch.bfloat16)
     with torch.no_grad():
         got = llama._logits(x, p16["lm_head"])
@@ -326,8 +606,9 @@ def phase_model() -> None:
           f"{err:.3e} (rounding them to bf16 would give {rounded:.3e})", flush=True)
     # Greedy picks, bf16 on the card against f32 on the CPU: where the two
     # differ, the card's pick must be a near-tie on the CPU side.
-    for name, i in (("prefill", 0), ("decode", 2)):
-        g, c = out["cuda"][i].float().cpu(), out["cpu"][i].float()
+    for name, i in (("prefill", 0), ("decode", 2), ("fused decode", 4), ("verify", 6)):
+        g = out["cuda"][i].float().cpu().reshape(-1, cfg.vocab_size)
+        c = out["cpu"][i].float().reshape(-1, cfg.vocab_size)
         pick = g.argmax(-1)
         gap = c.max(-1).values - c.gather(-1, pick[:, None])[:, 0]
         if bool((gap > MODEL_ATOL).any()):
@@ -375,35 +656,35 @@ def _post(port: int, body: dict) -> tuple[int, dict, float, float]:
                          "done": done}, first, time.perf_counter() - t0
 
 
-def phase_serve() -> dict:
-    import torch
+def _wrappers() -> dict:
+    from kubeai_tpu_torch.ops.flash_attention import flash_causal_prefill
+    from kubeai_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_fused,
+        paged_verify_attention,
+    )
 
+    return {
+        "paged_decode_attention": paged_decode_attention,
+        "flash_causal_prefill": flash_causal_prefill,
+        "paged_verify_attention": paged_verify_attention,
+        "paged_decode_attention_fused": paged_decode_attention_fused,
+    }
+
+
+def serve_run(params, cfg, label: str, **extra) -> dict:
+    """One EngineServer run over `params`: a warm-up request, then four
+    concurrent chat completions (one streamed), with every kernel's launch
+    count set to 0 just before them and read just after. `extra` adds to
+    the smoke EngineConfig. Returns the launches, each request's engine
+    token stream (keyed by prompt length) and the engine."""
     from kubeai_tpu_torch.engine import Engine, EngineConfig
     from kubeai_tpu_torch.engine.server import EngineServer
     from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
-    from kubeai_tpu_torch.models import llama
-    from kubeai_tpu_torch.ops.flash_attention import flash_causal_prefill
-    from kubeai_tpu_torch.ops.paged_attention import paged_decode_attention
-
-    cfg = llama.LlamaConfig()  # Llama-3-8B shapes, all 32 layers
-    t0 = time.perf_counter()
-    params = llama.init_params(cfg, torch.Generator("cuda").manual_seed(0), device="cuda")
-    torch.cuda.synchronize()
-    print(f"serve: random Llama-3-8B-shape weights on cuda in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    # Outputs are finite and of the expected shape.
-    with torch.no_grad():
-        toks = torch.randint(0, cfg.vocab_size, (1, 64), device="cuda")
-        logits, k_all, _ = llama.prefill(params, cfg, toks, torch.tensor([64], device="cuda"))
-    want_k = (cfg.num_layers, 1, 64, cfg.num_kv_heads, cfg.head_size)
-    if tuple(logits.shape) != (1, cfg.vocab_size) or tuple(k_all.shape) != want_k:
-        fail(f"8B prefill shapes {tuple(logits.shape)} {tuple(k_all.shape)}")
-    if not torch.isfinite(logits).all():
-        fail("8B prefill logits are not finite")
 
     tok = ByteTokenizer()
     engine = Engine("llama", cfg, params, cfg=EngineConfig(
-        num_slots=8, max_seq_len=2048, page_size=64, decode_chunk=8,
+        num_slots=8, max_seq_len=2048, page_size=64, decode_chunk=8, **extra,
     ), eos_token_ids=tok.eos_token_ids)
     prompt_len: dict[int, int] = {}
     add_request = engine.add_request
@@ -414,17 +695,18 @@ def phase_serve() -> dict:
         return rid
 
     engine.add_request = add_and_note
-    # Tokens the engine emitted per request, counted from its step events.
-    emitted: dict[int, int] = {}
+    # Tokens the engine emitted per request, from its step events.
+    streams: dict[int, list[int]] = {}
     engine_step = engine.step
 
     def step_and_count():
         events = engine_step()
         for ev in events:
-            emitted[ev.rid] = emitted.get(ev.rid, 0) + 1
+            streams.setdefault(ev.rid, []).append(ev.token)
         return events
 
     engine.step = step_and_count
+    wrappers = _wrappers()
     server = EngineServer(engine, tok, "llama-3-8b-shape", port=0)
     server.start()
     try:
@@ -432,9 +714,9 @@ def phase_serve() -> dict:
             "messages": [{"role": "user", "content": "warm up"}],
             "max_tokens": 4, "temperature": 0})
         if status != 200:
-            fail(f"warm-up request: HTTP {status}")
+            fail(f"serve {label} warm-up request: HTTP {status}")
         engine.drain_timing()
-        emitted.clear()
+        streams.clear()
         text = "The quick brown fox jumps over the lazy dog. "
         max_tokens = 32
         bodies = [
@@ -452,8 +734,8 @@ def phase_serve() -> dict:
         def run(i):
             results[i] = _post(server.port, bodies[i])
 
-        paged_decode_attention.launches = 0
-        flash_causal_prefill.launches = 0
+        for fn in wrappers.values():
+            fn.launches = 0
         threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
         t_start = time.perf_counter()
         for t in threads:
@@ -461,65 +743,199 @@ def phase_serve() -> dict:
         for t in threads:
             t.join()
         wall = time.perf_counter() - t_start
-        launches = {
-            "paged_decode_attention": paged_decode_attention.launches,
-            "flash_causal_prefill": flash_causal_prefill.launches,
-        }
+        launches = {name: fn.launches for name, fn in wrappers.items()}
     finally:
         server.stop()
     for i, (status, res, first_s, total_s) in enumerate(results):
         if status != 200:
-            fail(f"request {i}: HTTP {status} {res}")
+            fail(f"serve {label} request {i}: HTTP {status} {res}")
         if bodies[i].get("stream"):
             # Tokens without text send no chunk: the count is the engine's.
             if not res["done"] or res["finish_reason"] != "length":
-                fail(f"stream {i}: {res}")
+                fail(f"serve {label} stream {i}: {res}")
             got = f"sse_chunks={res['chunks']}"
         else:
             n = res["usage"]["completion_tokens"]
             if n != max_tokens or res["choices"][0]["finish_reason"] != "length":
-                fail(f"request {i}: {n} tokens, {res['choices'][0]}")
+                fail(f"serve {label} request {i}: {n} tokens, {res['choices'][0]}")
             got = f"completion_tokens={n}"
-        print(f"serve request {i}: stream={bool(bodies[i].get('stream'))} "
+        print(f"serve {label} request {i}: stream={bool(bodies[i].get('stream'))} "
               f"{got} client_first_byte_s={first_s:.4f} "
               f"client_total_s={total_s:.4f}", flush=True)
     # Every request of the run, the streamed one included, got its tokens.
-    if sorted(emitted.values()) != [max_tokens] * len(bodies):
-        fail(f"engine emitted {emitted} tokens per request, not {max_tokens} each")
-    print(f"serve engine-side tokens per request: {json.dumps(emitted)}", flush=True)
+    counts = {rid: len(toks) for rid, toks in streams.items()}
+    if sorted(counts.values()) != [max_tokens] * len(bodies):
+        fail(f"serve {label}: engine emitted {counts} tokens per request, "
+             f"not {max_tokens} each")
+    print(f"serve {label} engine-side tokens per request: {json.dumps(counts)}", flush=True)
     timing = engine.drain_timing()
     ttft = {int(t[2][4:]): t[1] for t in timing if t[0] == "ttft"}
     for rid in sorted(ttft):
-        print(f"serve TTFT rid={rid} prompt_tokens={prompt_len.get(rid)} "
+        print(f"serve {label} TTFT rid={rid} prompt_tokens={prompt_len.get(rid)} "
               f"ttft_s={ttft[rid]:.4f}", flush=True)
     e2e = [t[1] for t in timing if t[0] == "e2e"]
     decode_tokens = len(bodies) * (max_tokens - 1)
     decode_s = max(e2e) - min(ttft.values())
-    print(f"serve decode tok/s={decode_tokens / decode_s:.2f} "
+    print(f"serve {label} decode tok/s={decode_tokens / decode_s:.2f} "
           f"({decode_tokens} tokens after the first, {decode_s:.4f} s from the "
           f"first first-token to the last completion; wall {wall:.4f} s)", flush=True)
-    print(f"serve launches on the main path: {json.dumps(launches)}", flush=True)
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"main path never launched {name}")
-    profile_decode(engine)
+    print(f"serve {label} launches on the main path: {json.dumps(launches)}", flush=True)
+    # Each request's prompt length is distinct: it names the request.
+    index_of = {len(tok.apply_chat_template(b["messages"])): i for i, b in enumerate(bodies)}
+    greedy = {index_of[prompt_len[rid]]: toks for rid, toks in streams.items()
+              if bodies[index_of[prompt_len[rid]]]["temperature"] == 0}
+    return {"launches": launches, "greedy": greedy, "engine": engine}
+
+
+def phase_serve() -> dict:
+    import gc
+
+    import torch
+
+    from kubeai_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig()  # Llama-3-8B shapes, all 32 layers
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, torch.Generator("cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    print(f"serve: random Llama-3-8B-shape weights on cuda in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    # Outputs are finite and of the expected shape.
+    with torch.no_grad():
+        toks = torch.randint(0, cfg.vocab_size, (1, 64), device="cuda")
+        logits, k_all, _ = llama.prefill(params, cfg, toks, torch.tensor([64], device="cuda"))
+    want_k = (cfg.num_layers, 1, 64, cfg.num_kv_heads, cfg.head_size)
+    if tuple(logits.shape) != (1, cfg.vocab_size) or tuple(k_all.shape) != want_k:
+        fail(f"8B prefill shapes {tuple(logits.shape)} {tuple(k_all.shape)}")
+    if not torch.isfinite(logits).all():
+        fail("8B prefill logits are not finite")
+    del logits, k_all
+    layout_gaps(params, cfg)
+
+    launches = {}
+    # Run 1: the per_layer layout, passed explicitly so that the env var
+    # cannot flip it. B1 and B2 must launch.
+    run = serve_run(params, cfg, "per_layer", decode_kernel="per_layer")
+    for name in ("paged_decode_attention", "flash_causal_prefill"):
+        if run["launches"][name] <= 0:
+            fail(f"serve per_layer: main path never launched {name}")
+        launches[name] = run["launches"][name]
+    base = run["greedy"]
+    profile(run["engine"], "decode step", lambda e: e._decode_chunk(),
+            e_steps=run["engine"].cfg.decode_chunk)
+
+    def free(run):
+        # The pools go; the weights are shared by the next run.
+        run.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    free(run)
+    # Run 2: prompt-lookup speculation in every decode call. B3 launches,
+    # B1 does not.
+    run = serve_run(params, cfg, "speculate", decode_kernel="per_layer",
+                    speculate=4, spec_adaptive=False)
+    if run["launches"]["paged_verify_attention"] <= 0:
+        fail("serve speculate: main path never launched paged_verify_attention")
+    if run["launches"]["paged_decode_attention"] != 0:
+        fail("serve speculate: paged_decode_attention launched in a speculative run")
+    launches["paged_verify_attention"] = run["launches"]["paged_verify_attention"]
+    stats = run["engine"].spec_stats
+    print(f"serve speculate spec_stats {json.dumps(stats)} acceptance "
+          f"{stats['accepted'] / max(1, stats['proposed']):.4f}", flush=True)
+    report_agreement("speculate", base, run["greedy"])
+    proposals = torch.zeros((run["engine"].cfg.num_slots, 4), dtype=torch.int64, device="cuda")
+    profile(run["engine"], "verify window", lambda e: e._spec_step(proposals), e_steps=1)
+    free(run)
+    # Run 3: the fused layout. B4 launches, B1 does not.
+    run = serve_run(params, cfg, "fused", decode_kernel="fused")
+    if run["launches"]["paged_decode_attention_fused"] <= 0:
+        fail("serve fused: main path never launched paged_decode_attention_fused")
+    if run["launches"]["paged_decode_attention"] != 0:
+        fail("serve fused: paged_decode_attention launched in a fused run")
+    launches["paged_decode_attention_fused"] = run["launches"]["paged_decode_attention_fused"]
+    report_agreement("fused", base, run["greedy"])
+    profile(run["engine"], "fused decode step", lambda e: e._decode_chunk(),
+            e_steps=run["engine"].cfg.decode_chunk)
+    free(run)
     return launches
 
 
-def profile_decode(engine) -> None:
-    """torch.profiler over decode chunks at the serving shapes (all
-    num_slots rows; the requests have finished, so the rows write scratch
-    page 0): device time by kernel, and the device's idle share against
-    the wall time of the same chunks run without the profiler (whose own
-    host overhead would swamp it)."""
+def layout_gaps(params, cfg) -> None:
+    """One decode step at the 8B shapes in each layout from the same
+    state (4 slots after a 128-token prefill): how far the fused step's
+    and the verify window's row-0 logits lie from the per_layer step's,
+    beside the gap between each row's two best logits. Random weights give
+    near-flat logits, so a difference above the gap flips a greedy pick:
+    this says why the serve runs' greedy streams part. A report, not a
+    gate."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    chunks = 2
+    from kubeai_tpu_torch.models import llama
+    from kubeai_tpu_torch.ops.paged_attention import (
+        batched_scatter_sequence,
+        batched_sequence_page_coords,
+    )
+
+    B, S, page, mp = 4, 128, 64, 4
+    gen = torch.Generator("cuda").manual_seed(9)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    lengths = torch.full((B,), S, device="cuda")
+    with torch.no_grad():
+        logits, k_all, v_all = llama.prefill(params, cfg, tokens, lengths)
+        shape = (cfg.num_layers, 1 + B * mp, page, cfg.num_kv_heads, cfg.head_size)
+        kp = torch.zeros(shape, dtype=cfg.dtype, device="cuda")
+        vp = torch.zeros(shape, dtype=cfg.dtype, device="cuda")
+        bt = torch.arange(1, 1 + B * mp, dtype=torch.int32, device="cuda").reshape(B, mp)
+        ids, offs = batched_sequence_page_coords(bt, lengths, S, page)
+        batched_scatter_sequence(kp, vp, k_all, v_all, ids, offs)
+        del k_all, v_all
+        step = logits.argmax(-1)
+        out = {}
+        for layout in ("per_layer", "fused"):
+            out[layout] = llama.decode_step_paged(
+                params, cfg, step, lengths, kp.clone(), vp.clone(), bt,
+                attn_kernel=layout)[0]
+        window = torch.cat([step[:, None], tokens[:, :4]], 1)
+        out["verify"] = llama.decode_verify_paged(
+            params, cfg, window, lengths, kp, vp, bt)[0][:, 0]
+    base = out["per_layer"]
+    top2 = base.topk(2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).cpu()
+    for name in ("fused", "verify"):
+        diff = float((out[name] - base).abs().max())
+        same = int((out[name].argmax(-1) == base.argmax(-1)).sum())
+        print(f"serve layouts: {name} vs per_layer logits at one 8B step max |diff| "
+              f"{diff:.3e}; greedy picks equal {same}/{B}; top-2 logit gaps of the "
+              f"per_layer rows {[float(f'{g:.3e}') for g in gap.tolist()]}", flush=True)
+
+
+def report_agreement(label: str, base: dict, got: dict) -> None:
+    """How many leading greedy tokens equal the per_layer run's, per
+    request: a report, not a gate (the kernels sum in other orders and can
+    flip a near-tie)."""
+    for i in sorted(base):
+        a, b = base[i], got.get(i, [])
+        same = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        print(f"serve {label} greedy request {i}: {same}/{len(a)} leading tokens "
+              f"equal to the per_layer run's", flush=True)
+
+
+def profile(engine, unit: str, call, e_steps: int) -> None:
+    """torch.profiler over two decode calls at the serving shapes (all
+    num_slots rows; the requests have finished, so the rows write scratch
+    page 0): device time per `unit` (a decode call covers e_steps of
+    them) by kernel, and the device's idle share against the wall time of
+    the same calls run without the profiler (whose own host overhead
+    would swamp it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    calls = 2
 
     def run():
-        for _ in range(chunks):
-            engine._decode_chunk()
+        for _ in range(calls):
+            call(engine)
         torch.cuda.synchronize()
 
     with torch.no_grad():
@@ -527,21 +943,22 @@ def profile_decode(engine) -> None:
         t0 = time.perf_counter()
         run()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run()
-    steps = chunks * engine.cfg.decode_chunk
+    steps = calls * e_steps
     rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     if not rows:
         fail("torch.profiler recorded no device kernels")
     dev_total_us = sum(getattr(e, "self_device_time_total", 0) for e in rows)
-    print(f"profile decode: {steps} steps, unprofiled wall {wall_ms / steps:.3f} "
-          f"ms/step, device {dev_total_us / 1e3 / steps:.3f} ms/step, idle share "
+    tag = unit.replace(" ", "_")
+    print(f"profile {tag}: {steps} x {unit}, unprofiled wall {wall_ms / steps:.3f} "
+          f"ms/{tag}, device {dev_total_us / 1e3 / steps:.3f} ms/{tag}, idle share "
           f"{max(0.0, 1 - dev_total_us / 1e3 / wall_ms):.3f}", flush=True)
     rows.sort(key=lambda e: getattr(e, "self_device_time_total", 0), reverse=True)
     for e in rows[:12]:
         t = getattr(e, "self_device_time_total", 0)
-        print(f"profile decode kernel {t / 1e3 / steps:.4f} ms/step "
-              f"count/step {e.count / steps:.1f} {e.key[:90]}", flush=True)
+        print(f"profile {tag} kernel {t / 1e3 / steps:.4f} ms/{tag} "
+              f"count/{tag} {e.count / steps:.1f} {e.key[:90]}", flush=True)
 
 
 # ---- entry --------------------------------------------------------------------

@@ -8,6 +8,8 @@ stepping. Counterpart of kubeai_tpu/engine/engine.py.
                          │
         step(): one decode chunk over ALL slots (decode_chunk model steps,
                 each followed by sample) ─► host-side stop checks
+                or, with speculate > 0, one verify window per slot
+                (prompt-lookup proposals, the longest accepted prefix)
 
 Device state (page pools, block tables, per-slot decode state) lives in
 torch tensors on the engine's device and is updated in place; the JAX
@@ -22,13 +24,15 @@ Two JAX behaviours are reproduced by hand:
     block table map to scratch page 0 (ops.paged_attention).
 
 Ported: paged mode, synchronous stepping, preemption by recompute, the
-SLO scheduler. Settings of the JAX engine that are not ported raise
-NotImplementedError naming their ROADMAP item.
+SLO scheduler, both decode layouts, and speculative decoding by prompt
+lookup (adaptive or always on). Settings of the JAX engine that are not
+ported raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import threading
 import time
 from typing import Any, NamedTuple
@@ -78,7 +82,16 @@ class EngineConfig:
     # Same-bucket prompts prefilled in one batched call; rows pad to the
     # next power of two.
     max_admit_batch: int = 8
-    speculate: int = 0  # ROADMAP A9
+    # Speculative decoding: propose this many tokens per step by prompt
+    # lookup (an n-gram match against the request's own context) and
+    # verify them all in one forward; accept the longest prefix the seeded
+    # sampler agrees with. The stream equals vanilla decoding. 0 = off.
+    speculate: int = 0
+    # With speculate > 0: measure tokens/s of verify windows and of decode
+    # chunks and run the faster, re-probing the other every
+    # spec_probe_every decode calls. False = always speculate.
+    spec_adaptive: bool = True
+    spec_probe_every: int = 32
     prefill_buckets: tuple[int, ...] = ()  # default: powers of 2 up to max
     prefill_chunk: int = 0  # ROADMAP A8
     prefix_cache: bool = False  # ROADMAP A8
@@ -88,7 +101,9 @@ class EngineConfig:
     # within a chunk are discarded on the host.
     decode_chunk: int = 8
     quantization: str = ""  # "int8" weights: ROADMAP A12
-    decode_kernel: str = ""  # "per_layer"; "fused" is ROADMAP B4
+    # Decode attention layout: "per_layer" | "fused"; "" = the
+    # $KUBEAI_TPU_DECODE_KERNEL env var, default "per_layer".
+    decode_kernel: str = ""
     max_adapters: int = 0  # LoRA: ROADMAP A11
     step_overlap: str = "auto"  # "auto" resolves to off; "on": ROADMAP A7
 
@@ -134,6 +149,13 @@ class _Request:
     done: bool = False
     finish_reason: str = ""  # "stop" | "length" | "cancelled"
     stop_token_ids: tuple[int, ...] = ()
+    # Incremental context buffer and n-gram last-occurrence index for the
+    # prompt-lookup proposals (built on first use, appended per emitted
+    # token: a lookup is O(gamma) per step, never an O(L) rescan).
+    ctx: Any = None
+    ctx_len: int = 0
+    ngram_idx: Any = None  # {n: {ngram tuple -> last start index}}
+    ngram_upto: Any = None  # {n: window starts indexed so far}
     # Enqueue time (_now() clock) for the ttft and e2e records; zeroed
     # once e2e is recorded.
     t_enqueue: float = 0.0
@@ -160,7 +182,7 @@ def _resolve_overlap(cfg: EngineConfig) -> None:
         )
 
 
-def _refuse_unported(cfg: EngineConfig, mesh) -> None:
+def _refuse_unported(cfg: EngineConfig, mesh, draft, decode_kernel: str) -> None:
     """Raise for every JAX engine setting this port does not serve."""
     if cfg.cache_mode == "slot":
         raise NotImplementedError(
@@ -169,10 +191,6 @@ def _refuse_unported(cfg: EngineConfig, mesh) -> None:
     if cfg.cache_mode != "paged":
         raise ValueError(f"unknown cache_mode {cfg.cache_mode!r}")
     _resolve_overlap(cfg)
-    if cfg.speculate > 0:
-        raise NotImplementedError(
-            "speculative decoding is not ported yet (ROADMAP A9, kernel B3)"
-        )
     if cfg.prefill_chunk > 0 or cfg.prefix_cache:
         raise NotImplementedError(
             "chunked prefill and the prefix cache are not ported yet "
@@ -180,6 +198,18 @@ def _refuse_unported(cfg: EngineConfig, mesh) -> None:
         )
     kv = (cfg.kv_dtype or "").strip().lower()
     if kv == "int8":
+        # The JAX engine's own refusals come first.
+        if cfg.speculate > 0 or draft is not None:
+            raise ValueError(
+                "kv_dtype='int8' does not compose with speculative "
+                "decoding yet (the verify kernels read bf16 pools)"
+            )
+        if decode_kernel == "fused":
+            raise ValueError(
+                "kv_dtype='int8' does not compose with "
+                "decode_kernel='fused' (the fused kernel reads a "
+                "stacked bf16 pool); use per_layer"
+            )
         raise NotImplementedError("int8 KV pools are not ported yet (ROADMAP A10)")
     if kv not in ("", "bfloat16", "bf16"):
         raise ValueError(f"unknown kv_dtype {cfg.kv_dtype!r}")
@@ -192,6 +222,12 @@ def _refuse_unported(cfg: EngineConfig, mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "meshes and parallelism are not ported yet (ROADMAP A14)"
+        )
+    if draft is not None:
+        raise NotImplementedError(
+            "draft-model speculation is not ported yet: it drafts through "
+            "the slot cache (ROADMAP A13); prompt-lookup speculation "
+            "(speculate > 0, no draft) is"
         )
 
 
@@ -214,17 +250,19 @@ class Engine:
         eos_token_ids: tuple[int, ...] = (),
         scheduler: RequestScheduler | None = None,
         device: str | torch.device | None = None,
+        draft: tuple[Any, Any] | None = None,
     ):
         """`device` defaults to cuda (raising without a GPU); pass "cpu"
-        to run the plain PyTorch versions of the kernels."""
+        to run the plain PyTorch versions of the kernels. `draft` (a
+        draft model for speculation) is not ported and raises."""
         self.device = resolve_device(device)
-        _refuse_unported(cfg, mesh)
+        self.decode_kernel = resolve_decode_kernel(cfg.decode_kernel)
+        _refuse_unported(cfg, mesh, draft, self.decode_kernel)
         self.family = (
             get_model_family(family) if isinstance(family, str) else family
         )
         self.model_cfg = model_cfg
         self.cfg = cfg
-        self.decode_kernel = resolve_decode_kernel(cfg.decode_kernel)
         self.eos_token_ids = eos_token_ids
         self._lock = threading.Lock()
         self._next_rid = 0
@@ -240,6 +278,26 @@ class Engine:
         self._timing: list[tuple] = []
         # Optional preemption observer: on_preempt(rid, client).
         self.on_preempt = None
+        # Adaptive speculation: measured tokens/s EMA per decode mode
+        # ("spec" | "chunk"); None until a mode's second call.
+        self._mode_tps: dict[str, float | None] = {}
+        self._mode_calls: dict[str, int] = {}
+        self._decode_calls = 0
+        # Speculation acceptance over live slots (windows = verify steps x
+        # live slots).
+        self.spec_stats = {"windows": 0, "proposed": 0, "accepted": 0}
+        # Resolved speculation window: cfg.speculate where the family has
+        # a verify forward, else 0 (vanilla decode, with a warning).
+        self._spec = 0
+        if cfg.speculate > 0:
+            if self.family.decode_verify_paged is not None:
+                self._spec = cfg.speculate
+            else:
+                logging.getLogger(__name__).warning(
+                    "speculate=%d requested but family %s has no verify "
+                    "forward; running vanilla decode",
+                    cfg.speculate, self.family.name,
+                )
 
         self.params = _to_device(params, self.device)
 
@@ -353,6 +411,34 @@ class Engine:
             out.append(tokens)
         st["tokens"], st["positions"] = tokens, positions
         return torch.stack(out)
+
+    def _spec_step(self, proposals: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One speculative step: verify [last_token, gamma proposals] in a
+        single forward; accept the longest prefix where the seeded
+        sampler's choice equals the proposal; emit accepted + 1 tokens.
+        The stream equals vanilla decoding: choice k is sampled from the
+        same logits with the same position it would see one step at a
+        time, and a mismatch ends the window before any diverging context
+        is used. Returns (choices [B, gamma + 1], n_emit [B])."""
+        st = self._state
+        gamma = self._spec
+        positions = st["positions"]
+        tokens_in = torch.cat([st["tokens"][:, None], proposals], dim=1)
+        logits, _, _ = self.family.decode_verify_paged(
+            self.params, self.model_cfg, tokens_in, positions,
+            self.cache.k_pages, self.cache.v_pages, self.cache.block_tables,
+        )
+        choices = torch.stack([
+            sample(logits[:, k], st["seeds"], positions + k + 1, st["temp"],
+                   st["topk"], st["topp"])
+            for k in range(gamma + 1)
+        ], dim=1)  # [B, gamma + 1]
+        match = (choices[:, :gamma] == proposals).long()
+        accepted = torch.cumprod(match, dim=1).sum(dim=1)
+        n_emit = accepted + 1  # [B] in 1..gamma+1
+        st["positions"] = torch.clamp(positions + n_emit, max=self.cfg.max_seq_len - 1)
+        st["tokens"] = torch.gather(choices, 1, accepted[:, None])[:, 0]
+        return choices, n_emit
 
     # ---- requests ------------------------------------------------------------
 
@@ -572,12 +658,22 @@ class Engine:
 
     # ---- pages and slots -------------------------------------------------
 
+    def _decode_lookahead(self) -> int:
+        """How far positions can advance in one decode call. Adaptive
+        speculation may run either mode a given step, so cover both."""
+        if self._spec:
+            chunk = self._spec + 1
+            if self.cfg.spec_adaptive:
+                chunk = max(chunk, max(1, self.cfg.decode_chunk))
+            return chunk
+        return max(1, self.cfg.decode_chunk)
+
     def _ensure_decode_pages(self) -> None:
-        """Grow every active slot's pages to cover the next decode chunk.
+        """Grow every active slot's pages to cover the next decode call.
         Pool exhaustion preempts the lowest-class, youngest other request
         (recompute on re-admission). The pool holds one full sequence, so
         the oldest request is always served."""
-        chunk = max(1, self.cfg.decode_chunk)
+        chunk = self._decode_lookahead()
         for slot, req in sorted(
             self._active.items(), key=lambda kv: kv[1].rid
         ):
@@ -660,31 +756,90 @@ class Engine:
 
     # ---- stepping ----------------------------------------------------------
 
+    def _spec_pick(self) -> bool:
+        """Choose this decode call's mode (True = speculative window,
+        False = decode chunk). Epsilon-greedy over measured tokens/s:
+        sample each arm twice, then run the winner, re-probing the loser
+        every cfg.spec_probe_every calls so a workload shift is noticed.
+        Greedy streams are identical in both modes; a seeded near-tie can
+        flip where the two modes' logits differ in the last bits, so set
+        spec_adaptive=False where seeded streams must be bit-stable."""
+        if not self.cfg.spec_adaptive:
+            return True
+        self._decode_calls += 1
+        s = self._mode_tps.get("spec")
+        c = self._mode_tps.get("chunk")
+        if self._mode_calls.get("spec", 0) < 2:
+            return True
+        if self._mode_calls.get("chunk", 0) < 2:
+            return False
+        if self._decode_calls % max(2, self.cfg.spec_probe_every) == 0:
+            return s <= c  # probe the currently losing arm
+        return s > c
+
+    def _spec_observe(self, mode: str, tokens: int, dt: float) -> None:
+        """Fold one decode call's throughput into the mode's EMA. The
+        first call per mode is counted but not folded: it pays one-time
+        set-up (the kernels' build, allocator growth)."""
+        calls = self._mode_calls.get(mode, 0) + 1
+        self._mode_calls[mode] = calls
+        if calls < 2 or dt <= 0 or tokens <= 0:
+            return
+        tps = tokens / dt
+        prev = self._mode_tps.get(mode)
+        self._mode_tps[mode] = tps if prev is None else 0.7 * prev + 0.3 * tps
+
     def step(self) -> list[StepEvent]:
-        """Admit pending prefills, then run one decode chunk
-        (cfg.decode_chunk model steps). Returns StepEvents in emission
-        order."""
+        """Admit pending prefills, then run one decode call: a decode chunk
+        (cfg.decode_chunk model steps) or, with speculation, one verify
+        window. Returns StepEvents in emission order."""
         with self._lock:
             emitted: list[StepEvent] = []
             t0 = time.perf_counter()
             emitted.extend(self._admit_pending_paged())
             if self._active:
+                t_dec = time.perf_counter()
                 self._ensure_decode_pages()
                 if self._bt_dirty:
                     self.cache.block_tables.copy_(
                         torch.from_numpy(self._bt_host)
                     )
                     self._bt_dirty = False
+                riders = list(self._active.items())
+                mode = None
                 with torch.no_grad():
-                    toks_seq = self._decode_chunk()
-                emitted.extend(
-                    self._process_chunk(toks_seq, list(self._active.items()))
-                )
+                    if self._spec and self._spec_pick():
+                        mode = "spec"
+                        proposals = torch.from_numpy(self._build_proposals())
+                        choices, n_emit = self._spec_step(
+                            proposals.to(self.device, torch.int64)
+                        )
+                        evs = self._process_spec(choices, n_emit, riders)
+                    else:
+                        if self._spec:
+                            mode = "chunk"
+                        evs = self._process_chunk(self._decode_chunk(), riders)
+                emitted.extend(evs)
+                if mode is not None:
+                    # Wall time covers the device work and the readback:
+                    # the cost the mode choice trades off.
+                    self._spec_observe(mode, len(evs), time.perf_counter() - t_dec)
             # The scheduler's drain-rate estimate (deadline feasibility,
             # Retry-After): completed requests per second of step time.
             finished = sum(1 for ev in emitted if ev.finished)
             self._sched.observe_service(finished, time.perf_counter() - t0)
             return emitted
+
+    def _emit(self, req: _Request, tok: int) -> StepEvent:
+        """Append one decoded token to a live request, releasing it when
+        the token finishes it."""
+        req.out_tokens.append(tok)
+        req.position += 1
+        req.last_token = tok
+        finished = self._check_stop(req)
+        if finished:
+            self._release(req)
+        return StepEvent(req.rid, tok, finished, req.finish_reason)
 
     def _process_chunk(self, toks_seq: torch.Tensor, chunk_slots) -> list[StepEvent]:
         toks = toks_seq.cpu().numpy()  # [chunk, num_slots]
@@ -693,15 +848,92 @@ class Engine:
             for slot, req in chunk_slots:
                 if req.done:
                     continue  # surplus chunk tokens discarded
-                tok = int(toks[k, slot])
-                req.out_tokens.append(tok)
-                req.position += 1
-                req.last_token = tok
-                finished = self._check_stop(req)
-                emitted.append(StepEvent(req.rid, tok, finished, req.finish_reason))
-                if finished:
-                    self._release(req)
+                emitted.append(self._emit(req, int(toks[k, slot])))
         return emitted
+
+    def _process_spec(self, choices: torch.Tensor, n_emit: torch.Tensor,
+                      riders) -> list[StepEvent]:
+        """Emit each slot's accepted and corrected tokens (1..gamma+1 per
+        step). A stop mid-window discards the rest, like chunk surplus."""
+        choices = choices.cpu().numpy()  # [B, gamma + 1]
+        n_emit = n_emit.cpu().numpy()  # [B]
+        emitted: list[StepEvent] = []
+        for slot, req in riders:
+            if req.done:
+                continue
+            self.spec_stats["windows"] += 1
+            self.spec_stats["proposed"] += self._spec
+            self.spec_stats["accepted"] += int(n_emit[slot]) - 1
+            for j in range(int(n_emit[slot])):
+                emitted.append(self._emit(req, int(choices[slot, j])))
+                if req.done:
+                    break
+        return emitted
+
+    def _build_proposals(self) -> np.ndarray:
+        """Prompt-lookup proposals [num_slots, gamma]: the longest suffix
+        n-gram (n = 3, 2, 1) of each active request's context that
+        occurred earlier proposes its historical continuation; inactive
+        slots get zeros (their results are discarded). Contexts live in
+        per-request incremental buffers: only newly emitted tokens append
+        each step."""
+        gamma = self._spec
+        out = np.zeros((self.cfg.num_slots, gamma), np.int32)
+        for slot, req in self._active.items():
+            need = len(req.prompt) + len(req.out_tokens)
+            if req.ctx is None or need < req.ctx_len:
+                req.ctx = np.empty(self.cfg.max_seq_len + gamma + 2, np.int32)
+                base = req.prompt + req.out_tokens
+                req.ctx[: len(base)] = base
+                req.ctx_len = len(base)
+                req.ngram_idx = {n: {} for n in (3, 2, 1)}
+                req.ngram_upto = {n: 0 for n in (3, 2, 1)}
+            elif req.ctx_len < need:
+                req.ctx[req.ctx_len:need] = req.out_tokens[req.ctx_len - len(req.prompt):]
+                req.ctx_len = need
+            out[slot] = self._ngram_propose_indexed(req, gamma)
+        return out
+
+    @staticmethod
+    def _ngram_propose_indexed(req: _Request, gamma: int) -> np.ndarray:
+        """O(gamma)-per-step lookup: the last-occurrence index is extended
+        only over the window starts added since the previous step."""
+        ctx, L = req.ctx, req.ctx_len
+        for n in (3, 2, 1):
+            if L <= n:
+                continue
+            s = L - n  # the suffix's own start, never indexed
+            idx = req.ngram_idx[n]
+            for i in range(req.ngram_upto[n], s):
+                idx[tuple(ctx[i : i + n].tolist())] = i
+            req.ngram_upto[n] = s
+            hit = idx.get(tuple(ctx[s:L].tolist()))
+            if hit is not None:
+                start = hit + n
+                prop = ctx[start : min(start + gamma, L)]
+                if len(prop):
+                    pad = np.full(gamma - len(prop), prop[-1], np.int32)
+                    return np.concatenate([prop, pad])
+        return np.full(gamma, int(ctx[L - 1]), np.int32)
+
+    @staticmethod
+    def _ngram_propose(ctx: np.ndarray, gamma: int) -> np.ndarray:
+        """The same proposal by a full rescan of the context."""
+        L = len(ctx)
+        for n in (3, 2, 1):
+            if L <= n:
+                continue
+            suffix = ctx[-n:]
+            windows = np.lib.stride_tricks.sliding_window_view(ctx, n)
+            hits = np.flatnonzero((windows == suffix).all(axis=1))
+            hits = hits[hits < L - n]  # exclude the suffix itself
+            if len(hits):
+                start = int(hits[-1]) + n
+                prop = ctx[start : start + gamma]
+                if len(prop):
+                    pad = np.full(gamma - len(prop), prop[-1], np.int32)
+                    return np.concatenate([prop, pad])
+        return np.full(gamma, int(ctx[-1]), np.int32)  # repeat-last fallback
 
     def generate(
         self,

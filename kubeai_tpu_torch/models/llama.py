@@ -1,6 +1,7 @@
 """Llama-family decoder (Llama 2/3/3.1, Mistral, Qwen2 with q/k/v biases).
-Counterpart of kubeai_tpu/models/llama.py: the whole-prompt `prefill` and
-the "per_layer" branch of `decode_step_paged`.
+Counterpart of kubeai_tpu/models/llama.py: the whole-prompt `prefill`,
+`decode_step_paged` in both layouts ("per_layer" and "fused") and the
+speculative verify forward `decode_verify_paged`.
 
 Parameters are a plain dict with the JAX package's layout, so the tests
 can hand the same weights to both packages (kubeai_tpu_torch.parity):
@@ -14,8 +15,10 @@ int8 weights, LoRA, ring-attention prefill and pipeline parallelism are
 not ported and raise.
 
 Prefill attention goes through ops.flash_attention.flash_causal_prefill
-for every bucket (the CUDA kernel on the card); decode attention through
-ops.paged_attention.paged_decode_attention, once per layer per step.
+for every bucket (the CUDA kernel on the card). Decode attention goes
+through ops.paged_attention, once per layer per step:
+paged_decode_attention ("per_layer"), paged_decode_attention_fused
+("fused"), or paged_verify_attention for a speculative window.
 """
 
 from __future__ import annotations
@@ -30,7 +33,10 @@ from kubeai_tpu_torch.device import resolve_device
 from kubeai_tpu_torch.ops.flash_attention import flash_causal_prefill
 from kubeai_tpu_torch.ops.norms import rms_norm
 from kubeai_tpu_torch.ops.paged_attention import (
+    batched_scatter_sequence,
     paged_decode_attention,
+    paged_decode_attention_fused,
+    paged_verify_attention,
     resolve_decode_kernel,
     scatter_decode_token,
     token_page_coords,
@@ -321,23 +327,128 @@ def decode_step_paged(
     *,
     attn_kernel: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Decode step against the paged cache, "per_layer" layout: each layer
-    scatters its new token's K/V into its pool, then attends through
-    paged_decode_attention. The pools are updated in place and returned
-    (the JAX version returns new arrays)."""
+    """Decode step against the paged cache. Two layouts, selected by
+    `attn_kernel` (None = $KUBEAI_TPU_DECODE_KERNEL, default "per_layer"):
+
+    "per_layer" — each layer scatters its new token's K/V into its pool,
+    then attends through paged_decode_attention.
+
+    "fused" — each layer attends through paged_decode_attention_fused,
+    which reads the layer's pages out of the stacked pool in place and
+    takes the new token's K/V as an extra column; the new K/V of every
+    layer are then written in one scatter after the layer loop.
+
+    The pools are updated in place and returned (the JAX version returns
+    new arrays)."""
     _refuse_unported(lora, lora_idx)
     _check_weights(params)
-    resolve_decode_kernel(attn_kernel)
+    attn_kernel = resolve_decode_kernel(attn_kernel)
     dev = tokens.device
     inv_freq, msc = _rope_tables(cfg, dev)
     page_size = k_pages.shape[2]
     x = params["embed"][tokens]  # [B, E]
     page_ids, offsets = token_page_coords(block_tables, positions, page_size)
-    lengths = (positions + 1).to(torch.int32)
-    for i in range(cfg.num_layers):
-        x = _paged_decode_layer(
-            x, _layer(params, i), k_pages[i], v_pages[i], cfg, inv_freq, msc,
-            positions, lengths, page_ids, offsets, block_tables,
+    if attn_kernel == "per_layer":
+        lengths = (positions + 1).to(torch.int32)
+        for i in range(cfg.num_layers):
+            x = _paged_decode_layer(
+                x, _layer(params, i), k_pages[i], v_pages[i], cfg, inv_freq,
+                msc, positions, lengths, page_ids, offsets, block_tables,
+            )
+    else:
+        pos32 = positions.to(torch.int32)
+        k_new, v_new = [], []
+        for i in range(cfg.num_layers):
+            lp = _layer(params, i)
+            q, k, v, proj = _decode_layer_qkv(
+                x, lp, cfg, inv_freq, msc, positions[:, None]
+            )
+            k, v = k.contiguous(), v.contiguous()
+            attn = paged_decode_attention_fused(
+                q.contiguous(), k_pages, v_pages, k, v, block_tables, pos32, i,
+            )
+            x = _decode_layer_finish(x, attn, lp, proj, cfg)
+            k_new.append(k)
+            v_new.append(v)
+        # One write for every layer's new token ([NL, B, 1, KVH, D]).
+        batched_scatter_sequence(
+            k_pages, v_pages, torch.stack(k_new)[:, :, None],
+            torch.stack(v_new)[:, :, None], page_ids[:, None], offsets[:, None],
         )
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return _logits(x, params["lm_head"]), k_pages, v_pages
+
+
+def _verify_page_coords(block_tables, positions, K, page_size):
+    """Page coords of all K window positions per slot: ([B, K], [B, K])."""
+    ids, offs = zip(*(
+        token_page_coords(block_tables, positions + k, page_size)
+        for k in range(K)
+    ))
+    return torch.stack(ids, 1), torch.stack(offs, 1)
+
+
+def _paged_verify_layer(
+    x, lp, kp, vp, cfg, inv_freq, msc, pos_k, page_ids, offsets,
+    block_tables, positions,
+):
+    """One verify layer over a [B, K, E] window against this layer's page
+    pools: project, rope, write the window's K/V through the block tables
+    (in place), attend through paged_verify_attention, MLP."""
+    B, K, _ = x.shape
+    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
+
+    def proj(h, w, bias=None):
+        out = torch.matmul(h, w)
+        return out if bias is None else out + bias
+
+    h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
+    q = proj(h, lp["wq"], lp.get("bq")).reshape(B, K, H, D)
+    k = proj(h, lp["wk"], lp.get("bk")).reshape(B, K, KVH, D)
+    v = proj(h, lp["wv"], lp.get("bv")).reshape(B, K, KVH, D)
+    q = apply_rope(q, pos_k, inv_freq, msc)
+    k = apply_rope(k, pos_k, inv_freq, msc)
+    kp[page_ids, offsets] = k.to(kp.dtype)
+    vp[page_ids, offsets] = v.to(vp.dtype)
+    attn = paged_verify_attention(q.contiguous(), kp, vp, block_tables, positions)
+    x = x + proj(attn.reshape(B, K, H * D), lp["wo"])
+    h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
+    return x + _mlp(h2, lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
+def decode_verify_paged(
+    params: dict,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [B, K] last emitted token + K - 1 proposals
+    positions: torch.Tensor,  # [B] absolute position of tokens[:, 0]
+    k_pages: torch.Tensor,  # [NL, P, page, KVH, D]
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, MP] int32
+    lora: dict | None = None,
+    lora_idx: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Speculative verify: one forward over a K-token window per slot
+    against the paged cache. Writes the window's K/V through the block
+    tables (rejected tail positions hold K/V that the slot's position
+    masks and later steps overwrite) and returns f32 logits for every
+    window position, [B, K, V], so the engine can accept the longest
+    matching proposal prefix. The pools are updated in place and
+    returned."""
+    _refuse_unported(lora, lora_idx)
+    _check_weights(params)
+    B, K = tokens.shape
+    dev = tokens.device
+    inv_freq, msc = _rope_tables(cfg, dev)
+    page_size = k_pages.shape[2]
+    pos_k = positions[:, None] + torch.arange(K, device=dev)[None, :]  # [B, K]
+    x = params["embed"][tokens]  # [B, K, E]
+    page_ids, offsets = _verify_page_coords(block_tables, positions, K, page_size)
+    pos32 = positions.to(torch.int32)
+    for i in range(cfg.num_layers):
+        x = _paged_verify_layer(
+            x, _layer(params, i), k_pages[i], v_pages[i], cfg, inv_freq, msc,
+            pos_k, page_ids, offsets, block_tables, pos32,
+        )
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    logits = _logits(x.reshape(B * K, -1), params["lm_head"])
+    return logits.reshape(B, K, -1), k_pages, v_pages

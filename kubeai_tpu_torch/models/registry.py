@@ -22,6 +22,9 @@ class ModelFamily:
     init_params: Callable
     prefill: Callable
     decode_step_paged: Callable
+    # Multi-position verify forward for speculative decoding (None =
+    # speculation unsupported for this family).
+    decode_verify_paged: Callable | None = None
     hf_architectures: tuple[str, ...] = ()
 
 
@@ -59,6 +62,7 @@ def _ensure_builtin() -> None:
             init_params=llama.init_params,
             prefill=llama.prefill,
             decode_step_paged=llama.decode_step_paged,
+            decode_verify_paged=llama.decode_verify_paged,
             hf_architectures=("LlamaForCausalLM", "MistralForCausalLM"),
         )
     )
@@ -74,6 +78,7 @@ def _ensure_builtin() -> None:
             init_params=llama.init_params,
             prefill=llama.prefill,
             decode_step_paged=llama.decode_step_paged,
+            decode_verify_paged=llama.decode_verify_paged,
             hf_architectures=("Qwen2ForCausalLM",),
         )
     )

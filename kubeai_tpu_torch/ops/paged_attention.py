@@ -1,14 +1,23 @@
-"""Paged decode attention and the paged-cache write helpers.
-Counterpart of kubeai_tpu/ops/paged_attention.py.
+"""Paged decode, verify and fused-decode attention, and the paged-cache
+write helpers. Counterpart of kubeai_tpu/ops/paged_attention.py.
 
-  ref_paged_decode_attention — gather pages through the block tables into
-      a contiguous view, then masked attention. The plain PyTorch version:
-      CPU tensors take it, and the tests and chip_smoke.py hold the kernel
-      against it.
-  paged_decode_attention     — the wrapper of the CUDA kernel
-      (csrc/paged_decode.cu), which replaces the Pallas kernel B1. For a
-      CUDA tensor it launches the kernel or raises; only a CPU tensor
-      takes the plain version.
+Three kernels, each with its plain PyTorch version beside it. CPU
+tensors take the plain version; the tests and chip_smoke.py hold each
+kernel against it. For a CUDA tensor a wrapper launches its kernel or
+raises.
+
+  paged_decode_attention       — one query token per slot over the
+      slot's pages (csrc/paged_decode.cu, replaces the Pallas kernel B1);
+      plain version ref_paged_decode_attention.
+  paged_verify_attention       — K query tokens per slot, the speculative
+      verify window, each seeing the keys up to its own position
+      (csrc/paged_verify.cu, replaces B3); plain version
+      ref_paged_verify_attention.
+  paged_decode_attention_fused — one query token per slot over one layer
+      of the STACKED [NL, ...] pool, read in place, with the new token
+      (not yet in the pool) merged as one extra column
+      (csrc/paged_decode_fused.cu, replaces B4); plain version
+      ref_paged_decode_attention_fused.
 
 The write helpers mirror two behaviours of the JAX versions by hand:
 jnp gathers clamp out-of-range indices (positions past the block table
@@ -18,28 +27,38 @@ mask for scatter rows that must write nothing.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from kubeai_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 
+# Which decode-attention layout the models use when the caller does not
+# say: "per_layer" scatters each layer's new token, then attends through
+# paged_decode_attention; "fused" attends through
+# paged_decode_attention_fused and writes every layer's new token in one
+# scatter after the layer loop. The environment variable picks between
+# them when the caller gives no layout, as in the JAX package.
+DECODE_KERNEL_ENV = "KUBEAI_TPU_DECODE_KERNEL"
 _DECODE_KERNELS = ("per_layer", "fused")
 
 
+def default_decode_kernel() -> str:
+    mode = os.environ.get(DECODE_KERNEL_ENV, "").strip().lower()
+    return mode if mode in _DECODE_KERNELS else "per_layer"
+
+
 def resolve_decode_kernel(requested: str | None) -> str:
-    """Validate a decode-attention layout; None/"" means "per_layer".
-    Only "per_layer" is ported: "fused" (the stacked-pool kernel B4)
-    raises NotImplementedError."""
-    mode = requested or "per_layer"
-    if mode not in _DECODE_KERNELS:
-        raise ValueError(f"decode kernel {mode!r} not in {_DECODE_KERNELS}")
-    if mode == "fused":
-        raise NotImplementedError(
-            "decode_kernel='fused' (the stacked-pool paged kernel, ROADMAP "
-            "B4) is not ported yet; use 'per_layer'"
+    """Validate an explicit layout; None/"" defers to the env var."""
+    if not requested:
+        return default_decode_kernel()
+    if requested not in _DECODE_KERNELS:
+        raise ValueError(
+            f"decode kernel {requested!r} not in {_DECODE_KERNELS}"
         )
-    return mode
+    return requested
 
 
 def ref_paged_decode_attention(
@@ -79,48 +98,63 @@ def ref_paged_decode_attention(
     return out.reshape(b, h, d).to(q.dtype)
 
 
-_MAX_GROUP = 8  # query heads per kv head the kernel takes
+_MAX_GROUP = 8  # query heads per kv head the decode kernels take
+_MAX_VERIFY_ROWS = 64  # (window tokens x group) rows the verify kernel takes
 _HEAD_DIMS = (64, 128)
 
 
-def _check_decode_args(q, k_pages, v_pages, block_tables, lengths, window):
-    dev = q.device
-    for name, t in (
-        ("k_pages", k_pages), ("v_pages", v_pages),
-        ("block_tables", block_tables), ("lengths", lengths),
-    ):
+def _check_common(kernel: str, bf16: dict, int32: dict, window) -> None:
+    """What every paged kernel wrapper checks: one device, bf16 data and
+    int32 indices, all contiguous, the window a Python int."""
+    tensors = {**bf16, **int32}
+    dev = tensors["q"].device
+    for name, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel} kernel takes a contiguous {name}")
+    for name, t in bf16.items():
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"paged decode kernel takes bf16 {name}, got {t.dtype}")
-    for name, t in (("block_tables", block_tables), ("lengths", lengths)):
+            raise TypeError(f"{kernel} kernel takes bf16 {name}, got {t.dtype}")
+    for name, t in int32.items():
         if t.dtype != torch.int32:
-            raise TypeError(f"paged decode kernel takes int32 {name}, got {t.dtype}")
+            raise TypeError(f"{kernel} kernel takes int32 {name}, got {t.dtype}")
+    if window is not None and not isinstance(window, int):
+        raise TypeError(f"the {kernel} kernel takes window as a Python int")
+
+
+def _check_heads(d: int, pool_d: int, h: int, kvh: int, max_group: int) -> None:
+    if pool_d != d or d not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {d} (pool {pool_d}) not in {_HEAD_DIMS}")
+    if h % kvh or h // kvh > max_group:
+        raise ValueError(
+            f"{h} q heads over {kvh} kv heads: group must divide and be <= {max_group}"
+        )
+
+
+def _check_tables(block_tables, per_slot, b: int) -> None:
+    if block_tables.dim() != 2 or block_tables.shape[0] != b or tuple(per_slot.shape) != (b,):
+        raise ValueError(
+            f"block_tables {tuple(block_tables.shape)} / per-slot "
+            f"{tuple(per_slot.shape)} do not match batch {b}"
+        )
+
+
+def _check_decode_args(q, k_pages, v_pages, block_tables, lengths, window):
+    _check_common(
+        "paged decode",
+        dict(q=q, k_pages=k_pages, v_pages=v_pages),
+        dict(block_tables=block_tables, lengths=lengths),
+        window,
+    )
     if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(
             f"shapes q {tuple(q.shape)}, pools {tuple(k_pages.shape)} / "
             f"{tuple(v_pages.shape)}: want q [B, H, D], pools [P, page, KVH, D]"
         )
     b, h, d = q.shape
-    kvh = k_pages.shape[2]
-    if k_pages.shape[3] != d or d not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {d} (pool {k_pages.shape[3]}) not in {_HEAD_DIMS}")
-    if h % kvh or h // kvh > _MAX_GROUP:
-        raise ValueError(f"{h} q heads over {kvh} kv heads: group must divide and be <= {_MAX_GROUP}")
-    if block_tables.dim() != 2 or block_tables.shape[0] != b or tuple(lengths.shape) != (b,):
-        raise ValueError(
-            f"block_tables {tuple(block_tables.shape)} / lengths "
-            f"{tuple(lengths.shape)} do not match batch {b}"
-        )
-    for name, t in (
-        ("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-        ("block_tables", block_tables), ("lengths", lengths),
-    ):
-        if not t.is_contiguous():
-            raise ValueError(f"paged decode kernel takes a contiguous {name}")
-    if window is not None and not isinstance(window, int):
-        raise TypeError("the paged decode kernel takes window as a Python int")
+    _check_heads(d, k_pages.shape[3], h, k_pages.shape[2], _MAX_GROUP)
+    _check_tables(block_tables, lengths, b)
 
 
 def paged_decode_attention(
@@ -164,6 +198,247 @@ def paged_decode_attention(
 
 # Kernel launches since the count was last set to 0.
 paged_decode_attention.launches = 0
+
+
+# ---- speculative verify (B3) -------------------------------------------------
+
+
+def ref_paged_verify_attention(
+    q: torch.Tensor,  # [B, K, H, D] K speculative positions per slot
+    k_pages: torch.Tensor,  # [P, page, KVH, D]
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, MP]
+    positions: torch.Tensor,  # [B] absolute position of query 0
+    *,
+    scale: float | None = None,
+    logit_softcap: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Multi-query paged attention for the speculative verify: query k
+    sits at positions + k and attends the keys at columns <= its own
+    position (the window's K/V are already in the pages), within the
+    sliding window when one is set. Gather, then masked attention.
+
+    A row masked everywhere (a sliding window narrower than the row's
+    distance past the end of the block table) averages every column
+    here, as the JAX reference does; the kernels, the TPU's and this
+    port's, write 0 there. No model the port serves has such a window."""
+    b, kq, h, d = q.shape
+    kvh = k_pages.shape[2]
+    bt = block_tables.long().clamp(min=0)
+    k = k_pages[bt]
+    v = v_pages[bt]
+    mp, page = k.shape[1], k.shape[2]
+    L = mp * page
+    k = k.reshape(b, L, kvh, d).float()
+    v = v.reshape(b, L, kvh, d).float()
+    scale = scale if scale is not None else d ** -0.5
+    qg = (q * scale).reshape(b, kq, kvh, h // kvh, d)
+    logits = torch.einsum("bqkgd,blkd->bkgql", qg.float(), k)  # [B, KVH, G, K, L]
+    if logit_softcap is not None:
+        logits = torch.tanh(logits / logit_softcap) * logit_softcap
+    col = torch.arange(L, device=q.device)
+    q_abs = positions.to(q.device).long()[:, None] + torch.arange(kq, device=q.device)
+    mask = col[None, None, :] <= q_abs[:, :, None]  # [B, K, L]
+    if window is not None:
+        win = torch.as_tensor(window, dtype=torch.int32, device=q.device)
+        mask = mask & ((win <= 0) | (col[None, None, :] > q_abs[:, :, None] - win))
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgql,blkd->bqkgd", probs, v)
+    return out.reshape(b, kq, h, d).to(q.dtype)
+
+
+def _check_verify_args(q, k_pages, v_pages, block_tables, positions, window):
+    _check_common(
+        "paged verify",
+        dict(q=q, k_pages=k_pages, v_pages=v_pages),
+        dict(block_tables=block_tables, positions=positions),
+        window,
+    )
+    if q.dim() != 4 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError(
+            f"shapes q {tuple(q.shape)}, pools {tuple(k_pages.shape)} / "
+            f"{tuple(v_pages.shape)}: want q [B, K, H, D], pools [P, page, KVH, D]"
+        )
+    b, kq, h, d = q.shape
+    kvh = k_pages.shape[2]
+    _check_heads(d, k_pages.shape[3], h, kvh, _MAX_VERIFY_ROWS)
+    if kq * (h // kvh) > _MAX_VERIFY_ROWS:
+        raise ValueError(
+            f"{kq} window tokens x group {h // kvh} = {kq * (h // kvh)} rows; "
+            f"the verify kernel takes <= {_MAX_VERIFY_ROWS}"
+        )
+    _check_tables(block_tables, positions, b)
+
+
+def paged_verify_attention(
+    q: torch.Tensor,  # [B, K, H, D]
+    k_pages: torch.Tensor,  # [P, page, KVH, D]
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, MP] int32
+    positions: torch.Tensor,  # [B] int32 absolute position of query 0
+    *,
+    scale: float | None = None,
+    logit_softcap: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Speculative verify attention. CUDA tensors launch the kernel
+    (bf16, head_dim 64 or 128, K * group <= 64 rows per kv head); anything
+    else it does not take raises. CPU tensors take
+    ref_paged_verify_attention."""
+    if q.device.type == "cpu":
+        return ref_paged_verify_attention(
+            q, k_pages, v_pages, block_tables, positions,
+            scale=scale, logit_softcap=logit_softcap, window=window,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged verify attention has no path for {q.device}")
+    _check_verify_args(q, k_pages, v_pages, block_tables, positions, window)
+    b, kq, h, d = q.shape
+    out = torch.empty_like(q)
+    lib = _build.load()
+    status = lib.kubeai_paged_verify_bf16(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+        b, kq, h, k_pages.shape[2], d, k_pages.shape[1], block_tables.shape[1],
+        float(scale if scale is not None else d ** -0.5),
+        float(logit_softcap or 0.0),
+        int(window or 0),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(status, "paged_verify_attention")
+    paged_verify_attention.launches += 1
+    return out
+
+
+paged_verify_attention.launches = 0
+
+
+# ---- fused decode over the stacked pool (B4) ---------------------------------
+
+
+def ref_paged_decode_attention_fused(
+    q: torch.Tensor,  # [B, H, D]
+    k_pages: torch.Tensor,  # [NL, P, page, KVH, D] stacked pools
+    v_pages: torch.Tensor,
+    k_new: torch.Tensor,  # [B, KVH, D] the new token, not yet in the pool
+    v_new: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, MP]
+    positions: torch.Tensor,  # [B] OLD lengths (the new token's position)
+    layer: int,
+    *,
+    scale: float | None = None,
+    logit_softcap: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Attention over the resident pages of `layer` plus the new token as
+    an explicit extra column at position `positions`; equal (up to sum
+    order) to scatter-then-attend with lengths = positions + 1."""
+    b, h, d = q.shape
+    kvh = k_pages.shape[3]
+    bt = block_tables.long().clamp(min=0)
+    k = k_pages[int(layer)][bt]  # [B, MP, page, KVH, D]
+    v = v_pages[int(layer)][bt]
+    mp, page = k.shape[1], k.shape[2]
+    L = mp * page
+    k = torch.cat([k.reshape(b, L, kvh, d), k_new[:, None].to(k.dtype)], 1).float()
+    v = torch.cat([v.reshape(b, L, kvh, d), v_new[:, None].to(v.dtype)], 1).float()
+    scale = scale if scale is not None else d ** -0.5
+    qg = (q * scale).reshape(b, kvh, h // kvh, d)
+    logits = torch.einsum("bkgd,blkd->bkgl", qg.float(), k)
+    if logit_softcap is not None:
+        logits = torch.tanh(logits / logit_softcap) * logit_softcap
+    col = torch.arange(L + 1, device=q.device)
+    pos = positions.to(q.device).long()
+    new = col[None, :] == L
+    # Columns < positions are old tokens; column L is the new token.
+    mask = (col[None, :] < pos[:, None]) | new
+    if window is not None:
+        win = torch.as_tensor(window, dtype=torch.int32, device=q.device)
+        in_win = (win <= 0) | (col[None, :] >= pos[:, None] + 1 - win)
+        mask = mask & (in_win | new)
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgl,blkd->bkgd", probs, v)
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def _check_fused_args(q, k_pages, v_pages, k_new, v_new, block_tables,
+                      positions, layer, window):
+    _check_common(
+        "fused paged decode",
+        dict(q=q, k_pages=k_pages, v_pages=v_pages, k_new=k_new, v_new=v_new),
+        dict(block_tables=block_tables, positions=positions),
+        window,
+    )
+    if q.dim() != 3 or k_pages.dim() != 5 or k_pages.shape != v_pages.shape:
+        raise ValueError(
+            f"shapes q {tuple(q.shape)}, pools {tuple(k_pages.shape)} / "
+            f"{tuple(v_pages.shape)}: want q [B, H, D], pools [NL, P, page, KVH, D]"
+        )
+    b, h, d = q.shape
+    kvh = k_pages.shape[3]
+    _check_heads(d, k_pages.shape[4], h, kvh, _MAX_GROUP)
+    for name, t in (("k_new", k_new), ("v_new", v_new)):
+        if tuple(t.shape) != (b, kvh, d):
+            raise ValueError(f"{name} {tuple(t.shape)}: want [B, KVH, D] = {(b, kvh, d)}")
+    _check_tables(block_tables, positions, b)
+    if not isinstance(layer, int) or not 0 <= layer < k_pages.shape[0]:
+        raise ValueError(
+            f"layer {layer!r}: want a Python int in [0, {k_pages.shape[0]})"
+        )
+
+
+def paged_decode_attention_fused(
+    q: torch.Tensor,  # [B, H, D]
+    k_pages: torch.Tensor,  # [NL, P, page, KVH, D] stacked pools
+    v_pages: torch.Tensor,
+    k_new: torch.Tensor,  # [B, KVH, D]
+    v_new: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, MP] int32
+    positions: torch.Tensor,  # [B] int32 OLD lengths
+    layer: int,  # layer index into the stacked pool
+    *,
+    scale: float | None = None,
+    logit_softcap: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Fused paged decode attention: reads one layer's pages straight out
+    of the stacked pool and folds the new token in as an extra column, so
+    the caller writes every layer's new K/V in one scatter after the
+    layer loop. CUDA tensors launch the kernel (bf16, head_dim 64 or 128,
+    group <= 8); anything else it does not take raises. CPU tensors take
+    ref_paged_decode_attention_fused."""
+    if q.device.type == "cpu":
+        return ref_paged_decode_attention_fused(
+            q, k_pages, v_pages, k_new, v_new, block_tables, positions, layer,
+            scale=scale, logit_softcap=logit_softcap, window=window,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"fused paged decode attention has no path for {q.device}")
+    _check_fused_args(q, k_pages, v_pages, k_new, v_new, block_tables,
+                      positions, layer, window)
+    b, h, d = q.shape
+    nl, n_pages, page, kvh, _ = k_pages.shape
+    out = torch.empty_like(q)
+    lib = _build.load()
+    status = lib.kubeai_paged_decode_fused_bf16(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_new.data_ptr(), v_new.data_ptr(),
+        block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+        b, h, kvh, d, n_pages, page, block_tables.shape[1], layer,
+        float(scale if scale is not None else d ** -0.5),
+        float(logit_softcap or 0.0),
+        int(window or 0),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(status, "paged_decode_attention_fused")
+    paged_decode_attention_fused.launches += 1
+    return out
+
+
+paged_decode_attention_fused.launches = 0
 
 
 # ---- paged cache writes (decode + admission) ---------------------------------

@@ -57,22 +57,29 @@ def test_prefill_matches_jax(family):
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=ATOL)
 
 
-@pytest.mark.parametrize("family", ["llama", "qwen"])
-def test_decode_step_paged_matches_jax(family):
-    jcfg, jp, tcfg, tp = _models(family)
-    rng = np.random.default_rng(4)
+def _pools(jcfg, rng, B, positions, window_tokens):
+    """Random stacked pools and block tables: slots 0..B-2 hold pages for
+    positions + window_tokens (bounded by MP), the last slot is free."""
     NL, KVH, D = jcfg.num_layers, jcfg.num_kv_heads, jcfg.head_size
-    B = 4
     P = 1 + B * MP
     kp = rng.standard_normal((NL, P, PAGE, KVH, D)).astype(np.float32)
     vp = rng.standard_normal((NL, P, PAGE, KVH, D)).astype(np.float32)
     perm = rng.permutation(np.arange(1, P))
     bt = np.full((B, MP), -1, np.int32)
+    for s in range(B - 1):
+        need = min(-(-(int(positions[s]) + window_tokens) // PAGE), MP)
+        bt[s, :need] = perm[s * MP:s * MP + need]
+    return kp, vp, bt
+
+
+@pytest.mark.parametrize("family", ["llama", "qwen"])
+def test_decode_step_paged_matches_jax(family):
+    jcfg, jp, tcfg, tp = _models(family)
+    rng = np.random.default_rng(4)
+    B = 4
     # Slots 0-2 live at ragged positions; slot 3 is free (row -1).
     positions = np.array([17, 0, 40, 9], np.int32)
-    for s in range(3):
-        need = positions[s] // PAGE + 1
-        bt[s, :need] = perm[s * MP:s * MP + need]
+    kp, vp, bt = _pools(jcfg, rng, B, positions, 1)
     tokens = rng.integers(1, jcfg.vocab_size, B).astype(np.int32)
     jlog, jk, jv = jl.decode_step_paged(
         jp, jcfg, jnp.asarray(tokens), jnp.asarray(positions),
@@ -155,3 +162,92 @@ def test_init_params_shapes_and_tied_head():
         assert w.dtype == torch.bfloat16
     again = tl.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     assert torch.equal(again["layers"]["wq"], p["layers"]["wq"])
+
+
+@pytest.mark.parametrize("family", ["llama", "qwen"])
+def test_decode_verify_paged_matches_jax(family):
+    """A 5-token verify window (gamma = 4) per slot: logits [B, K, V] and the
+    pools it writes. Slot 2's window runs past the block table (positions
+    45..49, MP * PAGE = 48); slot 3 is free."""
+    jcfg, jp, tcfg, tp = _models(family)
+    rng = np.random.default_rng(6)
+    B, K = 4, 5
+    positions = np.array([17, 0, 45, 9], np.int32)
+    kp, vp, bt = _pools(jcfg, rng, B, positions, K)
+    tokens = rng.integers(1, jcfg.vocab_size, (B, K)).astype(np.int32)
+    jlog, jk, jv = jl.decode_verify_paged(
+        jp, jcfg, jnp.asarray(tokens), jnp.asarray(positions),
+        jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt))
+    tkp, tvp = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    tlog, tk, tv = tl.decode_verify_paged(
+        tp, tcfg, torch.from_numpy(tokens).long(),
+        torch.from_numpy(positions).long(), tkp, tvp, torch.from_numpy(bt))
+    assert tk is tkp and tv is tvp  # pools updated in place
+    assert tlog.dtype == torch.float32 and tuple(tlog.shape) == jlog.shape
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=ATOL)
+    # Page 0 is scratch (the free slot and the positions past the table).
+    np.testing.assert_allclose(tk.numpy()[:, 1:], np.asarray(jk)[:, 1:], atol=ATOL)
+    np.testing.assert_allclose(tv.numpy()[:, 1:], np.asarray(jv)[:, 1:], atol=ATOL)
+
+
+@pytest.mark.parametrize("family", ["llama", "qwen"])
+def test_fused_decode_step_matches_jax_and_per_layer(family):
+    jcfg, jp, tcfg, tp = _models(family)
+    rng = np.random.default_rng(7)
+    B = 4
+    positions = np.array([17, 0, 40, 9], np.int32)
+    kp, vp, bt = _pools(jcfg, rng, B, positions, 1)
+    tokens = rng.integers(1, jcfg.vocab_size, B).astype(np.int32)
+    jlog, jk, jv = jl.decode_step_paged(
+        jp, jcfg, jnp.asarray(tokens), jnp.asarray(positions),
+        jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt), attn_kernel="fused")
+    out = {}
+    for layout in ("fused", "per_layer"):
+        tkp, tvp = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+        out[layout] = tl.decode_step_paged(
+            tp, tcfg, torch.from_numpy(tokens).long(),
+            torch.from_numpy(positions).long(), tkp, tvp,
+            torch.from_numpy(bt), attn_kernel=layout)
+        assert out[layout][1] is tkp and out[layout][2] is tvp
+    tlog, tk, tv = out["fused"]
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=ATOL)
+    np.testing.assert_allclose(tk.numpy()[:, 1:], np.asarray(jk)[:, 1:], atol=ATOL)
+    np.testing.assert_allclose(tv.numpy()[:, 1:], np.asarray(jv)[:, 1:], atol=ATOL)
+    # The free slot's row is junk in both layouts: its table maps every
+    # position to scratch page 0, which the per_layer layout writes first.
+    plog, pk, pv = out["per_layer"]
+    np.testing.assert_allclose(tlog.numpy()[:3], plog.numpy()[:3], atol=ATOL)
+    np.testing.assert_allclose(tk.numpy()[:, 1:], pk.numpy()[:, 1:], atol=ATOL)
+    np.testing.assert_allclose(tv.numpy()[:, 1:], pv.numpy()[:, 1:], atol=ATOL)
+
+
+@pytest.mark.parametrize("env,layout", [("fused", "fused"), ("per_layer", "per_layer"),
+                                        ("bogus", "per_layer"), ("", "per_layer")])
+def test_decode_step_paged_uses_the_layout_it_resolves(monkeypatch, env, layout):
+    """No layout given: $KUBEAI_TPU_DECODE_KERNEL decides, in both
+    packages alike, and the port's decode step runs the layout it
+    resolved."""
+    monkeypatch.setenv("KUBEAI_TPU_DECODE_KERNEL", env)
+    assert jpa.resolve_decode_kernel(None) == layout
+    from kubeai_tpu_torch.ops import paged_attention as tpa
+
+    assert tpa.resolve_decode_kernel(None) == layout
+    _, _, tcfg, tp = _models("llama")
+    calls = {"fused": 0, "per_layer": 0}
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(tl, "paged_decode_attention_fused",
+                        spy("fused", tl.paged_decode_attention_fused))
+    monkeypatch.setattr(tl, "paged_decode_attention",
+                        spy("per_layer", tl.paged_decode_attention))
+    NL, KVH, D = tcfg.num_layers, tcfg.num_kv_heads, tcfg.head_size
+    kp = torch.zeros((NL, 1 + MP, PAGE, KVH, D))
+    bt = torch.arange(1, 1 + MP, dtype=torch.int32)[None]
+    tl.decode_step_paged(tp, tcfg, torch.tensor([3]), torch.tensor([5]), kp,
+                         kp.clone(), bt)
+    assert calls[layout] == NL and sum(calls.values()) == NL

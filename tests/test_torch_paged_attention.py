@@ -71,13 +71,19 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     assert tpa.paged_decode_attention.launches == 0
 
 
-def test_resolve_decode_kernel():
+def test_resolve_decode_kernel(monkeypatch):
+    monkeypatch.delenv(tpa.DECODE_KERNEL_ENV, raising=False)
+    assert tpa.DECODE_KERNEL_ENV == jpa.DECODE_KERNEL_ENV
+    for requested in (None, "", "per_layer", "fused"):
+        assert tpa.resolve_decode_kernel(requested) == jpa.resolve_decode_kernel(requested)
     assert tpa.resolve_decode_kernel(None) == "per_layer"
-    assert tpa.resolve_decode_kernel("per_layer") == "per_layer"
-    with pytest.raises(NotImplementedError, match="B4"):
-        tpa.resolve_decode_kernel("fused")
+    assert tpa.resolve_decode_kernel("fused") == "fused"
     with pytest.raises(ValueError):
         tpa.resolve_decode_kernel("bogus")
+    # An explicit layout wins over the env var.
+    monkeypatch.setenv(tpa.DECODE_KERNEL_ENV, "fused")
+    assert tpa.resolve_decode_kernel("per_layer") == "per_layer"
+    assert tpa.resolve_decode_kernel(None) == "fused"
 
 
 def test_token_page_coords_bit_equal_including_past_the_table():
