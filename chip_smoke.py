@@ -4,14 +4,17 @@
 
 Phases, each fatal on failure:
   1. build   — compile the CUDA kernels of kubeai_tpu_torch/csrc with nvcc
-               for sm_90a and print the build seconds;
+               for sm_90a and print the build seconds and each kernel's
+               registers and spills;
   2. kernels — each kernel (B1 paged decode, B2 flash prefill, B3 paged
                verify, B4 fused paged decode) against its plain PyTorch
                version on the card, in bf16 at the serving path's
                Llama-3-8B shapes, with times, the plain version's and one
                PyTorch library call's times, and the least time the card
                could take (bound); one wrong page must fail each paged
-               kernel's limit;
+               kernel's limit. B4 also: the edges of its split page walk,
+               B=1 at a 16k context, and two calls and a CUDA-graph replay
+               that must give the same bits;
   3. model   — a small model (head_dim 128) on the card through the kernels
                against the same weights in f32 on the CPU through the plain
                versions: prefill, paged-decode (both layouts) and
@@ -116,6 +119,40 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def capture(fn, iters: int = 1):
+    """(a CUDA graph of `iters` calls of fn, the last call's output)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm the caching allocator outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            out = fn()
+    return graph, out
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time per call: `iters` calls captured in one CUDA graph and
+    replayed, so the host's launch overhead between calls drops out."""
+    import torch
+
+    graph, _ = capture(fn, iters)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
+
+
 def within(got, want, atol: float, rtol: float) -> tuple[bool, float]:
     """(every element within atol + rtol * |want|, max |err|), in f32."""
     got = got.float().cpu()
@@ -151,7 +188,8 @@ def phase_build() -> None:
     log = path.parent / "build.log"
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or line.startswith("=="):
+            if ("registers" in line or "spill" in line or "Compiling entry" in line
+                    or line.startswith("==")):
                 print(f"  {line.strip()}")
 
 
@@ -383,9 +421,11 @@ def check_paged_verify() -> dict:
 
 def check_paged_fused() -> dict:
     """B4 on a stacked pool of 4 layers at layer 2, the serving widths,
-    old lengths ragged up to 2047 and slot 1 empty (pos 0)."""
+    old lengths ragged up to 2047 and slot 1 empty (pos 0); then two calls
+    and a CUDA-graph replay that must give the same bits, the split edges
+    and B=1 at a 16k context. The build phase prints B4's registers and
+    spills."""
     import torch
-    import torch.nn.functional as F
 
     from kubeai_tpu_torch.ops.paged_attention import (
         paged_decode_attention_fused,
@@ -407,19 +447,12 @@ def check_paged_fused() -> dict:
     kn = torch.randn(B, KVH, D, generator=cg, device="cuda").to(torch.bfloat16)
     vn = torch.randn(B, KVH, D, generator=cg, device="cuda").to(torch.bfloat16)
     pos = positions.to("cuda", torch.int32)
-    L = mp * page
+    args = (q, kp, vp, kn, vn, bt, pos, layer)
     result = None
     for cap, win in ((None, None), (30.0, None), (None, 500), (50.0, 100)):
         kw = dict(logit_softcap=cap, window=win)
-        args = (q, kp, vp, kn, vn, bt, pos, layer)
-        got = paged_decode_attention_fused(*args, **kw)
-        torch.cuda.synchronize()
-        want = ref_paged_decode_attention_fused(*args, **kw)
-        err = compare(f"paged_fused softcap={cap} window={win}", got, want,
-                      FUSED_ATOL, FUSED_RTOL)
         # Slot 1 has no old tokens: every head's output is its v_new.
-        if not torch.equal(got[1], vn[1].repeat_interleave(H // KVH, 0)):
-            fail(f"paged_fused softcap={cap} window={win}: the empty slot is not v_new")
+        got, err = _check_fused_case(f"softcap={cap} window={win}", args, kw)
         if cap is None and win is None:
             bad_bt = bt.clone()
             bad_bt[0, 5] = bt[2, 0]
@@ -429,39 +462,158 @@ def check_paged_fused() -> dict:
             _wrong_page_fails("paged_fused (layer 1 for 2)", got,
                               ref_paged_decode_attention_fused(
                                   q, kp, vp, kn, vn, bt, pos, 1), FUSED_ATOL, FUSED_RTOL)
-        ms = cuda_ms(lambda: paged_decode_attention_fused(*args, **kw))
-        plain_ms = cuda_ms(lambda: ref_paged_decode_attention_fused(*args, **kw), iters=5)
-        # This data's work: the old keys the mask keeps, read once, and the
-        # new token's K/V; 4 * D flops per head per kept key.
-        lens = positions.long()
-        if win is not None:
-            lens = torch.clamp(lens, max=win - 1)
-        n_keys = int(lens.sum()) + B
-        nbytes = (n_keys * KVH * D * 2 * 2 + 2 * q.numel() * 2
-                  + bt.numel() * 4 + pos.numel() * 4)
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_flops = 4.0 * D * H * n_keys / PEAK_BF16_FLOPS * 1e3
-        line = dict(softcap=cap, window=win, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=max(t_bytes, t_flops), bytes=nbytes,
-                    bound_by="bytes" if t_bytes >= t_flops else "operations")
+        line = _time_fused(args, kw, library=cap is None and win is None)
+        line["max_abs_err"] = err
         if cap is None and win is None:
-            # Library yardstick: SDPA over the layer's keys gathered dense
-            # with the new token concatenated, length-masked.
-            idx = bt.long().clamp(min=0)
-            kd = torch.cat([kp[layer][idx].reshape(B, L, KVH, D), kn[:, None]], 1)
-            vd = torch.cat([vp[layer][idx].reshape(B, L, KVH, D), vn[:, None]], 1)
-            kd, vd = (x.transpose(1, 2).contiguous() for x in (kd, vd))
-            col = torch.arange(L + 1, device="cuda")
-            mask = ((col[None, :] < pos.long()[:, None]) | (col[None, :] == L))[:, None, None, :]
-            q4 = q[:, :, None, :]
-            line["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q4, kd, vd, attn_mask=mask, enable_gqa=True))
             result = dict(line)
         print("kernel paged_decode_attention_fused NL=%d layer=%d B=%d H=%d KVH=%d D=%d "
               "page=%d positions<=%d %s" % (NL, layer, B, H, KVH, D, page,
                                             int(positions.max()), json.dumps(line)),
               flush=True)
+
+    # The combine merges the splits in a fixed order: two calls, same bits.
+    first = paged_decode_attention_fused(*args)
+    if not torch.equal(first, paged_decode_attention_fused(*args)):
+        fail("paged_fused: two calls on the same inputs differ")
+    # The wrapper reads no device value: one call captured in a CUDA graph
+    # and replayed gives the eager call's output.
+    graph, captured = capture(lambda: paged_decode_attention_fused(*args))
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(captured, first):
+        fail("paged_fused: the CUDA-graph replay differs from the eager call")
+    print("paged_fused: two eager calls bit-identical; CUDA-graph replay equals "
+          "the eager call", flush=True)
+    check_fused_split_edges(q, kp, vp, kn, vn, layer, gen)
+    check_fused_long_context()
     return result
+
+
+def _time_fused(args, kw: dict, library: bool) -> dict:
+    """B4's time, its plain version's, its bound for this data and, where
+    asked, SDPA's on the same keys gathered dense (its yardstick). B4 and
+    SDPA are timed from a CUDA graph (`ms`, `library_ms`: device time per
+    call) and eagerly (`eager_ms`, `library_eager_ms`: back-to-back calls
+    from Python, which the host's launch overhead can bound)."""
+    import torch
+    import torch.nn.functional as F
+
+    from kubeai_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_fused,
+        ref_paged_decode_attention_fused,
+    )
+
+    q, kp, vp, kn, vn, bt, pos, layer = args
+    B, H, D = q.shape
+    KVH, page = kp.shape[3], kp.shape[2]
+    L = bt.shape[1] * page
+    call = lambda: paged_decode_attention_fused(*args, **kw)  # noqa: E731
+    ms, eager_ms = graph_ms(call), cuda_ms(call)
+    plain_ms = cuda_ms(lambda: ref_paged_decode_attention_fused(*args, **kw), iters=5)
+    # This data's work: the old keys the mask keeps, read once, and the
+    # new token's K/V; 4 * D flops per head per kept key.
+    lens = torch.clamp(pos.long().cpu(), max=L)
+    if kw.get("window"):
+        lens = torch.clamp(lens, max=kw["window"] - 1)
+    n_keys = int(lens.sum()) + B
+    nbytes = (n_keys * KVH * D * 2 * 2 + 2 * q.numel() * 2
+              + bt.numel() * 4 + pos.numel() * 4)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_flops = 4.0 * D * H * n_keys / PEAK_BF16_FLOPS * 1e3
+    line = dict(softcap=kw.get("logit_softcap"), window=kw.get("window"), ms=ms,
+                eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_flops),
+                bytes=nbytes,
+                bound_by="bytes" if t_bytes >= t_flops else "operations")
+    if library:
+        # SDPA over the layer's keys gathered dense with the new token
+        # concatenated, length-masked.
+        idx = bt.long().clamp(min=0)
+        kd = torch.cat([kp[layer][idx].reshape(B, L, KVH, D), kn[:, None]], 1)
+        vd = torch.cat([vp[layer][idx].reshape(B, L, KVH, D), vn[:, None]], 1)
+        kd, vd = (x.transpose(1, 2).contiguous() for x in (kd, vd))
+        col = torch.arange(L + 1, device="cuda")
+        mask = ((col[None, :] < pos.long()[:, None]) | (col[None, :] == L))[:, None, None, :]
+        q4 = q[:, :, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q4, kd, vd, attn_mask=mask, enable_gqa=True)
+        line["library_ms"], line["library_eager_ms"] = graph_ms(sdpa), cuda_ms(sdpa)
+    return line
+
+
+def _check_fused_case(tag: str, args, kw: dict):
+    """B4 against its plain version, and every slot at position 0 equal
+    to its v_new bit for bit. Returns (B4's output, max |err|)."""
+    import torch
+
+    from kubeai_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_fused,
+        ref_paged_decode_attention_fused,
+    )
+
+    got = paged_decode_attention_fused(*args, **kw)
+    torch.cuda.synchronize()
+    err = compare(f"paged_fused {tag}", got, ref_paged_decode_attention_fused(*args, **kw),
+                  FUSED_ATOL, FUSED_RTOL)
+    q, vn, pos = args[0], args[4], args[6]
+    group = q.shape[1] // vn.shape[1]
+    for b in (pos == 0).nonzero().flatten().tolist():
+        if not torch.equal(got[b], vn[b].repeat_interleave(group, 0)):
+            fail(f"paged_fused {tag}: slot {b} at position 0 is not v_new")
+    return got, err
+
+
+def check_fused_split_edges(q, kp, vp, kn, vn, layer: int, gen) -> None:
+    """Old lengths at the edges of the kernel's splits (a boundary, one
+    either side, twice over), 1 and 0, on the kernel phase's pool, with a
+    window that masks whole splits. No timing."""
+    import torch
+
+    from kubeai_tpu_torch.ops.paged_attention import fused_split
+
+    B, page, mp = q.shape[0], kp.shape[2], 32
+    _, per = fused_split(B, kp.shape[3], mp, page)
+    edge = per * page  # tokens in a split
+    positions = torch.tensor([edge, edge - 1, edge + 1, 1, 0, 2 * edge,
+                              2 * edge - 1, 2 * edge + 1][:B])
+    bt = _table((positions + 1).tolist(), page, mp, gen).to("cuda")
+    pos = positions.to("cuda", torch.int32)
+    args = (q, kp, vp, kn, vn, bt, pos, layer)
+    errs = [_check_fused_case(f"split edges {edge} softcap={cap} window={win}", args,
+                              dict(logit_softcap=cap, window=win))[1]
+            for cap, win in ((None, None), (30.0, None), (None, edge + 10), (50.0, 100))]
+    print(f"paged_fused split edges (splits of {edge} tokens; old lengths "
+          f"{positions.tolist()}; plain, softcap 30, window {edge + 10}, softcap 50 + "
+          f"window 100): max |err| {['%.3e' % e for e in errs]}", flush=True)
+
+
+def check_fused_long_context() -> None:
+    """B=1 at a 16k context: old length 16383 over 256 pages of a 2-layer
+    stacked pool, the shape where one CTA per (slot, kv head) left most
+    SMs idle."""
+    import torch
+
+    B, H, KVH, D, page, mp, NL, layer = 1, 32, 8, 128, 64, 256, 2, 1
+    gen = torch.Generator().manual_seed(12)
+    positions = torch.tensor([mp * page - 1])
+    bt = _table((positions + 1).tolist(), page, mp, gen).to("cuda")
+    cg = torch.Generator("cuda").manual_seed(13)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=cg, device="cuda").to(torch.bfloat16)
+
+    shape = (NL, 1 + B * mp, page, KVH, D)
+    kp, vp = rnd(*shape), rnd(*shape)
+    q, kn, vn = rnd(B, H, D), rnd(B, KVH, D), rnd(B, KVH, D)
+    args = (q, kp, vp, kn, vn, bt, positions.to("cuda", torch.int32), layer)
+    _, err = _check_fused_case("B=1 16k", args, {})
+    line = _time_fused(args, {}, library=True)
+    line["max_abs_err"] = err
+    print("kernel paged_decode_attention_fused long context NL=%d layer=%d B=%d H=%d "
+          "KVH=%d D=%d page=%d positions=%d %s" % (NL, layer, B, H, KVH, D, page,
+                                                  int(positions[0]), json.dumps(line)),
+          flush=True)
+    del kp, vp
+    torch.cuda.empty_cache()
 
 
 def check_head_dim_64() -> None:

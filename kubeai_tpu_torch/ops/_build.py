@@ -52,11 +52,11 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P,
     ),
     # q, k_pages, v_pages, k_new, v_new, block_tables, positions, out,
-    # B, H, KVH, D, num_pages, page_size, max_pages, layer,
-    # scale, softcap, window, stream
+    # scratch, B, H, KVH, D, num_pages, page_size, max_pages, layer,
+    # num_splits, pages_per_split, scale, softcap, window, stream
     "kubeai_paged_decode_fused_bf16": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-        _F, _F, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        _I, _I, _F, _F, _I, _P,
     ),
 }
 

@@ -16,7 +16,9 @@ raises.
   paged_decode_attention_fused — one query token per slot over one layer
       of the STACKED [NL, ...] pool, read in place, with the new token
       (not yet in the pool) merged as one extra column
-      (csrc/paged_decode_fused.cu, replaces B4); plain version
+      (csrc/paged_decode_fused.cu, replaces B4: each slot's page walk
+      split across CTAs as fused_split chooses, f32 partials in scratch
+      merged in a fixed order by a second kernel); plain version
       ref_paged_decode_attention_fused.
 
 The write helpers mirror two behaviours of the JAX versions by hand:
@@ -390,6 +392,26 @@ def _check_fused_args(q, k_pages, v_pages, k_new, v_new, block_tables,
         )
 
 
+# The fused kernel runs one CTA per (slot, kv head, split), two of them to
+# an SM at head_dim 128: aim at two waves over an H100's 132 SMs, with at
+# least 64 tokens (one 16-token tile per warp) and at most 64 block-table
+# entries (the kernel keeps them in shared memory) in a split.
+_FUSED_TARGET_CTAS = 4 * 132
+_FUSED_MIN_SPLIT_TOKENS = 64
+_FUSED_MAX_SPLIT_PAGES = 64
+
+
+def fused_split(batch: int, kv_heads: int, max_pages: int, page_size: int) -> tuple[int, int]:
+    """(num_splits, pages_per_split) for the fused kernel's page walk, from
+    shapes alone: split s of a slot takes block-table entries
+    [s * pages_per_split, (s + 1) * pages_per_split), and the splits cover
+    all max_pages of them, the last possibly short."""
+    per = -(-(batch * kv_heads * max_pages) // _FUSED_TARGET_CTAS)
+    per = max(per, -(-_FUSED_MIN_SPLIT_TOKENS // page_size), 1)
+    per = min(per, max_pages, _FUSED_MAX_SPLIT_PAGES)
+    return -(-max_pages // per), per
+
+
 def paged_decode_attention_fused(
     q: torch.Tensor,  # [B, H, D]
     k_pages: torch.Tensor,  # [NL, P, page, KVH, D] stacked pools
@@ -421,13 +443,21 @@ def paged_decode_attention_fused(
                       positions, layer, window)
     b, h, d = q.shape
     nl, n_pages, page, kvh, _ = k_pages.shape
+    mp = block_tables.shape[1]
+    # From shapes alone: nothing here reads a device value, so the call
+    # never waits for the card and can be captured in a CUDA graph.
+    num_splits, pages_per_split = fused_split(b, kvh, mp, page)
     out = torch.empty_like(q)
+    # Per (slot, kv head, split): m[G], l[G], then acc[G, D], in f32.
+    scratch = torch.empty(b * kvh * num_splits * (h // kvh) * (d + 2),
+                          dtype=torch.float32, device=q.device)
     lib = _build.load()
     status = lib.kubeai_paged_decode_fused_bf16(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_new.data_ptr(), v_new.data_ptr(),
         block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-        b, h, kvh, d, n_pages, page, block_tables.shape[1], layer,
+        scratch.data_ptr(),
+        b, h, kvh, d, n_pages, page, mp, layer, num_splits, pages_per_split,
         float(scale if scale is not None else d ** -0.5),
         float(logit_softcap or 0.0),
         int(window or 0),

@@ -5,6 +5,10 @@ atol/rtol 1e-4 in f32 (the JAX fused test's own), against the port's
 scatter-then-attend at 1e-5 (the same sums in another order), and an
 empty slot returning its new token's value."""
 
+import inspect
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -119,3 +123,156 @@ def test_kernel_argument_checks():
         tpa._check_fused_args(q, kp[0], vp[0], kn, vn, bt, pos, 0, None)
     with pytest.raises(TypeError, match="bf16 v_new"):
         tpa._check_fused_args(q, kp, vp, kn, vn.float(), bt, pos, 0, None)
+
+
+# ---- the kernel's split page walk, emulated on the CPU ------------------------
+
+_SRC = (Path(tpa.__file__).resolve().parent.parent / "csrc" / "paged_decode_fused.cu").read_text()
+# The kernel's warps per CTA and tokens per warp tile, read from its source.
+_WARPS = int(re.search(r"constexpr int kWarps = (\d+);", _SRC).group(1))
+_TILE = int(re.search(r"constexpr int kTile = (\d+);", _SRC).group(1))
+
+
+def _merge(parts, extra=None):
+    """Merge (m, l, acc) partials in list order, skipping those with no
+    kept key (l == 0), then an always-valid column (score, value) if given.
+    Returns (m, l, acc) unnormalised."""
+    g, d = parts[0][2].shape
+    kept = [(m, l, a) for m, l, a in parts if bool((l > 0).all())]
+    m_all = torch.full((g,), tpa.NEG_INF)
+    for m, _, _ in kept:
+        m_all = torch.maximum(m_all, m)
+    if extra is not None:
+        m_all = torch.maximum(m_all, extra[0])
+    l_all = torch.zeros(g)
+    acc = torch.zeros(g, d)
+    for m, l, a in kept:
+        w = torch.exp(m - m_all)
+        l_all = l_all + l * w
+        acc = acc + a * w[:, None]
+    if extra is not None:
+        w = torch.exp(extra[0] - m_all)
+        l_all = l_all + w
+        acc = acc + w[:, None] * extra[1][None, :]
+    return m_all, l_all, acc
+
+
+def _emulate_kernel(arrays, layer, pages_per_split, *, cap=None, win=None):
+    """The kernel's algorithm in f32: each split of pages_per_split
+    block-table entries walks its kept keys in _TILE-token tiles dealt to
+    _WARPS warps (online softmax per warp), merges its warps in order into
+    a partial (m, l, acc); the partials merge in split order, the new
+    token's column last, then the rows are normalised."""
+    q, kp, vp, kn, vn, bt, pos = (torch.from_numpy(a).float() for a in arrays)
+    bt, pos = bt.long(), pos.long()
+    b, h, d = q.shape
+    kvh, page, mp = kp.shape[3], kp.shape[2], bt.shape[1]
+    g = h // kvh
+    num_splits = -(-mp // pages_per_split)
+    out = torch.empty(b, h, d)
+    for s in range(b):
+        p = int(pos[s])
+        lo = max(p + 1 - win, 0) if win else 0
+        for kh in range(kvh):
+            qg = q[s, kh * g:(kh + 1) * g] * d ** -0.5
+            empty = (torch.full((g,), tpa.NEG_INF), torch.zeros(g), torch.zeros(g, d))
+            parts = []
+            for split in range(num_splits):
+                start = split * pages_per_split * page
+                t_lo = max(start, lo)
+                t_hi = min(start + pages_per_split * page, p, mp * page)
+                if t_lo >= t_hi:
+                    parts.append(empty)
+                    continue
+                n_tiles = -(-(t_hi - t_lo) // _TILE)
+                warps = []
+                for w in range(_WARPS):
+                    m, l, acc = empty
+                    for i in range(w, n_tiles, _WARPS):
+                        toks = torch.arange(t_lo + i * _TILE, min(t_lo + (i + 1) * _TILE, t_hi))
+                        pages = bt[s, toks // page].clamp(min=0)
+                        k = kp[layer, pages, toks % page, kh]
+                        v = vp[layer, pages, toks % page, kh]
+                        sc = qg @ k.T
+                        if cap is not None:
+                            sc = torch.tanh(sc / cap) * cap
+                        m_new = torch.maximum(m, sc.max(-1).values)
+                        pr = torch.exp(sc - m_new[:, None])
+                        alpha = torch.exp(m - m_new)
+                        l = l * alpha + pr.sum(-1)
+                        acc = acc * alpha[:, None] + pr @ v
+                        m = m_new
+                    warps.append((m, l, acc))
+                parts.append(_merge(warps))
+            s_new = (qg * kn[s, kh]).sum(-1)
+            if cap is not None:
+                s_new = torch.tanh(s_new / cap) * cap
+            _, l_all, acc = _merge(parts, (s_new, vn[s, kh]))
+            out[s, kh * g:(kh + 1) * g] = acc / l_all.clamp(min=1e-30)[:, None]
+    return out.numpy()
+
+
+def _edge_lengths(pages_per_split, case):
+    """Old lengths at a split boundary, one either side, 0 and 1; all fit
+    the 4-page block table with room for the new token."""
+    e = pages_per_split * PAGE
+    return {"boundary": [e, e - 1, e + 1], "short": [0, 1, min(2 * e + 1, MP * PAGE - 1)]}[case]
+
+
+@pytest.mark.parametrize("pages_per_split", [1, 2, 3])
+@pytest.mark.parametrize("case,cap,win", [
+    ("boundary", None, None), ("short", None, None),
+    ("boundary", 30.0, None), ("short", None, 5),
+])
+def test_split_walk_matches_jax_kernel(pages_per_split, case, cap, win):
+    """The split-and-combine algorithm against the JAX Pallas kernel in
+    interpret mode; window 5 masks every split but the last live one."""
+    arrays = _setup(_edge_lengths(pages_per_split, case), seed=19 + pages_per_split)
+    got = _emulate_kernel(arrays, 1, pages_per_split, cap=cap, win=win)
+    want = np.asarray(jpa.paged_decode_attention_fused(
+        *(jnp.asarray(a) for a in arrays), 1, logit_softcap=cap, window=win,
+        use_pallas=True, interpret=True))
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_split_walk_keeps_an_empty_slot_exact():
+    """At old length 0 every split is empty: the output is v_new exactly."""
+    arrays = _setup([0, 0, 5], seed=23)
+    got = _emulate_kernel(arrays, 2, 1)
+    vn = arrays[4]
+    for s in (0, 1):
+        want = np.broadcast_to(vn[s][:, None, :], (KVH, G, D)).reshape(H, D)
+        np.testing.assert_array_equal(got[s], want)
+
+
+@pytest.mark.parametrize("batch,kv_heads,max_pages,page", [
+    (8, 8, 32, 64),     # the 8B serving shape: 8 splits of 4 pages
+    (1, 8, 256, 64),    # one slot at a 16k context: 64 splits of 4 pages
+    (64, 8, 32, 64),    # many slots: one split of the whole table
+    (3, 2, 4, 8),       # the test shapes above
+    (1, 1, 1, 16),
+    (256, 8, 4096, 16),  # the split's table entries are capped
+    (2, 4, 1000, 128),
+])
+def test_fused_split_covers_every_block_table_entry(batch, kv_heads, max_pages, page):
+    num_splits, per = tpa.fused_split(batch, kv_heads, max_pages, page)
+    assert 1 <= per <= min(max_pages, tpa._FUSED_MAX_SPLIT_PAGES)
+    assert num_splits * per >= max_pages > (num_splits - 1) * per
+    # The combine keeps one weight per split in 48 KB of shared memory.
+    assert num_splits * 4 <= 48 * 1024
+    if (batch, kv_heads, max_pages, page) == (8, 8, 32, 64):
+        assert (num_splits, per) == (8, 4)
+    if (batch, kv_heads, max_pages, page) == (1, 8, 256, 64):
+        assert (num_splits, per) == (64, 4)
+
+
+def test_fused_wrapper_reads_no_device_value():
+    """The split comes from shapes: the wrapper never copies a tensor to
+    the host, so it does not wait for the card and a CUDA graph can hold
+    it."""
+    src = inspect.getsource(tpa.paged_decode_attention_fused)
+    cuda_path = src.split('if q.device.type != "cuda"', 1)[1]
+    for reader in (".item(", ".tolist(", ".cpu(", ".numpy(", "int(positions", "positions.max"):
+        assert reader not in cuda_path
+    assert "fused_split(b, kvh, mp, page)" in cuda_path
+    assert "torch.empty(" in cuda_path
