@@ -12,9 +12,10 @@ Phases, each fatal on failure:
                Llama-3-8B shapes, with times, the plain version's and one
                PyTorch library call's times, and the least time the card
                could take (bound); one wrong page must fail each paged
-               kernel's limit. B4 also: the edges of its split page walk,
-               B=1 at a 16k context, and two calls and a CUDA-graph replay
-               that must give the same bits;
+               kernel's limit. B3 and B4 also: the edges of their split
+               page walks, B=1 at a 16k context, and two calls and a
+               CUDA-graph replay that must give the same bits; B3's rows
+               masked everywhere must be 0 and its kernels must not spill;
   3. model   — a small model (head_dim 128) on the card through the kernels
                against the same weights in f32 on the CPU through the plain
                versions: prefill, paged-decode (both layouts) and
@@ -38,6 +39,7 @@ and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -340,9 +342,11 @@ def check_flash_prefill() -> dict:
 def check_paged_verify() -> dict:
     """B3 at the serving shapes: 8 slots, a gamma = 4 window (K = 5),
     positions ragged up to 2043, and slot 2's window running past the end
-    of its 32-page block table."""
+    of its 32-page block table; then two calls and a CUDA-graph replay
+    that must give the same bits, the split edges (with a row masked in
+    every split), B=1 at a 16k context, and B3's registers and spills
+    from the build log."""
     import torch
-    import torch.nn.functional as F
 
     from kubeai_tpu_torch.ops.paged_attention import (
         paged_verify_attention,
@@ -362,61 +366,249 @@ def check_paged_verify() -> dict:
     kp = torch.randn(1 + B * mp, page, KVH, D, generator=cg, device="cuda").to(torch.bfloat16)
     vp = torch.randn(1 + B * mp, page, KVH, D, generator=cg, device="cuda").to(torch.bfloat16)
     pos = positions.to("cuda", torch.int32)
-    L = mp * page
-    q32, kp32, vp32 = q.float(), kp.float(), vp.float()
+    args = (q, kp, vp, bt, pos)
     result = None
     for cap, win in ((None, None), (30.0, None), (None, 500), (50.0, 100)):
         kw = dict(logit_softcap=cap, window=win)
-        got = paged_verify_attention(q, kp, vp, bt, pos, **kw)
-        torch.cuda.synchronize()
-        want = ref_paged_verify_attention(q32, kp32, vp32, bt, pos, **kw)
-        err = compare(f"paged_verify softcap={cap} window={win}", got, want,
-                      VERIFY_ATOL, VERIFY_RTOL)
-        bf16_err = within(got, ref_paged_verify_attention(q, kp, vp, bt, pos, **kw),
+        got, err = _check_verify_case(f"softcap={cap} window={win}", args, kw)
+        bf16_err = within(got, ref_paged_verify_attention(*args, **kw),
                           VERIFY_ATOL, VERIFY_RTOL)[1]
         if cap is None and win is None:
             bad_bt = bt.clone()
             bad_bt[0, 5] = bt[3, 0]
-            _wrong_page_fails("paged_verify", got,
-                              ref_paged_verify_attention(q32, kp32, vp32, bad_bt, pos),
-                              VERIFY_ATOL, VERIFY_RTOL)
-        ms = cuda_ms(lambda: paged_verify_attention(q, kp, vp, bt, pos, **kw))
-        plain_ms = cuda_ms(lambda: ref_paged_verify_attention(q, kp, vp, bt, pos, **kw),
-                           iters=5)
-        # This data's work: each slot reads the keys its rows can see
-        # (row 0's window edge to the last row's position, inside the
-        # table) once; row k does 4 * D flops per head per key it keeps.
-        n_keys = n_pairs = 0
-        for p in positions.tolist():
-            lo = max(p - win + 1, 0) if win else 0
-            n_keys += max(min(p + K, L) - lo, 0)
-            for k in range(K):
-                row_lo = max(p + k - win + 1, 0) if win else 0
-                n_pairs += max(min(p + k, L - 1) - row_lo + 1, 0)
-        nbytes = (n_keys * KVH * D * 2 * 2 + 2 * q.numel() * 2
-                  + bt.numel() * 4 + pos.numel() * 4)
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_flops = 4.0 * D * H * n_pairs / PEAK_BF16_FLOPS * 1e3
-        line = dict(softcap=cap, window=win, max_abs_err=err,
-                    max_abs_err_vs_bf16_plain=bf16_err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=max(t_bytes, t_flops), bytes=nbytes,
-                    bound_by="bytes" if t_bytes >= t_flops else "operations")
+            _wrong_page_fails("paged_verify", got, ref_paged_verify_attention(
+                q.float(), kp.float(), vp.float(), bad_bt, pos), VERIFY_ATOL, VERIFY_RTOL)
+        line = _time_verify(args, kw, library=cap is None and win is None)
+        line["max_abs_err"] = err
+        line["max_abs_err_vs_bf16_plain"] = bf16_err
         if cap is None and win is None:
-            # Library yardstick: SDPA over the same keys gathered dense,
-            # with the causal window mask.
-            idx = bt.long().clamp(min=0)
-            kd = kp[idx].reshape(B, L, KVH, D).transpose(1, 2).contiguous()
-            vd = vp[idx].reshape(B, L, KVH, D).transpose(1, 2).contiguous()
-            q_abs = pos.long()[:, None] + torch.arange(K, device="cuda")
-            mask = (torch.arange(L, device="cuda")[None, None, :] <= q_abs[:, :, None])[:, None]
-            qt = q.transpose(1, 2).contiguous()  # [B, H, K, D]
-            line["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kd, vd, attn_mask=mask, enable_gqa=True))
             result = dict(line)
         print("kernel paged_verify_attention B=%d K=%d H=%d KVH=%d D=%d page=%d "
               "positions<=%d %s" % (B, K, H, KVH, D, page, int(positions.max()),
                                     json.dumps(line)), flush=True)
+
+    # The combine merges the splits in a fixed order: two calls, same bits.
+    first = paged_verify_attention(*args)
+    if not torch.equal(first, paged_verify_attention(*args)):
+        fail("paged_verify: two calls on the same inputs differ")
+    # The wrapper reads no device value: one call captured in a CUDA graph
+    # and replayed gives the eager call's output.
+    graph, captured = capture(lambda: paged_verify_attention(*args))
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(captured, first):
+        fail("paged_verify: the CUDA-graph replay differs from the eager call")
+    print("paged_verify: two eager calls bit-identical; CUDA-graph replay equals "
+          "the eager call", flush=True)
+    check_verify_split_edges(q, kp, vp, gen)
+    check_verify_long_context()
+    check_verify_build()
     return result
+
+
+def _verify_masked_rows(pos, K: int, L: int, window):
+    """[B, K] True where a verify row keeps no key at all: its window lies
+    wholly past the L keys of the block table."""
+    import torch
+
+    q_abs = pos.long()[:, None] + torch.arange(K, device=pos.device)
+    if not window:
+        return torch.zeros_like(q_abs, dtype=torch.bool)
+    return q_abs - window + 1 >= L
+
+
+def device_ms_by_kernel(call, names, calls: int = 10) -> dict:
+    """Device ms per call of each kernel whose name holds one of `names`,
+    from torch.profiler over `calls` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    call()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    found = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        for name in names:
+            if e.device_type.name == "CUDA" and name in e.key:
+                found[name] += getattr(e, "self_device_time_total", 0) / 1e3 / calls
+    return found
+
+
+def _check_verify_case(tag: str, args, kw: dict):
+    """B3 against its plain version in f32 on the same bf16 values; a row
+    masked in every split must be 0 (the plain version averages every
+    column there, as the JAX reference does). Returns (B3's output, max
+    |err|)."""
+    import torch
+
+    from kubeai_tpu_torch.ops.paged_attention import (
+        paged_verify_attention,
+        ref_paged_verify_attention,
+    )
+
+    q, kp, vp, bt, pos = args
+    got = paged_verify_attention(*args, **kw)
+    torch.cuda.synchronize()
+    want = ref_paged_verify_attention(q.float(), kp.float(), vp.float(), bt, pos, **kw)
+    masked = _verify_masked_rows(pos, q.shape[1], bt.shape[1] * kp.shape[1], kw.get("window"))
+    if bool(masked.any()):
+        if not bool((got[masked] == 0).all()):
+            fail(f"paged_verify {tag}: a row masked everywhere is not 0")
+        want = torch.where(masked[:, :, None, None], 0.0, want)
+    err = compare(f"paged_verify {tag}", got, want, VERIFY_ATOL, VERIFY_RTOL)
+    return got, err
+
+
+def _time_verify(args, kw: dict, library: bool) -> dict:
+    """B3's time, its plain version's, its bound for this data and, where
+    asked, SDPA's on the same keys gathered dense with the causal window
+    mask (its yardstick). B3 and SDPA are timed from a CUDA graph (`ms`,
+    `library_ms`: device time per call) and eagerly (`eager_ms`,
+    `library_eager_ms`: back-to-back calls from Python, which the host's
+    launch overhead can bound)."""
+    import torch
+    import torch.nn.functional as F
+
+    from kubeai_tpu_torch.ops.paged_attention import (
+        paged_verify_attention,
+        ref_paged_verify_attention,
+    )
+
+    q, kp, vp, bt, pos = args
+    B, K, H, D = q.shape
+    KVH, page = kp.shape[2], kp.shape[1]
+    L = bt.shape[1] * page
+    win = kw.get("window")
+    call = lambda: paged_verify_attention(*args, **kw)  # noqa: E731
+    ms, eager_ms = graph_ms(call), cuda_ms(call)
+    plain_ms = cuda_ms(lambda: ref_paged_verify_attention(*args, **kw), iters=5)
+    kernel_ms = device_ms_by_kernel(call, ("split_kernel", "combine_kernel"))
+    # This data's work: each slot reads the keys its rows can see (row 0's
+    # window edge to the last row's position, inside the table) once; row
+    # k does 4 * D flops per head per key it keeps.
+    n_keys = n_pairs = 0
+    for p in pos.tolist():
+        lo = max(p - win + 1, 0) if win else 0
+        n_keys += max(min(p + K, L) - lo, 0)
+        for k in range(K):
+            row_lo = max(p + k - win + 1, 0) if win else 0
+            n_pairs += max(min(p + k, L - 1) - row_lo + 1, 0)
+    nbytes = (n_keys * KVH * D * 2 * 2 + 2 * q.numel() * 2
+              + bt.numel() * 4 + pos.numel() * 4)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_flops = 4.0 * D * H * n_pairs / PEAK_BF16_FLOPS * 1e3
+    line = dict(softcap=kw.get("logit_softcap"), window=win, ms=ms, eager_ms=eager_ms,
+                split_ms=kernel_ms["split_kernel"], combine_ms=kernel_ms["combine_kernel"],
+                plain_ms=plain_ms, bound_ms=max(t_bytes, t_flops), bytes=nbytes,
+                bound_by="bytes" if t_bytes >= t_flops else "operations")
+    if library:
+        idx = bt.long().clamp(min=0)
+        kd = kp[idx].reshape(B, L, KVH, D).transpose(1, 2).contiguous()
+        vd = vp[idx].reshape(B, L, KVH, D).transpose(1, 2).contiguous()
+        q_abs = pos.long()[:, None] + torch.arange(K, device="cuda")
+        mask = (torch.arange(L, device="cuda")[None, None, :] <= q_abs[:, :, None])[:, None]
+        qt = q.transpose(1, 2).contiguous()  # [B, H, K, D]
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kd, vd, attn_mask=mask, enable_gqa=True)
+        line["library_ms"], line["library_eager_ms"] = graph_ms(sdpa), cuda_ms(sdpa)
+        del kd, vd
+    return line
+
+
+def check_verify_split_edges(q, kp, vp, gen) -> None:
+    """Positions at the edges of B3's splits on the kernel phase's pool:
+    windows whose row 0 lies in one split and row K - 1 in the next, 0, 1
+    and one past the table; a window that masks whole splits, and window 2,
+    where the last rows of the slot past the table keep no key in any
+    split and must write 0. No timing."""
+    import torch
+
+    from kubeai_tpu_torch.ops.paged_attention import fused_split
+
+    B, K, page, mp = q.shape[0], q.shape[1], kp.shape[1], 32
+    _, per = fused_split(B, kp.shape[2], mp, page)
+    edge = per * page  # tokens in a split
+    positions = torch.tensor([edge - 1, edge - K + 1, edge, 0, 1, 2 * edge - 2,
+                              2 * edge - K, mp * page - 2][:B])
+    bt = _table((positions + K).tolist(), page, mp, gen).to("cuda")
+    args = (q, kp, vp, bt, positions.to("cuda", torch.int32))
+    cases = ((None, None), (30.0, None), (None, edge + 10), (50.0, 100), (None, 2))
+    errs = [_check_verify_case(f"split edges {edge} softcap={cap} window={win}", args,
+                               dict(logit_softcap=cap, window=win))[1]
+            for cap, win in cases]
+    n_masked = int(_verify_masked_rows(args[4], K, mp * page, 2).sum())
+    print(f"paged_verify split edges (splits of {edge} tokens; positions "
+          f"{positions.tolist()}; plain, softcap 30, window {edge + 10}, softcap 50 + "
+          f"window 100, window 2 with {n_masked} rows masked everywhere, all 0): max |err| "
+          f"{['%.3e' % e for e in errs]}", flush=True)
+
+
+def check_verify_long_context() -> None:
+    """B=1 at a 16k context: the window's last row at position 16383 over
+    256 pages, the shape where one CTA per (slot, kv head) left most SMs
+    idle."""
+    import torch
+
+    B, K, H, KVH, D, page, mp = 1, 5, 32, 8, 128, 64, 256
+    gen = torch.Generator().manual_seed(14)
+    positions = torch.tensor([mp * page - K])
+    bt = _table((positions + K).tolist(), page, mp, gen).to("cuda")
+    cg = torch.Generator("cuda").manual_seed(15)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=cg, device="cuda").to(torch.bfloat16)
+
+    kp, vp = rnd(1 + B * mp, page, KVH, D), rnd(1 + B * mp, page, KVH, D)
+    args = (rnd(B, K, H, D), kp, vp, bt, positions.to("cuda", torch.int32))
+    _, err = _check_verify_case("B=1 16k", args, {})
+    line = _time_verify(args, {}, library=True)
+    line["max_abs_err"] = err
+    print("kernel paged_verify_attention long context B=%d K=%d H=%d KVH=%d D=%d "
+          "page=%d positions=%d %s" % (B, K, H, KVH, D, page, int(positions[0]),
+                                       json.dumps(line)), flush=True)
+    del kp, vp, args
+    torch.cuda.empty_cache()
+
+
+def ptxas_report(source: str) -> list[tuple[str, int, int]]:
+    """(entry function, registers, spill-store bytes) of each kernel that
+    ptxas compiled from `source`, read from the build log."""
+    from kubeai_tpu_torch.ops import _build
+
+    log = _build.build_dir() / "build.log"
+    rows, entry, spills, in_source = [], None, 0, False
+    for line in log.read_text().splitlines():
+        line = line.strip()
+        if line.startswith("== "):
+            in_source = line[3:] == source
+        elif in_source and "Compiling entry function" in line:
+            entry, spills = line.split("'")[1], 0
+        elif in_source and "spill stores" in line:
+            spills = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif in_source and entry and "Used" in line and "registers" in line:
+            rows.append((entry, int(line.split("Used")[1].split()[0]), spills))
+            entry = None
+    return rows
+
+
+def check_verify_build() -> None:
+    """B3's kernels compile without spills at every head size and row
+    bound."""
+    rows = ptxas_report("paged_verify.cu")
+    if not rows:
+        fail("paged_verify: no ptxas report in the build log")
+    for entry, regs, spills in rows:
+        # _ZN...paged_verify_split_kernelILi128ELi3EEEv... -> split_kernel<128, 3>
+        m = re.search(r"(split_kernel|combine_kernel)I((?:Li\d+E)+)", entry)
+        name = f"{m.group(1)}<{', '.join(re.findall(r'Li(\d+)E', m.group(2)))}>" if m else entry
+        print(f"ptxas paged_verify.cu {name}: {regs} registers, {spills} bytes "
+              f"spilled", flush=True)
+    spilled = [e for e, _, s in rows if s]
+    if spilled:
+        fail(f"paged_verify: ptxas spills in {spilled}")
 
 
 def check_paged_fused() -> dict:

@@ -46,10 +46,12 @@ SIGNATURES = {
     "kubeai_flash_prefill_bf16": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P,
     ),
-    # q, k_pages, v_pages, block_tables, positions, out,
-    # B, K, H, KVH, D, page_size, max_pages, scale, softcap, window, stream
+    # q, k_pages, v_pages, block_tables, positions, out, scratch,
+    # B, K, H, KVH, D, page_size, max_pages, num_splits, pages_per_split,
+    # scale, softcap, window, stream
     "kubeai_paged_verify_bf16": (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+        _I, _P,
     ),
     # q, k_pages, v_pages, k_new, v_new, block_tables, positions, out,
     # scratch, B, H, KVH, D, num_pages, page_size, max_pages, layer,

@@ -11,7 +11,9 @@ raises.
       plain version ref_paged_decode_attention.
   paged_verify_attention       — K query tokens per slot, the speculative
       verify window, each seeing the keys up to its own position
-      (csrc/paged_verify.cu, replaces B3); plain version
+      (csrc/paged_verify.cu, replaces B3: the page walk split across CTAs
+      as fused_split chooses, both products on tensor cores, f32 partials
+      merged in a fixed order by a second kernel); plain version
       ref_paged_verify_attention.
   paged_decode_attention_fused — one query token per slot over one layer
       of the STACKED [NL, ...] pool, read in place, with the new token
@@ -298,12 +300,22 @@ def paged_verify_attention(
         raise ValueError(f"paged verify attention has no path for {q.device}")
     _check_verify_args(q, k_pages, v_pages, block_tables, positions, window)
     b, kq, h, d = q.shape
+    page, kvh = k_pages.shape[1], k_pages.shape[2]
+    mp = block_tables.shape[1]
+    # From shapes alone: nothing here reads a device value, so the call
+    # never waits for the card and can be captured in a CUDA graph.
+    num_splits, pages_per_split = fused_split(b, kvh, mp, page)
     out = torch.empty_like(q)
+    # Per (slot, kv head, split): m[R], l[R], then acc[R, D], in f32, with
+    # R = K * group rows; acc starts 16-byte aligned (up to 3 floats of gap).
+    scratch = torch.empty(b * kvh * num_splits * kq * (h // kvh) * (d + 2) + 3,
+                          dtype=torch.float32, device=q.device)
     lib = _build.load()
     status = lib.kubeai_paged_verify_bf16(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-        b, kq, h, k_pages.shape[2], d, k_pages.shape[1], block_tables.shape[1],
+        scratch.data_ptr(),
+        b, kq, h, kvh, d, page, mp, num_splits, pages_per_split,
         float(scale if scale is not None else d ** -0.5),
         float(logit_softcap or 0.0),
         int(window or 0),
@@ -395,7 +407,10 @@ def _check_fused_args(q, k_pages, v_pages, k_new, v_new, block_tables,
 # The fused kernel runs one CTA per (slot, kv head, split), two of them to
 # an SM at head_dim 128: aim at two waves over an H100's 132 SMs, with at
 # least 64 tokens (one 16-token tile per warp) and at most 64 block-table
-# entries (the kernel keeps them in shared memory) in a split.
+# entries (the kernel keeps them in shared memory) in a split. The verify
+# kernel splits the same way (two CTAs an SM, one 64-token tile at least):
+# at the serving shapes its walk was faster with these splits than with
+# splits of twice the length (PERF.md, section 6).
 _FUSED_TARGET_CTAS = 4 * 132
 _FUSED_MIN_SPLIT_TOKENS = 64
 _FUSED_MAX_SPLIT_PAGES = 64
