@@ -9,13 +9,15 @@ Phases, each fatal on failure:
   2. kernels — each kernel (B1 paged decode, B2 flash prefill, B3 paged
                verify, B4 fused paged decode) against its plain PyTorch
                version on the card, in bf16 at the serving path's
-               Llama-3-8B shapes, with times, the plain version's and one
-               PyTorch library call's times, and the least time the card
-               could take (bound); one wrong page must fail each paged
-               kernel's limit. B3 and B4 also: the edges of their split
-               page walks, B=1 at a 16k context, and two calls and a
-               CUDA-graph replay that must give the same bits; B3's rows
-               masked everywhere must be 0 and its kernels must not spill;
+               Llama-3-8B shapes, with times (from a CUDA graph, and
+               eager), the plain version's and one PyTorch library call's
+               times, and the least time the card could take (bound); one
+               wrong page must fail each paged kernel's limit. B1, B3 and
+               B4 also: the edges of their split page walks, B=1 at a 16k
+               context, and two calls and a CUDA-graph replay that must
+               give the same bits; B1's slots past the block table; rows
+               that keep no key must be 0; no kernel of B1, B3 or B4 may
+               spill;
   3. model   — a small model (head_dim 128) on the card through the kernels
                against the same weights in f32 on the CPU through the plain
                versions: prefill, paged-decode (both layouts) and
@@ -241,8 +243,12 @@ def _paged_inputs(gen, B=8, H=32, KVH=8, D=128, page=64, max_len=2048):
 
 
 def check_paged_decode() -> dict:
+    """B1 at the serving shapes: 8 slots, lengths ragged up to 2048 (slot 0
+    the whole table, slot 1 one token), four cases and one wrong page; then
+    two calls and a CUDA-graph replay that must give the same bits, the
+    split edges, slots past the block table, B=1 at a 16k context, and
+    B1's registers and spills from the build log."""
     import torch
-    import torch.nn.functional as F
 
     from kubeai_tpu_torch.ops.paged_attention import (
         paged_decode_attention,
@@ -253,13 +259,11 @@ def check_paged_decode() -> dict:
     q, kp, vp, bt, lengths = _paged_inputs(gen)
     B, H, D = q.shape
     KVH, page = kp.shape[2], kp.shape[1]
+    args = (q, kp, vp, bt, lengths)
     result = None
     for cap, win in ((None, None), (30.0, None), (None, 500), (50.0, 100)):
-        got = paged_decode_attention(q, kp, vp, bt, lengths, logit_softcap=cap, window=win)
-        torch.cuda.synchronize()
-        want = ref_paged_decode_attention(q, kp, vp, bt, lengths, logit_softcap=cap, window=win)
-        err = compare(f"paged_decode softcap={cap} window={win}", got, want,
-                      PAGED_ATOL, PAGED_RTOL)
+        kw = dict(logit_softcap=cap, window=win)
+        got, err = _check_decode_case(f"softcap={cap} window={win}", args, kw)
         if cap is None and win is None:
             # One page of the full-length slot 0 read from slot 2's first.
             bad_bt = bt.clone()
@@ -267,36 +271,190 @@ def check_paged_decode() -> dict:
             _wrong_page_fails("paged_decode", got,
                               ref_paged_decode_attention(q, kp, vp, bad_bt, lengths),
                               PAGED_ATOL, PAGED_RTOL)
-        ms = cuda_ms(lambda: paged_decode_attention(
-            q, kp, vp, bt, lengths, logit_softcap=cap, window=win))
-        plain_ms = cuda_ms(lambda: ref_paged_decode_attention(
-            q, kp, vp, bt, lengths, logit_softcap=cap, window=win), iters=5)
-        # Bytes this data needs: each key/value the mask keeps, read once,
-        # plus q, the output, the block tables and the lengths.
-        lens = lengths.long().cpu()
-        if win is not None:
-            lens = torch.clamp(lens, max=win)
-        kv_bytes = int(lens.sum()) * KVH * D * 2 * 2
-        io_bytes = 2 * q.numel() * 2 + bt.numel() * 4 + lengths.numel() * 4
-        bound_ms = (kv_bytes + io_bytes) / PEAK_BYTES_PER_S * 1e3
-        line = dict(softcap=cap, window=win, max_abs_err=err, ms=ms,
-                    plain_ms=plain_ms, bound_ms=bound_ms,
-                    bytes=kv_bytes + io_bytes, bound_by="bytes")
+        line = _time_decode(args, kw, library=cap is None and win is None)
+        line["max_abs_err"] = err
         if cap is None and win is None:
-            # Library yardstick: SDPA over the same keys gathered dense.
-            L = bt.shape[1] * page
-            kd = kp[bt.long().clamp(min=0)].reshape(B, L, KVH, D).transpose(1, 2).contiguous()
-            vd = vp[bt.long().clamp(min=0)].reshape(B, L, KVH, D).transpose(1, 2).contiguous()
-            mask = (torch.arange(L, device="cuda")[None, :] < lengths[:, None].long())[:, None, None, :]
-            q4 = q[:, :, None, :]
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q4, kd, vd, attn_mask=mask, enable_gqa=True))
-            line["library_ms"] = lib_ms
             result = dict(line)
         print("kernel paged_decode_attention B=%d H=%d KVH=%d D=%d page=%d "
               "max_len=%d %s" % (B, H, KVH, D, page, int(lengths.max()), json.dumps(line)),
               flush=True)
+
+    # The combine merges the splits in a fixed order: two calls, same bits.
+    first = paged_decode_attention(*args)
+    if not torch.equal(first, paged_decode_attention(*args)):
+        fail("paged_decode: two calls on the same inputs differ")
+    # The wrapper reads no device value: one call captured in a CUDA graph
+    # and replayed gives the eager call's output.
+    graph, captured = capture(lambda: paged_decode_attention(*args))
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(captured, first):
+        fail("paged_decode: the CUDA-graph replay differs from the eager call")
+    print("paged_decode: two eager calls bit-identical; CUDA-graph replay equals "
+          "the eager call", flush=True)
+    check_decode_split_edges(q, kp, vp, gen)
+    check_decode_past_table(q, kp, vp, gen)
+    check_decode_long_context()
+    check_ptxas("paged_decode.cu")
     return result
+
+
+def _decode_masked_slots(lengths, L: int, window):
+    """[B] True where a B1 slot keeps no key at all: length 0, or a window
+    wholly past the L keys of the block table."""
+    lengths = lengths.long()
+    masked = lengths <= 0
+    if window:
+        masked = masked | (lengths - window >= L)
+    return masked
+
+
+def _check_decode_case(tag: str, args, kw: dict):
+    """B1 against its bf16 plain version; a slot that keeps no key must be
+    0 (the plain version averages every column there, as the JAX reference
+    does). Returns (B1's output, max |err|)."""
+    import torch
+
+    from kubeai_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        ref_paged_decode_attention,
+    )
+
+    _, kp, _, bt, lengths = args
+    got = paged_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    want = ref_paged_decode_attention(*args, **kw)
+    masked = _decode_masked_slots(lengths, bt.shape[1] * kp.shape[1], kw.get("window"))
+    if bool(masked.any()):
+        if not bool((got[masked] == 0).all()):
+            fail(f"paged_decode {tag}: a slot that keeps no key is not 0")
+        want = torch.where(masked[:, None, None], torch.zeros_like(want), want)
+    return got, compare(f"paged_decode {tag}", got, want, PAGED_ATOL, PAGED_RTOL)
+
+
+def _time_decode(args, kw: dict, library: bool) -> dict:
+    """B1's time, its plain version's, its bound for this data and, where
+    asked, SDPA's on the same keys gathered dense and length-masked (its
+    yardstick). B1 and SDPA are timed from a CUDA graph (`ms`,
+    `library_ms`: device time per call) and eagerly (`eager_ms`,
+    `library_eager_ms`: back-to-back calls from Python, which the host's
+    launch overhead can bound); `split_ms` and `combine_ms` are B1's two
+    kernels from torch.profiler."""
+    import torch
+    import torch.nn.functional as F
+
+    from kubeai_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        ref_paged_decode_attention,
+    )
+
+    q, kp, vp, bt, lengths = args
+    B, H, D = q.shape
+    KVH, page = kp.shape[2], kp.shape[1]
+    L = bt.shape[1] * page
+    win = kw.get("window")
+    call = lambda: paged_decode_attention(*args, **kw)  # noqa: E731
+    ms, eager_ms = graph_ms(call), cuda_ms(call)
+    plain_ms = cuda_ms(lambda: ref_paged_decode_attention(*args, **kw), iters=5)
+    kernel_ms = device_ms_by_kernel(call, ("split_walk_kernel", "combine_kernel"))
+    # This data's work: the keys the mask keeps inside the table, read
+    # once; 4 * D flops per head per kept key; q and the output, the block
+    # tables and the lengths.
+    n_keys = sum(max(min(n, L) - (max(n - win, 0) if win else 0), 0)
+                 for n in lengths.tolist())
+    nbytes = (n_keys * KVH * D * 2 * 2 + 2 * q.numel() * 2
+              + bt.numel() * 4 + lengths.numel() * 4)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_flops = 4.0 * D * H * n_keys / PEAK_BF16_FLOPS * 1e3
+    line = dict(softcap=kw.get("logit_softcap"), window=win, ms=ms, eager_ms=eager_ms,
+                split_ms=kernel_ms["split_walk_kernel"],
+                combine_ms=kernel_ms["combine_kernel"], plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_flops), bytes=nbytes,
+                bound_by="bytes" if t_bytes >= t_flops else "operations")
+    if library:
+        idx = bt.long().clamp(min=0)
+        kd = kp[idx].reshape(B, L, KVH, D).transpose(1, 2).contiguous()
+        vd = vp[idx].reshape(B, L, KVH, D).transpose(1, 2).contiguous()
+        mask = (torch.arange(L, device="cuda")[None, :] < lengths[:, None].long())[:, None, None, :]
+        q4 = q[:, :, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q4, kd, vd, attn_mask=mask, enable_gqa=True)
+        line["library_ms"], line["library_eager_ms"] = graph_ms(sdpa), cuda_ms(sdpa)
+        del kd, vd
+    return line
+
+
+def check_decode_split_edges(q, kp, vp, gen) -> None:
+    """Lengths at the edges of B1's splits (a boundary, one either side,
+    twice over), 1 and 0 (which must write 0), on the kernel phase's pool,
+    with a window that masks whole splits. No timing."""
+    import torch
+
+    from kubeai_tpu_torch.ops.paged_attention import fused_split
+
+    B, page, mp = q.shape[0], kp.shape[1], 32
+    _, per = fused_split(B, kp.shape[2], mp, page)
+    edge = per * page  # tokens in a split
+    lengths = torch.tensor([edge, edge - 1, edge + 1, 1, 0, 2 * edge,
+                            2 * edge - 1, 2 * edge + 1][:B])
+    bt = _table(lengths.tolist(), page, mp, gen).to("cuda")
+    args = (q, kp, vp, bt, lengths.to("cuda", torch.int32))
+    errs = [_check_decode_case(f"split edges {edge} softcap={cap} window={win}", args,
+                               dict(logit_softcap=cap, window=win))[1]
+            for cap, win in ((None, None), (30.0, None), (None, edge + 10), (50.0, 100))]
+    print(f"paged_decode split edges (splits of {edge} tokens; lengths "
+          f"{lengths.tolist()}; plain, softcap 30, window {edge + 10}, softcap 50 + "
+          f"window 100; length 0 writes 0): max |err| {['%.3e' % e for e in errs]}",
+          flush=True)
+
+
+def check_decode_past_table(q, kp, vp, gen) -> None:
+    """Slots whose length passes the 32-page block table keep only the
+    table's keys, as the TPU kernel's (B, MP) grid does: the bf16 plain
+    version, which masks over the table's columns, is the reference. With
+    a window wholly past the table a slot keeps no key and must write 0.
+    No timing."""
+    import torch
+
+    B, page, mp = q.shape[0], kp.shape[1], 32
+    L = mp * page
+    lengths = torch.tensor([L + 1, L + 5, L + 64, L + 1000, 2 * L, L + 3, 1, L][:B])
+    bt = _table(lengths.tolist(), page, mp, gen).to("cuda")
+    args = (q, kp, vp, bt, lengths.to("cuda", torch.int32))
+    cases = ((None, None), (30.0, None), (None, 500), (50.0, 100), (None, 2))
+    errs = [_check_decode_case(f"past the table softcap={cap} window={win}", args,
+                               dict(logit_softcap=cap, window=win))[1]
+            for cap, win in cases]
+    n_masked = [int(_decode_masked_slots(lengths, L, win).sum()) for _, win in cases]
+    print(f"paged_decode past the table ({L} keys; lengths {lengths.tolist()}; plain, "
+          f"softcap 30, window 500, softcap 50 + window 100, window 2; slots keeping no "
+          f"key, all 0: {n_masked}): max |err| {['%.3e' % e for e in errs]}", flush=True)
+
+
+def check_decode_long_context() -> None:
+    """B=1 at a 16k context: length 16384 over 256 pages, the shape where
+    one CTA per (slot, kv head) left most SMs idle."""
+    import torch
+
+    B, H, KVH, D, page, mp = 1, 32, 8, 128, 64, 256
+    gen = torch.Generator().manual_seed(16)
+    lengths = torch.tensor([mp * page])
+    bt = _table(lengths.tolist(), page, mp, gen).to("cuda")
+    cg = torch.Generator("cuda").manual_seed(17)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=cg, device="cuda").to(torch.bfloat16)
+
+    kp, vp = rnd(1 + B * mp, page, KVH, D), rnd(1 + B * mp, page, KVH, D)
+    args = (rnd(B, H, D), kp, vp, bt, lengths.to("cuda", torch.int32))
+    _, err = _check_decode_case("B=1 16k", args, {})
+    line = _time_decode(args, {}, library=True)
+    line["max_abs_err"] = err
+    print("kernel paged_decode_attention long context B=%d H=%d KVH=%d D=%d page=%d "
+          "length=%d %s" % (B, H, KVH, D, page, int(lengths[0]), json.dumps(line)),
+          flush=True)
+    del kp, vp, args
+    torch.cuda.empty_cache()
 
 
 def check_flash_prefill() -> dict:
@@ -320,16 +478,22 @@ def check_flash_prefill() -> dict:
             torch.cuda.synchronize()
             want = causal_prefill_attention(q, k, v)
             err = compare(f"flash_prefill B={B} S={S}", got, want, FLASH_ATOL, FLASH_RTOL)
-            ms = cuda_ms(lambda: flash_causal_prefill(q, k, v))
+            # B2 and SDPA from a CUDA graph (device time per call) and
+            # eagerly (back-to-back calls from Python, which the host's
+            # launch overhead can bound at the small shapes).
+            call = lambda: flash_causal_prefill(q, k, v)  # noqa: E731
+            ms, eager_ms = graph_ms(call), cuda_ms(call)
             plain_ms = cuda_ms(lambda: causal_prefill_attention(q, k, v), iters=5)
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+            lib_ms, lib_eager_ms = graph_ms(sdpa), cuda_ms(sdpa)
             flops = 4.0 * B * H * D * S * (S + 1) / 2
             nbytes = 2 * (2 * B * S * H * D + 2 * B * S * KVH * D)
             t_flops = flops / PEAK_BF16_FLOPS * 1e3
             t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-            line = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            line = dict(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                        library_ms=lib_ms, library_eager_ms=lib_eager_ms,
                         bound_ms=max(t_flops, t_bytes),
                         bound_by="operations" if t_flops >= t_bytes else "bytes")
             print("kernel flash_causal_prefill B=%d S=%d H=%d KVH=%d D=%d %s"
@@ -402,7 +566,7 @@ def check_paged_verify() -> dict:
           "the eager call", flush=True)
     check_verify_split_edges(q, kp, vp, gen)
     check_verify_long_context()
-    check_verify_build()
+    check_ptxas("paged_verify.cu")
     return result
 
 
@@ -594,29 +758,31 @@ def ptxas_report(source: str) -> list[tuple[str, int, int]]:
     return rows
 
 
-def check_verify_build() -> None:
-    """B3's kernels compile without spills at every head size and row
-    bound."""
-    rows = ptxas_report("paged_verify.cu")
+def check_ptxas(source: str) -> None:
+    """Print the registers and spills of every kernel ptxas compiled from
+    `source`; fail if there is no report or any kernel spills."""
+    rows = ptxas_report(source)
     if not rows:
-        fail("paged_verify: no ptxas report in the build log")
+        fail(f"{source}: no ptxas report in the build log")
     for entry, regs, spills in rows:
-        # _ZN...paged_verify_split_kernelILi128ELi3EEEv... -> split_kernel<128, 3>
-        m = re.search(r"(split_kernel|combine_kernel)I((?:Li\d+E)+)", entry)
-        name = f"{m.group(1)}<{', '.join(re.findall(r'Li(\d+)E', m.group(2)))}>" if m else entry
-        print(f"ptxas paged_verify.cu {name}: {regs} registers, {spills} bytes "
-              f"spilled", flush=True)
+        # _ZN...paged_split_walk_kernelILi128ELi4ELb0EEEv... ->
+        # paged_split_walk_kernel<128, 4, 0>
+        m = re.search(r"([a-z][a-z_]*_kernel)I((?:L[ib]\d+E)+)", entry)
+        name = (f"{m.group(1)}<{', '.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>"
+                if m else entry)
+        print(f"ptxas {source} {name}: {regs} registers, {spills} bytes spilled",
+              flush=True)
     spilled = [e for e, _, s in rows if s]
     if spilled:
-        fail(f"paged_verify: ptxas spills in {spilled}")
+        fail(f"{source}: ptxas spills in {spilled}")
 
 
 def check_paged_fused() -> dict:
     """B4 on a stacked pool of 4 layers at layer 2, the serving widths,
     old lengths ragged up to 2047 and slot 1 empty (pos 0); then two calls
-    and a CUDA-graph replay that must give the same bits, the split edges
-    and B=1 at a 16k context. The build phase prints B4's registers and
-    spills."""
+    and a CUDA-graph replay that must give the same bits, the split edges,
+    B=1 at a 16k context, and B4's registers and spills from the build
+    log."""
     import torch
 
     from kubeai_tpu_torch.ops.paged_attention import (
@@ -678,6 +844,7 @@ def check_paged_fused() -> dict:
           "the eager call", flush=True)
     check_fused_split_edges(q, kp, vp, kn, vn, layer, gen)
     check_fused_long_context()
+    check_ptxas("paged_decode_fused.cu")
     return result
 
 

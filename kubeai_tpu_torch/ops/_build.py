@@ -37,10 +37,12 @@ _F = ctypes.c_float
 # C entry points of csrc/*.cu: name -> argtypes. Every pointer and the
 # stream are c_void_p so ctypes never truncates them to 32 bits.
 SIGNATURES = {
-    # q, k_pages, v_pages, block_tables, lengths, out,
-    # B, H, KVH, D, page_size, max_pages, scale, softcap, window, stream
+    # q, k_pages, v_pages, block_tables, lengths, out, scratch,
+    # B, H, KVH, D, page_size, max_pages, num_splits, pages_per_split,
+    # scale, softcap, window, stream
     "kubeai_paged_decode_bf16": (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+        _I, _P,
     ),
     # q, k, v, out, B, S, H, KVH, D, scale, stream
     "kubeai_flash_prefill_bf16": (

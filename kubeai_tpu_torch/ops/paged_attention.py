@@ -7,8 +7,10 @@ kernel against it. For a CUDA tensor a wrapper launches its kernel or
 raises.
 
   paged_decode_attention       — one query token per slot over the
-      slot's pages (csrc/paged_decode.cu, replaces the Pallas kernel B1);
-      plain version ref_paged_decode_attention.
+      slot's pages (csrc/paged_decode.cu, replaces the Pallas kernel B1:
+      the split page walk of B4, shared through csrc/paged_split_walk.cuh,
+      on a one-layer pool, and a fixed-order combine); plain version
+      ref_paged_decode_attention.
   paged_verify_attention       — K query tokens per slot, the speculative
       verify window, each seeing the keys up to its own position
       (csrc/paged_verify.cu, replaces B3: the page walk split across CTAs
@@ -174,7 +176,12 @@ def paged_decode_attention(
 ) -> torch.Tensor:
     """Paged decode attention. CUDA tensors launch the kernel (bf16,
     head_dim 64 or 128, group <= 8); anything else it does not take
-    raises. CPU tensors take ref_paged_decode_attention."""
+    raises. CPU tensors take ref_paged_decode_attention.
+
+    A length past the block table keeps only the table's keys. A slot
+    that keeps no key (length 0, or a window wholly past the table)
+    gets 0 from the kernel, as from the TPU kernel; the plain version,
+    like the JAX reference, averages every column there."""
     if q.device.type == "cpu":
         return ref_paged_decode_attention(
             q, k_pages, v_pages, block_tables, lengths,
@@ -184,12 +191,21 @@ def paged_decode_attention(
         raise ValueError(f"paged decode attention has no path for {q.device}")
     _check_decode_args(q, k_pages, v_pages, block_tables, lengths, window)
     b, h, d = q.shape
+    page, kvh = k_pages.shape[1], k_pages.shape[2]
+    mp = block_tables.shape[1]
+    # From shapes alone: nothing here reads a device value, so the call
+    # never waits for the card and can be captured in a CUDA graph.
+    num_splits, pages_per_split = fused_split(b, kvh, mp, page)
     out = torch.empty_like(q)
+    # Per (slot, kv head, split): m[G], l[G], then acc[G, D], in f32.
+    scratch = torch.empty(b * kvh * num_splits * (h // kvh) * (d + 2),
+                          dtype=torch.float32, device=q.device)
     lib = _build.load()
     status = lib.kubeai_paged_decode_bf16(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, h, k_pages.shape[2], d, k_pages.shape[1], block_tables.shape[1],
+        scratch.data_ptr(),
+        b, h, kvh, d, page, mp, num_splits, pages_per_split,
         float(scale if scale is not None else d ** -0.5),
         float(logit_softcap or 0.0),
         int(window or 0),
@@ -404,13 +420,14 @@ def _check_fused_args(q, k_pages, v_pages, k_new, v_new, block_tables,
         )
 
 
-# The fused kernel runs one CTA per (slot, kv head, split), two of them to
-# an SM at head_dim 128: aim at two waves over an H100's 132 SMs, with at
-# least 64 tokens (one 16-token tile per warp) and at most 64 block-table
-# entries (the kernel keeps them in shared memory) in a split. The verify
-# kernel splits the same way (two CTAs an SM, one 64-token tile at least):
-# at the serving shapes its walk was faster with these splits than with
-# splits of twice the length (PERF.md, section 6).
+# The split walk of the decode kernels (B4's, which B1 shares) runs one CTA
+# per (slot, kv head, split), two of them to an SM at head_dim 128: aim at
+# two waves over an H100's 132 SMs, with at least 64 tokens (one 16-token
+# tile per warp) and at most 64 block-table entries (the kernel keeps them
+# in shared memory) in a split. The verify kernel splits the same way (two
+# CTAs an SM, one 64-token tile at least): at the serving shapes its walk
+# was faster with these splits than with splits of twice the length
+# (PERF.md, section 6).
 _FUSED_TARGET_CTAS = 4 * 132
 _FUSED_MIN_SPLIT_TOKENS = 64
 _FUSED_MAX_SPLIT_PAGES = 64

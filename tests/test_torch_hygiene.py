@@ -132,7 +132,7 @@ def test_kernel_sources_and_bindings():
             if name in src:
                 assert f'extern "C" int {name}(' in src
     # Pointers and the stream are c_void_p, never a 32-bit int.
-    assert _build.SIGNATURES["kubeai_paged_decode_bf16"][:6] == (ctypes.c_void_p,) * 6
+    assert _build.SIGNATURES["kubeai_paged_decode_bf16"][:7] == (ctypes.c_void_p,) * 7
     assert _build.SIGNATURES["kubeai_paged_decode_bf16"][-1] is ctypes.c_void_p
     assert _build.SIGNATURES["kubeai_flash_prefill_bf16"][:4] == (ctypes.c_void_p,) * 4
     assert _build.SIGNATURES["kubeai_flash_prefill_bf16"][-1] is ctypes.c_void_p

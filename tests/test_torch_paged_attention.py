@@ -1,8 +1,11 @@
 """kubeai_tpu_torch.ops.paged_attention against kubeai_tpu's: the port's
-plain paged decode attention against the JAX Pallas kernel (interpret
-mode) and its reference, and the page scatter/coordinate helpers bit for
-bit. Kernel tolerance atol/rtol 1e-4, the JAX kernel test's own (f32,
-online vs one-shot softmax)."""
+plain paged decode attention and the CPU emulation of kernel B1's split
+page walk against the JAX Pallas kernel (interpret mode) and its
+reference, and the page scatter/coordinate helpers bit for bit. Kernel
+tolerance atol/rtol 1e-4, the JAX kernel test's own (f32, online vs
+one-shot softmax)."""
+
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +14,7 @@ import torch
 
 from kubeai_tpu.ops import paged_attention as jpa
 from kubeai_tpu_torch.ops import paged_attention as tpa
+from torch_split_walk import emulate_split_walk
 
 B, KVH, G, D, PAGE, MP = 3, 2, 4, 32, 8, 4
 H = KVH * G
@@ -19,7 +23,7 @@ P = 1 + B * MP
 
 def _setup(lengths, seed=0):
     """Pools with each slot's tokens on shuffled pages; -1 past its
-    pages."""
+    pages. A slot longer than the table holds all MP of its entries."""
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, H, D)).astype(np.float32)
     kp = rng.standard_normal((P, PAGE, KVH, D)).astype(np.float32)
@@ -28,7 +32,7 @@ def _setup(lengths, seed=0):
     bt = np.full((B, MP), -1, np.int32)
     used = 0
     for s, ln in enumerate(lengths):
-        need = -(-ln // PAGE)
+        need = min(-(-ln // PAGE), MP)
         bt[s, :need] = perm[used:used + need]
         used += need
     return q, kp, vp, bt, np.asarray(lengths, np.int32)
@@ -69,6 +73,61 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     want = tpa.ref_paged_decode_attention(q, kp, vp, bt, lengths)
     assert torch.equal(got, want)
     assert tpa.paged_decode_attention.launches == 0
+
+
+# ---- kernel B1's split page walk, emulated on the CPU -------------------------
+
+
+def _jax_kernel(arrays, **kw):
+    return np.asarray(jpa.paged_decode_attention(
+        *(jnp.asarray(a) for a in arrays), use_pallas=True, interpret=True, **kw))
+
+
+def _walk_lengths(pages_per_split, case):
+    """Lengths (the new token included) at a split boundary and one either
+    side; 0, 1 and past two splits; and past the 4-page block table."""
+    e, L = pages_per_split * PAGE, MP * PAGE
+    return {"boundary": [e, e - 1, e + 1], "short": [0, 1, min(2 * e + 1, L)],
+            "past": [L + 3, L + 2 * PAGE + 1, e]}[case]
+
+
+@pytest.mark.parametrize("pages_per_split", [1, 2, 3])
+@pytest.mark.parametrize("case,cap,win", [
+    ("boundary", None, None), ("short", None, None), ("boundary", 30.0, None),
+    ("short", None, 5), ("past", None, None), ("past", 50.0, 12),
+])
+def test_split_walk_matches_jax_kernel(pages_per_split, case, cap, win):
+    """B1's split-and-combine algorithm against the JAX Pallas kernel in
+    interpret mode. Window 5 masks every split but the last live one. Past
+    the table only the table's keys count, and with window 12 the slot at
+    L + 17 keeps none and is 0, as in the JAX kernel."""
+    arrays = _setup(_walk_lengths(pages_per_split, case), seed=29 + pages_per_split)
+    got = emulate_split_walk(*arrays, pages_per_split, cap=cap, win=win)
+    want = _jax_kernel(arrays, logit_softcap=cap, window=win)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_split_walk_writes_zero_where_no_key_is_kept():
+    """Length 0, and a window wholly past the table: the output is 0
+    exactly, as the JAX kernel's (its reference averages every column)."""
+    arrays = _setup([0, 9, MP * PAGE + 20], seed=31)
+    got = emulate_split_walk(*arrays, 1, win=2)
+    want = _jax_kernel(arrays, window=2)
+    assert not got[0].any() and not got[2].any()
+    assert got[1].any()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_decode_wrapper_reads_no_device_value():
+    """B1's split comes from shapes: the wrapper never copies a tensor to
+    the host, so it does not wait for the card and a CUDA graph can hold
+    it."""
+    src = inspect.getsource(tpa.paged_decode_attention)
+    cuda_path = src.split('if q.device.type != "cuda"', 1)[1]
+    for reader in (".item(", ".tolist(", ".cpu(", ".numpy(", "int(lengths", "lengths.max"):
+        assert reader not in cuda_path
+    assert "fused_split(b, kvh, mp, page)" in cuda_path
+    assert "torch.empty(" in cuda_path
 
 
 def test_resolve_decode_kernel(monkeypatch):

@@ -6,8 +6,6 @@ scatter-then-attend at 1e-5 (the same sums in another order), and an
 empty slot returning its new token's value."""
 
 import inspect
-import re
-from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +14,7 @@ import torch
 
 from kubeai_tpu.ops import paged_attention as jpa
 from kubeai_tpu_torch.ops import paged_attention as tpa
+from torch_split_walk import emulate_split_walk
 
 B, KVH, G, D, PAGE, MP = 3, 2, 4, 32, 8, 4
 H = KVH * G
@@ -127,89 +126,12 @@ def test_kernel_argument_checks():
 
 # ---- the kernel's split page walk, emulated on the CPU ------------------------
 
-_SRC = (Path(tpa.__file__).resolve().parent.parent / "csrc" / "paged_decode_fused.cu").read_text()
-# The kernel's warps per CTA and tokens per warp tile, read from its source.
-_WARPS = int(re.search(r"constexpr int kWarps = (\d+);", _SRC).group(1))
-_TILE = int(re.search(r"constexpr int kTile = (\d+);", _SRC).group(1))
-
-
-def _merge(parts, extra=None):
-    """Merge (m, l, acc) partials in list order, skipping those with no
-    kept key (l == 0), then an always-valid column (score, value) if given.
-    Returns (m, l, acc) unnormalised."""
-    g, d = parts[0][2].shape
-    kept = [(m, l, a) for m, l, a in parts if bool((l > 0).all())]
-    m_all = torch.full((g,), tpa.NEG_INF)
-    for m, _, _ in kept:
-        m_all = torch.maximum(m_all, m)
-    if extra is not None:
-        m_all = torch.maximum(m_all, extra[0])
-    l_all = torch.zeros(g)
-    acc = torch.zeros(g, d)
-    for m, l, a in kept:
-        w = torch.exp(m - m_all)
-        l_all = l_all + l * w
-        acc = acc + a * w[:, None]
-    if extra is not None:
-        w = torch.exp(extra[0] - m_all)
-        l_all = l_all + w
-        acc = acc + w[:, None] * extra[1][None, :]
-    return m_all, l_all, acc
-
-
 def _emulate_kernel(arrays, layer, pages_per_split, *, cap=None, win=None):
-    """The kernel's algorithm in f32: each split of pages_per_split
-    block-table entries walks its kept keys in _TILE-token tiles dealt to
-    _WARPS warps (online softmax per warp), merges its warps in order into
-    a partial (m, l, acc); the partials merge in split order, the new
-    token's column last, then the rows are normalised."""
-    q, kp, vp, kn, vn, bt, pos = (torch.from_numpy(a).float() for a in arrays)
-    bt, pos = bt.long(), pos.long()
-    b, h, d = q.shape
-    kvh, page, mp = kp.shape[3], kp.shape[2], bt.shape[1]
-    g = h // kvh
-    num_splits = -(-mp // pages_per_split)
-    out = torch.empty(b, h, d)
-    for s in range(b):
-        p = int(pos[s])
-        lo = max(p + 1 - win, 0) if win else 0
-        for kh in range(kvh):
-            qg = q[s, kh * g:(kh + 1) * g] * d ** -0.5
-            empty = (torch.full((g,), tpa.NEG_INF), torch.zeros(g), torch.zeros(g, d))
-            parts = []
-            for split in range(num_splits):
-                start = split * pages_per_split * page
-                t_lo = max(start, lo)
-                t_hi = min(start + pages_per_split * page, p, mp * page)
-                if t_lo >= t_hi:
-                    parts.append(empty)
-                    continue
-                n_tiles = -(-(t_hi - t_lo) // _TILE)
-                warps = []
-                for w in range(_WARPS):
-                    m, l, acc = empty
-                    for i in range(w, n_tiles, _WARPS):
-                        toks = torch.arange(t_lo + i * _TILE, min(t_lo + (i + 1) * _TILE, t_hi))
-                        pages = bt[s, toks // page].clamp(min=0)
-                        k = kp[layer, pages, toks % page, kh]
-                        v = vp[layer, pages, toks % page, kh]
-                        sc = qg @ k.T
-                        if cap is not None:
-                            sc = torch.tanh(sc / cap) * cap
-                        m_new = torch.maximum(m, sc.max(-1).values)
-                        pr = torch.exp(sc - m_new[:, None])
-                        alpha = torch.exp(m - m_new)
-                        l = l * alpha + pr.sum(-1)
-                        acc = acc * alpha[:, None] + pr @ v
-                        m = m_new
-                    warps.append((m, l, acc))
-                parts.append(_merge(warps))
-            s_new = (qg * kn[s, kh]).sum(-1)
-            if cap is not None:
-                s_new = torch.tanh(s_new / cap) * cap
-            _, l_all, acc = _merge(parts, (s_new, vn[s, kh]))
-            out[s, kh * g:(kh + 1) * g] = acc / l_all.clamp(min=1e-30)[:, None]
-    return out.numpy()
+    """The kernel's algorithm in f32 (tests/torch_split_walk.py) on one
+    layer of the stacked pool, with the new token's column merged last."""
+    q, kp, vp, kn, vn, bt, pos = arrays
+    return emulate_split_walk(q, kp[layer], vp[layer], bt, pos, pages_per_split,
+                              new=(kn, vn), cap=cap, win=win)
 
 
 def _edge_lengths(pages_per_split, case):
