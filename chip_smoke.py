@@ -14,10 +14,11 @@ Phases, each fatal on failure:
                times, and the least time the card could take (bound); one
                wrong page must fail each paged kernel's limit. B1, B3 and
                B4 also: the edges of their split page walks, B=1 at a 16k
-               context, and two calls and a CUDA-graph replay that must
-               give the same bits; B1's slots past the block table; rows
-               that keep no key must be 0; no kernel of B1, B3 or B4 may
-               spill;
+               context; B1's slots past the block table; rows that keep no
+               key must be 0. B2 also: ragged S, B=1 at 2048 and 8192.
+               For every kernel: two calls and a CUDA-graph replay that
+               must give the same bits, its head_dim-64 build, and no
+               spills;
   3. model   — a small model (head_dim 128) on the card through the kernels
                against the same weights in f32 on the CPU through the plain
                versions: prefill, paged-decode (both layouts) and
@@ -30,7 +31,9 @@ Phases, each fatal on failure:
                speculation (B3 must launch, B1 must not) and the fused
                layout (B4 must launch, B1 must not). After each run
                torch.profiler times decode chunks or verify windows: device
-               time by kernel, idle share.
+               time by kernel, idle share; after the per_layer run it
+               times one prefill admission at B=1 for the 512 and 1024
+               buckets, with B2's device ms and launches.
 
 The last lines are the kernel JSON line, the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -458,6 +461,11 @@ def check_decode_long_context() -> None:
 
 
 def check_flash_prefill() -> dict:
+    """B2 at the serving widths (H=32, KVH=8, D=128): B=1 and 4 over the
+    serve phase's buckets and a ragged 200, and B=1 at 2048 and 8192, each
+    against the plain version and timed beside SDPA; then two calls and a
+    CUDA-graph replay that must give the same bits, and B2's registers and
+    spills from the build log."""
     import torch
     import torch.nn.functional as F
 
@@ -468,38 +476,64 @@ def check_flash_prefill() -> dict:
     gen = torch.Generator().manual_seed(2)
     main = None
     # S=32 and 128 are the buckets of the serve phase's two short prompts
-    # (32 is less than one 64-row block); 512 and 1024 those of its long ones.
-    for B in (1, 4):
-        for S in (32, 128, 200, 512, 1024):
-            mk = lambda h: torch.randn(B, S, h, D, generator=gen, device="cpu").to(
-                "cuda", torch.bfloat16)
-            q, k, v = mk(H), mk(KVH), mk(KVH)
-            got = flash_causal_prefill(q, k, v)
+    # (32 is less than one 128-row block); 512 and 1024 those of its long
+    # ones; 2048 is its max_seq_len; 8192 a long prompt.
+    cases = [(B, S) for B in (1, 4) for S in (32, 128, 200, 512, 1024)]
+    for B, S in cases + [(1, 2048), (1, 8192)]:
+        mk = lambda h: torch.randn(B, S, h, D, generator=gen, device="cpu").to(  # noqa: E731
+            "cuda", torch.bfloat16)
+        q, k, v = mk(H), mk(KVH), mk(KVH)
+        got = flash_causal_prefill(q, k, v)
+        torch.cuda.synchronize()
+        want = causal_prefill_attention(q, k, v)
+        err = compare(f"flash_prefill B={B} S={S}", got, want, FLASH_ATOL, FLASH_RTOL)
+        del got, want
+        # B2 and SDPA from a CUDA graph (device time per call) and eagerly
+        # (back-to-back calls from Python, which the host's launch overhead
+        # can bound at the small shapes). The plain version's f32 logits
+        # take 8.6 GB at S=8192: few calls there.
+        call = lambda: flash_causal_prefill(q, k, v)  # noqa: E731
+        ms, eager_ms = graph_ms(call), cuda_ms(call)
+        few = S >= 4096
+        plain_ms = cuda_ms(lambda: causal_prefill_attention(q, k, v),
+                           iters=1 if few else 5, warmup=1 if few else 3)
+        torch.cuda.empty_cache()
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib_ms, lib_eager_ms = graph_ms(sdpa), cuda_ms(sdpa)
+        flops = 4.0 * B * H * D * S * (S + 1) / 2
+        nbytes = 2 * (2 * B * S * H * D + 2 * B * S * KVH * D)
+        t_flops = flops / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        line = dict(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, library_eager_ms=lib_eager_ms,
+                    bound_ms=max(t_flops, t_bytes),
+                    bound_by="operations" if t_flops >= t_bytes else "bytes",
+                    tflops=flops / ms * 1e-9)
+        print("kernel flash_causal_prefill B=%d S=%d H=%d KVH=%d D=%d %s"
+              % (B, S, H, KVH, D, json.dumps(line)), flush=True)
+        if (B, S) == (1, 512):
+            main = line
+        if (B, S) == (4, 1024):
+            # Every CTA writes its own rows, in one order: two calls give
+            # the same bits. The wrapper reads no device value and builds
+            # its TMA maps on the host: a CUDA-graph replay of one call
+            # gives the eager call's output.
+            first = flash_causal_prefill(q, k, v)
+            if not torch.equal(first, flash_causal_prefill(q, k, v)):
+                fail("flash_prefill: two calls on the same inputs differ")
+            graph, captured = capture(call)
+            graph.replay()
             torch.cuda.synchronize()
-            want = causal_prefill_attention(q, k, v)
-            err = compare(f"flash_prefill B={B} S={S}", got, want, FLASH_ATOL, FLASH_RTOL)
-            # B2 and SDPA from a CUDA graph (device time per call) and
-            # eagerly (back-to-back calls from Python, which the host's
-            # launch overhead can bound at the small shapes).
-            call = lambda: flash_causal_prefill(q, k, v)  # noqa: E731
-            ms, eager_ms = graph_ms(call), cuda_ms(call)
-            plain_ms = cuda_ms(lambda: causal_prefill_attention(q, k, v), iters=5)
-            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=True, enable_gqa=True)
-            lib_ms, lib_eager_ms = graph_ms(sdpa), cuda_ms(sdpa)
-            flops = 4.0 * B * H * D * S * (S + 1) / 2
-            nbytes = 2 * (2 * B * S * H * D + 2 * B * S * KVH * D)
-            t_flops = flops / PEAK_BF16_FLOPS * 1e3
-            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-            line = dict(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                        library_ms=lib_ms, library_eager_ms=lib_eager_ms,
-                        bound_ms=max(t_flops, t_bytes),
-                        bound_by="operations" if t_flops >= t_bytes else "bytes")
-            print("kernel flash_causal_prefill B=%d S=%d H=%d KVH=%d D=%d %s"
-                  % (B, S, H, KVH, D, json.dumps(line)), flush=True)
-            if (B, S) == (1, 512):
-                main = line
+            if not torch.equal(captured, first):
+                fail("flash_prefill: the CUDA-graph replay differs from the eager call")
+            print("flash_prefill: two eager calls bit-identical; CUDA-graph replay "
+                  "equals the eager call", flush=True)
+            del first, captured, graph
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    check_ptxas("flash_prefill.cu")
     return main
 
 
@@ -976,12 +1010,15 @@ def check_fused_long_context() -> None:
 
 
 def check_head_dim_64() -> None:
-    """The paged kernels' head_dim-64 build (Llama-3.2-1B's head size),
-    which the 8B-shape checks above do not run: B1, B3 and B4 against
-    their plain versions at their own limits, at a smaller size, with
-    and without softcap and window. No timing."""
+    """The kernels' head_dim-64 builds (Llama-3.2-1B's head size), which
+    the 8B-shape checks above do not run: B1, B3 and B4 against their
+    plain versions at their own limits, at a smaller size, with and
+    without softcap and window; B2 at a ragged and a whole-block S. No
+    timing."""
     import torch
 
+    from kubeai_tpu_torch.ops.attention import causal_prefill_attention
+    from kubeai_tpu_torch.ops.flash_attention import flash_causal_prefill
     from kubeai_tpu_torch.ops.paged_attention import (
         paged_decode_attention,
         paged_decode_attention_fused,
@@ -1019,8 +1056,12 @@ def check_head_dim_64() -> None:
         got = paged_decode_attention_fused(q, kp, vp, kn, vn, bt, pos, 1, **kw)
         errs.append(compare(f"paged_fused {tag}", got, ref_paged_decode_attention_fused(
             q, kp, vp, kn, vn, bt, pos, 1, **kw), FUSED_ATOL, FUSED_RTOL))
-    print(f"kernels at head_dim 64 (B1, B3, B4; plain, softcap 50 + window 100): "
-          f"max |err| {['%.3e' % e for e in errs]}", flush=True)
+    for S in (200, 512):
+        q, k, v = rnd(2, S, H, D), rnd(2, S, KVH, D), rnd(2, S, KVH, D)
+        errs.append(compare(f"flash_prefill D=64 S={S}", flash_causal_prefill(q, k, v),
+                            causal_prefill_attention(q, k, v), FLASH_ATOL, FLASH_RTOL))
+    print(f"kernels at head_dim 64 (B1, B3, B4: plain, softcap 50 + window 100; "
+          f"B2: S=200, 512): max |err| {['%.3e' % e for e in errs]}", flush=True)
 
 
 def phase_kernels() -> dict:
@@ -1334,6 +1375,7 @@ def phase_serve() -> dict:
     base = run["greedy"]
     profile(run["engine"], "decode step", lambda e: e._decode_chunk(),
             e_steps=run["engine"].cfg.decode_chunk)
+    profile_prefill(params, cfg)
 
     def free(run):
         # The pools go; the weights are shared by the next run.
@@ -1432,17 +1474,16 @@ def report_agreement(label: str, base: dict, got: dict) -> None:
               f"equal to the per_layer run's", flush=True)
 
 
-def profile(engine, unit: str, call, e_steps: int) -> None:
-    """torch.profiler over two decode calls at the serving shapes (all
-    num_slots rows; the requests have finished, so the rows write scratch
-    page 0): device time per `unit` (a decode call covers e_steps of
-    them) by kernel, and the device's idle share against the wall time of
-    the same calls run without the profiler (whose own host overhead
-    would swamp it)."""
+def profile(engine, unit: str, call, e_steps: int, calls: int = 2) -> tuple[list, int]:
+    """torch.profiler over `calls` calls of `call(engine)` (two decode
+    calls at the serving shapes: all num_slots rows; the requests have
+    finished, so the rows write scratch page 0): device time per `unit`
+    (a call covers e_steps of them) by kernel, and the device's idle share
+    against the wall time of the same calls run without the profiler
+    (whose own host overhead would swamp it). Returns the device rows and
+    the number of units they cover."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
-
-    calls = 2
 
     def run():
         for _ in range(calls):
@@ -1470,6 +1511,34 @@ def profile(engine, unit: str, call, e_steps: int) -> None:
         t = getattr(e, "self_device_time_total", 0)
         print(f"profile {tag} kernel {t / 1e3 / steps:.4f} ms/{tag} "
               f"count/{tag} {e.count / steps:.1f} {e.key[:90]}", flush=True)
+    return rows, steps
+
+
+def profile_prefill(params, cfg) -> None:
+    """torch.profiler over llama.prefill, the function
+    Engine._prefill_admit calls, at B=1 for the serve phase's two long
+    buckets (512 and 1024) on the 8B-shape weights: device time by kernel,
+    the idle share, and B2's device ms and launches per admission. This is
+    the layer number that ties B2 to TTFT."""
+    import torch
+
+    from kubeai_tpu_torch.models import llama
+
+    gen = torch.Generator("cuda").manual_seed(12)
+    for S in (512, 1024):
+        toks = torch.randint(0, cfg.vocab_size, (1, S), generator=gen, device="cuda")
+        lengths = torch.tensor([S], device="cuda")
+        rows, steps = profile(None, f"prefill S={S}",
+                              lambda _: llama.prefill(params, cfg, toks, lengths),
+                              e_steps=1, calls=1)
+        total = sum(getattr(e, "self_device_time_total", 0) for e in rows)
+        b2 = [e for e in rows if "flash_prefill_kernel" in e.key]
+        if not b2:
+            fail(f"prefill S={S}: the profile shows no flash_prefill_kernel")
+        b2_us = sum(getattr(e, "self_device_time_total", 0) for e in b2)
+        print(f"profile prefill_S={S} B2 {b2_us / 1e3 / steps:.4f} ms in "
+              f"{sum(e.count for e in b2) / steps:.0f} launches per admission, "
+              f"{b2_us / max(total, 1):.3f} of its device time", flush=True)
 
 
 # ---- entry --------------------------------------------------------------------

@@ -9,7 +9,10 @@ tests and chip_smoke.py hold the kernel against it.
 The Pallas kernel pads head_dim to 128 and needs S % 128 == 0 (TPU
 tiling rules). The Hopper kernel needs neither: it masks the ragged S
 tail and takes head_dim 64 or 128, so on the card every prefill bucket
-goes through it.
+goes through it. Its C entry point builds the TMA maps on the host from
+the pointers and shapes on each call, so the wrapper reads no device
+value and a CUDA graph can capture it; a pointer that is not 16-byte
+aligned makes the launch fail and the wrapper raise.
 """
 
 from __future__ import annotations
