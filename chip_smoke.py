@@ -26,13 +26,21 @@ Phases, each fatal on failure:
                kept in f32;
   4. serve   — EngineServer over Engine with random Llama-3-8B-shape weights
                on cuda answers concurrent /v1/chat/completions requests
-               (one streamed) three times over the same weights: the
+               (one streamed) three times over the same weights, with the
+               engine's defaults: the decode chunk and the verify window
+               replayed from CUDA graphs, and overlapped stepping. The
                per_layer decode layout (B1 and B2 must launch), prompt-lookup
                speculation (B3 must launch, B1 must not) and the fused
-               layout (B4 must launch, B1 must not). After each run
-               torch.profiler times decode chunks or verify windows: device
-               time by kernel, idle share; after the per_layer run it
-               times one prefill admission at B=1 for the 512 and 1024
+               layout (B4 must launch, B1 must not); B1, B3 and B4 are
+               counted as launches per replay x replays and must launch
+               only from replays. Each run's greedy and seeded streams must
+               equal those of an eager, synchronous engine on the same
+               weights. After each run torch.profiler times the decode
+               chunk or verify window replayed from its graph and run
+               eagerly: wall and device time per step, idle share, device
+               time by kernel; the graph pools' memory and the step
+               profiler's phase totals are printed. After the per_layer run
+               it times one prefill admission at B=1 for the 512 and 1024
                buckets, with B2's device ms and launches.
 
 The last lines are the kernel JSON line, the card's name and power limit
@@ -1209,41 +1217,54 @@ def _post(port: int, body: dict) -> tuple[int, dict, float, float]:
 
 
 def _wrappers() -> dict:
-    from kubeai_tpu_torch.ops.flash_attention import flash_causal_prefill
-    from kubeai_tpu_torch.ops.paged_attention import (
-        paged_decode_attention,
-        paged_decode_attention_fused,
-        paged_verify_attention,
-    )
+    from kubeai_tpu_torch.ops import COUNTED_KERNELS
 
-    return {
-        "paged_decode_attention": paged_decode_attention,
-        "flash_causal_prefill": flash_causal_prefill,
-        "paged_verify_attention": paged_verify_attention,
-        "paged_decode_attention_fused": paged_decode_attention_fused,
-    }
+    return dict(COUNTED_KERNELS)
+
+
+SERVE_CONFIG = dict(num_slots=8, max_seq_len=2048, page_size=64, decode_chunk=8)
+
+
+def _programs(engine) -> dict:
+    """The engine's device programs, by name."""
+    progs = {"decode chunk": engine._decode_program}
+    if engine._spec_program is not None:
+        progs["verify window"] = engine._spec_program
+    return progs
 
 
 def serve_run(params, cfg, label: str, **extra) -> dict:
-    """One EngineServer run over `params`: a warm-up request, then four
-    concurrent chat completions (one streamed), with every kernel's launch
-    count set to 0 just before them and read just after. `extra` adds to
-    the smoke EngineConfig. Returns the launches, each request's engine
-    token stream (keyed by prompt length) and the engine."""
+    """One EngineServer run over `params` with the engine's defaults (graphs
+    and overlap): a warm-up request, then four concurrent chat completions
+    (one streamed), with every kernel's launch count and every device
+    program's replay count set to 0 just before them and read just after.
+    `extra` adds to the smoke EngineConfig. Returns the launches (eager
+    calls plus launches per replay x replays), each request's prompt,
+    sampling params and engine token stream, and the engine."""
     from kubeai_tpu_torch.engine import Engine, EngineConfig
     from kubeai_tpu_torch.engine.server import EngineServer
     from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from kubeai_tpu_torch.fleet.profiler import phase_totals
 
     tok = ByteTokenizer()
-    engine = Engine("llama", cfg, params, cfg=EngineConfig(
-        num_slots=8, max_seq_len=2048, page_size=64, decode_chunk=8, **extra,
-    ), eos_token_ids=tok.eos_token_ids)
-    prompt_len: dict[int, int] = {}
+    t0 = time.perf_counter()
+    engine = Engine("llama", cfg, params, cfg=EngineConfig(**SERVE_CONFIG, **extra),
+                    eos_token_ids=tok.eos_token_ids)
+    if not engine._overlap:
+        fail(f"serve {label}: the default engine does not overlap its steps")
+    for name, prog in _programs(engine).items():
+        if prog.graph is None:
+            fail(f"serve {label}: the {name} is not a CUDA graph on the card")
+        print(f"serve {label} {name} graph: captured at construction (engine built in "
+              f"{time.perf_counter() - t0:.2f} s); pool reserved "
+              f"{prog.pool_bytes / 2**20:.2f} MiB; launches per replay "
+              f"{json.dumps(prog.launches_per_replay)}", flush=True)
+    requests: dict[int, tuple] = {}  # rid -> (prompt, sampling params)
     add_request = engine.add_request
 
-    def add_and_note(prompt, *a, **kw):
-        rid = add_request(prompt, *a, **kw)
-        prompt_len[rid] = len(prompt)
+    def add_and_note(prompt, params, *a, **kw):
+        rid = add_request(prompt, params, *a, **kw)
+        requests[rid] = (list(prompt), params)
         return rid
 
     engine.add_request = add_and_note
@@ -1269,6 +1290,7 @@ def serve_run(params, cfg, label: str, **extra) -> dict:
             fail(f"serve {label} warm-up request: HTTP {status}")
         engine.drain_timing()
         streams.clear()
+        requests.clear()
         text = "The quick brown fox jumps over the lazy dog. "
         max_tokens = 32
         bodies = [
@@ -1288,6 +1310,9 @@ def serve_run(params, cfg, label: str, **extra) -> dict:
 
         for fn in wrappers.values():
             fn.launches = 0
+        for prog in _programs(engine).values():
+            prog.dispatches = 0
+        first_step = engine.profiler.steps_completed
         threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
         t_start = time.perf_counter()
         for t in threads:
@@ -1295,7 +1320,12 @@ def serve_run(params, cfg, label: str, **extra) -> dict:
         for t in threads:
             t.join()
         wall = time.perf_counter() - t_start
-        launches = {name: fn.launches for name, fn in wrappers.items()}
+        eager = {name: fn.launches for name, fn in wrappers.items()}
+        replayed = {name: 0 for name in wrappers}
+        for prog in _programs(engine).values():
+            for name, n in prog.launches().items():
+                replayed[name] += n
+        dispatches = {name: prog.dispatches for name, prog in _programs(engine).items()}
     finally:
         server.stop()
     for i, (status, res, first_s, total_s) in enumerate(results):
@@ -1323,7 +1353,7 @@ def serve_run(params, cfg, label: str, **extra) -> dict:
     timing = engine.drain_timing()
     ttft = {int(t[2][4:]): t[1] for t in timing if t[0] == "ttft"}
     for rid in sorted(ttft):
-        print(f"serve {label} TTFT rid={rid} prompt_tokens={prompt_len.get(rid)} "
+        print(f"serve {label} TTFT rid={rid} prompt_tokens={len(requests[rid][0])} "
               f"ttft_s={ttft[rid]:.4f}", flush=True)
     e2e = [t[1] for t in timing if t[0] == "e2e"]
     decode_tokens = len(bodies) * (max_tokens - 1)
@@ -1331,12 +1361,62 @@ def serve_run(params, cfg, label: str, **extra) -> dict:
     print(f"serve {label} decode tok/s={decode_tokens / decode_s:.2f} "
           f"({decode_tokens} tokens after the first, {decode_s:.4f} s from the "
           f"first first-token to the last completion; wall {wall:.4f} s)", flush=True)
-    print(f"serve {label} launches on the main path: {json.dumps(launches)}", flush=True)
+    records = [r for r in engine.profiler.recent() if r["step"] > first_step]
+    totals = phase_totals(records)
+    print(f"serve {label} step phases over {len(records)} steps, total s: "
+          f"{json.dumps({k: round(v, 6) for k, v in sorted(totals.items())})}", flush=True)
+    launches = {name: eager[name] + replayed[name] for name in wrappers}
+    print(f"serve {label} launches on the main path: {json.dumps(launches)} "
+          f"(eager calls {json.dumps(eager)}; from graph replays {json.dumps(replayed)}, "
+          f"dispatches {json.dumps(dispatches)})", flush=True)
+    for name in ("paged_decode_attention", "paged_verify_attention",
+                 "paged_decode_attention_fused"):
+        if eager[name]:
+            fail(f"serve {label}: {name} launched {eager[name]} times outside the "
+                 "graph replays")
     # Each request's prompt length is distinct: it names the request.
     index_of = {len(tok.apply_chat_template(b["messages"])): i for i, b in enumerate(bodies)}
-    greedy = {index_of[prompt_len[rid]]: toks for rid, toks in streams.items()
-              if bodies[index_of[prompt_len[rid]]]["temperature"] == 0}
-    return {"launches": launches, "greedy": greedy, "engine": engine}
+    rid_of = {index_of[len(prompt)]: rid for rid, (prompt, _) in requests.items()}
+    return {"launches": launches, "requests": requests, "streams": streams,
+            "engine": engine, "bodies": bodies, "rid_of": rid_of}
+
+
+def check_streams_equal_eager(params, cfg, label: str, run: dict, **extra) -> None:
+    """The serve run's streams, greedy and seeded, against an eager
+    synchronous engine (no graphs, step_overlap="off") on the same weights
+    fed the same prompts and sampling params. Any difference fails, with
+    the first differing step."""
+    from kubeai_tpu_torch.engine import Engine, EngineConfig
+
+    class EagerEngine(Engine):
+        _capture_graphs = False
+
+    ref = EagerEngine("llama", cfg, params, cfg=EngineConfig(
+        **SERVE_CONFIG, step_overlap="off", **extra),
+        eos_token_ids=run["engine"].eos_token_ids)
+    if ref._overlap or ref._decode_program.graph is not None:
+        fail(f"serve {label}: the reference engine is not eager and synchronous")
+    rids = {ref.add_request(prompt, sp): rid
+            for rid, (prompt, sp) in sorted(run["requests"].items())}
+    got: dict[int, list[int]] = {rid: [] for rid in rids.values()}
+    t0 = time.perf_counter()
+    while ref.has_work():
+        for ev in ref.step():
+            got[rids[ev.rid]].append(ev.token)
+    for rid, want in sorted(got.items()):
+        have = run["streams"][rid]
+        sp = run["requests"][rid][1]
+        kind = "greedy" if sp.temperature == 0 else f"seeded (seed {sp.seed})"
+        if have != want:
+            step = next((j for j, (x, y) in enumerate(zip(have, want)) if x != y),
+                        min(len(have), len(want)))
+            fail(f"serve {label} rid={rid} ({kind}): graph + overlap stream differs "
+                 f"from the eager synchronous engine's at token {step}: "
+                 f"{have[step:step + 4]} vs {want[step:step + 4]}")
+        print(f"serve {label} rid={rid} ({kind}): {len(have)} tokens equal to the eager "
+              f"synchronous engine's", flush=True)
+    print(f"serve {label} eager synchronous reference took "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def phase_serve() -> dict:
@@ -1364,30 +1444,30 @@ def phase_serve() -> dict:
     del logits, k_all
     layout_gaps(params, cfg)
 
-    launches = {}
-    # Run 1: the per_layer layout, passed explicitly so that the env var
-    # cannot flip it. B1 and B2 must launch.
-    run = serve_run(params, cfg, "per_layer", decode_kernel="per_layer")
-    for name in ("paged_decode_attention", "flash_causal_prefill"):
-        if run["launches"][name] <= 0:
-            fail(f"serve per_layer: main path never launched {name}")
-        launches[name] = run["launches"][name]
-    base = run["greedy"]
-    profile(run["engine"], "decode step", lambda e: e._decode_chunk(),
-            e_steps=run["engine"].cfg.decode_chunk)
-    profile_prefill(params, cfg)
-
     def free(run):
-        # The pools go; the weights are shared by the next run.
+        # The pools and graphs go; the weights are shared by the next run.
         run.clear()
         gc.collect()
         torch.cuda.empty_cache()
 
+    launches = {}
+    # Run 1: the per_layer layout, passed explicitly so that the env var
+    # cannot flip it. B1 and B2 must launch.
+    extra = dict(decode_kernel="per_layer")
+    run = serve_run(params, cfg, "per_layer", **extra)
+    for name in ("paged_decode_attention", "flash_causal_prefill"):
+        if run["launches"][name] <= 0:
+            fail(f"serve per_layer: main path never launched {name}")
+        launches[name] = run["launches"][name]
+    check_streams_equal_eager(params, cfg, "per_layer", run, **extra)
+    base = {i: run["streams"][rid] for i, rid in run["rid_of"].items()}
+    profile_program(run["engine"], "decode step", "decode chunk")
+    profile_prefill(params, cfg)
     free(run)
     # Run 2: prompt-lookup speculation in every decode call. B3 launches,
     # B1 does not.
-    run = serve_run(params, cfg, "speculate", decode_kernel="per_layer",
-                    speculate=4, spec_adaptive=False)
+    extra = dict(decode_kernel="per_layer", speculate=4, spec_adaptive=False)
+    run = serve_run(params, cfg, "speculate", **extra)
     if run["launches"]["paged_verify_attention"] <= 0:
         fail("serve speculate: main path never launched paged_verify_attention")
     if run["launches"]["paged_decode_attention"] != 0:
@@ -1396,20 +1476,21 @@ def phase_serve() -> dict:
     stats = run["engine"].spec_stats
     print(f"serve speculate spec_stats {json.dumps(stats)} acceptance "
           f"{stats['accepted'] / max(1, stats['proposed']):.4f}", flush=True)
-    report_agreement("speculate", base, run["greedy"])
-    proposals = torch.zeros((run["engine"].cfg.num_slots, 4), dtype=torch.int64, device="cuda")
-    profile(run["engine"], "verify window", lambda e: e._spec_step(proposals), e_steps=1)
+    check_streams_equal_eager(params, cfg, "speculate", run, **extra)
+    report_agreement("speculate", base, run)
+    profile_program(run["engine"], "verify window", "verify window")
     free(run)
     # Run 3: the fused layout. B4 launches, B1 does not.
-    run = serve_run(params, cfg, "fused", decode_kernel="fused")
+    extra = dict(decode_kernel="fused")
+    run = serve_run(params, cfg, "fused", **extra)
     if run["launches"]["paged_decode_attention_fused"] <= 0:
         fail("serve fused: main path never launched paged_decode_attention_fused")
     if run["launches"]["paged_decode_attention"] != 0:
         fail("serve fused: paged_decode_attention launched in a fused run")
     launches["paged_decode_attention_fused"] = run["launches"]["paged_decode_attention_fused"]
-    report_agreement("fused", base, run["greedy"])
-    profile(run["engine"], "fused decode step", lambda e: e._decode_chunk(),
-            e_steps=run["engine"].cfg.decode_chunk)
+    check_streams_equal_eager(params, cfg, "fused", run, **extra)
+    report_agreement("fused", base, run)
+    profile_program(run["engine"], "fused decode step", "decode chunk")
     free(run)
     return launches
 
@@ -1463,25 +1544,30 @@ def layout_gaps(params, cfg) -> None:
               f"per_layer rows {[float(f'{g:.3e}') for g in gap.tolist()]}", flush=True)
 
 
-def report_agreement(label: str, base: dict, got: dict) -> None:
+def report_agreement(label: str, base: dict, run: dict) -> None:
     """How many leading greedy tokens equal the per_layer run's, per
-    request: a report, not a gate (the kernels sum in other orders and can
-    flip a near-tie)."""
+    request (the i-th request of each run): a report, not a gate (the
+    kernels sum in other orders and can flip a near-tie)."""
+    got = {i: run["streams"][rid] for i, rid in run["rid_of"].items()}
     for i in sorted(base):
+        if run["bodies"][i]["temperature"] != 0:
+            continue
         a, b = base[i], got.get(i, [])
         same = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
         print(f"serve {label} greedy request {i}: {same}/{len(a)} leading tokens "
               f"equal to the per_layer run's", flush=True)
 
 
-def profile(engine, unit: str, call, e_steps: int, calls: int = 2) -> tuple[list, int]:
+def profile(engine, unit: str, call, e_steps: int, calls: int = 2) -> dict:
     """torch.profiler over `calls` calls of `call(engine)` (two decode
     calls at the serving shapes: all num_slots rows; the requests have
     finished, so the rows write scratch page 0): device time per `unit`
     (a call covers e_steps of them) by kernel, and the device's idle share
     against the wall time of the same calls run without the profiler
-    (whose own host overhead would swamp it). Returns the device rows and
-    the number of units they cover."""
+    (whose own host overhead would swamp it). Returns the device rows, the
+    number of units they cover, and per unit: the unprofiled wall ms, the
+    profiler's device ms and the ms between CUDA events recorded around
+    the unprofiled calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -1490,28 +1576,70 @@ def profile(engine, unit: str, call, e_steps: int, calls: int = 2) -> tuple[list
             call(engine)
         torch.cuda.synchronize()
 
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     with torch.no_grad():
         run()  # warm-up
         t0 = time.perf_counter()
+        start.record()
         run()
+        end.record()
         wall_ms = (time.perf_counter() - t0) * 1e3
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run()
+    torch.cuda.synchronize()
     steps = calls * e_steps
     rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    if not rows:
-        fail("torch.profiler recorded no device kernels")
     dev_total_us = sum(getattr(e, "self_device_time_total", 0) for e in rows)
     tag = unit.replace(" ", "_")
-    print(f"profile {tag}: {steps} x {unit}, unprofiled wall {wall_ms / steps:.3f} "
-          f"ms/{tag}, device {dev_total_us / 1e3 / steps:.3f} ms/{tag}, idle share "
-          f"{max(0.0, 1 - dev_total_us / 1e3 / wall_ms):.3f}", flush=True)
+    out = {"rows": rows, "steps": steps, "wall_ms": wall_ms / steps,
+           "device_ms": dev_total_us / 1e3 / steps,
+           "event_ms": start.elapsed_time(end) / steps}
+    print(f"profile {tag}: {steps} x {unit}, unprofiled wall {out['wall_ms']:.3f} "
+          f"ms/{tag}, device {out['device_ms']:.3f} ms/{tag}, idle share "
+          f"{max(0.0, 1 - out['device_ms'] / out['wall_ms']):.3f}; CUDA events "
+          f"{out['event_ms']:.3f} ms/{tag}", flush=True)
     rows.sort(key=lambda e: getattr(e, "self_device_time_total", 0), reverse=True)
     for e in rows[:12]:
         t = getattr(e, "self_device_time_total", 0)
         print(f"profile {tag} kernel {t / 1e3 / steps:.4f} ms/{tag} "
               f"count/{tag} {e.count / steps:.1f} {e.key[:90]}", flush=True)
-    return rows, steps
+    return out
+
+
+def profile_program(engine, unit: str, program: str, calls: int = 2) -> None:
+    """One device program of `engine` ("decode chunk" or "verify window")
+    replayed from its CUDA graph `calls` times back to back, each dispatch
+    read back before the next as a synchronous step does, and the same
+    calls run eagerly (the program's function, through the same buffers),
+    in one call: wall time, device time and idle share per `unit`, side by
+    side, and the graph pool's memory. Where torch.profiler does not see
+    the kernels inside a replay, the device time is the CUDA-event span."""
+    prog = _programs(engine)[program]
+    e_steps = engine._chunk_out.shape[0] if program == "decode chunk" else 1
+
+    def replay(_):
+        prog.read(prog.dispatch())
+
+    def eager(_):
+        prog.fn()
+
+    graph = profile(engine, f"{unit} graph", replay, e_steps, calls)
+    eager_run = profile(engine, f"{unit} eager", eager, e_steps, calls)
+    if eager_run["device_ms"] <= 0:
+        fail(f"profile {unit}: torch.profiler recorded no device kernels")
+    device, source = graph["device_ms"], "torch.profiler"
+    if device < 0.5 * eager_run["device_ms"]:
+        device = graph["event_ms"]
+        source = ("CUDA events (torch.profiler attributed "
+                  f"{graph['device_ms']:.3f} ms to the replay)")
+    tag = unit.replace(" ", "_")
+    print(f"profile {tag} graph vs eager: wall {graph['wall_ms']:.3f} vs "
+          f"{eager_run['wall_ms']:.3f} ms/{tag}; device {device:.3f} [{source}] vs "
+          f"{eager_run['device_ms']:.3f} ms/{tag}; idle share "
+          f"{max(0.0, 1 - device / graph['wall_ms']):.3f} vs "
+          f"{max(0.0, 1 - eager_run['device_ms'] / eager_run['wall_ms']):.3f}; graph pool "
+          f"{prog.pool_bytes / 2**20:.2f} MiB", flush=True)
 
 
 def profile_prefill(params, cfg) -> None:
@@ -1528,9 +1656,10 @@ def profile_prefill(params, cfg) -> None:
     for S in (512, 1024):
         toks = torch.randint(0, cfg.vocab_size, (1, S), generator=gen, device="cuda")
         lengths = torch.tensor([S], device="cuda")
-        rows, steps = profile(None, f"prefill S={S}",
-                              lambda _: llama.prefill(params, cfg, toks, lengths),
-                              e_steps=1, calls=1)
+        prof = profile(None, f"prefill S={S}",
+                       lambda _: llama.prefill(params, cfg, toks, lengths),
+                       e_steps=1, calls=1)
+        rows, steps = prof["rows"], prof["steps"]
         total = sum(getattr(e, "self_device_time_total", 0) for e in rows)
         b2 = [e for e in rows if "flash_prefill_kernel" in e.key]
         if not b2:

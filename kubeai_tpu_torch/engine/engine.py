@@ -1,4 +1,4 @@
-"""Continuous-batching inference engine core: paged KV cache, synchronous
+"""Continuous-batching inference engine core: paged KV cache, overlapped
 stepping. Counterpart of kubeai_tpu/engine/engine.py.
 
   add_request() ──► pending queue (RequestScheduler)
@@ -12,10 +12,20 @@ stepping. Counterpart of kubeai_tpu/engine/engine.py.
                 (prompt-lookup proposals, the longest accepted prefix)
 
 Device state (page pools, block tables, per-slot decode state) lives in
-torch tensors on the engine's device and is updated in place; the JAX
-version threads it through jitted functions. `_prefill_admit` and
-`_decode_chunk` are plain torch callables; the decode chunk is a Python
-loop of `decode_chunk` steps.
+torch tensors on the engine's device at fixed addresses and is updated
+in place; the JAX version threads it through jitted functions. The
+decode chunk and the verify window are device programs (engine/graphs.py):
+on the card each is a CUDA graph captured once at construction and
+replayed per call, the counterpart of the JAX engine's jitted
+`lax.scan` and verify call; on the CPU they run eagerly through the same
+buffers. Prefill admission (`_prefill_admit`) runs eagerly.
+
+With step_overlap on (the default, as in the JAX engine at pp = 1),
+step() dispatches decode chunk N+1 before it reaps chunk N, so the host's
+readback, stop checks and admission bookkeeping run under the device's
+next chunk. Barriers reap the in-flight chunk first wherever overlap
+could change tokens: admission, the sequence cap, cancel and drain;
+speculation windows never overlap.
 
 Two JAX behaviours are reproduced by hand:
   - jit scatters drop out-of-range writes: admission padding rows carry
@@ -23,10 +33,11 @@ Two JAX behaviours are reproduced by hand:
   - jnp gathers clamp out-of-range indices: positions past a slot's
     block table map to scratch page 0 (ops.paged_attention).
 
-Ported: paged mode, synchronous stepping, preemption by recompute, the
-SLO scheduler, both decode layouts, and speculative decoding by prompt
-lookup (adaptive or always on). Settings of the JAX engine that are not
-ported raise NotImplementedError naming their ROADMAP item.
+Ported: paged mode, synchronous and overlapped stepping, preemption by
+recompute, the SLO scheduler, both decode layouts, and speculative
+decoding by prompt lookup (adaptive or always on). Settings of the JAX
+engine that are not ported raise NotImplementedError naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -41,12 +52,14 @@ import numpy as np
 import torch
 
 from kubeai_tpu_torch.device import resolve_device
+from kubeai_tpu_torch.engine.graphs import DeviceProgram, HostStaging
 from kubeai_tpu_torch.engine.paged_cache import (
     OutOfPages,
     PageAllocator,
     PagedKVCache,
 )
 from kubeai_tpu_torch.engine.sampling import SamplingParams, sample
+from kubeai_tpu_torch.fleet.profiler import StepProfiler
 from kubeai_tpu_torch.models.registry import ModelFamily, get_model_family
 from kubeai_tpu_torch.ops.paged_attention import (
     batched_scatter_sequence,
@@ -105,7 +118,10 @@ class EngineConfig:
     # $KUBEAI_TPU_DECODE_KERNEL env var, default "per_layer".
     decode_kernel: str = ""
     max_adapters: int = 0  # LoRA: ROADMAP A11
-    step_overlap: str = "auto"  # "auto" resolves to off; "on": ROADMAP A7
+    # Overlapped stepping: "auto" | "on" | "off" (or a bool). The port has
+    # no pipeline parallelism, so "auto" resolves to on, as in the JAX
+    # engine at pp = 1.
+    step_overlap: str = "auto"
 
     def buckets(self) -> tuple[int, ...]:
         if self.prefill_buckets:
@@ -165,7 +181,8 @@ class EngineDraining(RuntimeError):
     """Raised by add_request once drain has begun."""
 
 
-def _resolve_overlap(cfg: EngineConfig) -> None:
+def _resolve_overlap(cfg: EngineConfig) -> bool:
+    """Whether step() overlaps: "auto" and "on" do, "off" does not."""
     overlap = cfg.step_overlap
     if isinstance(overlap, bool):
         overlap = "on" if overlap else "off"
@@ -175,11 +192,7 @@ def _resolve_overlap(cfg: EngineConfig) -> None:
             f"unknown step_overlap {cfg.step_overlap!r} "
             "(expected 'auto' | 'on' | 'off')"
         )
-    if overlap == "on":
-        raise NotImplementedError(
-            "overlapped stepping is not ported yet (ROADMAP A7); use "
-            "step_overlap='auto' or 'off' (both run synchronously)"
-        )
+    return overlap != "off"
 
 
 def _refuse_unported(cfg: EngineConfig, mesh, draft, decode_kernel: str) -> None:
@@ -190,7 +203,6 @@ def _refuse_unported(cfg: EngineConfig, mesh, draft, decode_kernel: str) -> None
         )
     if cfg.cache_mode != "paged":
         raise ValueError(f"unknown cache_mode {cfg.cache_mode!r}")
-    _resolve_overlap(cfg)
     if cfg.prefill_chunk > 0 or cfg.prefix_cache:
         raise NotImplementedError(
             "chunked prefill and the prefix cache are not ported yet "
@@ -237,8 +249,22 @@ def _to_device(tree, device: torch.device):
     return tree.to(device)
 
 
+class _Dispatch(NamedTuple):
+    """A dispatched decode call, reaped by _process_chunk."""
+
+    program: DeviceProgram
+    ring: int  # the program's ring slot holding this call's outputs
+    riders: list  # (slot, request) pairs active at dispatch
+    chunk_len: int  # model steps the call advances (0: a verify window)
+    dispatched_at: float  # time.monotonic()
+
+
 class Engine:
     """Single-model continuous-batching engine on one device."""
+
+    # Capture the device programs as CUDA graphs on a CUDA device. Only a
+    # measurement that compares graphs with eager calls turns it off.
+    _capture_graphs = True
 
     def __init__(
         self,
@@ -258,6 +284,8 @@ class Engine:
         self.device = resolve_device(device)
         self.decode_kernel = resolve_decode_kernel(cfg.decode_kernel)
         _refuse_unported(cfg, mesh, draft, self.decode_kernel)
+        # Resolved: the step loop overlaps unless step_overlap says no.
+        self._overlap = _resolve_overlap(cfg)
         self.family = (
             get_model_family(family) if isinstance(family, str) else family
         )
@@ -286,6 +314,17 @@ class Engine:
         # Speculation acceptance over live slots (windows = verify steps x
         # live slots).
         self.spec_stats = {"windows": 0, "proposed": 0, "accepted": 0}
+        # Snapshot of the most recent step() for per-step gauges.
+        self.last_step_stats: dict[str, float] = {}
+        # Per-phase step profiler: step() fills _phase_scratch with phase
+        # durations and closes each step into the profiler's ring.
+        self.profiler = StepProfiler()
+        self._phase_scratch: dict[str, float] | None = None
+        # The dispatched-but-unreaped decode chunk (overlapped stepping).
+        self._inflight: _Dispatch | None = None
+        # Events reaped outside step() (the cancel and drain barriers):
+        # delivered first by the next step().
+        self._pending_events: list[StepEvent] = []
         # Resolved speculation window: cfg.speculate where the family has
         # a verify forward, else 0 (vanilla decode, with a warning).
         self._spec = 0
@@ -325,10 +364,11 @@ class Engine:
             n_pages, cfg.page_size, max_pages_per_slot=max_pages
         )
         # Host mirror of the block tables: page growth/release edits this;
-        # one [slots, MP] copy refreshes the device table before the next
-        # decode (_bt_dirty).
+        # one [slots, MP] copy refreshes the device table in place before
+        # the next decode (_bt_dirty).
         self._bt_host = np.full((cfg.num_slots, max_pages), -1, np.int32)
         self._bt_dirty = False
+        self._bt_staging = HostStaging(self.cache.block_tables)
 
         # Per-slot decode state on the device: steady-state decode needs
         # no host-to-device copy per chunk.
@@ -341,6 +381,42 @@ class Engine:
             "topk": torch.zeros(B, dtype=torch.int64, device=dev),
             "topp": torch.ones(B, dtype=torch.float32, device=dev),
         }
+        self._build_programs()
+
+    def _build_programs(self) -> None:
+        """The decode-chunk program and, when the engine speculates, the
+        verify-window program, with their fixed inputs and outputs. On a
+        CUDA device each is captured as a CUDA graph (the two share one
+        memory pool: their replays run in order on one stream). Capture
+        happens here, while no slot is live: every block-table row is -1,
+        so the warm-up calls write K/V only to scratch page 0; they do
+        advance the slot state, which is reset after."""
+        B, dev = self.cfg.num_slots, self.device
+        capture = dev.type == "cuda" and self._capture_graphs
+        pool = torch.cuda.graph_pool_handle() if capture else None
+        self._chunk_out = torch.zeros(
+            max(1, self.cfg.decode_chunk), B, dtype=torch.int64, device=dev
+        )
+        with torch.no_grad():
+            self._decode_program = DeviceProgram(
+                self._decode_chunk, (self._chunk_out,), dev,
+                capture=capture, pool=pool,
+            )
+            self._spec_program = None
+            if self._spec:
+                gamma = self._spec
+                self._proposals = torch.zeros(B, gamma, dtype=torch.int64, device=dev)
+                self._proposal_staging = HostStaging(self._proposals)
+                self._spec_choices = torch.zeros(
+                    B, gamma + 1, dtype=torch.int64, device=dev
+                )
+                self._spec_n_emit = torch.zeros(B, dtype=torch.int64, device=dev)
+                self._spec_program = DeviceProgram(
+                    self._spec_step, (self._spec_choices, self._spec_n_emit),
+                    dev, capture=capture, pool=pool,
+                )
+        self._state["tokens"].zero_()
+        self._state["positions"].zero_()
 
     # ---- device functions -------------------------------------------------
 
@@ -388,16 +464,16 @@ class Engine:
         st["topp"][s] = topp[live]
         return toks
 
-    def _decode_chunk(self) -> torch.Tensor:
-        """`decode_chunk` paged decode steps over every slot, each followed
-        by sample. The block tables are read-only here: the host grows
-        pages to cover position + chunk before calling. Returns
-        [chunk, num_slots] tokens."""
+    def _decode_chunk(self) -> None:
+        """The decode-chunk program: `decode_chunk` paged decode steps over
+        every slot, each followed by sample. Writes the [chunk, num_slots]
+        tokens into _chunk_out and the advanced tokens and positions into
+        the slot state, in place. The block tables are read-only here:
+        the host grows pages to cover position + chunk before dispatch."""
         st = self._state
         max_len = self.cfg.max_seq_len
         tokens, positions = st["tokens"], st["positions"]
-        out = []
-        for _ in range(max(1, self.cfg.decode_chunk)):
+        for k in range(self._chunk_out.shape[0]):
             logits, _, _ = self.family.decode_step_paged(
                 self.params, self.model_cfg, tokens, positions,
                 self.cache.k_pages, self.cache.v_pages,
@@ -408,21 +484,24 @@ class Engine:
                 st["topk"], st["topp"],
             )
             positions = torch.clamp(positions + 1, max=max_len - 1)
-            out.append(tokens)
-        st["tokens"], st["positions"] = tokens, positions
-        return torch.stack(out)
+            self._chunk_out[k].copy_(tokens)
+        st["tokens"].copy_(tokens)
+        st["positions"].copy_(positions)
 
-    def _spec_step(self, proposals: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """One speculative step: verify [last_token, gamma proposals] in a
-        single forward; accept the longest prefix where the seeded
-        sampler's choice equals the proposal; emit accepted + 1 tokens.
-        The stream equals vanilla decoding: choice k is sampled from the
-        same logits with the same position it would see one step at a
-        time, and a mismatch ends the window before any diverging context
-        is used. Returns (choices [B, gamma + 1], n_emit [B])."""
+    def _spec_step(self) -> None:
+        """The verify-window program: verify [last_token, gamma proposals]
+        (the proposals from _proposals) in a single forward; accept the
+        longest prefix where the seeded sampler's choice equals the
+        proposal; emit accepted + 1 tokens. The stream equals vanilla
+        decoding: choice k is sampled from the same logits with the same
+        position it would see one step at a time, and a mismatch ends the
+        window before any diverging context is used. Writes choices
+        [B, gamma + 1] and n_emit [B] into their fixed outputs and the
+        advanced slot state in place."""
         st = self._state
         gamma = self._spec
         positions = st["positions"]
+        proposals = self._proposals
         tokens_in = torch.cat([st["tokens"][:, None], proposals], dim=1)
         logits, _, _ = self.family.decode_verify_paged(
             self.params, self.model_cfg, tokens_in, positions,
@@ -436,9 +515,12 @@ class Engine:
         match = (choices[:, :gamma] == proposals).long()
         accepted = torch.cumprod(match, dim=1).sum(dim=1)
         n_emit = accepted + 1  # [B] in 1..gamma+1
-        st["positions"] = torch.clamp(positions + n_emit, max=self.cfg.max_seq_len - 1)
-        st["tokens"] = torch.gather(choices, 1, accepted[:, None])[:, 0]
-        return choices, n_emit
+        self._spec_choices.copy_(choices)
+        self._spec_n_emit.copy_(n_emit)
+        st["positions"].copy_(
+            torch.clamp(positions + n_emit, max=self.cfg.max_seq_len - 1)
+        )
+        st["tokens"].copy_(torch.gather(choices, 1, accepted[:, None])[:, 0])
 
     # ---- requests ------------------------------------------------------------
 
@@ -505,10 +587,17 @@ class Engine:
     def begin_drain(self) -> None:
         """Stop admitting new requests; queued and active work continues."""
         with self._lock:
+            # Overlap barrier: drain decisions must see fully-reaped state.
+            self._barrier_locked()
             self._draining = True
 
     def has_work(self) -> bool:
-        return bool(len(self._sched) or self._active)
+        # Events a barrier reaped (cancel, drain) still wait for the next
+        # step() to deliver them, even when nothing else is left to run.
+        return bool(
+            len(self._sched) or self._active or self._inflight
+            or self._pending_events
+        )
 
     @property
     def num_active(self) -> int:
@@ -668,12 +757,17 @@ class Engine:
             return chunk
         return max(1, self.cfg.decode_chunk)
 
-    def _ensure_decode_pages(self) -> None:
+    def _ensure_decode_pages(self, inflight_lag: int = 0) -> None:
         """Grow every active slot's pages to cover the next decode call.
         Pool exhaustion preempts the lowest-class, youngest other request
         (recompute on re-admission). The pool holds one full sequence, so
-        the oldest request is always served."""
-        chunk = self._decode_lookahead()
+        the oldest request is always served.
+
+        `inflight_lag`: model steps of a dispatched-but-unreaped chunk.
+        Host positions lag the device by that many tokens while a chunk
+        is in flight, so coverage extends past the lag, or the overlapped
+        dispatch would decode into unallocated rows of the block table."""
+        chunk = self._decode_lookahead() + max(0, int(inflight_lag))
         for slot, req in sorted(
             self._active.items(), key=lambda kv: kv[1].rid
         ):
@@ -748,6 +842,14 @@ class Engine:
             req = self._requests.get(rid)
             if req is None:
                 return False
+            # Overlap barrier: freeing the slot and pages under an unreaped
+            # chunk would let admission reuse them before the reap.
+            self._barrier_locked()
+            # The reaped tokens of the request being cancelled have no
+            # reader; the other requests' events wait for the next step().
+            self._pending_events = [
+                ev for ev in self._pending_events if ev.rid != rid
+            ]
             self._sched.remove(req)
             req.done = True
             req.finish_reason = "cancelled"
@@ -790,45 +892,158 @@ class Engine:
         self._mode_tps[mode] = tps if prev is None else 0.7 * prev + 0.3 * tps
 
     def step(self) -> list[StepEvent]:
-        """Admit pending prefills, then run one decode call: a decode chunk
-        (cfg.decode_chunk model steps) or, with speculation, one verify
-        window. Returns StepEvents in emission order."""
+        """Admit pending prefills, then dispatch one decode call: a decode
+        chunk (cfg.decode_chunk model steps) or, with speculation, one
+        verify window. Returns StepEvents in emission order.
+
+        With overlap on, the chunk dispatched by this call is reaped by the
+        next one: the device computes chunk N+1 while the host reads back
+        and processes chunk N's tokens. Barriers reap first wherever
+        overlap could change tokens (see _reap_inflight_locked)."""
         with self._lock:
+            # Per-phase timeline for this step (fleet/profiler.py).
+            phases: dict[str, float] = {}
+            self._phase_scratch = phases
             emitted: list[StepEvent] = []
-            t0 = time.perf_counter()
+            if self._pending_events:
+                # Tokens reaped by an out-of-step barrier (cancel, drain):
+                # delivered before this step's.
+                emitted.extend(self._pending_events)
+                self._pending_events.clear()
+            # ADMISSION BARRIER: a pending prompt's slot and page grant must
+            # observe the in-flight chunk's slot frees (and a preempted
+            # request's re-prefill its full out_tokens), so reap before
+            # admitting; and before any speculation window, whose
+            # proposals read out_tokens.
+            if self._inflight is not None and (len(self._sched) or self._spec):
+                emitted.extend(self._reap_inflight_locked())
+            t_admit = time.perf_counter()
             emitted.extend(self._admit_pending_paged())
+            phases["prefill"] = time.perf_counter() - t_admit
+            prev, self._inflight = self._inflight, None
+            current = None
+            mode = None
+            t0 = time.perf_counter()
+            if self._active and prev is not None:
+                # SEQUENCE-CAP BARRIER: dispatching chunk N+1 before reaping
+                # N advances device positions by up to len(N) + chunk. If a
+                # slot could cross max_seq_len in that window, reap first:
+                # the dispatch then overshoots by at most one chunk, the
+                # envelope the synchronous loop already tolerates.
+                horizon = prev.chunk_len + self._decode_lookahead() + 1
+                if any(
+                    req.position + horizon >= self.cfg.max_seq_len
+                    for req in self._active.values()
+                ):
+                    emitted.extend(self._process_chunk(prev))
+                    prev = None
             if self._active:
-                t_dec = time.perf_counter()
-                self._ensure_decode_pages()
+                self._ensure_decode_pages(
+                    inflight_lag=prev.chunk_len if prev is not None else 0
+                )
                 if self._bt_dirty:
-                    self.cache.block_tables.copy_(
-                        torch.from_numpy(self._bt_host)
-                    )
+                    t_up = time.perf_counter()
+                    self._bt_staging.upload(self._bt_host)
                     self._bt_dirty = False
+                    self._note_phase("dispatch", time.perf_counter() - t_up)
                 riders = list(self._active.items())
-                mode = None
                 with torch.no_grad():
                     if self._spec and self._spec_pick():
                         mode = "spec"
-                        proposals = torch.from_numpy(self._build_proposals())
-                        choices, n_emit = self._spec_step(
-                            proposals.to(self.device, torch.int64)
-                        )
-                        evs = self._process_spec(choices, n_emit, riders)
+                        self._proposal_staging.upload(self._build_proposals())
+                        program, chunk_len = self._spec_program, 0
                     else:
                         if self._spec:
                             mode = "chunk"
-                        evs = self._process_chunk(self._decode_chunk(), riders)
+                        program = self._decode_program
+                        chunk_len = self._chunk_out.shape[0]
+                    t_dec = time.perf_counter()
+                    phases["schedule"] = (
+                        t_dec - t0 - phases.get("dispatch", 0.0)
+                    )
+                    current = _Dispatch(
+                        program, program.dispatch(), riders, chunk_len,
+                        time.monotonic(),
+                    )
+                phases["decode"] = time.perf_counter() - t_dec
+                if self._overlap and not self._spec:
+                    # Reap current next call. Speculation never overlaps:
+                    # proposals read out_tokens, and the adaptive arm needs
+                    # the measured wall time of every decode call.
+                    self._inflight = current
+                    current = None
+            if prev is not None:
+                emitted.extend(self._process_chunk(prev))
+            if current is not None:
+                evs = self._process_chunk(current)
                 emitted.extend(evs)
                 if mode is not None:
-                    # Wall time covers the device work and the readback:
-                    # the cost the mode choice trades off.
-                    self._spec_observe(mode, len(evs), time.perf_counter() - t_dec)
+                    # Wall time covers the dispatch, the device work and the
+                    # readback: the cost the mode choice trades off.
+                    self._spec_observe(mode, len(evs), time.perf_counter() - t0)
+            step_s = time.perf_counter() - t0
             # The scheduler's drain-rate estimate (deadline feasibility,
             # Retry-After): completed requests per second of step time.
             finished = sum(1 for ev in emitted if ev.finished)
-            self._sched.observe_service(finished, time.perf_counter() - t0)
+            self._sched.observe_service(finished, step_s)
+            # The overlap tail (reaping a chunk whose rows all finished,
+            # emitting nothing, with no work left) keeps the last real
+            # step's numbers.
+            if (
+                emitted or self._active or len(self._sched)
+                or current is not None or self._inflight is not None
+            ):
+                self.last_step_stats = {
+                    "batch_size": len(self._active),
+                    "waiting": len(self._sched),
+                    "tokens": len(emitted),
+                    "duration_s": step_s,
+                }
+            self._phase_scratch = None
+            # Record only steps that did something; a dispatch-only step
+            # (overlap holding its first chunk) counts.
+            if (
+                emitted or current is not None or prev is not None
+                or self._inflight is not None
+            ):
+                self.profiler.observe_step(
+                    phases, tokens=len(emitted), batch=len(self._active),
+                    duration_s=step_s,
+                )
             return emitted
+
+    def _reap_inflight_locked(self) -> list[StepEvent]:
+        """Reap the dispatched-but-unreaped chunk now (the caller holds the
+        engine lock): the barrier behind every mutation that must observe
+        the chunk's tokens or slot frees (admission, cancel, drain,
+        speculation windows). Returns the chunk's events."""
+        inflight = self._inflight
+        if inflight is None:
+            return []
+        self._inflight = None
+        return self._process_chunk(inflight)
+
+    def _barrier_locked(self) -> None:
+        """The barrier for callers outside step() (cancel, drain; under the
+        engine lock): reap the in-flight chunk and queue its events for
+        the next step(), so no token is lost."""
+        self._pending_events.extend(self._reap_inflight_locked())
+
+    def inflight_info(self) -> dict | None:
+        """{"dispatched_at": monotonic seconds} of the dispatched-but-
+        unreaped chunk, or None: for a server watchdog. A lock-free read
+        of an attribute that step() swaps whole."""
+        inflight = self._inflight
+        if inflight is None:
+            return None
+        return {"dispatched_at": inflight.dispatched_at}
+
+    def _note_phase(self, phase: str, seconds: float) -> None:
+        """Add a phase duration to the current step's timeline (no-op
+        outside step(); always under the engine lock)."""
+        ph = self._phase_scratch
+        if ph is not None:
+            ph[phase] = ph.get(phase, 0.0) + seconds
 
     def _emit(self, req: _Request, tok: int) -> StepEvent:
         """Append one decoded token to a live request, releasing it when
@@ -841,22 +1056,35 @@ class Engine:
             self._release(req)
         return StepEvent(req.rid, tok, finished, req.finish_reason)
 
-    def _process_chunk(self, toks_seq: torch.Tensor, chunk_slots) -> list[StepEvent]:
-        toks = toks_seq.cpu().numpy()  # [chunk, num_slots]
-        emitted: list[StepEvent] = []
-        for k in range(toks.shape[0]):
-            for slot, req in chunk_slots:
-                if req.done:
-                    continue  # surplus chunk tokens discarded
-                emitted.append(self._emit(req, int(toks[k, slot])))
+    def _process_chunk(self, call: _Dispatch) -> list[StepEvent]:
+        """Reap a dispatched call: wait for its outputs to reach the host
+        (overlap_idle), read them (readback) and emit its riders' tokens
+        (sample). The whole [chunk, num_slots] buffer comes back: at the
+        serving shapes it is 512 bytes."""
+        t_wait = time.perf_counter()
+        call.program.wait(call.ring)
+        self._note_phase("overlap_idle", time.perf_counter() - t_wait)
+        t_read = time.perf_counter()
+        outputs = call.program.read(call.ring)
+        self._note_phase("readback", time.perf_counter() - t_read)
+        t_sample = time.perf_counter()
+        if call.program is self._spec_program:
+            emitted = self._process_spec(*outputs, call.riders)
+        else:
+            toks = outputs[0]  # [chunk, num_slots]
+            emitted = []
+            for k in range(toks.shape[0]):
+                for slot, req in call.riders:
+                    if req.done:
+                        continue  # surplus chunk tokens discarded
+                    emitted.append(self._emit(req, int(toks[k, slot])))
+        self._note_phase("sample", time.perf_counter() - t_sample)
         return emitted
 
-    def _process_spec(self, choices: torch.Tensor, n_emit: torch.Tensor,
+    def _process_spec(self, choices: np.ndarray, n_emit: np.ndarray,
                       riders) -> list[StepEvent]:
         """Emit each slot's accepted and corrected tokens (1..gamma+1 per
         step). A stop mid-window discards the rest, like chunk surplus."""
-        choices = choices.cpu().numpy()  # [B, gamma + 1]
-        n_emit = n_emit.cpu().numpy()  # [B]
         emitted: list[StepEvent] = []
         for slot, req in riders:
             if req.done:

@@ -111,7 +111,6 @@ def test_stop_token_and_length_finish(models):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(step_overlap="on"), "A7"),
     (dict(prefill_chunk=32), "A8"),
     (dict(prefix_cache=True), "A8"),
     (dict(kv_dtype="int8"), "A10"),
@@ -125,11 +124,14 @@ def test_unported_settings_raise(models, kw, item):
 
 
 def test_mesh_raises_and_auto_overlap_is_synchronous(models):
+    """A mesh raises; step_overlap "auto" resolves to overlapped stepping,
+    as in the JAX engine at pp = 1, and "off" to synchronous."""
     _, _, tcfg, tparams = models
     with pytest.raises(NotImplementedError, match="A14"):
         Engine("llama", tcfg, tparams, mesh=object(), device="cpu")
-    for overlap in ("auto", "off"):
+    for overlap, want in (("auto", True), ("on", True), ("off", False)):
         eng = _torch_engine(models, step_overlap=overlap)
+        assert eng._overlap is want
         assert eng.generate([[1, 2, 3]], SamplingParams(temperature=0.0, max_tokens=3))
 
 
