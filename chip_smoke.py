@@ -41,7 +41,16 @@ Phases, each fatal on failure:
                time by kernel; the graph pools' memory and the step
                profiler's phase totals are printed. After the per_layer run
                it times one prefill admission at B=1 for the 512 and 1024
-               buckets, with B2's device ms and launches.
+               buckets, with B2's device ms and launches. A fourth run
+               (`serve_prefix`) turns on chunked prefill (prefill_chunk=512)
+               and the prefix cache and sends two waves of chat requests
+               over one 1,024-token system prompt: B1 and B2 must launch,
+               the staged-chunk programs must dispatch only as graph
+               replays, the cache must hit the tokens its rule gives, and
+               the streams must equal an eager synchronous engine's; it
+               reports TTFT of hits and misses, agreement with whole-prompt
+               streams, and a miss and a hit admission from the graphs and
+               eagerly.
 
 The last lines are the kernel JSON line, the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -1228,19 +1237,49 @@ SERVE_CONFIG = dict(num_slots=8, max_seq_len=2048, page_size=64, decode_chunk=8)
 def _programs(engine) -> dict:
     """The engine's device programs, by name."""
     progs = {"decode chunk": engine._decode_program}
-    if engine._spec_program is not None:
-        progs["verify window"] = engine._spec_program
+    for name, prog in (("verify window", engine._spec_program),
+                       ("mid chunk", engine._stage_mid_program),
+                       ("final chunk", engine._stage_last_program),
+                       ("prefix gather", engine._stage_pages_program)):
+        if prog is not None:
+            progs[name] = prog
     return progs
 
 
-def serve_run(params, cfg, label: str, **extra) -> dict:
+# The engine's staged-chunk device functions: a serve run counts their
+# calls outside the programs (an eager launch of a captured program).
+STAGE_FUNCTIONS = ("_stage_mid", "_stage_last", "_stage_from_pages")
+
+
+def _default_bodies() -> list[list[dict]]:
+    """The first three serve runs' traffic: one wave of four chat
+    completions (prompts of 28, 117, 317 and 717 tokens; one seeded, one
+    streamed)."""
+    text = "The quick brown fox jumps over the lazy dog. "
+    max_tokens = 32
+    return [[
+        {"messages": [{"role": "user", "content": "Hello there"}],
+         "max_tokens": max_tokens, "temperature": 0},
+        {"messages": [{"role": "user", "content": (text * 7)[:300]}],
+         "max_tokens": max_tokens, "temperature": 0.8, "seed": 1},
+        {"messages": [{"role": "user", "content": (text * 16)[:700]}],
+         "max_tokens": max_tokens, "temperature": 0},
+        {"messages": [{"role": "user", "content": (text * 3)[:100]}],
+         "max_tokens": max_tokens, "temperature": 0, "stream": True},
+    ]]
+
+
+def serve_run(params, cfg, label: str, waves=None, **extra) -> dict:
     """One EngineServer run over `params` with the engine's defaults (graphs
-    and overlap): a warm-up request, then four concurrent chat completions
-    (one streamed), with every kernel's launch count and every device
-    program's replay count set to 0 just before them and read just after.
-    `extra` adds to the smoke EngineConfig. Returns the launches (eager
-    calls plus launches per replay x replays), each request's prompt,
-    sampling params and engine token stream, and the engine."""
+    and overlap): a warm-up request, then each wave of chat completions
+    (default: `_default_bodies`) sent concurrently, a wave only after the
+    one before it has finished, with every kernel's launch count and every
+    device program's replay count set to 0 just before the first wave and
+    read just after the last. `extra` adds to the smoke EngineConfig.
+    Returns the launches (eager calls plus launches per replay x
+    replays), each request's prompt, sampling params, engine token stream
+    and TTFT, the rids of each wave, the calls of the staged-chunk
+    functions made outside their programs, and the engine."""
     from kubeai_tpu_torch.engine import Engine, EngineConfig
     from kubeai_tpu_torch.engine.server import EngineServer
     from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
@@ -1279,6 +1318,12 @@ def serve_run(params, cfg, label: str, **extra) -> dict:
         return events
 
     engine.step = step_and_count
+    stage_calls: dict[str, int] = {}
+    for attr in STAGE_FUNCTIONS:
+        def counted(fn=getattr(engine, attr), attr=attr):
+            stage_calls[attr] = stage_calls.get(attr, 0) + 1
+            return fn()
+        setattr(engine, attr, counted)
     wrappers = _wrappers()
     server = EngineServer(engine, tok, "llama-3-8b-shape", port=0)
     server.start()
@@ -1291,18 +1336,10 @@ def serve_run(params, cfg, label: str, **extra) -> dict:
         engine.drain_timing()
         streams.clear()
         requests.clear()
-        text = "The quick brown fox jumps over the lazy dog. "
-        max_tokens = 32
-        bodies = [
-            {"messages": [{"role": "user", "content": "Hello there"}],
-             "max_tokens": max_tokens, "temperature": 0},
-            {"messages": [{"role": "user", "content": (text * 7)[:300]}],
-             "max_tokens": max_tokens, "temperature": 0.8, "seed": 1},
-            {"messages": [{"role": "user", "content": (text * 16)[:700]}],
-             "max_tokens": max_tokens, "temperature": 0},
-            {"messages": [{"role": "user", "content": (text * 3)[:100]}],
-             "max_tokens": max_tokens, "temperature": 0, "stream": True},
-        ]
+        stage_calls.clear()
+        waves = waves or _default_bodies()
+        bodies = [body for wave in waves for body in wave]
+        max_tokens = bodies[0]["max_tokens"]
         results: list = [None] * len(bodies)
 
         def run(i):
@@ -1313,12 +1350,19 @@ def serve_run(params, cfg, label: str, **extra) -> dict:
         for prog in _programs(engine).values():
             prog.dispatches = 0
         first_step = engine.profiler.steps_completed
-        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
+        wave_rids: list[list[int]] = []
         t_start = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
+        first = 0
+        for wave in waves:
+            before = set(requests)
+            threads = [threading.Thread(target=run, args=(i,))
+                       for i in range(first, first + len(wave))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            first += len(wave)
+            wave_rids.append(sorted(set(requests) - before))
         wall = time.perf_counter() - t_start
         eager = {name: fn.launches for name, fn in wrappers.items()}
         replayed = {name: 0 for name in wrappers}
@@ -1378,14 +1422,17 @@ def serve_run(params, cfg, label: str, **extra) -> dict:
     index_of = {len(tok.apply_chat_template(b["messages"])): i for i, b in enumerate(bodies)}
     rid_of = {index_of[len(prompt)]: rid for rid, (prompt, _) in requests.items()}
     return {"launches": launches, "requests": requests, "streams": streams,
-            "engine": engine, "bodies": bodies, "rid_of": rid_of}
+            "engine": engine, "bodies": bodies, "rid_of": rid_of, "ttft": ttft,
+            "waves": wave_rids, "stage_calls": dict(stage_calls),
+            "dispatches": dispatches}
 
 
-def check_streams_equal_eager(params, cfg, label: str, run: dict, **extra) -> None:
+def check_streams_equal_eager(params, cfg, label: str, run: dict, **extra):
     """The serve run's streams, greedy and seeded, against an eager
     synchronous engine (no graphs, step_overlap="off") on the same weights
-    fed the same prompts and sampling params. Any difference fails, with
-    the first differing step."""
+    fed the same prompts and sampling params, wave by wave as the run sent
+    them. Any difference fails, with the first differing step. Returns
+    the reference engine."""
     from kubeai_tpu_torch.engine import Engine, EngineConfig
 
     class EagerEngine(Engine):
@@ -1396,13 +1443,16 @@ def check_streams_equal_eager(params, cfg, label: str, run: dict, **extra) -> No
         eos_token_ids=run["engine"].eos_token_ids)
     if ref._overlap or ref._decode_program.graph is not None:
         fail(f"serve {label}: the reference engine is not eager and synchronous")
-    rids = {ref.add_request(prompt, sp): rid
-            for rid, (prompt, sp) in sorted(run["requests"].items())}
-    got: dict[int, list[int]] = {rid: [] for rid in rids.values()}
+    rids: dict[int, int] = {}
+    got: dict[int, list[int]] = {rid: [] for rid in run["requests"]}
     t0 = time.perf_counter()
-    while ref.has_work():
-        for ev in ref.step():
-            got[rids[ev.rid]].append(ev.token)
+    for wave in run["waves"]:
+        for rid in wave:
+            prompt, sp = run["requests"][rid]
+            rids[ref.add_request(prompt, sp)] = rid
+        while ref.has_work():
+            for ev in ref.step():
+                got[rids[ev.rid]].append(ev.token)
     for rid, want in sorted(got.items()):
         have = run["streams"][rid]
         sp = run["requests"][rid][1]
@@ -1417,11 +1467,12 @@ def check_streams_equal_eager(params, cfg, label: str, run: dict, **extra) -> No
               f"synchronous engine's", flush=True)
     print(f"serve {label} eager synchronous reference took "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return ref
 
 
-def phase_serve() -> dict:
-    import gc
-
+def serve_weights():
+    """(random Llama-3-8B-shape weights on cuda, all 32 layers; the
+    config), after one prefill's shapes and finite logits are checked."""
     import torch
 
     from kubeai_tpu_torch.models import llama
@@ -1442,14 +1493,24 @@ def phase_serve() -> dict:
     if not torch.isfinite(logits).all():
         fail("8B prefill logits are not finite")
     del logits, k_all
+    return params, cfg
+
+
+def free(run: dict) -> None:
+    """Clear a serve run's dict: its engine's pools and graphs go once
+    nothing else holds the engine; the weights stay for the next run."""
+    import gc
+
+    import torch
+
+    run.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve() -> dict:
+    params, cfg = serve_weights()
     layout_gaps(params, cfg)
-
-    def free(run):
-        # The pools and graphs go; the weights are shared by the next run.
-        run.clear()
-        gc.collect()
-        torch.cuda.empty_cache()
-
     launches = {}
     # Run 1: the per_layer layout, passed explicitly so that the env var
     # cannot flip it. B1 and B2 must launch.
@@ -1492,7 +1553,177 @@ def phase_serve() -> dict:
     report_agreement("fused", base, run)
     profile_program(run["engine"], "fused decode step", "decode chunk")
     free(run)
+    # Run 4: chunked prefill and the prefix cache. B1 and B2 launch.
+    serve_prefix(params, cfg)
     return launches
+
+
+# The JAX server's prefill_chunk at max_seq_len 2048:
+# max(32, min(512, max_seq_len // 4)).
+PREFIX_CHUNK = 512
+
+
+def _prefix_waves() -> list[list[dict]]:
+    """The prefix run's traffic: two waves of four chat completions over
+    one system prompt that fills the first 1,024 tokens (16 pages), each
+    with its own user turn of 28-317 characters (one token each) that
+    starts with its own number, one seeded a wave; and in wave 1 a
+    117-token prompt of its own, which the batched path admits (B2).
+    Every prompt length differs: it names the request."""
+    system = ("You are a careful assistant for a support desk. Answer in plain "
+              "words and keep every step short. " * 12)[:1016]  # + "system: "
+    filler = "Please explain how the kernels are scheduled across the card. " * 6
+    waves = []
+    for w, lengths in enumerate(((28, 95, 203, 317), (41, 150, 260, 301))):
+        wave = []
+        for j, n in enumerate(lengths):
+            body = {"messages": [{"role": "system", "content": system},
+                                 {"role": "user", "content": (f"Question {w}{j}: " + filler)[:n]}],
+                    "max_tokens": 32, "temperature": 0}
+            if j == 1:
+                body.update(temperature=0.8, seed=w + 1)
+            wave.append(body)
+        waves.append(wave)
+    waves[0].append({"messages": [{"role": "user", "content": filler[:100]}],
+                     "max_tokens": 32, "temperature": 0})
+    return waves
+
+
+def expected_hits(prompts: list[list[int]], page: int, chunk: int, max_len: int) -> list[int]:
+    """Cached tokens each prompt's admission must find, in admission
+    order, by the engine's rule: the longest run of full pages it shares
+    from the start with a prompt admitted before it (every admission
+    registers its full pages), capped at (length - 1) // page pages and at
+    (max_len - chunk) // page."""
+    out = []
+    for i, p in enumerate(prompts):
+        cap = min((len(p) - 1) // page, max(0, (max_len - chunk) // page))
+        best = 0
+        for q in prompts[:i]:
+            n = 0
+            while n < cap and q[: (n + 1) * page] == p[: (n + 1) * page] and (n + 1) * page <= len(q):
+                n += 1
+            best = max(best, n)
+        out.append(best * page)
+    return out
+
+
+def serve_prefix(params=None, cfg=None) -> dict:
+    """Run 4: `prefill_chunk=512, prefix_cache=True` over two waves of
+    traffic that share a 1,024-token system prompt (`_prefix_waves`), in
+    the per_layer layout. Gates: B1 and B2 launch; the staged-chunk programs
+    (mid chunk, final chunk, prefix gather) dispatch, only as CUDA-graph
+    replays; prefix_stats["hit_tokens"] reaches the count of the cache
+    rule (`expected_hits`, with wave 2 at least 4 x 1,024); the streams
+    and hit tokens equal an eager synchronous engine's with the same
+    settings. Reports: TTFT of hits and misses, greedy agreement with a
+    whole-prompt engine's streams on the same prompts, and
+    `profile_admissions`. Builds the weights when not given. Returns the
+    run's launches."""
+    from kubeai_tpu_torch.engine import Engine, EngineConfig
+
+    if params is None:
+        params, cfg = serve_weights()
+    label = "prefix"
+    extra = dict(decode_kernel="per_layer", prefill_chunk=PREFIX_CHUNK, prefix_cache=True)
+    run = serve_run(params, cfg, label, waves=_prefix_waves(), **extra)
+    engine = run["engine"]
+    for name in ("paged_decode_attention", "flash_causal_prefill"):
+        if run["launches"][name] <= 0:
+            fail(f"serve {label}: main path never launched {name}")
+    if run["stage_calls"]:
+        fail(f"serve {label}: staged-chunk functions ran outside their graphs: "
+             f"{run['stage_calls']}")
+    for name in ("mid chunk", "final chunk", "prefix gather"):
+        if run["dispatches"].get(name, 0) <= 0:
+            fail(f"serve {label}: the {name} program was never dispatched")
+    order = sorted(run["requests"])
+    per = expected_hits([run["requests"][rid][0] for rid in order],
+                        SERVE_CONFIG["page_size"], PREFIX_CHUNK, SERVE_CONFIG["max_seq_len"])
+    hit_of = dict(zip(order, per))
+    wave2 = sum(hit_of[rid] for rid in run["waves"][1])
+    if wave2 < 4 * 1024:
+        fail(f"serve {label}: the traffic gives wave 2 only {wave2} cacheable tokens")
+    stats = dict(engine.prefix_stats)
+    print(f"serve {label} prefix_stats {json.dumps(stats)}; the cache rule gives "
+          f"{sum(per)} hit tokens ({wave2} in wave 2)", flush=True)
+    if stats["hit_tokens"] < sum(per):
+        fail(f"serve {label}: {stats['hit_tokens']} hit tokens, the rule gives {sum(per)}")
+    for kind, rids in (("hit", [r for r in order if hit_of[r]]),
+                       ("miss", [r for r in order if not hit_of[r]])):
+        ttfts = [run["ttft"][r] for r in rids]
+        print(f"serve {label} TTFT {kind}: {len(rids)} requests, prompt tokens "
+              f"{[len(run['requests'][r][0]) for r in rids]}, cached "
+              f"{[hit_of[r] for r in rids]}, ttft_s {[round(t, 4) for t in ttfts]}, "
+              f"mean {sum(ttfts) / max(1, len(ttfts)):.4f} s", flush=True)
+    ref = check_streams_equal_eager(params, cfg, label, run, **extra)
+    if ref.prefix_stats["hit_tokens"] != stats["hit_tokens"]:
+        fail(f"serve {label}: eager engine hit {ref.prefix_stats['hit_tokens']} tokens, "
+             f"the served engine {stats['hit_tokens']}")
+    # Whole-prompt admission (no chunks, no cache) on the same prompts.
+    whole = Engine("llama", cfg, params, cfg=EngineConfig(
+        **SERVE_CONFIG, decode_kernel="per_layer"), eos_token_ids=engine.eos_token_ids)
+    rids = {whole.add_request(*run["requests"][rid]): rid for rid in order}
+    got: dict[int, list[int]] = {rid: [] for rid in order}
+    while whole.has_work():
+        for ev in whole.step():
+            got[rids[ev.rid]].append(ev.token)
+    report_agreement(label, {i: got[rid] for i, rid in run["rid_of"].items()}, run,
+                     "a whole-prompt engine's (per_layer, no chunks, no cache)")
+    del whole
+    profile_admissions(engine, ref, cfg)
+    launches = run["launches"]
+    del engine, ref
+    free(run)
+    return launches
+
+
+def profile_admissions(engine, ref, cfg) -> None:
+    """One prefill admission through the staged-chunk path, on the served
+    engine (CUDA graphs) and on its eager reference, through `profile`:
+    a 1,300-token miss (chunks at 0, 512 and 788) and a hit over a
+    registered 1,024-token prefix with a 276-token suffix (the gather,
+    then one padded chunk). Each call admits a fresh prompt that finishes
+    on its first token. Wall and device time and the idle share per
+    admission, side by side."""
+    import numpy as np
+
+    from kubeai_tpu_torch.engine import SamplingParams
+
+    rng = np.random.default_rng(17)
+    prefix = rng.integers(0, cfg.vocab_size, 1024).tolist()
+    sp = SamplingParams(temperature=0.0, max_tokens=1)
+
+    def fresh(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    cases = {
+        "miss": lambda eng: eng.generate([fresh(1300)], sp),
+        "hit": lambda eng: eng.generate([prefix + fresh(276)], sp),
+    }
+    out = {}
+    for kind, eng in (("graph", engine), ("eager", ref)):
+        eng.generate([prefix + fresh(276)], sp)  # registers the prefix
+        for case, call in cases.items():
+            before = eng.prefix_stats["hit_tokens"]
+            out[case, kind] = profile(eng, f"{case} admission {kind}", call, e_steps=1)
+            hits = eng.prefix_stats["hit_tokens"] - before
+            # profile() runs its calls three times (warm-up, timed, profiled).
+            if hits != (3 * 2 * 1024 if case == "hit" else 0):
+                fail(f"profile {case} admission {kind}: {hits} hit tokens")
+    for case in cases:
+        graph, eager = out[case, "graph"], out[case, "eager"]
+        device, source = graph["device_ms"], "torch.profiler"
+        if device < 0.5 * eager["device_ms"]:
+            device = graph["event_ms"]
+            source = ("CUDA events (torch.profiler attributed "
+                      f"{graph['device_ms']:.3f} ms to the replays)")
+        tag = f"{case}_admission"
+        print(f"profile {tag} graph vs eager: wall {graph['wall_ms']:.3f} vs "
+              f"{eager['wall_ms']:.3f} ms/{tag}; device {device:.3f} [{source}] vs "
+              f"{eager['device_ms']:.3f} ms/{tag}; idle share "
+              f"{max(0.0, 1 - device / graph['wall_ms']):.3f} vs "
+              f"{max(0.0, 1 - eager['device_ms'] / eager['wall_ms']):.3f}", flush=True)
 
 
 def layout_gaps(params, cfg) -> None:
@@ -1544,10 +1775,12 @@ def layout_gaps(params, cfg) -> None:
               f"per_layer rows {[float(f'{g:.3e}') for g in gap.tolist()]}", flush=True)
 
 
-def report_agreement(label: str, base: dict, run: dict) -> None:
-    """How many leading greedy tokens equal the per_layer run's, per
-    request (the i-th request of each run): a report, not a gate (the
-    kernels sum in other orders and can flip a near-tie)."""
+def report_agreement(label: str, base: dict, run: dict,
+                     against: str = "the per_layer run's") -> None:
+    """How many leading greedy tokens equal `base`'s (by default the
+    per_layer run's), per request (the i-th request of each run): a
+    report, not a gate (the kernels sum in other orders and can flip a
+    near-tie)."""
     got = {i: run["streams"][rid] for i, rid in run["rid_of"].items()}
     for i in sorted(base):
         if run["bodies"][i]["temperature"] != 0:
@@ -1555,7 +1788,7 @@ def report_agreement(label: str, base: dict, run: dict) -> None:
         a, b = base[i], got.get(i, [])
         same = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
         print(f"serve {label} greedy request {i}: {same}/{len(a)} leading tokens "
-              f"equal to the per_layer run's", flush=True)
+              f"equal to {against}", flush=True)
 
 
 def profile(engine, unit: str, call, e_steps: int, calls: int = 2) -> dict:

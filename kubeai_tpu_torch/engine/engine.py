@@ -5,6 +5,9 @@ stepping. Counterpart of kubeai_tpu/engine/engine.py.
                          │ (free slot + pages?)
            batched prefill admission (same-bucket prompts, rows padded to
            a power of two) ─► page scatter ─► first-token sample
+           or, one at a time, staged-chunk admission: a prompt longer
+           than prefill_chunk, or one whose page-aligned prefix the
+           prefix cache holds (adopted pages gathered, suffix prefilled)
                          │
         step(): one decode chunk over ALL slots (decode_chunk model steps,
                 each followed by sample) ─► host-side stop checks
@@ -18,7 +21,9 @@ decode chunk and the verify window are device programs (engine/graphs.py):
 on the card each is a CUDA graph captured once at construction and
 replayed per call, the counterpart of the JAX engine's jitted
 `lax.scan` and verify call; on the CPU they run eagerly through the same
-buffers. Prefill admission (`_prefill_admit`) runs eagerly.
+buffers. So are the three staged-chunk calls of chunked and prefix-hit
+admission (`_stage_mid`, `_stage_last`, `_stage_from_pages`); batched
+prefill admission (`_prefill_admit`) runs eagerly.
 
 With step_overlap on (the default, as in the JAX engine at pp = 1),
 step() dispatches decode chunk N+1 before it reaps chunk N, so the host's
@@ -34,10 +39,10 @@ Two JAX behaviours are reproduced by hand:
     block table map to scratch page 0 (ops.paged_attention).
 
 Ported: paged mode, synchronous and overlapped stepping, preemption by
-recompute, the SLO scheduler, both decode layouts, and speculative
-decoding by prompt lookup (adaptive or always on). Settings of the JAX
-engine that are not ported raise NotImplementedError naming their
-ROADMAP item.
+recompute, the SLO scheduler, both decode layouts, speculative decoding
+by prompt lookup (adaptive or always on), chunked prefill and the
+automatic prefix cache. Settings of the JAX engine that are not ported
+raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ from kubeai_tpu_torch.ops.paged_attention import (
     batched_sequence_page_coords,
     resolve_decode_kernel,
 )
+from kubeai_tpu_torch.routing.prefixchain import page_hash_chain
 from kubeai_tpu_torch.scheduling.scheduler import (
     CLASS_RANK,
     CLASS_STANDARD,
@@ -106,8 +112,18 @@ class EngineConfig:
     spec_adaptive: bool = True
     spec_probe_every: int = 32
     prefill_buckets: tuple[int, ...] = ()  # default: powers of 2 up to max
-    prefill_chunk: int = 0  # ROADMAP A8
-    prefix_cache: bool = False  # ROADMAP A8
+    # Chunked prefill: prompts longer than this are prefilled in fixed
+    # [1, prefill_chunk] steps staged in a one-slot buffer, one device
+    # program for every prompt length; the final chunk scatters the
+    # staged sequence into the slot's pages. 0 = whole-prompt bucketed
+    # prefill only.
+    prefill_chunk: int = 0
+    # Automatic prefix caching (needs prefill_chunk > 0): full prompt
+    # pages register under a content-hash chain (routing/prefixchain.py);
+    # a later prompt with the same page-aligned prefix adopts those pages
+    # read-only and prefills only its suffix. Pages nobody references
+    # park in an LRU idle pool, evicted only when the free list is empty.
+    prefix_cache: bool = False
     cache_dtype: Any = torch.bfloat16
     kv_dtype: str = ""  # "int8": ROADMAP A10
     # Decode steps run per step() call; tokens past a request's stop point
@@ -175,6 +191,10 @@ class _Request:
     # Enqueue time (_now() clock) for the ttft and e2e records; zeroed
     # once e2e is recorded.
     t_enqueue: float = 0.0
+    # The prompt's page-hash chain, computed once: a head-of-line
+    # admission deferred by OutOfPages would otherwise re-hash it every
+    # step.
+    apc_hashes: list | None = None
 
 
 class EngineDraining(RuntimeError):
@@ -203,11 +223,6 @@ def _refuse_unported(cfg: EngineConfig, mesh, draft, decode_kernel: str) -> None
         )
     if cfg.cache_mode != "paged":
         raise ValueError(f"unknown cache_mode {cfg.cache_mode!r}")
-    if cfg.prefill_chunk > 0 or cfg.prefix_cache:
-        raise NotImplementedError(
-            "chunked prefill and the prefix cache are not ported yet "
-            "(ROADMAP A8)"
-        )
     kv = (cfg.kv_dtype or "").strip().lower()
     if kv == "int8":
         # The JAX engine's own refusals come first.
@@ -314,6 +329,9 @@ class Engine:
         # Speculation acceptance over live slots (windows = verify steps x
         # live slots).
         self.spec_stats = {"windows": 0, "proposed": 0, "accepted": 0}
+        # Prefix cache: fresh admissions looked up, prompt tokens served
+        # from adopted pages, prompt tokens admitted.
+        self.prefix_stats = {"lookups": 0, "hit_tokens": 0, "prompt_tokens": 0}
         # Snapshot of the most recent step() for per-step gauges.
         self.last_step_stats: dict[str, float] = {}
         # Per-phase step profiler: step() fills _phase_scratch with phase
@@ -363,6 +381,37 @@ class Engine:
         self._alloc = PageAllocator(
             n_pages, cfg.page_size, max_pages_per_slot=max_pages
         )
+        self._prefix_cache = bool(cfg.prefix_cache)
+        if self._prefix_cache:
+            if cfg.prefill_chunk <= 0:
+                raise ValueError(
+                    "prefix_cache needs prefill_chunk > 0 (cache hits "
+                    "prefill only the uncached suffix, which runs "
+                    "through the staged-chunk path)"
+                )
+            if (cfg.max_seq_len - cfg.prefill_chunk) // cfg.page_size < 1:
+                # The adoptable prefix is capped at max_seq_len -
+                # prefill_chunk (the padded suffix chunk must fit the
+                # staging buffer): past the cap the cache never hits.
+                logging.getLogger(__name__).warning(
+                    "prefix_cache is inert: prefill_chunk=%d leaves "
+                    "no adoptable pages under max_seq_len=%d "
+                    "(page_size=%d) — shrink prefill_chunk",
+                    cfg.prefill_chunk, cfg.max_seq_len, cfg.page_size,
+                )
+        self._chunk_fn = None
+        if cfg.prefill_chunk > 0:
+            self._chunk_fn = self.family.prefill_chunk
+            if self._chunk_fn is None:
+                raise ValueError(
+                    f"family {self.family.name} does not support chunked prefill"
+                )
+            if cfg.prefill_chunk > cfg.max_seq_len:
+                raise ValueError(
+                    f"prefill_chunk={cfg.prefill_chunk} exceeds "
+                    f"max_seq_len={cfg.max_seq_len}: a chunk must fit the "
+                    "staging buffer"
+                )
         # Host mirror of the block tables: page growth/release edits this;
         # one [slots, MP] copy refreshes the device table in place before
         # the next decode (_bt_dirty).
@@ -384,13 +433,15 @@ class Engine:
         self._build_programs()
 
     def _build_programs(self) -> None:
-        """The decode-chunk program and, when the engine speculates, the
-        verify-window program, with their fixed inputs and outputs. On a
-        CUDA device each is captured as a CUDA graph (the two share one
-        memory pool: their replays run in order on one stream). Capture
-        happens here, while no slot is live: every block-table row is -1,
-        so the warm-up calls write K/V only to scratch page 0; they do
-        advance the slot state, which is reset after."""
+        """The decode-chunk program, the verify-window program when the
+        engine speculates, and the staged-chunk programs when it chunks,
+        with their fixed inputs and outputs. On a CUDA device each is
+        captured as a CUDA graph (all share one memory pool: their
+        replays run in order on one stream). Capture happens here, while
+        no slot is live: every block-table row is -1, so the warm-up calls
+        write K/V only to scratch page 0; the decode warm-ups advance the
+        slot state, which is reset after, and the staged-chunk warm-ups
+        carry a masked slot index, so they write no slot state."""
         B, dev = self.cfg.num_slots, self.device
         capture = dev.type == "cuda" and self._capture_graphs
         pool = torch.cuda.graph_pool_handle() if capture else None
@@ -415,8 +466,59 @@ class Engine:
                     self._spec_step, (self._spec_choices, self._spec_n_emit),
                     dev, capture=capture, pool=pool,
                 )
+            self._stage_mid_program = self._stage_last_program = None
+            self._stage_pages_program = None
+            if self._chunk_fn is not None:
+                self._build_stage_programs(capture, pool)
         self._state["tokens"].zero_()
         self._state["positions"].zero_()
+
+    def _build_stage_programs(self, capture: bool, pool) -> None:
+        """The one-slot staging buffers [NL, max_seq_len, KVH, D] that
+        chunks accumulate in, the staged-chunk programs' fixed inputs
+        (one [1, C] chunk, `_chunk_ints` = [start, length, slot, adapter,
+        seed, top_k, forced], `_chunk_floats` = [temperature, top_p], the
+        slot's block-table row) with a pinned staging pair each, and the
+        programs: a mid chunk, the final chunk, and (with the prefix
+        cache) the gather of a block-table row into the staging
+        buffers."""
+        mcfg, cfg, dev = self.model_cfg, self.cfg, self.device
+        shape = (mcfg.num_layers, cfg.max_seq_len, mcfg.num_kv_heads,
+                 mcfg.head_size)
+        self._stage_k = torch.zeros(shape, dtype=cfg.cache_dtype, device=dev)
+        self._stage_v = torch.zeros(shape, dtype=cfg.cache_dtype, device=dev)
+        self._chunk_tokens = torch.zeros(
+            1, cfg.prefill_chunk, dtype=torch.int64, device=dev
+        )
+        self._chunk_ints = torch.zeros(7, dtype=torch.int64, device=dev)
+        self._chunk_floats = torch.zeros(2, dtype=torch.float32, device=dev)
+        self._chunk_bt_row = torch.full(
+            (self._bt_host.shape[1],), -1, dtype=torch.int32, device=dev
+        )
+        self._chunk_tok = torch.zeros(1, dtype=torch.int64, device=dev)
+        # Warm-up inputs: length 1, the masked slot num_slots, no forced
+        # token, greedy.
+        self._chunk_ints.copy_(torch.tensor(
+            [0, 1, cfg.num_slots, 0, 0, 0, -1], dtype=torch.int64
+        ))
+        self._chunk_floats.copy_(torch.tensor([0.0, 1.0]))
+        self._chunk_staging = {
+            name: HostStaging(t) for name, t in (
+                ("tokens", self._chunk_tokens), ("ints", self._chunk_ints),
+                ("floats", self._chunk_floats), ("bt_row", self._chunk_bt_row),
+            )
+        }
+        self._stage_mid_program = DeviceProgram(
+            self._stage_mid, (), dev, capture=capture, pool=pool
+        )
+        self._stage_last_program = DeviceProgram(
+            self._stage_last, (self._chunk_tok,), dev,
+            capture=capture, pool=pool,
+        )
+        if self._prefix_cache:
+            self._stage_pages_program = DeviceProgram(
+                self._stage_from_pages, (), dev, capture=capture, pool=pool
+            )
 
     # ---- device functions -------------------------------------------------
 
@@ -463,6 +565,65 @@ class Engine:
         st["topk"][s] = topk[live]
         st["topp"][s] = topp[live]
         return toks
+
+    def _stage_mid(self) -> None:
+        """The mid-chunk program: one non-final chunk (`_chunk_tokens` at
+        `_chunk_ints[0]`) into the staging buffers, in place."""
+        ints = self._chunk_ints
+        self._chunk_fn(
+            self.params, self.model_cfg, self._chunk_tokens, ints[0], ints[1],
+            self._stage_k, self._stage_v, want_logits=False,
+        )
+
+    def _stage_last(self) -> None:
+        """The final-chunk program: the chunk's logits, the scatter of the
+        whole staged sequence through the slot's block-table row
+        (positions >= length go to scratch page 0), the row's write into
+        the block tables, the first-token sample (forced >= 0 overrides
+        it: preemption resume) and the slot-state update, in one call.
+        Writes the token into `_chunk_tok`. A slot index >= num_slots
+        (the capture's warm-up) writes no table row and no slot state."""
+        cfg, st = self.cfg, self._state
+        ints, floats, bt_row = self._chunk_ints, self._chunk_floats, self._chunk_bt_row
+        start, length, slot = ints[0], ints[1], ints[2]
+        seed, topk, forced = ints[4:5], ints[5:6], ints[6]
+        temp, topp = floats[0:1], floats[1:2]
+        logits, _, _ = self._chunk_fn(
+            self.params, self.model_cfg, self._chunk_tokens, start, length,
+            self._stage_k, self._stage_v, want_logits=True,
+        )
+        page_ids, offsets = batched_sequence_page_coords(
+            bt_row[None], length[None], cfg.max_seq_len, cfg.page_size
+        )
+        batched_scatter_sequence(
+            self.cache.k_pages, self.cache.v_pages, self._stage_k[:, None],
+            self._stage_v[:, None], page_ids, offsets,
+        )
+        tok = sample(logits, seed, length[None], temp, topk, topp)
+        tok = torch.where(forced >= 0, forced, tok)  # [1]
+        live = slot < cfg.num_slots
+        row = slot.clamp(max=cfg.num_slots - 1).reshape(1)
+        for dst, value in (
+            (self.cache.block_tables, bt_row[None]), (st["tokens"], tok),
+            (st["positions"], length[None]), (st["seeds"], seed),
+            (st["temp"], temp), (st["topk"], topk), (st["topp"], topp),
+        ):
+            dst.index_copy_(0, row, torch.where(live, value, dst.index_select(0, row)))
+        self._chunk_tok.copy_(tok)
+
+    def _stage_from_pages(self) -> None:
+        """The prefix-hit program: gather the pages of the block-table row
+        `_chunk_bt_row` into the staging buffers, so the adopted prefix
+        becomes the context the suffix chunks attend over. The whole row
+        gathers every call (-1 entries read scratch page 0): entries past
+        the cached length are masked by the chunks' causal frontier and
+        overwritten by the suffix."""
+        row = self._chunk_bt_row.long().clamp(min=0)
+        for dst, pool in ((self._stage_k, self.cache.k_pages),
+                          (self._stage_v, self.cache.v_pages)):
+            pages = pool[:, row]  # [NL, MP, page, KVH, D]
+            nl, mp, pg, kvh, d = pages.shape
+            dst.copy_(pages.reshape(nl, mp * pg, kvh, d)[:, : dst.shape[1]])
 
     def _decode_chunk(self) -> None:
         """The decode-chunk program: `decode_chunk` paged decode steps over
@@ -617,6 +778,15 @@ class Engine:
             out, self._timing = self._timing, []
         return out
 
+    def prefix_holdings(self) -> list[str]:
+        """Every chain hash (hex) the prefix cache holds now: what a replica
+        advertises for prefix-aware routing. Advisory: admission checks
+        again through lookup()."""
+        if not self._prefix_cache:
+            return []
+        with self._lock:
+            return [h.hex() for h in self._alloc.holdings()]
+
     def _bucket(self, n: int) -> int:
         for b in self.cfg.buckets():
             if n <= b:
@@ -627,14 +797,22 @@ class Engine:
 
     def _admit_pending_paged(self) -> list[StepEvent]:
         """Paged admission, batched: same-bucket pending prompts prefill in
-        one call (up to cfg.max_admit_batch). A preempted request resumes
-        by recompute: prompt + emitted tokens (minus the last, whose K/V
-        the next decode step writes), with its first token forced to the
-        one already emitted."""
+        one call (up to cfg.max_admit_batch). A prompt longer than
+        prefill_chunk, or one whose prefix the prefix cache holds, is
+        admitted alone through the staged-chunk path (the staging buffer
+        holds one sequence), after any batch gathered before it. A
+        preempted request resumes by recompute: prompt + emitted tokens
+        (minus the last, whose K/V the next decode step writes), with its
+        first token forced to the one already emitted, and is never
+        hashed."""
         emitted: list[StepEvent] = []
+        C = self.cfg.prefill_chunk
+        page = self.cfg.page_size
         while len(self._sched) and self._free_slots:
-            batch: list[tuple[_Request, int, list[int], int, bool]] = []
+            batch: list[tuple[_Request, int, list[int], int, bool, list | None]] = []
             bucket = None
+            chunked = None  # a long prompt, for the staged-chunk path
+            prefix_hit = None  # a cached prefix, for the suffix path
             while (
                 len(self._sched)
                 and self._free_slots
@@ -644,6 +822,29 @@ class Engine:
                 resumed = bool(req.out_tokens)
                 seq = req.prompt + req.out_tokens[:-1] if resumed else req.prompt
                 plen = len(seq)
+                hashes = None
+                if self._prefix_cache and not resumed:
+                    if req.apc_hashes is None:
+                        req.apc_hashes = self._prefix_hashes(seq)
+                    hashes = req.apc_hashes
+                    # Cap the hit twice over: the final token must compute
+                    # (its logits give the first token), and cached_len + C
+                    # must fit the staging buffer, or the padded suffix
+                    # chunk's write would be clamped to a wrong offset and
+                    # scattered into shared pages.
+                    cap = min(
+                        (plen - 1) // page,
+                        max(0, (self.cfg.max_seq_len - C) // page),
+                    )
+                    hit = self._alloc.lookup(hashes[:cap])
+                    if hit:
+                        if not batch:
+                            prefix_hit = (req, seq, plen, hashes, hit)
+                        break
+                if C > 0 and plen > C:
+                    if not batch:
+                        chunked = (req, seq, plen, resumed, hashes)
+                    break
                 b = self._bucket(plen)
                 if bucket is None:
                     bucket = b
@@ -658,15 +859,164 @@ class Engine:
                 self._free_slots.pop()
                 req.slot = slot
                 self._set_bt_row(slot, pages)
-                batch.append((req, slot, seq, plen, resumed))
+                batch.append((req, slot, seq, plen, resumed, hashes))
+            if prefix_hit is not None:
+                req, seq, plen, hashes, hit = prefix_hit
+                slot = self._free_slots[-1]
+                self._alloc.adopt(slot, hit)
+                try:
+                    pages = self._alloc.ensure(slot, plen)
+                except OutOfPages:
+                    self._alloc.unadopt(slot)
+                    break  # defer; nothing held
+                self._sched.pop()
+                self._free_slots.pop()
+                req.slot = slot
+                self._set_bt_row(slot, pages)
+                cached_len = len(hit) * page
+                tok = self._admit_prefix_hit(req, slot, seq, plen, cached_len)
+                self._note_prefix_admission(slot, plen, cached_len, hashes)
+                ev = self._finish_admission(req, slot, plen, tok)
+                if ev is not None:
+                    emitted.append(ev)
+                continue
+            if chunked is not None:
+                req, seq, plen, resumed, hashes = chunked
+                slot = self._free_slots[-1]
+                try:
+                    pages = self._alloc.ensure(slot, plen)
+                except OutOfPages:
+                    break  # defer; ensure() rolled back
+                self._sched.pop()
+                self._free_slots.pop()
+                req.slot = slot
+                self._set_bt_row(slot, pages)
+                mids, last = self._chunk_plan(seq, plen, C)
+                tok = self._run_staged_chunks(req, slot, plen, mids, last)
+                if not resumed:
+                    self._note_prefix_admission(slot, plen, 0, hashes)
+                ev = self._finish_admission(req, slot, plen, tok, resumed)
+                if ev is not None:
+                    emitted.append(ev)
+                continue
             if not batch:
                 break
             toks = self._admit_paged_batch(batch, bucket)
-            for (req, slot, _seq, plen, resumed), tok in zip(batch, toks):
+            for (req, slot, _seq, plen, resumed, hashes), tok in zip(batch, toks):
+                if not resumed:
+                    self._note_prefix_admission(slot, plen, 0, hashes)
                 ev = self._finish_admission(req, slot, plen, int(tok), resumed)
                 if ev is not None:
                     emitted.append(ev)
         return emitted
+
+    def _prefix_hashes(self, tokens: list[int], adapter_idx: int = 0) -> list[bytes]:
+        """The prompt's page-aligned hash chain (routing/prefixchain.py),
+        as digests. LoRA is not ported, so every adapter generation is
+        0."""
+        return [
+            bytes.fromhex(h)
+            for h in page_hash_chain(tokens, self.cfg.page_size, adapter_idx, 0)
+        ]
+
+    def _note_prefix_admission(
+        self, slot: int, plen: int, cached_len: int, hashes: list | None,
+    ) -> None:
+        """Account a fresh admission and register its full prompt pages
+        (pages decode never writes: the first decode token lands at
+        position plen). `hashes` is None when the prefix cache is off.
+        Runs before _finish_admission, which releases the slot of a
+        request that finishes on its first token: registration is what
+        lets its pages park in the cache."""
+        if not self._prefix_cache or hashes is None:
+            return
+        self.prefix_stats["lookups"] += 1
+        self.prefix_stats["hit_tokens"] += cached_len
+        self.prefix_stats["prompt_tokens"] += plen
+        n_reg = plen // self.cfg.page_size
+        if n_reg:
+            self._alloc.register(hashes[:n_reg], self._alloc.pages_for(slot)[:n_reg])
+
+    def _admit_prefix_hit(
+        self, req: _Request, slot: int, seq: list[int], plen: int,
+        cached_len: int,
+    ) -> int:
+        """Admission over an adopted cached prefix: gather the prefix pages
+        into the staging buffers, then prefill only the suffix through
+        the staged chunks.
+
+        No chunk starts before cached_len. The adopted pages are shared
+        and read by other slots; recomputing their positions through the
+        chunk program (another program than the one that wrote them)
+        would scatter values that are not bit-identical into them. So a
+        suffix shorter than C pads forward from cached_len instead of
+        aligning backward into the cached region. (The final scatter
+        still rewrites the prefix pages, with the values gathered from
+        them: the same bits.)"""
+        C = self.cfg.prefill_chunk
+        arr = np.asarray(seq, np.int32)
+        mids = []
+        s = cached_len
+        while plen - s > C:
+            mids.append((s, arr[None, s : s + C]))
+            s += C
+        if plen - cached_len >= C:
+            last = (plen - C, arr[None, plen - C : plen])
+        else:
+            # The admission loop's cap keeps this chunk inside the
+            # staging buffer.
+            assert cached_len + C <= self.cfg.max_seq_len, (
+                cached_len, C, self.cfg.max_seq_len,
+            )
+            padded = np.zeros((1, C), np.int32)
+            padded[0, : plen - cached_len] = arr[cached_len:plen]
+            last = (cached_len, padded)
+        return self._run_staged_chunks(req, slot, plen, mids, last, from_pages=True)
+
+    def _run_staged_chunks(
+        self, req: _Request, slot: int, plen: int, mids, last,
+        from_pages: bool = False,
+    ) -> int:
+        """Run a staged-chunk schedule: with `from_pages` the gather of the
+        slot's block-table row first, then the mid chunks, then the final
+        chunk, each a device-program dispatch whose inputs arrive through
+        pinned staging. Only the final chunk's token comes back: one wait
+        on the device per admission. Shared by chunked and prefix-hit
+        admission, so the two cannot drift."""
+        staging = self._chunk_staging
+        ints = np.array([
+            0, plen, slot, 0, req.seed, req.params.top_k,
+            req.out_tokens[-1] if req.out_tokens else -1,
+        ], np.int64)
+        with torch.no_grad():
+            staging["bt_row"].upload(self._bt_host[slot])
+            if from_pages:
+                self._stage_pages_program.dispatch()
+            for start, tokens in mids:
+                ints[0] = start
+                staging["tokens"].upload(tokens)
+                staging["ints"].upload(ints)
+                self._stage_mid_program.dispatch()
+            ints[0], tokens = last
+            staging["tokens"].upload(tokens)
+            staging["ints"].upload(ints)
+            staging["floats"].upload(np.array(
+                [req.params.temperature, req.params.top_p], np.float32
+            ))
+            program = self._stage_last_program
+            return int(program.read(program.dispatch())[0][0])
+
+    @staticmethod
+    def _chunk_plan(seq: list[int], plen: int, C: int):
+        """Chunk schedule: full mid chunks at 0, C, ...; the final chunk is
+        aligned backward to end exactly at plen (start plen - C), so its
+        writes never reach past plen. Overlapping positions recompute the
+        same K/V. Returns ([(start, tokens [1, C]), ...], (last_start,
+        last_tokens))."""
+        arr = np.asarray(seq, np.int32)
+        n_chunks = -(-plen // C)
+        mids = [(i * C, arr[None, i * C : (i + 1) * C]) for i in range(n_chunks - 1)]
+        return mids, (plen - C, arr[None, plen - C : plen])
 
     def _admit_paged_batch(self, batch, bucket: int) -> np.ndarray:
         A = len(batch)
@@ -684,7 +1034,7 @@ class Engine:
         ints[:, 1] = self.cfg.num_slots
         ints[:, 4] = -1
         floats[:, 1] = 1.0
-        for i, (req, slot, seq, plen, _resumed) in enumerate(batch):
+        for i, (req, slot, seq, plen, _resumed, _hashes) in enumerate(batch):
             tokens[i, :plen] = seq
             ints[i] = [
                 plen,

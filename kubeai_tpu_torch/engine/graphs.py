@@ -1,7 +1,9 @@
-"""The engine's device programs: the decode chunk and the speculative
-verify window, each dispatched as one call. Counterpart of the JAX
-engine's `_decode_jit` (a jitted `lax.scan` over the chunk) and
-`_spec_jit` (kubeai_tpu/engine/engine.py).
+"""The engine's device programs: the decode chunk, the speculative
+verify window and the three staged-chunk admission calls, each
+dispatched as one call. Counterpart of the JAX engine's `_decode_jit` (a
+jitted `lax.scan` over the chunk), `_spec_jit`, `_stage_chunk_mid_jit`,
+`_stage_chunk_last_jit` and `_stage_from_pages_jit`
+(kubeai_tpu/engine/engine.py).
 
 A `DeviceProgram` wraps a function that reads the engine's device state
 and writes its results into fixed output tensors, in place, touching
@@ -120,7 +122,7 @@ class DeviceProgram:
         event = self._events[slot]
         if event is not None:
             event.record()
-        self._unread[slot] = True
+        self._unread[slot] = bool(self.outputs)
         self._next = (slot + 1) % self.depth
         self.dispatches += 1
         return slot

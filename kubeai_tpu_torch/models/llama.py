@@ -1,5 +1,6 @@
 """Llama-family decoder (Llama 2/3/3.1, Mistral, Qwen2 with q/k/v biases).
 Counterpart of kubeai_tpu/models/llama.py: the whole-prompt `prefill`,
+`prefill_chunk` (one staged chunk of a long or prefix-cached prompt),
 `decode_step_paged` in both layouts ("per_layer" and "fused") and the
 speculative verify forward `decode_verify_paged`.
 
@@ -15,7 +16,9 @@ int8 weights, LoRA, ring-attention prefill and pipeline parallelism are
 not ported and raise.
 
 Prefill attention goes through ops.flash_attention.flash_causal_prefill
-for every bucket (the CUDA kernel on the card). Decode attention goes
+for every bucket (the CUDA kernel on the card); a staged chunk attends
+through the plain ops.attention.chunked_prefill_attention, as the JAX
+version's chunk does (plain jnp there, no Pallas kernel). Decode attention goes
 through ops.paged_attention, once per layer per step:
 paged_decode_attention ("per_layer"), paged_decode_attention_fused
 ("fused"), or paged_verify_attention for a speculative window.
@@ -30,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from kubeai_tpu_torch.device import resolve_device
+from kubeai_tpu_torch.ops.attention import chunked_prefill_attention
 from kubeai_tpu_torch.ops.flash_attention import flash_causal_prefill
 from kubeai_tpu_torch.ops.norms import rms_norm
 from kubeai_tpu_torch.ops.paged_attention import (
@@ -269,6 +273,66 @@ def prefill(
     idx = torch.clamp(lengths.to(dev).long() - 1, 0, S - 1)
     last = x[torch.arange(B, device=dev), idx]  # [B, E]
     return _logits(last, params["lm_head"]), torch.stack(ks), torch.stack(vs)
+
+
+def prefill_chunk(
+    params: dict,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [1, C] one chunk (right-padded on the last chunk)
+    start: torch.Tensor,  # scalar: absolute position of tokens[:, 0]
+    length: torch.Tensor,  # scalar: true total prompt length
+    k_slot: torch.Tensor,  # [NL, L, KVH, D] one slot's staging cache
+    v_slot: torch.Tensor,
+    want_logits: bool = False,
+    lora: dict | None = None,
+    lora_idx: torch.Tensor | None = None,
+) -> tuple[torch.Tensor | None, torch.Tensor, torch.Tensor]:
+    """One chunk of incremental prefill against one slot's cache. Every
+    chunk of every prompt length has the same shapes, so one CUDA graph
+    serves them all. Each layer writes the chunk's K/V at `start`, in
+    place (like the JAX version's dynamic_update_slice, the write start
+    is clamped so the chunk fits), then attends over the whole cache;
+    stale entries past the causal frontier are masked by position.
+    Returns (f32 [1, V] logits at position `length - 1` when want_logits,
+    else None; k_slot; v_slot)."""
+    _refuse_unported(lora, lora_idx)
+    _check_weights(params)
+    B, C = tokens.shape
+    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
+    dev = tokens.device
+    inv_freq, msc = _rope_tables(cfg, dev)
+    start = torch.as_tensor(start, device=dev).long().reshape(())
+    length = torch.as_tensor(length, device=dev).long().reshape(())
+    offs = torch.arange(C, device=dev)
+    positions = (start + offs)[None, :]  # [1, C]
+    rows = start.clamp(0, k_slot.shape[1] - C) + offs
+    x = params["embed"][tokens]  # [1, C, E]
+    for i in range(cfg.num_layers):
+        lp = _layer(params, i)
+
+        def proj(h, w, bias=None):
+            out = torch.matmul(h, w)
+            return out if bias is None else out + bias
+
+        h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
+        q = proj(h, lp["wq"], lp.get("bq")).reshape(B, C, H, D)
+        k = proj(h, lp["wk"], lp.get("bk")).reshape(B, C, KVH, D)
+        v = proj(h, lp["wv"], lp.get("bv")).reshape(B, C, KVH, D)
+        q = apply_rope(q, positions, inv_freq, msc)
+        k = apply_rope(k, positions, inv_freq, msc)
+        kc, vc = k_slot[i], v_slot[i]  # [L, KVH, D]
+        kc.index_copy_(0, rows, k[0].to(kc.dtype))
+        vc.index_copy_(0, rows, v[0].to(vc.dtype))
+        attn = chunked_prefill_attention(q, kc[None], vc[None], start[None])
+        x = x + proj(attn.reshape(B, C, H * D), lp["wo"])
+        h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
+        x = x + _mlp(h2, lp["w_gate"], lp["w_up"], lp["w_down"])
+    if not want_logits:
+        return None, k_slot, v_slot
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    idx = torch.clamp(length - 1 - start, 0, C - 1)
+    last = x.index_select(1, idx.reshape(1))[:, 0]  # [1, E]
+    return _logits(last, params["lm_head"]), k_slot, v_slot
 
 
 def _decode_layer_qkv(x, lp, cfg, inv_freq, msc, pos1):

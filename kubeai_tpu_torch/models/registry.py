@@ -25,6 +25,9 @@ class ModelFamily:
     # Multi-position verify forward for speculative decoding (None =
     # speculation unsupported for this family).
     decode_verify_paged: Callable | None = None
+    # One staged chunk of prefill (None = chunked prefill and the prefix
+    # cache unsupported for this family).
+    prefill_chunk: Callable | None = None
     hf_architectures: tuple[str, ...] = ()
 
 
@@ -63,6 +66,7 @@ def _ensure_builtin() -> None:
             prefill=llama.prefill,
             decode_step_paged=llama.decode_step_paged,
             decode_verify_paged=llama.decode_verify_paged,
+            prefill_chunk=llama.prefill_chunk,
             hf_architectures=("LlamaForCausalLM", "MistralForCausalLM"),
         )
     )
@@ -79,6 +83,8 @@ def _ensure_builtin() -> None:
             prefill=llama.prefill,
             decode_step_paged=llama.decode_step_paged,
             decode_verify_paged=llama.decode_verify_paged,
+            # The chunk carries the q/k/v biases too.
+            prefill_chunk=llama.prefill_chunk,
             hf_architectures=("Qwen2ForCausalLM",),
         )
     )

@@ -5,6 +5,7 @@ from kubeai_tpu_torch.ops.norms import rms_norm
 from kubeai_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from kubeai_tpu_torch.ops.attention import (
     causal_prefill_attention,
+    chunked_prefill_attention,
     decode_attention,
 )
 from kubeai_tpu_torch.ops.flash_attention import flash_causal_prefill

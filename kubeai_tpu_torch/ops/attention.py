@@ -51,6 +51,40 @@ def causal_prefill_attention(
     return out.reshape(b, s, h, d).to(q.dtype)
 
 
+def chunked_prefill_attention(
+    q: torch.Tensor,  # [B, S, H, D] the new chunk's queries
+    k_cache: torch.Tensor,  # [B, L, KVH, D] cache already holding the chunk
+    v_cache: torch.Tensor,  # [B, L, KVH, D]
+    chunk_start: torch.Tensor,  # [B] absolute position of q[:, 0]
+    *,
+    scale: float | None = None,
+    logit_softcap: float | None = None,  # Gemma-2 tanh capping
+    window: int | torch.Tensor | None = None,  # sliding window; <= 0 = off
+) -> torch.Tensor:
+    """Attention of a prefill chunk against the whole cache (causal from
+    each query's absolute position). Softcap and window apply in the
+    order of causal_prefill_attention: cap the raw logits, then mask.
+    Keys past the causal frontier hold stale values and are masked."""
+    b, s, h, d = q.shape
+    kvh = k_cache.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    qg = (q * scale).reshape(b, s, kvh, h // kvh, d)
+    logits = torch.einsum("bqkgd,blkd->bkgql", qg.float(), k_cache.float())
+    if logit_softcap is not None:
+        logits = torch.tanh(logits / logit_softcap) * logit_softcap
+    start = torch.as_tensor(chunk_start, device=q.device).long()
+    q_pos = start[:, None] + torch.arange(s, device=q.device)[None, :]  # [B, Sq]
+    l_pos = torch.arange(k_cache.shape[1], device=q.device)  # [L]
+    mask = q_pos[:, :, None] >= l_pos[None, None, :]  # [B, Sq, L]
+    if window is not None:
+        win = _window_tensor(window, q.device)
+        mask = mask & ((win <= 0) | (q_pos[:, :, None] - l_pos[None, None, :] < win))
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgql,blkd->bqkgd", probs, v_cache.float())
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
 def decode_attention(
     q: torch.Tensor,  # [B, H, D] one new token per slot
     k_cache: torch.Tensor,  # [B, L, KVH, D]

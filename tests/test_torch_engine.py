@@ -111,8 +111,6 @@ def test_stop_token_and_length_finish(models):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(prefill_chunk=32), "A8"),
-    (dict(prefix_cache=True), "A8"),
     (dict(kv_dtype="int8"), "A10"),
     (dict(quantization="int8"), "A12"),
     (dict(max_adapters=2), "A11"),
@@ -121,6 +119,17 @@ def test_stop_token_and_length_finish(models):
 def test_unported_settings_raise(models, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         _torch_engine(models, **kw)
+
+
+def test_prefix_cache_needs_prefill_chunk(models):
+    """prefix_cache without prefill_chunk raises the JAX engine's
+    ValueError: a cache hit prefills its suffix through staged chunks."""
+    jcfg, jparams, _, _ = models
+    kw = dict(num_slots=2, max_seq_len=128, page_size=16, prefix_cache=True)
+    with pytest.raises(ValueError, match="prefill_chunk > 0"):
+        JEngine("llama", jcfg, jparams, cfg=JEngineConfig(**kw))
+    with pytest.raises(ValueError, match="prefill_chunk > 0"):
+        _torch_engine(models, prefix_cache=True)
 
 
 def test_mesh_raises_and_auto_overlap_is_synchronous(models):

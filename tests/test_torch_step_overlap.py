@@ -57,6 +57,9 @@ LAYOUTS = {
     "per_layer": dict(decode_kernel="per_layer"),
     "fused": dict(decode_kernel="fused"),
     "speculate": dict(speculate=4, spec_adaptive=False),
+    # Prompts over 8 tokens take the staged-chunk path.
+    "chunked": dict(prefill_chunk=8),
+    "prefix": dict(prefill_chunk=8, prefix_cache=True),
 }
 # Pages for ~2 sequences, and no stop token: every request runs to
 # max_tokens, so the pool runs out and preempts.
@@ -64,6 +67,13 @@ TIGHT = dict(num_pages=1 + 9)
 PREEMPT_SAMPLING = {
     "greedy": dict(temperature=0.0, max_tokens=32),
     "seeded": dict(temperature=0.8, top_k=16, seed=9, max_tokens=24),
+}
+# The preemption test's rows beside whole-prompt admission: resumes
+# recompute through the staged-chunk path.
+PREEMPT_ROWS = {
+    "whole": {},
+    "chunked": dict(prefill_chunk=8),
+    "prefix": dict(prefill_chunk=8, prefix_cache=True),
 }
 
 
@@ -112,11 +122,20 @@ def jax_streams(models):
         eng = jengine(**kw)
         assert eng._overlap
         for mode, sp in SAMPLING.items():
+            if kw.get("prefix_cache"):
+                # A fresh engine per mode: the port's test starts from an
+                # empty prefix cache.
+                eng = jengine(**kw)
             out[layout, mode] = eng.generate(PROMPTS, JSamplingParams(**sp))
-    eng = jengine(eos=(), **TIGHT)
-    for mode, sp in PREEMPT_SAMPLING.items():
-        out["tight", mode] = eng.generate(_preempt_prompts(), JSamplingParams(**sp))
-    out["cap"] = eng.generate([CAP_PROMPT], JSamplingParams(**CAP_SAMPLING))
+    for row, kw in PREEMPT_ROWS.items():
+        eng = jengine(eos=(), **TIGHT, **kw)
+        for mode, sp in PREEMPT_SAMPLING.items():
+            if kw.get("prefix_cache"):
+                eng = jengine(eos=(), **TIGHT, **kw)
+            out["tight", row, mode] = eng.generate(
+                _preempt_prompts(), JSamplingParams(**sp))
+        if row == "whole":
+            out["cap"] = eng.generate([CAP_PROMPT], JSamplingParams(**CAP_SAMPLING))
     return out
 
 
@@ -165,19 +184,25 @@ def test_streams_overlap_on_equal_off_and_jax(models, jax_streams, layout, mode)
         assert eng._alloc.free_pages == eng._n_pages - 1
 
 
-@pytest.mark.parametrize("mode", list(PREEMPT_SAMPLING))
-def test_preemption_under_overlap_token_identical(models, jax_streams, mode):
+@pytest.mark.parametrize("mode,row", [
+    (mode, row) for row in PREEMPT_ROWS for mode in PREEMPT_SAMPLING
+], ids=[
+    mode if row == "whole" else f"{mode}-{row}"
+    for row in PREEMPT_ROWS for mode in PREEMPT_SAMPLING
+])
+def test_preemption_under_overlap_token_identical(models, jax_streams, mode, row):
     """Pool exhaustion preempts mid-decode; the recompute resume replays
-    identically whether or not a chunk was in flight at the eviction."""
-    on = _engine(models, "on", eos=(), **TIGHT)
-    off = _engine(models, "off", eos=(), **TIGHT)
+    identically whether or not a chunk was in flight at the eviction,
+    with whole-prompt, chunked and prefix-cached admission."""
+    on = _engine(models, "on", eos=(), **TIGHT, **PREEMPT_ROWS[row])
+    off = _engine(models, "off", eos=(), **TIGHT, **PREEMPT_ROWS[row])
     preempted = []
     on.on_preempt = lambda rid, client: preempted.append(rid)
     sp = SamplingParams(**PREEMPT_SAMPLING[mode])
     got = on.generate(_preempt_prompts(), sp)
     assert preempted, "the tight pool must force a preemption"
     assert got == off.generate(_preempt_prompts(), sp)
-    assert got == jax_streams["tight", mode]
+    assert got == jax_streams["tight", row, mode]
 
 
 # ---- barriers ------------------------------------------------------------------
