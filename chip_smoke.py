@@ -50,7 +50,20 @@ Phases, each fatal on failure:
                the streams must equal an eager synchronous engine's; it
                reports TTFT of hits and misses, agreement with whole-prompt
                streams, and a miss and a hit admission from the graphs and
-               eagerly.
+               eagerly;
+  5. serve_cli — the engine Pod's entry point: a random-weight Llama
+               checkpoint at Llama-3-8B width (4 layers, bf16) written with
+               `weights.save_safetensors`, served by `python -m
+               kubeai_tpu_torch.engine.server` in a subprocess three times
+               (default, `--speculate 4`, and the fused layout through
+               KUBEAI_TPU_DECODE_KERNEL); each run: the four chat requests
+               of the serve runs (one streamed), /metrics and /v1/state,
+               /v1/drain and SIGTERM, which must exit 0 within the drain
+               budget. The same checkpoint loaded in-process through
+               `weights.load_params` must be bit-equal to the tensors
+               written, and an in-process engine of each run's
+               configuration on it must give the greedy streams served over
+               HTTP. Reports the load rate, the cold-start phases and TTFT.
 
 The last lines are the kernel JSON line, the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -1194,7 +1207,7 @@ def phase_model() -> None:
 def _post(port: int, body: dict) -> tuple[int, dict, float, float]:
     """POST a chat completion. Returns (status, result, seconds to the
     first response byte, total seconds); a stream's result gathers its
-    chunks."""
+    chunks, their text and their token ids."""
     import http.client
 
     t0 = time.perf_counter()
@@ -1221,8 +1234,11 @@ def _post(port: int, body: dict) -> tuple[int, dict, float, float]:
         chunks.append(json.loads(line[6:]))
     conn.close()
     finish = chunks[-1]["choices"][0]["finish_reason"] if chunks else None
+    text = "".join(c["choices"][0]["delta"].get("content", "") for c in chunks)
+    token_ids = [t for c in chunks for t in c.get("token_ids", ())]
     return resp.status, {"chunks": len(chunks), "finish_reason": finish,
-                         "done": done}, first, time.perf_counter() - t0
+                         "done": done, "text": text, "token_ids": token_ids}, \
+        first, time.perf_counter() - t0
 
 
 def _wrappers() -> dict:
@@ -1318,6 +1334,17 @@ def serve_run(params, cfg, label: str, waves=None, **extra) -> dict:
         return events
 
     engine.step = step_and_count
+    # The engine's latency records, as the server's metrics sync drains
+    # them after each step.
+    timing: list[tuple] = []
+    engine_drain = engine.drain_timing
+
+    def drain_and_keep():
+        records = engine_drain()
+        timing.extend(records)
+        return records
+
+    engine.drain_timing = drain_and_keep
     stage_calls: dict[str, int] = {}
     for attr in STAGE_FUNCTIONS:
         def counted(fn=getattr(engine, attr), attr=attr):
@@ -1334,6 +1361,7 @@ def serve_run(params, cfg, label: str, waves=None, **extra) -> dict:
         if status != 200:
             fail(f"serve {label} warm-up request: HTTP {status}")
         engine.drain_timing()
+        timing.clear()
         streams.clear()
         requests.clear()
         stage_calls.clear()
@@ -1394,8 +1422,10 @@ def serve_run(params, cfg, label: str, waves=None, **extra) -> dict:
         fail(f"serve {label}: engine emitted {counts} tokens per request, "
              f"not {max_tokens} each")
     print(f"serve {label} engine-side tokens per request: {json.dumps(counts)}", flush=True)
-    timing = engine.drain_timing()
-    ttft = {int(t[2][4:]): t[1] for t in timing if t[0] == "ttft"}
+    engine.drain_timing()  # what the last sync left
+    # The warm-up's records may land after the clear: keep this run's.
+    ttft = {int(t[2][4:]): t[1] for t in timing
+            if t[0] == "ttft" and int(t[2][4:]) in requests}
     for rid in sorted(ttft):
         print(f"serve {label} TTFT rid={rid} prompt_tokens={len(requests[rid][0])} "
               f"ttft_s={ttft[rid]:.4f}", flush=True)
@@ -1903,6 +1933,398 @@ def profile_prefill(params, cfg) -> None:
               f"{b2_us / max(total, 1):.3f} of its device time", flush=True)
 
 
+# ---- phase 5: the engine Pod's entry point -------------------------------------
+
+# A Llama-3-8B-width checkpoint (bench.py:59-74) cut to CLI_LAYERS layers:
+# the embedding and the head take 1.05 GB each, a layer 0.436 GB. The full
+# depth is served by the serve runs above.
+CLI_LAYERS = 4
+CLI_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+    "vocab_size": 128256, "hidden_size": 4096, "intermediate_size": 14336,
+    "num_hidden_layers": CLI_LAYERS, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "head_dim": 128, "rope_theta": 500000.0,
+    "rms_norm_eps": 1e-5, "max_position_embeddings": 4096,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+}
+# The head's rows of the printable ASCII bytes (32-126) are drawn this many
+# times larger, so that greedy picks are bytes that ByteTokenizer decodes
+# one to one: a unary response's text then pins its token stream.
+ASCII_HEAD_SCALE = 8.0
+CLI_READY_S = 300  # from the process start to /health 200
+CLI_DRAIN_S = 30  # --drain-timeout
+# (model leaf, HF tensor name, stored transposed in the port's layout)
+CLI_LEAVES = (("embed", "model.embed_tokens.weight", False),
+              ("final_norm", "model.norm.weight", False),
+              ("lm_head", "lm_head.weight", False))
+CLI_LAYER_LEAVES = (("input_norm", "input_layernorm.weight", False),
+                    ("wq", "self_attn.q_proj.weight", True),
+                    ("wk", "self_attn.k_proj.weight", True),
+                    ("wv", "self_attn.v_proj.weight", True),
+                    ("wo", "self_attn.o_proj.weight", True),
+                    ("post_attn_norm", "post_attention_layernorm.weight", False),
+                    ("w_gate", "mlp.gate_proj.weight", True),
+                    ("w_up", "mlp.up_proj.weight", True),
+                    ("w_down", "mlp.down_proj.weight", True))
+
+
+def cli_tensors() -> dict:
+    """Random bf16 tensors under their Hugging Face names, drawn on the card
+    from a seed as `llama.init_params` draws them (N(0, 0.02), norms 1) and
+    kept on the host for the writer."""
+    import torch
+
+    c = CLI_CONFIG
+    E, M, V = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
+    HD, KD = c["num_attention_heads"] * c["head_dim"], c["num_key_value_heads"] * c["head_dim"]
+    gen = torch.Generator("cuda").manual_seed(1)
+
+    def rnd(*shape, scale_ascii=False):
+        w = torch.randn(shape, generator=gen, device="cuda") * 0.02
+        if scale_ascii:
+            w[32:127] *= ASCII_HEAD_SCALE
+        return w.to(torch.bfloat16).cpu()
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bfloat16)
+
+    shapes = {"input_layernorm.weight": None, "self_attn.q_proj.weight": (HD, E),
+              "self_attn.k_proj.weight": (KD, E), "self_attn.v_proj.weight": (KD, E),
+              "self_attn.o_proj.weight": (E, HD), "post_attention_layernorm.weight": None,
+              "mlp.gate_proj.weight": (M, E), "mlp.up_proj.weight": (M, E),
+              "mlp.down_proj.weight": (E, M)}
+    out = {"model.embed_tokens.weight": rnd(V, E)}
+    for i in range(c["num_hidden_layers"]):
+        for name, shape in shapes.items():
+            out[f"model.layers.{i}.{name}"] = ones(E) if shape is None else rnd(*shape)
+    out["model.norm.weight"] = ones(E)
+    out["lm_head.weight"] = rnd(V, E, scale_ascii=True)
+    return out
+
+
+def check_loaded_bits(params: dict, tensors: dict) -> int:
+    """Fails unless every leaf `load_params` put on the card is bit-equal
+    to the tensor written (transposed where the port's layout is
+    [in, out]). Returns the leaves checked."""
+    import torch
+
+    pairs = [(params[leaf], name, t) for leaf, name, t in CLI_LEAVES]
+    for i in range(CLI_LAYERS):
+        pairs += [(params["layers"][leaf][i], f"model.layers.{i}.{name}", t)
+                  for leaf, name, t in CLI_LAYER_LEAVES]
+    for got, name, transposed in pairs:
+        want = tensors[name].to(got.device)
+        want = want.T if transposed else want
+        if got.dtype != torch.bfloat16 or got.shape != want.shape or not torch.equal(
+                got.view(torch.int16), want.view(torch.int16)):
+            fail(f"serve_cli: loaded {name} ({got.dtype}, {tuple(got.shape)}) is not "
+                 "bit-equal to the tensor written")
+    return len(pairs)
+
+
+def _parse_metrics(text: str) -> dict:
+    """Prometheus text -> {(sample name, sorted label pairs): value}."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = re.match(r'^([a-zA-Z_:][\w:]*)(?:\{(.*)\})? (\S+)$', line)
+        if m is None:
+            fail(f"serve_cli: malformed exposition line {line!r}")
+        labels = tuple(sorted(re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"', m.group(2) or "")))
+        out[(m.group(1), labels)] = float(m.group(3))
+    return out
+
+
+def _get(port: int, path: str) -> tuple[int, str]:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    body = resp.read().decode()
+    conn.close()
+    return resp.status, body
+
+
+# The CLI runs of serve_cli: (label, extra flags, extra environment, the
+# in-process engine's EngineConfig settings for the same run). The default
+# runs B1 and B2; speculation runs B3 in every decode call; the fused
+# layout, chosen by the environment as an engine Pod would, runs B4.
+CLI_RUNS = (
+    ("default", [], {}, dict(decode_kernel="per_layer")),
+    ("speculate", ["--speculate", "4", "--spec-adaptive", "off"], {},
+     dict(decode_kernel="per_layer", speculate=4, spec_adaptive=False)),
+    ("fused", [], {"KUBEAI_TPU_DECODE_KERNEL": "fused"}, dict(decode_kernel="fused")),
+)
+
+
+def cli_run(model_dir: str, label: str, flags: list, env_extra: dict,
+            ckpt_bytes: int) -> dict:
+    """One `python -m kubeai_tpu_torch.engine.server` run over `model_dir`
+    in a subprocess of its own session: ready within CLI_READY_S, the
+    four requests of `_default_bodies` sent together (all 200), /metrics
+    and /v1/state read, then /v1/drain (a new request gets 503, no slot
+    stays active) and SIGTERM (exit 0 within the drain budget). Returns
+    the responses' texts, the streamed token ids, the completion tokens
+    the responses report, the state read before the drain and the
+    /metrics values the phase gates."""
+    import os
+    import signal
+    import socket
+    import tempfile
+
+    from kubeai_tpu_torch.metrics.registry import hist_buckets
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "kubeai_tpu_torch.engine.server",
+           "--model-url", model_dir, "--port", str(port), "--num-slots", "8",
+           "--max-seq-len", "2048", "--drain-timeout", str(CLI_DRAIN_S),
+           "--watchdog-timeout", "60", *flags]
+    env_text = " ".join(f"{k}={v}" for k, v in env_extra.items())
+    print(f"serve_cli {label} command: {env_text} {' '.join(cmd[1:])}".replace("  ", " "),
+          flush=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "KUBEAI_TPU_DECODE_KERNEL"}
+    env.update(env_extra, PYTHONPATH=here)
+    log_fd, log_path = tempfile.mkstemp(prefix="kubeai-serve-cli-", suffix=".log")
+    proc = None
+
+    def tail() -> str:
+        with open(log_path) as f:
+            return "".join(f.readlines()[-30:])
+
+    try:
+        t_start = time.perf_counter()
+        # Its own session, so that a failure can kill timeout and the server.
+        proc = subprocess.Popen(["timeout", "-k", "10", str(CLI_READY_S + 300), *cmd],
+                                cwd=here, env=env, stdout=log_fd, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        while True:
+            if proc.poll() is not None:
+                fail(f"serve_cli {label}: the server exited {proc.returncode} before it "
+                     f"was ready:\n{tail()}")
+            try:
+                if _get(port, "/health")[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.perf_counter() - t_start > CLI_READY_S:
+                fail(f"serve_cli {label}: not ready within {CLI_READY_S} s:\n{tail()}")
+            time.sleep(0.25)
+        ready_s = time.perf_counter() - t_start
+        bodies = _default_bodies()[0]
+        results: list = [None] * len(bodies)
+
+        def run(i):
+            results[i] = _post(port, bodies[i])
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        texts, completion, streamed_ids, streamed_first = [], 0, None, None
+        for i, (status, res, first_s, total_s) in enumerate(results):
+            if status != 200:
+                fail(f"serve_cli {label} request {i}: HTTP {status} {res}")
+            if bodies[i].get("stream"):
+                if not res["done"]:
+                    fail(f"serve_cli {label} stream {i}: no [DONE]: {res}")
+                n, text = len(res["token_ids"]), res["text"]
+                streamed_ids, streamed_first = res["token_ids"], first_s
+            else:
+                n, text = res["usage"]["completion_tokens"], res["choices"][0]["message"]["content"]
+            texts.append(text)
+            completion += n
+            print(f"serve_cli {label} request {i}: stream={bool(bodies[i].get('stream'))} "
+                  f"completion_tokens={n} client_first_byte_s={first_s:.4f} "
+                  f"client_total_s={total_s:.4f} text={text[:40]!r}", flush=True)
+        metrics = _parse_metrics(_get(port, "/metrics")[1])
+        state = json.loads(_get(port, "/v1/state")[1])
+        _, ttft_count, ttft_sum = hist_buckets(metrics, "kubeai_engine_ttft_seconds")
+        cold = state["cold_start"]
+        load_s = cold["phases"]["load"]
+        print(f"serve_cli {label} cold start (/v1/state): phases_s "
+              f"{json.dumps({k: round(v, 4) for k, v in cold['phases'].items()})} total_s "
+              f"{cold['total_s']:.4f}; ready {ready_s:.2f} s after the process started; load "
+              f"{ckpt_bytes / 1e9:.3f} GB in {load_s:.4f} s = "
+              f"{ckpt_bytes / 1e9 / load_s:.3f} GB/s", flush=True)
+        print(f"serve_cli {label} TTFT (/metrics): count {ttft_count:.0f}, mean "
+              f"{ttft_sum / max(1, ttft_count):.4f} s; bucket upper bound -> rid "
+              f"{json.dumps(state['exemplars']['ttft'])}; the streamed request's first "
+              f"chunk at {streamed_first:.4f} s (client); spec_stats "
+              f"{json.dumps(state['spec_stats'])}", flush=True)
+        # Drain: /v1/drain refuses new work, then SIGTERM exits 0.
+        if _post_status(port, "/v1/drain") != 202:
+            fail(f"serve_cli {label}: POST /v1/drain did not answer 202")
+        status = _post(port, bodies[0])[0]
+        if status != 503:
+            fail(f"serve_cli {label}: a request during the drain got HTTP {status}, not 503")
+        deadline = time.perf_counter() + CLI_DRAIN_S
+        while True:
+            drained = json.loads(_get(port, "/v1/state")[1])
+            if (drained["draining"] and drained["slots_active"] == 0
+                    and drained["requests_pending"] == 0):
+                break
+            if time.perf_counter() > deadline:
+                fail(f"serve_cli {label}: after the drain slots_active="
+                     f"{drained['slots_active']} requests_pending="
+                     f"{drained['requests_pending']}")
+            time.sleep(0.1)
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=CLI_DRAIN_S + 5)
+        except subprocess.TimeoutExpired:
+            fail(f"serve_cli {label}: no exit within the drain budget after SIGTERM:\n{tail()}")
+        if rc != 0:
+            fail(f"serve_cli {label}: the server exited {rc} after SIGTERM:\n{tail()}")
+        with open(log_path) as f:
+            for line in f:
+                if "tokenizer:" in line or "drain complete" in line:
+                    print(f"serve_cli {label} log: {line.strip()}", flush=True)
+        print(f"serve_cli {label}: exit 0 after SIGTERM", flush=True)
+    finally:
+        if proc is not None and proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        os.close(log_fd)
+        os.unlink(log_path)
+    metric_values = {
+        "requests": sum(v for (n, _), v in metrics.items()
+                        if n == "kubeai_engine_requests_total"),
+        "generated": metrics[("kubeai_engine_generated_tokens_total", ())],
+        "ttft_count": ttft_count,
+    }
+    return {"texts": texts, "streamed_ids": streamed_ids, "completion": completion,
+            "state": state, "metrics": metric_values, "bodies": bodies}
+
+
+def serve_cli() -> None:
+    """Phase 5: the engine Pod's entry point. Writes a random-weight Llama
+    checkpoint at Llama-3-8B width (CLI_LAYERS layers, bf16) with
+    `weights.save_safetensors` into a temporary directory and serves it
+    with `python -m kubeai_tpu_torch.engine.server` three times
+    (`cli_run`, CLI_RUNS: default, `--speculate 4`, and the fused layout
+    from the environment), then loads the same checkpoint in-process with
+    `weights.load_params` on the card and builds an engine of each run's
+    configuration on it. Gates, besides `cli_run`'s: the loaded tensors
+    bit-equal to those written; each run's greedy streams over HTTP equal
+    to its in-process engine's; on /metrics 4 requests, a TTFT count of 4
+    and the generated tokens the responses report; speculation windows in
+    the speculative run; the same token capacity as in-process. Reports
+    the load rate, the cold-start phases, TTFT and the card."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from kubeai_tpu_torch.engine import Engine, EngineConfig, SamplingParams
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from kubeai_tpu_torch.engine.weights import load_hf_config, load_params, save_safetensors
+    from kubeai_tpu_torch.models import llama
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="kubeai-serve-cli-")
+    try:
+        t0 = time.perf_counter()
+        tensors = cli_tensors()
+        model_dir = os.path.join(root, "model")
+        save_safetensors(model_dir, tensors, CLI_CONFIG)
+        ckpt_bytes = os.path.getsize(os.path.join(model_dir, "model.safetensors"))
+        print(f"serve_cli checkpoint: {CLI_LAYERS} layers at Llama-3-8B width, bf16, "
+              f"{ckpt_bytes / 1e9:.3f} GB in {len(tensors)} tensors, drawn and written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        runs = {label: cli_run(model_dir, label, flags, env, ckpt_bytes)
+                for label, flags, env, _ in CLI_RUNS}
+
+        # The same checkpoint in-process, on the card.
+        tok = ByteTokenizer()
+        cfg = llama.LlamaConfig.from_hf_dict(load_hf_config(model_dir))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = load_params("llama", model_dir, cfg, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        n = check_loaded_bits(params, tensors)
+        del tensors
+        print(f"serve_cli load_params in-process: {n} leaves bit-equal to the tensors "
+              f"written; {ckpt_bytes / 1e9:.3f} GB in {load_s:.4f} s = "
+              f"{ckpt_bytes / 1e9 / load_s:.3f} GB/s", flush=True)
+        for label, _, _, extra in CLI_RUNS:
+            run = runs[label]
+            bodies = run["bodies"]
+            engine = Engine("llama", cfg, params, cfg=EngineConfig(
+                num_slots=8, max_seq_len=2048, **extra), eos_token_ids=tok.eos_token_ids)
+            capacity = engine.kv_cache_info()["token_capacity"]
+            if capacity != run["state"]["kv_cache"]["token_capacity"]:
+                fail(f"serve_cli {label}: token capacity "
+                     f"{run['state']['kv_cache']['token_capacity']} on the CLI, {capacity} "
+                     "in-process")
+            rids = [engine.add_request(tok.apply_chat_template(b["messages"]), SamplingParams(
+                temperature=b["temperature"], max_tokens=b["max_tokens"], seed=b.get("seed")))
+                for b in bodies]
+            streams = {rid: [] for rid in rids}
+            while engine.has_work():
+                for ev in engine.step():
+                    streams[ev.rid].append(ev.token)
+            ttft = {int(t[2][4:]): t[1] for t in engine.drain_timing() if t[0] == "ttft"}
+            for i, rid in enumerate(rids):
+                want = streams[rid]
+                same = tok.decode(want) == run["texts"][i]
+                if bodies[i].get("stream"):
+                    same = same and run["streamed_ids"] == want
+                printable = sum(32 <= t < 127 for t in want) / max(1, len(want))
+                kind = "greedy" if bodies[i]["temperature"] == 0 else "seeded"
+                print(f"serve_cli {label} request {i} ({kind}): HTTP stream "
+                      f"{'equals' if same else 'DIFFERS FROM'} the in-process engine's "
+                      f"({len(want)} tokens, {printable:.2f} printable bytes); in-process "
+                      f"ttft_s={ttft[rid]:.4f}", flush=True)
+                if kind == "greedy" and not same:
+                    fail(f"serve_cli {label} request {i}: the greedy stream served over "
+                         f"HTTP differs from the in-process engine's: "
+                         f"{run['texts'][i]!r} vs {tok.decode(want)!r}")
+            del engine
+            m = run["metrics"]
+            print(f"serve_cli {label} /metrics: kubeai_engine_requests_total "
+                  f"{m['requests']:.0f}, kubeai_engine_generated_tokens_total "
+                  f"{m['generated']:.0f} (responses: {run['completion']}), TTFT count "
+                  f"{m['ttft_count']:.0f}", flush=True)
+            if m["requests"] != len(bodies):
+                fail(f"serve_cli {label}: kubeai_engine_requests_total {m['requests']}, "
+                     f"sent {len(bodies)}")
+            if m["generated"] != run["completion"]:
+                fail(f"serve_cli {label}: kubeai_engine_generated_tokens_total "
+                     f"{m['generated']}, the responses report {run['completion']}")
+            if m["ttft_count"] != len(bodies):
+                fail(f"serve_cli {label}: TTFT histogram count {m['ttft_count']}, sent "
+                     f"{len(bodies)}")
+        if runs["speculate"]["state"]["spec_stats"]["windows"] <= 0:
+            fail("serve_cli speculate: the CLI ran no speculation window")
+        print(f"serve_cli card: {gpu_line()}", flush=True)
+        del params
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _post_status(port: int, path: str) -> int:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    conn.request("POST", path, b"{}", {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    resp.read()
+    conn.close()
+    return resp.status
+
+
 # ---- entry --------------------------------------------------------------------
 
 
@@ -1927,6 +2349,7 @@ def main() -> None:
     measured = phase_kernels()
     phase_model()
     launches = phase_serve()
+    serve_cli()
     kernels = []
     for name, m in measured.items():
         kernels.append({

@@ -188,9 +188,14 @@ class _Request:
     ctx_len: int = 0
     ngram_idx: Any = None  # {n: {ngram tuple -> last start index}}
     ngram_upto: Any = None  # {n: window starts indexed so far}
-    # Enqueue time (_now() clock) for the ttft and e2e records; zeroed
-    # once e2e is recorded.
+    # Enqueue time (_now() clock) for the queue_wait, ttft and e2e
+    # records; zeroed once e2e is recorded. t_admit_start: when the
+    # request first left the queue (a preempted request keeps it: its
+    # re-prefill is recompute, not a second queue wait). t_prev_token:
+    # when its last token was emitted, for the itl records.
     t_enqueue: float = 0.0
+    t_admit_start: float = 0.0
+    t_prev_token: float = 0.0
     # The prompt's page-hash chain, computed once: a head-of-line
     # admission deferred by OutOfPages would otherwise re-hash it every
     # step.
@@ -316,8 +321,8 @@ class Engine:
         self._free_slots = list(range(cfg.num_slots))
         # Base entropy for unseeded requests (per-request seed = base ^ rid).
         self._seed_base = int.from_bytes(np.random.bytes(4), "little")
-        # Latency records ("ttft", seconds, "rid-<n>") and ("e2e",
-        # seconds); drained by drain_timing().
+        # Latency records (kind, seconds[, "rid-<n>"]) with kind in
+        # queue_wait, prefill, ttft, itl, e2e; drained by drain_timing().
         self._timing: list[tuple] = []
         # Optional preemption observer: on_preempt(rid, client).
         self.on_preempt = None
@@ -787,6 +792,37 @@ class Engine:
         with self._lock:
             return [h.hex() for h in self._alloc.holdings()]
 
+    def kv_utilization(self) -> float:
+        """Fraction of the page pool in use: allocated pages over the pool
+        (page 0, the scratch page, excluded). Pages parked idle in the
+        prefix cache count as free: any admission can reclaim them."""
+        total = self._n_pages - 1
+        if total <= 0:
+            return 0.0
+        return 1.0 - self._alloc.free_pages / total
+
+    def kv_cache_info(self) -> dict:
+        """KV-cache capacity facts for /v1/state and the metrics plane, as
+        the JAX engine reports them for a paged bf16 pool: not quantized,
+        capacity factor 1.0, and the resident bytes of the two pools."""
+        return {
+            "dtype": str(self.cfg.cache_dtype).removeprefix("torch."),
+            "quantized": False,
+            "capacity_factor": 1.0,
+            "slot_capacity": self.cfg.num_slots,
+            "num_pages": self._n_pages,
+            "page_size": self.cfg.page_size,
+            "token_capacity": (self._n_pages - 1) * self.cfg.page_size,
+            "pool_bytes": self.cache.k_pages.nbytes + self.cache.v_pages.nbytes,
+        }
+
+    def _pop_pending(self) -> None:
+        """Dequeue the scheduler's head for admission, stamping when it
+        first left the queue."""
+        req = self._sched.pop()
+        if not req.t_admit_start:
+            req.t_admit_start = _now()
+
     def _bucket(self, n: int) -> int:
         for b in self.cfg.buckets():
             if n <= b:
@@ -855,7 +891,7 @@ class Engine:
                     pages = self._alloc.ensure(slot, plen)
                 except OutOfPages:
                     break  # defer; ensure() rolled back
-                self._sched.pop()
+                self._pop_pending()
                 self._free_slots.pop()
                 req.slot = slot
                 self._set_bt_row(slot, pages)
@@ -869,7 +905,7 @@ class Engine:
                 except OutOfPages:
                     self._alloc.unadopt(slot)
                     break  # defer; nothing held
-                self._sched.pop()
+                self._pop_pending()
                 self._free_slots.pop()
                 req.slot = slot
                 self._set_bt_row(slot, pages)
@@ -887,7 +923,7 @@ class Engine:
                     pages = self._alloc.ensure(slot, plen)
                 except OutOfPages:
                     break  # defer; ensure() rolled back
-                self._sched.pop()
+                self._pop_pending()
                 self._free_slots.pop()
                 req.slot = slot
                 self._set_bt_row(slot, pages)
@@ -1069,9 +1105,18 @@ class Engine:
             req.last_token = tok
             self._active[slot] = req
             return None
+        # First token of a fresh admission: queue wait (enqueue to
+        # dequeue), prefill (dequeue to first token), TTFT (enqueue to
+        # first token).
+        now = _now()
         self._timing.append(
-            ("ttft", max(0.0, _now() - req.t_enqueue), f"rid-{req.rid}")
+            ("queue_wait", max(0.0, req.t_admit_start - req.t_enqueue))
         )
+        self._timing.append(("prefill", max(0.0, now - req.t_admit_start)))
+        self._timing.append(
+            ("ttft", max(0.0, now - req.t_enqueue), f"rid-{req.rid}")
+        )
+        req.t_prev_token = now
         req.out_tokens.append(tok)
         req.position = plen
         req.last_token = tok
@@ -1395,9 +1440,15 @@ class Engine:
         if ph is not None:
             ph[phase] = ph.get(phase, 0.0) + seconds
 
-    def _emit(self, req: _Request, tok: int) -> StepEvent:
+    def _emit(self, req: _Request, tok: int, now: float) -> StepEvent:
         """Append one decoded token to a live request, releasing it when
-        the token finishes it."""
+        the token finishes it. `now` is when the call that produced it
+        was reaped: tokens of one call share it, as in the JAX engine."""
+        if req.t_prev_token:
+            self._timing.append(
+                ("itl", max(0.0, now - req.t_prev_token), f"rid-{req.rid}")
+            )
+        req.t_prev_token = now
         req.out_tokens.append(tok)
         req.position += 1
         req.last_token = tok
@@ -1418,8 +1469,9 @@ class Engine:
         outputs = call.program.read(call.ring)
         self._note_phase("readback", time.perf_counter() - t_read)
         t_sample = time.perf_counter()
+        now = _now()
         if call.program is self._spec_program:
-            emitted = self._process_spec(*outputs, call.riders)
+            emitted = self._process_spec(*outputs, call.riders, now)
         else:
             toks = outputs[0]  # [chunk, num_slots]
             emitted = []
@@ -1427,12 +1479,12 @@ class Engine:
                 for slot, req in call.riders:
                     if req.done:
                         continue  # surplus chunk tokens discarded
-                    emitted.append(self._emit(req, int(toks[k, slot])))
+                    emitted.append(self._emit(req, int(toks[k, slot]), now))
         self._note_phase("sample", time.perf_counter() - t_sample)
         return emitted
 
     def _process_spec(self, choices: np.ndarray, n_emit: np.ndarray,
-                      riders) -> list[StepEvent]:
+                      riders, now: float) -> list[StepEvent]:
         """Emit each slot's accepted and corrected tokens (1..gamma+1 per
         step). A stop mid-window discards the rest, like chunk surplus."""
         emitted: list[StepEvent] = []
@@ -1443,7 +1495,7 @@ class Engine:
             self.spec_stats["proposed"] += self._spec
             self.spec_stats["accepted"] += int(n_emit[slot]) - 1
             for j in range(int(n_emit[slot])):
-                emitted.append(self._emit(req, int(choices[slot, j])))
+                emitted.append(self._emit(req, int(choices[slot, j]), now))
                 if req.done:
                     break
         return emitted

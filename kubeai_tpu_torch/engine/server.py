@@ -1,38 +1,71 @@
-"""OpenAI-compatible HTTP server over the engine.
-Counterpart of kubeai_tpu/engine/server.py (`EngineServer`), reduced to
-the serving path: GET /health and /v1/models; POST /v1/completions and
-/v1/chat/completions, unary and SSE. Response bodies have the JAX
-server's shape.
+"""The engine's HTTP serving front: what runs inside an engine Pod.
+Counterpart of kubeai_tpu/engine/server.py.
+
+Endpoints (the OpenAI-compatible surface and the admin seam the
+operator and the fleet read):
+  POST /v1/chat/completions   (stream=true: SSE chunks)
+  POST /v1/completions
+  GET  /v1/models
+  GET  /health                readiness and liveness probes
+  GET  /metrics               Prometheus text (engine counters)
+  GET  /v1/state              admin snapshot (occupancy, KV facts,
+                              spec/prefix stats, cold start)
+  POST /v1/drain              graceful drain (GET is the preStop alias)
 
 One serve-loop thread steps the engine and fans StepEvents out to
 per-request queues; HTTP handler threads tokenize, queue the request
 (with the scheduling headers X-Priority / X-Deadline-Ms / X-Client-Id)
-and detokenize incrementally, applying stop strings.
+and detokenize incrementally, applying stop strings. After each step
+the loop folds the engine's counters into the metrics registry. SIGTERM
+(or /v1/drain) refuses new work with 503 and a computed Retry-After and
+lets in-flight generations finish within the drain budget; a watchdog
+flips /health and asks for a restart when a step never returns.
 
-Not ported yet: metrics, tracing, tenancy, drain and watchdog,
-disaggregated prefill/decode, KV sharing, adapters, embeddings and the
-command-line entry point.
+Not ported yet: tracing, the flight recorder, /v1/profile, tenancy,
+disaggregated prefill/decode, KV sharing, adapters and embeddings, and
+the series and /v1/state keys that belong to them (ROADMAP A items 5,
+7, 8 and 10).
+
+Run: python -m kubeai_tpu_torch.engine.server --model-url <dir> [--port N]
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import logging
-import math
+import os
 import queue
+import signal
 import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from kubeai_tpu_torch.engine.engine import Engine, EngineDraining
+import torch
+
+from kubeai_tpu_torch.device import resolve_device
+from kubeai_tpu_torch.engine.coldstart import ColdStartTracker
+from kubeai_tpu_torch.engine.engine import Engine, EngineConfig, EngineDraining, StepEvent
 from kubeai_tpu_torch.engine.sampling import SamplingParams
-from kubeai_tpu_torch.engine.tokenizer import Tokenizer
+from kubeai_tpu_torch.engine.tokenizer import Tokenizer, load_tokenizer
+from kubeai_tpu_torch.engine.weights import (
+    UNPORTED_ARCHITECTURES,
+    WeightLoadError,
+    load_hf_config,
+    load_params,
+    resolve_model_dir,
+)
+from kubeai_tpu_torch.metrics.registry import Counter, Gauge, Histogram, Registry
+from kubeai_tpu_torch.models.registry import get_model_family
 from kubeai_tpu_torch.scheduling.scheduler import (
     PRIORITY_CLASSES,
     DeadlineInfeasible,
+    RequestScheduler,
+    SchedulingPolicy,
 )
+from kubeai_tpu_torch.utils import retryafter
 
 logger = logging.getLogger(__name__)
 
@@ -42,8 +75,397 @@ class _HTTPServer(ThreadingHTTPServer):
     request_queue_size = 1024
 
 
-def _retry_after_header(seconds: float) -> str:
-    return str(max(1, int(math.ceil(seconds))))
+# Request-phase latencies: cover sub-ms tiny-model CPU tests through the
+# 600s request budget.
+REQUEST_LATENCY_BUCKETS_S = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0, 300.0, 600.0,
+)
+# Inter-token gaps sit orders of magnitude below request latencies —
+# fused decode chunks emit most tokens ~0 apart, chunk boundaries land in
+# the ms range, and anything past 2.5s is a stall worth seeing.
+ITL_BUCKETS_S = (
+    0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
+    0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+)
+
+
+class EngineMetrics:
+    def __init__(self):
+        self.registry = Registry()
+        self.generated_tokens = Counter(
+            "kubeai_engine_generated_tokens_total",
+            "Tokens generated.",
+            self.registry,
+        )
+        self.prompt_tokens = Counter(
+            "kubeai_engine_prompt_tokens_total",
+            "Prompt tokens processed.",
+            self.registry,
+        )
+        self.active_requests = Gauge(
+            "kubeai_engine_active_requests",
+            "Requests currently queued or decoding.",
+            self.registry,
+        )
+        self.requests_total = Counter(
+            "kubeai_engine_requests_total", "Requests served.", self.registry
+        )
+        self.slots_active = Gauge(
+            "kubeai_engine_slots_active",
+            "Decode slots currently occupied.",
+            self.registry,
+        )
+        self.requests_pending = Gauge(
+            "kubeai_engine_requests_pending",
+            "Requests queued for a free slot.",
+            self.registry,
+        )
+        self.spec_proposed = Gauge(
+            "kubeai_engine_spec_proposed_tokens_total",
+            "Speculative tokens proposed (prompt-lookup or draft).",
+            self.registry,
+        )
+        self.spec_accepted = Gauge(
+            "kubeai_engine_spec_accepted_tokens_total",
+            "Speculative tokens accepted by verify.",
+            self.registry,
+        )
+        # Monotonically-growing totals exported with COUNTER semantics
+        # (they were Gauges once — a `_total` metric that can be `set()`
+        # backward breaks every rate() over it); sync_engine folds the
+        # engine's cumulative stats in as deltas.
+        self.prefix_hit_tokens = Counter(
+            "kubeai_engine_prefix_cached_tokens_total",
+            "Prompt tokens served from the prefix cache (skipped prefill).",
+            self.registry,
+        )
+        self.prefix_prompt_tokens = Counter(
+            "kubeai_engine_prefix_prompt_tokens_total",
+            "Prompt tokens seen by prefix-cache admission.",
+            self.registry,
+        )
+        self.slot_capacity = Gauge(
+            "kubeai_engine_slot_capacity",
+            "Configured decode slots — with kubeai_engine_batch_size this "
+            "gives the autoscaler slot occupancy.",
+            self.registry,
+        )
+        # -- request-lifecycle latency histograms --------------------------
+        self.queue_wait = Histogram(
+            "kubeai_engine_queue_wait_seconds",
+            "Time a request waited in the pending queue before its "
+            "prefill was dispatched.",
+            self.registry,
+            buckets=REQUEST_LATENCY_BUCKETS_S,
+        )
+        self.prefill = Histogram(
+            "kubeai_engine_prefill_seconds",
+            "Prefill dispatch to first sampled token (compute only; "
+            "queue wait excluded).",
+            self.registry,
+            buckets=REQUEST_LATENCY_BUCKETS_S,
+        )
+        self.ttft = Histogram(
+            "kubeai_engine_ttft_seconds",
+            "Engine time-to-first-token: request enqueue to first sampled "
+            "token (queue wait + prefill).",
+            self.registry,
+            buckets=REQUEST_LATENCY_BUCKETS_S,
+        )
+        self.itl = Histogram(
+            "kubeai_engine_inter_token_latency_seconds",
+            "Gap between consecutive emitted tokens of one request. "
+            "Tokens inside one fused decode chunk surface together, so "
+            "the distribution is bimodal: ~0 intra-chunk, the device-step "
+            "time at chunk boundaries.",
+            self.registry,
+            buckets=ITL_BUCKETS_S,
+        )
+        self.e2e = Histogram(
+            "kubeai_engine_e2e_seconds",
+            "Request enqueue to final token for completed (stop/length) "
+            "requests; cancellations are excluded.",
+            self.registry,
+            buckets=REQUEST_LATENCY_BUCKETS_S,
+        )
+        self._timing_hist = {
+            "queue_wait": self.queue_wait,
+            "prefill": self.prefill,
+            "ttft": self.ttft,
+            "itl": self.itl,
+            "e2e": self.e2e,
+        }
+        # -- per-decode-step engine-loop gauges ----------------------------
+        self.batch_size = Gauge(
+            "kubeai_engine_batch_size",
+            "Running batch size (occupied decode slots) at the last "
+            "engine step.",
+            self.registry,
+        )
+        self.kv_utilization = Gauge(
+            "kubeai_engine_kv_cache_utilization",
+            "Fraction of KV-cache capacity in use (pages allocated / "
+            "pool, or token positions / slot capacity).",
+            self.registry,
+        )
+        self.kv_cache_bytes = Gauge(
+            "kubeai_engine_kv_cache_bytes",
+            "Resident bytes of the KV-cache pool (pages + quantization "
+            "scales) — int8 pools report roughly half a bf16 pool of "
+            "equal token capacity.",
+            self.registry,
+        )
+        self.kv_quant_enabled = Gauge(
+            "kubeai_engine_kv_quant_enabled",
+            "1 when the paged KV cache stores int8 quantized pages "
+            "(kv_dtype=int8), else 0.",
+            self.registry,
+        )
+        self.kv_quant_capacity_factor = Gauge(
+            "kubeai_engine_kv_quant_capacity_factor",
+            "Slot-capacity multiplier of the configured KV dtype vs bf16 "
+            "at equal HBM budget (2D/(D+4) under int8, 1.0 under bf16) — "
+            "what the autoscaler and capacity planner scale the replica's "
+            "effective KV capacity by.",
+            self.registry,
+        )
+        self.tokens_per_step = Gauge(
+            "kubeai_engine_tokens_per_step",
+            "Tokens emitted by the last engine step (all requests).",
+            self.registry,
+        )
+        self.step_duration = Gauge(
+            "kubeai_engine_step_duration_seconds",
+            "Wall duration of the last engine step's decode dispatch + "
+            "fetch.",
+            self.registry,
+        )
+        # -- engine step profiler (kubeai_tpu/fleet/profiler) ---------------
+        self.step_phase = Histogram(
+            "kubeai_engine_step_phase_seconds",
+            "Wall time per engine-step phase (label `phase`: schedule / "
+            "prefill / decode / dispatch / overlap_idle / readback / "
+            "sample / kv_transfer) — the per-phase answer to 'why is ITL "
+            "high'. decode is the async jit DISPATCH; the device wait "
+            "surfaces as overlap_idle at reap (shrinking toward zero "
+            "under the overlapped step pipeline) and the token transfer "
+            "as readback.",
+            self.registry,
+            buckets=ITL_BUCKETS_S,
+        )
+        # -- scheduler queue-pressure signal (per priority class) ----------
+        self.queue_depth = Gauge(
+            "kubeai_engine_queue_depth",
+            "Requests waiting in the scheduler, per priority class — the "
+            "autoscaler's queue-pressure depth signal.",
+            self.registry,
+        )
+        self.queue_oldest_wait = Gauge(
+            "kubeai_engine_queue_oldest_wait_seconds",
+            "Age of the oldest waiting request per priority class — the "
+            "autoscaler's queue-pressure staleness signal.",
+            self.registry,
+        )
+        self.queue_admitted = Gauge(
+            "kubeai_engine_queue_admitted_total",
+            "Requests dispatched out of the scheduler per priority class.",
+            self.registry,
+        )
+        self.queue_shed = Gauge(
+            "kubeai_engine_queue_shed_total",
+            "Requests shed at enqueue (infeasible deadline) per priority "
+            "class.",
+            self.registry,
+        )
+        self.queue_mean_wait = Gauge(
+            "kubeai_engine_queue_mean_wait_seconds",
+            "Mean queue wait of dispatched requests per priority class.",
+            self.registry,
+        )
+        self.sched_service_rate = Gauge(
+            "kubeai_engine_sched_service_rate",
+            "Scheduler drain-rate estimate (requests/second) used for "
+            "deadline feasibility and the computed Retry-After.",
+            self.registry,
+        )
+        # -- graceful drain ------------------------------------------------
+        self.draining = Gauge(
+            "kubeai_engine_draining",
+            "1 while the server is draining (refusing new work, "
+            "completing in-flight generations), else 0.",
+            self.registry,
+        )
+        self.drain_terminated = Gauge(
+            "kubeai_engine_drain_terminated_requests_total",
+            "In-flight requests terminated because the drain budget "
+            "expired before they completed.",
+            self.registry,
+        )
+        # -- step watchdog ---------------------------------------------------
+        self.watchdog_wedged = Gauge(
+            "kubeai_engine_watchdog_wedged",
+            "1 after the step watchdog detected a hung device step "
+            "(health flipped, restart requested), else 0.",
+            self.registry,
+        )
+        self.watchdog_stalls = Counter(
+            "kubeai_engine_watchdog_stalls_total",
+            "Hung-device-step detections by the engine watchdog.",
+            self.registry,
+        )
+        # -- cold start: snapshot restore-first boot (engine/coldstart) -----
+        self.coldstart_phase = Gauge(
+            "kubeai_coldstart_phase_seconds",
+            "Wall time of each boot phase (label `phase`: fetch/restore "
+            "on the snapshot path, load on the full HF-conversion path, "
+            "compile/warmup on both) — the per-phase answer to 'why was "
+            "this replica slow to Ready'.",
+            self.registry,
+        )
+        self.coldstart_total = Gauge(
+            "kubeai_coldstart_total_seconds",
+            "End-to-end boot wall time (model resolve through warm-up) — "
+            "the measured cold-start cost the capacity planner prices "
+            "into prewarm and preemption choices.",
+            self.registry,
+        )
+        self.coldstart_restored = Gauge(
+            "kubeai_coldstart_restored",
+            "1 when this boot restored the engine snapshot (params + "
+            "compilation cache), 0 on the full load path.",
+            self.registry,
+        )
+        self.coldstart_events = Counter(
+            "kubeai_coldstart_snapshot_events_total",
+            "Snapshot lifecycle events at boot (label `event`: restored, "
+            "published, absent, mismatch, error). `mismatch` means the "
+            "stored fingerprint disagreed and the boot fell back to full "
+            "load — a stale layout is never served.",
+            self.registry,
+        )
+
+        # sync_engine runs on the serve loop and on /metrics scrapes:
+        # one at a time, so a step record or a counter delta lands once.
+        self._sync_lock = threading.Lock()
+        # Step-profiler records already observed into step_phase (the
+        # profiler keeps a bounded ring; new records are read from it).
+        self._phase_step = 0
+
+    def record_coldstart(self, cold_start: dict) -> None:
+        """Fold a ColdStartTracker snapshot into the boot metrics."""
+        for phase, secs in (cold_start.get("phases") or {}).items():
+            self.coldstart_phase.set(secs, phase=phase)
+        self.coldstart_total.set(float(cold_start.get("total_s", 0.0)))
+        self.coldstart_restored.set(1 if cold_start.get("restored") else 0)
+        for ev in cold_start.get("events") or ():
+            self.coldstart_events.inc(event=ev)
+
+    def observe_timing(
+        self, kind: str, seconds: float, exemplar: str | None = None
+    ) -> None:
+        h = self._timing_hist.get(kind)
+        if h is not None:
+            h.observe(seconds, exemplar=exemplar)
+
+    def sync_engine(self, engine) -> None:
+        """Snapshot engine serving state (the engine owns these counters;
+        it records plain host-side values and this method moves them into
+        the registry). Called from the serve loop after each step AND at
+        /metrics scrape time, so the histograms are current even when the
+        loop has gone idle."""
+        with self._sync_lock:
+            snap = engine_state_snapshot(engine)
+            self.slots_active.set(snap["slots_active"])
+            self.requests_pending.set(snap["requests_pending"])
+            stats = snap["spec_stats"]
+            if stats:
+                self.spec_proposed.set(stats["proposed"])
+                self.spec_accepted.set(stats["accepted"])
+            pstats = snap["prefix_stats"]
+            if pstats:
+                # Counter semantics over cumulative engine-side stats: fold in
+                # the delta since the last sync (never set, never backward).
+                self.prefix_hit_tokens.inc(
+                    max(0.0, pstats["hit_tokens"] - self.prefix_hit_tokens.get())
+                )
+                self.prefix_prompt_tokens.inc(
+                    max(
+                        0.0,
+                        pstats["prompt_tokens"]
+                        - self.prefix_prompt_tokens.get(),
+                    )
+                )
+            slots = getattr(getattr(engine, "cfg", None), "num_slots", None)
+            if slots is not None:
+                self.slot_capacity.set(slots)
+            kv_info = snap.get("kv_cache") or {}
+            if kv_info:
+                self.kv_cache_bytes.set(kv_info.get("pool_bytes", 0))
+                self.kv_quant_enabled.set(
+                    1.0 if kv_info.get("quantized") else 0.0
+                )
+                self.kv_quant_capacity_factor.set(
+                    kv_info.get("capacity_factor", 1.0)
+                )
+            drain = getattr(engine, "drain_timing", None)
+            if drain is not None:
+                for rec in drain():
+                    self.observe_timing(
+                        rec[0], rec[1],
+                        exemplar=rec[2] if len(rec) > 2 else None,
+                    )
+            prof = getattr(engine, "profiler", None)
+            if prof is not None:
+                # The JAX profiler queues every phase for this sync; the
+                # port's keeps only its ring, read past the last step seen.
+                for rec in prof.recent():
+                    if rec["step"] > self._phase_step:
+                        for phase, seconds in rec["phases_s"].items():
+                            self.step_phase.observe(seconds, phase=phase)
+                        self._phase_step = rec["step"]
+            step_stats = snap["last_step"]
+            if step_stats:
+                self.batch_size.set(step_stats.get("batch_size", 0))
+                self.tokens_per_step.set(step_stats.get("tokens", 0))
+                self.step_duration.set(step_stats.get("duration_s", 0.0))
+            self.kv_utilization.set(snap["kv_utilization"])
+            sched = snap.get("scheduler") or {}
+            for cls, stats in (sched.get("classes") or {}).items():
+                self.queue_depth.set(stats["depth"], **{"class": cls})
+                self.queue_oldest_wait.set(
+                    stats["oldest_wait_s"], **{"class": cls}
+                )
+                self.queue_admitted.set(
+                    stats["admitted_total"], **{"class": cls}
+                )
+                self.queue_shed.set(stats["shed_total"], **{"class": cls})
+                self.queue_mean_wait.set(
+                    stats["mean_queue_wait_s"], **{"class": cls}
+                )
+            if sched:
+                self.sched_service_rate.set(sched.get("service_rate", 0.0))
+
+
+def engine_state_snapshot(engine) -> dict:
+    """Serving-state snapshot shared by /metrics and /v1/state."""
+    kvu = getattr(engine, "kv_utilization", None)
+    sched = getattr(engine, "scheduler", None)
+    kv_info = getattr(engine, "kv_cache_info", None)
+    return {
+        "slots_active": engine.num_active,
+        "requests_pending": engine.num_pending,
+        "kv_utilization": kvu() if kvu is not None else 0.0,
+        # KV dtype / capacity block: what the autoscaler and capacity
+        # planner size the replica's KV capacity by.
+        "kv_cache": kv_info() if kv_info is not None else {},
+        "last_step": dict(getattr(engine, "last_step_stats", {}) or {}),
+        "spec_stats": dict(getattr(engine, "spec_stats", {}) or {}),
+        "prefix_stats": dict(getattr(engine, "prefix_stats", {}) or {}),
+        # Queue-pressure snapshot: per-class depth/oldest-wait/admitted/
+        # shed plus drain rate and the current computed retry hint.
+        "scheduler": sched.snapshot() if sched is not None else {},
+    }
 
 
 class EngineServer:
@@ -56,17 +478,52 @@ class EngineServer:
         port: int = 0,
         max_queue: int = 256,
         request_timeout: float = 600.0,
+        default_priority: str = "standard",
+        max_deadline_ms: int = 0,
+        drain_timeout: float = 30.0,
+        watchdog_timeout: float = 0.0,
+        watchdog_action=None,
+        cold_start: dict | None = None,
     ):
         self.engine = engine
         self.tokenizer = tokenizer
         self.served_model_name = served_model_name
+        self.metrics = EngineMetrics()
+        engine.on_preempt = self._note_preempt
+        # Boot cold-start record (ColdStartTracker.snapshot()): surfaced
+        # on /v1/state so the fleet aggregator carries each replica's
+        # measured cold-start cost to the planner, and folded into the
+        # kubeai_coldstart_* metrics.
+        self.cold_start = dict(cold_start or {})
+        if self.cold_start:
+            self.metrics.record_coldstart(self.cold_start)
+        # Scheduling defaults (CRD `scheduling:` block, rendered as engine
+        # flags): applied when the request carries no X-Priority /
+        # X-Deadline-Ms headers; max_deadline_ms caps client deadlines.
+        self.default_priority = default_priority
+        self.max_deadline_ms = max_deadline_ms
         self.max_queue = max_queue
         self.request_timeout = request_timeout
         self._subscribers: dict[int, queue.Queue] = {}
         self._sub_lock = threading.Lock()
         self._stop = threading.Event()
         self._work = threading.Event()
-        self._loop_error: BaseException | None = None
+        # Graceful drain (SIGTERM / POST /v1/drain): refuse new work with
+        # 503 + Retry-After, finish in-flight generations up to
+        # drain_timeout, then terminate the stragglers cleanly.
+        self.drain_timeout = drain_timeout
+        self._draining = threading.Event()
+        self._drained = threading.Event()
+        self._drain_started = 0.0
+        self._drain_thread: threading.Thread | None = None
+        # Step watchdog: a hung device step (work active, no step
+        # progress past watchdog_timeout) flips /health and fires
+        # watchdog_action (in production: exit nonzero so kubelet
+        # restarts the pod). 0 disables.
+        self.watchdog_timeout = watchdog_timeout
+        self._watchdog_action = watchdog_action
+        self._wedged = False
+        self._watchdog_thread: threading.Thread | None = None
         self._loop_thread = threading.Thread(target=self._serve_loop, daemon=True)
 
         outer = self
@@ -90,9 +547,34 @@ class EngineServer:
             def do_GET(self):
                 path = self.path.split("?")[0]
                 if path == "/health":
+                    if outer.draining:
+                        # The LB's health view must eject this replica
+                        # while the drain runs.
+                        return self._json(
+                            503, {"status": "draining", "draining": True}
+                        )
                     if outer.healthy():
                         return self._json(200, {"status": "ok"})
+                    if outer._wedged:
+                        return self._json(
+                            503, {"status": "wedged", "wedged": True}
+                        )
                     return self._json(503, {"status": "unhealthy"})
+                if path == "/v1/drain":
+                    # kubelet preStop httpGet can only send GET: the
+                    # drain trigger accepts it alongside the POST form.
+                    return self._json(202, outer.begin_drain())
+                if path == "/metrics":
+                    outer.metrics.sync_engine(outer.engine)
+                    body = outer.metrics.registry.expose().encode()
+                    self.send_response(200)
+                    self.send_header(
+                        "Content-Type", "text/plain; version=0.0.4"
+                    )
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                    return
                 if path == "/v1/models":
                     data = [{
                         "id": outer.served_model_name,
@@ -100,6 +582,8 @@ class EngineServer:
                         "owned_by": "kubeai-tpu",
                     }]
                     return self._json(200, {"object": "list", "data": data})
+                if path == "/v1/state":
+                    return self._json(200, outer.state())
                 return self._json(404, {"error": {"message": "not found"}})
 
             def do_POST(self):
@@ -111,6 +595,8 @@ class EngineServer:
                 except json.JSONDecodeError as e:
                     return self._json(400, {"error": {"message": f"bad JSON: {e}"}})
                 try:
+                    if path == "/v1/drain":
+                        return self._json(202, outer.begin_drain())
                     if path == "/v1/chat/completions":
                         return outer._handle_generate(self, body, chat=True)
                     if path == "/v1/completions":
@@ -133,21 +619,52 @@ class EngineServer:
     def port(self) -> int:
         return self.httpd.server_address[1]
 
-    def healthy(self) -> bool:
-        return self._loop_thread.is_alive() and self._loop_error is None
-
     def start(self) -> None:
         self._loop_thread.start()
         self._http_thread.start()
+        if self.watchdog_timeout > 0:
+            self._watchdog_thread = threading.Thread(
+                target=self._watchdog_loop, daemon=True
+            )
+            self._watchdog_thread.start()
 
     def stop(self) -> None:
         self._stop.set()
         self._work.set()
         if self._loop_thread.is_alive():
             self._loop_thread.join(timeout=30)
+        # shutdown() handshakes with serve_forever; on a never-started
+        # server it would wait forever.
         if self._http_thread.is_alive():
             self.httpd.shutdown()
         self.httpd.server_close()
+
+    def state(self) -> dict:
+        """The /v1/state payload: serving state, KV facts, the prefix
+        holdings and the boot's cold-start record."""
+        return {
+            "model": self.served_model_name,
+            "healthy": self.healthy(),
+            "draining": self.draining,
+            # Held page-hash chains (hex), computed only here (not per
+            # step): the fleet aggregator joins them into its
+            # who-holds-which-prefix map.
+            "kv_holdings": self.kv_holdings(),
+            # Boot cold-start record: per-phase timings; the aggregator
+            # copies it to the planner as the model's cold-start cost.
+            "cold_start": self.cold_start,
+            # Last request per bucket: the "rid-<n>" tags that let an
+            # operator jump from a latency bucket to a request.
+            "exemplars": {
+                "ttft": self.metrics.ttft.exemplars(),
+                "itl": self.metrics.itl.exemplars(),
+            },
+            **engine_state_snapshot(self.engine),
+        }
+
+    def kv_holdings(self) -> list[str]:
+        holdings = getattr(self.engine, "prefix_holdings", None)
+        return holdings() if holdings is not None else []
 
     # -- engine loop ----------------------------------------------------------
 
@@ -163,26 +680,219 @@ class EngineServer:
                         q = self._subscribers.get(ev.rid)
                     if q is not None:
                         q.put(ev)
-            except Exception as e:
-                # A dead serving loop flips /health; waiting requests run
-                # into their timeout.
+                # Per-step telemetry: drain the engine's latency records
+                # into histograms and refresh the occupancy and KV gauges
+                # while they are live.
+                self.metrics.sync_engine(self.engine)
+                self._last_progress = time.monotonic()
+            except Exception:
+                # A dead serving loop flips /health so the liveness probe
+                # restarts the Pod; waiting requests run into their
+                # timeout.
                 logger.exception("serving loop crashed")
-                self._loop_error = e
+                self._loop_dead = True
                 return
+
+    _loop_dead = False
+    _last_progress = 0.0
+
+    def healthy(self) -> bool:
+        return (
+            not self._loop_dead
+            and not self._wedged
+            and not self._stop.is_set()
+        )
+
+    def _note_preempt(self, rid: int, client: str) -> None:
+        # The JAX server records this in its flight recorder (not
+        # ported); the port logs it.
+        logger.info("preempted rid-%d (client %r) for recompute", rid, client)
+
+    # -- step watchdog ----------------------------------------------------------
+
+    @property
+    def wedged(self) -> bool:
+        return self._wedged
+
+    def _watchdog_loop(self) -> None:
+        """Detect a hung device step: work is active but the serve loop
+        made no step progress for watchdog_timeout. A crashed loop
+        already flips /health (_loop_dead); this catches the worse case
+        where step() never returns (a hung kernel or device), which no
+        exception handler can see. On detection /health flips and
+        watchdog_action runs (production: exit nonzero, kubelet restarts
+        the pod)."""
+        poll = max(0.01, min(self.watchdog_timeout / 4.0, 1.0))
+        busy_since: float | None = None
+        while not self._stop.wait(timeout=poll):
+            try:
+                busy = self.engine.has_work()
+            except Exception:
+                busy = False
+            now = time.monotonic()
+            if not busy:
+                busy_since = None
+                continue
+            if busy_since is None:
+                # Work just (re)appeared: stall time counts from here,
+                # not from a _last_progress stamped before an idle gap.
+                busy_since = now
+            anchor = max(self._last_progress, busy_since)
+            # Overlapped stepping: a dispatched-but-unreaped chunk is
+            # progress (the device is computing and the host reaps it on
+            # the next step), but only within the same watchdog budget:
+            # an in-flight chunk older than that means the reap itself
+            # is wedged and must still trip the restart.
+            info_fn = getattr(self.engine, "inflight_info", None)
+            if info_fn is not None:
+                try:
+                    info = info_fn()
+                except Exception:
+                    info = None
+                if info:
+                    dispatched_at = float(info.get("dispatched_at", 0.0))
+                    if now - dispatched_at <= self.watchdog_timeout:
+                        anchor = max(anchor, dispatched_at)
+            stalled_for = now - anchor
+            if stalled_for <= self.watchdog_timeout:
+                continue
+            self._wedged = True
+            self.metrics.watchdog_wedged.set(1)
+            self.metrics.watchdog_stalls.inc()
+            logger.error(
+                "watchdog: no engine step progress for %.1fs with work "
+                "active (%d active, %d pending) — flipping /health and "
+                "requesting restart",
+                stalled_for, self.engine.num_active, self.engine.num_pending,
+            )
+            if self._watchdog_action is not None:
+                try:
+                    self._watchdog_action()
+                except Exception:
+                    logger.exception("watchdog action failed")
+            return
+
+    # -- graceful drain ---------------------------------------------------------
+
+    @property
+    def draining(self) -> bool:
+        return self._draining.is_set()
+
+    def begin_drain(self) -> dict:
+        """Start the drain sequence (idempotent): stop admitting, let
+        in-flight generations finish, terminate stragglers when the
+        budget runs out. Returns the status payload /v1/drain answers."""
+        if not self._draining.is_set():
+            self._drain_started = time.monotonic()
+            self._draining.set()
+            self.metrics.draining.set(1)
+            # Close the admission race at the engine too: a request that
+            # slipped past the handler's check still gets refused.
+            begin = getattr(self.engine, "begin_drain", None)
+            if begin is not None:
+                begin()
+            self._work.set()
+            self._drain_thread = threading.Thread(
+                target=self._drain_worker, daemon=True
+            )
+            self._drain_thread.start()
+            logger.info(
+                "drain started: %d active, %d pending, budget %.1fs",
+                self.engine.num_active, self.engine.num_pending,
+                self.drain_timeout,
+            )
+        return {
+            "draining": True,
+            "active": self.engine.num_active,
+            "pending": self.engine.num_pending,
+            "drain_timeout_s": self.drain_timeout,
+            "elapsed_s": round(time.monotonic() - self._drain_started, 3),
+        }
+
+    def _drain_worker(self) -> None:
+        deadline = self._drain_started + self.drain_timeout
+        while time.monotonic() < deadline:
+            with self._sub_lock:
+                streams = len(self._subscribers)
+            if (
+                streams == 0
+                and self.engine.num_active == 0
+                and self.engine.num_pending == 0
+            ):
+                self._drained.set()
+                logger.info(
+                    "drain complete: all in-flight work finished in %.2fs",
+                    time.monotonic() - self._drain_started,
+                )
+                return
+            time.sleep(0.02)
+        # Budget exhausted: terminate the remaining streams cleanly. A
+        # kill sentinel per subscriber makes its collector emit a final
+        # chunk and release the slot, instead of the process exit
+        # snapping TCP connections mid-token.
+        with self._sub_lock:
+            leftovers = list(self._subscribers.items())
+        for rid, sub in leftovers:
+            self.engine.cancel(rid)
+            sub.put(StepEvent(
+                rid=rid, token=-1, finished=True, finish_reason="cancelled",
+            ))
+        if leftovers:
+            self.metrics.drain_terminated.set(len(leftovers))
+            logger.warning(
+                "drain budget (%.1fs) expired: terminated %d in-flight "
+                "request(s)", self.drain_timeout, len(leftovers),
+            )
+        # Give the collectors a moment to flush their final chunks.
+        flush_deadline = time.monotonic() + 2.0
+        while time.monotonic() < flush_deadline:
+            with self._sub_lock:
+                if not self._subscribers:
+                    break
+            time.sleep(0.02)
+        self._drained.set()
+
+    def wait_drained(self, timeout: float | None = None) -> bool:
+        """Block until the drain sequence finished (True) or `timeout`
+        elapsed (False). The process entry point exits on True."""
+        return self._drained.wait(
+            timeout=self.drain_timeout + 5.0 if timeout is None else timeout
+        )
+
+    def _drain_refusal(self, http):
+        """503 for work arriving during drain: a computed Retry-After (the
+        remaining drain budget, jittered) and Connection: close so the
+        client's keep-alive doesn't pin a dying server."""
+        remaining = retryafter.jittered(
+            self._drain_started + self.drain_timeout - time.monotonic(),
+            min_s=1.0,
+        )
+        http.close_connection = True
+        return http._json(
+            503,
+            {
+                "error": {"message": "server is draining, retry elsewhere"},
+                "draining": True,
+            },
+            headers={
+                "Retry-After": retryafter.format_header(remaining),
+                "Connection": "close",
+            },
+        )
 
     # -- request handling -----------------------------------------------------
 
     def _parse_scheduling(self, headers):
-        """(priority, deadline_ms, client) from the request headers; None
-        leaves the scheduler's default. Raises ValueError on malformed
-        values."""
+        """Resolve (priority, deadline_ms, client) from request headers and
+        the server's scheduling defaults. Raises ValueError on malformed
+        values (the caller answers 400)."""
         raw_prio = (headers.get("X-Priority") or "").strip().lower()
         if raw_prio and raw_prio not in PRIORITY_CLASSES:
             raise ValueError(
                 f"X-Priority must be one of {'/'.join(PRIORITY_CLASSES)}, "
                 f"got {raw_prio!r}"
             )
-        priority = raw_prio or None
+        priority = raw_prio or self.default_priority
         deadline_ms = None
         raw_ddl = (headers.get("X-Deadline-Ms") or "").strip()
         if raw_ddl:
@@ -195,25 +905,37 @@ class EngineServer:
                 )
             if deadline_ms <= 0:
                 raise ValueError("X-Deadline-Ms must be > 0")
+        if deadline_ms is None and self.max_deadline_ms > 0:
+            # The CRD cap doubles as the default deadline: every request
+            # gets feasibility-checked against the operator's bound.
+            deadline_ms = float(self.max_deadline_ms)
+        elif deadline_ms is not None and self.max_deadline_ms > 0:
+            deadline_ms = min(deadline_ms, float(self.max_deadline_ms))
         client = (headers.get("X-Client-Id") or "").strip()
         return priority, deadline_ms, client
 
+    def _scheduler(self):
+        return getattr(self.engine, "scheduler", None)
+
     def _shed_response(self, http, message: str, retry_after: float | None = None):
-        """429 with a Retry-After computed by the scheduler and per-class
-        queue depths in the body."""
-        sched = self.engine.scheduler
+        """429 with a computed Retry-After (queue depth over drain rate,
+        from the scheduler; jittered once, so header and body carry the
+        same value) and per-class queue depths in the body."""
+        sched = self._scheduler()
         if retry_after is None:
-            retry_after = sched.retry_after()
+            retry_after = sched.retry_after() if sched is not None else 1.0
+        retry_after = retryafter.jittered(retry_after)
+        depths = sched.class_depths() if sched is not None else {}
         return http._json(
             429,
             {
                 "error": {"message": message},
                 "queue": {
-                    "depths": sched.class_depths(),
+                    "depths": depths,
                     "retry_after_s": round(retry_after, 3),
                 },
             },
-            headers={"Retry-After": _retry_after_header(retry_after)},
+            headers={"Retry-After": retryafter.format_header(retry_after)},
         )
 
     def _cancel_all(self, reqs) -> None:
@@ -223,6 +945,8 @@ class EngineServer:
                 self._subscribers.pop(rid_i, None)
 
     def _handle_generate(self, http, body: dict, chat: bool):
+        if self._draining.is_set():
+            return self._drain_refusal(http)
         model_field = str(body.get("model") or self.served_model_name)
         if model_field != self.served_model_name:
             return http._json(
@@ -301,13 +1025,17 @@ class EngineServer:
             self._cancel_all(reqs)
             return self._shed_response(http, str(e), retry_after=e.retry_after)
         except EngineDraining:
+            # Drain began between the handler's check and admission.
             self._cancel_all(reqs)
-            return http._json(
-                503, {"error": {"message": "server is draining, retry elsewhere"}}
-            )
+            return self._drain_refusal(http)
         except ValueError as e:
             self._cancel_all(reqs)
             return http._json(400, {"error": {"message": str(e)}})
+        # Metrics only after successful admission, so a failed add_request
+        # can't drift the gauge or inflate the counters.
+        self.metrics.requests_total.inc(model=display)
+        self.metrics.active_requests.inc()
+        self.metrics.prompt_tokens.inc(len(prompt_ids) * n)
         self._work.set()
         try:
             if stream:
@@ -318,6 +1046,7 @@ class EngineServer:
             # Client gone or handler done: release the slots of any
             # request still decoding (no-op after normal completion).
             self._cancel_all(reqs)
+            self.metrics.active_requests.dec()
 
     @staticmethod
     def _parse_sampling(body: dict, room: int) -> SamplingParams:
@@ -387,7 +1116,14 @@ class EngineServer:
                 self.engine.cancel(rid)
                 finish = "timeout"
                 break
+            if ev.token < 0:
+                # Drain-kill sentinel: the drain budget expired; end this
+                # stream cleanly with whatever was generated so far.
+                self.engine.cancel(rid)
+                finish = "timeout"
+                break
             tokens.append(ev.token)
+            self.metrics.generated_tokens.inc()
             text = self.tokenizer.decode(tokens)
             stop_hit = None
             for s in sp.stop:
@@ -438,12 +1174,18 @@ class EngineServer:
             else:
                 choices.append({"index": i, "text": text, "finish_reason": finish})
         if any_timeout and total_completion == 0:
-            ra = self.engine.scheduler.retry_after()
+            # No choice produced a token within the budget: 503 so the
+            # proxy retries another replica, with a hint from the
+            # scheduler's state.
+            sched = self._scheduler()
+            ra = retryafter.jittered(
+                sched.retry_after() if sched is not None else 1.0
+            )
             return http._json(
                 503,
                 {"error": {"message": "engine produced no tokens within "
                            f"{self.request_timeout}s"}},
-                headers={"Retry-After": _retry_after_header(ra)},
+                headers={"Retry-After": retryafter.format_header(ra)},
             )
         payload = {
             "id": f"cmpl-{uuid.uuid4().hex[:24]}",
@@ -517,3 +1259,272 @@ class EngineServer:
         http.wfile.write(f"{len(done):x}\r\n".encode() + done + b"\r\n")
         http.wfile.write(b"0\r\n\r\n")
         http.wfile.flush()
+
+
+# Flags of the JAX entry point whose features are not ported, with the
+# ROADMAP item that brings each: (flag, is it set?, what it needs).
+_UNPORTED_FLAGS = (
+    ("--tpu-topology", lambda a: bool(a.tpu_topology),
+     "meshes and parallelism (ROADMAP A item 11)"),
+    ("--dcn-coordinator/--process-id/--num-processes",
+     lambda a: bool(a.dcn_coordinator) or a.process_id != 0 or a.num_processes > 1,
+     "multihost lockstep serving (ROADMAP A item 11)"),
+    ("--quantization int8", lambda a: a.quantization == "int8",
+     "int8 weights (ROADMAP A item 9)"),
+    ("--kv-dtype int8", lambda a: a.kv_dtype == "int8",
+     "int8 KV pools (ROADMAP A item 7)"),
+    ("--draft-url", lambda a: bool(a.draft_url),
+     "draft-model speculation (ROADMAP A item 10)"),
+    ("--role", lambda a: a.role != "unified",
+     "disaggregated prefill/decode (ROADMAP A item 7)"),
+    ("--kv-sharing", lambda a: a.kv_sharing,
+     "the cluster KV-sharing tier (ROADMAP A item 7)"),
+    ("--kv-spill-url", lambda a: bool(a.kv_spill_url),
+     "the cluster KV-sharing tier (ROADMAP A item 7)"),
+    ("--snapshot-url/--snapshot-dir/--snapshot-no-publish",
+     lambda a: bool(a.snapshot_url or a.snapshot_dir or a.snapshot_no_publish),
+     "snapshot restore-first boots (ROADMAP A item 9)"),
+    ("--pipeline", lambda a: a.pipeline,
+     "the legacy --pipeline alias; use --step-overlap on (ROADMAP A item 5)"),
+    ("--max-adapters", lambda a: a.max_adapters > 0,
+     "LoRA adapters (ROADMAP A item 8)"),
+)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="kubeai-tpu-torch-engine")
+    ap.add_argument("--model-url", required=True)
+    ap.add_argument("--served-model-name", default="model")
+    ap.add_argument("--model-dir", default="", help="pre-downloaded cache dir")
+    ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument(
+        "--device", default="cuda",
+        help="torch device the engine runs on; cpu runs the kernels' "
+        "plain PyTorch versions (tests)",
+    )
+    ap.add_argument("--tpu-topology", default="", help="not ported")
+    ap.add_argument("--dcn-coordinator", default=os.environ.get("TPU_COORDINATOR", ""),
+                    help="not ported")
+    ap.add_argument("--process-id", type=int,
+                    default=int(os.environ.get("TPU_PROCESS_ID", "0")),
+                    help="not ported")
+    ap.add_argument("--num-processes", type=int,
+                    default=int(os.environ.get("TPU_PROCESS_COUNT", "1")),
+                    help="not ported")
+    ap.add_argument("--num-slots", type=int, default=32)
+    ap.add_argument("--max-seq-len", type=int, default=4096)
+    ap.add_argument(
+        "--max-adapters", type=int, default=0,
+        help="LoRA adapter slots; the JAX engine's default is 4, the "
+        "port's 0 until LoRA is ported (ROADMAP A item 8)",
+    )
+    ap.add_argument("--decode-chunk", type=int, default=8)
+    ap.add_argument("--quantization", default="", choices=["", "int8"],
+                    help="int8 is not ported")
+    ap.add_argument("--kv-dtype", default="", choices=["", "bfloat16", "int8"],
+                    help="paged KV-cache storage dtype; int8 is not ported")
+    ap.add_argument("--pipeline", action="store_true", help="not ported")
+    ap.add_argument(
+        "--step-overlap", choices=["auto", "on", "off"], default="auto",
+        help="overlapped step pipeline: dispatch decode chunk N+1 before "
+        "reaping chunk N (token-identical to the synchronous loop); auto "
+        "and on overlap, off steps synchronously",
+    )
+    ap.add_argument(
+        "--speculate", type=int, default=0,
+        help="speculative-decoding window (0 = off); prompt-lookup "
+        "proposals",
+    )
+    ap.add_argument(
+        "--spec-adaptive", choices=["on", "off"], default="on",
+        help="measure speculative vs chunk decode and run the faster",
+    )
+    ap.add_argument("--draft-url", default="", help="not ported")
+    ap.add_argument(
+        "--prefill-chunk", type=int, default=0,
+        help="chunked prefill size (0 = whole-prompt bucketed prefill)",
+    )
+    ap.add_argument(
+        "--default-priority", default="standard",
+        choices=list(PRIORITY_CLASSES),
+        help="priority class for requests without an X-Priority header "
+        "(CRD scheduling.defaultPriority)",
+    )
+    ap.add_argument(
+        "--max-deadline-ms", type=int, default=0,
+        help="cap on client X-Deadline-Ms values, and the default "
+        "deadline when none is sent; 0 disables deadline admission "
+        "(CRD scheduling.maxDeadlineMs)",
+    )
+    ap.add_argument(
+        "--queue-shares", default="",
+        help="per-class dispatch shares guaranteeing lower bands a "
+        "fraction of admissions under sustained higher-priority load, "
+        "e.g. 'standard=0.3,batch=0.05' (CRD scheduling.queueShares)",
+    )
+    ap.add_argument(
+        "--max-queue", type=int, default=256,
+        help="pending-queue depth past which requests are shed with 429 "
+        "and a computed Retry-After",
+    )
+    ap.add_argument(
+        "--drain-timeout", type=float, default=30.0,
+        help="graceful-drain budget in seconds: after SIGTERM or POST "
+        "/v1/drain, in-flight generations get this long to finish "
+        "before being terminated (CRD spec.drainTimeoutSeconds)",
+    )
+    ap.add_argument(
+        "--watchdog-timeout", type=float, default=120.0,
+        help="step-watchdog budget in seconds: with work active and no "
+        "engine step progress for this long, /health flips and the "
+        "process exits 3 so Kubernetes restarts the pod; 0 disables",
+    )
+    ap.add_argument("--role", default="unified",
+                    choices=["unified", "prefill", "decode"],
+                    help="only unified is ported")
+    ap.add_argument(
+        "--prefix-cache", action="store_true",
+        help="automatic prefix caching: shared prompt prefixes skip "
+        "prefill. Implies a prefill chunk of min(512, max-seq-len/4) "
+        "when unset",
+    )
+    ap.add_argument("--kv-sharing", action="store_true", help="not ported")
+    ap.add_argument("--kv-spill-url", default="", help="not ported")
+    ap.add_argument("--snapshot-url", default="", help="not ported")
+    ap.add_argument("--snapshot-dir", default="", help="not ported")
+    ap.add_argument("--snapshot-no-publish", action="store_true",
+                    help="not ported")
+    args = ap.parse_args(argv)
+    for flag, is_set, needs in _UNPORTED_FLAGS:
+        if is_set(args):
+            raise SystemExit(f"{flag}: {needs} is not ported to this engine")
+    if args.prefix_cache and args.prefill_chunk <= 0:
+        args.prefill_chunk = max(32, min(512, args.max_seq_len // 4))
+
+    logging.basicConfig(level=logging.INFO)
+    log = logging.getLogger("kubeai-tpu-torch-engine")
+    device = resolve_device(args.device)
+    tracker = ColdStartTracker()
+    try:
+        model_dir = resolve_model_dir(args.model_url, args.model_dir)
+        hf_cfg = load_hf_config(model_dir)
+        arch = (hf_cfg.get("architectures") or ["LlamaForCausalLM"])[0]
+        if arch in UNPORTED_ARCHITECTURES:
+            raise WeightLoadError(
+                f"{arch}: the {UNPORTED_ARCHITECTURES[arch]} family is not "
+                "ported to this engine (ROADMAP A item 10)"
+            )
+        family = get_model_family(arch)
+        model_cfg = family.config_from_hf(hf_cfg)
+        log.info("loading %s (%s) from %s onto %s",
+                 args.served_model_name, arch, model_dir, device)
+        with tracker.phase("load"):
+            params = load_params(family.name, model_dir, model_cfg, device=device)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+    except (WeightLoadError, KeyError) as e:  # KeyError: an unknown family or field
+        raise SystemExit(f"cannot load {args.model_url}: {e}") from e
+
+    shares: dict[str, float] = {}
+    if args.queue_shares:
+        for pair in args.queue_shares.split(","):
+            pair = pair.strip()
+            if not pair:
+                continue
+            cls, _, share = pair.partition("=")
+            shares[cls.strip()] = float(share)
+    scheduler = RequestScheduler(
+        SchedulingPolicy(
+            default_priority=args.default_priority,
+            queue_shares=shares,
+            max_deadline_ms=args.max_deadline_ms,
+        )
+    )
+    tokenizer = load_tokenizer(model_dir)
+    engine_cfg = EngineConfig(
+        num_slots=args.num_slots,
+        max_seq_len=args.max_seq_len,
+        decode_chunk=args.decode_chunk,
+        step_overlap=args.step_overlap,
+        kv_dtype=args.kv_dtype,
+        speculate=args.speculate,
+        spec_adaptive=args.spec_adaptive == "on",
+        prefill_chunk=args.prefill_chunk,
+        prefix_cache=args.prefix_cache,
+    )
+    # Warm-up before Ready. The engine captures its CUDA graphs when it
+    # is built and the kernels' library is built at its first launch, so
+    # `compile` covers both; `warmup` times a second, warmed generate.
+    warm = SamplingParams(temperature=0.0, max_tokens=2)
+    with tracker.phase("compile"):
+        engine = Engine(
+            family, model_cfg, params, cfg=engine_cfg,
+            eos_token_ids=tuple(getattr(tokenizer, "eos_token_ids", ())),
+            scheduler=scheduler, device=device,
+        )
+        engine.generate([[1, 2, 3]], warm)
+    with tracker.phase("warmup"):
+        engine.generate([[1, 2, 3]], warm)
+    tracker.finish()
+    # The warm-up's latency records are dropped: /metrics counts served
+    # requests.
+    engine.drain_timing()
+    log.info("warm-up complete (cold start %.2fs: %s)", tracker.total_s,
+             json.dumps({k: round(v, 3) for k, v in tracker.phases.items()}))
+
+    def _watchdog_exit():
+        # The watchdog already flipped /health; exiting nonzero hands the
+        # pod to kubelet's restart policy: a hung device step cannot be
+        # recovered in-process.
+        log.error("engine watchdog: hung device step — exiting 3 for restart")
+        os._exit(3)
+
+    server = EngineServer(
+        engine,
+        tokenizer,
+        args.served_model_name,
+        host=args.host,
+        port=args.port,
+        max_queue=args.max_queue,
+        default_priority=args.default_priority,
+        max_deadline_ms=args.max_deadline_ms,
+        drain_timeout=args.drain_timeout,
+        watchdog_timeout=args.watchdog_timeout,
+        watchdog_action=_watchdog_exit,
+        cold_start=tracker.snapshot(),
+    )
+    server.start()
+    log.info("engine serving on %s:%d", args.host, server.port)
+
+    # SIGTERM (pod deletion, rollout) starts the graceful drain: stop
+    # admitting, flip /health so the LB ejects us, finish in-flight work
+    # within --drain-timeout, then exit 0.
+    exit_evt = threading.Event()
+
+    def _drain_and_exit():
+        server.begin_drain()
+        server.wait_drained()
+        exit_evt.set()
+
+    def _on_sigterm(signum, frame):
+        log.info("SIGTERM: draining (budget %.1fs)", args.drain_timeout)
+        threading.Thread(target=_drain_and_exit, daemon=True).start()
+
+    try:
+        signal.signal(signal.SIGTERM, _on_sigterm)
+    except ValueError:
+        pass  # not the main thread (embedded use)
+    try:
+        while not exit_evt.wait(timeout=0.5):
+            pass
+    except KeyboardInterrupt:
+        pass
+    server.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

@@ -1,0 +1,321 @@
+"""Checkpoint loading: Hugging Face-format directories to the port's
+parameter dict. Counterpart of kubeai_tpu/engine/weights.py (the llama
+and qwen loaders, `resolve_model_dir` and `load_params`).
+
+Tensors are read lazily, as in the JAX package: safetensors headers are
+parsed once, and each tensor is seek-read from its shard only when its
+slot is filled. The JAX loader widens each tensor to f32 on the host and
+stacks each layer into a host bf16 buffer; here every leaf is a
+`torch.bfloat16` tensor preallocated on the target device and filled one
+tensor at a time: the tensor goes to the device as stored, where it is
+cast (round to nearest even, as ml_dtypes casts) and transposed into its
+slot. Peak host memory is one tensor as stored (1.05 GB for an 8B
+model's bf16 embedding), not a host copy of the model. The loaded dict
+is bit-equal to the JAX loader's tree.
+
+Sources: local directories, `pvc://` (the operator mounts the PVC at
+/model) and `hf://` (through huggingface_hub). Object-store URLs and the
+gemma, mixtral and whisper families are not ported and raise naming
+their ROADMAP item.
+
+`save_safetensors` writes a checkpoint in the same format; tests and
+`chip_smoke.py` use it to make checkpoints from random weights. Nothing
+on the serving path calls it.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import torch
+
+from kubeai_tpu_torch.device import resolve_device
+
+
+class WeightLoadError(RuntimeError):
+    pass
+
+
+def load_hf_config(model_dir: str) -> dict:
+    path = os.path.join(model_dir, "config.json")
+    if not os.path.exists(path):
+        raise WeightLoadError(f"no config.json under {model_dir}")
+    with open(path) as f:
+        return json.load(f)
+
+
+_ST_DTYPES = {
+    "F32": torch.float32,
+    "F16": torch.float16,
+    "BF16": torch.bfloat16,
+    "I64": torch.int64,
+    "I32": torch.int32,
+    "U8": torch.uint8,
+}
+
+
+def _decode_raw(raw: np.ndarray, dtype_s: str, shape, name: str) -> torch.Tensor:
+    """A tensor of the stored dtype and shape over the raw little-endian
+    bytes `raw` (uint8), without a copy."""
+    dtype = _ST_DTYPES.get(dtype_s)
+    if dtype is None:
+        raise WeightLoadError(f"unsupported dtype {dtype_s} for {name}")
+    return torch.from_numpy(raw).view(dtype).reshape(shape)
+
+
+class LazyTensors:
+    """Lazy tensor mapping over a checkpoint directory.
+
+    safetensors: headers parsed up front, tensor data seek-read on
+    demand: nothing resident until requested, nothing cached after.
+    pytorch_model*.bin: loaded eagerly with torch.load(weights_only=True)
+    (torch pickles do not support random access)."""
+
+    def __init__(self, model_dir: str):
+        self._index: dict[str, tuple[str, str, list, int, int]] = {}
+        self._eager: dict[str, torch.Tensor] | None = None
+        st_files = sorted(
+            f for f in os.listdir(model_dir) if f.endswith(".safetensors")
+        )
+        if st_files:
+            for fname in st_files:
+                fpath = os.path.join(model_dir, fname)
+                with open(fpath, "rb") as f:
+                    header_len = int.from_bytes(f.read(8), "little")
+                    header = json.loads(f.read(header_len))
+                    base = 8 + header_len
+                for name, meta in header.items():
+                    if name == "__metadata__":
+                        continue
+                    start, end = meta["data_offsets"]
+                    self._index[name] = (
+                        fpath, meta["dtype"], meta["shape"],
+                        base + start, end - start,
+                    )
+            return
+        bin_files = sorted(
+            f for f in os.listdir(model_dir)
+            if f.endswith(".bin") and f.startswith("pytorch_model")
+        )
+        if not bin_files:
+            raise WeightLoadError(
+                f"no safetensors or pytorch_model*.bin in {model_dir}"
+            )
+        self._eager = {}
+        for fname in bin_files:
+            self._eager.update(torch.load(
+                os.path.join(model_dir, fname), map_location="cpu",
+                weights_only=True,
+            ))
+
+    def __contains__(self, name: str) -> bool:
+        if self._eager is not None:
+            return name in self._eager
+        return name in self._index
+
+    def keys(self):
+        return (self._eager or self._index).keys()
+
+    def stored(self, name: str) -> torch.Tensor:
+        """One tensor as the checkpoint stores it (dtype and shape), on the
+        CPU, freshly read: copy it into its target and drop it."""
+        if self._eager is not None:
+            return self._eager[name]
+        if name not in self._index:
+            raise KeyError(name)
+        fpath, dtype_s, shape, offset, nbytes = self._index[name]
+        raw = np.empty(nbytes, np.uint8)
+        with open(fpath, "rb") as f:
+            f.seek(offset)
+            if f.readinto(memoryview(raw)) != nbytes:
+                raise WeightLoadError(f"{fpath}: short read of {name}")
+        return _decode_raw(raw, dtype_s, shape, name)
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        """f32 CPU tensor of one tensor, freshly read."""
+        return self.stored(name).to(torch.float32)
+
+
+def _stream_helpers(model_dir: str, NL: int, dtype, device: torch.device):
+    """(tensors, stack, leaf): the streamed-assembly kit. `leaf` and
+    `stack` fill tensors preallocated in `dtype` on `device`, one
+    checkpoint tensor at a time, copied as stored; the cast runs on the
+    device."""
+    t = LazyTensors(model_dir)
+
+    def get(name: str) -> torch.Tensor:
+        if name not in t:
+            raise WeightLoadError(f"missing tensor {name}")
+        return t.stored(name).to(device)
+
+    def leaf(name: str) -> torch.Tensor:
+        a = get(name)
+        out = torch.empty(a.shape, dtype=dtype, device=device)
+        out.copy_(a)
+        return out
+
+    def stack(fmt: str, transpose: bool = True) -> torch.Tensor:
+        buf = None
+        for i in range(NL):
+            a = get(fmt.format(i=i))
+            if transpose:
+                a = a.T
+            if buf is None:
+                buf = torch.empty((NL, *a.shape), dtype=dtype, device=device)
+            buf[i].copy_(a)  # casts to dtype in place
+            del a
+        return buf
+
+    return t, stack, leaf
+
+
+def load_llama_params(
+    model_dir: str, cfg, dtype=torch.bfloat16,
+    device: str | torch.device | None = None,
+) -> dict:
+    """Map a HF LlamaForCausalLM (or Qwen2ForCausalLM) checkpoint onto
+    the port's stacked-layer dict (kubeai_tpu_torch.models.llama).
+
+    HF stores per-layer `model.layers.{i}.self_attn.q_proj.weight` with
+    shape [out, in]; the port's layout stacks layers and keeps
+    [in, out], as the JAX package's does. `device` defaults to cuda."""
+    dev = resolve_device(device)
+    t, stack, leaf = _stream_helpers(model_dir, cfg.num_layers, dtype, dev)
+
+    extra_layers = {}
+    if getattr(cfg, "attention_bias", False):
+        extra_layers = {
+            "bq": stack("model.layers.{i}.self_attn.q_proj.bias", transpose=False),
+            "bk": stack("model.layers.{i}.self_attn.k_proj.bias", transpose=False),
+            "bv": stack("model.layers.{i}.self_attn.v_proj.bias", transpose=False),
+        }
+    params = {
+        "embed": leaf("model.embed_tokens.weight"),
+        "layers": {
+            "input_norm": stack(
+                "model.layers.{i}.input_layernorm.weight", transpose=False
+            ),
+            "wq": stack("model.layers.{i}.self_attn.q_proj.weight"),
+            "wk": stack("model.layers.{i}.self_attn.k_proj.weight"),
+            "wv": stack("model.layers.{i}.self_attn.v_proj.weight"),
+            "wo": stack("model.layers.{i}.self_attn.o_proj.weight"),
+            "post_attn_norm": stack(
+                "model.layers.{i}.post_attention_layernorm.weight",
+                transpose=False,
+            ),
+            "w_gate": stack("model.layers.{i}.mlp.gate_proj.weight"),
+            "w_up": stack("model.layers.{i}.mlp.up_proj.weight"),
+            "w_down": stack("model.layers.{i}.mlp.down_proj.weight"),
+            **extra_layers,
+        },
+        "final_norm": leaf("model.norm.weight"),
+    }
+    if "lm_head.weight" in t:
+        params["lm_head"] = leaf("lm_head.weight")
+    else:  # tied embeddings
+        params["lm_head"] = params["embed"]
+    return params
+
+
+def resolve_model_dir(model_url: str, model_dir: str = "") -> str:
+    """Resolve a Model URL to a local directory.
+
+    pvc://name/path -> /model/path (the operator mounts the PVC at
+    /model); hf://repo -> a huggingface_hub snapshot; plain paths pass
+    through. `model_dir` (the cache dir) wins when set."""
+    if model_dir:
+        return model_dir
+    if model_url.startswith("pvc://"):
+        ref = model_url[len("pvc://"):]
+        sub = ref.split("/", 1)[1] if "/" in ref else ""
+        return os.path.join("/model", sub) if sub else "/model"
+    if model_url.startswith("hf://"):
+        repo = model_url[len("hf://"):].split("?")[0]
+        try:
+            from huggingface_hub import snapshot_download
+
+            return snapshot_download(repo)
+        except Exception as e:
+            raise WeightLoadError(
+                f"cannot download {repo} (offline?): {e}"
+            ) from e
+    if model_url.split("://")[0] in ("s3", "gs", "oss"):
+        raise WeightLoadError(
+            f"object-store model URLs ({model_url.split('://')[0]}://) are "
+            "not ported yet (ROADMAP A item 9); mount the checkpoint and "
+            "pass its directory or a pvc:// URL"
+        )
+    if os.path.isdir(model_url):
+        return model_url
+    raise WeightLoadError(f"unsupported model url {model_url!r}")
+
+
+_LOADERS = {
+    "llama": load_llama_params,
+    "qwen": load_llama_params,  # same layout + biases (attention_bias)
+}
+# Architectures of the JAX package's families whose models are not
+# ported yet (ROADMAP A item 10), with their family.
+UNPORTED_ARCHITECTURES = {
+    "GemmaForCausalLM": "gemma",
+    "Gemma2ForCausalLM": "gemma",
+    "MixtralForCausalLM": "mixtral",
+    "WhisperForConditionalGeneration": "whisper",
+}
+
+
+def load_params(
+    family_name: str, model_dir: str, cfg, dtype=torch.bfloat16,
+    device: str | torch.device | None = None,
+) -> dict:
+    """Family-dispatching checkpoint loader."""
+    if family_name in UNPORTED_ARCHITECTURES.values():
+        raise WeightLoadError(
+            f"the {family_name} family is not ported yet (ROADMAP A item 10)"
+        )
+    if family_name not in _LOADERS:
+        raise WeightLoadError(f"no weight loader for family {family_name!r}")
+    return _LOADERS[family_name](model_dir, cfg, dtype, device)
+
+
+_TORCH_ST_DTYPES = {
+    torch.float32: "F32",
+    torch.float16: "F16",
+    torch.bfloat16: "BF16",
+    torch.int64: "I64",
+    torch.int32: "I32",
+    torch.uint8: "U8",
+}
+
+
+def save_safetensors(
+    model_dir: str, tensors: dict[str, torch.Tensor], config: dict
+) -> None:
+    """Write `tensors` as `model_dir/model.safetensors` (an 8-byte
+    little-endian header length, the JSON header padded with spaces to
+    8 bytes, then each tensor's raw little-endian bytes in order) and
+    `config` as `model_dir/config.json`."""
+    os.makedirs(model_dir, exist_ok=True)
+    header: dict = {"__metadata__": {"format": "pt"}}
+    offset = 0
+    for name, t in tensors.items():
+        if t.dtype not in _TORCH_ST_DTYPES:
+            raise WeightLoadError(f"unsupported dtype {t.dtype} for {name}")
+        nbytes = t.numel() * t.element_size()
+        header[name] = {
+            "dtype": _TORCH_ST_DTYPES[t.dtype],
+            "shape": list(t.shape),
+            "data_offsets": [offset, offset + nbytes],
+        }
+        offset += nbytes
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(os.path.join(model_dir, "model.safetensors"), "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)

@@ -28,9 +28,10 @@ The engine records plain floats under its own lock — it never touches a
 metrics registry from the hot path. `recent()` returns the bounded ring
 of step records and `phase_totals` sums them. The JAX profiler's
 standalone observations, its drainable histogram queue and its
-`/v1/profile` wait are not copied: their callers (the metrics sync and
-the profile route) are not ported yet, and a queue that nothing drains
-would grow with every step.
+`/v1/profile` wait are not copied: the server's metrics sync reads the
+step records past the last one it saw from the ring, the profile route
+is not ported yet, and a queue would grow with every step of an engine
+that no server drains.
 """
 
 from __future__ import annotations
