@@ -50,7 +50,23 @@ Phases, each fatal on failure:
                the streams must equal an eager synchronous engine's; it
                reports TTFT of hits and misses, agreement with whole-prompt
                streams, and a miss and a hit admission from the graphs and
-               eagerly;
+               eagerly. After the per_layer run, `serve_resume` sends the
+               proxy's continuation request (`kubeai_resume`): the four
+               bodies, greedy and seeded, cut after 1, 5 and 17 tokens,
+               then each body alone cut after 1 and 5, then one greedy and
+               one seeded cut after 5 with speculation (B3) and fused
+               (B4). Each continuation's SSE token ids must be its engine
+               tokens and its text the text past `emitted`; every stream
+               must equal an eager synchronous engine's fed the same
+               requests; a cut after one token must continue the
+               uninterrupted stream exactly (agreement past longer cuts,
+               which recompute generated tokens through the prefill in
+               bf16, is reported); B1 and B2, then B3, then B4 must launch
+               for the continuations; `{"kubeai_resume": "nope"}` must get
+               400; and POST /v1/profile with `jax_trace` while generates
+               run must capture 16 steps and a torch.profiler trace that
+               names B1's combine kernel. Prints the continuations' TTFT
+               beside the uninterrupted requests';
   5. serve_cli — the engine Pod's entry point: a random-weight Llama
                checkpoint at Llama-3-8B width (4 layers, bf16) written with
                `weights.save_safetensors`, served by `python -m
@@ -63,7 +79,11 @@ Phases, each fatal on failure:
                `weights.load_params` must be bit-equal to the tensors
                written, and an in-process engine of each run's
                configuration on it must give the greedy streams served over
-               HTTP. Reports the load rate, the cold-start phases and TTFT.
+               HTTP. Each run also sends one request with a traceparent
+               and an X-Request-Id: its server span must reach a local
+               OTLP/HTTP sink (OTEL_EXPORTER_OTLP_TRACES_ENDPOINT) with the
+               client's trace id, parent and request id. Reports the load
+               rate, the cold-start phases and TTFT.
 
 The last lines are the kernel JSON line, the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -1204,7 +1224,8 @@ def phase_model() -> None:
 # ---- phase 4: serve on the 8B-shape model ---------------------------------------
 
 
-def _post(port: int, body: dict) -> tuple[int, dict, float, float]:
+def _post(port: int, body: dict, headers: dict | None = None,
+          path: str = "/v1/chat/completions") -> tuple[int, dict, float, float]:
     """POST a chat completion. Returns (status, result, seconds to the
     first response byte, total seconds); a stream's result gathers its
     chunks, their text and their token ids."""
@@ -1212,8 +1233,8 @@ def _post(port: int, body: dict) -> tuple[int, dict, float, float]:
 
     t0 = time.perf_counter()
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
-    conn.request("POST", "/v1/chat/completions", json.dumps(body),
-                 {"Content-Type": "application/json"})
+    conn.request("POST", path, json.dumps(body),
+                 {"Content-Type": "application/json", **(headers or {})})
     resp = conn.getresponse()
     first = None
     if not body.get("stream"):
@@ -1373,10 +1394,7 @@ def serve_run(params, cfg, label: str, waves=None, **extra) -> dict:
         def run(i):
             results[i] = _post(server.port, bodies[i])
 
-        for fn in wrappers.values():
-            fn.launches = 0
-        for prog in _programs(engine).values():
-            prog.dispatches = 0
+        _zero_launches(engine)
         first_step = engine.profiler.steps_completed
         wave_rids: list[list[int]] = []
         t_start = time.perf_counter()
@@ -1460,9 +1478,10 @@ def serve_run(params, cfg, label: str, waves=None, **extra) -> dict:
 def check_streams_equal_eager(params, cfg, label: str, run: dict, **extra):
     """The serve run's streams, greedy and seeded, against an eager
     synchronous engine (no graphs, step_overlap="off") on the same weights
-    fed the same prompts and sampling params, wave by wave as the run sent
-    them. Any difference fails, with the first differing step. Returns
-    the reference engine."""
+    fed the same prompts, sampling params and continuation prefixes (a
+    request's optional third item), wave by wave as the run sent them.
+    Any difference fails, with the first differing step. Returns the
+    reference engine."""
     from kubeai_tpu_torch.engine import Engine, EngineConfig
 
     class EagerEngine(Engine):
@@ -1474,19 +1493,21 @@ def check_streams_equal_eager(params, cfg, label: str, run: dict, **extra):
     if ref._overlap or ref._decode_program.graph is not None:
         fail(f"serve {label}: the reference engine is not eager and synchronous")
     rids: dict[int, int] = {}
-    got: dict[int, list[int]] = {rid: [] for rid in run["requests"]}
+    got: dict[int, list[int]] = {rid: [] for wave in run["waves"] for rid in wave}
     t0 = time.perf_counter()
     for wave in run["waves"]:
         for rid in wave:
-            prompt, sp = run["requests"][rid]
-            rids[ref.add_request(prompt, sp)] = rid
+            prompt, sp, *resume = run["requests"][rid]
+            rids[ref.add_request(prompt, sp, resume_tokens=resume[0] if resume else None)] = rid
         while ref.has_work():
             for ev in ref.step():
                 got[rids[ev.rid]].append(ev.token)
     for rid, want in sorted(got.items()):
         have = run["streams"][rid]
-        sp = run["requests"][rid][1]
+        _, sp, *resume = run["requests"][rid]
         kind = "greedy" if sp.temperature == 0 else f"seeded (seed {sp.seed})"
+        if resume and resume[0]:
+            kind += f", resumed after {len(resume[0])}"
         if have != want:
             step = next((j for j, (x, y) in enumerate(zip(have, want)) if x != y),
                         min(len(have), len(want)))
@@ -1555,6 +1576,7 @@ def phase_serve() -> dict:
     profile_program(run["engine"], "decode step", "decode chunk")
     profile_prefill(params, cfg)
     free(run)
+    serve_resume(params, cfg)
     # Run 2: prompt-lookup speculation in every decode call. B3 launches,
     # B1 does not.
     extra = dict(decode_kernel="per_layer", speculate=4, spec_adaptive=False)
@@ -1586,6 +1608,373 @@ def phase_serve() -> dict:
     # Run 4: chunked prefill and the prefix cache. B1 and B2 launch.
     serve_prefix(params, cfg)
     return launches
+
+
+# ---- serve_resume: the continuation request on the 8B-shape model ----------------
+
+
+class IdTokenizer:
+    """ByteTokenizer's encoding (the prompts are bytes) with a decoding in
+    which every token id has text of its own ("[id]"). Random weights over
+    a 128k vocabulary almost never emit one of the 256 byte tokens, so
+    ByteTokenizer would stream empty text and the SSE chunks would carry
+    no token ids; with this decoding every token reaches the client as
+    text and as an id, and `emitted` counts real characters."""
+
+    def __init__(self):
+        from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+
+        self._bytes = ByteTokenizer()
+        self.eos_token_ids = self._bytes.eos_token_ids
+
+    def encode(self, text: str) -> list[int]:
+        return self._bytes.encode(text)
+
+    def apply_chat_template(self, messages: list[dict]) -> list[int]:
+        return self._bytes.apply_chat_template(messages)
+
+    def decode(self, ids) -> str:
+        return "".join(f"[{int(i)}]" for i in ids if int(i) not in self.eos_token_ids)
+
+
+# The continuation's cuts (tokens the dead replica emitted) and sampling
+# modes: greedy, and tests/unit/test_preemption.py's seeded mode.
+RESUME_CUTS = (1, 5, 17)
+RESUME_SAMPLING = {
+    "greedy": dict(temperature=0),
+    "seeded": dict(temperature=0.8, top_k=8, seed=11),
+}
+
+
+def _resume_bodies() -> list[tuple[str, dict]]:
+    """The four default bodies, each greedy and seeded, all streamed."""
+    out = []
+    for body in _default_bodies()[0]:
+        base = {k: v for k, v in body.items() if k not in ("temperature", "seed", "stream")}
+        for mode, sp in RESUME_SAMPLING.items():
+            out.append((mode, {**base, **sp, "stream": True}))
+    return out
+
+
+def _resume_server(params, cfg, label: str, **extra):
+    """An EngineServer over `params` with the engine's defaults (graphs
+    and overlap) and IdTokenizer, its engine wrapped to keep each
+    request's token stream and the times of its enqueue and first
+    token, and the arguments of each request. Returns (server, engine,
+    streams, t_add, t_first, requests)."""
+    from kubeai_tpu_torch.engine import Engine, EngineConfig
+    from kubeai_tpu_torch.engine.server import EngineServer
+
+    tok = IdTokenizer()
+    engine = Engine("llama", cfg, params, cfg=EngineConfig(**SERVE_CONFIG, **extra),
+                    eos_token_ids=tok.eos_token_ids)
+    if not engine._overlap or engine._decode_program.graph is None:
+        fail(f"serve_resume {label}: the engine does not overlap or replay graphs")
+    streams: dict[int, list[int]] = {}
+    t_add: dict[int, float] = {}
+    t_first: dict[int, float] = {}
+    requests: dict[int, tuple] = {}
+    add_request, step = engine.add_request, engine.step
+
+    def add_and_note(prompt, sp, *a, **kw):
+        t = time.perf_counter()
+        rid = add_request(prompt, sp, *a, **kw)
+        t_add[rid] = t
+        requests[rid] = (list(prompt), sp, list(kw.get("resume_tokens") or ()))
+        return rid
+
+    def step_and_keep():
+        events = step()
+        now = time.perf_counter()
+        for ev in events:
+            streams.setdefault(ev.rid, []).append(ev.token)
+            t_first.setdefault(ev.rid, now)
+        return events
+
+    engine.add_request, engine.step = add_and_note, step_and_keep
+    server = EngineServer(engine, tok, "llama-3-8b-shape", port=0)
+    server.start()
+    return server, engine, streams, t_add, t_first, requests
+
+
+def _post_all(port: int, bodies: list[dict]) -> list:
+    """POST the bodies concurrently; fail on any status but 200."""
+    results: list = [None] * len(bodies)
+
+    def run(i):
+        results[i] = _post(port, bodies[i])
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for i, (status, res, _, _) in enumerate(results):
+        if status != 200 or not res["done"]:
+            fail(f"serve_resume request {i}: HTTP {status} {res}")
+    return results
+
+
+def _post_waves(port: int, bodies: list[tuple[str, dict]], streams: dict,
+                waves: list) -> list:
+    """POST (mode, body) pairs one sampling mode at a time, each mode's
+    bodies together. Their prompts lie in distinct prefill buckets, so
+    every admission is a batch of one, as in the eager reference that
+    replays the waves: admission batches of another make-up round
+    differently in bf16. Appends each wave's rids to `waves`; returns the
+    results in the order of `bodies`."""
+    results: list = [None] * len(bodies)
+    for mode in RESUME_SAMPLING:
+        idx = [i for i, (m, _) in enumerate(bodies) if m == mode]
+        if not idx:
+            continue
+        known = set(streams)
+        for i, res in zip(idx, _post_all(port, [bodies[i][1] for i in idx])):
+            results[i] = res
+        waves.append(sorted(set(streams) - known))
+    return results
+
+
+def _launches(engine) -> dict:
+    """Kernel launches since the counts were set to 0: eager calls plus
+    launches per replay x replays."""
+    launches = {name: fn.launches for name, fn in _wrappers().items()}
+    for prog in _programs(engine).values():
+        for name, n in prog.launches().items():
+            launches[name] += n
+    return launches
+
+
+def _zero_launches(engine) -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
+    for prog in _programs(engine).values():
+        prog.dispatches = 0
+
+
+def _leading_equal(a: list, b: list) -> int:
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+def resume_run(params, cfg, label: str, bodies: list[tuple[str, dict]], cuts,
+               must_launch: tuple, **extra) -> dict:
+    """One layout's continuation check: serve each body once (the
+    uninterrupted stream), then POST it again with `kubeai_resume` cut
+    after k tokens for each k in `cuts`, in waves of one sampling mode
+    (`_post_waves`). `emitted` is the characters of the first k tokens'
+    text, less two for half the bodies (characters the dead stream never
+    delivered). Fails unless every continuation's SSE token ids are its
+    engine tokens and its SSE text is the text of prefix + those tokens
+    past `emitted`, a continuation after one token (which recomputes the
+    prompt's own prefill) continues the uninterrupted stream exactly,
+    every stream equals an eager synchronous engine's fed the same
+    requests wave by wave (`check_streams_equal_eager`), and each kernel
+    of `must_launch` launched while the continuations ran. Reports how
+    many tokens past longer cuts each continuation shares with the
+    uninterrupted stream. Returns the engine-side TTFT (enqueue to first
+    token) of both kinds and those agreement counts."""
+    server, engine, streams, t_add, t_first, requests = _resume_server(
+        params, cfg, label, **extra)
+    tok = IdTokenizer()
+    waves: list[list[int]] = []
+    agreement: list[tuple] = []
+    try:
+        known = set(streams)
+        plain = _post_waves(server.port, bodies, streams, waves)
+        base_rids = sorted(set(streams) - known)
+        ttft_plain = {rid: t_first[rid] - t_add[rid] for rid in base_rids}
+        # The threads added the requests in an order of their own: match
+        # each body to its rid through the tokens its stream carried.
+        rid_of = {}
+        for i, (_, res, _, _) in enumerate(plain):
+            match = [rid for rid in base_rids if streams[rid] == res["token_ids"]]
+            if len(match) != 1:
+                fail(f"serve_resume {label} body {i}: SSE token ids match "
+                     f"{len(match)} engine streams")
+            rid_of[i] = match[0]
+        _zero_launches(engine)
+        ttft_resumed = []
+        checked = 0
+        for k in cuts:
+            posts, meta = [], []
+            for i, (mode, body) in enumerate(bodies):
+                full = streams[rid_of[i]]
+                if len(full) <= k or full[k - 1] in tok.eos_token_ids:
+                    print(f"serve_resume {label} body {i} ({mode}): {len(full)} tokens, "
+                          f"no continuation after {k}", flush=True)
+                    continue
+                emitted = len(tok.decode(full[:k])) - (2 if i % 2 else 0)
+                posts.append((mode, {**body, "kubeai_resume": {"token_ids": full[:k],
+                                                               "emitted": emitted}}))
+                meta.append((i, mode, full, emitted))
+            known = set(streams)
+            results = _post_waves(server.port, posts, streams, waves)
+            new = sorted(set(streams) - known)
+            for (i, mode, full, emitted), (_, res, _, _) in zip(meta, results):
+                tag = f"serve_resume {label} body {i} ({mode}) k={k}"
+                match = [rid for rid in new
+                         if requests[rid][2] == full[:k] and streams[rid] == res["token_ids"]]
+                if len(match) != 1:
+                    fail(f"{tag}: the streamed token ids {res['token_ids'][:6]} are not the "
+                         "engine tokens of the continuation")
+                got = streams[match[0]]
+                want_text = tok.decode(full[:k] + got)[emitted:]
+                if res["text"] != want_text:
+                    fail(f"{tag}: resumed text {res['text'][:60]!r} is not the text of "
+                         f"prefix + continuation past {emitted} characters {want_text[:60]!r}")
+                same = _leading_equal(got, full[k:])
+                agreement.append((i, mode, k, same, len(full) - k))
+                if same < len(full) - k:
+                    print(f"{tag}: continuation leaves the uninterrupted stream after "
+                          f"{same} of {len(full) - k} tokens: {got[same:same + 3]} vs "
+                          f"{full[k + same:k + same + 3]}", flush=True)
+                    if k == 1:  # the prompt's own prefill, recomputed alike
+                        fail(f"{tag}: a continuation after one token must continue the "
+                             "uninterrupted stream")
+                ttft_resumed.append(t_first[match[0]] - t_add[match[0]])
+                checked += 1
+        launches = _launches(engine)
+        equal = sum(a[3] == a[4] for a in agreement)
+        print(f"serve_resume {label}: {checked} continuations (cuts {list(cuts)}): SSE ids = "
+              f"engine tokens, SSE text = text past emitted; {equal} equal to the "
+              f"uninterrupted stream past the cut, {sum(a[3] for a in agreement)} of "
+              f"{sum(a[4] for a in agreement)} tokens before the first difference; "
+              f"launches while they ran {json.dumps(launches)}", flush=True)
+        for name in must_launch:
+            if launches[name] <= 0:
+                fail(f"serve_resume {label}: {name} did not launch for the continuations")
+        if label == "per_layer":
+            resume_alone(server.port, label, bodies, streams, requests, waves)
+            status, res, _, _ = _post(server.port, {**bodies[0][1], "stream": False,
+                                                    "kubeai_resume": "nope"})
+            if status != 400:
+                fail(f"serve_resume: kubeai_resume \"nope\" got HTTP {status}, not 400")
+            print(f"serve_resume per_layer: kubeai_resume \"nope\" -> 400 "
+                  f"{res['error']['message']!r}", flush=True)
+            profile_endpoint(server.port)
+    finally:
+        server.stop()
+    check_streams_equal_eager(params, cfg, f"resume {label}", {
+        "engine": engine, "requests": requests, "waves": waves, "streams": streams}, **extra)
+    out = {"plain": sorted(ttft_plain.values()), "resumed": sorted(ttft_resumed)}
+    for kind, times in out.items():
+        print(f"serve_resume {label} TTFT {kind} (engine side, enqueue to first token, "
+              f"{len(times)} requests): median {times[len(times) // 2]:.4f} s, min "
+              f"{times[0]:.4f} s, max {times[-1]:.4f} s", flush=True)
+    del engine
+    out["agreement"] = agreement
+    return out
+
+
+def resume_alone(port: int, label: str, bodies, streams, requests, waves) -> None:
+    """Each body alone: its uninterrupted stream, then its continuations
+    cut after 1 and 5 tokens, one request at a time, so every admission
+    is a batch of one and decodes beside idle slots. A cut after 1 token
+    recomputes exactly the prompt's prefill: its continuation must equal
+    the uninterrupted stream. A cut after 5 recomputes 4 generated tokens
+    through the prefill (B2, P rounded to bf16) where the uninterrupted
+    stream wrote their K/V while decoding (B1, P in f32): reported."""
+    tok = IdTokenizer()
+    report = {1: [], 5: []}
+    for i, (mode, body) in enumerate(bodies):
+        known = set(streams)
+        _post_all(port, [body])
+        (rid,) = sorted(set(streams) - known)
+        full = streams[rid]
+        waves.append([rid])
+        for k in report:
+            if len(full) <= k:
+                continue
+            known = set(streams)
+            _post_all(port, [{**body, "kubeai_resume": {
+                "token_ids": full[:k], "emitted": len(tok.decode(full[:k]))}}])
+            (cont,) = sorted(set(streams) - known)
+            waves.append([cont])
+            same = _leading_equal(streams[cont], full[k:])
+            report[k].append((same, len(full) - k))
+            if k == 1 and same < len(full) - k:
+                fail(f"serve_resume {label} body {i} ({mode}) alone, k=1: the continuation "
+                     f"leaves the uninterrupted stream after {same} of {len(full) - k} "
+                     f"tokens: {streams[cont][same:same + 3]} vs {full[k + same:k + same + 3]}")
+    for k, rows in report.items():
+        print(f"serve_resume {label} alone, k={k}: {sum(a == b for a, b in rows)} of "
+              f"{len(rows)} continuations equal to the uninterrupted stream; leading tokens "
+              f"equal {[a for a, _ in rows]} of {[b for _, b in rows]}", flush=True)
+
+
+def profile_endpoint(port: int) -> None:
+    """POST /v1/profile {"steps": 16, "fresh": true, "jax_trace": true}
+    while generates of 256 tokens run back to back (the profiler takes a
+    while to start: one generate could end before the window opens).
+    Fails unless 16 or more steps were captured and the torch.profiler
+    trace it names holds B1's combine kernel."""
+    import os
+    import shutil
+
+    gen = {"messages": [{"role": "user", "content": "profile me"}], "max_tokens": 256,
+           "temperature": 0, "stream": True}
+    done = threading.Event()
+    statuses: list[int] = []
+
+    def generate():
+        while not done.is_set():
+            statuses.append(_post(port, gen)[0])
+
+    t = threading.Thread(target=generate)
+    t.start()
+    time.sleep(0.05)
+    t0 = time.perf_counter()
+    try:
+        status, res, _, _ = _post(port, {"steps": 16, "fresh": True, "timeout_s": 60,
+                                         "jax_trace": True}, path="/v1/profile")
+    finally:
+        window_s = time.perf_counter() - t0
+        done.set()
+        t.join()
+    if status != 200 or set(statuses) != {200}:
+        fail(f"/v1/profile: HTTP {status} {res}, generates HTTP {statuses}")
+    trace_dir = res["jax_trace_dir"]
+    if res["steps_captured"] < 16 or not trace_dir:
+        fail(f"/v1/profile: steps_captured {res['steps_captured']}, trace dir {trace_dir}")
+    try:
+        path = os.path.join(trace_dir, "trace.json")
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    b1 = [e for e in events if "paged_decode_combine_kernel" in str(e.get("name", ""))]
+    if not b1:
+        fail(f"/v1/profile: the trace ({len(events)} events) names no "
+             "paged_decode_combine_kernel (B1)")
+    totals = {k: round(v, 6) for k, v in sorted(res["phase_totals_s"].items())}
+    print(f"/v1/profile: steps_captured {res['steps_captured']}, window {window_s:.4f} s "
+          f"with the trace on; phase totals s {json.dumps(totals)}; trace {size / 2**20:.1f} "
+          f"MiB, {len(events)} events, {len(b1)} of B1's combine kernel", flush=True)
+
+
+def serve_resume(params, cfg) -> None:
+    """The continuation request (`kubeai_resume`) at full width: the four
+    default bodies, greedy and seeded, cut after 1, 5 and 17 tokens, in
+    the per_layer layout (B1 and B2 must launch), with `{"kubeai_resume":
+    "nope"}` refused and /v1/profile's torch.profiler trace naming B1;
+    then one greedy and one seeded body cut after 5 tokens with
+    speculation (B3 must launch) and in the fused layout (B4 must
+    launch). Prints the continuations' TTFT beside the uninterrupted
+    requests' and the card."""
+    bodies = _resume_bodies()
+    resume_run(params, cfg, "per_layer", bodies, RESUME_CUTS,
+               ("paged_decode_attention", "flash_causal_prefill"),
+               decode_kernel="per_layer")
+    free({})
+    two = bodies[2:4]  # the 317-token prompt, greedy and seeded
+    resume_run(params, cfg, "speculate", two, (5,), ("paged_verify_attention",),
+               decode_kernel="per_layer", speculate=4, spec_adaptive=False)
+    free({})
+    resume_run(params, cfg, "fused", two, (5,), ("paged_decode_attention_fused",),
+               decode_kernel="fused")
+    free({})
+    print(f"serve_resume card: {gpu_line()}", flush=True)
 
 
 # The JAX server's prefill_chunk at max_seq_len 2048:
@@ -2059,8 +2448,85 @@ CLI_RUNS = (
 )
 
 
+class OtlpSink:
+    """A stdlib OTLP/HTTP collector on 127.0.0.1: keeps the spans of every
+    JSON POST to /v1/traces."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        sink = self
+        self.spans: list[dict] = []
+        self._lock = threading.Lock()
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                if self.path == "/v1/traces":
+                    payload = json.loads(body)
+                    with sink._lock:
+                        sink.spans += [sp for rs in payload["resourceSpans"]
+                                       for ss in rs["scopeSpans"] for sp in ss["spans"]]
+                self.send_response(200)
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"{}")
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self._thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self._thread.start()
+
+    @property
+    def endpoint(self) -> str:
+        return f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def wait_span(self, trace_id: str, timeout_s: float) -> dict | None:
+        deadline = time.perf_counter() + timeout_s
+        while time.perf_counter() < deadline:
+            with self._lock:
+                for sp in self.spans:
+                    if sp["traceId"] == trace_id:
+                        return sp
+            time.sleep(0.1)
+        return None
+
+    def stop(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def check_trace(port: int, sink: OtlpSink, label: str) -> None:
+    """One request with a client's traceparent and an X-Request-Id: fails
+    unless the engine's server span reaches the sink with the client's
+    trace id, the client's span as its parent and the request id."""
+    import os
+
+    trace_id, parent = os.urandom(16).hex(), os.urandom(8).hex()
+    req_id = f"chip-smoke-{label}"
+    status = _post(port, {"messages": [{"role": "user", "content": "trace me"}],
+                          "max_tokens": 4, "temperature": 0},
+                   headers={"traceparent": f"00-{trace_id}-{parent}-01",
+                            "X-Request-Id": req_id})[0]
+    if status != 200:
+        fail(f"serve_cli {label}: the traced request got HTTP {status}")
+    t0 = time.perf_counter()
+    span = sink.wait_span(trace_id, 15.0)
+    if span is None:
+        fail(f"serve_cli {label}: no span of trace {trace_id} reached the OTLP sink")
+    attrs = {a["key"]: a["value"] for a in span.get("attributes", ())}
+    if span.get("parentSpanId") != parent or attrs.get("request.id") != {"stringValue": req_id}:
+        fail(f"serve_cli {label}: span {span} lacks the client's parent or request id")
+    print(f"serve_cli {label} trace: span {span['name']!r} of the client's trace reached the "
+          f"OTLP sink {time.perf_counter() - t0:.2f} s after the response; parent "
+          f"{span['parentSpanId']}, request.id {req_id}, http.status_code "
+          f"{attrs.get('http.status_code')}", flush=True)
+
+
 def cli_run(model_dir: str, label: str, flags: list, env_extra: dict,
-            ckpt_bytes: int) -> dict:
+            ckpt_bytes: int, sink: OtlpSink) -> dict:
     """One `python -m kubeai_tpu_torch.engine.server` run over `model_dir`
     in a subprocess of its own session: ready within CLI_READY_S, the
     four requests of `_default_bodies` sent together (all 200), /metrics
@@ -2068,7 +2534,9 @@ def cli_run(model_dir: str, label: str, flags: list, env_extra: dict,
     stays active) and SIGTERM (exit 0 within the drain budget). Returns
     the responses' texts, the streamed token ids, the completion tokens
     the responses report, the state read before the drain and the
-    /metrics values the phase gates."""
+    /metrics values the phase gates. The server exports its spans to
+    `sink` (OTEL_EXPORTER_OTLP_TRACES_ENDPOINT); `check_trace` runs
+    before the drain."""
     import os
     import signal
     import socket
@@ -2088,7 +2556,7 @@ def cli_run(model_dir: str, label: str, flags: list, env_extra: dict,
           flush=True)
     here = os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items() if k != "KUBEAI_TPU_DECODE_KERNEL"}
-    env.update(env_extra, PYTHONPATH=here)
+    env.update(env_extra, PYTHONPATH=here, OTEL_EXPORTER_OTLP_TRACES_ENDPOINT=sink.endpoint)
     log_fd, log_path = tempfile.mkstemp(prefix="kubeai-serve-cli-", suffix=".log")
     proc = None
 
@@ -2157,6 +2625,9 @@ def cli_run(model_dir: str, label: str, flags: list, env_extra: dict,
               f"{json.dumps(state['exemplars']['ttft'])}; the streamed request's first "
               f"chunk at {streamed_first:.4f} s (client); spec_stats "
               f"{json.dumps(state['spec_stats'])}", flush=True)
+        # After /metrics and /v1/state were read: the gates count the
+        # four requests above.
+        check_trace(port, sink, label)
         # Drain: /v1/drain refuses new work, then SIGTERM exits 0.
         if _post_status(port, "/v1/drain") != 202:
             fail(f"serve_cli {label}: POST /v1/drain did not answer 202")
@@ -2240,8 +2711,12 @@ def serve_cli() -> None:
         print(f"serve_cli checkpoint: {CLI_LAYERS} layers at Llama-3-8B width, bf16, "
               f"{ckpt_bytes / 1e9:.3f} GB in {len(tensors)} tensors, drawn and written in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
-        runs = {label: cli_run(model_dir, label, flags, env, ckpt_bytes)
-                for label, flags, env, _ in CLI_RUNS}
+        sink = OtlpSink()
+        try:
+            runs = {label: cli_run(model_dir, label, flags, env, ckpt_bytes, sink)
+                    for label, flags, env, _ in CLI_RUNS}
+        finally:
+            sink.stop()
 
         # The same checkpoint in-process, on the card.
         tok = ByteTokenizer()

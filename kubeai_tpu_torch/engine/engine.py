@@ -699,12 +699,36 @@ class Engine:
         priority: str | None = None,
         client: str = "",
         deadline_ms: float | None = None,
+        resume_tokens: list[int] | None = None,
     ) -> int:
         """Queue a request. `on_admit(rid)` runs under the engine lock
         before the request becomes visible to `step()`. `priority`,
         `client` and `deadline_ms` go to the scheduler, which may refuse
-        an infeasible deadline with DeadlineInfeasible."""
+        an infeasible deadline with DeadlineInfeasible.
+
+        Continuation: `resume_tokens` is a generation prefix that another
+        replica already emitted (the proxy resuming a stream whose
+        replica died). The request admits through the recompute path
+        that preemption uses: prefill prompt + prefix[:-1] with the first
+        token forced to prefix[-1], and step() emits only new tokens. The
+        sampler is seeded and position-folded, so a greedy or seeded
+        continuation is token-identical to the uninterrupted stream."""
         params = params or SamplingParams()
+        resume = [int(t) for t in (resume_tokens or [])]
+        if resume:
+            if len(resume) >= params.max_tokens:
+                raise ValueError(
+                    f"resume prefix of {len(resume)} tokens >= max_tokens "
+                    f"{params.max_tokens}: nothing left to generate"
+                )
+            if len(prompt_tokens) + len(resume) >= self.cfg.max_seq_len:
+                raise ValueError(
+                    f"prompt + resume prefix length "
+                    f"{len(prompt_tokens) + len(resume)} >= max_seq_len "
+                    f"{self.cfg.max_seq_len}"
+                )
+            if resume[-1] in self.eos_token_ids:
+                raise ValueError("resume prefix already ends at a stop token")
         if adapter:
             raise NotImplementedError("LoRA adapters are not ported yet (ROADMAP A11)")
         if len(prompt_tokens) == 0:
@@ -730,6 +754,9 @@ class Engine:
                 params=params,
                 seed=seed,
                 client=client,
+                # A non-empty out_tokens prefix is what admission reads as
+                # resumed: the seat preemption's re-admission uses.
+                out_tokens=resume,
                 stop_token_ids=self.eos_token_ids,
                 t_enqueue=_now(),
             )

@@ -9,8 +9,12 @@ operator and the fleet read):
   GET  /health                readiness and liveness probes
   GET  /metrics               Prometheus text (engine counters)
   GET  /v1/state              admin snapshot (occupancy, KV facts,
-                              spec/prefix stats, cold start)
+                              spec/prefix stats, cold start, the
+                              flight recorder's rings)
   POST /v1/drain              graceful drain (GET is the preStop alias)
+  POST /v1/profile            an N-step per-phase timeline of the
+                              engine loop, optionally with a
+                              torch.profiler trace of the window
 
 One serve-loop thread steps the engine and fans StepEvents out to
 per-request queues; HTTP handler threads tokenize, queue the request
@@ -21,10 +25,18 @@ the loop folds the engine's counters into the metrics registry. SIGTERM
 lets in-flight generations finish within the drain budget; a watchdog
 flips /health and asks for a restart when a step never returns.
 
-Not ported yet: tracing, the flight recorder, /v1/profile, tenancy,
-disaggregated prefill/decode, KV sharing, adapters and embeddings, and
-the series and /v1/state keys that belong to them (ROADMAP A items 5,
-7, 8 and 10).
+A generate body may carry `kubeai_resume: {token_ids, emitted}`: the
+routing proxy's continuation of a stream whose replica died. The engine
+recomputes the prefix and the response carries only the text past
+`emitted` characters. Every POST opens a server span that continues the
+caller's W3C `traceparent` and exports over OTLP/HTTP when an endpoint
+is configured. The flight recorder keeps the engine's admissions, sheds,
+preemptions, watchdog wedges and loop crashes in bounded rings.
+
+Not ported yet: disaggregated prefill/decode, KV sharing, adapters and
+embeddings, and the routes, series and /v1/state keys that belong to
+them (ROADMAP A items 7, 8 and 10). Tenancy is the front door's; this
+server reads only the scheduling headers.
 
 Run: python -m kubeai_tpu_torch.engine.server --model-url <dir> [--port N]
 """
@@ -57,7 +69,15 @@ from kubeai_tpu_torch.engine.weights import (
     load_params,
     resolve_model_dir,
 )
-from kubeai_tpu_torch.metrics.registry import Counter, Gauge, Histogram, Registry
+from kubeai_tpu_torch.fleet.profiler import phase_totals
+from kubeai_tpu_torch.metrics import flightrecorder, tracing
+from kubeai_tpu_torch.metrics.registry import (
+    Counter,
+    Gauge,
+    Histogram,
+    Registry,
+    TracingDroppedSpans,
+)
 from kubeai_tpu_torch.models.registry import get_model_family
 from kubeai_tpu_torch.scheduling.scheduler import (
     PRIORITY_CLASSES,
@@ -253,6 +273,12 @@ class EngineMetrics:
             "as readback.",
             self.registry,
             buckets=ITL_BUCKETS_S,
+        )
+        self.tracing_dropped = TracingDroppedSpans(
+            "kubeai_tracing_dropped_spans_total",
+            "Spans dropped by the OTLP exporter (queue full or exporter "
+            "thread dead) instead of blocking the request path.",
+            self.registry,
         )
         # -- scheduler queue-pressure signal (per priority class) ----------
         self.queue_depth = Gauge(
@@ -489,6 +515,10 @@ class EngineServer:
         self.tokenizer = tokenizer
         self.served_model_name = served_model_name
         self.metrics = EngineMetrics()
+        # Always-on flight recorder: admissions, sheds, preemptions and
+        # watchdog or loop anomalies land in bounded rings surfaced on
+        # /v1/state.
+        self.recorder = flightrecorder.FlightRecorder(ring_size=128)
         engine.on_preempt = self._note_preempt
         # Boot cold-start record (ColdStartTracker.snapshot()): surfaced
         # on /v1/state so the fleet aggregator carries each replica's
@@ -531,10 +561,13 @@ class EngineServer:
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
 
+            _last_status = 200  # recorded for the request span
+
             def log_message(self, *a):
                 pass
 
             def _json(self, status: int, payload: dict, headers: dict | None = None):
+                self._last_status = status
                 body = json.dumps(payload).encode()
                 self.send_response(status)
                 self.send_header("Content-Type", "application/json")
@@ -594,19 +627,47 @@ class EngineServer:
                     body = json.loads(raw or b"{}")
                 except json.JSONDecodeError as e:
                     return self._json(400, {"error": {"message": f"bad JSON: {e}"}})
+                # Continue the trace the proxy started (W3C traceparent),
+                # with the propagated X-Request-Id on the span: one id
+                # follows the request front door -> proxy -> engine.
+                attrs = {"http.route": path}
+                req_id = self.headers.get("X-Request-Id")
+                if req_id:
+                    attrs["request.id"] = req_id
+                span = tracing.tracer().start_span(
+                    f"engine {path}",
+                    parent=tracing.parse_traceparent(self.headers.get("traceparent")),
+                    kind=tracing.KIND_SERVER,
+                    attributes=attrs,
+                )
+                self.current_span = span
+                self._last_status = 200
                 try:
                     if path == "/v1/drain":
                         return self._json(202, outer.begin_drain())
+                    if path == "/v1/profile":
+                        return outer._handle_profile(self, body)
                     if path == "/v1/chat/completions":
                         return outer._handle_generate(self, body, chat=True)
                     if path == "/v1/completions":
                         return outer._handle_generate(self, body, chat=False)
                     return self._json(404, {"error": {"message": "not found"}})
-                except BrokenPipeError:
+                except BrokenPipeError as e:
+                    span.set_attribute("http.status_code", self._last_status)
+                    span.end(error=str(e) or "client disconnected")
                     raise
                 except Exception as e:
                     logger.exception("handler error")
                     return self._json(500, {"error": {"message": str(e)}})
+                finally:
+                    # Handlers answer errors with 4xx/5xx JSON, not
+                    # exceptions: the span must say so.
+                    if not span.end_ns:
+                        span.set_attribute("http.status_code", self._last_status)
+                        span.end(
+                            error=f"HTTP {self._last_status}"
+                            if self._last_status >= 400 else None
+                        )
 
         self.httpd = _HTTPServer((host, port), Handler)
         self._http_thread = threading.Thread(
@@ -659,6 +720,9 @@ class EngineServer:
                 "ttft": self.metrics.ttft.exemplars(),
                 "itl": self.metrics.itl.exemplars(),
             },
+            # The engine's discrete decisions (admits, sheds, preemptions,
+            # watchdog) in decision order.
+            "flight_recorder": self.recorder.state_payload(),
             **engine_state_snapshot(self.engine),
         }
 
@@ -690,6 +754,10 @@ class EngineServer:
                 # restarts the Pod; waiting requests run into their
                 # timeout.
                 logger.exception("serving loop crashed")
+                self.recorder.record(
+                    flightrecorder.STEP_ANOMALY, "engine",
+                    target=self.served_model_name, reason="loop_crash",
+                )
                 self._loop_dead = True
                 return
 
@@ -704,9 +772,11 @@ class EngineServer:
         )
 
     def _note_preempt(self, rid: int, client: str) -> None:
-        # The JAX server records this in its flight recorder (not
-        # ported); the port logs it.
-        logger.info("preempted rid-%d (client %r) for recompute", rid, client)
+        self.recorder.record(
+            flightrecorder.SCHED_PREEMPT, "engine_sched",
+            target=self.served_model_name, trace_id=f"rid-{rid}",
+            client=client or "",
+        )
 
     # -- step watchdog ----------------------------------------------------------
 
@@ -759,6 +829,17 @@ class EngineServer:
             self._wedged = True
             self.metrics.watchdog_wedged.set(1)
             self.metrics.watchdog_stalls.inc()
+            self.recorder.record(
+                flightrecorder.WATCHDOG, "engine",
+                target=self.served_model_name,
+                stalled_for_s=round(stalled_for, 3),
+                active=self.engine.num_active,
+                pending=self.engine.num_pending,
+            )
+            self.recorder.trigger(
+                flightrecorder.TRIGGER_WATCHDOG,
+                detail=f"no step progress for {stalled_for:.1f}s with work active",
+            )
             logger.error(
                 "watchdog: no engine step progress for %.1fs with work "
                 "active (%d active, %d pending) — flipping /health and "
@@ -880,7 +961,125 @@ class EngineServer:
             },
         )
 
+    # -- step profiling (kubeai_tpu_torch/fleet/profiler) ----------------------
+
+    def _handle_profile(self, http, body: dict):
+        """POST /v1/profile: capture an N-step per-phase timeline.
+
+        Body (all optional): `steps` (how many step records to return,
+        default 16), `fresh` (true = wait for that many NEW steps up to
+        `timeout_s` before answering; false = answer from the ring at
+        once), `jax_trace` (also record the capture window with
+        torch.profiler, CPU and, on the card, CUDA activities, and write
+        a Chrome trace into a new `kubeai-profile-*` directory). The
+        response names that directory under `jax_trace_dir`, the JAX
+        server's key, so that a client reads one schema from either
+        engine; it is null when the profiler could not start or stop."""
+        prof = getattr(self.engine, "profiler", None)
+        if prof is None:
+            return http._json(
+                400, {"error": {"message": "engine exposes no step profiler"}}
+            )
+        steps = body.get("steps", 16)
+        if (
+            isinstance(steps, bool)
+            or not isinstance(steps, int)
+            or not 1 <= steps <= 10_000
+        ):
+            return http._json(
+                400, {"error": {"message": "steps must be an int in 1..10000"}}
+            )
+        timeout_s = body.get("timeout_s", 10.0)
+        if (
+            isinstance(timeout_s, bool)
+            or not isinstance(timeout_s, (int, float))
+            or not 0 < timeout_s <= 120
+        ):
+            return http._json(
+                400, {"error": {"message": "timeout_s must be in (0, 120]"}}
+            )
+        fresh = bool(body.get("fresh", False))
+        trace = self._start_trace() if body.get("jax_trace") else None
+        captured = 0
+        try:
+            if fresh:
+                captured = prof.wait_for_steps(steps, float(timeout_s))
+        finally:
+            trace_dir = self._stop_trace(trace) if trace is not None else None
+        records = prof.recent(steps)
+        return http._json(
+            200,
+            {
+                "object": "engine.profile",
+                "model": self.served_model_name,
+                "steps_requested": steps,
+                "steps_captured": captured if fresh else len(records),
+                "steps_completed_total": prof.steps_completed,
+                "phase_totals_s": phase_totals(records),
+                "steps": records,
+                "jax_trace_dir": trace_dir,
+            },
+        )
+
+    def _start_trace(self):
+        """(profiler, trace directory) with torch.profiler recording, or
+        None when it cannot start: profiling must not 500."""
+        import tempfile
+
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if getattr(self.engine, "device", torch.device("cpu")).type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        try:
+            # The serve loop's thread launches the work, not this one:
+            # record the CPU ops of every thread where torch can.
+            from torch._C._profiler import _ExperimentalConfig
+
+            config = _ExperimentalConfig(profile_all_threads=True)
+        except (ImportError, TypeError):
+            config = None
+        try:
+            prof = profile(activities=activities, experimental_config=config)
+            prof.__enter__()
+        except Exception:  # noqa: BLE001 — profiling must not 500
+            logger.exception("/v1/profile: torch.profiler did not start")
+            return None
+        return prof, tempfile.mkdtemp(prefix="kubeai-profile-")
+
+    @staticmethod
+    def _stop_trace(trace) -> str | None:
+        """Stop the profiler and write its Chrome trace; the directory, or
+        None when either step failed."""
+        prof, trace_dir = trace
+        try:
+            prof.__exit__(None, None, None)
+            prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+        except Exception:  # noqa: BLE001
+            logger.exception("/v1/profile: torch.profiler did not stop")
+            return None
+        return trace_dir
+
     # -- request handling -----------------------------------------------------
+
+    def _validate_resume(self, raw_resume, n: int) -> str | None:
+        """Shape-check a `kubeai_resume` continuation block; returns a
+        client-readable error, or None when it is valid."""
+        if not isinstance(raw_resume, dict):
+            return "kubeai_resume must be an object"
+        if n != 1:
+            return "kubeai_resume requires n == 1"
+        toks = raw_resume.get("token_ids")
+        if not isinstance(toks, list) or not toks or not all(
+            isinstance(t, int) and not isinstance(t, bool) for t in toks
+        ):
+            return "kubeai_resume.token_ids must be a non-empty int list"
+        emitted = raw_resume.get("emitted")
+        if emitted is not None and (
+            isinstance(emitted, bool) or not isinstance(emitted, int) or emitted < 0
+        ):
+            return "kubeai_resume.emitted must be an int >= 0"
+        return None
 
     def _parse_scheduling(self, headers):
         """Resolve (priority, deadline_ms, client) from request headers and
@@ -964,6 +1163,19 @@ class EngineServer:
             return http._json(
                 400, {"error": {"message": "n must be an integer in 1..8"}}
             )
+        # Continuation (the proxy resuming a stream after a replica
+        # death): the tokens another replica already emitted, and how many
+        # characters of their text reached the client.
+        resume_tokens: list[int] = []
+        resume_emitted: int | None = None
+        raw_resume = body.get("kubeai_resume")
+        if raw_resume is not None:
+            err = self._validate_resume(raw_resume, n)
+            if err is not None:
+                return http._json(400, {"error": {"message": err}})
+            resume_tokens = [int(t) for t in raw_resume["token_ids"]]
+            if "emitted" in raw_resume:
+                resume_emitted = int(raw_resume["emitted"])
         try:
             priority, deadline_ms, sched_client = self._parse_scheduling(
                 http.headers
@@ -993,10 +1205,26 @@ class EngineServer:
                     f">= context {self.engine.cfg.max_seq_len}"
                 )}},
             )
+        if resume_tokens and len(resume_tokens) >= room:
+            return http._json(
+                400,
+                {"error": {"message": (
+                    f"resume prefix of {len(resume_tokens)} tokens leaves "
+                    f"no room under context {self.engine.cfg.max_seq_len}"
+                )}},
+            )
         try:
             sp = self._parse_sampling(body, room)
         except ValueError as e:
             return http._json(400, {"error": {"message": str(e)}})
+        if resume_tokens and len(resume_tokens) >= sp.max_tokens:
+            return http._json(
+                400,
+                {"error": {"message": (
+                    f"resume prefix of {len(resume_tokens)} tokens >= "
+                    f"max_tokens {sp.max_tokens}: nothing left to generate"
+                )}},
+            )
         stream = bool(body.get("stream", False))
         # Each choice gets a derived seed so explicit-seed requests stay
         # deterministic and diverse.
@@ -1016,19 +1244,32 @@ class EngineServer:
                     with self._sub_lock:
                         self._subscribers[rid] = _sub
 
+                # Only when resuming, so that engine stand-ins without
+                # continuation support keep working.
+                resume_kw = (
+                    {"resume_tokens": resume_tokens}
+                    if resume_tokens and i == 0 else {}
+                )
                 rid_i = self.engine.add_request(
                     prompt_ids, sp_i, on_admit=register, priority=priority,
-                    client=sched_client, deadline_ms=deadline_ms,
+                    client=sched_client, deadline_ms=deadline_ms, **resume_kw,
                 )
                 reqs.append((rid_i, sub_i, sp_i))
         except DeadlineInfeasible as e:
             self._cancel_all(reqs)
+            self.recorder.record(
+                flightrecorder.SCHED_SHED, "engine_sched",
+                target=self.served_model_name, priority=priority,
+                deadline_ms=deadline_ms, reason=str(e),
+            )
             return self._shed_response(http, str(e), retry_after=e.retry_after)
         except EngineDraining:
             # Drain began between the handler's check and admission.
             self._cancel_all(reqs)
             return self._drain_refusal(http)
         except ValueError as e:
+            # Residual continuation validation (a resume prefix that
+            # already ends at a stop token).
             self._cancel_all(reqs)
             return http._json(400, {"error": {"message": str(e)}})
         # Metrics only after successful admission, so a failed add_request
@@ -1036,13 +1277,26 @@ class EngineServer:
         self.metrics.requests_total.inc(model=display)
         self.metrics.active_requests.inc()
         self.metrics.prompt_tokens.inc(len(prompt_ids) * n)
+        self.recorder.record(
+            flightrecorder.SCHED_ADMIT, "engine_sched", target=display,
+            trace_id=f"rid-{reqs[0][0]}", priority=priority, choices=n,
+        )
         self._work.set()
+        t0 = time.monotonic()
+        span = getattr(http, "current_span", None)
+        resume = dict(resume_tokens=resume_tokens, resume_emitted=resume_emitted)
         try:
             if stream:
-                self._stream_response(http, reqs, display, chat)
+                self._stream_response(http, reqs, display, chat, t0=t0,
+                                      span=span, **resume)
             else:
-                self._unary_response(http, reqs, display, chat, len(prompt_ids))
+                self._unary_response(http, reqs, display, chat,
+                                     len(prompt_ids), **resume)
         finally:
+            # The duration the TTFT and e2e histograms see is readable
+            # off the trace too.
+            if span is not None and not span.end_ns:
+                span.set_attribute("request.duration_s", time.monotonic() - t0)
             # Client gone or handler done: release the slots of any
             # request still decoding (no-op after normal completion).
             self._cancel_all(reqs)
@@ -1095,13 +1349,27 @@ class EngineServer:
             ),
         )
 
-    def _collect(self, rid, sub, sp, on_delta=None, deadline=None):
+    def _collect(self, rid, sub, sp, on_delta=None, deadline=None,
+                 resume_tokens=(), resume_emitted=None):
         """Drain tokens; detokenize incrementally; apply stop strings.
         Returns (text, finish_reason, tokens). on_delta gets (delta_text,
-        new_tokens) for each piece of text that is safe to send."""
-        tokens: list[int] = []
-        sent_tokens = 0
-        emitted_len = 0
+        new_tokens) for each piece of text that is safe to send.
+
+        Continuation: `resume_tokens` seeds the token buffer, so stop
+        strings and detokenization see the whole completion, while
+        on_delta fires only past `resume_emitted` characters (what the
+        dead stream already delivered; by default the whole resumed
+        text)."""
+        tokens: list[int] = list(resume_tokens)
+        sent_tokens = len(tokens)
+        if tokens:
+            base_text = self.tokenizer.decode(tokens)
+            emitted_len = (
+                len(base_text) if resume_emitted is None
+                else max(0, min(int(resume_emitted), len(base_text)))
+            )
+        else:
+            emitted_len = 0
         finish = "length"
         if deadline is None:
             deadline = time.monotonic() + self.request_timeout
@@ -1134,6 +1402,7 @@ class EngineServer:
             if stop_hit is not None:
                 if on_delta and stop_hit > emitted_len:
                     on_delta(text[emitted_len:stop_hit], tokens[sent_tokens:])
+                    sent_tokens = len(tokens)
                 self.engine.cancel(rid)
                 return text[:stop_hit], "stop", tokens
             if on_delta and len(text) > emitted_len:
@@ -1151,14 +1420,17 @@ class EngineServer:
             on_delta(text[emitted_len:], tokens[sent_tokens:])
         return text, finish, tokens
 
-    def _unary_response(self, http, reqs, display, chat, n_prompt):
+    def _unary_response(self, http, reqs, display, chat, n_prompt,
+                        resume_tokens=(), resume_emitted=None):
         choices = []
         total_completion = 0
         any_timeout = False
         deadline = time.monotonic() + self.request_timeout
         for i, (rid, sub, sp_i) in enumerate(reqs):
             text, finish, tokens = self._collect(
-                rid, sub, sp_i, deadline=deadline
+                rid, sub, sp_i, deadline=deadline,
+                resume_tokens=resume_tokens if i == 0 else (),
+                resume_emitted=resume_emitted if i == 0 else None,
             )
             completion_tokens = len(tokens)
             if finish == "timeout":
@@ -1201,11 +1473,13 @@ class EngineServer:
         }
         http._json(200, payload)
 
-    def _stream_response(self, http, reqs, display, chat):
+    def _stream_response(self, http, reqs, display, chat, t0=None, span=None,
+                         resume_tokens=(), resume_emitted=None):
         """SSE stream; with n > 1 the choices stream one after another in
         index order. Every content chunk carries `token_ids`, the raw
-        tokens behind its delta; the final chunk of a choice carries only
-        its finish_reason."""
+        tokens behind its delta, which the routing proxy accumulates to
+        resume the stream elsewhere if this replica dies; the final chunk
+        of a choice carries only its finish_reason."""
         http.send_response(200)
         http.send_header("Content-Type", "text/event-stream")
         http.send_header("Cache-Control", "no-cache")
@@ -1230,9 +1504,14 @@ class EngineServer:
             })
 
         deadline = time.monotonic() + self.request_timeout
+        ttft_seen = [False]
         for i, (rid, sub, sp_i) in enumerate(reqs):
 
             def on_delta(delta_text: str, new_tokens=(), _i=i):
+                if not ttft_seen[0]:
+                    ttft_seen[0] = True
+                    if span is not None and t0 is not None:
+                        span.set_attribute("request.ttft_s", time.monotonic() - t0)
                 if chat:
                     send_choice(
                         {"index": _i, "delta": {"content": delta_text},
@@ -1246,7 +1525,9 @@ class EngineServer:
                     )
 
             _text, finish, _tokens = self._collect(
-                rid, sub, sp_i, on_delta=on_delta, deadline=deadline
+                rid, sub, sp_i, on_delta=on_delta, deadline=deadline,
+                resume_tokens=resume_tokens if i == 0 else (),
+                resume_emitted=resume_emitted if i == 0 else None,
             )
             if finish == "timeout":
                 finish = "length"
@@ -1284,14 +1565,15 @@ _UNPORTED_FLAGS = (
     ("--snapshot-url/--snapshot-dir/--snapshot-no-publish",
      lambda a: bool(a.snapshot_url or a.snapshot_dir or a.snapshot_no_publish),
      "snapshot restore-first boots (ROADMAP A item 9)"),
-    ("--pipeline", lambda a: a.pipeline,
-     "the legacy --pipeline alias; use --step-overlap on (ROADMAP A item 5)"),
     ("--max-adapters", lambda a: a.max_adapters > 0,
      "LoRA adapters (ROADMAP A item 8)"),
 )
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
+    """The entry point's flags, with the JAX entry point's names and
+    defaults. Exits naming the ROADMAP item of a flag whose feature is
+    not ported."""
     ap = argparse.ArgumentParser(prog="kubeai-tpu-torch-engine")
     ap.add_argument("--model-url", required=True)
     ap.add_argument("--served-model-name", default="model")
@@ -1324,7 +1606,10 @@ def main(argv=None) -> int:
                     help="int8 is not ported")
     ap.add_argument("--kv-dtype", default="", choices=["", "bfloat16", "int8"],
                     help="paged KV-cache storage dtype; int8 is not ported")
-    ap.add_argument("--pipeline", action="store_true", help="not ported")
+    ap.add_argument(
+        "--pipeline", action="store_true",
+        help="legacy alias of --step-overlap on",
+    )
     ap.add_argument(
         "--step-overlap", choices=["auto", "on", "off"], default="auto",
         help="overlapped step pipeline: dispatch decode chunk N+1 before "
@@ -1401,7 +1686,28 @@ def main(argv=None) -> int:
             raise SystemExit(f"{flag}: {needs} is not ported to this engine")
     if args.prefix_cache and args.prefill_chunk <= 0:
         args.prefill_chunk = max(32, min(512, args.max_seq_len // 4))
+    if args.pipeline and args.step_overlap == "auto":
+        args.step_overlap = "on"  # the legacy knob, as EngineConfig(pipeline=True)
+    return args
 
+
+def engine_config(args: argparse.Namespace) -> EngineConfig:
+    """The EngineConfig that `args` ask for."""
+    return EngineConfig(
+        num_slots=args.num_slots,
+        max_seq_len=args.max_seq_len,
+        decode_chunk=args.decode_chunk,
+        step_overlap=args.step_overlap,
+        kv_dtype=args.kv_dtype,
+        speculate=args.speculate,
+        spec_adaptive=args.spec_adaptive == "on",
+        prefill_chunk=args.prefill_chunk,
+        prefix_cache=args.prefix_cache,
+    )
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     log = logging.getLogger("kubeai-tpu-torch-engine")
     device = resolve_device(args.device)
@@ -1442,17 +1748,7 @@ def main(argv=None) -> int:
         )
     )
     tokenizer = load_tokenizer(model_dir)
-    engine_cfg = EngineConfig(
-        num_slots=args.num_slots,
-        max_seq_len=args.max_seq_len,
-        decode_chunk=args.decode_chunk,
-        step_overlap=args.step_overlap,
-        kv_dtype=args.kv_dtype,
-        speculate=args.speculate,
-        spec_adaptive=args.spec_adaptive == "on",
-        prefill_chunk=args.prefill_chunk,
-        prefix_cache=args.prefix_cache,
-    )
+    engine_cfg = engine_config(args)
     # Warm-up before Ready. The engine captures its CUDA graphs when it
     # is built and the kernels' library is built at its first launch, so
     # `compile` covers both; `warmup` times a second, warmed generate.
@@ -1494,6 +1790,7 @@ def main(argv=None) -> int:
         watchdog_action=_watchdog_exit,
         cold_start=tracker.snapshot(),
     )
+    tracing.configure(service_name=f"kubeai-tpu-engine.{args.served_model_name}")
     server.start()
     log.info("engine serving on %s:%d", args.host, server.port)
 

@@ -26,12 +26,12 @@ in the port the phases read:
 
 The engine records plain floats under its own lock — it never touches a
 metrics registry from the hot path. `recent()` returns the bounded ring
-of step records and `phase_totals` sums them. The JAX profiler's
-standalone observations, its drainable histogram queue and its
-`/v1/profile` wait are not copied: the server's metrics sync reads the
-step records past the last one it saw from the ring, the profile route
-is not ported yet, and a queue would grow with every step of an engine
-that no server drains.
+of step records, `phase_totals` sums them, and `wait_for_steps` blocks
+`/v1/profile`'s fresh capture until new steps close. The JAX profiler's
+standalone observations and its drainable histogram queue are not
+copied: the server's metrics sync reads the step records past the last
+one it saw from the ring, and a queue would grow with every step of an
+engine that no server drains.
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ class StepProfiler:
     are cheap enough for the engine lock's critical section."""
 
     def __init__(self, maxlen: int = 256, wall=time.time):
-        self._lock = threading.Lock()
+        self._cond = threading.Condition()
         self._ring: deque[dict] = deque(maxlen=maxlen)
         self._wall = wall
         self.steps_completed = 0
@@ -64,8 +64,9 @@ class StepProfiler:
         batch: int = 0,
         duration_s: float = 0.0,
     ) -> None:
-        """Close one step's record into the ring."""
-        with self._lock:
+        """Close one step's record into the ring. Wakes /v1/profile
+        waiters."""
+        with self._cond:
             self.steps_completed += 1
             self._ring.append(
                 {
@@ -79,11 +80,25 @@ class StepProfiler:
                     },
                 }
             )
+            self._cond.notify_all()
 
     def recent(self, n: int | None = None) -> list[dict]:
-        with self._lock:
+        with self._cond:
             records = list(self._ring)
         return records if n is None else records[-n:]
+
+    def wait_for_steps(self, n: int, timeout_s: float) -> int:
+        """Block until `n` NEW steps complete (or timeout); returns how
+        many actually did. Backs /v1/profile's fresh-capture mode."""
+        deadline = time.monotonic() + max(0.0, timeout_s)
+        with self._cond:
+            start = self.steps_completed
+            while self.steps_completed - start < n:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                self._cond.wait(timeout=min(remaining, 0.25))
+            return self.steps_completed - start
 
 
 def phase_totals(records: list[dict]) -> dict[str, float]:

@@ -1,5 +1,6 @@
-"""Prometheus-text instruments for the engine server. Counterpart of
-kubeai_tpu/metrics, of which only the registry is ported."""
+"""Prometheus-text instruments, the flight recorder and tracing for the
+engine server. Counterpart of kubeai_tpu/metrics, of which the registry,
+`flightrecorder` and `tracing` are ported."""
 
 from kubeai_tpu_torch.metrics.registry import (
     Counter,

@@ -1,9 +1,9 @@
 """Minimal Prometheus-compatible metrics (text exposition format 0.0.4).
 Counterpart of kubeai_tpu/metrics/registry.py: the instruments, the
-registry, `lint_registry` and `hist_buckets`, copied so that the port's
-exposition text is the JAX package's byte for byte. The operator's
-`Metrics` bundle and the tracing and object-store counters are not
-ported."""
+registry, `TracingDroppedSpans`, `lint_registry`, `hist_buckets` and
+`parse_prometheus_text`, copied so that the port's exposition text is
+the JAX package's byte for byte. The operator's `Metrics` bundle and the
+object-store counter are not ported."""
 
 from __future__ import annotations
 
@@ -81,6 +81,22 @@ class Counter(_Metric):
     def inc(self, amount: float = 1.0, **labels) -> None:
         with self._lock:
             self._values[self._key(labels)] += amount
+
+
+class TracingDroppedSpans(Counter):
+    """Live view of the process tracer's dropped-span count (export
+    queue full, or exporter thread dead). Synced at collect time, so the
+    engine's registry exposes it without the tracer knowing about
+    registries."""
+
+    def collect(self) -> list[str]:
+        from kubeai_tpu_torch.metrics import tracing
+
+        t = tracing._default
+        dropped = float(t.dropped) if t is not None else 0.0
+        with self._lock:
+            self._values[self._key({})] = dropped
+        return super().collect()
 
 
 class Gauge(_Metric):
@@ -260,3 +276,112 @@ def hist_buckets(
             total_sum = value
     buckets.sort(key=lambda b: b[0])
     return buckets, total, total_sum
+
+
+def parse_prometheus_text(text: str) -> dict[tuple[str, tuple], float]:
+    """Parse exposition text into {(metric, ((label,val),...)): value} —
+    the scrape decoder behind the autoscaler and the fleet aggregator
+    (reference: modelautoscaler/metrics.go).
+
+    Tolerates real-world exposition the aggregator will meet on the
+    wire: `+Inf`/`NaN` sample values, exponent-format floats, trailing
+    millisecond timestamps after the value, and `}`/whitespace inside
+    quoted label values. Unparseable lines are skipped, never raised —
+    one weird family must not blind the whole scrape."""
+    out: dict[tuple[str, tuple], float] = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        labels: list[tuple[str, str]] = []
+        brace = line.find("{")
+        if brace != -1 and (
+            " " not in line[:brace] and "\t" not in line[:brace]
+        ):
+            name = line[:brace]
+            closed = _find_label_close(line, brace + 1)
+            if closed < 0:
+                continue  # unterminated label block
+            for pair in _split_label_pairs(line[brace + 1:closed]):
+                if "=" not in pair:
+                    continue
+                k, v = pair.split("=", 1)
+                labels.append((k.strip(), _unquote_label_value(v)))
+            tail = line[closed + 1:]
+        else:
+            name, _, tail = line.partition(" ")
+        parts = tail.split()
+        if not name or not parts:
+            continue
+        try:
+            # float() natively accepts +Inf/-Inf/NaN and exponent forms.
+            value = float(parts[0])
+        except ValueError:
+            continue
+        # parts[1], when present, is the optional sample timestamp — it
+        # must not be mistaken for the value (the old rsplit was).
+        out[(name, tuple(sorted(labels)))] = value
+    return out
+
+
+def _find_label_close(line: str, start: int) -> int:
+    """Index of the `}` closing the label block opened before `start`,
+    honoring quotes and backslash escapes (a quoted label value may
+    legally contain `}`). -1 when unterminated."""
+    in_q = esc = False
+    for i in range(start, len(line)):
+        ch = line[i]
+        if esc:
+            esc = False
+        elif ch == "\\" and in_q:
+            esc = True
+        elif ch == '"':
+            in_q = not in_q
+        elif ch == "}" and not in_q:
+            return i
+    return -1
+
+
+def _split_label_pairs(s: str) -> list[str]:
+    """Split `k1="v1",k2="v2"` on commas outside quoted values. Tracks
+    the backslash escape state: an escaped quote (`\\"`) inside a value —
+    which `_fmt_labels`'s own escaping produces — must NOT toggle the
+    in-quotes flag, or every value containing a quote fails to
+    round-trip through `parse_prometheus_text`."""
+    pairs, cur, in_q, esc = [], "", False, False
+    for ch in s:
+        if esc:
+            cur += ch
+            esc = False
+        elif ch == "\\" and in_q:
+            cur += ch
+            esc = True
+        elif ch == '"':
+            in_q = not in_q
+            cur += ch
+        elif ch == "," and not in_q:
+            pairs.append(cur)
+            cur = ""
+        else:
+            cur += ch
+    if cur:
+        pairs.append(cur)
+    return pairs
+
+
+def _unquote_label_value(v: str) -> str:
+    """Strip one layer of quotes and undo exposition-format escaping
+    (`\\\\` → `\\`, `\\"` → `"`, `\\n` → newline)."""
+    if len(v) >= 2 and v[0] == '"' and v[-1] == '"':
+        v = v[1:-1]
+    out, i = [], 0
+    while i < len(v):
+        ch = v[i]
+        if ch == "\\" and i + 1 < len(v):
+            nxt = v[i + 1]
+            out.append("\n" if nxt == "n" else nxt)
+            i += 2
+        else:
+            out.append(ch)
+            i += 1
+    return "".join(out)

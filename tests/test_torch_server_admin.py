@@ -68,8 +68,8 @@ from kubeai_tpu_torch.parity import params_from_numpy
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # The JAX server's series of features the port does not serve yet:
-# disaggregated prefill/decode, the cluster KV-sharing tier, tracing and
-# the object store (ROADMAP A items 5, 7 and 9).
+# disaggregated prefill/decode, the cluster KV-sharing tier and the
+# object store (ROADMAP A items 7 and 9).
 UNPORTED_SERIES = {
     "kubeai_engine_kv_handoffs_total",
     "kubeai_engine_kv_transfer_bytes_total",
@@ -79,14 +79,12 @@ UNPORTED_SERIES = {
     "kubeai_kv_fetch_failures_total",
     "kubeai_engine_kv_share_pages_total",
     "kubeai_engine_role",
-    "kubeai_tracing_dropped_spans_total",
     "kubeai_objstore_retries_total",
 }
-# /v1/state keys of the same features, the adapters and the flight
-# recorder (ROADMAP A items 5, 7 and 8).
+# /v1/state keys of the same features and the adapters (ROADMAP A items
+# 7 and 8).
 UNPORTED_STATE_KEYS = {
     "role", "pending_handoffs", "adapters", "kv_sharing", "kv_share",
-    "flight_recorder",
 }
 # Exposition samples whose values count requests and tokens: equal on
 # both servers after the same requests.
@@ -719,7 +717,6 @@ def test_main_serves_a_checkpoint_and_drains_on_sigterm(checkpoints, tmp_path, c
     (["--snapshot-url", "file:///snapshots"], 9),
     (["--snapshot-dir", "/snapshots"], 9),
     (["--snapshot-no-publish"], 9),
-    (["--pipeline"], 5),
     (["--max-adapters", "4"], 8),
 ], ids=lambda v: v if isinstance(v, int) else "_".join(v).lstrip("-"))
 def test_main_refuses_unported_flags(checkpoints, argv, item):
