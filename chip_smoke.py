@@ -66,7 +66,24 @@ Phases, each fatal on failure:
                400; and POST /v1/profile with `jax_trace` while generates
                run must capture 16 steps and a torch.profiler trace that
                names B1's combine kernel. Prints the continuations' TTFT
-               beside the uninterrupted requests';
+               beside the uninterrupted requests'. `serve_disagg`: a
+               prefill-role and a decode-role EngineServer on the same
+               weights; eight bodies (four prompts, greedy and seeded, one
+               streamed) go to the decode server alone and then through
+               the two hops (X-Disagg-Transfer, X-Disagg-Handoff): every
+               two-hop stream must equal the decode server's own answer,
+               the exported pages must be the prefill pool's bits and each
+               import must write the handoff's bits, B2 must launch on the
+               prefill side only and B1 on the decode side only from graph
+               replays; a fused decode-role server takes two bodies (B4).
+               Prints export (prefill, gather), serialize, push, receive
+               and import ms and two-hop against direct TTFT.
+               `serve_kv_share` (prefill_chunk=512, prefix_cache=True):
+               replica B fetches the 1,024-token prefix that replica A
+               holds over /v1/kv/export (X-KV-Source): B's hit tokens,
+               its 16 imported pages, their bits and its stream must be
+               A's; an eviction of A's idle pages spills into A's
+               KVSpillStore and fills back bit-equal;
   5. serve_cli — the engine Pod's entry point: a random-weight Llama
                checkpoint at Llama-3-8B width (4 layers, bf16) written with
                `weights.save_safetensors`, served by `python -m
@@ -83,7 +100,10 @@ Phases, each fatal on failure:
                and an X-Request-Id: its server span must reach a local
                OTLP/HTTP sink (OTEL_EXPORTER_OTLP_TRACES_ENDPOINT) with the
                client's trace id, parent and request id. Reports the load
-               rate, the cold-start phases and TTFT.
+               rate, the cold-start phases and TTFT. Then a `--role
+               prefill` and a `--role decode` process side by side: one
+               greedy body through the two hops must give the decode
+               process's direct text.
 
 The last lines are the kernel JSON line, the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -1607,6 +1627,10 @@ def phase_serve() -> dict:
     free(run)
     # Run 4: chunked prefill and the prefix cache. B1 and B2 launch.
     serve_prefix(params, cfg)
+    # Disaggregated prefill/decode (B2 on the prefill side, B1 and B4 on
+    # the decode side) and the KV-sharing tier.
+    serve_disagg(params, cfg)
+    serve_kv_share(params, cfg)
     return launches
 
 
@@ -2095,6 +2119,537 @@ def serve_prefix(params=None, cfg=None) -> dict:
     del engine, ref
     free(run)
     return launches
+
+
+# ---- serve_disagg and serve_kv_share: KV handoffs and peer page fetches ----------
+
+
+def _disagg_bodies() -> list[tuple[str, dict]]:
+    """The four default bodies, each greedy and seeded; the 117-token
+    body's greedy run is streamed, every other is unary."""
+    out = []
+    for mode, body in _resume_bodies():
+        stream = mode == "greedy" and len(out) == 6
+        out.append((mode, {**body, "stream": stream}))
+    return out
+
+
+def _reply(res: dict, stream: bool) -> tuple[str, list]:
+    """(text, SSE token ids or []) of a chat completion result."""
+    if stream:
+        return res["text"], res["token_ids"]
+    return res["choices"][0]["message"]["content"], []
+
+
+class _DisaggSide:
+    """An EngineServer of one role over `params` with the engine's
+    defaults (graphs and overlap) and IdTokenizer, its engine wrapped to
+    keep: each request's token stream (the first event of an import
+    included), when each request's first token existed, each export's
+    wall, prefill and page-gather seconds, each import's seconds (until
+    the card has finished it), the prefill calls, and (decode side) a
+    check, under the engine lock, that an import wrote the handoff's bits
+    into the pool."""
+
+    def __init__(self, params, cfg, role: str, label: str, server_kw=None, **extra):
+        import torch
+
+        from kubeai_tpu_torch.engine import Engine, EngineConfig
+        from kubeai_tpu_torch.engine.server import EngineServer
+
+        self.label = label
+        tok = IdTokenizer()
+        eng = Engine("llama", cfg, params, cfg=EngineConfig(**SERVE_CONFIG, **extra),
+                     eos_token_ids=tok.eos_token_ids)
+        if not eng._overlap or eng._decode_program.graph is None:
+            fail(f"serve_disagg {label}: the engine does not overlap or replay graphs")
+        self.engine = eng
+        self.streams: dict[int, list[int]] = {}
+        self.t_first: dict[int, float] = {}
+        self.exports: list[dict] = []
+        self.imports: list[dict] = []
+        self.prefill_calls = 0
+        self.imported_bits_equal = 0
+        step, add = eng.step, eng.add_request
+        export, import_, import_kv = eng.export_handoff, eng.import_handoff, eng._import_kv
+        prefill, gather = eng._prefill_admit, eng._gather_pages_host
+        admit = eng._admit_paged_batch
+        pending = {}
+        self.gathered: list[int] = []
+        timed = {"prefill": 0.0, "gather": 0.0}
+
+        def step_and_keep():
+            events = step()
+            now = time.perf_counter()
+            for ev in events:
+                self.streams.setdefault(ev.rid, []).append(ev.token)
+                self.t_first.setdefault(ev.rid, now)
+            return events
+
+        def add_and_note(*a, **kw):
+            rid = add(*a, **kw)
+            self.last_rid = rid
+            return rid
+
+        def export_and_time(*a, **kw):
+            timed.update(prefill=0.0, gather=0.0)
+            t0 = time.perf_counter()
+            h = export(*a, **kw)
+            wall = time.perf_counter() - t0
+            self.exports.append({"wall_s": wall, **timed, "handoff": h})
+            return h
+
+        def admit_and_time(*a, **kw):  # returns the first tokens on the host
+            t0 = time.perf_counter()
+            out = admit(*a, **kw)
+            timed["prefill"] += time.perf_counter() - t0
+            return out
+
+        def import_and_time(h, on_admit=None):
+            pending["handoff"] = h
+            t0 = time.perf_counter()
+            rid, ev = import_(h, on_admit=on_admit)
+            now = time.perf_counter()
+            torch.cuda.synchronize()
+            self.streams.setdefault(rid, []).insert(0, ev.token)
+            self.t_first[rid] = now
+            self.last_rid = rid
+            self.imports.append({"rid": rid, "t": now,
+                                 "import": time.perf_counter() - t0})
+            return rid, ev
+
+        def import_kv_and_check(slot, plen, k_seq, v_seq, req):
+            import_kv(slot, plen, k_seq, v_seq, req)
+            h = pending.pop("handoff")
+            pages = eng._alloc.pages_for(slot)
+            for pool, seq, host in ((eng.cache.k_pages, k_seq, h.k_pages),
+                                    (eng.cache.v_pages, v_seq, h.v_pages)):
+                nl, _, page, kvh, d = host.shape
+                wire = torch.from_numpy(
+                    host.reshape(nl, -1, kvh, d)[:, :plen].copy().view("int16")
+                ).to(pool.device).view(torch.bfloat16)
+                got = pool[:, pages].reshape(nl, -1, kvh, d)[:, :plen]
+                if not (torch.equal(seq, wire) and torch.equal(got, wire)):
+                    fail(f"serve_disagg {label}: the imported pool pages are not the "
+                         "handoff's bits")
+            self.imported_bits_equal += 1
+
+        def prefill_and_count(*a, **kw):
+            self.prefill_calls += 1
+            return prefill(*a, **kw)
+
+        def gather_and_keep(pool, pages):  # its copy to the host waits for the card
+            self.gathered = list(pages)
+            t0 = time.perf_counter()
+            out = gather(pool, pages)
+            timed["gather"] += time.perf_counter() - t0
+            return out
+
+        eng.step, eng.add_request = step_and_keep, add_and_note
+        eng.export_handoff, eng.import_handoff = export_and_time, import_and_time
+        eng._import_kv, eng._prefill_admit = import_kv_and_check, prefill_and_count
+        eng._gather_pages_host, eng._admit_paged_batch = gather_and_keep, admit_and_time
+        self.server = EngineServer(eng, tok, "llama-3-8b-shape", port=0, role=role,
+                                   **(server_kw or {}))
+        receive = self.server._handle_kv_import
+        self.receives: list[float] = []
+
+        def receive_and_time(http):
+            t0 = time.perf_counter()
+            out = receive(http)
+            self.receives.append(time.perf_counter() - t0)
+            return out
+
+        self.server._handle_kv_import = receive_and_time
+        self.server.start()
+
+    @property
+    def addr(self) -> str:
+        return f"127.0.0.1:{self.server.port}"
+
+    def state(self) -> dict:
+        return json.loads(_get(self.server.port, "/v1/state")[1])
+
+    def metrics(self) -> dict:
+        return _parse_metrics(_get(self.server.port, "/metrics")[1])
+
+    def stop(self) -> None:
+        self.server.stop()
+
+
+def _direct(side: _DisaggSide, bodies) -> dict:
+    """Each body alone to `side`: {index: (text, token ids, engine stream,
+    seconds from the POST to the first token in the engine)}."""
+    out = {}
+    for i, (_, body) in enumerate(bodies):
+        t0 = time.perf_counter()
+        status, res, _, _ = _post(side.server.port, body)
+        if status != 200:
+            fail(f"serve_disagg {side.label} direct body {i}: HTTP {status} {res}")
+        rid = side.last_rid
+        text, ids = _reply(res, body.get("stream"))
+        out[i] = (text, ids, side.streams[rid], side.t_first[rid] - t0)
+    return out
+
+
+def _two_hop(pre: _DisaggSide, dec: _DisaggSide, i: int, body: dict) -> dict:
+    """One body through prefill (X-Disagg-Transfer naming `dec`) and then
+    decode (X-Disagg-Handoff). Returns the reply, the engine stream, the
+    receipt and the seconds from the first POST to the first token in the
+    decode engine."""
+    t0 = time.perf_counter()
+    status, receipt, _, hop1_s = _post(pre.server.port, {**body, "stream": False},
+                                       headers={"X-Disagg-Transfer": dec.addr})
+    if status != 200 or receipt.get("object") != "kv.handoff":
+        fail(f"serve_disagg body {i}: the prefill hop got HTTP {status} {receipt}")
+    status, res, _, _ = _post(dec.server.port, body,
+                              headers={"X-Disagg-Handoff": receipt["handoff_id"]})
+    if status != 200:
+        fail(f"serve_disagg body {i}: the decode hop got HTTP {status} {res}")
+    rid = dec.imports[-1]["rid"]
+    text, ids = _reply(res, body.get("stream"))
+    return {"text": text, "ids": ids, "stream": dec.streams[rid], "receipt": receipt,
+            "ttft_s": dec.imports[-1]["t"] - t0, "hop1_s": hop1_s}
+
+
+def _check_hops(pre, dec, label: str, bodies, direct: dict, hops: dict) -> None:
+    for i, (mode, body) in enumerate(bodies):
+        text, ids, stream, _ = direct[i]
+        hop = hops[i]
+        tag = f"serve_disagg {label} body {i} ({mode}, {len(stream)} tokens)"
+        if hop["stream"] != stream or hop["text"] != text or hop["ids"] != ids:
+            step = _leading_equal(hop["stream"], stream)
+            fail(f"{tag}: the two-hop stream differs from the decode server's own answer "
+                 f"at token {step}: {hop['stream'][step:step + 3]} vs "
+                 f"{stream[step:step + 3]}")
+    print(f"serve_disagg {label}: {len(bodies)} two-hop streams (engine tokens, text"
+          f"{', SSE ids' if any(b.get('stream') for _, b in bodies) else ''}) equal the "
+          "decode server's own answers to the same bodies sent alone", flush=True)
+
+
+def serve_disagg(params, cfg) -> dict:
+    """Disaggregated prefill/decode at full width: a prefill-role and a
+    decode-role EngineServer in this process on the card, sharing the
+    weight tensors, each with its own ~2 GiB pool, graphs and overlap.
+    Each body of `_disagg_bodies` goes alone to the decode server (the
+    reference), then through the two hops. Gates: every two-hop stream
+    equals the reference; the exported pages are bit-equal to the prefill
+    pool's pages in table order and each import writes the handoff's bits
+    into the decode pool; B2 launches on the prefill side, which never
+    runs a decode program; B1 launches on the decode side, only from
+    graph replays, and the decode side runs no prefill; /v1/state.role
+    and the handoff counters. Then a fused decode-role server gets two
+    bodies: B4 must launch and the streams must equal its own answers.
+    Reports export ms (prefill and gather), serialize, push and receive
+    ms and MB/s, import ms and two-hop TTFT against direct TTFT. Returns
+    the launches of the two-hop runs."""
+    import numpy as np
+    import torch
+
+    from kubeai_tpu_torch.disagg.handoff import serialize
+
+    t_phase = time.perf_counter()
+    bodies = _disagg_bodies()
+    pre = _DisaggSide(params, cfg, "prefill", "prefill", decode_kernel="per_layer")
+    dec = _DisaggSide(params, cfg, "decode", "per_layer", decode_kernel="per_layer")
+    launches = {}
+    try:
+        direct = _direct(dec, bodies)
+        _zero_launches(dec.engine)
+        _zero_launches(pre.engine)
+        dec.prefill_calls = pre.prefill_calls = 0
+        hops = {}
+        for i, (_, body) in enumerate(bodies):
+            hops[i] = _two_hop(pre, dec, i, body)
+            # The exported pages, in table order, are the prefill pool's
+            # pages: no request has run on the prefill engine since.
+            h, pages = pre.exports[-1]["handoff"], pre.gathered
+            for pool, host in ((pre.engine.cache.k_pages, h.k_pages),
+                               (pre.engine.cache.v_pages, h.v_pages)):
+                wire = torch.from_numpy(host.view(np.int16)).to(pool.device).view(torch.bfloat16)
+                if not torch.equal(pool[:, pages], wire):
+                    fail(f"serve_disagg body {i}: the exported pages are not the prefill "
+                         "pool's pages")
+        eager = {name: fn.launches for name, fn in _wrappers().items()}
+        replays = {"prefill": pre.engine._decode_program.dispatches,
+                   "decode": dec.engine._decode_program.dispatches}
+        launches = _launches(dec.engine)
+        launches["flash_causal_prefill"] = eager["flash_causal_prefill"]
+        print(f"serve_disagg per_layer launches during the two hops: {json.dumps(launches)} "
+              f"(eager {json.dumps(eager)}; decode-chunk replays {json.dumps(replays)}; "
+              f"prefill calls: prefill side {pre.prefill_calls}, decode side "
+              f"{dec.prefill_calls}); pages bit-equal to the prefill pool in "
+              f"{len(bodies)} exports and to the handoff in {dec.imported_bits_equal} "
+              "imports", flush=True)
+        if eager["flash_causal_prefill"] <= 0 or pre.prefill_calls != len(bodies):
+            fail("serve_disagg: flash_causal_prefill did not launch for the exports")
+        if replays["prefill"] or dec.prefill_calls:
+            fail("serve_disagg: the prefill side decoded or the decode side prefilled")
+        if eager["paged_decode_attention"] or launches["paged_decode_attention"] <= 0:
+            fail("serve_disagg: paged_decode_attention did not launch from the decode "
+                 "side's graph replays alone")
+        if dec.imported_bits_equal != len(bodies):
+            fail(f"serve_disagg: {dec.imported_bits_equal} imports checked, not {len(bodies)}")
+        _check_hops(pre, dec, "per_layer", bodies, direct, hops)
+        # Roles and counters.
+        for side, role, direction in ((pre, "prefill", "export"), (dec, "decode", "import")):
+            state, m = side.state(), side.metrics()
+            count = m.get(("kubeai_engine_kv_handoffs_total", (("direction", direction),)))
+            if state["role"] != role or state["pending_handoffs"] != 0 or count != len(bodies):
+                fail(f"serve_disagg: {role} server reads role {state['role']}, pending "
+                     f"{state['pending_handoffs']}, {direction} handoffs {count}")
+            print(f"serve_disagg {role} /v1/state role={state['role']} pending_handoffs="
+                  f"{state['pending_handoffs']}; kubeai_engine_kv_handoffs_total"
+                  f"{{direction=\"{direction}\"}} {count:.0f}, bytes "
+                  f"{m.get(('kubeai_engine_kv_transfer_bytes_total', (('direction', direction),))):.0f}",
+                  flush=True)
+        # Report: each body's export, transfer, import and TTFT.
+        for i, (mode, body) in enumerate(bodies):
+            ex, im = pre.exports[i], dec.imports[i]
+            h, receipt = ex["handoff"], hops[i]["receipt"]
+            t0 = time.perf_counter()
+            blob = serialize(h)
+            ser_s = time.perf_counter() - t0
+            mb = len(blob) / 1e6
+            push_s, recv_s = receipt["transfer"]["seconds"], dec.receives[i]
+            print(f"serve_disagg body {i} ({mode}) prompt {h.plen} tokens, {h.k_pages.shape[1]} "
+                  f"pages, {mb:.3f} MB: export {ex['wall_s'] * 1e3:.3f} ms (prefill "
+                  f"{ex['prefill'] * 1e3:.3f}, gather {ex['gather'] * 1e3:.3f} = "
+                  f"{h.nbytes() / 1e6 / ex['gather']:.1f} MB/s); serialize "
+                  f"{ser_s * 1e3:.3f} ms ({mb / ser_s:.1f} MB/s); push {push_s * 1e3:.3f} ms "
+                  f"({mb / push_s:.1f} MB/s); receive {recv_s * 1e3:.3f} ms "
+                  f"({mb / recv_s:.1f} MB/s); import {im['import'] * 1e3:.3f} ms; TTFT "
+                  f"two-hop {hops[i]['ttft_s']:.4f} s vs direct {direct[i][3]:.4f} s",
+                  flush=True)
+        del blob
+        # The fused decode layout: two bodies (the 317-token prompt).
+        fused = _DisaggSide(params, cfg, "decode", "fused", decode_kernel="fused")
+        try:
+            two = bodies[4:6]
+            direct = _direct(fused, two)
+            _zero_launches(fused.engine)
+            hops = {i: _two_hop(pre, fused, i, body) for i, (_, body) in enumerate(two)}
+            got = _launches(fused.engine)
+            eager = {name: fn.launches for name, fn in _wrappers().items()}
+            print(f"serve_disagg fused launches during the two hops: {json.dumps(got)}; "
+                  f"eager {json.dumps(eager)}", flush=True)
+            if got["paged_decode_attention_fused"] <= 0 or eager["paged_decode_attention_fused"]:
+                fail("serve_disagg fused: paged_decode_attention_fused did not launch from "
+                     "the graph replays alone")
+            if got["paged_decode_attention"]:
+                fail("serve_disagg fused: paged_decode_attention launched")
+            _check_hops(pre, fused, "fused", two, direct, hops)
+            launches["paged_decode_attention_fused"] = got["paged_decode_attention_fused"]
+        finally:
+            fused.stop()
+    finally:
+        pre.stop()
+        dec.stop()
+    print(f"serve_disagg took {time.perf_counter() - t_phase:.2f} s; card: {gpu_line()}",
+          flush=True)
+    return launches
+
+
+
+def serve_kv_share(params, cfg) -> None:
+    """The cluster KV-sharing tier at full width, on serve_prefix's
+    configuration (prefill_chunk=512, prefix_cache=True): two kv_sharing
+    EngineServers A and B, each with an in-memory KVSpillStore. A serves
+    the 1,024-token system-prompt body (a miss); B gets the same body with
+    X-KV-Source naming A and pulls the prefix pages over /v1/kv/export.
+    Gates: B's hit tokens equal the cache rule's count, B imported 16
+    pages, B's adopted pages are bit-equal to A's, and B's stream equals
+    A's for the same body sent again to A (a hit). Then an eviction of A's
+    idle pages spills them into A's store and import_prefix_pages(...,
+    source="spill") fills them back bit-equal. Reports the fetch's ms and
+    MB/s."""
+    import torch
+
+    from kubeai_tpu_torch.disagg.handoff import deserialize_pages
+    from kubeai_tpu_torch.objstore import KVSpillStore
+
+    t_phase = time.perf_counter()
+    extra = dict(decode_kernel="per_layer", prefill_chunk=PREFIX_CHUNK, prefix_cache=True)
+    sides = {name: _DisaggSide(params, cfg, "unified", f"kv_share {name}",
+                               server_kw=dict(kv_sharing=True, kv_spill_store=KVSpillStore()),
+                               **extra)
+             for name in ("A", "B")}
+    a, b = sides["A"], sides["B"]
+    body = _prefix_waves()[0][0]
+    try:
+        fetches = []
+        fetch = b.server._maybe_fetch_prefix
+
+        def fetch_and_time(*args):
+            t0 = time.perf_counter()
+            fetch(*args)
+            fetches.append(time.perf_counter() - t0)
+
+        b.server._maybe_fetch_prefix = fetch_and_time
+        status, res, _, _ = _post(a.server.port, body)
+        if status != 200:
+            fail(f"serve_kv_share A: HTTP {status} {res}")
+        prompt = IdTokenizer().apply_chat_template(body["messages"])
+        chain = a.engine.compute_prefix_chain(prompt)
+        chain = chain[: (len(prompt) - 1) // SERVE_CONFIG["page_size"]]
+        state = a.state()
+        if not state["kv_sharing"] or not set(chain) <= set(state["kv_holdings"]):
+            fail("serve_kv_share: A does not advertise the body's chain")
+        hits = b.engine.prefix_stats["hit_tokens"]
+        status, res_b, _, _ = _post(b.server.port, body, headers={"X-KV-Source": a.addr})
+        if status != 200:
+            fail(f"serve_kv_share B: HTTP {status} {res_b}")
+        rid_b = b.last_rid
+        status, res_a, _, _ = _post(a.server.port, body)  # now a hit on A
+        rid_a = a.last_rid
+        want_hits = expected_hits([prompt, prompt], SERVE_CONFIG["page_size"], PREFIX_CHUNK,
+                                  SERVE_CONFIG["max_seq_len"])[1]
+        got_hits = b.engine.prefix_stats["hit_tokens"] - hits
+        imported = b.engine.kv_share_stats["imported_pages"]
+        fetched = b.metrics()[("kubeai_kv_fetch_bytes_total", ())]
+        print(f"serve_kv_share: chain of {len(chain)} pages; B fetched {imported} pages "
+              f"({fetched / 1e6:.3f} MB) in {fetches[0] * 1e3:.3f} ms = "
+              f"{fetched / 1e6 / fetches[0]:.1f} MB/s; B hit {got_hits} tokens, the rule "
+              f"gives {want_hits}; A exported {a.engine.kv_share_stats['exported_pages']} "
+              "pages", flush=True)
+        if got_hits != want_hits or imported != len(chain) or len(chain) != 16:
+            fail(f"serve_kv_share: B hit {got_hits} tokens (rule {want_hits}), imported "
+                 f"{imported} pages of a {len(chain)}-page chain")
+        hashes = [bytes.fromhex(h) for h in chain]
+        pages_a, pages_b = a.engine._alloc.lookup(hashes), b.engine._alloc.lookup(hashes)
+        for pa, pb in ((a.engine.cache.k_pages, b.engine.cache.k_pages),
+                       (a.engine.cache.v_pages, b.engine.cache.v_pages)):
+            if not torch.equal(pa[:, pages_a], pb[:, pages_b]):
+                fail("serve_kv_share: B's adopted pages are not A's bits")
+        stream_a, stream_b = a.streams[rid_a], b.streams[rid_b]
+        text_a, text_b = (r["choices"][0]["message"]["content"] for r in (res_a, res_b))
+        if status != 200 or stream_a != stream_b or text_a != text_b:
+            step = _leading_equal(stream_a, stream_b)
+            fail(f"serve_kv_share: B's stream differs from A's hit at token {step}")
+        print(f"serve_kv_share: B's {len(pages_b)} adopted pages bit-equal to A's; B's stream "
+              f"({len(stream_b)} tokens) equals A's for the same body as a hit", flush=True)
+        # Spill and fill on A: evict its idle pages into its store.
+        eng, store = a.engine, a.server.kv_spill
+        held = [pool[:, pages_a].clone() for pool in (eng.cache.k_pages, eng.cache.v_pages)]
+        with eng._lock:
+            alloc = eng._alloc
+            free, alloc._free = alloc._free, []
+            taken = [alloc._take_free() for _ in range(alloc.cached_idle_pages)]
+            alloc._free = free + taken
+        spilled = eng.kv_share_stats["spilled_pages"]
+        if eng._alloc.lookup(hashes) or spilled < len(chain):
+            fail(f"serve_kv_share: the eviction spilled {spilled} pages")
+        t0 = time.perf_counter()
+        filled = sum(eng.import_prefix_pages(deserialize_pages(store.get(h)), source="spill")
+                     for h in chain)
+        fill_s = time.perf_counter() - t0
+        pages = eng._alloc.lookup(hashes)
+        for pool, want in zip((eng.cache.k_pages, eng.cache.v_pages), held):
+            if filled != len(chain) or not torch.equal(pool[:, pages], want):
+                fail(f"serve_kv_share: the spill fill wrote {filled} pages, not A's bits")
+        print(f"serve_kv_share spill: {spilled} pages spilled ({store.puts} puts), "
+              f"{filled} filled back bit-equal in {fill_s * 1e3:.3f} ms "
+              f"(kv_share_stats {json.dumps(eng.kv_share_stats)})", flush=True)
+    finally:
+        for side in sides.values():
+            side.stop()
+    print(f"serve_kv_share took {time.perf_counter() - t_phase:.2f} s; card: {gpu_line()}",
+          flush=True)
+
+
+def cli_role_pair(model_dir: str) -> None:
+    """A `--role prefill` and a `--role decode` process of the entry
+    point on the CLI checkpoint, started together: one greedy body goes to
+    the decode process alone (the reference) and then through the two
+    hops; the texts must be equal and each /v1/state must name its role.
+    Both processes drain and exit 0 on SIGTERM."""
+    import os
+    import signal
+    import socket
+    import tempfile
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "KUBEAI_TPU_DECODE_KERNEL"}
+    env.update(PYTHONPATH=here)
+    procs = {}
+    try:
+        for role in ("prefill", "decode"):
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            log_fd, log_path = tempfile.mkstemp(prefix=f"kubeai-role-{role}-", suffix=".log")
+            cmd = [sys.executable, "-m", "kubeai_tpu_torch.engine.server", "--model-url",
+                   model_dir, "--port", str(port), "--num-slots", "8", "--max-seq-len",
+                   "2048", "--drain-timeout", str(CLI_DRAIN_S), "--watchdog-timeout", "60",
+                   "--role", role]
+            print(f"serve_cli role pair command: {' '.join(cmd[1:])}", flush=True)
+            proc = subprocess.Popen(["timeout", "-k", "10", str(CLI_READY_S + 300), *cmd],
+                                    cwd=here, env=env, stdout=log_fd, stderr=subprocess.STDOUT,
+                                    start_new_session=True)
+            procs[role] = (proc, port, log_fd, log_path)
+
+        def tail(role) -> str:
+            with open(procs[role][3]) as f:
+                return "".join(f.readlines()[-30:])
+
+        for role, (proc, port, _, _) in procs.items():
+            while True:
+                if proc.poll() is not None:
+                    fail(f"serve_cli {role}: exited {proc.returncode} before ready:\n{tail(role)}")
+                try:
+                    if _get(port, "/health")[0] == 200:
+                        break
+                except OSError:
+                    pass
+                if time.perf_counter() - t_phase > CLI_READY_S:
+                    fail(f"serve_cli {role}: not ready within {CLI_READY_S} s:\n{tail(role)}")
+                time.sleep(0.25)
+        ready_s = time.perf_counter() - t_phase
+        pre_port, dec_port = procs["prefill"][1], procs["decode"][1]
+        body = _default_bodies()[0][2]  # the 317-token prompt, greedy, unary
+        status, direct, _, direct_s = _post(dec_port, body)
+        if status != 200:
+            fail(f"serve_cli role pair direct: HTTP {status} {direct}")
+        t0 = time.perf_counter()
+        status, receipt, _, _ = _post(pre_port, body,
+                                      headers={"X-Disagg-Transfer": f"127.0.0.1:{dec_port}"})
+        if status != 200:
+            fail(f"serve_cli role pair prefill hop: HTTP {status} {receipt}")
+        status, hop, _, _ = _post(dec_port, body,
+                                  headers={"X-Disagg-Handoff": receipt["handoff_id"]})
+        hop_s = time.perf_counter() - t0
+        want = direct["choices"][0]["message"]["content"]
+        got = hop["choices"][0]["message"]["content"] if status == 200 else None
+        print(f"serve_cli role pair: both ready {ready_s:.2f} s after start; direct "
+              f"{direct_s:.4f} s, two hops {hop_s:.4f} s ({receipt['transfer']['bytes'] / 1e6:.3f} "
+              f"MB pushed in {receipt['transfer']['seconds'] * 1e3:.3f} ms); text "
+              f"{'equals' if got == want else 'DIFFERS FROM'} the decode process's direct "
+              f"answer: {want[:40]!r}", flush=True)
+        if got != want:
+            fail(f"serve_cli role pair: two-hop text {got!r} differs from direct {want!r}")
+        for role, (_, port, _, _) in procs.items():
+            state = json.loads(_get(port, "/v1/state")[1])
+            if state["role"] != role:
+                fail(f"serve_cli role pair: /v1/state.role {state['role']!r}, not {role!r}")
+        for role, (proc, _, _, _) in procs.items():
+            proc.send_signal(signal.SIGTERM)
+        for role, (proc, _, _, _) in procs.items():
+            try:
+                rc = proc.wait(timeout=CLI_DRAIN_S + 5)
+            except subprocess.TimeoutExpired:
+                fail(f"serve_cli {role}: no exit after SIGTERM:\n{tail(role)}")
+            if rc != 0:
+                fail(f"serve_cli {role}: exited {rc} after SIGTERM:\n{tail(role)}")
+    finally:
+        for proc, _, log_fd, log_path in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            os.close(log_fd)
+            os.unlink(log_path)
+    print(f"serve_cli role pair: both exit 0 after SIGTERM; took "
+          f"{time.perf_counter() - t_phase:.2f} s", flush=True)
 
 
 def profile_admissions(engine, ref, cfg) -> None:
@@ -2717,6 +3272,7 @@ def serve_cli() -> None:
                     for label, flags, env, _ in CLI_RUNS}
         finally:
             sink.stop()
+        cli_role_pair(model_dir)
 
         # The same checkpoint in-process, on the card.
         tok = ByteTokenizer()

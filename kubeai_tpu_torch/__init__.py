@@ -1,8 +1,8 @@
 """PyTorch/CUDA port of the kubeai_tpu serving engine, for one NVIDIA H100.
 
 The JAX package `kubeai_tpu` is the reference; this package mirrors its
-layout (`ops/`, `models/`, `engine/`, `scheduling/`) so each module sits
-at the path of its counterpart. It imports `torch` and nothing of JAX or
+layout (`ops/`, `models/`, `engine/`, `scheduling/`, `disagg/`) so each
+module sits at the path of its counterpart. It imports `torch` and nothing of JAX or
 of `kubeai_tpu`.
 
 The two TPU kernels on the serving path are CUDA C++ written for Hopper

@@ -3,6 +3,7 @@ Counterpart of kubeai_tpu/engine."""
 
 from kubeai_tpu_torch.engine.engine import (
     Engine,
+    EngineBusy,
     EngineConfig,
     EngineDraining,
     StepEvent,
@@ -11,6 +12,7 @@ from kubeai_tpu_torch.engine.sampling import SamplingParams
 
 __all__ = [
     "Engine",
+    "EngineBusy",
     "EngineConfig",
     "EngineDraining",
     "SamplingParams",

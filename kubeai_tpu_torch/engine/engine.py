@@ -38,11 +38,25 @@ Two JAX behaviours are reproduced by hand:
   - jnp gathers clamp out-of-range indices: positions past a slot's
     block table map to scratch page 0 (ops.paged_attention).
 
+Disaggregated serving and the cluster KV-sharing tier move pages between
+engines through the wire formats of disagg/handoff.py:
+  export_handoff()  prefill one request synchronously, gather its pages
+                    to the host in table order (a KVHandoff)
+  import_handoff()  scatter a handoff's pages through a fresh block-table
+                    row and set the slot's decode state; no prefill runs
+  export_prefix_pages() / import_prefix_pages()
+                    ship held prefix pages to a peer / seed fetched pages
+                    unowned into the idle pool, for admission to adopt
+  enable_kv_spill() snapshot each evicted idle page into a KVSpillStore
+The imports write the pools, the slot state and the block tables in
+place, at the addresses the captured device programs read.
+
 Ported: paged mode, synchronous and overlapped stepping, preemption by
 recompute, the SLO scheduler, both decode layouts, speculative decoding
-by prompt lookup (adaptive or always on), chunked prefill and the
-automatic prefix cache. Settings of the JAX engine that are not ported
-raise NotImplementedError naming their ROADMAP item.
+by prompt lookup (adaptive or always on), chunked prefill, the automatic
+prefix cache, KV handoff export and import, and prefix-page sharing and
+spill. Settings of the JAX engine that are not ported raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -57,6 +71,12 @@ import numpy as np
 import torch
 
 from kubeai_tpu_torch.device import resolve_device
+from kubeai_tpu_torch.disagg.handoff import (
+    HandoffError,
+    KVHandoff,
+    KVPageExport,
+    serialize_pages,
+)
 from kubeai_tpu_torch.engine.graphs import DeviceProgram, HostStaging
 from kubeai_tpu_torch.engine.paged_cache import (
     OutOfPages,
@@ -206,6 +226,44 @@ class EngineDraining(RuntimeError):
     """Raised by add_request once drain has begun."""
 
 
+class EngineBusy(RuntimeError):
+    """Raised by the synchronous disaggregation paths (export_handoff /
+    import_handoff) when no slot or KV pages are free RIGHT NOW: unlike
+    add_request there is no queue to park in, so the server sheds with
+    429 and the router re-picks a less-loaded replica."""
+
+
+# Host dtype of a pool dtype on the wire: bfloat16 travels as its raw
+# 16-bit words (disagg/handoff.py), every other dtype as itself.
+_HOST_DTYPES = {
+    torch.bfloat16: np.dtype(np.uint16),
+    torch.float16: np.dtype(np.float16),
+    torch.float32: np.dtype(np.float32),
+}
+
+
+def _pages_to_host(pages: torch.Tensor) -> np.ndarray:
+    """Copy pool pages to the host in their wire dtype; bfloat16 by a view
+    of its bits, never a cast."""
+    if pages.dtype == torch.bfloat16:
+        return pages.view(torch.int16).cpu().numpy().view(np.uint16)
+    return pages.cpu().numpy()
+
+
+def _pages_to_device(host: np.ndarray, dtype: torch.dtype,
+                     device: torch.device) -> torch.Tensor:
+    """The inverse of _pages_to_host: a host array in the wire dtype of
+    `dtype` to a tensor of `dtype` on `device`, bfloat16 by a view."""
+    if host.dtype != _HOST_DTYPES[dtype]:
+        raise HandoffError(f"host pages of {host.dtype} for a {dtype} pool")
+    host = np.ascontiguousarray(host)
+    if not host.flags.writeable:  # a view of a received blob
+        host = host.copy()
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(host.view(np.int16)).to(device).view(torch.bfloat16)
+    return torch.from_numpy(host).to(device)
+
+
 def _resolve_overlap(cfg: EngineConfig) -> bool:
     """Whether step() overlaps: "auto" and "on" do, "off" does not."""
     overlap = cfg.step_overlap
@@ -322,7 +380,8 @@ class Engine:
         # Base entropy for unseeded requests (per-request seed = base ^ rid).
         self._seed_base = int.from_bytes(np.random.bytes(4), "little")
         # Latency records (kind, seconds[, "rid-<n>"]) with kind in
-        # queue_wait, prefill, ttft, itl, e2e; drained by drain_timing().
+        # queue_wait, prefill, ttft, itl, e2e and kv_transfer (a handoff's
+        # page gather or scatter); drained by drain_timing().
         self._timing: list[tuple] = []
         # Optional preemption observer: on_preempt(rid, client).
         self.on_preempt = None
@@ -337,6 +396,18 @@ class Engine:
         # Prefix cache: fresh admissions looked up, prompt tokens served
         # from adopted pages, prompt tokens admitted.
         self.prefix_stats = {"lookups": 0, "hit_tokens": 0, "prompt_tokens": 0}
+        # Disaggregation accounting (cumulative; the server converts these
+        # to counters): handoffs exported after prefill, handoffs imported
+        # into decode slots, KV bytes in each direction.
+        self.disagg_stats = {
+            "exported": 0, "imported": 0, "exported_bytes": 0, "imported_bytes": 0,
+        }
+        # Cluster KV-sharing accounting (cumulative): prefix pages served to
+        # peers and seeded from peers, and spill/fill traffic.
+        self.kv_share_stats = {
+            "exported_pages": 0, "exported_bytes": 0, "imported_pages": 0,
+            "imported_bytes": 0, "spilled_pages": 0, "filled_pages": 0,
+        }
         # Snapshot of the most recent step() for per-step gauges.
         self.last_step_stats: dict[str, float] = {}
         # Per-phase step profiler: step() fills _phase_scratch with phase
@@ -833,7 +904,7 @@ class Engine:
         the JAX engine reports them for a paged bf16 pool: not quantized,
         capacity factor 1.0, and the resident bytes of the two pools."""
         return {
-            "dtype": str(self.cfg.cache_dtype).removeprefix("torch."),
+            "dtype": self._kv_dtype_name(),
             "quantized": False,
             "capacity_factor": 1.0,
             "slot_capacity": self.cfg.num_slots,
@@ -1277,6 +1348,413 @@ class Engine:
             req.finish_reason = "cancelled"
             self._release(req)
             return True
+
+    # ---- disaggregated serving: KV handoff export / import -----------------
+
+    def _kv_dtype_name(self) -> str:
+        """Wire-format dtype name of the pools ("bfloat16", "float32"):
+        handoff and page-export headers carry it, and importers refuse a
+        mismatch rather than cast."""
+        return str(self.cfg.cache_dtype).removeprefix("torch.")
+
+    def _gather_pages_host(self, pool: torch.Tensor, pages: list[int]):
+        """Gather pool[:, pages] to the host in the wire dtype. Returns
+        (values, scales); the scales are None (int8 pools are not ported).
+        The copy to the host waits for every call before it on the
+        engine's stream, so it reads what the prefill wrote."""
+        idx = torch.as_tensor(pages, dtype=torch.long, device=pool.device)
+        return _pages_to_host(pool[:, idx]), None
+
+    def _page_wire_nbytes(self) -> int:
+        """Payload bytes of ONE page's K+V on the wire: the unit every
+        kv_share byte counter uses."""
+        mcfg = self.model_cfg
+        itemsize = torch.empty((), dtype=self.cfg.cache_dtype).element_size()
+        return (2 * mcfg.num_layers * self.cfg.page_size * mcfg.num_kv_heads
+                * mcfg.head_size * itemsize)
+
+    def _check_wire_geometry(self, what: str, k_pages: np.ndarray) -> None:
+        mcfg = self.model_cfg
+        nl, _n, _page, kvh, d = k_pages.shape
+        if (nl, kvh, d) != (mcfg.num_layers, mcfg.num_kv_heads, mcfg.head_size):
+            raise HandoffError(
+                f"{what} geometry [{nl}L,{kvh}KVH,{d}D] does not match "
+                f"this model [{mcfg.num_layers}L,{mcfg.num_kv_heads}KVH,"
+                f"{mcfg.head_size}D]"
+            )
+
+    def export_handoff(
+        self,
+        prompt_tokens: list[int],
+        params: SamplingParams | None = None,
+        adapter: str | None = None,
+        client: str = "",
+        priority: str = "",
+        model_name: str = "",
+    ) -> KVHandoff:
+        """Prefill-role serving: run (chunked) prefill for one request
+        SYNCHRONOUSLY, sample its first token, and return a `KVHandoff`
+        carrying the paged KV and the sampling state, instead of entering
+        decode. The slot and pages are borrowed only for this call; with
+        the prefix cache on, the prompt pages park in the idle pool on
+        release.
+
+        Raises EngineBusy when no slot or pages are free right now (the
+        server sheds 429 and the router re-picks) and EngineDraining once
+        drain has begun."""
+        params = params or SamplingParams()
+        if adapter:
+            raise NotImplementedError("LoRA adapters are not ported yet (ROADMAP A item 8)")
+        seq = list(prompt_tokens)
+        plen = len(seq)
+        if plen == 0:
+            raise ValueError("empty prompt")
+        if plen >= self.cfg.max_seq_len:
+            raise ValueError(
+                f"prompt length {plen} >= max_seq_len {self.cfg.max_seq_len}"
+            )
+        with self._lock:
+            # Overlap barrier: this borrows a slot and pages synchronously;
+            # an unreaped chunk's stop-driven frees must land first.
+            self._barrier_locked()
+            if self._draining:
+                raise EngineDraining("engine is draining")
+            if not self._free_slots:
+                raise EngineBusy("no free prefill slot")
+            rid = self._next_rid
+            self._next_rid += 1
+            seed = (
+                params.seed if params.seed is not None else (self._seed_base ^ rid)
+            ) & 0xFFFFFFFF
+            slot = self._free_slots.pop()
+            try:
+                pages = self._alloc.ensure(slot, plen)
+            except OutOfPages:
+                self._free_slots.append(slot)
+                raise EngineBusy("KV page pool exhausted")
+            try:
+                self._set_bt_row(slot, pages)
+                req = _Request(rid=rid, prompt=seq, params=params, seed=seed,
+                               client=client, stop_token_ids=self.eos_token_ids)
+                t0 = _now()
+                C = self.cfg.prefill_chunk
+                hashes = self._prefix_hashes(seq)
+                if C > 0 and plen > C:
+                    mids, last = self._chunk_plan(seq, plen, C)
+                    tok = self._run_staged_chunks(req, slot, plen, mids, last)
+                else:
+                    tok = int(self._admit_paged_batch(
+                        [(req, slot, seq, plen, False, None)], self._bucket(plen),
+                    )[0])
+                prefill_s = max(0.0, _now() - t0)
+                self._timing.append(("prefill", prefill_s))
+                self._timing.append(("ttft", prefill_s, f"rid-{rid}"))
+                # Gather the sequence's pages to the host IN TABLE ORDER:
+                # the packed-page blob is position-major by construction.
+                t_kv = time.perf_counter()
+                k_host, k_scales = self._gather_pages_host(self.cache.k_pages, pages)
+                v_host, v_scales = self._gather_pages_host(self.cache.v_pages, pages)
+                self._timing.append(("kv_transfer", time.perf_counter() - t_kv))
+                if self._prefix_cache:
+                    # Publish the prompt pages before release so they park
+                    # in the idle LRU instead of the free list.
+                    self._note_prefix_admission(slot, plen, 0, hashes)
+            finally:
+                self._alloc.release(slot)
+                self._bt_host[slot] = -1
+                self._bt_dirty = True
+                self._free_slots.append(slot)
+            first_finish = ""
+            if tok in self.eos_token_ids:
+                first_finish = "stop"
+            elif params.max_tokens <= 1:
+                first_finish = "length"
+            handoff = KVHandoff(
+                token_ids=seq,
+                first_token=tok,
+                first_finish=first_finish,
+                page_size=self.cfg.page_size,
+                dtype=self._kv_dtype_name(),
+                k_pages=k_host,
+                v_pages=v_host,
+                k_scales=k_scales,
+                v_scales=v_scales,
+                seed=seed,
+                temperature=params.temperature,
+                top_k=params.top_k,
+                top_p=params.top_p,
+                max_tokens=params.max_tokens,
+                stop=tuple(params.stop),
+                prefix_hashes=tuple(h.hex() for h in hashes),
+                adapter="",
+                client=client,
+                priority=priority,
+                model=model_name,
+            )
+            self.disagg_stats["exported"] += 1
+            self.disagg_stats["exported_bytes"] += handoff.nbytes()
+            return handoff
+
+    def import_handoff(self, handoff: KVHandoff, on_admit=None) -> tuple[int, StepEvent]:
+        """Decode-role serving: admit a prefilled handoff DIRECTLY into a
+        slot (scatter its KV through a fresh block-table row, set the
+        slot's sampler state), bypassing every prefill. Returns (rid,
+        first_event): the exporting engine sampled the first token, so the
+        caller forwards `first_event` to its subscriber itself.
+        `on_admit(rid)` runs under the engine lock before the slot becomes
+        visible to step(), as add_request's hook does.
+
+        The stream is token-identical to a unified run: the pages hold the
+        exporter's KV bits, the slot resumes the same seeded sampler at
+        the same position, and decode runs the same program. Geometry and
+        dtype mismatches raise HandoffError: refuse, never cast."""
+        self._check_wire_geometry("handoff", handoff.k_pages)
+        plen = handoff.plen
+        if plen >= self.cfg.max_seq_len:
+            raise HandoffError(
+                f"handoff length {plen} >= max_seq_len {self.cfg.max_seq_len}"
+            )
+        expect = self._kv_dtype_name()
+        if handoff.dtype != expect:
+            # Refuse, never cast: a cast here would silently alter KV
+            # values while the stream still claims token-identity with the
+            # exporting engine.
+            raise HandoffError(
+                f"handoff KV dtype {handoff.dtype!r} != local pool dtype "
+                f"{expect!r}; casting would break token-identity "
+                "(re-export from a matching-dtype prefill pool)"
+            )
+        params = SamplingParams(
+            temperature=handoff.temperature, top_k=handoff.top_k,
+            top_p=handoff.top_p, max_tokens=handoff.max_tokens,
+            seed=handoff.seed, stop=tuple(handoff.stop),
+        )
+        with self._lock:
+            # Overlap barrier: the import admits a slot outside step()'s
+            # admission, so reap before the slot and page grant.
+            self._barrier_locked()
+            if self._draining:
+                raise EngineDraining("engine is draining")
+            if handoff.adapter:
+                raise NotImplementedError(
+                    f"adapter {handoff.adapter!r}: LoRA adapters are not ported "
+                    "yet (ROADMAP A item 8)"
+                )
+            rid = self._next_rid
+            self._next_rid += 1
+            first = int(handoff.first_token)
+            first_ev = StepEvent(rid, first, bool(handoff.first_finish),
+                                 handoff.first_finish)
+            if handoff.first_finish:
+                # Finished at its first token: nothing to decode, no slot.
+                if on_admit is not None:
+                    on_admit(rid)
+                self.disagg_stats["imported"] += 1
+                self.disagg_stats["imported_bytes"] += handoff.nbytes()
+                return rid, first_ev
+            if not self._free_slots:
+                raise EngineBusy("no free decode slot")
+            slot = self._free_slots.pop()
+            try:
+                pages = self._alloc.ensure(slot, plen)
+            except OutOfPages:
+                self._free_slots.append(slot)
+                raise EngineBusy("KV page pool exhausted")
+            now = _now()
+            req = _Request(
+                rid=rid, prompt=list(handoff.token_ids), params=params,
+                seed=handoff.seed & 0xFFFFFFFF,
+                priority=handoff.priority or CLASS_STANDARD,
+                client=handoff.client, out_tokens=[first], slot=slot,
+                position=plen, last_token=first,
+                stop_token_ids=self.eos_token_ids,
+                t_enqueue=now, t_admit_start=now, t_prev_token=now,
+            )
+            self._requests[rid] = req
+            if on_admit is not None:
+                try:
+                    on_admit(rid)
+                except BaseException:
+                    del self._requests[rid]
+                    self._alloc.release(slot)
+                    self._free_slots.append(slot)
+                    raise
+            # The host mirror gets the row; the next step uploads the
+            # table (_bt_dirty) before its decode dispatch.
+            self._set_bt_row(slot, pages)
+            t_kv = time.perf_counter()
+            k_seq, v_seq = handoff.contiguous_kv()
+            dtype, dev = self.cfg.cache_dtype, self.device
+            with torch.no_grad():
+                self._import_kv(
+                    slot, plen, _pages_to_device(k_seq, dtype, dev),
+                    _pages_to_device(v_seq, dtype, dev), req,
+                )
+            self._timing.append(("kv_transfer", time.perf_counter() - t_kv))
+            if self._prefix_cache and handoff.prefix_hashes:
+                n_reg = min(plen // self.cfg.page_size, len(handoff.prefix_hashes))
+                if n_reg > 0:
+                    self._alloc.register(
+                        [bytes.fromhex(h) for h in handoff.prefix_hashes[:n_reg]],
+                        pages[:n_reg],
+                    )
+            self._active[slot] = req
+            self.disagg_stats["imported"] += 1
+            self.disagg_stats["imported_bytes"] += handoff.nbytes()
+            return rid, first_ev
+
+    def _import_kv(self, slot: int, plen: int, k_seq: torch.Tensor,
+                   v_seq: torch.Tensor, req: _Request) -> None:
+        """The import program, eager: scatter the [NL, plen, KVH, D]
+        sequence through the slot's block-table row into the pools, write
+        the row into the device block tables, and set the slot's decode
+        state (the JAX engine's `_import_handoff` and `_slot_resume_state`)
+        so that the next decode step resumes where the exporting engine's
+        sampler left off. Everything is written in place."""
+        dev, page = self.device, self.cfg.page_size
+        row = torch.from_numpy(self._bt_host[slot].copy()).to(dev)
+        page_ids, offsets = batched_sequence_page_coords(
+            row[None], torch.tensor([plen], device=dev), plen, page
+        )
+        batched_scatter_sequence(
+            self.cache.k_pages, self.cache.v_pages, k_seq[:, None], v_seq[:, None],
+            page_ids, offsets,
+        )
+        self.cache.block_tables[slot] = row
+        st, p = self._state, req.params
+        for name, value in (
+            ("tokens", req.last_token), ("positions", plen), ("seeds", req.seed),
+            ("temp", p.temperature), ("topk", p.top_k), ("topp", p.top_p),
+        ):
+            st[name][slot] = value
+
+    # ---- cluster KV-sharing tier --------------------------------------------
+
+    def cached_prefix_depth(self, hashes_hex: list[str]) -> int:
+        """How many leading pages of the chain are held locally right now:
+        what a peer fetch would NOT need to transfer."""
+        if not self._prefix_cache:
+            return 0
+        try:
+            hashes = [bytes.fromhex(h) for h in hashes_hex]
+        except ValueError:
+            return 0
+        with self._lock:
+            return len(self._alloc.lookup(hashes))
+
+    def compute_prefix_chain(self, tokens: list[int]) -> list[str]:
+        """Base-model page-hash chain (hex) of a token sequence: the
+        engine-side oracle the front door's chain must match."""
+        return [h.hex() for h in self._prefix_hashes(list(tokens))]
+
+    def export_prefix_pages(self, hashes_hex: list[str], max_bytes: int = 0):
+        """Serve a peer's partial-chain fetch: gather the longest locally
+        held prefix of the requested chain (optionally cut to a transfer
+        cap) to the host as a `KVPageExport`. The pages are copied under
+        the engine lock after the overlap barrier, so the bytes are a
+        settled snapshot; an empty export means "hold nothing of that
+        chain". None when the prefix cache is off or the chain is not
+        hex."""
+        if not self._prefix_cache:
+            return None
+        try:
+            hashes = [bytes.fromhex(h) for h in hashes_hex]
+        except ValueError:
+            return None
+        mcfg = self.model_cfg
+        ps = self.cfg.page_size
+        page_nbytes = self._page_wire_nbytes()
+        with self._lock:
+            # Overlap barrier: an in-flight chunk may still be writing.
+            self._barrier_locked()
+            pages = self._alloc.lookup(hashes)
+            if max_bytes > 0:
+                pages = pages[: max_bytes // page_nbytes]
+            n = len(pages)
+            if n:
+                k_host, k_scales = self._gather_pages_host(self.cache.k_pages, pages)
+                v_host, v_scales = self._gather_pages_host(self.cache.v_pages, pages)
+            else:
+                shape = (mcfg.num_layers, 0, ps, mcfg.num_kv_heads, mcfg.head_size)
+                host = _HOST_DTYPES[self.cfg.cache_dtype]
+                k_host, v_host = np.zeros(shape, host), np.zeros(shape, host)
+                k_scales = v_scales = None
+            self.kv_share_stats["exported_pages"] += n
+            self.kv_share_stats["exported_bytes"] += n * page_nbytes
+        return KVPageExport(
+            prefix_hashes=tuple(hashes_hex[:n]), page_size=ps,
+            dtype=self._kv_dtype_name(), k_pages=k_host, v_pages=v_host,
+            k_scales=k_scales, v_scales=v_scales,
+        )
+
+    def import_prefix_pages(self, export: KVPageExport, source: str = "peer") -> int:
+        """Seed fetched prefix pages into the idle pool, unowned: the next
+        admission whose chain matches adopts them through the ordinary
+        lookup()/adopt() path, so a stale or partial import can only cost
+        recompute. Geometry, page size and dtype must match exactly.
+        Returns the number of pages written (0 when the pool refuses or
+        every page was already held)."""
+        if not self._prefix_cache or export.n_pages == 0:
+            return 0
+        self._check_wire_geometry("page export", export.k_pages)
+        page = export.k_pages.shape[2]
+        if page != self.cfg.page_size:
+            raise HandoffError(
+                f"page size {page} != local {self.cfg.page_size} (chain "
+                "hashes are page-size-dependent; no re-paging is possible)"
+            )
+        if export.dtype != self._kv_dtype_name():
+            raise HandoffError(
+                f"KV dtype {export.dtype} != local cache dtype "
+                f"{self._kv_dtype_name()}; casting would break token-identity"
+            )
+        try:
+            hashes = [bytes.fromhex(h) for h in export.prefix_hashes]
+        except ValueError as e:
+            raise HandoffError(f"bad chain hash: {e}") from e
+        with self._lock:
+            # Overlap barrier: seeding idle-pool pages races an unreaped
+            # chunk's frees and allocations.
+            self._barrier_locked()
+            seeded = self._alloc.seed_unowned(hashes)
+            if seeded is None:
+                return 0
+            write = [(i, p) for i, p in enumerate(seeded) if p is not None]
+            if write:
+                dev, dtype = self.device, self.cfg.cache_dtype
+                idx = torch.as_tensor([p for _, p in write], dtype=torch.long, device=dev)
+                cols = [i for i, _ in write]
+                with torch.no_grad():
+                    for pool, src in ((self.cache.k_pages, export.k_pages),
+                                      (self.cache.v_pages, export.v_pages)):
+                        pool[:, idx] = _pages_to_device(src[:, cols], dtype, dev)
+            key = "imported_pages" if source == "peer" else "filled_pages"
+            self.kv_share_stats[key] += len(write)
+            if source == "peer":
+                self.kv_share_stats["imported_bytes"] += (
+                    len(write) * self._page_wire_nbytes()
+                )
+            return len(write)
+
+    def enable_kv_spill(self, store) -> None:
+        """Wire idle-pool eviction to a spill store: just before an evicted
+        page's registration is destroyed, its K/V bytes are serialized
+        into `store` under the chain hash, so a later fetch of an evicted
+        hot prefix can FILL from the store instead of recomputing. The
+        hook runs under the engine lock on the eviction path; the
+        allocator swallows its failures."""
+
+        def _spill(page: int, h: bytes) -> None:
+            k, k_scales = self._gather_pages_host(self.cache.k_pages, [page])
+            v, v_scales = self._gather_pages_host(self.cache.v_pages, [page])
+            store.put(h.hex(), serialize_pages(KVPageExport(
+                prefix_hashes=(h.hex(),), page_size=self.cfg.page_size,
+                dtype=self._kv_dtype_name(), k_pages=k, v_pages=v,
+                k_scales=k_scales, v_scales=v_scales,
+            )))
+            self.kv_share_stats["spilled_pages"] += 1
+
+        self._alloc.on_evict = _spill
 
     # ---- stepping ----------------------------------------------------------
 

@@ -15,6 +15,9 @@ operator and the fleet read):
   POST /v1/profile            an N-step per-phase timeline of the
                               engine loop, optionally with a
                               torch.profiler trace of the window
+  POST /v1/kv/import          receive a KV handoff (chunked upload) for a
+                              later X-Disagg-Handoff generate
+  POST /v1/kv/export          serve a peer's prefix-page fetch (KVP1 blob)
 
 One serve-loop thread steps the engine and fans StepEvents out to
 per-request queues; HTTP handler threads tokenize, queue the request
@@ -33,10 +36,19 @@ caller's W3C `traceparent` and exports over OTLP/HTTP when an endpoint
 is configured. The flight recorder keeps the engine's admissions, sheds,
 preemptions, watchdog wedges and loop crashes in bounded rings.
 
-Not ported yet: disaggregated prefill/decode, KV sharing, adapters and
-embeddings, and the routes, series and /v1/state keys that belong to
-them (ROADMAP A items 7, 8 and 10). Tenancy is the front door's; this
-server reads only the scheduling headers.
+Disaggregated serving (`role`): a prefill-role server answers every
+generate with prefill, a KV handoff pushed to the decode server that
+X-Disagg-Transfer names, and a JSON receipt; a decode-role (or unified)
+server takes handoffs on /v1/kv/import and admits one straight into a
+slot for a generate that carries X-Disagg-Handoff. KV sharing
+(`kv_sharing`): the server publishes its prefix holdings on /v1/state,
+serves them on /v1/kv/export, and before admission pulls the pages of a
+prompt's prefix that the X-KV-Source peer (or the spill store) holds.
+
+Not ported yet: adapters and embeddings, and the routes, series and
+/v1/state keys that belong to them (ROADMAP A items 8 and 10), and the
+object-store spill (item 9). Tenancy is the front door's; this server
+reads only the scheduling headers.
 
 Run: python -m kubeai_tpu_torch.engine.server --model-url <dir> [--port N]
 """
@@ -59,7 +71,25 @@ import torch
 
 from kubeai_tpu_torch.device import resolve_device
 from kubeai_tpu_torch.engine.coldstart import ColdStartTracker
-from kubeai_tpu_torch.engine.engine import Engine, EngineConfig, EngineDraining, StepEvent
+from kubeai_tpu_torch.disagg.handoff import (
+    HandoffError,
+    deserialize,
+    deserialize_pages,
+    serialize_pages,
+)
+from kubeai_tpu_torch.disagg.transport import (
+    HandoffStore,
+    HTTPTransport,
+    TransferError,
+    read_chunked_body,
+)
+from kubeai_tpu_torch.engine.engine import (
+    Engine,
+    EngineBusy,
+    EngineConfig,
+    EngineDraining,
+    StepEvent,
+)
 from kubeai_tpu_torch.engine.sampling import SamplingParams
 from kubeai_tpu_torch.engine.tokenizer import Tokenizer, load_tokenizer
 from kubeai_tpu_torch.engine.weights import (
@@ -79,6 +109,7 @@ from kubeai_tpu_torch.metrics.registry import (
     TracingDroppedSpans,
 )
 from kubeai_tpu_torch.models.registry import get_model_family
+from kubeai_tpu_torch.objstore import KVSpillStore
 from kubeai_tpu_torch.scheduling.scheduler import (
     PRIORITY_CLASSES,
     DeadlineInfeasible,
@@ -163,6 +194,60 @@ class EngineMetrics:
         self.prefix_prompt_tokens = Counter(
             "kubeai_engine_prefix_prompt_tokens_total",
             "Prompt tokens seen by prefix-cache admission.",
+            self.registry,
+        )
+        # -- disaggregated serving: KV handoff transfer ---------------------
+        self.kv_handoffs = Counter(
+            "kubeai_engine_kv_handoffs_total",
+            "KV handoffs by direction: exported after prefill (prefill "
+            "role) / imported into decode slots (decode role).",
+            self.registry,
+        )
+        self.kv_transfer_bytes = Counter(
+            "kubeai_engine_kv_transfer_bytes_total",
+            "Serialized KV handoff bytes moved, by direction "
+            "(export = pushed to a decode pool, import = received on "
+            "/v1/kv/import).",
+            self.registry,
+        )
+        self.kv_transfer_seconds = Histogram(
+            "kubeai_engine_kv_transfer_seconds",
+            "Wall time of one KV handoff transfer (chunked HTTP push or "
+            "receive), by direction.",
+            self.registry,
+            buckets=REQUEST_LATENCY_BUCKETS_S,
+        )
+        # -- cluster KV-sharing tier (peer prefix fetch / spill) -----------
+        self.kv_fetch_attempts = Counter(
+            "kubeai_kv_fetch_attempts_total",
+            "Prefix KV fetches attempted, by source (peer = /v1/kv/export "
+            "on the holding replica, spill = objstore fill).",
+            self.registry,
+        )
+        self.kv_fetch_bytes = Counter(
+            "kubeai_kv_fetch_bytes_total",
+            "Serialized prefix-page bytes fetched from peers or the "
+            "objstore spill tier instead of recomputing prefill.",
+            self.registry,
+        )
+        self.kv_fetch_failures = Counter(
+            "kubeai_kv_fetch_failures_total",
+            "Prefix KV fetches that failed (timeout, peer death, "
+            "malformed blob, pool refusal) and fell back to recompute, "
+            "by source.",
+            self.registry,
+        )
+        self.kv_share_pages = Counter(
+            "kubeai_engine_kv_share_pages_total",
+            "Cluster KV-sharing page movement by direction: exported "
+            "(served to a peer), imported (seeded from a peer), spilled "
+            "(evicted to objstore), filled (restored from objstore).",
+            self.registry,
+        )
+        self.role_info = Gauge(
+            "kubeai_engine_role",
+            "1 for this replica's serving role label "
+            "(prefill/decode/unified).",
             self.registry,
         )
         self.slot_capacity = Gauge(
@@ -390,6 +475,11 @@ class EngineMetrics:
     def observe_timing(
         self, kind: str, seconds: float, exemplar: str | None = None
     ) -> None:
+        if kind == "kv_transfer":
+            # A handoff's page gather or scatter: the JAX profiler's
+            # standalone phase, outside the step timeline.
+            self.step_phase.observe(seconds, phase=kind)
+            return
         h = self._timing_hist.get(kind)
         if h is not None:
             h.observe(seconds, exemplar=exemplar)
@@ -422,6 +512,35 @@ class EngineMetrics:
                         - self.prefix_prompt_tokens.get(),
                     )
                 )
+            dstats = getattr(engine, "disagg_stats", None)
+            if dstats:
+                for direction, count_key, bytes_key in (
+                    ("export", "exported", "exported_bytes"),
+                    ("import", "imported", "imported_bytes"),
+                ):
+                    self.kv_handoffs.inc(
+                        max(0.0, dstats[count_key]
+                            - self.kv_handoffs.get(direction=direction)),
+                        direction=direction,
+                    )
+                    self.kv_transfer_bytes.inc(
+                        max(0.0, dstats[bytes_key]
+                            - self.kv_transfer_bytes.get(direction=direction)),
+                        direction=direction,
+                    )
+            kstats = getattr(engine, "kv_share_stats", None)
+            if kstats:
+                for direction, key in (
+                    ("exported", "exported_pages"),
+                    ("imported", "imported_pages"),
+                    ("spilled", "spilled_pages"),
+                    ("filled", "filled_pages"),
+                ):
+                    self.kv_share_pages.inc(
+                        max(0.0, kstats[key]
+                            - self.kv_share_pages.get(direction=direction)),
+                        direction=direction,
+                    )
             slots = getattr(getattr(engine, "cfg", None), "num_slots", None)
             if slots is not None:
                 self.slot_capacity.set(slots)
@@ -488,6 +607,7 @@ def engine_state_snapshot(engine) -> dict:
         "last_step": dict(getattr(engine, "last_step_stats", {}) or {}),
         "spec_stats": dict(getattr(engine, "spec_stats", {}) or {}),
         "prefix_stats": dict(getattr(engine, "prefix_stats", {}) or {}),
+        "kv_share": dict(getattr(engine, "kv_share_stats", {}) or {}),
         # Queue-pressure snapshot: per-class depth/oldest-wait/admitted/
         # shed plus drain rate and the current computed retry hint.
         "scheduler": sched.snapshot() if sched is not None else {},
@@ -507,8 +627,14 @@ class EngineServer:
         default_priority: str = "standard",
         max_deadline_ms: int = 0,
         drain_timeout: float = 30.0,
+        role: str = "unified",
+        max_transfer_mb: int = 0,
+        transfer_timeout: float = 30.0,
         watchdog_timeout: float = 0.0,
         watchdog_action=None,
+        kv_sharing: bool = False,
+        kv_fetch_timeout: float = 5.0,
+        kv_spill_store=None,
         cold_start: dict | None = None,
     ):
         self.engine = engine
@@ -527,6 +653,29 @@ class EngineServer:
         self.cold_start = dict(cold_start or {})
         if self.cold_start:
             self.metrics.record_coldstart(self.cold_start)
+        # Disaggregated serving role: "prefill" turns every generate into
+        # prefill -> handoff (pushed to the decode address the router
+        # names); "decode" and "unified" accept handoffs on /v1/kv/import
+        # and admit them via X-Disagg-Handoff. "unified" also serves
+        # normally: the router's fallback pool.
+        if role not in ("unified", "prefill", "decode"):
+            raise ValueError(f"unknown engine role {role!r}")
+        self.role = role
+        self.max_transfer_bytes = max(0, int(max_transfer_mb)) * 1024 * 1024
+        self.transfer_timeout = transfer_timeout
+        self._handoffs = HandoffStore()
+        # Cluster KV-sharing tier: publish prefix holdings in /v1/state,
+        # serve peers' partial-chain fetches on /v1/kv/export, and pull
+        # missing prefix pages from the X-KV-Source peer (or the spill
+        # store) before admission instead of recomputing prefill.
+        self.kv_sharing = bool(kv_sharing)
+        self.kv_fetch_timeout = kv_fetch_timeout
+        self.kv_spill = kv_spill_store
+        if self.kv_spill is not None:
+            spill_wire = getattr(engine, "enable_kv_spill", None)
+            if spill_wire is not None:
+                spill_wire(self.kv_spill)
+        self.metrics.role_info.set(1, role=role)
         # Scheduling defaults (CRD `scheduling:` block, rendered as engine
         # flags): applied when the request carries no X-Priority /
         # X-Deadline-Ms headers; max_deadline_ms caps client deadlines.
@@ -621,6 +770,10 @@ class EngineServer:
 
             def do_POST(self):
                 path = self.path.split("?")[0]
+                if path == "/v1/kv/import":
+                    # Binary (possibly chunked) upload: reads its own
+                    # body; the JSON decode below must not touch it.
+                    return outer._handle_kv_import(self)
                 n = int(self.headers.get("Content-Length", 0) or 0)
                 raw = self.rfile.read(n) if n else b""
                 try:
@@ -647,6 +800,8 @@ class EngineServer:
                         return self._json(202, outer.begin_drain())
                     if path == "/v1/profile":
                         return outer._handle_profile(self, body)
+                    if path == "/v1/kv/export":
+                        return outer._handle_kv_export(self, body)
                     if path == "/v1/chat/completions":
                         return outer._handle_generate(self, body, chat=True)
                     if path == "/v1/completions":
@@ -707,6 +862,9 @@ class EngineServer:
             "model": self.served_model_name,
             "healthy": self.healthy(),
             "draining": self.draining,
+            "role": self.role,
+            "pending_handoffs": len(self._handoffs),
+            "kv_sharing": self.kv_sharing,
             # Held page-hash chains (hex), computed only here (not per
             # step): the fleet aggregator joins them into its
             # who-holds-which-prefix map.
@@ -727,6 +885,10 @@ class EngineServer:
         }
 
     def kv_holdings(self) -> list[str]:
+        """Held page-hash chains (hex) for /v1/state; empty when sharing is
+        off (no point shipping the table to the aggregator then)."""
+        if not self.kv_sharing:
+            return []
         holdings = getattr(self.engine, "prefix_holdings", None)
         return holdings() if holdings is not None else []
 
@@ -1146,6 +1308,14 @@ class EngineServer:
     def _handle_generate(self, http, body: dict, chat: bool):
         if self._draining.is_set():
             return self._drain_refusal(http)
+        if self.role == "prefill":
+            # A prefill-role engine never enters decode: every generate
+            # becomes prefill -> KV handoff pushed to the decode address
+            # the router named.
+            return self._handle_prefill_generate(http, body, chat)
+        hid = (http.headers.get("X-Disagg-Handoff") or "").strip()
+        if hid:
+            return self._handle_decode_from_handoff(http, body, chat, hid)
         model_field = str(body.get("model") or self.served_model_name)
         if model_field != self.served_model_name:
             return http._json(
@@ -1185,17 +1355,7 @@ class EngineServer:
         if self.engine.num_pending + n > self.max_queue:
             return self._shed_response(http, "engine queue full, retry later")
 
-        if chat:
-            messages = body.get("messages") or []
-            prompt_ids = self.tokenizer.apply_chat_template(messages)
-        else:
-            prompt = body.get("prompt", "")
-            if isinstance(prompt, list):
-                prompt = prompt[0] if prompt else ""
-            prompt_ids = self.tokenizer.encode(str(prompt))
-        if not prompt_ids:
-            prompt_ids = [0]
-
+        prompt_ids = self._prompt_ids(body, chat)
         room = self.engine.cfg.max_seq_len - len(prompt_ids) - 1
         if room <= 0:
             return http._json(
@@ -1225,6 +1385,12 @@ class EngineServer:
                     f"max_tokens {sp.max_tokens}: nothing left to generate"
                 )}},
             )
+        if self.kv_sharing and not resume_tokens:
+            # Peer or spill KV prefix fetch BEFORE admission: on success the
+            # pages sit unowned in the idle pool and the ordinary prefix-hit
+            # admission below adopts them; on any failure this returns
+            # silently and prefill recomputes.
+            self._maybe_fetch_prefix(http.headers, prompt_ids, deadline_ms)
         stream = bool(body.get("stream", False))
         # Each choice gets a derived seed so explicit-seed requests stay
         # deterministic and diverse.
@@ -1301,6 +1467,320 @@ class EngineServer:
             # request still decoding (no-op after normal completion).
             self._cancel_all(reqs)
             self.metrics.active_requests.dec()
+
+    # -- disaggregated serving ------------------------------------------------
+
+    def _prompt_ids(self, body: dict, chat: bool) -> list[int]:
+        if chat:
+            prompt_ids = self.tokenizer.apply_chat_template(body.get("messages") or [])
+        else:
+            prompt = body.get("prompt", "")
+            if isinstance(prompt, list):
+                prompt = prompt[0] if prompt else ""
+            prompt_ids = self.tokenizer.encode(str(prompt))
+        return prompt_ids or [0]
+
+    def _handle_prefill_generate(self, http, body: dict, chat: bool):
+        """Prefill role: tokenize, prefill, export the paged-KV handoff,
+        push it to the decode engine the router named (X-Disagg-Transfer)
+        and answer a small JSON receipt that the router turns into the
+        decode hop."""
+        target = (http.headers.get("X-Disagg-Transfer") or "").strip()
+        if not target:
+            return http._json(400, {"error": {"message": (
+                "prefill-role engine requires X-Disagg-Transfer: "
+                "<decode host:port> (the router supplies it)"
+            )}})
+        model_field = str(body.get("model") or self.served_model_name)
+        if model_field != self.served_model_name:
+            return http._json(
+                404, {"error": {"message": f"model {model_field!r} not found"}}
+            )
+        display = self.served_model_name
+        if body.get("n") not in (None, 1):
+            # n > 1 decodes n streams from ONE prefill; the two-hop path
+            # hands off a single sampler state.
+            return http._json(400, {"error": {"message":
+                                              "n > 1 is not supported on the disaggregated "
+                                              "path; use a unified endpoint"}})
+        prompt_ids = self._prompt_ids(body, chat)
+        room = self.engine.cfg.max_seq_len - len(prompt_ids) - 1
+        if room <= 0:
+            return http._json(400, {"error": {"message": (
+                f"prompt too long: {len(prompt_ids)} tokens >= "
+                f"context {self.engine.cfg.max_seq_len}"
+            )}})
+        try:
+            sp = self._parse_sampling(body, room)
+            priority, _deadline, client = self._parse_scheduling(http.headers)
+        except ValueError as e:
+            return http._json(400, {"error": {"message": str(e)}})
+        try:
+            handoff = self.engine.export_handoff(
+                prompt_ids, sp, client=client, priority=priority, model_name=display,
+            )
+        except EngineBusy as e:
+            return self._shed_response(http, str(e))
+        except EngineDraining:
+            return self._drain_refusal(http)
+        self.metrics.requests_total.inc(model=display)
+        self.metrics.prompt_tokens.inc(len(prompt_ids))
+        if self.max_transfer_bytes and handoff.nbytes() > self.max_transfer_bytes:
+            return http._json(413, {"error": {"message": (
+                f"handoff of {handoff.nbytes()} bytes exceeds the "
+                f"{self.max_transfer_bytes}-byte transfer limit"
+            )}})
+        hid = (http.headers.get("X-Handoff-Id") or "").strip() or None
+        try:
+            result = HTTPTransport(target, timeout=self.transfer_timeout).send(
+                handoff, handoff_id=hid)
+        except TransferError as e:
+            logger.warning("handoff push to %s failed: %s", target, e)
+            return http._json(502, {"error": {"message": str(e)}})
+        self.metrics.kv_transfer_seconds.observe(result.seconds, direction="export")
+        return http._json(200, {
+            "object": "kv.handoff",
+            "handoff_id": result.handoff_id,
+            "decode_addr": target,
+            "model": display,
+            "prompt_tokens": len(prompt_ids),
+            "first_token": handoff.first_token,
+            "transfer": {"bytes": result.bytes, "seconds": round(result.seconds, 6)},
+        })
+
+    def _handle_kv_import(self, http):
+        """POST /v1/kv/import: receive a serialized handoff (chunked
+        upload) into the bounded handoff store; the follow-up generate
+        references it with X-Disagg-Handoff."""
+        if self.role == "prefill":
+            return http._json(400, {"error": {"message":
+                                              "prefill-role engines do not accept handoffs"}})
+        if self._draining.is_set():
+            return self._drain_refusal(http)
+        t0 = time.monotonic()
+        try:
+            te = (http.headers.get("Transfer-Encoding") or "").lower()
+            if "chunked" in te:
+                blob = read_chunked_body(http.rfile, max_bytes=self.max_transfer_bytes)
+            else:
+                n = int(http.headers.get("Content-Length", 0) or 0)
+                if self.max_transfer_bytes and n > self.max_transfer_bytes:
+                    raise TransferError(
+                        f"upload of {n} bytes exceeds the "
+                        f"{self.max_transfer_bytes}-byte transfer limit"
+                    )
+                blob = http.rfile.read(n) if n else b""
+        except TransferError as e:
+            http.close_connection = True  # unread body bytes may remain
+            return http._json(413, {"error": {"message": str(e)}})
+        try:
+            handoff = deserialize(blob)
+        except HandoffError as e:
+            return http._json(400, {"error": {"message": str(e)}})
+        hid = self._handoffs.put(
+            handoff, (http.headers.get("X-Handoff-Id") or "").strip() or None
+        )
+        # Bytes are counted at engine import time (disagg_stats through
+        # sync_engine), so in-process and HTTP transfers land in the same
+        # counter; only the receive latency is observed here.
+        self.metrics.kv_transfer_seconds.observe(time.monotonic() - t0, direction="import")
+        return http._json(200, {"handoff_id": hid, "bytes": len(blob)})
+
+    def _handle_decode_from_handoff(self, http, body: dict, chat: bool, hid: str):
+        """Decode role: admit a previously imported handoff straight into a
+        slot (no prefill runs) and stream from its first decode step. The
+        prefill engine sampled the handoff's first token; it is emitted
+        here as the stream's first event."""
+        handoff = self._handoffs.pop(hid)
+        if handoff is None:
+            return http._json(404, {"error": {"message": (
+                f"unknown handoff id {hid!r} (expired or already consumed)"
+            )}})
+        display = handoff.model or self.served_model_name
+        sp = SamplingParams(
+            temperature=handoff.temperature, top_k=handoff.top_k,
+            top_p=handoff.top_p, max_tokens=handoff.max_tokens,
+            seed=handoff.seed, stop=tuple(handoff.stop),
+        )
+        sub: queue.Queue = queue.Queue()
+
+        def register(rid: int) -> None:
+            with self._sub_lock:
+                self._subscribers[rid] = sub
+
+        try:
+            rid, first_ev = self.engine.import_handoff(handoff, on_admit=register)
+        except EngineBusy as e:
+            return self._shed_response(http, str(e))
+        except EngineDraining:
+            return self._drain_refusal(http)
+        except NotImplementedError as e:  # an adapter's handoff
+            return http._json(404, {"error": {"message": str(e)}})
+        except HandoffError as e:
+            return http._json(400, {"error": {"message": str(e)}})
+        sub.put(first_ev)
+        self.metrics.requests_total.inc(model=display)
+        self.metrics.active_requests.inc()
+        self.metrics.prompt_tokens.inc(handoff.plen)
+        self._work.set()
+        t0 = time.monotonic()
+        span = getattr(http, "current_span", None)
+        reqs = [(rid, sub, sp)]
+        try:
+            if body.get("stream", False):
+                self._stream_response(http, reqs, display, chat, t0=t0, span=span)
+            else:
+                self._unary_response(http, reqs, display, chat, handoff.plen)
+        finally:
+            if span is not None and not span.end_ns:
+                span.set_attribute("request.duration_s", time.monotonic() - t0)
+                span.set_attribute("disagg.handoff_id", hid)
+            self._cancel_all(reqs)
+            self.metrics.active_requests.dec()
+
+    # -- cluster KV-sharing tier -----------------------------------------------
+
+    def _handle_kv_export(self, http, body: dict):
+        """POST /v1/kv/export: serve a peer's partial-chain prefix fetch.
+        JSON {"prefix_hashes": [hex...], "max_bytes": N} in, a KVP1 page
+        blob out (empty when nothing of the chain is held). The cap is the
+        tighter of the caller's max_bytes and this server's transfer
+        limit."""
+        if not self.kv_sharing:
+            return http._json(404, {"error": {"message": "KV sharing is not enabled"}})
+        if self._draining.is_set():
+            return self._drain_refusal(http)
+        hashes = body.get("prefix_hashes")
+        if not isinstance(hashes, list) or not all(isinstance(h, str) for h in hashes):
+            return http._json(400, {"error": {"message": "prefix_hashes must be a hex list"}})
+        max_bytes = body.get("max_bytes", 0)
+        if isinstance(max_bytes, bool) or not isinstance(max_bytes, int):
+            max_bytes = 0
+        cap = max(0, max_bytes)
+        if self.max_transfer_bytes:
+            cap = min(cap, self.max_transfer_bytes) if cap else self.max_transfer_bytes
+        export_fn = getattr(self.engine, "export_prefix_pages", None)
+        export = export_fn(hashes, cap) if export_fn is not None else None
+        if export is None:
+            return http._json(400, {"error": {"message": (
+                "prefix export unavailable (paged prefix cache off or malformed chain)"
+            )}})
+        blob = serialize_pages(export)
+        http._last_status = 200
+        http.send_response(200)
+        http.send_header("Content-Type", "application/octet-stream")
+        http.send_header("Content-Length", str(len(blob)))
+        http.send_header("X-KV-Pages", str(export.n_pages))
+        http.end_headers()
+        http.wfile.write(blob)
+
+    def _maybe_fetch_prefix(self, headers, prompt_ids: list[int], deadline_ms) -> None:
+        """Best-effort prefix KV fetch before admission: compute the
+        prompt's chain, and when a peer (X-KV-Source, which the router
+        supplies only for closed-circuit holders) or the spill store holds
+        pages past the local cached depth, pull and seed them so that
+        admission's ordinary prefix-hit path skips that prefill. Every
+        failure returns silently and the request recomputes: this can cost
+        latency (bounded by the deadline budget and kv_fetch_timeout),
+        never correctness."""
+        import http.client as _hc
+
+        compute = getattr(self.engine, "compute_prefix_chain", None)
+        depth_fn = getattr(self.engine, "cached_prefix_depth", None)
+        import_fn = getattr(self.engine, "import_prefix_pages", None)
+        if compute is None or depth_fn is None or import_fn is None:
+            return
+        t0 = time.monotonic()
+        # deadline_ms is None when deadline admission is off entirely.
+        budget_s = deadline_ms / 1000.0 if deadline_ms and deadline_ms > 0 else None
+
+        def budget_left() -> float | None:
+            if budget_s is None:
+                return None
+            return budget_s - (time.monotonic() - t0)
+
+        try:
+            chain = compute(prompt_ids)
+        except Exception:
+            return
+        # Admission's hit cap: pages past it are never adopted (the final
+        # token must compute its own logits), so fetching them is waste.
+        ps = self.engine.cfg.page_size
+        chain = chain[: max(0, (len(prompt_ids) - 1) // ps)]
+        if not chain:
+            return
+        depth = depth_fn(chain)
+        if depth >= len(chain):
+            return  # a full local hit: nothing to fetch
+        missing = chain[depth:]
+        source = (headers.get("X-KV-Source") or "").strip()
+        if source:
+            left = budget_left()
+            if left is not None and left <= 0:
+                return
+            self.metrics.kv_fetch_attempts.inc(source="peer")
+            timeout = self.kv_fetch_timeout
+            if left is not None:
+                timeout = min(timeout, left)
+            conn = None
+            try:
+                payload = json.dumps({
+                    "prefix_hashes": missing, "max_bytes": self.max_transfer_bytes,
+                }).encode()
+                conn = _hc.HTTPConnection(source, timeout=timeout)
+                conn.request("POST", "/v1/kv/export", body=payload,
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                if resp.status != 200:
+                    resp.read()
+                    raise OSError(f"peer answered {resp.status}")
+                blob = resp.read()
+                if self.max_transfer_bytes and len(blob) > self.max_transfer_bytes:
+                    raise OSError(
+                        f"peer blob of {len(blob)} bytes exceeds the "
+                        f"{self.max_transfer_bytes}-byte transfer limit"
+                    )
+                left = budget_left()
+                if left is not None and left <= 0:
+                    raise OSError("deadline budget exhausted mid-fetch")
+                n = import_fn(deserialize_pages(blob), source="peer")
+                if n > 0:
+                    self.metrics.kv_fetch_bytes.inc(len(blob))
+                    return
+            except Exception as e:  # noqa: BLE001
+                # Broad by contract: a peer dying mid-transfer surfaces as
+                # http.client.IncompleteRead and a corrupt blob as
+                # HandoffError; all of it degrades to recompute.
+                logger.warning("peer KV fetch from %s failed: %s", source, e)
+                self.metrics.kv_fetch_failures.inc(source="peer")
+            finally:
+                if conn is not None:
+                    conn.close()
+        if self.kv_spill is None:
+            return
+        # Spill fill: single-page blobs keyed by chain hash, imported one
+        # page at a time so that a partial fill still shortens prefill.
+        filled = 0
+        self.metrics.kv_fetch_attempts.inc(source="spill")
+        for h in missing:
+            left = budget_left()
+            if left is not None and left <= 0:
+                break
+            try:
+                blob = self.kv_spill.get(h)
+            except Exception:  # noqa: BLE001
+                blob = None
+            if blob is None:
+                break  # the chain must stay consecutive: stop at a miss
+            try:
+                if import_fn(deserialize_pages(blob), source="spill") == 0:
+                    break
+            except (HandoffError, ValueError):
+                break
+            filled += 1
+            self.metrics.kv_fetch_bytes.inc(len(blob))
+        if filled == 0:
+            self.metrics.kv_fetch_failures.inc(source="spill")
 
     @staticmethod
     def _parse_sampling(body: dict, room: int) -> SamplingParams:
@@ -1556,12 +2036,8 @@ _UNPORTED_FLAGS = (
      "int8 KV pools (ROADMAP A item 7)"),
     ("--draft-url", lambda a: bool(a.draft_url),
      "draft-model speculation (ROADMAP A item 10)"),
-    ("--role", lambda a: a.role != "unified",
-     "disaggregated prefill/decode (ROADMAP A item 7)"),
-    ("--kv-sharing", lambda a: a.kv_sharing,
-     "the cluster KV-sharing tier (ROADMAP A item 7)"),
     ("--kv-spill-url", lambda a: bool(a.kv_spill_url),
-     "the cluster KV-sharing tier (ROADMAP A item 7)"),
+     "KV spill to an object store (ROADMAP A item 9)"),
     ("--snapshot-url/--snapshot-dir/--snapshot-no-publish",
      lambda a: bool(a.snapshot_url or a.snapshot_dir or a.snapshot_no_publish),
      "snapshot restore-first boots (ROADMAP A item 9)"),
@@ -1665,17 +2141,47 @@ def parse_args(argv=None) -> argparse.Namespace:
         "engine step progress for this long, /health flips and the "
         "process exits 3 so Kubernetes restarts the pod; 0 disables",
     )
-    ap.add_argument("--role", default="unified",
-                    choices=["unified", "prefill", "decode"],
-                    help="only unified is ported")
+    ap.add_argument(
+        "--role", default="unified",
+        choices=["unified", "prefill", "decode"],
+        help="disaggregated serving role: prefill engines run the prefill "
+        "and push a KV handoff to the decode pool instead of entering "
+        "decode; decode engines admit handoffs directly into slots (POST "
+        "/v1/kv/import + X-Disagg-Handoff) (CRD spec.disaggregation)",
+    )
+    ap.add_argument(
+        "--max-transfer-mb", type=int, default=0,
+        help="cap on one serialized KV handoff (0 = unlimited); uploads "
+        "and exports past it answer 413 (CRD disaggregation.maxTransferMB)",
+    )
+    ap.add_argument(
+        "--transfer-timeout", type=float, default=30.0,
+        help="prefill-role push budget toward the decode pool's "
+        "/v1/kv/import (CRD disaggregation.transferTimeoutSeconds)",
+    )
     ap.add_argument(
         "--prefix-cache", action="store_true",
         help="automatic prefix caching: shared prompt prefixes skip "
         "prefill. Implies a prefill chunk of min(512, max-seq-len/4) "
         "when unset",
     )
-    ap.add_argument("--kv-sharing", action="store_true", help="not ported")
-    ap.add_argument("--kv-spill-url", default="", help="not ported")
+    ap.add_argument(
+        "--kv-sharing", action="store_true",
+        help="cluster-shared prefix/KV tier: publish held page-hash chains "
+        "via /v1/state, serve peer page exports on /v1/kv/export, and pull "
+        "common-prefix pages from the X-KV-Source peer before prefill; "
+        "implies --prefix-cache (CRD spec.kvSharing)",
+    )
+    ap.add_argument(
+        "--kv-fetch-timeout", type=float, default=5.0,
+        help="budget for one peer KV-page fetch "
+        "(CRD kvSharing.fetchTimeoutSeconds)",
+    )
+    ap.add_argument(
+        "--kv-spill-url", default="",
+        help="where evicted idle KV pages spill and are re-filled from; "
+        "empty = in memory (an object-store URL is not ported)",
+    )
     ap.add_argument("--snapshot-url", default="", help="not ported")
     ap.add_argument("--snapshot-dir", default="", help="not ported")
     ap.add_argument("--snapshot-no-publish", action="store_true",
@@ -1684,6 +2190,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     for flag, is_set, needs in _UNPORTED_FLAGS:
         if is_set(args):
             raise SystemExit(f"{flag}: {needs} is not ported to this engine")
+    if args.kv_sharing:
+        args.prefix_cache = True  # holdings live in the paged prefix cache
     if args.prefix_cache and args.prefill_chunk <= 0:
         args.prefill_chunk = max(32, min(512, args.max_seq_len // 4))
     if args.pipeline and args.step_overlap == "auto":
@@ -1786,8 +2294,16 @@ def main(argv=None) -> int:
         default_priority=args.default_priority,
         max_deadline_ms=args.max_deadline_ms,
         drain_timeout=args.drain_timeout,
+        role=args.role,
+        max_transfer_mb=args.max_transfer_mb,
+        transfer_timeout=args.transfer_timeout,
         watchdog_timeout=args.watchdog_timeout,
         watchdog_action=_watchdog_exit,
+        kv_sharing=args.kv_sharing,
+        kv_fetch_timeout=args.kv_fetch_timeout,
+        kv_spill_store=(
+            KVSpillStore(args.kv_spill_url) if args.kv_sharing else None
+        ),
         cold_start=tracker.snapshot(),
     )
     tracing.configure(service_name=f"kubeai-tpu-engine.{args.served_model_name}")

@@ -21,8 +21,9 @@ in the port the phases read:
                (the device→host copy itself was enqueued at dispatch and
                ends before the event)
   sample     — host-side token emission (stop checks, slot release)
-  kv_transfer — paged-KV handoff export/import (recorded outside the
-               step timeline; not ported yet)
+  kv_transfer — paged-KV handoff export/import: the page gather or
+               scatter, which the engine records among its latency
+               records, outside the step timeline
 
 The engine records plain floats under its own lock — it never touches a
 metrics registry from the hot path. `recent()` returns the bounded ring

@@ -1,5 +1,5 @@
-"""Structural rules of the PyTorch/CUDA port: it imports neither JAX nor
-the JAX package, its entry points never fall back to the CPU silently,
+"""Structural rules of the PyTorch/CUDA port: it imports neither JAX (nor
+its ml_dtypes) nor the JAX package, its entry points never fall back to the CPU silently,
 and the kernel wrappers launch nothing for CPU tensors."""
 
 import ast
@@ -41,7 +41,8 @@ def _imported_modules(path: pathlib.Path) -> list[str]:
 
 def _forbidden(mod: str) -> bool:
     top = mod.split(".")[0]
-    return top in ("jax", "jaxlib", "kubeai_tpu")
+    # ml_dtypes is JAX's dtype package: the port carries bf16 without it.
+    return top in ("jax", "jaxlib", "kubeai_tpu", "ml_dtypes")
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -52,6 +53,7 @@ def test_no_jax_or_kubeai_tpu_imports(path):
 
 def test_forbidden_matcher():
     assert _forbidden("jax.numpy") and _forbidden("kubeai_tpu.engine")
+    assert _forbidden("ml_dtypes")
     assert not _forbidden("kubeai_tpu_torch.engine") and not _forbidden("torch")
 
 

@@ -67,25 +67,14 @@ from kubeai_tpu_torch.parity import params_from_numpy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# The JAX server's series of features the port does not serve yet:
-# disaggregated prefill/decode, the cluster KV-sharing tier and the
-# object store (ROADMAP A items 7 and 9).
+# The JAX server's series of features the port does not serve yet: the
+# object store (ROADMAP A item 9).
 UNPORTED_SERIES = {
-    "kubeai_engine_kv_handoffs_total",
-    "kubeai_engine_kv_transfer_bytes_total",
-    "kubeai_engine_kv_transfer_seconds",
-    "kubeai_kv_fetch_attempts_total",
-    "kubeai_kv_fetch_bytes_total",
-    "kubeai_kv_fetch_failures_total",
-    "kubeai_engine_kv_share_pages_total",
-    "kubeai_engine_role",
     "kubeai_objstore_retries_total",
 }
-# /v1/state keys of the same features and the adapters (ROADMAP A items
-# 7 and 8).
-UNPORTED_STATE_KEYS = {
-    "role", "pending_handoffs", "adapters", "kv_sharing", "kv_share",
-}
+# /v1/state keys of features the port does not serve yet: the adapters
+# (ROADMAP A item 8).
+UNPORTED_STATE_KEYS = {"adapters"}
 # Exposition samples whose values count requests and tokens: equal on
 # both servers after the same requests.
 COUNT_SAMPLES = (
@@ -414,15 +403,17 @@ def test_state_matches_jax(served):
     assert set(tstate) == set(jstate) - UNPORTED_STATE_KEYS
     for key in ("kv_cache", "prefix_stats", "spec_stats", "cold_start", "model",
                 "healthy", "draining", "slots_active", "requests_pending",
-                "kv_utilization"):
+                "kv_utilization", "role", "pending_handoffs", "kv_sharing",
+                "kv_share"):
         assert tstate[key] == jstate[key], key
     assert tstate["prefix_stats"]["hit_tokens"] > 0
     assert set(tstate["scheduler"]) == set(jstate["scheduler"])
     assert set(tstate["last_step"]) == set(jstate["last_step"])
-    # The JAX server publishes holdings only with KV sharing on; the port
-    # publishes the prefix cache's chain, which equals the JAX engine's.
-    assert tstate["kv_holdings"] and jstate["kv_holdings"] == []
-    assert sorted(tstate["kv_holdings"]) == sorted(jeng.prefix_holdings())
+    # Both servers publish holdings only with KV sharing on; the prefix
+    # cache's chain itself equals the JAX engine's.
+    assert tstate["kv_holdings"] == jstate["kv_holdings"] == []
+    holdings = tsrv.engine.prefix_holdings()
+    assert holdings and sorted(holdings) == sorted(jeng.prefix_holdings())
     assert set(tstate["exemplars"]["ttft"].values()) <= {f"rid-{i}" for i in range(10)}
 
 
@@ -710,10 +701,7 @@ def test_main_serves_a_checkpoint_and_drains_on_sigterm(checkpoints, tmp_path, c
     (["--quantization", "int8"], 9),
     (["--kv-dtype", "int8"], 7),
     (["--draft-url", "pvc://models/draft"], 10),
-    (["--role", "prefill"], 7),
-    (["--role", "decode"], 7),
-    (["--kv-sharing"], 7),
-    (["--kv-spill-url", "s3://bucket/spill"], 7),
+    (["--kv-spill-url", "s3://bucket/spill"], 9),
     (["--snapshot-url", "file:///snapshots"], 9),
     (["--snapshot-dir", "/snapshots"], 9),
     (["--snapshot-no-publish"], 9),
@@ -724,6 +712,42 @@ def test_main_refuses_unported_flags(checkpoints, argv, item):
     with pytest.raises(SystemExit) as e:
         main(["--model-url", model_dir, "--device", "cpu", *argv])
     assert isinstance(e.value.code, str) and f"ROADMAP A item {item}" in e.value.code
+
+
+class _ServerBuilt(Exception):
+    pass
+
+
+@pytest.mark.parametrize("argv,role,sharing", [
+    (["--role", "prefill"], "prefill", False),
+    (["--role", "decode", "--max-transfer-mb", "64"], "decode", False),
+    (["--kv-sharing", "--kv-spill-url", ""], "unified", True),
+], ids=["role_prefill", "role_decode", "kv-sharing"])
+def test_main_serves_roles_and_sharing(checkpoints, monkeypatch, argv, role, sharing):
+    """The disaggregation and KV-sharing flags: main builds the engine and
+    hands the server the role, the transfer limit and, with --kv-sharing,
+    the prefix cache and an in-memory spill store."""
+    from kubeai_tpu_torch.engine import server as server_mod
+    from kubeai_tpu_torch.objstore import KVSpillStore
+
+    args = server_mod.parse_args(["--model-url", "x", *argv])
+    assert args.role == role and args.kv_sharing is sharing
+    assert args.prefix_cache is sharing and (args.prefill_chunk > 0) is sharing
+    built = {}
+
+    def capture(engine, tokenizer, name, **kw):
+        built.update(kw, engine=engine)
+        raise _ServerBuilt
+
+    monkeypatch.setattr(server_mod, "EngineServer", capture)
+    model_dir, _ = checkpoints["llama-safetensors"]
+    with pytest.raises(_ServerBuilt):
+        main(["--model-url", model_dir, "--device", "cpu", "--num-slots", "2",
+              "--max-seq-len", "128", *argv])
+    assert built["role"] == role and built["kv_sharing"] is sharing
+    assert built["max_transfer_mb"] == (64 if role == "decode" else 0)
+    assert isinstance(built["kv_spill_store"], KVSpillStore) is sharing
+    assert built["engine"]._prefix_cache is sharing
 
 
 @pytest.mark.parametrize("arch,url,reason", [
