@@ -18,7 +18,10 @@ Phases, each fatal on failure:
                key must be 0. B2 also: ragged S, B=1 at 2048 and 8192.
                For every kernel: two calls and a CUDA-graph replay that
                must give the same bits, its head_dim-64 build, and no
-               spills;
+               spills. B1's int8 read (B1-int8) runs B1's cases on the
+               same pools quantized by kv_quant.quantize_kv, against the
+               plain version on the same int8 pages and scales, at B1's
+               limits;
   3. model   — a small model (head_dim 128) on the card through the kernels
                against the same weights in f32 on the CPU through the plain
                versions: prefill, paged-decode (both layouts) and
@@ -83,7 +86,17 @@ Phases, each fatal on failure:
                holds over /v1/kv/export (X-KV-Source): B's hit tokens,
                its 16 imported pages, their bits and its stream must be
                A's; an eviction of A's idle pages spills into A's
-               KVSpillStore and fills back bit-equal;
+               KVSpillStore and fills back bit-equal. Int8 KV pools last:
+               `serve_int8` serves the four prompts greedy, then seeded,
+               on int8 pools (B1-int8 must launch, only from replays, and
+               B1 not at all; streams equal an eager int8 engine's) and
+               prints the pools' GiB against bf16 and the decode step
+               against the bf16 one; the prefix run again on int8 pools
+               (hits by the rule, streams equal an eager engine's); and
+               an int8 prefill/decode pair on the 717-token prompt, greedy
+               and seeded (exported int8 pages and scales are the pool's
+               bits, imports write the handoff's, streams equal the
+               decode server's own);
   5. serve_cli — the engine Pod's entry point: a random-weight Llama
                checkpoint at Llama-3-8B width (4 layers, bf16) written with
                `weights.save_safetensors`, served by `python -m
@@ -171,6 +184,12 @@ KERNELS = {
     "paged_decode_attention_fused": (
         "kubeai_tpu_torch/csrc/paged_decode_fused.cu",
         "kubeai_tpu/ops/paged_attention.py:837",
+    ),
+    # B1's int8 read: the same pallas_call's function over an int8 pool,
+    # which the JAX package computes on its reference path.
+    "paged_decode_attention_int8": (
+        "kubeai_tpu_torch/csrc/paged_decode.cu",
+        "kubeai_tpu/ops/paged_attention.py:309",
     ),
 }
 
@@ -315,21 +334,31 @@ def _paged_inputs(gen, B=8, H=32, KVH=8, D=128, page=64, max_len=2048):
     return q, kp, vp, bt.to(dev), lengths.to(dev, torch.int32)
 
 
-def check_paged_decode() -> dict:
+def _quantize_pool(pages):
+    """A bf16 [P, page, KVH, D] pool as an int8 QuantizedPool."""
+    from kubeai_tpu_torch.ops.kv_quant import QuantizedPool, quantize_kv
+
+    return QuantizedPool(*quantize_kv(pages))
+
+
+def check_paged_decode(int8: bool = False) -> dict:
     """B1 at the serving shapes: 8 slots, lengths ragged up to 2048 (slot 0
     the whole table, slot 1 one token), four cases and one wrong page; then
     two calls and a CUDA-graph replay that must give the same bits, the
     split edges, slots past the block table, B=1 at a 16k context, and
-    B1's registers and spills from the build log."""
+    B1's registers and spills from the build log. With `int8`, B1's int8
+    read (paged_decode_attention_int8) on the same random pools quantized
+    by kv_quant.quantize_kv, against the plain version on the same int8
+    pages and scales, at B1's limits."""
     import torch
 
-    from kubeai_tpu_torch.ops.paged_attention import (
-        paged_decode_attention,
-        ref_paged_decode_attention,
-    )
+    from kubeai_tpu_torch.ops.paged_attention import ref_paged_decode_attention
 
     gen = torch.Generator().manual_seed(1)
     q, kp, vp, bt, lengths = _paged_inputs(gen)
+    if int8:
+        kp, vp = _quantize_pool(kp), _quantize_pool(vp)
+    name, kernel = _decode_kernel(kp)
     B, H, D = q.shape
     KVH, page = kp.shape[2], kp.shape[1]
     args = (q, kp, vp, bt, lengths)
@@ -341,35 +370,50 @@ def check_paged_decode() -> dict:
             # One page of the full-length slot 0 read from slot 2's first.
             bad_bt = bt.clone()
             bad_bt[0, 5] = bt[2, 0]
-            _wrong_page_fails("paged_decode", got,
+            _wrong_page_fails(name, got,
                               ref_paged_decode_attention(q, kp, vp, bad_bt, lengths),
                               PAGED_ATOL, PAGED_RTOL)
         line = _time_decode(args, kw, library=cap is None and win is None)
         line["max_abs_err"] = err
         if cap is None and win is None:
             result = dict(line)
-        print("kernel paged_decode_attention B=%d H=%d KVH=%d D=%d page=%d "
-              "max_len=%d %s" % (B, H, KVH, D, page, int(lengths.max()), json.dumps(line)),
-              flush=True)
+        print("kernel %s B=%d H=%d KVH=%d D=%d page=%d max_len=%d %s" % (
+            kernel.__name__, B, H, KVH, D, page, int(lengths.max()), json.dumps(line)),
+            flush=True)
 
     # The combine merges the splits in a fixed order: two calls, same bits.
-    first = paged_decode_attention(*args)
-    if not torch.equal(first, paged_decode_attention(*args)):
-        fail("paged_decode: two calls on the same inputs differ")
+    first = kernel(*args)
+    if not torch.equal(first, kernel(*args)):
+        fail(f"{name}: two calls on the same inputs differ")
     # The wrapper reads no device value: one call captured in a CUDA graph
     # and replayed gives the eager call's output.
-    graph, captured = capture(lambda: paged_decode_attention(*args))
+    graph, captured = capture(lambda: kernel(*args))
     graph.replay()
     torch.cuda.synchronize()
     if not torch.equal(captured, first):
-        fail("paged_decode: the CUDA-graph replay differs from the eager call")
-    print("paged_decode: two eager calls bit-identical; CUDA-graph replay equals "
+        fail(f"{name}: the CUDA-graph replay differs from the eager call")
+    print(f"{name}: two eager calls bit-identical; CUDA-graph replay equals "
           "the eager call", flush=True)
     check_decode_split_edges(q, kp, vp, gen)
     check_decode_past_table(q, kp, vp, gen)
-    check_decode_long_context()
-    check_ptxas("paged_decode.cu")
+    check_decode_long_context(int8)
+    if not int8:
+        check_ptxas("paged_decode.cu")
     return result
+
+
+def _decode_kernel(kp):
+    """(label, wrapper) of the B1 kernel a pool goes to: B1's int8 read for
+    an int8 QuantizedPool, else B1."""
+    from kubeai_tpu_torch.ops.kv_quant import QuantizedPool
+    from kubeai_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_int8,
+    )
+
+    if isinstance(kp, QuantizedPool):
+        return "paged_decode_int8", paged_decode_attention_int8
+    return "paged_decode", paged_decode_attention
 
 
 def _decode_masked_slots(lengths, L: int, window):
@@ -385,7 +429,9 @@ def _decode_masked_slots(lengths, L: int, window):
 def _check_decode_case(tag: str, args, kw: dict):
     """B1 against its bf16 plain version; a slot that keeps no key must be
     0 (the plain version averages every column there, as the JAX reference
-    does). Returns (B1's output, max |err|)."""
+    does). An int8 pool goes to B1's int8 read, whose own launch count
+    must move, and is held against the plain version on the same int8
+    pages and scales. Returns (the kernel's output, max |err|)."""
     import torch
 
     from kubeai_tpu_torch.ops.paged_attention import (
@@ -394,15 +440,19 @@ def _check_decode_case(tag: str, args, kw: dict):
     )
 
     _, kp, _, bt, lengths = args
+    name, kernel = _decode_kernel(kp)
+    before = kernel.launches
     got = paged_decode_attention(*args, **kw)
     torch.cuda.synchronize()
+    if kernel.launches != before + 1:
+        fail(f"{name} {tag}: paged_decode_attention did not launch {kernel.__name__}")
     want = ref_paged_decode_attention(*args, **kw)
     masked = _decode_masked_slots(lengths, bt.shape[1] * kp.shape[1], kw.get("window"))
     if bool(masked.any()):
         if not bool((got[masked] == 0).all()):
-            fail(f"paged_decode {tag}: a slot that keeps no key is not 0")
+            fail(f"{name} {tag}: a slot that keeps no key is not 0")
         want = torch.where(masked[:, None, None], torch.zeros_like(want), want)
-    return got, compare(f"paged_decode {tag}", got, want, PAGED_ATOL, PAGED_RTOL)
+    return got, compare(f"{name} {tag}", got, want, PAGED_ATOL, PAGED_RTOL)
 
 
 def _time_decode(args, kw: dict, library: bool) -> dict:
@@ -412,10 +462,14 @@ def _time_decode(args, kw: dict, library: bool) -> dict:
     `library_ms`: device time per call) and eagerly (`eager_ms`,
     `library_eager_ms`: back-to-back calls from Python, which the host's
     launch overhead can bound); `split_ms` and `combine_ms` are B1's two
-    kernels from torch.profiler."""
+    kernels from torch.profiler. An int8 pool reads D int8 values and one
+    f32 scale a kept row; its `library_ms` is SDPA on the dequantized bf16
+    view of the same pages, a yardstick only (no PyTorch call attends over
+    int8 pages)."""
     import torch
     import torch.nn.functional as F
 
+    from kubeai_tpu_torch.ops.kv_quant import QuantizedPool, dequantize_kv
     from kubeai_tpu_torch.ops.paged_attention import (
         paged_decode_attention,
         ref_paged_decode_attention,
@@ -426,6 +480,8 @@ def _time_decode(args, kw: dict, library: bool) -> dict:
     KVH, page = kp.shape[2], kp.shape[1]
     L = bt.shape[1] * page
     win = kw.get("window")
+    int8 = isinstance(kp, QuantizedPool)
+    row_bytes = D + 4 if int8 else 2 * D
     call = lambda: paged_decode_attention(*args, **kw)  # noqa: E731
     ms, eager_ms = graph_ms(call), cuda_ms(call)
     plain_ms = cuda_ms(lambda: ref_paged_decode_attention(*args, **kw), iters=5)
@@ -435,7 +491,7 @@ def _time_decode(args, kw: dict, library: bool) -> dict:
     # tables and the lengths.
     n_keys = sum(max(min(n, L) - (max(n - win, 0) if win else 0), 0)
                  for n in lengths.tolist())
-    nbytes = (n_keys * KVH * D * 2 * 2 + 2 * q.numel() * 2
+    nbytes = (n_keys * KVH * row_bytes * 2 + 2 * q.numel() * 2
               + bt.numel() * 4 + lengths.numel() * 4)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_flops = 4.0 * D * H * n_keys / PEAK_BF16_FLOPS * 1e3
@@ -446,8 +502,12 @@ def _time_decode(args, kw: dict, library: bool) -> dict:
                 bound_by="bytes" if t_bytes >= t_flops else "operations")
     if library:
         idx = bt.long().clamp(min=0)
-        kd = kp[idx].reshape(B, L, KVH, D).transpose(1, 2).contiguous()
-        vd = vp[idx].reshape(B, L, KVH, D).transpose(1, 2).contiguous()
+        if int8:
+            kp, vp = (dequantize_kv(p.q8[idx], p.scale[idx]) for p in (kp, vp))
+        else:
+            kp, vp = kp[idx], vp[idx]
+        kd = kp.reshape(B, L, KVH, D).transpose(1, 2).contiguous()
+        vd = vp.reshape(B, L, KVH, D).transpose(1, 2).contiguous()
         mask = (torch.arange(L, device="cuda")[None, :] < lengths[:, None].long())[:, None, None, :]
         q4 = q[:, :, None, :]
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -475,7 +535,7 @@ def check_decode_split_edges(q, kp, vp, gen) -> None:
     errs = [_check_decode_case(f"split edges {edge} softcap={cap} window={win}", args,
                                dict(logit_softcap=cap, window=win))[1]
             for cap, win in ((None, None), (30.0, None), (None, edge + 10), (50.0, 100))]
-    print(f"paged_decode split edges (splits of {edge} tokens; lengths "
+    print(f"{_decode_kernel(kp)[0]} split edges (splits of {edge} tokens; lengths "
           f"{lengths.tolist()}; plain, softcap 30, window {edge + 10}, softcap 50 + "
           f"window 100; length 0 writes 0): max |err| {['%.3e' % e for e in errs]}",
           flush=True)
@@ -499,14 +559,15 @@ def check_decode_past_table(q, kp, vp, gen) -> None:
                                dict(logit_softcap=cap, window=win))[1]
             for cap, win in cases]
     n_masked = [int(_decode_masked_slots(lengths, L, win).sum()) for _, win in cases]
-    print(f"paged_decode past the table ({L} keys; lengths {lengths.tolist()}; plain, "
+    print(f"{_decode_kernel(kp)[0]} past the table ({L} keys; lengths {lengths.tolist()}; plain, "
           f"softcap 30, window 500, softcap 50 + window 100, window 2; slots keeping no "
           f"key, all 0: {n_masked}): max |err| {['%.3e' % e for e in errs]}", flush=True)
 
 
-def check_decode_long_context() -> None:
+def check_decode_long_context(int8: bool = False) -> None:
     """B=1 at a 16k context: length 16384 over 256 pages, the shape where
-    one CTA per (slot, kv head) left most SMs idle."""
+    one CTA per (slot, kv head) left most SMs idle; int8 pools quantized
+    from the same random pages with `int8`."""
     import torch
 
     B, H, KVH, D, page, mp = 1, 32, 8, 128, 64, 256
@@ -519,13 +580,15 @@ def check_decode_long_context() -> None:
         return torch.randn(*shape, generator=cg, device="cuda").to(torch.bfloat16)
 
     kp, vp = rnd(1 + B * mp, page, KVH, D), rnd(1 + B * mp, page, KVH, D)
+    if int8:
+        kp, vp = _quantize_pool(kp), _quantize_pool(vp)
     args = (rnd(B, H, D), kp, vp, bt, lengths.to("cuda", torch.int32))
     _, err = _check_decode_case("B=1 16k", args, {})
     line = _time_decode(args, {}, library=True)
     line["max_abs_err"] = err
-    print("kernel paged_decode_attention long context B=%d H=%d KVH=%d D=%d page=%d "
-          "length=%d %s" % (B, H, KVH, D, page, int(lengths[0]), json.dumps(line)),
-          flush=True)
+    print("kernel %s long context B=%d H=%d KVH=%d D=%d page=%d length=%d %s" % (
+        _decode_kernel(kp)[1].__name__, B, H, KVH, D, page, int(lengths[0]),
+        json.dumps(line)), flush=True)
     del kp, vp, args
     torch.cuda.empty_cache()
 
@@ -1119,6 +1182,8 @@ def check_head_dim_64() -> None:
         got = paged_decode_attention(q, kp[1], vp[1], bt, pos + 1, **kw)
         errs.append(compare(f"paged_decode {tag}", got, ref_paged_decode_attention(
             q, kp[1], vp[1], bt, pos + 1, **kw), PAGED_ATOL, PAGED_RTOL))
+        k8, v8 = _quantize_pool(kp[1]), _quantize_pool(vp[1])
+        errs.append(_check_decode_case(tag, (q, k8, v8, bt, pos + 1), kw)[1])
         got = paged_verify_attention(qk, kp[1], vp[1], bt, pos, **kw)
         errs.append(compare(f"paged_verify {tag}", got, ref_paged_verify_attention(
             qk.float(), kp[1].float(), vp[1].float(), bt, pos, **kw),
@@ -1130,7 +1195,7 @@ def check_head_dim_64() -> None:
         q, k, v = rnd(2, S, H, D), rnd(2, S, KVH, D), rnd(2, S, KVH, D)
         errs.append(compare(f"flash_prefill D=64 S={S}", flash_causal_prefill(q, k, v),
                             causal_prefill_attention(q, k, v), FLASH_ATOL, FLASH_RTOL))
-    print(f"kernels at head_dim 64 (B1, B3, B4: plain, softcap 50 + window 100; "
+    print(f"kernels at head_dim 64 (B1, B1-int8, B3, B4: plain, softcap 50 + window 100; "
           f"B2: S=200, 512): max |err| {['%.3e' % e for e in errs]}", flush=True)
 
 
@@ -1140,6 +1205,7 @@ def phase_kernels() -> dict:
         "flash_causal_prefill": check_flash_prefill(),
         "paged_verify_attention": check_paged_verify(),
         "paged_decode_attention_fused": check_paged_fused(),
+        "paged_decode_attention_int8": check_paged_decode(int8=True),
     }
     check_head_dim_64()
     return measured
@@ -1482,7 +1548,7 @@ def serve_run(params, cfg, label: str, waves=None, **extra) -> dict:
           f"(eager calls {json.dumps(eager)}; from graph replays {json.dumps(replayed)}, "
           f"dispatches {json.dumps(dispatches)})", flush=True)
     for name in ("paged_decode_attention", "paged_verify_attention",
-                 "paged_decode_attention_fused"):
+                 "paged_decode_attention_fused", "paged_decode_attention_int8"):
         if eager[name]:
             fail(f"serve {label}: {name} launched {eager[name]} times outside the "
                  "graph replays")
@@ -1593,7 +1659,7 @@ def phase_serve() -> dict:
         launches[name] = run["launches"][name]
     check_streams_equal_eager(params, cfg, "per_layer", run, **extra)
     base = {i: run["streams"][rid] for i, rid in run["rid_of"].items()}
-    profile_program(run["engine"], "decode step", "decode chunk")
+    bf16_step = profile_program(run["engine"], "decode step", "decode chunk")
     profile_prefill(params, cfg)
     free(run)
     serve_resume(params, cfg)
@@ -1631,6 +1697,12 @@ def phase_serve() -> dict:
     # the decode side) and the KV-sharing tier.
     serve_disagg(params, cfg)
     serve_kv_share(params, cfg)
+    # Int8 KV pools: the per_layer serve run, a prefix run and a
+    # prefill/decode pair, each on int8 pools. B1's int8 read launches,
+    # bf16 B1 does not.
+    launches["paged_decode_attention_int8"] = serve_int8(params, cfg, bf16_step)
+    serve_prefix(params, cfg, int8=True)
+    serve_disagg_int8(params, cfg)
     return launches
 
 
@@ -2051,7 +2123,7 @@ def expected_hits(prompts: list[list[int]], page: int, chunk: int, max_len: int)
     return out
 
 
-def serve_prefix(params=None, cfg=None) -> dict:
+def serve_prefix(params=None, cfg=None, int8: bool = False) -> dict:
     """Run 4: `prefill_chunk=512, prefix_cache=True` over two waves of
     traffic that share a 1,024-token system prompt (`_prefix_waves`), in
     the per_layer layout. Gates: B1 and B2 launch; the staged-chunk programs
@@ -2061,19 +2133,27 @@ def serve_prefix(params=None, cfg=None) -> dict:
     and hit tokens equal an eager synchronous engine's with the same
     settings. Reports: TTFT of hits and misses, greedy agreement with a
     whole-prompt engine's streams on the same prompts, and
-    `profile_admissions`. Builds the weights when not given. Returns the
-    run's launches."""
+    `profile_admissions`. Builds the weights when not given. With `int8`
+    the pools are int8 (a hit dequantizes the adopted pages into the
+    staging buffers) and B1's int8 read, not B1, must launch; the reports
+    stop after the eager comparison. Returns the run's launches."""
     from kubeai_tpu_torch.engine import Engine, EngineConfig
 
     if params is None:
         params, cfg = serve_weights()
-    label = "prefix"
+    label = "prefix int8" if int8 else "prefix"
+    t_phase = time.perf_counter()
     extra = dict(decode_kernel="per_layer", prefill_chunk=PREFIX_CHUNK, prefix_cache=True)
+    if int8:
+        extra["kv_dtype"] = "int8"
     run = serve_run(params, cfg, label, waves=_prefix_waves(), **extra)
     engine = run["engine"]
-    for name in ("paged_decode_attention", "flash_causal_prefill"):
+    decode = "paged_decode_attention_int8" if int8 else "paged_decode_attention"
+    for name in (decode, "flash_causal_prefill"):
         if run["launches"][name] <= 0:
             fail(f"serve {label}: main path never launched {name}")
+    if int8 and run["launches"]["paged_decode_attention"]:
+        fail(f"serve {label}: paged_decode_attention launched on int8 pools")
     if run["stage_calls"]:
         fail(f"serve {label}: staged-chunk functions ran outside their graphs: "
              f"{run['stage_calls']}")
@@ -2103,6 +2183,12 @@ def serve_prefix(params=None, cfg=None) -> dict:
     if ref.prefix_stats["hit_tokens"] != stats["hit_tokens"]:
         fail(f"serve {label}: eager engine hit {ref.prefix_stats['hit_tokens']} tokens, "
              f"the served engine {stats['hit_tokens']}")
+    if int8:
+        launches = run["launches"]
+        del engine, ref
+        free(run)
+        print(f"serve {label} took {time.perf_counter() - t_phase:.2f} s", flush=True)
+        return launches
     # Whole-prompt admission (no chunks, no cache) on the same prompts.
     whole = Engine("llama", cfg, params, cfg=EngineConfig(
         **SERVE_CONFIG, decode_kernel="per_layer"), eos_token_ids=engine.eos_token_ids)
@@ -2118,6 +2204,58 @@ def serve_prefix(params=None, cfg=None) -> dict:
     launches = run["launches"]
     del engine, ref
     free(run)
+    return launches
+
+
+# ---- serve_int8: int8 KV pools on the 8B-shape model ------------------------------
+
+
+def serve_int8(params, cfg, bf16_step: dict) -> int:
+    """The per_layer serve run on int8 KV pools (`kv_dtype="int8"`, graphs
+    and overlap): the four default prompts greedy, then the four seeded
+    (`_disagg_bodies`), a wave each. Each wave's prompts fall in distinct
+    buckets, so the served and the eager engine admit them alike, one per
+    prefill call (a batched prefill of other rows rounds other bits, and
+    random weights turn that into other tokens). Gates: B1's int8 read launches, only
+    from graph replays; bf16 B1 never launches on this engine; every
+    stream equals an eager synchronous int8 engine's. Reports the pool's
+    GiB against a bf16 pool of the same pages, /v1/state's kv_cache facts,
+    and the decode step from its graph (wall and device ms) beside the
+    per_layer bf16 step's of the same run (`bf16_step`). Returns B1-int8's
+    launches on the main path."""
+    t_phase = time.perf_counter()
+    label = "int8"
+    extra = dict(decode_kernel="per_layer", kv_dtype="int8")
+    bodies = [b for _, b in _disagg_bodies()]
+    run = serve_run(params, cfg, label, waves=[bodies[0::2], bodies[1::2]], **extra)
+    engine = run["engine"]
+    got = run["launches"]
+    if got["paged_decode_attention_int8"] <= 0:
+        fail("serve int8: main path never launched paged_decode_attention_int8")
+    if got["paged_decode_attention"]:
+        fail("serve int8: paged_decode_attention (bf16) launched on int8 pools")
+    if got["flash_causal_prefill"] <= 0:
+        fail("serve int8: main path never launched flash_causal_prefill")
+    info = engine.kv_cache_info()
+    nl, n_pages, page, kvh, d = engine.cache.pages_shape
+    bf16_bytes = 2 * nl * n_pages * page * kvh * d * 2
+    if not info["quantized"] or info["dtype"] != "int8" or info["pool_bytes"] != (
+            2 * nl * n_pages * page * kvh * (d + 4)):
+        fail(f"serve int8: kv_cache_info {info}")
+    print(f"serve int8 pools: {info['pool_bytes'] / 2**30:.4f} GiB of int8 pages and scales "
+          f"against {bf16_bytes / 2**30:.4f} GiB for the same {n_pages} pages in bf16 "
+          f"(x{info['pool_bytes'] / bf16_bytes:.4f}); kv_cache_info {json.dumps(info)}",
+          flush=True)
+    check_streams_equal_eager(params, cfg, label, run, **extra)
+    step = profile_program(engine, "int8 decode step", "decode chunk")
+    print(f"serve int8 decode step from its graph: wall {step['wall_ms']:.3f} ms, device "
+          f"{step['device_ms']:.3f} ms; per_layer bf16 step of this run: wall "
+          f"{bf16_step['wall_ms']:.3f} ms, device {bf16_step['device_ms']:.3f} ms", flush=True)
+    launches = got["paged_decode_attention_int8"]
+    del engine
+    free(run)
+    print(f"serve int8 took {time.perf_counter() - t_phase:.2f} s; card: {gpu_line()}",
+          flush=True)
     return launches
 
 
@@ -2218,20 +2356,14 @@ class _DisaggSide:
                                  "import": time.perf_counter() - t0})
             return rid, ev
 
-        def import_kv_and_check(slot, plen, k_seq, v_seq, req):
-            import_kv(slot, plen, k_seq, v_seq, req)
+        def import_kv_and_check(slot, plen, k_seq, v_seq, req, scales=None):
+            import_kv(slot, plen, k_seq, v_seq, req, scales)
             h = pending.pop("handoff")
             pages = eng._alloc.pages_for(slot)
-            for pool, seq, host in ((eng.cache.k_pages, k_seq, h.k_pages),
-                                    (eng.cache.v_pages, v_seq, h.v_pages)):
-                nl, _, page, kvh, d = host.shape
-                wire = torch.from_numpy(
-                    host.reshape(nl, -1, kvh, d)[:, :plen].copy().view("int16")
-                ).to(pool.device).view(torch.bfloat16)
-                got = pool[:, pages].reshape(nl, -1, kvh, d)[:, :plen]
-                if not (torch.equal(seq, wire) and torch.equal(got, wire)):
-                    fail(f"serve_disagg {label}: the imported pool pages are not the "
-                         "handoff's bits")
+            if not _pages_hold(eng.cache.k_pages, pages, h.k_pages, h.k_scales, plen) or \
+                    not _pages_hold(eng.cache.v_pages, pages, h.v_pages, h.v_scales, plen):
+                fail(f"serve_disagg {label}: the imported pool pages are not the "
+                     "handoff's bits")
             self.imported_bits_equal += 1
 
         def prefill_and_count(*a, **kw):
@@ -2275,6 +2407,31 @@ class _DisaggSide:
 
     def stop(self) -> None:
         self.server.stop()
+
+
+def _pages_hold(pool, pages, host, host_scales=None, plen=None) -> bool:
+    """Whether `pool`'s `pages`, in table order, hold the wire's bits: a
+    bf16 pool its uint16 words, an int8 pool its int8 pages and f32
+    scales; with `plen`, only the first plen token rows."""
+    import numpy as np
+    import torch
+
+    from kubeai_tpu_torch.ops.kv_quant import QuantizedPool
+
+    got = pool[:, torch.as_tensor(pages, device=pool.device)]
+    nl, n, page, kvh, d = host.shape
+    rows = plen if plen is not None else n * page
+    if isinstance(got, QuantizedPool):
+        pairs = ((got.q8.reshape(nl, -1, kvh, d), torch.from_numpy(host.copy())),
+                 (got.scale.reshape(nl, -1, kvh), torch.from_numpy(host_scales.copy())))
+    else:
+        pairs = ((got.reshape(nl, -1, kvh, d),
+                  torch.from_numpy(host.view(np.int16).copy()).view(torch.bfloat16)),)
+    for have, wire in pairs:
+        wire = wire.reshape(have.shape).to(have.device)
+        if not torch.equal(have[:, :rows], wire[:, :rows]):
+            return False
+    return True
 
 
 def _direct(side: _DisaggSide, bodies) -> dict:
@@ -2343,9 +2500,6 @@ def serve_disagg(params, cfg) -> dict:
     Reports export ms (prefill and gather), serialize, push and receive
     ms and MB/s, import ms and two-hop TTFT against direct TTFT. Returns
     the launches of the two-hop runs."""
-    import numpy as np
-    import torch
-
     from kubeai_tpu_torch.disagg.handoff import serialize
 
     t_phase = time.perf_counter()
@@ -2364,12 +2518,10 @@ def serve_disagg(params, cfg) -> dict:
             # The exported pages, in table order, are the prefill pool's
             # pages: no request has run on the prefill engine since.
             h, pages = pre.exports[-1]["handoff"], pre.gathered
-            for pool, host in ((pre.engine.cache.k_pages, h.k_pages),
-                               (pre.engine.cache.v_pages, h.v_pages)):
-                wire = torch.from_numpy(host.view(np.int16)).to(pool.device).view(torch.bfloat16)
-                if not torch.equal(pool[:, pages], wire):
-                    fail(f"serve_disagg body {i}: the exported pages are not the prefill "
-                         "pool's pages")
+            if not _pages_hold(pre.engine.cache.k_pages, pages, h.k_pages) or \
+                    not _pages_hold(pre.engine.cache.v_pages, pages, h.v_pages):
+                fail(f"serve_disagg body {i}: the exported pages are not the prefill "
+                     "pool's pages")
         eager = {name: fn.launches for name, fn in _wrappers().items()}
         replays = {"prefill": pre.engine._decode_program.dispatches,
                    "decode": dec.engine._decode_program.dispatches}
@@ -2449,6 +2601,70 @@ def serve_disagg(params, cfg) -> dict:
           flush=True)
     return launches
 
+
+
+def serve_disagg_int8(params, cfg) -> None:
+    """A prefill-role and a decode-role EngineServer on int8 pools
+    (per_layer, graphs and overlap), the 717-token prompt greedy
+    and seeded: each alone to the decode server, then through the two
+    hops. Gates: the exported pages and scales are the prefill pool's bits
+    in table order; each import writes the handoff's int8 pages and scales
+    verbatim; every two-hop stream equals the decode server's own answer;
+    B1's int8 read launches on the decode side only from graph replays
+    and bf16 B1 not at all. Reports the blob's MB against a bf16
+    handoff's and each hop's ms."""
+    from kubeai_tpu_torch.disagg.handoff import serialize
+
+    t_phase = time.perf_counter()
+    two = _disagg_bodies()[4:6]
+    extra = dict(decode_kernel="per_layer", kv_dtype="int8")
+    pre = _DisaggSide(params, cfg, "prefill", "int8 prefill", **extra)
+    dec = _DisaggSide(params, cfg, "decode", "int8", **extra)
+    try:
+        direct = _direct(dec, two)
+        _zero_launches(dec.engine)
+        _zero_launches(pre.engine)
+        hops = {}
+        for i, (_, body) in enumerate(two):
+            hops[i] = _two_hop(pre, dec, i, body)
+            h, pages = pre.exports[-1]["handoff"], pre.gathered
+            if h.dtype != "int8" or not h.quantized:
+                fail(f"serve_disagg int8 body {i}: the handoff is {h.dtype}")
+            if not _pages_hold(pre.engine.cache.k_pages, pages, h.k_pages, h.k_scales) or \
+                    not _pages_hold(pre.engine.cache.v_pages, pages, h.v_pages, h.v_scales):
+                fail(f"serve_disagg int8 body {i}: the exported pages and scales are not "
+                     "the prefill pool's")
+        got = _launches(dec.engine)
+        eager = {name: fn.launches for name, fn in _wrappers().items()}
+        print(f"serve_disagg int8 launches during the two hops: {json.dumps(got)}; eager "
+              f"{json.dumps(eager)}; pages and scales bit-equal to the prefill pool in "
+              f"{len(two)} exports and to the handoff in {dec.imported_bits_equal} imports",
+              flush=True)
+        if got["paged_decode_attention_int8"] <= 0 or eager["paged_decode_attention_int8"]:
+            fail("serve_disagg int8: paged_decode_attention_int8 did not launch from the "
+                 "decode side's graph replays alone")
+        if got["paged_decode_attention"]:
+            fail("serve_disagg int8: paged_decode_attention (bf16) launched")
+        if dec.imported_bits_equal != len(two):
+            fail(f"serve_disagg int8: {dec.imported_bits_equal} imports checked, not {len(two)}")
+        _check_hops(pre, dec, "int8", two, direct, hops)
+        for i, (mode, _) in enumerate(two):
+            ex, im = pre.exports[i], dec.imports[i]
+            h = ex["handoff"]
+            mb = len(serialize(h)) / 1e6
+            bf16_mb = h.k_pages.size * 2 * 2 / 1e6
+            push_s = hops[i]["receipt"]["transfer"]["seconds"]
+            print(f"serve_disagg int8 body {i} ({mode}) prompt {h.plen} tokens, "
+                  f"{h.k_pages.shape[1]} pages: blob {mb:.3f} MB (bf16 pages alone "
+                  f"{bf16_mb:.3f} MB); export {ex['wall_s'] * 1e3:.3f} ms (prefill "
+                  f"{ex['prefill'] * 1e3:.3f}, gather {ex['gather'] * 1e3:.3f}); push "
+                  f"{push_s * 1e3:.3f} ms; receive {dec.receives[i] * 1e3:.3f} ms; import "
+                  f"{im['import'] * 1e3:.3f} ms; TTFT two-hop {hops[i]['ttft_s']:.4f} s vs "
+                  f"direct {direct[i][3]:.4f} s", flush=True)
+    finally:
+        pre.stop()
+        dec.stop()
+    print(f"serve_disagg int8 took {time.perf_counter() - t_phase:.2f} s", flush=True)
 
 
 def serve_kv_share(params, cfg) -> None:
@@ -2814,14 +3030,15 @@ def profile(engine, unit: str, call, e_steps: int, calls: int = 2) -> dict:
     return out
 
 
-def profile_program(engine, unit: str, program: str, calls: int = 2) -> None:
+def profile_program(engine, unit: str, program: str, calls: int = 2) -> dict:
     """One device program of `engine` ("decode chunk" or "verify window")
     replayed from its CUDA graph `calls` times back to back, each dispatch
     read back before the next as a synchronous step does, and the same
     calls run eagerly (the program's function, through the same buffers),
     in one call: wall time, device time and idle share per `unit`, side by
     side, and the graph pool's memory. Where torch.profiler does not see
-    the kernels inside a replay, the device time is the CUDA-event span."""
+    the kernels inside a replay, the device time is the CUDA-event span.
+    Returns the graph's wall and device ms per `unit`."""
     prog = _programs(engine)[program]
     e_steps = engine._chunk_out.shape[0] if program == "decode chunk" else 1
 
@@ -2847,6 +3064,7 @@ def profile_program(engine, unit: str, program: str, calls: int = 2) -> None:
           f"{max(0.0, 1 - device / graph['wall_ms']):.3f} vs "
           f"{max(0.0, 1 - eager_run['device_ms'] / eager_run['wall_ms']):.3f}; graph pool "
           f"{prog.pool_bytes / 2**20:.2f} MiB", flush=True)
+    return {"wall_ms": graph["wall_ms"], "device_ms": device}
 
 
 def profile_prefill(params, cfg) -> None:

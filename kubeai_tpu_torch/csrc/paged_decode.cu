@@ -1,5 +1,6 @@
 // Paged decode attention for Hopper (sm_90a), bf16 in and out: a split page
-// walk and a fixed-order combine.
+// walk and a fixed-order combine, over bf16 pages or int8 pages with their
+// per-token scales.
 //
 // Replaces the Pallas TPU kernel in kubeai_tpu/ops/paged_attention.py:
 // `_paged_pallas` / `_paged_kernel` (B1), entry `paged_decode_attention`.
@@ -33,6 +34,16 @@
 // wholly past the table) writes 0, as the TPU kernel's finalize does. It
 // merges no extra column: the new token is in the pool. The partials live
 // in scratch the wrapper allocates; the kernels allocate nothing.
+//
+// Int8 pool (`kubeai_paged_decode_int8`): the JAX package attends over an
+// int8 pool (kubeai_tpu/ops/kv_quant.py) only through its reference path
+// (kubeai_tpu/ops/paged_attention.py, `ref_paged_decode_attention`), whose
+// gather of every page into a dense f32 view would cost the step ~20x B1's
+// time here. This entry runs the same walk (kInt8) on int8 pages, copying
+// each token's K and V scales beside its rows and dequantizing in f32
+// (q8 * scale) before each product, and the same combine, split and edge
+// rules. Its bound is the kept rows' D + 4 bytes each against bf16's 2D,
+// about half of B1's at D = 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,15 +111,16 @@ paged_decode_combine_kernel(const float* __restrict__ part,
       __float2bfloat16(aa / fmaxf(ll, 1e-30f));
 }
 
-template <int D, int MG>
-int launch(const __nv_bfloat16* q, const __nv_bfloat16* kp, const __nv_bfloat16* vp,
-           const int* bt, const int* ln, __nv_bfloat16* out, float* part, int B, int H,
-           int KVH, int page_size, int max_pages, int num_splits, int pages_per_split,
-           float scale, float softcap, int window, cudaStream_t s) {
-  constexpr int kSmem = Layout<D, MG>::kSmemBytes;
+template <int D, int MG, bool kInt8>
+int launch(const __nv_bfloat16* q, const void* kp, const void* vp, const float* ks,
+           const float* vs, const int* bt, const int* ln, __nv_bfloat16* out, float* part,
+           int B, int H, int KVH, int page_size, int max_pages, int num_splits,
+           int pages_per_split, float scale, float softcap, int window, cudaStream_t s) {
+  using Elem = typename Layout<D, MG, kInt8>::Elem;
+  constexpr int kSmem = Layout<D, MG, kInt8>::kSmemBytes;
   static bool attr_set = false;  // idempotent; a race sets it twice
   if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(paged_split_walk_kernel<D, MG, false>,
+    const cudaError_t e = cudaFuncSetAttribute(paged_split_walk_kernel<D, MG, false, kInt8>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                kSmem);
     if (e != cudaSuccess) return (int)e;
@@ -116,9 +128,11 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* kp, const __nv_bfloat16*
   }
   // A one-layer pool: layer 0, so the layer offset is 0 whatever the pool's
   // page count.
-  paged_split_walk_kernel<D, MG, false><<<dim3(KVH, B, num_splits), kThreads, kSmem, s>>>(
-      q, kp, vp, bt, ln, part, H, KVH, /*num_pages=*/0, page_size, max_pages,
-      /*layer=*/0, pages_per_split, scale, softcap, window);
+  paged_split_walk_kernel<D, MG, false, kInt8>
+      <<<dim3(KVH, B, num_splits), kThreads, kSmem, s>>>(
+          q, static_cast<const Elem*>(kp), static_cast<const Elem*>(vp), bt, ln, part, H,
+          KVH, /*num_pages=*/0, page_size, max_pages, /*layer=*/0, pages_per_split, scale,
+          softcap, window, ks, vs);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int warps = H / KVH * (D / 32);
@@ -126,6 +140,40 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* kp, const __nv_bfloat16*
       <<<dim3(KVH, B, (warps + kCombineWarps - 1) / kCombineWarps), kCombineWarps * 32, 0, s>>>(
           part, out, H, KVH, num_splits);
   return (int)cudaGetLastError();
+}
+
+// The checks and the build choice both entries share: one build per head
+// size and group bound, 4 rows (Llama-3, Mistral) or 8.
+template <bool kInt8>
+int dispatch(const void* q, const void* k_pages, const void* v_pages, const float* ks,
+             const float* vs, const void* block_tables, const void* lengths, void* out,
+             void* scratch, int B, int H, int KVH, int D, int page_size, int max_pages,
+             int num_splits, int pages_per_split, float scale, float softcap, int window,
+             void* stream) {
+  if (B <= 0) return 0;
+  if (KVH <= 0 || H % KVH != 0 || H / KVH > kMaxGroup || page_size <= 0 ||
+      max_pages <= 0 || num_splits <= 0 || pages_per_split <= 0 ||
+      pages_per_split > kMaxSplitPages ||
+      (long long)num_splits * pages_per_split < max_pages ||
+      (long long)(max_pages + pages_per_split) * page_size > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* bt = static_cast<const int*>(block_tables);
+  const auto* ln = static_cast<const int*>(lengths);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  auto* part = static_cast<float*>(scratch);
+  const bool small = H / KVH <= 4;
+#define KUBEAI_DECODE_LAUNCH(D_, MG_)                                                   \
+  return launch<D_, MG_, kInt8>(qp, k_pages, v_pages, ks, vs, bt, ln, op, part, B, H,  \
+                                KVH, page_size, max_pages, num_splits, pages_per_split, \
+                                scale, softcap, window, s)
+  if (D == 128 && small) KUBEAI_DECODE_LAUNCH(128, 4);
+  if (D == 128) KUBEAI_DECODE_LAUNCH(128, 8);
+  if (D == 64 && small) KUBEAI_DECODE_LAUNCH(64, 4);
+  if (D == 64) KUBEAI_DECODE_LAUNCH(64, 8);
+#undef KUBEAI_DECODE_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -141,31 +189,22 @@ extern "C" int kubeai_paged_decode_bf16(
     int B, int H, int KVH, int D, int page_size, int max_pages,
     int num_splits, int pages_per_split, float scale, float softcap, int window,
     void* stream) {
-  if (B <= 0) return 0;
-  if (KVH <= 0 || H % KVH != 0 || H / KVH > kMaxGroup || page_size <= 0 ||
-      max_pages <= 0 || num_splits <= 0 || pages_per_split <= 0 ||
-      pages_per_split > kMaxSplitPages ||
-      (long long)num_splits * pages_per_split < max_pages ||
-      (long long)(max_pages + pages_per_split) * page_size > 0x7fffffff)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k_pages);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v_pages);
-  const auto* bt = static_cast<const int*>(block_tables);
-  const auto* ln = static_cast<const int*>(lengths);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  auto* part = static_cast<float*>(scratch);
-  // One build per head size and group bound: 4 rows (Llama-3, Mistral) or 8.
-  const bool small = H / KVH <= 4;
-#define KUBEAI_DECODE_LAUNCH(D_, MG_)                                               \
-  return launch<D_, MG_>(qp, kp, vp, bt, ln, op, part, B, H, KVH, page_size,       \
-                         max_pages, num_splits, pages_per_split, scale, softcap, \
-                         window, s)
-  if (D == 128 && small) KUBEAI_DECODE_LAUNCH(128, 4);
-  if (D == 128) KUBEAI_DECODE_LAUNCH(128, 8);
-  if (D == 64 && small) KUBEAI_DECODE_LAUNCH(64, 4);
-  if (D == 64) KUBEAI_DECODE_LAUNCH(64, 8);
-#undef KUBEAI_DECODE_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(q, k_pages, v_pages, nullptr, nullptr, block_tables, lengths,
+                         out, scratch, B, H, KVH, D, page_size, max_pages, num_splits,
+                         pages_per_split, scale, softcap, window, stream);
+}
+
+// The same two kernels over an int8 pool: `k_pages` and `v_pages` are int8
+// [P, page, KVH, D], `k_scales` and `v_scales` f32 [P, page, KVH]; `q` and
+// `out` bf16 [B, H, D]. Same scratch, split and return codes.
+extern "C" int kubeai_paged_decode_int8(
+    const void* q, const void* k_pages, const void* v_pages, const void* k_scales,
+    const void* v_scales, const void* block_tables, const void* lengths, void* out,
+    void* scratch, int B, int H, int KVH, int D, int page_size, int max_pages,
+    int num_splits, int pages_per_split, float scale, float softcap, int window,
+    void* stream) {
+  return dispatch<true>(q, k_pages, v_pages, static_cast<const float*>(k_scales),
+                        static_cast<const float*>(v_scales), block_tables, lengths, out,
+                        scratch, B, H, KVH, D, page_size, max_pages, num_splits,
+                        pages_per_split, scale, softcap, window, stream);
 }

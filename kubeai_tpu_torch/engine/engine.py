@@ -54,8 +54,10 @@ place, at the addresses the captured device programs read.
 Ported: paged mode, synchronous and overlapped stepping, preemption by
 recompute, the SLO scheduler, both decode layouts, speculative decoding
 by prompt lookup (adaptive or always on), chunked prefill, the automatic
-prefix cache, KV handoff export and import, and prefix-page sharing and
-spill. Settings of the JAX engine that are not ported raise
+prefix cache, KV handoff export and import, prefix-page sharing and
+spill, and int8 KV pools (kv_dtype="int8", ops/kv_quant.py: quantized as
+pages are written, read by B1's int8 kernel, shipped verbatim on every
+wire). Settings of the JAX engine that are not ported raise
 NotImplementedError naming their ROADMAP item.
 """
 
@@ -86,10 +88,17 @@ from kubeai_tpu_torch.engine.paged_cache import (
 from kubeai_tpu_torch.engine.sampling import SamplingParams, sample
 from kubeai_tpu_torch.fleet.profiler import StepProfiler
 from kubeai_tpu_torch.models.registry import ModelFamily, get_model_family
+from kubeai_tpu_torch.ops.kv_quant import (
+    QuantizedPool,
+    dequantize_kv,
+    kv_capacity_factor,
+    resolve_kv_dtype,
+)
 from kubeai_tpu_torch.ops.paged_attention import (
     batched_scatter_sequence,
     batched_sequence_page_coords,
     resolve_decode_kernel,
+    scatter_sequence_prequantized,
 )
 from kubeai_tpu_torch.routing.prefixchain import page_hash_chain
 from kubeai_tpu_torch.scheduling.scheduler import (
@@ -145,7 +154,11 @@ class EngineConfig:
     # park in an LRU idle pool, evicted only when the free list is empty.
     prefix_cache: bool = False
     cache_dtype: Any = torch.bfloat16
-    kv_dtype: str = ""  # "int8": ROADMAP A10
+    # KV pool dtype: "" or "bfloat16" (cache_dtype pages), or "int8": int8
+    # pages with per-token-per-head f32 scales (ops/kv_quant.py), about
+    # half the resident and wire bytes; per_layer decode only, no
+    # speculation.
+    kv_dtype: str = ""
     # Decode steps run per step() call; tokens past a request's stop point
     # within a chunk are discarded on the host.
     decode_chunk: int = 8
@@ -239,6 +252,7 @@ _HOST_DTYPES = {
     torch.bfloat16: np.dtype(np.uint16),
     torch.float16: np.dtype(np.float16),
     torch.float32: np.dtype(np.float32),
+    torch.int8: np.dtype(np.int8),
 }
 
 
@@ -286,9 +300,8 @@ def _refuse_unported(cfg: EngineConfig, mesh, draft, decode_kernel: str) -> None
         )
     if cfg.cache_mode != "paged":
         raise ValueError(f"unknown cache_mode {cfg.cache_mode!r}")
-    kv = (cfg.kv_dtype or "").strip().lower()
-    if kv == "int8":
-        # The JAX engine's own refusals come first.
+    if resolve_kv_dtype(cfg.kv_dtype) == "int8":
+        # The JAX engine's refusals, word for word.
         if cfg.speculate > 0 or draft is not None:
             raise ValueError(
                 "kv_dtype='int8' does not compose with speculative "
@@ -300,9 +313,6 @@ def _refuse_unported(cfg: EngineConfig, mesh, draft, decode_kernel: str) -> None
                 "decode_kernel='fused' (the fused kernel reads a "
                 "stacked bf16 pool); use per_layer"
             )
-        raise NotImplementedError("int8 KV pools are not ported yet (ROADMAP A10)")
-    if kv not in ("", "bfloat16", "bf16"):
-        raise ValueError(f"unknown kv_dtype {cfg.kv_dtype!r}")
     if cfg.quantization == "int8":
         raise NotImplementedError("int8 weights are not ported yet (ROADMAP A12)")
     if cfg.quantization:
@@ -362,6 +372,7 @@ class Engine:
         self.device = resolve_device(device)
         self.decode_kernel = resolve_decode_kernel(cfg.decode_kernel)
         _refuse_unported(cfg, mesh, draft, self.decode_kernel)
+        self._kv_quant = resolve_kv_dtype(cfg.kv_dtype) == "int8"
         # Resolved: the step loop overlaps unless step_overlap says no.
         self._overlap = _resolve_overlap(cfg)
         self.family = (
@@ -451,7 +462,7 @@ class Engine:
             cfg.max_seq_len,
             model_cfg.num_kv_heads,
             model_cfg.head_size,
-            dtype=cfg.cache_dtype,
+            dtype="int8" if self._kv_quant else cfg.cache_dtype,
             device=self.device,
         )
         self._alloc = PageAllocator(
@@ -693,11 +704,14 @@ class Engine:
         becomes the context the suffix chunks attend over. The whole row
         gathers every call (-1 entries read scratch page 0): entries past
         the cached length are masked by the chunks' causal frontier and
-        overwritten by the suffix."""
+        overwritten by the suffix. Int8 pages dequantize into the staging
+        buffers; the resident pages stay as they are."""
         row = self._chunk_bt_row.long().clamp(min=0)
         for dst, pool in ((self._stage_k, self.cache.k_pages),
                           (self._stage_v, self.cache.v_pages)):
             pages = pool[:, row]  # [NL, MP, page, KVH, D]
+            if isinstance(pages, QuantizedPool):
+                pages = dequantize_kv(pages.q8, pages.scale, dst.dtype)
             nl, mp, pg, kvh, d = pages.shape
             dst.copy_(pages.reshape(nl, mp * pg, kvh, d)[:, : dst.shape[1]])
 
@@ -901,17 +915,21 @@ class Engine:
 
     def kv_cache_info(self) -> dict:
         """KV-cache capacity facts for /v1/state and the metrics plane, as
-        the JAX engine reports them for a paged bf16 pool: not quantized,
-        capacity factor 1.0, and the resident bytes of the two pools."""
+        the JAX engine reports them: the dtype, whether the pool is
+        quantized, the capacity factor against a bf16 pool at equal
+        memory (2D/(D+4) under int8) and the resident bytes of the two
+        pools, scales included."""
+        factor = (kv_capacity_factor(self.model_cfg.head_size)
+                  if self._kv_quant else 1.0)
         return {
             "dtype": self._kv_dtype_name(),
-            "quantized": False,
-            "capacity_factor": 1.0,
+            "quantized": self._kv_quant,
+            "capacity_factor": factor,
             "slot_capacity": self.cfg.num_slots,
             "num_pages": self._n_pages,
             "page_size": self.cfg.page_size,
             "token_capacity": (self._n_pages - 1) * self.cfg.page_size,
-            "pool_bytes": self.cache.k_pages.nbytes + self.cache.v_pages.nbytes,
+            "pool_bytes": self.cache.nbytes(),
         }
 
     def _pop_pending(self) -> None:
@@ -1352,26 +1370,34 @@ class Engine:
     # ---- disaggregated serving: KV handoff export / import -----------------
 
     def _kv_dtype_name(self) -> str:
-        """Wire-format dtype name of the pools ("bfloat16", "float32"):
-        handoff and page-export headers carry it, and importers refuse a
-        mismatch rather than cast."""
+        """Wire-format dtype name of the pools ("bfloat16", "float32", or
+        "int8" for quantized pools): handoff and page-export headers carry
+        it, and importers refuse a mismatch rather than cast."""
+        if self._kv_quant:
+            return "int8"
         return str(self.cfg.cache_dtype).removeprefix("torch.")
 
-    def _gather_pages_host(self, pool: torch.Tensor, pages: list[int]):
+    def _gather_pages_host(self, pool, pages: list[int]):
         """Gather pool[:, pages] to the host in the wire dtype. Returns
-        (values, scales); the scales are None (int8 pools are not ported).
-        The copy to the host waits for every call before it on the
-        engine's stream, so it reads what the prefill wrote."""
+        (values, scales): a quantized pool gives its int8 pages and f32
+        scales, the resident bytes (never a dequantized copy); otherwise
+        the scales are None. The copy to the host waits for every call
+        before it on the engine's stream, so it reads what the prefill
+        wrote."""
         idx = torch.as_tensor(pages, dtype=torch.long, device=pool.device)
+        if isinstance(pool, QuantizedPool):
+            return pool.q8[:, idx].cpu().numpy(), pool.scale[:, idx].cpu().numpy()
         return _pages_to_host(pool[:, idx]), None
 
     def _page_wire_nbytes(self) -> int:
-        """Payload bytes of ONE page's K+V on the wire: the unit every
-        kv_share byte counter uses."""
+        """Payload bytes of ONE page's K+V on the wire (scales included
+        when quantized): the unit every kv_share byte counter uses."""
         mcfg = self.model_cfg
+        ps, kvh, d = self.cfg.page_size, mcfg.num_kv_heads, mcfg.head_size
+        if self._kv_quant:
+            return 2 * mcfg.num_layers * ps * kvh * (d + 4)
         itemsize = torch.empty((), dtype=self.cfg.cache_dtype).element_size()
-        return (2 * mcfg.num_layers * self.cfg.page_size * mcfg.num_kv_heads
-                * mcfg.head_size * itemsize)
+        return 2 * mcfg.num_layers * ps * kvh * d * itemsize
 
     def _check_wire_geometry(self, what: str, k_pages: np.ndarray) -> None:
         mcfg = self.model_cfg
@@ -1515,7 +1541,7 @@ class Engine:
                 f"handoff length {plen} >= max_seq_len {self.cfg.max_seq_len}"
             )
         expect = self._kv_dtype_name()
-        if handoff.dtype != expect:
+        if handoff.dtype != expect or (self._kv_quant and not handoff.quantized):
             # Refuse, never cast: a cast here would silently alter KV
             # values while the stream still claims token-identity with the
             # exporting engine.
@@ -1584,11 +1610,16 @@ class Engine:
             self._set_bt_row(slot, pages)
             t_kv = time.perf_counter()
             k_seq, v_seq = handoff.contiguous_kv()
-            dtype, dev = self.cfg.cache_dtype, self.device
+            dev = self.device
+            dtype = torch.int8 if self._kv_quant else self.cfg.cache_dtype
+            scales = None
+            if self._kv_quant:
+                scales = tuple(_pages_to_device(s, torch.float32, dev)
+                               for s in handoff.contiguous_scales())
             with torch.no_grad():
                 self._import_kv(
                     slot, plen, _pages_to_device(k_seq, dtype, dev),
-                    _pages_to_device(v_seq, dtype, dev), req,
+                    _pages_to_device(v_seq, dtype, dev), req, scales,
                 )
             self._timing.append(("kv_transfer", time.perf_counter() - t_kv))
             if self._prefix_cache and handoff.prefix_hashes:
@@ -1604,22 +1635,30 @@ class Engine:
             return rid, first_ev
 
     def _import_kv(self, slot: int, plen: int, k_seq: torch.Tensor,
-                   v_seq: torch.Tensor, req: _Request) -> None:
+                   v_seq: torch.Tensor, req: _Request, scales=None) -> None:
         """The import program, eager: scatter the [NL, plen, KVH, D]
         sequence through the slot's block-table row into the pools, write
         the row into the device block tables, and set the slot's decode
         state (the JAX engine's `_import_handoff` and `_slot_resume_state`)
         so that the next decode step resumes where the exporting engine's
-        sampler left off. Everything is written in place."""
+        sampler left off. Everything is written in place. An int8 pool
+        takes int8 rows and their (k, v) [NL, plen, KVH] `scales`,
+        written verbatim."""
         dev, page = self.device, self.cfg.page_size
         row = torch.from_numpy(self._bt_host[slot].copy()).to(dev)
         page_ids, offsets = batched_sequence_page_coords(
             row[None], torch.tensor([plen], device=dev), plen, page
         )
-        batched_scatter_sequence(
-            self.cache.k_pages, self.cache.v_pages, k_seq[:, None], v_seq[:, None],
-            page_ids, offsets,
-        )
+        if self._kv_quant:
+            scatter_sequence_prequantized(
+                self.cache.k_pages, self.cache.v_pages, k_seq, scales[0],
+                v_seq, scales[1], page_ids[0], offsets[0],
+            )
+        else:
+            batched_scatter_sequence(
+                self.cache.k_pages, self.cache.v_pages, k_seq[:, None],
+                v_seq[:, None], page_ids, offsets,
+            )
         self.cache.block_tables[slot] = row
         st, p = self._state, req.params
         for name, value in (
@@ -1676,9 +1715,14 @@ class Engine:
                 v_host, v_scales = self._gather_pages_host(self.cache.v_pages, pages)
             else:
                 shape = (mcfg.num_layers, 0, ps, mcfg.num_kv_heads, mcfg.head_size)
-                host = _HOST_DTYPES[self.cfg.cache_dtype]
-                k_host, v_host = np.zeros(shape, host), np.zeros(shape, host)
                 k_scales = v_scales = None
+                if self._kv_quant:
+                    k_host, v_host = np.zeros(shape, np.int8), np.zeros(shape, np.int8)
+                    k_scales = np.zeros(shape[:-1], np.float32)
+                    v_scales = np.zeros(shape[:-1], np.float32)
+                else:
+                    host = _HOST_DTYPES[self.cfg.cache_dtype]
+                    k_host, v_host = np.zeros(shape, host), np.zeros(shape, host)
             self.kv_share_stats["exported_pages"] += n
             self.kv_share_stats["exported_bytes"] += n * page_nbytes
         return KVPageExport(
@@ -1703,7 +1747,9 @@ class Engine:
                 f"page size {page} != local {self.cfg.page_size} (chain "
                 "hashes are page-size-dependent; no re-paging is possible)"
             )
-        if export.dtype != self._kv_dtype_name():
+        if export.dtype != self._kv_dtype_name() or (
+            self._kv_quant and not export.quantized
+        ):
             raise HandoffError(
                 f"KV dtype {export.dtype} != local cache dtype "
                 f"{self._kv_dtype_name()}; casting would break token-identity"
@@ -1725,9 +1771,18 @@ class Engine:
                 idx = torch.as_tensor([p for _, p in write], dtype=torch.long, device=dev)
                 cols = [i for i, _ in write]
                 with torch.no_grad():
-                    for pool, src in ((self.cache.k_pages, export.k_pages),
-                                      (self.cache.v_pages, export.v_pages)):
-                        pool[:, idx] = _pages_to_device(src[:, cols], dtype, dev)
+                    for pool, src, scales in (
+                        (self.cache.k_pages, export.k_pages, export.k_scales),
+                        (self.cache.v_pages, export.v_pages, export.v_scales),
+                    ):
+                        if self._kv_quant:
+                            # Verbatim int8 pages and scales: the chain
+                            # hash vouches for these exact bytes.
+                            pool.q8[:, idx] = _pages_to_device(src[:, cols], torch.int8, dev)
+                            pool.scale[:, idx] = _pages_to_device(
+                                scales[:, cols], torch.float32, dev)
+                        else:
+                            pool[:, idx] = _pages_to_device(src[:, cols], dtype, dev)
             key = "imported_pages" if source == "peer" else "filled_pages"
             self.kv_share_stats[key] += len(write)
             if source == "peer":

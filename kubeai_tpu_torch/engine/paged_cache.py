@@ -2,7 +2,9 @@
 Counterpart of kubeai_tpu/engine/paged_cache.py.
 
 Layout:
-  k_pages / v_pages: [NL, n_pages, page_size, KVH, D] torch tensors
+  k_pages / v_pages: [NL, n_pages, page_size, KVH, D] torch tensors, or
+                     int8 QuantizedPools (ops/kv_quant.py: int8 pages and
+                     f32 scales [NL, n_pages, page_size, KVH])
   block_tables:      [slots, max_pages_per_slot] int32 (page ids; -1 free)
   host allocator:    free-list of page ids (bookkeeping on the host)
 
@@ -18,6 +20,12 @@ import dataclasses
 
 import torch
 
+from kubeai_tpu_torch.ops.kv_quant import (
+    QuantizedPool,
+    dequantize_kv,
+    make_quantized_pool,
+)
+
 
 class OutOfPages(RuntimeError):
     pass
@@ -25,9 +33,22 @@ class OutOfPages(RuntimeError):
 
 @dataclasses.dataclass
 class PagedKVCache:
-    k_pages: torch.Tensor  # [NL, n_pages, page, KVH, D]
-    v_pages: torch.Tensor
+    k_pages: torch.Tensor | QuantizedPool  # [NL, n_pages, page, KVH, D]
+    v_pages: torch.Tensor | QuantizedPool
     block_tables: torch.Tensor  # [slots, max_pages] int32, -1 = unallocated
+
+    @property
+    def quantized(self) -> bool:
+        return isinstance(self.k_pages, QuantizedPool)
+
+    @property
+    def pages_shape(self) -> tuple:
+        """The page-array shape, quantized or not."""
+        return tuple(self.k_pages.shape)
+
+    def nbytes(self) -> int:
+        """Resident pool bytes (pages, and scales when quantized)."""
+        return int(self.k_pages.nbytes + self.v_pages.nbytes)
 
     @staticmethod
     def create(
@@ -41,15 +62,17 @@ class PagedKVCache:
         dtype: torch.dtype = torch.bfloat16,
         device: str | torch.device = "cuda",
     ) -> "PagedKVCache":
-        if dtype in (torch.int8, "int8"):
-            raise NotImplementedError(
-                "int8 KV pools are not ported yet (ROADMAP A10)"
-            )
         max_pages = -(-max_seq_len // page_size)
         shape = (num_layers, num_pages, page_size, kv_heads, head_dim)
+        if dtype in (torch.int8, "int8"):
+            k_pages = make_quantized_pool(shape, device)
+            v_pages = make_quantized_pool(shape, device)
+        else:
+            k_pages = torch.zeros(shape, dtype=dtype, device=device)
+            v_pages = torch.zeros(shape, dtype=dtype, device=device)
         return PagedKVCache(
-            k_pages=torch.zeros(shape, dtype=dtype, device=device),
-            v_pages=torch.zeros(shape, dtype=dtype, device=device),
+            k_pages=k_pages,
+            v_pages=v_pages,
             block_tables=torch.full(
                 (num_slots, max_pages), -1, dtype=torch.int32, device=device
             ),
@@ -270,6 +293,23 @@ class PageAllocator:
             self._idle[page] = None
             out.append(page)
         return out
+
+
+def gather_slot_kv(cache: PagedKVCache) -> tuple[torch.Tensor, torch.Tensor]:
+    """The virtual contiguous view [NL, slots, L_max, KVH, D] of every
+    slot, L_max = max_pages_per_slot * page_size; quantized pools
+    dequantize to bf16. Unallocated pages (-1) read scratch page 0. The
+    functional reference: the decode kernels read pages in place."""
+    bt = cache.block_tables.long().clamp(min=0)
+    if cache.quantized:
+        k = dequantize_kv(cache.k_pages.q8[:, bt], cache.k_pages.scale[:, bt])
+        v = dequantize_kv(cache.v_pages.q8[:, bt], cache.v_pages.scale[:, bt])
+    else:
+        k = cache.k_pages[:, bt]  # [NL, slots, max_pages, page, KVH, D]
+        v = cache.v_pages[:, bt]
+    nl, slots, mp, page, kvh, d = k.shape
+    return (k.reshape(nl, slots, mp * page, kvh, d),
+            v.reshape(nl, slots, mp * page, kvh, d))
 
 
 def set_block_table(

@@ -44,6 +44,9 @@ slot for a generate that carries X-Disagg-Handoff. KV sharing
 (`kv_sharing`): the server publishes its prefix holdings on /v1/state,
 serves them on /v1/kv/export, and before admission pulls the pages of a
 prompt's prefix that the X-KV-Source peer (or the spill store) holds.
+With `--kv-dtype int8` the pools hold int8 pages and their scales:
+handoffs, exported pages and spills carry those bytes, and a blob of the
+other dtype is refused (400), as the JAX server refuses it.
 
 Not ported yet: adapters and embeddings, and the routes, series and
 /v1/state keys that belong to them (ROADMAP A items 8 and 10), and the
@@ -2032,8 +2035,6 @@ _UNPORTED_FLAGS = (
      "multihost lockstep serving (ROADMAP A item 11)"),
     ("--quantization int8", lambda a: a.quantization == "int8",
      "int8 weights (ROADMAP A item 9)"),
-    ("--kv-dtype int8", lambda a: a.kv_dtype == "int8",
-     "int8 KV pools (ROADMAP A item 7)"),
     ("--draft-url", lambda a: bool(a.draft_url),
      "draft-model speculation (ROADMAP A item 10)"),
     ("--kv-spill-url", lambda a: bool(a.kv_spill_url),
@@ -2081,7 +2082,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--quantization", default="", choices=["", "int8"],
                     help="int8 is not ported")
     ap.add_argument("--kv-dtype", default="", choices=["", "bfloat16", "int8"],
-                    help="paged KV-cache storage dtype; int8 is not ported")
+                    help="paged KV-cache storage dtype: int8 stores pages as "
+                    "int8 with per-token scales (about half the bytes)")
     ap.add_argument(
         "--pipeline", action="store_true",
         help="legacy alias of --step-overlap on",

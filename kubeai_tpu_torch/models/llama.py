@@ -21,7 +21,10 @@ through the plain ops.attention.chunked_prefill_attention, as the JAX
 version's chunk does (plain jnp there, no Pallas kernel). Decode attention goes
 through ops.paged_attention, once per layer per step:
 paged_decode_attention ("per_layer"), paged_decode_attention_fused
-("fused"), or paged_verify_attention for a speculative window.
+("fused"), or paged_verify_attention for a speculative window. The
+per_layer decode also takes int8 pools (ops/kv_quant.py): the new token
+is quantized as it is scattered, before the attention reads it back, and
+paged_decode_attention sends the pool to B1's int8 read.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch.nn.functional as F
 from kubeai_tpu_torch.device import resolve_device
 from kubeai_tpu_torch.ops.attention import chunked_prefill_attention
 from kubeai_tpu_torch.ops.flash_attention import flash_causal_prefill
+from kubeai_tpu_torch.ops.kv_quant import QuantizedPool
 from kubeai_tpu_torch.ops.norms import rms_norm
 from kubeai_tpu_torch.ops.paged_attention import (
     batched_scatter_sequence,
@@ -383,8 +387,8 @@ def decode_step_paged(
     cfg: LlamaConfig,
     tokens: torch.Tensor,  # [B] one token per slot
     positions: torch.Tensor,  # [B] absolute position of each token
-    k_pages: torch.Tensor,  # [NL, P, page, KVH, D] page pools
-    v_pages: torch.Tensor,
+    k_pages: torch.Tensor | QuantizedPool,  # [NL, P, page, KVH, D] page pools
+    v_pages: torch.Tensor | QuantizedPool,
     block_tables: torch.Tensor,  # [B, MP] int32 page ids per slot (-1 = free)
     lora: dict | None = None,
     lora_idx: torch.Tensor | None = None,
@@ -395,7 +399,9 @@ def decode_step_paged(
     `attn_kernel` (None = $KUBEAI_TPU_DECODE_KERNEL, default "per_layer"):
 
     "per_layer" — each layer scatters its new token's K/V into its pool,
-    then attends through paged_decode_attention.
+    then attends through paged_decode_attention. The only layout for an
+    int8 pool: the token is quantized on its way in and read back
+    dequantized, as in the JAX version.
 
     "fused" — each layer attends through paged_decode_attention_fused,
     which reads the layer's pages out of the stacked pool in place and
@@ -407,6 +413,11 @@ def decode_step_paged(
     _refuse_unported(lora, lora_idx)
     _check_weights(params)
     attn_kernel = resolve_decode_kernel(attn_kernel)
+    if isinstance(k_pages, QuantizedPool) and attn_kernel != "per_layer":
+        raise ValueError(
+            "quantized KV pools require attn_kernel='per_layer' (the "
+            "fused kernel reads a raw bf16 pool)"
+        )
     dev = tokens.device
     inv_freq, msc = _rope_tables(cfg, dev)
     page_size = k_pages.shape[2]

@@ -12,6 +12,7 @@ from kubeai_tpu_torch.ops.flash_attention import flash_causal_prefill
 from kubeai_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_fused,
+    paged_decode_attention_int8,
     paged_verify_attention,
 )
 
@@ -25,5 +26,6 @@ COUNTED_KERNELS = {
         flash_causal_prefill,
         paged_verify_attention,
         paged_decode_attention_fused,
+        paged_decode_attention_int8,
     )
 }

@@ -44,6 +44,13 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
         _I, _P,
     ),
+    # q, k_q8, v_q8, k_scale, v_scale, block_tables, lengths, out,
+    # scratch, B, H, KVH, D, page_size, max_pages, num_splits,
+    # pages_per_split, scale, softcap, window, stream
+    "kubeai_paged_decode_int8": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        _F, _F, _I, _P,
+    ),
     # q, k, v, out, B, S, H, KVH, D, scale, stream
     "kubeai_flash_prefill_bf16": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P,

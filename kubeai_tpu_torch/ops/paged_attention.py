@@ -10,7 +10,10 @@ raises.
       slot's pages (csrc/paged_decode.cu, replaces the Pallas kernel B1:
       the split page walk of B4, shared through csrc/paged_split_walk.cuh,
       on a one-layer pool, and a fixed-order combine); plain version
-      ref_paged_decode_attention.
+      ref_paged_decode_attention. An int8 pool (ops/kv_quant.py's
+      QuantizedPool) goes to paged_decode_attention_int8, B1's int8 read:
+      the same walk over int8 pages and their scales, dequantized in f32
+      (the JAX package sends such a pool to its reference path).
   paged_verify_attention       — K query tokens per slot, the speculative
       verify window, each seeing the keys up to its own position
       (csrc/paged_verify.cu, replaces B3: the page walk split across CTAs
@@ -38,6 +41,7 @@ import os
 import torch
 
 from kubeai_tpu_torch.ops import _build
+from kubeai_tpu_torch.ops.kv_quant import QuantizedPool, quantize_kv
 
 NEG_INF = -1e30
 
@@ -78,12 +82,18 @@ def ref_paged_decode_attention(
     logit_softcap: float | None = None,
     window: int | None = None,  # sliding window; <= 0 disables
 ) -> torch.Tensor:
-    """Gather pages into a virtual contiguous view, then masked attention."""
+    """Gather pages into a virtual contiguous view, then masked attention.
+    Takes quantized pools: pages and scales gather through the same block
+    tables and dequantize in f32."""
     b, h, d = q.shape
     bt = block_tables.long().clamp(min=0)  # -1 -> scratch page 0 (masked)
     kvh = k_pages.shape[2]
-    k = k_pages[bt].float()  # [B, MP, page, KVH, D]
-    v = v_pages[bt].float()
+    if isinstance(k_pages, QuantizedPool):
+        k = k_pages.q8[bt].float() * k_pages.scale[bt].float()[..., None]
+        v = v_pages.q8[bt].float() * v_pages.scale[bt].float()[..., None]
+    else:
+        k = k_pages[bt].float()  # [B, MP, page, KVH, D]
+        v = v_pages[bt].float()
     mp, page = k.shape[1], k.shape[2]
     k = k.reshape(b, mp * page, kvh, d)
     v = v.reshape(b, mp * page, kvh, d)
@@ -176,12 +186,18 @@ def paged_decode_attention(
 ) -> torch.Tensor:
     """Paged decode attention. CUDA tensors launch the kernel (bf16,
     head_dim 64 or 128, group <= 8); anything else it does not take
-    raises. CPU tensors take ref_paged_decode_attention.
+    raises. CPU tensors take ref_paged_decode_attention. Quantized pools
+    go to paged_decode_attention_int8.
 
     A length past the block table keeps only the table's keys. A slot
     that keeps no key (length 0, or a window wholly past the table)
     gets 0 from the kernel, as from the TPU kernel; the plain version,
     like the JAX reference, averages every column there."""
+    if isinstance(k_pages, QuantizedPool):
+        return paged_decode_attention_int8(
+            q, k_pages, v_pages, block_tables, lengths,
+            scale=scale, logit_softcap=logit_softcap, window=window,
+        )
     if q.device.type == "cpu":
         return ref_paged_decode_attention(
             q, k_pages, v_pages, block_tables, lengths,
@@ -218,6 +234,96 @@ def paged_decode_attention(
 
 # Kernel launches since the count was last set to 0.
 paged_decode_attention.launches = 0
+
+
+def _check_decode_int8_args(q, k_pages, v_pages, block_tables, lengths, window):
+    """What the int8 read takes: bf16 q, int8 pages and f32 scales of one
+    shape each, int32 tables and lengths, all contiguous on q's device."""
+    for name, pool in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if not isinstance(pool, QuantizedPool):
+            raise TypeError(f"paged decode int8 kernel takes a QuantizedPool {name}")
+    _check_common(
+        "paged decode int8",
+        dict(q=q),
+        dict(block_tables=block_tables, lengths=lengths),
+        window,
+    )
+    for name, t, dtype in (
+        ("k_pages.q8", k_pages.q8, torch.int8), ("v_pages.q8", v_pages.q8, torch.int8),
+        ("k_pages.scale", k_pages.scale, torch.float32),
+        ("v_pages.scale", v_pages.scale, torch.float32),
+    ):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"paged decode int8 kernel takes a contiguous {name}")
+        if t.dtype != dtype:
+            raise TypeError(f"paged decode int8 kernel takes {dtype} {name}, got {t.dtype}")
+    kq, vq = k_pages.q8, v_pages.q8
+    if (q.dim() != 3 or kq.dim() != 4 or kq.shape != vq.shape
+            or k_pages.scale.shape != kq.shape[:3]
+            or v_pages.scale.shape != kq.shape[:3]):
+        raise ValueError(
+            f"shapes q {tuple(q.shape)}, pages {tuple(kq.shape)} / {tuple(vq.shape)}, "
+            f"scales {tuple(k_pages.scale.shape)} / {tuple(v_pages.scale.shape)}: want "
+            "q [B, H, D], pages [P, page, KVH, D], scales [P, page, KVH]"
+        )
+    b, h, d = q.shape
+    _check_heads(d, kq.shape[3], h, kq.shape[2], _MAX_GROUP)
+    _check_tables(block_tables, lengths, b)
+
+
+def paged_decode_attention_int8(
+    q: torch.Tensor,  # [B, H, D] bf16
+    k_pages: QuantizedPool,  # int8 [P, page, KVH, D] + f32 [P, page, KVH]
+    v_pages: QuantizedPool,
+    block_tables: torch.Tensor,  # [B, MP] int32
+    lengths: torch.Tensor,  # [B] int32
+    *,
+    scale: float | None = None,
+    logit_softcap: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Paged decode attention over an int8 pool: B1's split walk and
+    combine, reading int8 pages and their per-token scales and
+    dequantizing in f32 before each product, as the plain version does.
+    CUDA tensors launch the kernel (bf16 q, head_dim 64 or 128, group
+    <= 8); anything else it does not take raises. CPU tensors take
+    ref_paged_decode_attention. The edge rules are B1's."""
+    if q.device.type == "cpu":
+        return ref_paged_decode_attention(
+            q, k_pages, v_pages, block_tables, lengths,
+            scale=scale, logit_softcap=logit_softcap, window=window,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged decode int8 attention has no path for {q.device}")
+    _check_decode_int8_args(q, k_pages, v_pages, block_tables, lengths, window)
+    b, h, d = q.shape
+    page, kvh = k_pages.shape[1], k_pages.shape[2]
+    mp = block_tables.shape[1]
+    # From shapes alone, as B1's: the call never waits for the card.
+    num_splits, pages_per_split = fused_split(b, kvh, mp, page)
+    out = torch.empty_like(q)
+    scratch = torch.empty(b * kvh * num_splits * (h // kvh) * (d + 2),
+                          dtype=torch.float32, device=q.device)
+    lib = _build.load()
+    status = lib.kubeai_paged_decode_int8(
+        q.data_ptr(), k_pages.q8.data_ptr(), v_pages.q8.data_ptr(),
+        k_pages.scale.data_ptr(), v_pages.scale.data_ptr(),
+        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(),
+        b, h, kvh, d, page, mp, num_splits, pages_per_split,
+        float(scale if scale is not None else d ** -0.5),
+        float(logit_softcap or 0.0),
+        int(window or 0),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(status, "paged_decode_attention_int8")
+    paged_decode_attention_int8.launches += 1
+    return out
+
+
+paged_decode_attention_int8.launches = 0
 
 
 # ---- speculative verify (B3) -------------------------------------------------
@@ -533,7 +639,14 @@ def scatter_decode_token(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Write one token per slot through the block tables (decode step),
     in place; returns the same pools. The JAX version returns new
-    arrays."""
+    arrays. Quantized pools quantize on append: each new row gets its
+    own scale, so resident tokens are never re-scaled."""
+    if isinstance(k_pages, QuantizedPool):
+        for pool, new in ((k_pages, k_new), (v_pages, v_new)):
+            q8, sc = quantize_kv(new)
+            pool.q8[page_ids, offsets] = q8
+            pool.scale[page_ids, offsets] = sc
+        return k_pages, v_pages
     k_pages[page_ids, offsets] = k_new.to(k_pages.dtype)
     v_pages[page_ids, offsets] = v_new.to(v_pages.dtype)
     return k_pages, v_pages
@@ -566,7 +679,33 @@ def batched_scatter_sequence(
     offsets: torch.Tensor,  # [A, S]
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Write A prefilled sequences through their block tables in one
-    scatter, in place; returns the same pools."""
+    scatter, in place; returns the same pools. Quantized pools quantize
+    each token row on the way in."""
+    if isinstance(k_pages, QuantizedPool):
+        for pool, seq in ((k_pages, k_seq), (v_pages, v_seq)):
+            q8, sc = quantize_kv(seq)
+            pool.q8[:, page_ids, offsets] = q8
+            pool.scale[:, page_ids, offsets] = sc
+        return k_pages, v_pages
     k_pages[:, page_ids, offsets] = k_seq.to(k_pages.dtype)
     v_pages[:, page_ids, offsets] = v_seq.to(v_pages.dtype)
+    return k_pages, v_pages
+
+
+def scatter_sequence_prequantized(
+    k_pages: QuantizedPool,  # [NL, P, page, KVH, D]
+    v_pages: QuantizedPool,
+    k8_seq: torch.Tensor,  # [NL, S, KVH, D] int8: wire bytes, verbatim
+    ks_seq: torch.Tensor,  # [NL, S, KVH] f32 scales
+    v8_seq: torch.Tensor,
+    vs_seq: torch.Tensor,
+    page_ids: torch.Tensor,  # [S]
+    offsets: torch.Tensor,  # [S]
+) -> tuple[QuantizedPool, QuantizedPool]:
+    """Scatter rows that are already quantized (a handoff import): the
+    int8 values and their scales pass through untouched, in place, since
+    re-quantizing would break the byte identity of a quantized handoff."""
+    for pool, q8, sc in ((k_pages, k8_seq, ks_seq), (v_pages, v8_seq, vs_seq)):
+        pool.q8[:, page_ids, offsets] = q8
+        pool.scale[:, page_ids, offsets] = sc
     return k_pages, v_pages

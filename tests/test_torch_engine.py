@@ -111,7 +111,6 @@ def test_stop_token_and_length_finish(models):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(kv_dtype="int8"), "A10"),
     (dict(quantization="int8"), "A12"),
     (dict(max_adapters=2), "A11"),
     (dict(cache_mode="slot"), "A13"),
@@ -119,6 +118,20 @@ def test_stop_token_and_length_finish(models):
 def test_unported_settings_raise(models, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         _torch_engine(models, **kw)
+
+
+def test_int8_kv_pools_serve(models):
+    """kv_dtype="int8" builds int8 pools with their scales and serves;
+    the streams against the JAX int8 engine are tests/test_torch_kv_quant.py's."""
+    from kubeai_tpu_torch.ops.kv_quant import QuantizedPool
+
+    eng = _torch_engine(models, kv_dtype="int8")
+    assert isinstance(eng.cache.k_pages, QuantizedPool) and eng.cache.quantized
+    assert eng.cache.k_pages.q8.dtype == torch.int8
+    assert eng.cache.k_pages.scale.dtype == torch.float32
+    out = eng.generate(_prompts()["mixed"][:2], SamplingParams(temperature=0.0, max_tokens=5))
+    assert [len(s) for s in out] == [5, 5]
+    assert eng.kv_cache_info()["dtype"] == "int8"
 
 
 def test_prefix_cache_needs_prefill_chunk(models):

@@ -699,7 +699,6 @@ def test_main_serves_a_checkpoint_and_drains_on_sigterm(checkpoints, tmp_path, c
     (["--num-processes", "2"], 11),
     (["--dcn-coordinator", "10.0.0.1:8476"], 11),
     (["--quantization", "int8"], 9),
-    (["--kv-dtype", "int8"], 7),
     (["--draft-url", "pvc://models/draft"], 10),
     (["--kv-spill-url", "s3://bucket/spill"], 9),
     (["--snapshot-url", "file:///snapshots"], 9),
@@ -722,11 +721,13 @@ class _ServerBuilt(Exception):
     (["--role", "prefill"], "prefill", False),
     (["--role", "decode", "--max-transfer-mb", "64"], "decode", False),
     (["--kv-sharing", "--kv-spill-url", ""], "unified", True),
-], ids=["role_prefill", "role_decode", "kv-sharing"])
+    (["--kv-dtype", "int8"], "unified", False),
+], ids=["role_prefill", "role_decode", "kv-sharing", "kv-dtype-int8"])
 def test_main_serves_roles_and_sharing(checkpoints, monkeypatch, argv, role, sharing):
-    """The disaggregation and KV-sharing flags: main builds the engine and
-    hands the server the role, the transfer limit and, with --kv-sharing,
-    the prefix cache and an in-memory spill store."""
+    """The disaggregation, KV-sharing and KV-dtype flags: main builds the
+    engine (int8 pools with --kv-dtype int8) and hands the server the
+    role, the transfer limit and, with --kv-sharing, the prefix cache and
+    an in-memory spill store."""
     from kubeai_tpu_torch.engine import server as server_mod
     from kubeai_tpu_torch.objstore import KVSpillStore
 
@@ -748,6 +749,7 @@ def test_main_serves_roles_and_sharing(checkpoints, monkeypatch, argv, role, sha
     assert built["max_transfer_mb"] == (64 if role == "decode" else 0)
     assert isinstance(built["kv_spill_store"], KVSpillStore) is sharing
     assert built["engine"]._prefix_cache is sharing
+    assert built["engine"].kv_cache_info()["quantized"] is ("int8" in argv)
 
 
 @pytest.mark.parametrize("arch,url,reason", [

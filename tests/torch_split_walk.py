@@ -5,7 +5,11 @@ Each split of `pages_per_split` block-table entries walks its kept keys in
 TILE-token tiles dealt to WARPS warps (online softmax per warp) and merges
 its warps in order into a partial (m, l, acc); the partials merge in split
 order, then B4's new-token column if there is one, then the rows are
-normalised. A row with no kept key and no new column comes out 0."""
+normalised. A row with no kept key and no new column comes out 0.
+
+Int8 pools (B1's int8 read, `kubeai_paged_decode_int8`): the pools are
+QuantizedPools, and each tile's rows dequantize in f32 as they load,
+q8 * scale, before the products; tiles and splits are the same."""
 
 import re
 from pathlib import Path
@@ -13,6 +17,7 @@ from pathlib import Path
 import torch
 
 from kubeai_tpu_torch.ops import paged_attention as tpa
+from kubeai_tpu_torch.ops.kv_quant import QuantizedPool
 
 _SRC = (Path(tpa.__file__).resolve().parent.parent / "csrc"
         / "paged_split_walk.cuh").read_text()
@@ -45,6 +50,13 @@ def merge(parts, extra=None):
     return m_all, l_all, acc
 
 
+def _pool(pages):
+    """(f32 values [P, page, KVH, D], f32 scales [P, page, KVH] or None)."""
+    if isinstance(pages, QuantizedPool):
+        return pages.q8.float(), pages.scale.float()
+    return torch.as_tensor(pages).float(), None
+
+
 def emulate_split_walk(q, k_pages, v_pages, block_tables, counts, pages_per_split,
                        *, new=None, cap=None, win=None):
     """The kernels' algorithm over a one-layer [P, page, KVH, D] pool.
@@ -53,7 +65,9 @@ def emulate_split_walk(q, k_pages, v_pages, block_tables, counts, pages_per_spli
     in [max(n + 1 - win, 0), min(n, MP * page)), the new token merged last.
     Without it, B1's: counts are lengths with the new token, keys in
     [max(n - win, 0), min(n, MP * page))."""
-    q, kp, vp = (torch.as_tensor(a).float() for a in (q, k_pages, v_pages))
+    q = torch.as_tensor(q).float()
+    kp, ks = _pool(k_pages)
+    vp, vs = _pool(v_pages)
     bt, counts = torch.as_tensor(block_tables).long(), torch.as_tensor(counts).long()
     b, h, d = q.shape
     kvh, page, mp = kp.shape[2], kp.shape[1], bt.shape[1]
@@ -83,6 +97,9 @@ def emulate_split_walk(q, k_pages, v_pages, block_tables, counts, pages_per_spli
                         pages = bt[s, toks // page].clamp(min=0)
                         k = kp[pages, toks % page, kh]
                         v = vp[pages, toks % page, kh]
+                        if ks is not None:  # dequantize at load, in f32
+                            k = k * ks[pages, toks % page, kh][:, None]
+                            v = v * vs[pages, toks % page, kh][:, None]
                         sc = qg @ k.T
                         if cap is not None:
                             sc = torch.tanh(sc / cap) * cap
