@@ -21,7 +21,11 @@ Phases, each fatal on failure:
                spills. B1's int8 read (B1-int8) runs B1's cases on the
                same pools quantized by kv_quant.quantize_kv, against the
                plain version on the same int8 pages and scales, at B1's
-               limits;
+               limits, with its own walk's registers and spills. B1 and
+               B1-int8 also: group sizes 1, 2, 7 and 8 at D 128 and 64,
+               the split and combine kernels' times (torch.profiler) and a
+               cold-L2 time (calls rotating over copies of the pools)
+               beside the warm one;
   3. model   — a small model (head_dim 128) on the card through the kernels
                against the same weights in f32 on the CPU through the plain
                versions: prefill, paged-decode (both layouts) and
@@ -249,6 +253,19 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (replays * iters)
 
 
+def cold_graph_ms(calls, rounds: int = 4, replays: int = 5) -> float:
+    """Device time per call with a cold L2: `calls` read disjoint copies of
+    their inputs, and one CUDA graph runs them in turn `rounds` times, so
+    each call finds its inputs evicted by the others' traffic (the caller
+    makes that traffic pass the 50 MB L2)."""
+    def run():
+        for call in calls:
+            out = call()
+        return out
+
+    return graph_ms(run, iters=rounds, replays=replays) / len(calls)
+
+
 def within(got, want, atol: float, rtol: float) -> tuple[bool, float]:
     """(every element within atol + rtol * |want|, max |err|), in f32."""
     got = got.float().cpu()
@@ -334,6 +351,15 @@ def _paged_inputs(gen, B=8, H=32, KVH=8, D=128, page=64, max_len=2048):
     return q, kp, vp, bt.to(dev), lengths.to(dev, torch.int32)
 
 
+def _clone_pool(pages):
+    """A copy of a bf16 pool or an int8 QuantizedPool, in new memory."""
+    from kubeai_tpu_torch.ops.kv_quant import QuantizedPool
+
+    if isinstance(pages, QuantizedPool):
+        return QuantizedPool(pages.q8.clone(), pages.scale.clone())
+    return pages.clone()
+
+
 def _quantize_pool(pages):
     """A bf16 [P, page, KVH, D] pool as an int8 QuantizedPool."""
     from kubeai_tpu_torch.ops.kv_quant import QuantizedPool, quantize_kv
@@ -397,8 +423,9 @@ def check_paged_decode(int8: bool = False) -> dict:
     check_decode_split_edges(q, kp, vp, gen)
     check_decode_past_table(q, kp, vp, gen)
     check_decode_long_context(int8)
-    if not int8:
-        check_ptxas("paged_decode.cu")
+    check_decode_groups(int8)
+    # paged_decode.cu builds both walks: each check reads its own.
+    check_ptxas("paged_decode.cu", lambda n: ("int8" in n) == int8)
     return result
 
 
@@ -462,10 +489,13 @@ def _time_decode(args, kw: dict, library: bool) -> dict:
     `library_ms`: device time per call) and eagerly (`eager_ms`,
     `library_eager_ms`: back-to-back calls from Python, which the host's
     launch overhead can bound); `split_ms` and `combine_ms` are B1's two
-    kernels from torch.profiler. An int8 pool reads D int8 values and one
-    f32 scale a kept row; its `library_ms` is SDPA on the dequantized bf16
-    view of the same pages, a yardstick only (no PyTorch call attends over
-    int8 pages)."""
+    kernels from torch.profiler. Where asked, `cold_ms` is the graph time
+    with a cold L2: the calls rotate over copies of q and the pools whose
+    reads pass 100 MB between two calls on one copy (`ms` replays calls on
+    the same pools, which the 50 MB L2 may hold). An int8 pool reads D int8
+    values and one f32 scale a kept row; its `library_ms` is SDPA on the
+    dequantized bf16 view of the same pages, a yardstick only (no PyTorch
+    call attends over int8 pages)."""
     import torch
     import torch.nn.functional as F
 
@@ -485,7 +515,9 @@ def _time_decode(args, kw: dict, library: bool) -> dict:
     call = lambda: paged_decode_attention(*args, **kw)  # noqa: E731
     ms, eager_ms = graph_ms(call), cuda_ms(call)
     plain_ms = cuda_ms(lambda: ref_paged_decode_attention(*args, **kw), iters=5)
-    kernel_ms = device_ms_by_kernel(call, ("split_walk_kernel", "combine_kernel"))
+    # "split_walk" names both walks: paged_split_walk_kernel (bf16) and
+    # paged_split_walk_int8_kernel.
+    kernel_ms = device_ms_by_kernel(call, ("split_walk", "combine_kernel"))
     # This data's work: the keys the mask keeps inside the table, read
     # once; 4 * D flops per head per kept key; q and the output, the block
     # tables and the lengths.
@@ -496,11 +528,17 @@ def _time_decode(args, kw: dict, library: bool) -> dict:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_flops = 4.0 * D * H * n_keys / PEAK_BF16_FLOPS * 1e3
     line = dict(softcap=kw.get("logit_softcap"), window=win, ms=ms, eager_ms=eager_ms,
-                split_ms=kernel_ms["split_walk_kernel"],
+                split_ms=kernel_ms["split_walk"],
                 combine_ms=kernel_ms["combine_kernel"], plain_ms=plain_ms,
                 bound_ms=max(t_bytes, t_flops), bytes=nbytes,
                 bound_by="bytes" if t_bytes >= t_flops else "operations")
     if library:
+        copies = [args] + [(q.clone(), _clone_pool(kp), _clone_pool(vp), bt, lengths)
+                           for _ in range(-(-100_000_000 // nbytes))]
+        line["cold_ms"] = cold_graph_ms(
+            [lambda a=a: paged_decode_attention(*a, **kw) for a in copies])
+        line["cold_copies"] = len(copies)
+        del copies
         idx = bt.long().clamp(min=0)
         if int8:
             kp, vp = (dequantize_kv(p.q8[idx], p.scale[idx]) for p in (kp, vp))
@@ -520,13 +558,16 @@ def _time_decode(args, kw: dict, library: bool) -> dict:
 def check_decode_split_edges(q, kp, vp, gen) -> None:
     """Lengths at the edges of B1's splits (a boundary, one either side,
     twice over), 1 and 0 (which must write 0), on the kernel phase's pool,
-    with a window that masks whole splits. No timing."""
+    with a window that masks whole splits; an int8 pool at the edges of
+    int8_split's. No timing."""
     import torch
 
-    from kubeai_tpu_torch.ops.paged_attention import fused_split
+    from kubeai_tpu_torch.ops.kv_quant import QuantizedPool
+    from kubeai_tpu_torch.ops.paged_attention import fused_split, int8_split
 
     B, page, mp = q.shape[0], kp.shape[1], 32
-    _, per = fused_split(B, kp.shape[2], mp, page)
+    split = int8_split if isinstance(kp, QuantizedPool) else fused_split
+    _, per = split(B, kp.shape[2], mp, page)
     edge = per * page  # tokens in a split
     lengths = torch.tensor([edge, edge - 1, edge + 1, 1, 0, 2 * edge,
                             2 * edge - 1, 2 * edge + 1][:B])
@@ -562,6 +603,36 @@ def check_decode_past_table(q, kp, vp, gen) -> None:
     print(f"{_decode_kernel(kp)[0]} past the table ({L} keys; lengths {lengths.tolist()}; plain, "
           f"softcap 30, window 500, softcap 50 + window 100, window 2; slots keeping no "
           f"key, all 0: {n_masked}): max |err| {['%.3e' % e for e in errs]}", flush=True)
+
+
+def check_decode_groups(int8: bool = False) -> None:
+    """The group sizes the 8B case does not run (G = 4 there): 1, 2, 7 and
+    8 query heads per kv head, at D = 128 and 64, plain and with softcap
+    50 + window 100, at a small size. No timing."""
+    import torch
+
+    B, KVH, page, max_len = 4, 4, 64, 512
+    gen = torch.Generator().manual_seed(12)
+    lengths = torch.randint(1, max_len + 1, (B,), generator=gen)
+    bt = _table(lengths.tolist(), page, max_len // page, gen).to("cuda")
+    cg = torch.Generator("cuda").manual_seed(13)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=cg, device="cuda").to(torch.bfloat16)
+
+    errs = []
+    for D in (128, 64):
+        kp, vp = rnd(1 + B * max_len // page, page, KVH, D), rnd(1 + B * max_len // page,
+                                                                   page, KVH, D)
+        if int8:
+            kp, vp = _quantize_pool(kp), _quantize_pool(vp)
+        for G in (1, 2, 7, 8):
+            args = (rnd(B, G * KVH, D), kp, vp, bt, lengths.to("cuda", torch.int32))
+            for cap, win in ((None, None), (50.0, 100)):
+                errs.append(_check_decode_case(f"D={D} G={G} softcap={cap} window={win}",
+                                               args, dict(logit_softcap=cap, window=win))[1])
+    print(f"{_decode_kernel(kp)[0]} groups (D 128, 64 x G 1, 2, 7, 8 x plain, softcap 50 + "
+          f"window 100): max |err| {['%.3e' % e for e in errs]}", flush=True)
 
 
 def check_decode_long_context(int8: bool = False) -> None:
@@ -925,20 +996,23 @@ def ptxas_report(source: str) -> list[tuple[str, int, int]]:
     return rows
 
 
-def check_ptxas(source: str) -> None:
+def check_ptxas(source: str, select=None) -> None:
     """Print the registers and spills of every kernel ptxas compiled from
-    `source`; fail if there is no report or any kernel spills."""
-    rows = ptxas_report(source)
-    if not rows:
-        fail(f"{source}: no ptxas report in the build log")
-    for entry, regs, spills in rows:
+    `source` (those whose readable name `select` accepts, if given); fail
+    if there is no report or any of them spills."""
+    rows = []
+    for entry, regs, spills in ptxas_report(source):
         # _ZN...paged_split_walk_kernelILi128ELi4ELb0EEEv... ->
         # paged_split_walk_kernel<128, 4, 0>
-        m = re.search(r"([a-z][a-z_]*_kernel)I((?:L[ib]\d+E)+)", entry)
+        m = re.search(r"([a-z][a-z_]*(?:_int8)?_kernel)I((?:L[ib]\d+E)+)", entry)
         name = (f"{m.group(1)}<{', '.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>"
                 if m else entry)
-        print(f"ptxas {source} {name}: {regs} registers, {spills} bytes spilled",
-              flush=True)
+        if select is None or select(name):
+            rows.append((entry, regs, spills))
+            print(f"ptxas {source} {name}: {regs} registers, {spills} bytes spilled",
+                  flush=True)
+    if not rows:
+        fail(f"{source}: no ptxas report in the build log")
     spilled = [e for e, _, s in rows if s]
     if spilled:
         fail(f"{source}: ptxas spills in {spilled}")

@@ -39,17 +39,19 @@
 // int8 pool (kubeai_tpu/ops/kv_quant.py) only through its reference path
 // (kubeai_tpu/ops/paged_attention.py, `ref_paged_decode_attention`), whose
 // gather of every page into a dense f32 view would cost the step ~20x B1's
-// time here. This entry runs the same walk (kInt8) on int8 pages, copying
-// each token's K and V scales beside its rows and dequantizing in f32
-// (q8 * scale) before each product, and the same combine, split and edge
-// rules. Its bound is the kept rows' D + 4 bytes each against bf16's 2D,
-// about half of B1's at D = 128.
+// time here. This entry runs a walk of its own, designed for int8 rows
+// (paged_split_walk_int8.cuh: the score on tensor cores with one scale per
+// dot, V's scale folded into P, a split from the wrapper's int8_split and a
+// deeper ring), with B1's combine, partial layout and edge rules. Its bound
+// is the kept rows' D + 4 bytes each against bf16's 2D, about half of B1's
+// at D = 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "paged_split_walk.cuh"
+#include "paged_split_walk_int8.cuh"
 
 namespace {
 
@@ -111,28 +113,44 @@ paged_decode_combine_kernel(const float* __restrict__ part,
       __float2bfloat16(aa / fmaxf(ll, 1e-30f));
 }
 
+// Sets a kernel's dynamic shared memory bound once; idempotent, so a race
+// sets it twice.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) done = true;
+  return e;
+}
+
 template <int D, int MG, bool kInt8>
 int launch(const __nv_bfloat16* q, const void* kp, const void* vp, const float* ks,
            const float* vs, const int* bt, const int* ln, __nv_bfloat16* out, float* part,
            int B, int H, int KVH, int page_size, int max_pages, int num_splits,
            int pages_per_split, float scale, float softcap, int window, cudaStream_t s) {
-  using Elem = typename Layout<D, MG, kInt8>::Elem;
-  constexpr int kSmem = Layout<D, MG, kInt8>::kSmemBytes;
-  static bool attr_set = false;  // idempotent; a race sets it twice
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(paged_split_walk_kernel<D, MG, false, kInt8>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               kSmem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
+  if constexpr (kInt8) {
+    using W = int8_walk::Layout<D, MG>;
+    static bool attr_set = false;
+    const cudaError_t a = allow_smem(int8_walk::paged_split_walk_int8_kernel<D, MG>,
+                                     W::kSmemBytes, attr_set);
+    if (a != cudaSuccess) return (int)a;
+    int8_walk::paged_split_walk_int8_kernel<D, MG>
+        <<<dim3(KVH, B, num_splits), int8_walk::kThreads, W::kSmemBytes, s>>>(
+            q, static_cast<const int8_t*>(kp), static_cast<const int8_t*>(vp), ks, vs, bt, ln,
+            part, H, KVH, page_size, max_pages, pages_per_split, scale, softcap, window);
+  } else {
+    constexpr int kSmem = Layout<D, MG>::kSmemBytes;
+    static bool attr_set = false;
+    const cudaError_t a = allow_smem(paged_split_walk_kernel<D, MG, false>, kSmem, attr_set);
+    if (a != cudaSuccess) return (int)a;
+    // A one-layer pool: layer 0, so the layer offset is 0 whatever the
+    // pool's page count.
+    paged_split_walk_kernel<D, MG, false><<<dim3(KVH, B, num_splits), kThreads, kSmem, s>>>(
+        q, static_cast<const __nv_bfloat16*>(kp), static_cast<const __nv_bfloat16*>(vp), bt,
+        ln, part, H, KVH, /*num_pages=*/0, page_size, max_pages, /*layer=*/0,
+        pages_per_split, scale, softcap, window);
   }
-  // A one-layer pool: layer 0, so the layer offset is 0 whatever the pool's
-  // page count.
-  paged_split_walk_kernel<D, MG, false, kInt8>
-      <<<dim3(KVH, B, num_splits), kThreads, kSmem, s>>>(
-          q, static_cast<const Elem*>(kp), static_cast<const Elem*>(vp), bt, ln, part, H,
-          KVH, /*num_pages=*/0, page_size, max_pages, /*layer=*/0, pages_per_split, scale,
-          softcap, window, ks, vs);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int warps = H / KVH * (D / 32);
@@ -150,10 +168,12 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages, const floa
              void* scratch, int B, int H, int KVH, int D, int page_size, int max_pages,
              int num_splits, int pages_per_split, float scale, float softcap, int window,
              void* stream) {
+  constexpr int kMaxPages = kInt8 ? int8_walk::kMaxSplitPages : kMaxSplitPages;
+  constexpr int kGroup = kInt8 ? int8_walk::kMaxGroup : kMaxGroup;
   if (B <= 0) return 0;
-  if (KVH <= 0 || H % KVH != 0 || H / KVH > kMaxGroup || page_size <= 0 ||
+  if (KVH <= 0 || H % KVH != 0 || H / KVH > kGroup || page_size <= 0 ||
       max_pages <= 0 || num_splits <= 0 || pages_per_split <= 0 ||
-      pages_per_split > kMaxSplitPages ||
+      pages_per_split > kMaxPages ||
       (long long)num_splits * pages_per_split < max_pages ||
       (long long)(max_pages + pages_per_split) * page_size > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
@@ -194,9 +214,10 @@ extern "C" int kubeai_paged_decode_bf16(
                          pages_per_split, scale, softcap, window, stream);
 }
 
-// The same two kernels over an int8 pool: `k_pages` and `v_pages` are int8
-// [P, page, KVH, D], `k_scales` and `v_scales` f32 [P, page, KVH]; `q` and
-// `out` bf16 [B, H, D]. Same scratch, split and return codes.
+// The int8 walk and B1's combine over an int8 pool: `k_pages` and
+// `v_pages` are int8 [P, page, KVH, D], `k_scales` and `v_scales` f32
+// [P, page, KVH]; `q` and `out` bf16 [B, H, D]. Same scratch layout and
+// return codes; the split comes from the wrapper's int8_split.
 extern "C" int kubeai_paged_decode_int8(
     const void* q, const void* k_pages, const void* v_pages, const void* k_scales,
     const void* v_scales, const void* block_tables, const void* lengths, void* out,

@@ -1,10 +1,11 @@
 // The split page walk of the paged decode kernels for Hopper (sm_90a): one
 // new query token per slot against the slot's resident K/V pages, each
 // slot's walk split across CTAs, f32 partials out. Included by
-// paged_decode.cu (B1, one-layer pool, bf16 pages or int8 pages with their
-// scales) and paged_decode_fused.cu (B4, one layer of the stacked pool,
-// plus a new-token column that the B4 combine merges); each source adds
-// its own combine, which merges the partials.
+// paged_decode.cu (B1, one-layer pool) and paged_decode_fused.cu (B4, one
+// layer of the stacked pool, plus a new-token column that the B4 combine
+// merges); each source adds its own combine, which merges the partials.
+// B1's read of an int8 pool has a walk of its own, designed for its bytes
+// (paged_split_walk_int8.cuh), which uses the helpers below.
 //
 // What bounds it on this card: bytes. G <= 8 query rows per kv head make
 // about 4 flops per byte of K/V, far below the ~295 where math would be the
@@ -46,17 +47,6 @@
 //      past G have q = 0 and are never written): a guard costs a
 //      predicated copy per FMA. Nothing per thread is indexed at run time;
 //      q and P live in shared memory.
-// Int8 pages (`kInt8`, B1 over an int8 pool, ops/kv_quant.py): the same
-// walk over rows of D int8 values and one f32 scale per (token, kv head).
-// A row is D bytes, so a tile's K and V take half the ring of bf16 and a
-// copy half the 16-byte cp.async calls; K rows are padded by 16 bytes, as
-// bf16 rows are, which again puts each 8-lane phase of a 16-byte read on
-// distinct banks. The scales of one page lie KVH * 4 bytes apart, too far
-// for the 16-byte copy, so each half-warp lane copies its token's K (first
-// half) or V (second half) scale with a 4-byte cp.async into a 2 x 16
-// float array per ring slot. Values dequantize in f32 before each product,
-// q8 * scale, as the plain version's do: K in the score loop, V in p.V.
-// What bounds it is still bytes: D + 4 bytes a row against 2D in bf16.
 // Kept keys: `kNewColumn` says which caller's semantics the walk has, and
 // changes only the low edge of the kept range. With n = counts[b]:
 //   B4 (kNewColumn): n is the OLD length, the new token's position; old
@@ -74,8 +64,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -108,13 +96,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) 
                "l"(src), "r"(ok ? 16 : 0));
 }
 
-// 4 bytes global -> shared, asynchronously; zero-fills when !ok.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -134,30 +115,17 @@ __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
   }
 }
 
-// One int8 value per byte of a 16-byte chunk, as floats times `s`.
-__device__ __forceinline__ void unpack16_i8(const uint4& u, float s, float* f) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-    f[i] = static_cast<float>(static_cast<int8_t>(w[i / 4] >> (8 * (i % 4)))) * s;
-}
-
-template <int D, int MG, bool kInt8 = false>
+template <int D, int MG>
 struct Layout {
-  using Elem = std::conditional_t<kInt8, int8_t, __nv_bfloat16>;  // page element
-  static constexpr int kPerChunk = 16 / sizeof(Elem);  // elements per 16 bytes
-  static constexpr int kChunks = D / kPerChunk;  // 16-byte chunks per token row
+  static constexpr int kChunks = D / 8;       // 16-byte chunks per token row
   static constexpr int kHalf = kChunks / 2;   // chunks per half-warp lane
-  static constexpr int kCopies = kTile * kChunks / 32;  // chunks a lane copies a tile
-  static constexpr int kKStride = D + kPerChunk;  // K row padded by 16 bytes, in Elem
+  static constexpr int kKStride = D + 8;      // padded K row, in bf16
   static constexpr int kDims = D / 32;        // head dims per lane in p.v
-  static constexpr int kStageElems = kTile * (kKStride + D);  // Elem
+  static constexpr int kStageElems = kTile * (kKStride + D);  // bf16
   static constexpr int kQBytes = MG * D * 4;
   static constexpr int kPBytes = kWarps * kTile * MG * 4;
-  static constexpr int kRingBytes = kWarps * kStages * kStageElems * sizeof(Elem);
-  // Int8: the K and V scales of each ring slot's 16 tokens, in f32.
-  static constexpr int kScaleBytes = kInt8 ? kWarps * kStages * 2 * kTile * 4 : 0;
-  static constexpr int kSmemBytes = kQBytes + kPBytes + kRingBytes + kScaleBytes;
+  static constexpr int kRingBytes = kWarps * kStages * kStageElems * 2;
+  static constexpr int kSmemBytes = kQBytes + kPBytes + kRingBytes;
   // The end-of-split combine reuses the ring: m, l and acc of each warp.
   static_assert(kWarps * MG * (D + 2) * 4 <= kRingBytes, "ring too small");
 };
@@ -165,30 +133,23 @@ struct Layout {
 // Partials of CTA (b, kh, split), in `part`: m[G] and l[G] at
 // ((b * KVH + kh) * S + split) * 2G, then, after all CTAs' m and l, acc[G, D]
 // at n_cta * 2G + ((b * KVH + kh) * S + split) * G * D, all f32.
-template <int D, int MG, bool kNewColumn, bool kInt8 = false>
+template <int D, int MG, bool kNewColumn>
 __global__ void __launch_bounds__(kThreads, 2)
 paged_split_walk_kernel(const __nv_bfloat16* __restrict__ q,        // [B, H, D]
-                        const typename Layout<D, MG, kInt8>::Elem* __restrict__ k_pages,
-                        const typename Layout<D, MG, kInt8>::Elem* __restrict__ v_pages,
-                        // ^ [NL, P, page, KVH, D]
+                        const __nv_bfloat16* __restrict__ k_pages,  // [NL, P, page, KVH, D]
+                        const __nv_bfloat16* __restrict__ v_pages,
                         const int* __restrict__ block_tables,       // [B, MP]
                         const int* __restrict__ counts,             // [B], see above
                         float* __restrict__ part,
                         int H, int KVH, int num_pages, int page_size,
                         int max_pages, int layer, int pages_per_split,
-                        float scale, float softcap, int window,
-                        // Int8 only: [NL, P, page, KVH] f32 scales.
-                        const float* __restrict__ k_scales = nullptr,
-                        const float* __restrict__ v_scales = nullptr) {
-  using L = Layout<D, MG, kInt8>;
-  using Elem = typename L::Elem;
+                        float scale, float softcap, int window) {
+  using L = Layout<D, MG>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* q_s = reinterpret_cast<float*>(smem);                  // [MG, D]
   float* p_all = reinterpret_cast<float*>(smem + L::kQBytes);   // [kWarps, kTile, MG]
-  Elem* ring = reinterpret_cast<Elem*>(smem + L::kQBytes + L::kPBytes);
-  // Int8: [kWarps, kStages, 2 (K, V), kTile] scales.
-  float* scale_ring =
-      reinterpret_cast<float*>(smem + L::kQBytes + L::kPBytes + L::kRingBytes);
+  __nv_bfloat16* ring =
+      reinterpret_cast<__nv_bfloat16*>(smem + L::kQBytes + L::kPBytes);
 
   const int kh = blockIdx.x;
   const int b = blockIdx.y;
@@ -235,10 +196,9 @@ paged_split_walk_kernel(const __nv_bfloat16* __restrict__ q,        // [B, H, D]
 
   const size_t tok_stride = (size_t)KVH * D;
   const size_t layer_off = (size_t)layer * num_pages * page_size * tok_stride;
-  const Elem* kl = k_pages + layer_off;
-  const Elem* vl = v_pages + layer_off;
-  Elem* my_ring = ring + warp * kStages * L::kStageElems;
-  float* my_scales = scale_ring + warp * kStages * 2 * kTile;
+  const __nv_bfloat16* kl = k_pages + layer_off;
+  const __nv_bfloat16* vl = v_pages + layer_off;
+  __nv_bfloat16* my_ring = ring + warp * kStages * L::kStageElems;
   float* p_s = p_all + warp * kTile * MG;
 
   const int n_tiles = (t_hi - t_lo + kTile - 1) / kTile;
@@ -252,8 +212,7 @@ paged_split_walk_kernel(const __nv_bfloat16* __restrict__ q,        // [B, H, D]
   // called for i = 0, 1, 2, ... in turn. Lane t finds token t's row from
   // its page and offset, which step by kWarps * kTile tokens a call (no
   // division in the walk); lanes then copy 16-byte chunks, neighbours on
-  // neighbouring addresses, and (int8) each lane its token's K or V scale.
-  // Always commits a group, empty or not.
+  // neighbouring addresses. Always commits a group, empty or not.
   int pg = (t_lo + warp * kTile + tok) / page_size - first_page;
   int pg_off = (t_lo + warp * kTile + tok) % page_size;
   auto issue = [&](int i) {
@@ -264,24 +223,18 @@ paged_split_walk_kernel(const __nv_bfloat16* __restrict__ q,        // [B, H, D]
         row = ((long long)page_s[pg] * page_size + pg_off) * (long long)tok_stride +
               (long long)kh * D;
       for (pg_off += kWarps * kTile; pg_off >= page_size; pg_off -= page_size) ++pg;
-      Elem* k_dst = my_ring + (i % kStages) * L::kStageElems;
-      Elem* v_dst = k_dst + kTile * L::kKStride;
+      __nv_bfloat16* k_dst = my_ring + (i % kStages) * L::kStageElems;
+      __nv_bfloat16* v_dst = k_dst + kTile * L::kKStride;
 #pragma unroll
-      for (int j = 0; j < L::kCopies; ++j) {
+      for (int j = 0; j < L::kHalf; ++j) {
         const int idx = lane + 32 * j;
         const int t = idx / L::kChunks;
         const int c = idx % L::kChunks;
         const long long r = __shfl_sync(0xffffffffu, row, t);
         const bool ok = r >= 0;
-        const size_t off = ok ? (size_t)r + c * L::kPerChunk : 0;
-        cp_async16(k_dst + t * L::kKStride + c * L::kPerChunk, kl + off, ok);
-        cp_async16(v_dst + t * D + c * L::kPerChunk, vl + off, ok);
-      }
-      if constexpr (kInt8) {
-        // Row r of the pages is scale r / D of the scales.
-        const float* src = (half ? v_scales : k_scales) + layer_off / D;
-        cp_async4(my_scales + (i % kStages) * 2 * kTile + half * kTile + tok,
-                  src + (row >= 0 ? (size_t)row / D : 0), row >= 0);
+        const size_t off = ok ? (size_t)r + c * 8 : 0;
+        cp_async16(k_dst + t * L::kKStride + c * 8, kl + off, ok);
+        cp_async16(v_dst + t * D + c * 8, vl + off, ok);
       }
     }
     cp_async_commit();
@@ -304,9 +257,8 @@ paged_split_walk_kernel(const __nv_bfloat16* __restrict__ q,        // [B, H, D]
     issue(i + kStages - 1);
     cp_async_wait<kStages - 1>();
     __syncwarp();
-    const Elem* k_st = my_ring + (i % kStages) * L::kStageElems;
-    const Elem* v_st = k_st + kTile * L::kKStride;
-    const float* sc_st = my_scales + (i % kStages) * 2 * kTile;  // int8: K, V scales
+    const __nv_bfloat16* k_st = my_ring + (i % kStages) * L::kStageElems;
+    const __nv_bfloat16* v_st = k_st + kTile * L::kKStride;
     const int n = min(kTile, t_hi - (t_lo + (warp + i * kWarps) * kTile));
     const bool valid = tok < n;
 
@@ -315,46 +267,24 @@ paged_split_walk_kernel(const __nv_bfloat16* __restrict__ q,        // [B, H, D]
     float s[MG];
 #pragma unroll
     for (int g = 0; g < MG; ++g) s[g] = 0.f;
-    const Elem* krow = k_st + tok * L::kKStride;
-    if constexpr (kInt8) {
-      const float ks = sc_st[tok];
-#pragma unroll
-      for (int c = half * L::kHalf; c < (half + 1) * L::kHalf; ++c) {
-        float kf[16];
-        unpack16_i8(*reinterpret_cast<const uint4*>(krow + c * 16), ks, kf);
-#pragma unroll
-        for (int g = 0; g < MG; ++g) {
-          float x = s[g];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float4 qa = *reinterpret_cast<const float4*>(q_s + g * D + c * 16 + 4 * j);
-            x = fmaf(qa.x, kf[4 * j], x);
-            x = fmaf(qa.y, kf[4 * j + 1], x);
-            x = fmaf(qa.z, kf[4 * j + 2], x);
-            x = fmaf(qa.w, kf[4 * j + 3], x);
-          }
-          s[g] = x;
-        }
-      }
-    } else {
+    const __nv_bfloat16* krow = k_st + tok * L::kKStride;
 #pragma unroll 4
-      for (int c = half * L::kHalf; c < (half + 1) * L::kHalf; ++c) {
-        float kf[8];
-        unpack8(*reinterpret_cast<const uint4*>(krow + c * 8), kf);
+    for (int c = half * L::kHalf; c < (half + 1) * L::kHalf; ++c) {
+      float kf[8];
+      unpack8(*reinterpret_cast<const uint4*>(krow + c * 8), kf);
 #pragma unroll
-        for (int g = 0; g < MG; ++g) {
-          const float4 qa = *reinterpret_cast<const float4*>(q_s + g * D + c * 8);
-          const float4 qb = *reinterpret_cast<const float4*>(q_s + g * D + c * 8 + 4);
-          float x = s[g];
-          x = fmaf(qa.x, kf[0], x);
-          x = fmaf(qa.y, kf[1], x);
-          x = fmaf(qa.z, kf[2], x);
-          x = fmaf(qa.w, kf[3], x);
-          x = fmaf(qb.x, kf[4], x);
-          x = fmaf(qb.y, kf[5], x);
-          x = fmaf(qb.z, kf[6], x);
-          s[g] = fmaf(qb.w, kf[7], x);
-        }
+      for (int g = 0; g < MG; ++g) {
+        const float4 qa = *reinterpret_cast<const float4*>(q_s + g * D + c * 8);
+        const float4 qb = *reinterpret_cast<const float4*>(q_s + g * D + c * 8 + 4);
+        float x = s[g];
+        x = fmaf(qa.x, kf[0], x);
+        x = fmaf(qa.y, kf[1], x);
+        x = fmaf(qa.z, kf[2], x);
+        x = fmaf(qa.w, kf[3], x);
+        x = fmaf(qb.x, kf[4], x);
+        x = fmaf(qb.y, kf[5], x);
+        x = fmaf(qb.z, kf[6], x);
+        s[g] = fmaf(qb.w, kf[7], x);
       }
     }
 
@@ -393,18 +323,8 @@ paged_split_walk_kernel(const __nv_bfloat16* __restrict__ q,        // [B, H, D]
 #pragma unroll
     for (int t = 0; t < kTile; ++t) {
       float vf[L::kDims];
-      const Elem* vrow = v_st + t * D + lane * L::kDims;
-      if constexpr (kInt8) {
-        const float vs = sc_st[kTile + t];
-        uint32_t w;
-        if constexpr (L::kDims == 4)
-          w = *reinterpret_cast<const uint32_t*>(vrow);
-        else
-          w = *reinterpret_cast<const uint16_t*>(vrow);
-#pragma unroll
-        for (int e = 0; e < L::kDims; ++e)
-          vf[e] = static_cast<float>(static_cast<int8_t>(w >> (8 * e))) * vs;
-      } else if constexpr (L::kDims == 4) {
+      const __nv_bfloat16* vrow = v_st + t * D + lane * L::kDims;
+      if constexpr (L::kDims == 4) {
         const uint2 u = *reinterpret_cast<const uint2*>(vrow);
         const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
         const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));

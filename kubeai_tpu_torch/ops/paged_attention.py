@@ -12,8 +12,11 @@ raises.
       on a one-layer pool, and a fixed-order combine); plain version
       ref_paged_decode_attention. An int8 pool (ops/kv_quant.py's
       QuantizedPool) goes to paged_decode_attention_int8, B1's int8 read:
-      the same walk over int8 pages and their scales, dequantized in f32
-      (the JAX package sends such a pool to its reference path).
+      a walk of its own over int8 pages and their scales
+      (csrc/paged_split_walk_int8.cuh: the score on tensor cores with one
+      scale per dot, V's scale folded into P, splits from int8_split) and
+      B1's combine (the JAX package sends such a pool to its reference
+      path).
   paged_verify_attention       — K query tokens per slot, the speculative
       verify window, each seeing the keys up to its own position
       (csrc/paged_verify.cu, replaces B3: the page walk split across CTAs
@@ -284,12 +287,13 @@ def paged_decode_attention_int8(
     logit_softcap: float | None = None,
     window: int | None = None,
 ) -> torch.Tensor:
-    """Paged decode attention over an int8 pool: B1's split walk and
-    combine, reading int8 pages and their per-token scales and
-    dequantizing in f32 before each product, as the plain version does.
-    CUDA tensors launch the kernel (bf16 q, head_dim 64 or 128, group
-    <= 8); anything else it does not take raises. CPU tensors take
-    ref_paged_decode_attention. The edge rules are B1's."""
+    """Paged decode attention over an int8 pool: the int8 split walk
+    (csrc/paged_split_walk_int8.cuh), which reads int8 pages and their
+    per-token scales and applies each scale once per dot (K's to the
+    score, V's to P), and B1's combine. CUDA tensors launch the kernel
+    (bf16 q, head_dim 64 or 128, group <= 8); anything else it does not
+    take raises. CPU tensors take ref_paged_decode_attention. The edge
+    rules are B1's."""
     if q.device.type == "cpu":
         return ref_paged_decode_attention(
             q, k_pages, v_pages, block_tables, lengths,
@@ -302,8 +306,9 @@ def paged_decode_attention_int8(
     page, kvh = k_pages.shape[1], k_pages.shape[2]
     mp = block_tables.shape[1]
     # From shapes alone, as B1's: the call never waits for the card.
-    num_splits, pages_per_split = fused_split(b, kvh, mp, page)
+    num_splits, pages_per_split = int8_split(b, kvh, mp, page)
     out = torch.empty_like(q)
+    # Per (slot, kv head, split): m[G], l[G], then acc[G, D], in f32.
     scratch = torch.empty(b * kvh * num_splits * (h // kvh) * (d + 2),
                           dtype=torch.float32, device=q.device)
     lib = _build.load()
@@ -544,7 +549,32 @@ def fused_split(batch: int, kv_heads: int, max_pages: int, page_size: int) -> tu
     shapes alone: split s of a slot takes block-table entries
     [s * pages_per_split, (s + 1) * pages_per_split), and the splits cover
     all max_pages of them, the last possibly short."""
-    per = -(-(batch * kv_heads * max_pages) // _FUSED_TARGET_CTAS)
+    return _split(batch * kv_heads * max_pages, max_pages, page_size, _FUSED_TARGET_CTAS)
+
+
+# B1's int8 walk (csrc/paged_split_walk_int8.cuh) fits three CTAs to an
+# SM (a 4-deep ring of int8 tiles). With several slots, lengths are
+# ragged and the splits past a slot's length exit at once, so it aims past
+# the resident count, as fused_split does: at the 8B serving shape (8
+# slots, 8 kv heads, 32 pages of 64) splits of 4 pages beat splits of 8
+# by a sixth on the card. A lone slot's splits up to its length all hold
+# keys, so there it aims at two CTAs an SM, every CTA resident at once: at
+# B=1 and 16k splits of 8 pages beat splits of 4 (two waves) by a fifth
+# (PERF.md, section 6). Same minimum and cap as fused_split (the walk keeps a
+# split's entries in shared memory, kMaxSplitPages of them).
+_INT8_TARGET_CTAS = 4 * 132
+_INT8_ONE_SLOT_TARGET_CTAS = 2 * 132
+
+
+def int8_split(batch: int, kv_heads: int, max_pages: int, page_size: int) -> tuple[int, int]:
+    """(num_splits, pages_per_split) for the int8 decode walk, from shapes
+    alone, with fused_split's meaning."""
+    target = _INT8_TARGET_CTAS if batch > 1 else _INT8_ONE_SLOT_TARGET_CTAS
+    return _split(batch * kv_heads * max_pages, max_pages, page_size, target)
+
+
+def _split(entries: int, max_pages: int, page_size: int, target_ctas: int) -> tuple[int, int]:
+    per = -(-entries // target_ctas)
     per = max(per, -(-_FUSED_MIN_SPLIT_TOKENS // page_size), 1)
     per = min(per, max_pages, _FUSED_MAX_SPLIT_PAGES)
     return -(-max_pages // per), per

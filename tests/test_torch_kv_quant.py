@@ -62,7 +62,7 @@ from kubeai_tpu_torch.objstore import KVSpillStore
 from kubeai_tpu_torch.ops import kv_quant as tkq
 from kubeai_tpu_torch.ops import paged_attention as tpa
 from kubeai_tpu_torch.parity import params_from_numpy
-from torch_split_walk import emulate_split_walk
+from torch_split_walk import constant, emulate_split_walk
 
 TOK = ByteTokenizer()
 PAGE = 16
@@ -144,20 +144,22 @@ B, KVH, G, D, MP = 3, 2, 4, 32, 4
 H, P = KVH * G, 1 + B * MP
 
 
-def _int8_setup(lengths, seed=0):
+def _int8_setup(lengths, seed=0, mp=MP):
     """q, int8 pools with their scales (from quantize_kv of numpy values),
-    block tables with each slot's pages shuffled, lengths."""
+    block tables of `mp` entries with each slot's pages shuffled, lengths."""
     rng = np.random.default_rng(seed)
+    n_pages = 1 + B * mp
     q = rng.standard_normal((B, H, D)).astype(np.float32)
     pools = []
     for _ in range(2):
-        q8, scale = jkq.quantize_kv(jnp.asarray(rng.standard_normal((P, 8, KVH, D)), jnp.float32))
+        q8, scale = jkq.quantize_kv(jnp.asarray(rng.standard_normal((n_pages, 8, KVH, D)),
+                                                jnp.float32))
         pools.append((np.asarray(q8), np.asarray(scale)))
-    perm = rng.permutation(np.arange(1, P))
-    bt = np.full((B, MP), -1, np.int32)
+    perm = rng.permutation(np.arange(1, n_pages))
+    bt = np.full((B, mp), -1, np.int32)
     used = 0
     for s, ln in enumerate(lengths):
-        need = min(-(-ln // 8), MP)
+        need = min(-(-ln // 8), mp)
         bt[s, :need] = perm[used:used + need]
         used += need
     return q, pools, bt, np.asarray(lengths, np.int32)
@@ -189,20 +191,31 @@ def test_plain_int8_attention_matches_jax_reference(lengths, cap, win):
     assert tpa.paged_decode_attention_int8.launches == tpa.paged_decode_attention.launches == 0
 
 
-@pytest.mark.parametrize("pages_per_split", [1, 2, 3])
+# A block table long enough that int8_split cuts it (4 splits of 8 pages).
+INT8_SPLIT_MP = 32
+
+
+@pytest.mark.parametrize("pages_per_split", [1, 2, 3, None])
 @pytest.mark.parametrize("case,cap,win", [
     ("boundary", None, None), ("short", 30.0, 5), ("past", 50.0, 12),
 ])
 def test_int8_split_walk_matches_jax_reference(pages_per_split, case, cap, win):
-    """B1's int8 read, emulated: the split walk with rows dequantized at
-    load, at a split boundary and one either side, 0 and 1 and past two
-    splits, and past the block table, against JAX's reference on the same
-    int8 pages and scales. Slots that keep no key are 0 in the walk (the
-    reference averages every column there) and are checked apart."""
-    e, L = pages_per_split * 8, MP * 8
+    """B1's int8 read, emulated: the int8 walk (K's scale after the dot,
+    V's scale in P), at a split boundary and one either side, 0 and 1 and
+    past two splits, and past the block table, against JAX's reference on
+    the same int8 pages and scales. None is the wrapper's choice,
+    int8_split, on a 32-entry table. Slots that keep no key are 0 in the
+    walk (the reference averages every column there) and are checked
+    apart."""
+    mp = MP
+    if pages_per_split is None:
+        mp = INT8_SPLIT_MP
+        num_splits, pages_per_split = tpa.int8_split(B, KVH, mp, 8)
+        assert num_splits > 1
+    e, L = pages_per_split * 8, mp * 8
     lengths = {"boundary": [e, e - 1, e + 1], "short": [0, 1, min(2 * e + 1, L)],
                "past": [L + 3, L + 17, e]}[case]
-    q, pools, bt, ln = _int8_setup(lengths, seed=41 + pages_per_split)
+    q, pools, bt, ln = _int8_setup(lengths, seed=41 + pages_per_split, mp=mp)
     (tk, tv), (jk, jv) = _pools(pools)
     got = emulate_split_walk(q, tk, tv, bt, ln, pages_per_split, cap=cap, win=win)
     want = np.asarray(jpa.ref_paged_decode_attention(
@@ -211,6 +224,66 @@ def test_int8_split_walk_matches_jax_reference(pages_per_split, case, cap, win):
     keeps = np.array([n > 0 and (not win or n - win < L) for n in ln])
     assert not got[~keeps].any()
     np.testing.assert_allclose(got[keeps], want[keeps], atol=1e-4, rtol=1e-4)
+
+
+# The fused_split values B1, B3 and B4 take at these shapes; int8_split
+# leaves them as they are.
+FUSED_SPLITS = {
+    (8, 8, 32, 64): (8, 4), (1, 8, 256, 64): (64, 4), (64, 8, 32, 64): (1, 32),
+    (3, 2, 4, 8): (1, 4), (1, 1, 1, 16): (1, 1), (256, 8, 4096, 16): (64, 64),
+    (2, 4, 1000, 128): (63, 16), (4, 8, 8, 64): (8, 1),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(FUSED_SPLITS))
+def test_int8_split_covers_every_block_table_entry(shape):
+    """Every block-table entry falls in one split, a split holds at most
+    the int8 walk's kMaxSplitPages entries (read from its source), and
+    fused_split's values for B1, B3 and B4 are unchanged."""
+    batch, kv_heads, max_pages, page = shape
+    num_splits, per = tpa.int8_split(*shape)
+    bound = constant("paged_split_walk_int8.cuh", "kMaxSplitPages")
+    assert 1 <= per <= min(max_pages, bound)
+    assert num_splits * per >= max_pages > (num_splits - 1) * per
+    assert per * page >= min(64, max_pages * page)  # a 16-token tile per warp at least
+    assert tpa.fused_split(*shape) == FUSED_SPLITS[shape]
+
+
+def _int8_ctas_per_sm() -> int:
+    """CTAs of the int8 walk that fit one H100 SM at D = 128, G <= 4, from
+    its shared memory (constants read from its source)."""
+    src = "paged_split_walk_int8.cuh"
+    warps, tile, stages, max_pages = (constant(src, n) for n in (
+        "kWarps", "kTile", "kStages", "kMaxSplitPages"))
+    ring = warps * stages * (2 * tile * 128 + 2 * tile * 4)
+    smem = ring + warps * (tile + 1) * 4 * 4 + 4 * max_pages + 1024  # + the SM's reserve
+    return 228 * 1024 // smem
+
+
+def test_int8_split_at_the_serving_shapes():
+    """The 8B serving shape (8 slots, 8 kv heads, 32 pages of 64): ragged
+    lengths leave splits empty, so the split aims past the resident CTAs
+    (fused_split's 4 pages; 8 were slower on the card). A lone slot at 16k:
+    every split holds keys, so every CTA is resident at once, in one wave,
+    with twice fused_split's pages."""
+    assert _int8_ctas_per_sm() == 3
+    assert tpa.int8_split(8, 8, 32, 64) == (8, 4)
+    num_splits, per = tpa.int8_split(1, 8, 256, 64)
+    assert per == 2 * tpa.fused_split(1, 8, 256, 64)[1]
+    assert 132 < 8 * num_splits <= 132 * _int8_ctas_per_sm()
+
+
+def test_int8_wrapper_splits_from_shapes():
+    """The int8 wrapper takes int8_split, from shapes alone: it never copies
+    a tensor to the host, so a CUDA graph can hold it."""
+    import inspect
+
+    src = inspect.getsource(tpa.paged_decode_attention_int8)
+    cuda_path = src.split('if q.device.type != "cuda"', 1)[1]
+    for reader in (".item(", ".tolist(", ".cpu(", ".numpy(", "int(lengths", "lengths.max"):
+        assert reader not in cuda_path
+    assert "int8_split(b, kvh, mp, page)" in cuda_path
+    assert "fused_split" not in cuda_path
 
 
 def test_scatters_bit_equal_to_jax():

@@ -575,14 +575,23 @@ def test_engine_span_continues_the_client_trace(servers, collector):
                          headers=headers)[0] == 200
         assert http_post(_addr(srv), "/v1/completions", {**COMPLETION, "n": 0},
                          headers=headers)[0] == 400
-    tracing.tracer().flush()
-    jtracing.tracer().flush()
-    by_service = {}
-    for service, span in collector.spans():
-        by_service.setdefault(service, []).append(span)
+    # Each server ends its span in do_POST's `finally`, after the response
+    # is written, so the handler thread may record it after the client has
+    # its reply: flush until both services' spans have reached the
+    # collector, or the deadline passes.
+    deadline = time.monotonic() + 10.0
+    while True:
+        tracing.tracer().flush()
+        jtracing.tracer().flush()
+        by_service = {}
+        for service, span in collector.spans():
+            by_service.setdefault(service, []).append(span)
+        port_spans = by_service.get("svc-kubeai_tpu_torch.metrics.tracing", [])
+        jax_spans = by_service.get("svc-kubeai_tpu.metrics.tracing", [])
+        if (len(port_spans) >= 2 and len(jax_spans) >= 2) or time.monotonic() > deadline:
+            break
+        time.sleep(0.02)
     assert all(path == "/v1/traces" for path, _ in collector.batches)
-    port_spans = by_service["svc-kubeai_tpu_torch.metrics.tracing"]
-    jax_spans = by_service["svc-kubeai_tpu.metrics.tracing"]
     assert len(port_spans) == len(jax_spans) == 2
     for got, want in zip(port_spans, jax_spans):
         assert got["name"] == want["name"] == "engine /v1/completions"

@@ -1,5 +1,6 @@
-"""The split page walk of the port's decode kernels (csrc/paged_split_walk.cuh,
-shared by B1 and B4), emulated on the CPU in f32 for the tests of both.
+"""The split page walks of the port's decode kernels, emulated on the CPU in
+f32 for their tests: csrc/paged_split_walk.cuh (shared by B1 and B4) and
+csrc/paged_split_walk_int8.cuh (B1's int8 read).
 
 Each split of `pages_per_split` block-table entries walks its kept keys in
 TILE-token tiles dealt to WARPS warps (online softmax per warp) and merges
@@ -8,8 +9,11 @@ order, then B4's new-token column if there is one, then the rows are
 normalised. A row with no kept key and no new column comes out 0.
 
 Int8 pools (B1's int8 read, `kubeai_paged_decode_int8`): the pools are
-QuantizedPools, and each tile's rows dequantize in f32 as they load,
-q8 * scale, before the products; tiles and splits are the same."""
+QuantizedPools, and the walk is the int8 walk's, with its own warps and
+tile from its source: each score is the dot of the scaled q with the int8
+row, times the row's K scale after the dot; V's scale goes into P
+(P' = p * vs) and P' meets the int8 V rows; the sum l is of p. The
+caller passes the int8 split (ops.paged_attention.int8_split)."""
 
 import re
 from pathlib import Path
@@ -19,11 +23,20 @@ import torch
 from kubeai_tpu_torch.ops import paged_attention as tpa
 from kubeai_tpu_torch.ops.kv_quant import QuantizedPool
 
-_SRC = (Path(tpa.__file__).resolve().parent.parent / "csrc"
-        / "paged_split_walk.cuh").read_text()
-# The walk's warps per CTA and tokens per warp tile, read from its source.
-WARPS = int(re.search(r"constexpr int kWarps = (\d+);", _SRC).group(1))
-TILE = int(re.search(r"constexpr int kTile = (\d+);", _SRC).group(1))
+CSRC = Path(tpa.__file__).resolve().parent.parent / "csrc"
+
+
+def constant(source: str, name: str) -> int:
+    """A `constexpr int` of a kernel source, read from the source."""
+    text = (CSRC / source).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+# Each walk's warps per CTA and tokens per warp tile, read from its source.
+WARPS = constant("paged_split_walk.cuh", "kWarps")
+TILE = constant("paged_split_walk.cuh", "kTile")
+INT8_WARPS = constant("paged_split_walk_int8.cuh", "kWarps")
+INT8_TILE = constant("paged_split_walk_int8.cuh", "kTile")
 
 
 def merge(parts, extra=None):
@@ -68,6 +81,7 @@ def emulate_split_walk(q, k_pages, v_pages, block_tables, counts, pages_per_spli
     q = torch.as_tensor(q).float()
     kp, ks = _pool(k_pages)
     vp, vs = _pool(v_pages)
+    warps, tile = (WARPS, TILE) if ks is None else (INT8_WARPS, INT8_TILE)
     bt, counts = torch.as_tensor(block_tables).long(), torch.as_tensor(counts).long()
     b, h, d = q.shape
     kvh, page, mp = kp.shape[2], kp.shape[1], bt.shape[1]
@@ -88,29 +102,30 @@ def emulate_split_walk(q, k_pages, v_pages, block_tables, counts, pages_per_spli
                 if t_lo >= t_hi:
                     parts.append(empty)
                     continue
-                n_tiles = -(-(t_hi - t_lo) // TILE)
-                warps = []
-                for w in range(WARPS):
+                n_tiles = -(-(t_hi - t_lo) // tile)
+                per_warp = []
+                for w in range(warps):
                     m, l, acc = empty
-                    for i in range(w, n_tiles, WARPS):
-                        toks = torch.arange(t_lo + i * TILE, min(t_lo + (i + 1) * TILE, t_hi))
+                    for i in range(w, n_tiles, warps):
+                        toks = torch.arange(t_lo + i * tile, min(t_lo + (i + 1) * tile, t_hi))
                         pages = bt[s, toks // page].clamp(min=0)
                         k = kp[pages, toks % page, kh]
                         v = vp[pages, toks % page, kh]
-                        if ks is not None:  # dequantize at load, in f32
-                            k = k * ks[pages, toks % page, kh][:, None]
-                            v = v * vs[pages, toks % page, kh][:, None]
                         sc = qg @ k.T
+                        if ks is not None:  # int8: K's scale after the dot
+                            sc = sc * ks[pages, toks % page, kh][None, :]
                         if cap is not None:
                             sc = torch.tanh(sc / cap) * cap
                         m_new = torch.maximum(m, sc.max(-1).values)
                         pr = torch.exp(sc - m_new[:, None])
                         alpha = torch.exp(m - m_new)
                         l = l * alpha + pr.sum(-1)
+                        if ks is not None:  # int8: V's scale in P
+                            pr = pr * vs[pages, toks % page, kh][None, :]
                         acc = acc * alpha[:, None] + pr @ v
                         m = m_new
-                    warps.append((m, l, acc))
-                parts.append(merge(warps))
+                    per_warp.append((m, l, acc))
+                parts.append(merge(per_warp))
             extra = None
             if new is not None:
                 kn, vn = (torch.as_tensor(a).float() for a in new)
