@@ -100,7 +100,23 @@ Phases, each fatal on failure:
                an int8 prefill/decode pair on the 717-token prompt, greedy
                and seeded (exported int8 pages and scales are the pool's
                bits, imports write the handoff's, streams equal the
-               decode server's own);
+               decode server's own). LoRA last: `serve_lora` writes three
+               rank-16 PEFT adapters over wq/wk/wv/wo (bf16, numpy from
+               a seed), loads them with `lora_weights.load_peft_adapter`
+               and serves three waves in which base, a1 and a2 requests
+               share every decode batch, with max_adapters=4 and the
+               adapters loaded after capture: per_layer (B1, B2),
+               speculate=4 (B3), fused (B4) and int8 pools (B1-int8).
+               Every stream must equal an eager engine's with the same
+               adapters and a greedy adapter stream must differ from its
+               base stream; then, on the per_layer engine, an unload
+               while an a2 request waits or decodes must raise the
+               in-flight error, a2 is swapped for a third adapter in its
+               row, and the streams that follow must equal an eager
+               engine that loaded it from the start, with every graph
+               and graph pool unchanged. It profiles the LoRA decode
+               step, verify window and prefill against the bf16 ones and
+               prints the adapter buffers' MiB;
   5. serve_cli — the engine Pod's entry point: a random-weight Llama
                checkpoint at Llama-3-8B width (4 layers, bf16) written with
                `weights.save_safetensors`, served by `python -m
@@ -116,7 +132,13 @@ Phases, each fatal on failure:
                HTTP. Each run also sends one request with a traceparent
                and an X-Request-Id: its server span must reach a local
                OTLP/HTTP sink (OTEL_EXPORTER_OTLP_TRACES_ENDPOINT) with the
-               client's trace id, parent and request id. Reports the load
+               client's trace id, parent and request id. The default run
+               (`--max-adapters 4`, the default) then runs the LoRA admin
+               round: a PEFT adapter loaded from a local directory,
+               listed on /v1/models and /v1/state, a request naming it
+               served, "already loaded" for the same path, a reload from
+               another, 404 for an unknown model and for a second
+               unload. Reports the load
                rate, the cold-start phases and TTFT. Then a `--role
                prefill` and a `--role decode` process side by side: one
                greedy body through the two hops must give the decode
@@ -1466,17 +1488,20 @@ def _default_bodies() -> list[list[dict]]:
     ]]
 
 
-def serve_run(params, cfg, label: str, waves=None, **extra) -> dict:
+def serve_run(params, cfg, label: str, waves=None, adapters=None, **extra) -> dict:
     """One EngineServer run over `params` with the engine's defaults (graphs
     and overlap): a warm-up request, then each wave of chat completions
     (default: `_default_bodies`) sent concurrently, a wave only after the
     one before it has finished, with every kernel's launch count and every
     device program's replay count set to 0 just before the first wave and
-    read just after the last. `extra` adds to the smoke EngineConfig.
+    read just after the last. `extra` adds to the smoke EngineConfig;
+    `adapters` ({name: LoRA weight tree}) are loaded, in order, after the
+    engine captured its programs, and a body names one in its `model`.
     Returns the launches (eager calls plus launches per replay x
-    replays), each request's prompt, sampling params, engine token stream
-    and TTFT, the rids of each wave, the calls of the staged-chunk
-    functions made outside their programs, and the engine."""
+    replays), each request's prompt, sampling params, adapter, engine
+    token stream and TTFT, the rids of each wave, the calls of the
+    staged-chunk functions made outside their programs, and the
+    engine."""
     from kubeai_tpu_torch.engine import Engine, EngineConfig
     from kubeai_tpu_torch.engine.server import EngineServer
     from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
@@ -1495,12 +1520,17 @@ def serve_run(params, cfg, label: str, waves=None, **extra) -> dict:
               f"{time.perf_counter() - t0:.2f} s); pool reserved "
               f"{prog.pool_bytes / 2**20:.2f} MiB; launches per replay "
               f"{json.dumps(prog.launches_per_replay)}", flush=True)
+    adapters = dict(adapters or {})
+    for name, weights in adapters.items():
+        engine.load_adapter(name, weights)
     requests: dict[int, tuple] = {}  # rid -> (prompt, sampling params)
+    adapter_of: dict[int, str | None] = {}  # rid -> its adapter
     add_request = engine.add_request
 
     def add_and_note(prompt, params, *a, **kw):
         rid = add_request(prompt, params, *a, **kw)
         requests[rid] = (list(prompt), params)
+        adapter_of[rid] = kw.get("adapter")
         return rid
 
     engine.add_request = add_and_note
@@ -1545,6 +1575,7 @@ def serve_run(params, cfg, label: str, waves=None, **extra) -> dict:
         timing.clear()
         streams.clear()
         requests.clear()
+        adapter_of.clear()
         stage_calls.clear()
         waves = waves or _default_bodies()
         bodies = [body for wave in waves for body in wave]
@@ -1626,19 +1657,24 @@ def serve_run(params, cfg, label: str, waves=None, **extra) -> dict:
         if eager[name]:
             fail(f"serve {label}: {name} launched {eager[name]} times outside the "
                  "graph replays")
-    # Each request's prompt length is distinct: it names the request.
-    index_of = {len(tok.apply_chat_template(b["messages"])): i for i, b in enumerate(bodies)}
-    rid_of = {index_of[len(prompt)]: rid for rid, (prompt, _) in requests.items()}
+    # Each request's prompt length and adapter are distinct: they name the
+    # request.
+    index_of = {(len(tok.apply_chat_template(b["messages"])), b.get("model")): i
+                for i, b in enumerate(bodies)}
+    rid_of = {index_of[len(prompt), adapter_of[rid]]: rid
+              for rid, (prompt, _) in requests.items()}
     return {"launches": launches, "requests": requests, "streams": streams,
             "engine": engine, "bodies": bodies, "rid_of": rid_of, "ttft": ttft,
             "waves": wave_rids, "stage_calls": dict(stage_calls),
-            "dispatches": dispatches}
+            "dispatches": dispatches, "adapters": dict(adapter_of),
+            "adapter_weights": adapters}
 
 
-def check_streams_equal_eager(params, cfg, label: str, run: dict, **extra):
+def check_streams_equal_eager(params, cfg, label: str, run: dict, adapters=None, **extra):
     """The serve run's streams, greedy and seeded, against an eager
     synchronous engine (no graphs, step_overlap="off") on the same weights
-    fed the same prompts, sampling params and continuation prefixes (a
+    fed the same prompts, sampling params, adapters (loaded first, in the
+    run's order; `adapters` replaces them) and continuation prefixes (a
     request's optional third item), wave by wave as the run sent them.
     Any difference fails, with the first differing step. Returns the
     reference engine."""
@@ -1652,13 +1688,19 @@ def check_streams_equal_eager(params, cfg, label: str, run: dict, **extra):
         eos_token_ids=run["engine"].eos_token_ids)
     if ref._overlap or ref._decode_program.graph is not None:
         fail(f"serve {label}: the reference engine is not eager and synchronous")
+    if adapters is None:
+        adapters = run.get("adapter_weights") or {}
+    for name, weights in adapters.items():
+        ref.load_adapter(name, weights)
+    adapter_of = run.get("adapters") or {}
     rids: dict[int, int] = {}
     got: dict[int, list[int]] = {rid: [] for wave in run["waves"] for rid in wave}
     t0 = time.perf_counter()
     for wave in run["waves"]:
         for rid in wave:
             prompt, sp, *resume = run["requests"][rid]
-            rids[ref.add_request(prompt, sp, resume_tokens=resume[0] if resume else None)] = rid
+            rids[ref.add_request(prompt, sp, resume_tokens=resume[0] if resume else None,
+                                 adapter=adapter_of.get(rid))] = rid
         while ref.has_work():
             for ev in ref.step():
                 got[rids[ev.rid]].append(ev.token)
@@ -1666,6 +1708,8 @@ def check_streams_equal_eager(params, cfg, label: str, run: dict, **extra):
         have = run["streams"][rid]
         _, sp, *resume = run["requests"][rid]
         kind = "greedy" if sp.temperature == 0 else f"seeded (seed {sp.seed})"
+        if adapter_of.get(rid):
+            kind += f", adapter {adapter_of[rid]}"
         if resume and resume[0]:
             kind += f", resumed after {len(resume[0])}"
         if have != want:
@@ -1751,7 +1795,7 @@ def phase_serve() -> dict:
           f"{stats['accepted'] / max(1, stats['proposed']):.4f}", flush=True)
     check_streams_equal_eager(params, cfg, "speculate", run, **extra)
     report_agreement("speculate", base, run)
-    profile_program(run["engine"], "verify window", "verify window")
+    bf16_verify = profile_program(run["engine"], "verify window", "verify window")
     free(run)
     # Run 3: the fused layout. B4 launches, B1 does not.
     extra = dict(decode_kernel="fused")
@@ -1777,6 +1821,9 @@ def phase_serve() -> dict:
     launches["paged_decode_attention_int8"] = serve_int8(params, cfg, bf16_step)
     serve_prefix(params, cfg, int8=True)
     serve_disagg_int8(params, cfg)
+    # LoRA adapters through every decode, verify and prefill path, and a
+    # hot swap under the captured graphs.
+    serve_lora(params, cfg, bf16_step, bf16_verify)
     return launches
 
 
@@ -2331,6 +2378,297 @@ def serve_int8(params, cfg, bf16_step: dict) -> int:
     print(f"serve int8 took {time.perf_counter() - t_phase:.2f} s; card: {gpu_line()}",
           flush=True)
     return launches
+
+
+# ---- serve_lora: LoRA adapters on the 8B-shape model ------------------------------
+
+LORA_RANK = 16
+LORA_ALPHA = 32.0  # alpha / r = 2, folded into B by the loader
+LORA_HF = {"wq": "q_proj", "wk": "k_proj", "wv": "v_proj", "wo": "o_proj"}
+# (label, EngineConfig settings, kernels that must launch, kernels that
+# must not): the four LoRA runs of serve_lora.
+LORA_RUNS = (
+    ("per_layer", dict(decode_kernel="per_layer"),
+     ("paged_decode_attention", "flash_causal_prefill"), ()),
+    ("speculate", dict(decode_kernel="per_layer", speculate=4, spec_adaptive=False),
+     ("paged_verify_attention", "flash_causal_prefill"), ("paged_decode_attention",)),
+    ("fused", dict(decode_kernel="fused"),
+     ("paged_decode_attention_fused", "flash_causal_prefill"), ("paged_decode_attention",)),
+    ("int8", dict(decode_kernel="per_layer", kv_dtype="int8"),
+     ("paged_decode_attention_int8", "flash_causal_prefill"), ("paged_decode_attention",)),
+)
+
+
+def write_peft_adapter(path: str, cfg, seed: int, num_layers: int | None = None) -> str:
+    """A PEFT adapter directory at `path`: rank-LORA_RANK lora_A and lora_B
+    tensors over wq, wk, wv and wo for every layer, drawn with numpy from
+    `seed` (N(0, 0.02)) and stored in bf16 by `weights.save_safetensors`
+    as adapter_model.safetensors, and an adapter_config.json with r and
+    lora_alpha."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from kubeai_tpu_torch.engine.weights import save_safetensors
+    from kubeai_tpu_torch.models import llama
+
+    rng = np.random.default_rng(seed)
+    dims = llama.lora_dims(cfg)
+    tensors = {}
+    for i in range(num_layers or cfg.num_layers):
+        for target, hf in LORA_HF.items():
+            din, dout = dims[target]
+            name = f"base_model.model.model.layers.{i}.self_attn.{hf}"
+            for part, shape in (("lora_A", (LORA_RANK, din)), ("lora_B", (dout, LORA_RANK))):
+                w = rng.standard_normal(shape, np.float32) * np.float32(0.02)
+                tensors[f"{name}.{part}.weight"] = torch.from_numpy(w).to(torch.bfloat16)
+    save_safetensors(path, tensors, {})
+    os.replace(os.path.join(path, "model.safetensors"),
+               os.path.join(path, "adapter_model.safetensors"))
+    os.remove(os.path.join(path, "config.json"))
+    with open(os.path.join(path, "adapter_config.json"), "w") as f:
+        json.dump({"r": LORA_RANK, "lora_alpha": LORA_ALPHA,
+                   "target_modules": list(LORA_HF.values())}, f)
+    return path
+
+
+def load_lora(path: str, cfg) -> dict:
+    """`lora_weights.load_peft_adapter` of a PEFT directory; fails unless
+    it gives all four targets at rank LORA_RANK with nonzero B."""
+    from kubeai_tpu_torch.engine.lora_weights import load_peft_adapter
+
+    weights = load_peft_adapter(path, cfg, max_rank=LORA_RANK)
+    if sorted(weights) != sorted(LORA_HF):
+        fail(f"serve_lora: {path} loaded targets {sorted(weights)}")
+    for target, (A, B) in weights.items():
+        if A.shape[-1] != LORA_RANK or not B.any():
+            fail(f"serve_lora: {path} {target}: rank {A.shape[-1]}, B nonzero {B.any()}")
+    return weights
+
+
+def _lora_waves() -> list[list[dict]]:
+    """Three waves over the four default bodies: in each wave every prompt
+    runs on another model (the base, a1 or a2), so each wave mixes all
+    three in one decode batch, and over the waves every prompt runs on
+    all three. A wave's prompts fall in distinct prefill buckets, so the
+    served and the eager engine admit them alike."""
+    bodies = _default_bodies()[0]
+    models = (None, "a1", "a2")
+    return [[b if models[(i + w) % 3] is None else {**b, "model": models[(i + w) % 3]}
+             for i, b in enumerate(bodies)] for w in range(3)]
+
+
+def _by_prompt_and_adapter(run: dict) -> dict:
+    """{(prompt length, adapter): (sampling params, stream)} of a run."""
+    return {(len(prompt), run["adapters"].get(rid)): (sp, run["streams"][rid])
+            for rid, (prompt, sp) in run["requests"].items()}
+
+
+def check_adapters_matter(label: str, run: dict) -> None:
+    """Prints how many leading tokens each adapter stream shares with the
+    same prompt's base stream; fails unless at least one greedy adapter
+    stream differs from its base stream."""
+    got = _by_prompt_and_adapter(run)
+    differ = 0
+    for (plen, adapter), (sp, stream) in sorted(got.items(), key=lambda kv: str(kv[0])):
+        if adapter is None:
+            continue
+        base = got[plen, None][1]
+        same = _leading_equal(stream, base)
+        kind = "greedy" if sp.temperature == 0 else "seeded"
+        differ += kind == "greedy" and stream != base
+        print(f"serve lora {label} prompt of {plen} tokens, adapter {adapter} ({kind}): "
+              f"{same}/{len(base)} leading tokens equal to the base model's", flush=True)
+    if differ == 0:
+        fail(f"serve lora {label}: every greedy adapter stream equals its base stream")
+
+
+def lora_buffer_bytes(engine) -> int:
+    return sum(t.numel() * t.element_size() for ab in engine._lora.values()
+               for t in ab.values())
+
+
+def lora_hot_swap(params, cfg, engine, adapters: dict, a3: dict, extra: dict) -> None:
+    """On a served engine after capture (a1 and a2 loaded): a pending and
+    an active request of a2 make its unload raise the in-flight error;
+    then a2 is unloaded and a third adapter loads into the row a2 freed
+    (rows 3 and 4 held by two more loads of it, so the free list gives
+    that row), and four requests (a3, a1 and the base model) run through
+    the same graphs with overlap. Gates: their streams equal those of an
+    eager synchronous engine that loaded a1 and a3 from the start
+    (`check_streams_equal_eager`); every device program keeps its CUDA
+    graph object and graph pool (nothing was captured again); B1 launched
+    only from replays."""
+    import torch
+
+    from kubeai_tpu_torch.engine import SamplingParams
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    t0 = time.perf_counter()
+    tok = ByteTokenizer()
+    graphs = {name: (prog.graph, prog.pool_bytes) for name, prog in _programs(engine).items()}
+    bodies = _default_bodies()[0]
+    prompts = [tok.apply_chat_template(b["messages"]) for b in bodies]
+    long_sp = SamplingParams(temperature=0.0, max_tokens=64)
+    rid = engine.add_request(prompts[0], long_sp, adapter="a2")
+    refusals = []
+    for when in ("pending", "active"):
+        if when == "active":
+            engine.step()
+            if engine._requests[rid].slot < 0:
+                fail("serve lora swap: the a2 request was not admitted")
+        try:
+            engine.unload_adapter("a2")
+        except RuntimeError as e:
+            if "in-flight" not in str(e):
+                fail(f"serve lora swap: unload while {when}: {e}")
+            refusals.append(when)
+        else:
+            fail(f"serve lora swap: unload of a2 while a request was {when} succeeded")
+    engine.cancel(rid)
+    while engine.has_work():
+        engine.step()
+    engine.load_adapter("fill3", a3)
+    engine.load_adapter("fill4", a3)
+    if not engine.unload_adapter("a2"):
+        fail("serve lora swap: unload of a2 after its request ended returned False")
+    t_load = time.perf_counter()
+    engine.load_adapter("a3", a3)
+    load_ms = (time.perf_counter() - t_load) * 1e3
+    if engine._adapter_slots["a3"] != 2:
+        fail(f"serve lora swap: a3 took row {engine._adapter_slots['a3']}, not a2's row 2")
+    models = ("a3", "a1", "a3", None)
+    sps = [SamplingParams(temperature=b["temperature"], max_tokens=b["max_tokens"],
+                          seed=b.get("seed")) for b in bodies]
+    _zero_launches(engine)
+    rids = [engine.add_request(p, sp, adapter=m) for p, sp, m in zip(prompts, sps, models)]
+    streams = {r: [] for r in rids}
+    while engine.has_work():
+        for ev in engine.step():
+            if ev.rid in streams:
+                streams[ev.rid].append(ev.token)
+    launches = _launches(engine)
+    dispatches = {name: prog.dispatches for name, prog in _programs(engine).items()}
+    for name, prog in _programs(engine).items():
+        if prog.graph is not graphs[name][0] or prog.pool_bytes != graphs[name][1]:
+            fail(f"serve lora swap: the {name} was captured again")
+    if launches["paged_decode_attention"] <= 0 or dispatches["decode chunk"] <= 0:
+        fail(f"serve lora swap: no decode replays after the swap ({launches}, {dispatches})")
+    swap = {"engine": engine, "waves": [rids], "streams": streams,
+            "requests": {r: (p, sp) for r, p, sp in zip(rids, prompts, sps)},
+            "adapters": dict(zip(rids, models))}
+    ref = check_streams_equal_eager(params, cfg, "lora swap", swap,
+                                    adapters={"a1": adapters["a1"], "a3": a3}, **extra)
+    if ref._adapter_slots != {"a1": 1, "a3": 2}:
+        fail(f"serve lora swap: reference rows {ref._adapter_slots}")
+    del ref
+    torch.cuda.empty_cache()
+    print(f"serve lora swap: unload refused while a request was {' and '.join(refusals)}; "
+          f"a3 loaded into a2's row 2 in {load_ms:.2f} ms under the captured graphs; "
+          f"graphs and pools unchanged ({', '.join(graphs)}); launches after the swap "
+          f"{json.dumps(launches)}, dispatches {json.dumps(dispatches)}; took "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def profile_lora_prefill(params, cfg, lora) -> None:
+    """torch.profiler over llama.prefill at B=1, S=1024 without adapters
+    and with one adapter row of `lora` (the prefill admission's model
+    call): device ms and kernel launches of each, and B2's share."""
+    import torch
+
+    from kubeai_tpu_torch.models import llama
+
+    gen = torch.Generator("cuda").manual_seed(13)
+    S = 1024
+    toks = torch.randint(0, cfg.vocab_size, (1, S), generator=gen, device="cuda")
+    lengths = torch.tensor([S], device="cuda")
+    idx = torch.tensor([1], device="cuda")
+    out = {}
+    for tag, kw in (("base", {}), ("lora", {"lora": lora, "lora_idx": idx})):
+        prof = profile(None, f"{tag} prefill S={S}",
+                       lambda _: llama.prefill(params, cfg, toks, lengths, **kw),
+                       e_steps=1, calls=1)
+        out[tag] = (prof["device_ms"], sum(e.count for e in prof["rows"]) / prof["steps"])
+    print(f"serve lora prefill S={S} B=1: device {out['lora'][0]:.3f} ms with an adapter vs "
+          f"{out['base'][0]:.3f} ms without (x{out['lora'][0] / out['base'][0]:.4f}); kernel "
+          f"launches {out['lora'][1]:.0f} vs {out['base'][1]:.0f}", flush=True)
+
+
+def serve_lora(params, cfg, bf16_step: dict, bf16_verify: dict) -> None:
+    """LoRA on the 8B-shape model: three rank-16 adapters over wq, wk, wv
+    and wo written as PEFT directories (bf16, numpy from a seed) and read
+    by `lora_weights.load_peft_adapter`. Four serve runs with
+    max_adapters=4, a1 and a2 loaded after the programs were captured, and
+    `_lora_waves` (base, a1 and a2 in every decode batch): per_layer (B1
+    and B2 must launch), speculate=4 (B3), fused (B4) and per_layer on
+    int8 pools (B1-int8); B1 must not launch in the last three. Every
+    stream must equal an eager synchronous engine's fed the same requests
+    and adapters, and a greedy adapter stream must differ from its base
+    stream. On the per_layer run's engine: the decode chunk profiled
+    against the bf16 step without adapters (`bf16_step`), the hot swap
+    (`lora_hot_swap`) and the prefill admission with and without an
+    adapter; on the speculate run's: the verify window against
+    `bf16_verify`. Prints the adapter buffers' MiB."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="kubeai-lora-")
+    try:
+        t0 = time.perf_counter()
+        dirs = {name: write_peft_adapter(f"{root}/{name}", cfg, seed)
+                for name, seed in (("a1", 21), ("a2", 22), ("a3", 23))}
+        t1 = time.perf_counter()
+        weights = {name: load_lora(path, cfg) for name, path in dirs.items()}
+        print(f"serve lora: three rank-{LORA_RANK} PEFT adapters over "
+              f"{'/'.join(LORA_HF)} for {cfg.num_layers} layers written in "
+              f"{t1 - t0:.2f} s and loaded by load_peft_adapter in "
+              f"{time.perf_counter() - t1:.2f} s", flush=True)
+        adapters = {name: weights[name] for name in ("a1", "a2")}
+        for label, extra, must, must_not in LORA_RUNS:
+            extra = dict(max_adapters=4, **extra)
+            run = serve_run(params, cfg, f"lora {label}", waves=_lora_waves(),
+                            adapters=adapters, **extra)
+            got = run["launches"]
+            for name in must:
+                if got[name] <= 0:
+                    fail(f"serve lora {label}: main path never launched {name}")
+            for name in must_not:
+                if got[name]:
+                    fail(f"serve lora {label}: {name} launched {got[name]} times")
+            engine = run["engine"]
+            print(f"serve lora {label}: adapter buffers {lora_buffer_bytes(engine) / 2**20:.2f} "
+                  f"MiB ({engine.cfg.max_adapters + 1} rows x rank "
+                  f"{engine.cfg.max_lora_rank} x {cfg.num_layers} layers, "
+                  f"{engine._lora['wq']['A'].dtype}); rows {json.dumps(engine._adapter_slots)}",
+                  flush=True)
+            check_streams_equal_eager(params, cfg, f"lora {label}", run, **extra)
+            check_adapters_matter(label, run)
+            if label == "per_layer":
+                step = profile_program(engine, "lora decode step", "decode chunk")
+                print(f"serve lora decode step from its graph: device {step['device_ms']:.3f} "
+                      f"ms vs {bf16_step['device_ms']:.3f} ms without adapters (+"
+                      f"{step['device_ms'] - bf16_step['device_ms']:.3f} ms); wall "
+                      f"{step['wall_ms']:.3f} vs {bf16_step['wall_ms']:.3f} ms; kernel "
+                      f"launches {step['kernels']:.0f} vs {bf16_step['kernels']:.0f} "
+                      f"per step", flush=True)
+                profile_lora_prefill(params, cfg, engine._lora)
+                lora_hot_swap(params, cfg, engine, adapters, weights["a3"], extra)
+            elif label == "speculate":
+                win = profile_program(engine, "lora verify window", "verify window")
+                print(f"serve lora verify window from its graph: device "
+                      f"{win['device_ms']:.3f} ms vs {bf16_verify['device_ms']:.3f} ms without "
+                      f"adapters (+{win['device_ms'] - bf16_verify['device_ms']:.3f} ms); "
+                      f"wall {win['wall_ms']:.3f} vs {bf16_verify['wall_ms']:.3f} ms; kernel "
+                      f"launches {win['kernels']:.0f} vs {bf16_verify['kernels']:.0f} per "
+                      f"window", flush=True)
+            del engine
+            free(run)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"serve lora took {time.perf_counter() - t_phase:.2f} s; card: {gpu_line()}",
+          flush=True)
 
 
 # ---- serve_disagg and serve_kv_share: KV handoffs and peer page fetches ----------
@@ -3112,7 +3450,9 @@ def profile_program(engine, unit: str, program: str, calls: int = 2) -> dict:
     in one call: wall time, device time and idle share per `unit`, side by
     side, and the graph pool's memory. Where torch.profiler does not see
     the kernels inside a replay, the device time is the CUDA-event span.
-    Returns the graph's wall and device ms per `unit`."""
+    Returns the graph's wall and device ms per `unit` and the kernel
+    launches per `unit` (from the eager profile: the same kernels a
+    replay runs)."""
     prog = _programs(engine)[program]
     e_steps = engine._chunk_out.shape[0] if program == "decode chunk" else 1
 
@@ -3138,7 +3478,8 @@ def profile_program(engine, unit: str, program: str, calls: int = 2) -> dict:
           f"{max(0.0, 1 - device / graph['wall_ms']):.3f} vs "
           f"{max(0.0, 1 - eager_run['device_ms'] / eager_run['wall_ms']):.3f}; graph pool "
           f"{prog.pool_bytes / 2**20:.2f} MiB", flush=True)
-    return {"wall_ms": graph["wall_ms"], "device_ms": device}
+    kernels = sum(e.count for e in eager_run["rows"]) / eager_run["steps"]
+    return {"wall_ms": graph["wall_ms"], "device_ms": device, "kernels": kernels}
 
 
 def profile_prefill(params, cfg) -> None:
@@ -3373,7 +3714,7 @@ def check_trace(port: int, sink: OtlpSink, label: str) -> None:
 
 
 def cli_run(model_dir: str, label: str, flags: list, env_extra: dict,
-            ckpt_bytes: int, sink: OtlpSink) -> dict:
+            ckpt_bytes: int, sink: OtlpSink, admin=None) -> dict:
     """One `python -m kubeai_tpu_torch.engine.server` run over `model_dir`
     in a subprocess of its own session: ready within CLI_READY_S, the
     four requests of `_default_bodies` sent together (all 200), /metrics
@@ -3383,7 +3724,7 @@ def cli_run(model_dir: str, label: str, flags: list, env_extra: dict,
     the responses report, the state read before the drain and the
     /metrics values the phase gates. The server exports its spans to
     `sink` (OTEL_EXPORTER_OTLP_TRACES_ENDPOINT); `check_trace` runs
-    before the drain."""
+    before the drain, then `admin(port)` when given."""
     import os
     import signal
     import socket
@@ -3475,6 +3816,8 @@ def cli_run(model_dir: str, label: str, flags: list, env_extra: dict,
         # After /metrics and /v1/state were read: the gates count the
         # four requests above.
         check_trace(port, sink, label)
+        if admin is not None:
+            admin(port)
         # Drain: /v1/drain refuses new work, then SIGTERM exits 0.
         if _post_status(port, "/v1/drain") != 202:
             fail(f"serve_cli {label}: POST /v1/drain did not answer 202")
@@ -3520,6 +3863,55 @@ def cli_run(model_dir: str, label: str, flags: list, env_extra: dict,
             "state": state, "metrics": metric_values, "bodies": bodies}
 
 
+def cli_admin_round(port: int, dirs: dict, served: str = "model") -> None:
+    """The LoRA admin round over HTTP on a CLI server (the default
+    --max-adapters 4): load "tenant" from the PEFT directory dirs["a"];
+    /v1/models and /v1/state.adapters list it; a chat completion naming it
+    is served in full; loading the same path again answers "already
+    loaded" and another path (dirs["b"]) reloads; an unknown model name
+    gets 404; unloading twice gives 200, then 404."""
+    def admin(path: str, body: dict) -> tuple[int, dict]:
+        status, res, _, _ = _post(port, body, path=path)
+        return status, res
+
+    t0 = time.perf_counter()
+    load = {"lora_name": "tenant", "lora_path": dirs["a"]}
+    got = admin("/v1/load_lora_adapter", load)
+    if got != (200, {"status": "loaded", "lora_name": "tenant"}):
+        fail(f"serve_cli admin: load from {dirs['a']}: {got}")
+    load_s = time.perf_counter() - t0
+    models = [m["id"] for m in json.loads(_get(port, "/v1/models")[1])["data"]]
+    adapters = json.loads(_get(port, "/v1/state")[1])["adapters"]
+    if models != [served, "tenant"] or adapters != ["tenant"]:
+        fail(f"serve_cli admin: /v1/models {models}, /v1/state.adapters {adapters}")
+    body = {**_default_bodies()[0][0], "max_tokens": 16}
+    results = {}
+    for model in (served, "tenant"):
+        status, res, _, total_s = _post(port, {**body, "model": model})
+        if status != 200 or res["usage"]["completion_tokens"] < 1 or res["model"] != model:
+            fail(f"serve_cli admin: a request for {model}: HTTP {status} {res}")
+        results[model] = (res["choices"][0]["message"]["content"], total_s,
+                          res["usage"]["completion_tokens"])
+    again = admin("/v1/load_lora_adapter", load)
+    if again[0] != 200 or again[1].get("status") != "already loaded":
+        fail(f"serve_cli admin: loading the same path again: {again}")
+    other = admin("/v1/load_lora_adapter", {"lora_name": "tenant", "lora_path": dirs["b"]})
+    if other != (200, {"status": "loaded", "lora_name": "tenant"}):
+        fail(f"serve_cli admin: loading another path: {other}")
+    unknown = _post(port, {**body, "model": "no-such-adapter"})[0]
+    if unknown != 404:
+        fail(f"serve_cli admin: an unknown model got HTTP {unknown}, not 404")
+    unloads = [admin("/v1/unload_lora_adapter", {"lora_name": "tenant"})[0] for _ in range(2)]
+    if unloads != [200, 404]:
+        fail(f"serve_cli admin: two unloads gave {unloads}, not [200, 404]")
+    same = results[served][0] == results["tenant"][0]
+    print(f"serve_cli admin round: load from a PEFT directory 200 in {load_s:.3f} s; "
+          f"/v1/models {models}; /v1/state.adapters {adapters}; the tenant request served "
+          f"{results['tenant'][2]} tokens in {results['tenant'][1]:.4f} s ({'the same text as' if same else 'other text than'} "
+          f"the base model's); same path again {again[1]['status']!r}; another path "
+          f"{other[1]['status']!r}; unknown model 404; unloads {unloads}", flush=True)
+
+
 def serve_cli() -> None:
     """Phase 5: the engine Pod's entry point. Writes a random-weight Llama
     checkpoint at Llama-3-8B width (CLI_LAYERS layers, bf16) with
@@ -3532,8 +3924,10 @@ def serve_cli() -> None:
     bit-equal to those written; each run's greedy streams over HTTP equal
     to its in-process engine's; on /metrics 4 requests, a TTFT count of 4
     and the generated tokens the responses report; speculation windows in
-    the speculative run; the same token capacity as in-process. Reports
-    the load rate, the cold-start phases, TTFT and the card."""
+    the speculative run; the same token capacity as in-process. The
+    default run (--max-adapters 4, the default) also runs
+    `cli_admin_round` over two PEFT adapters written for the checkpoint.
+    Reports the load rate, the cold-start phases, TTFT and the card."""
     import gc
     import os
     import shutil
@@ -3558,10 +3952,15 @@ def serve_cli() -> None:
         print(f"serve_cli checkpoint: {CLI_LAYERS} layers at Llama-3-8B width, bf16, "
               f"{ckpt_bytes / 1e9:.3f} GB in {len(tensors)} tensors, drawn and written in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
+        cli_cfg = llama.LlamaConfig.from_hf_dict(CLI_CONFIG)
+        dirs = {name: write_peft_adapter(os.path.join(root, f"lora-{name}"), cli_cfg, seed)
+                for name, seed in (("a", 31), ("b", 32))}
         sink = OtlpSink()
         try:
-            runs = {label: cli_run(model_dir, label, flags, env, ckpt_bytes, sink)
-                    for label, flags, env, _ in CLI_RUNS}
+            runs = {label: cli_run(
+                model_dir, label, flags, env, ckpt_bytes, sink,
+                admin=(lambda port: cli_admin_round(port, dirs)) if label == "default" else None)
+                for label, flags, env, _ in CLI_RUNS}
         finally:
             sink.stop()
         cli_role_pair(model_dir)
@@ -3582,8 +3981,11 @@ def serve_cli() -> None:
         for label, _, _, extra in CLI_RUNS:
             run = runs[label]
             bodies = run["bodies"]
+            # The CLI's default --max-adapters 4: every request pays the
+            # (all-zero) delta of adapter row 0.
             engine = Engine("llama", cfg, params, cfg=EngineConfig(
-                num_slots=8, max_seq_len=2048, **extra), eos_token_ids=tok.eos_token_ids)
+                num_slots=8, max_seq_len=2048, max_adapters=4, **extra),
+                eos_token_ids=tok.eos_token_ids)
             capacity = engine.kv_cache_info()["token_capacity"]
             if capacity != run["state"]["kv_cache"]["token_capacity"]:
                 fail(f"serve_cli {label}: token capacity "

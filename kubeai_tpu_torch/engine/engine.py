@@ -55,10 +55,13 @@ Ported: paged mode, synchronous and overlapped stepping, preemption by
 recompute, the SLO scheduler, both decode layouts, speculative decoding
 by prompt lookup (adaptive or always on), chunked prefill, the automatic
 prefix cache, KV handoff export and import, prefix-page sharing and
-spill, and int8 KV pools (kv_dtype="int8", ops/kv_quant.py: quantized as
+spill, int8 KV pools (kv_dtype="int8", ops/kv_quant.py: quantized as
 pages are written, read by B1's int8 kernel, shipped verbatim on every
-wire). Settings of the JAX engine that are not ported raise
-NotImplementedError naming their ROADMAP item.
+wire), and LoRA adapters (max_adapters > 0): per-request adapters
+batched through every device program, loaded and unloaded by writes into
+fixed buffers, so no program is captured again. Settings of the JAX
+engine that are not ported raise NotImplementedError naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -87,6 +90,7 @@ from kubeai_tpu_torch.engine.paged_cache import (
 )
 from kubeai_tpu_torch.engine.sampling import SamplingParams, sample
 from kubeai_tpu_torch.fleet.profiler import StepProfiler
+from kubeai_tpu_torch.models import llama
 from kubeai_tpu_torch.models.registry import ModelFamily, get_model_family
 from kubeai_tpu_torch.ops.kv_quant import (
     QuantizedPool,
@@ -166,7 +170,10 @@ class EngineConfig:
     # Decode attention layout: "per_layer" | "fused"; "" = the
     # $KUBEAI_TPU_DECODE_KERNEL env var, default "per_layer".
     decode_kernel: str = ""
-    max_adapters: int = 0  # LoRA: ROADMAP A11
+    # LoRA hot-swap: adapters loaded at once (0 disables LoRA) and the
+    # highest adapter rank a buffer row holds.
+    max_adapters: int = 0
+    max_lora_rank: int = 16
     # Overlapped stepping: "auto" | "on" | "off" (or a bool). The port has
     # no pipeline parallelism, so "auto" resolves to on, as in the JAX
     # engine at pp = 1.
@@ -207,6 +214,7 @@ class _Request:
     seed: int
     priority: str = CLASS_STANDARD
     client: str = ""
+    adapter_idx: int = 0  # 0 = no adapter
     out_tokens: list[int] = dataclasses.field(default_factory=list)
     slot: int = -1
     position: int = 0  # absolute position of the next token to decode
@@ -278,6 +286,14 @@ def _pages_to_device(host: np.ndarray, dtype: torch.dtype,
     return torch.from_numpy(host).to(device)
 
 
+def _host_tensor(a) -> torch.Tensor:
+    """An adapter weight (a numpy array, f32 as jnp.asarray takes it, or
+    a tensor) as a CPU tensor."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu()
+    return torch.from_numpy(np.array(a, np.float32))
+
+
 def _resolve_overlap(cfg: EngineConfig) -> bool:
     """Whether step() overlaps: "auto" and "on" do, "off" does not."""
     overlap = cfg.step_overlap
@@ -317,8 +333,6 @@ def _refuse_unported(cfg: EngineConfig, mesh, draft, decode_kernel: str) -> None
         raise NotImplementedError("int8 weights are not ported yet (ROADMAP A12)")
     if cfg.quantization:
         raise ValueError(f"unknown quantization {cfg.quantization!r}")
-    if cfg.max_adapters > 0:
-        raise NotImplementedError("LoRA adapters are not ported yet (ROADMAP A11)")
     if mesh is not None:
         raise NotImplementedError(
             "meshes and parallelism are not ported yet (ROADMAP A14)"
@@ -516,7 +530,23 @@ class Engine:
             "temp": torch.zeros(B, dtype=torch.float32, device=dev),
             "topk": torch.zeros(B, dtype=torch.int64, device=dev),
             "topp": torch.ones(B, dtype=torch.float32, device=dev),
+            "lora_idx": torch.zeros(B, dtype=torch.int64, device=dev),
         }
+        # LoRA adapter buffers: fixed shapes and addresses, row 0 all zeros
+        # ("no adapter"). A load or an unload writes a row in place: the
+        # captured programs read the new weights with no capture again.
+        self._lora = None
+        self._adapter_slots: dict[str, int] = {}
+        # Buffer row -> weight generation (the prefix-cache hash seed;
+        # row 0, the base model, stays at generation 0).
+        self._adapter_gen: dict[int, int] = {}
+        self._adapter_free: list[int] = []
+        if cfg.max_adapters > 0:
+            # Both ported families are the llama computation.
+            self._lora = llama.init_lora_buffers(
+                model_cfg, cfg.max_adapters + 1, cfg.max_lora_rank, device=dev
+            )
+            self._adapter_free = list(range(1, cfg.max_adapters + 1))
         self._build_programs()
 
     def _build_programs(self) -> None:
@@ -612,7 +642,7 @@ class Engine:
     def _prefill_admit(
         self,
         tokens: torch.Tensor,  # [A, S]
-        ints: torch.Tensor,  # [A, 5]: length, slot, seed, top_k, forced
+        ints: torch.Tensor,  # [A, 6]: length, slot, seed, top_k, adapter, forced
         floats: torch.Tensor,  # [A, 2]: temp, top_p
         bt_rows: torch.Tensor,  # [A, MP]
     ) -> torch.Tensor:
@@ -627,10 +657,11 @@ class Engine:
         slots = ints[:, 1]
         seeds = ints[:, 2]
         topk = ints[:, 3]
-        forced = ints[:, 4]
+        adapters = ints[:, 4]
+        forced = ints[:, 5]
         temp, topp = floats[:, 0], floats[:, 1]
         logits, k_all, v_all = self.family.prefill(
-            self.params, mcfg, tokens, lengths
+            self.params, mcfg, tokens, lengths, **self._lora_kw(adapters)
         )
         page_ids, offsets = batched_sequence_page_coords(
             bt_rows, lengths, tokens.shape[1], page
@@ -651,7 +682,15 @@ class Engine:
         st["temp"][s] = temp[live]
         st["topk"][s] = topk[live]
         st["topp"][s] = topp[live]
+        st["lora_idx"][s] = adapters[live]
         return toks
+
+    def _lora_kw(self, lora_idx: torch.Tensor) -> dict:
+        """The model functions' LoRA arguments: the adapter buffers and
+        each row's adapter index, or nothing when LoRA is off."""
+        if self._lora is None:
+            return {}
+        return {"lora": self._lora, "lora_idx": lora_idx}
 
     def _stage_mid(self) -> None:
         """The mid-chunk program: one non-final chunk (`_chunk_tokens` at
@@ -660,6 +699,7 @@ class Engine:
         self._chunk_fn(
             self.params, self.model_cfg, self._chunk_tokens, ints[0], ints[1],
             self._stage_k, self._stage_v, want_logits=False,
+            **self._lora_kw(ints[3:4]),
         )
 
     def _stage_last(self) -> None:
@@ -673,11 +713,12 @@ class Engine:
         cfg, st = self.cfg, self._state
         ints, floats, bt_row = self._chunk_ints, self._chunk_floats, self._chunk_bt_row
         start, length, slot = ints[0], ints[1], ints[2]
-        seed, topk, forced = ints[4:5], ints[5:6], ints[6]
+        adapter, seed, topk, forced = ints[3:4], ints[4:5], ints[5:6], ints[6]
         temp, topp = floats[0:1], floats[1:2]
         logits, _, _ = self._chunk_fn(
             self.params, self.model_cfg, self._chunk_tokens, start, length,
             self._stage_k, self._stage_v, want_logits=True,
+            **self._lora_kw(adapter),
         )
         page_ids, offsets = batched_sequence_page_coords(
             bt_row[None], length[None], cfg.max_seq_len, cfg.page_size
@@ -694,6 +735,7 @@ class Engine:
             (self.cache.block_tables, bt_row[None]), (st["tokens"], tok),
             (st["positions"], length[None]), (st["seeds"], seed),
             (st["temp"], temp), (st["topk"], topk), (st["topp"], topp),
+            (st["lora_idx"], adapter),
         ):
             dst.index_copy_(0, row, torch.where(live, value, dst.index_select(0, row)))
         self._chunk_tok.copy_(tok)
@@ -729,6 +771,7 @@ class Engine:
                 self.params, self.model_cfg, tokens, positions,
                 self.cache.k_pages, self.cache.v_pages,
                 self.cache.block_tables, attn_kernel=self.decode_kernel,
+                **self._lora_kw(st["lora_idx"]),
             )
             tokens = sample(
                 logits, st["seeds"], positions + 1, st["temp"],
@@ -757,6 +800,7 @@ class Engine:
         logits, _, _ = self.family.decode_verify_paged(
             self.params, self.model_cfg, tokens_in, positions,
             self.cache.k_pages, self.cache.v_pages, self.cache.block_tables,
+            **self._lora_kw(st["lora_idx"]),
         )
         choices = torch.stack([
             sample(logits[:, k], st["seeds"], positions + k + 1, st["temp"],
@@ -814,16 +858,18 @@ class Engine:
                 )
             if resume[-1] in self.eos_token_ids:
                 raise ValueError("resume prefix already ends at a stop token")
-        if adapter:
-            raise NotImplementedError("LoRA adapters are not ported yet (ROADMAP A11)")
-        if len(prompt_tokens) == 0:
-            raise ValueError("empty prompt")
-        if len(prompt_tokens) >= self.cfg.max_seq_len:
-            raise ValueError(
-                f"prompt length {len(prompt_tokens)} >= max_seq_len "
-                f"{self.cfg.max_seq_len}"
-            )
         with self._lock:
+            # The adapter's row is read under the lock that load and unload
+            # take: a row freed and refilled after the lookup would serve
+            # this request another adapter's weights under its name.
+            adapter_idx = self._adapter_index(adapter)
+            if len(prompt_tokens) == 0:
+                raise ValueError("empty prompt")
+            if len(prompt_tokens) >= self.cfg.max_seq_len:
+                raise ValueError(
+                    f"prompt length {len(prompt_tokens)} >= max_seq_len "
+                    f"{self.cfg.max_seq_len}"
+                )
             if self._draining:
                 raise EngineDraining("engine is draining")
             rid = self._next_rid
@@ -838,6 +884,7 @@ class Engine:
                 prompt=list(prompt_tokens),
                 params=params,
                 seed=seed,
+                adapter_idx=adapter_idx,
                 client=client,
                 # A non-empty out_tokens prefix is what admission reads as
                 # resumed: the seat preemption's re-admission uses.
@@ -977,7 +1024,10 @@ class Engine:
                 hashes = None
                 if self._prefix_cache and not resumed:
                     if req.apc_hashes is None:
-                        req.apc_hashes = self._prefix_hashes(seq)
+                        # Safe across steps: an adapter swap refuses while a
+                        # queued request uses the row, so the generation in
+                        # the seed cannot change under it.
+                        req.apc_hashes = self._prefix_hashes(seq, req.adapter_idx)
                     hashes = req.apc_hashes
                     # Cap the hit twice over: the final token must compute
                     # (its logits give the first token), and cached_len + C
@@ -1064,11 +1114,13 @@ class Engine:
 
     def _prefix_hashes(self, tokens: list[int], adapter_idx: int = 0) -> list[bytes]:
         """The prompt's page-aligned hash chain (routing/prefixchain.py),
-        as digests. LoRA is not ported, so every adapter generation is
-        0."""
+        as digests, seeded with the adapter row and its weight
+        generation: new weights hot-swapped into a reused row can never
+        hit pages computed under the old ones."""
+        gen = self._adapter_gen.get(adapter_idx, 0)
         return [
             bytes.fromhex(h)
-            for h in page_hash_chain(tokens, self.cfg.page_size, adapter_idx, 0)
+            for h in page_hash_chain(tokens, self.cfg.page_size, adapter_idx, gen)
         ]
 
     def _note_prefix_admission(
@@ -1137,7 +1189,7 @@ class Engine:
         admission, so the two cannot drift."""
         staging = self._chunk_staging
         ints = np.array([
-            0, plen, slot, 0, req.seed, req.params.top_k,
+            0, plen, slot, req.adapter_idx, req.seed, req.params.top_k,
             req.out_tokens[-1] if req.out_tokens else -1,
         ], np.int64)
         with torch.no_grad():
@@ -1177,14 +1229,14 @@ class Engine:
             a_pad *= 2
         mp = self._bt_host.shape[1]
         tokens = np.zeros((a_pad, bucket), np.int64)
-        ints = np.zeros((a_pad, 5), np.int64)
+        ints = np.zeros((a_pad, 6), np.int64)
         floats = np.zeros((a_pad, 2), np.float32)
         bt_rows = np.full((a_pad, mp), -1, np.int32)
         # Padding rows: length 1, slot out of range (masked), bt_row -1
         # (page writes hit scratch), greedy sampling params.
         ints[:, 0] = 1
         ints[:, 1] = self.cfg.num_slots
-        ints[:, 4] = -1
+        ints[:, 5] = -1
         floats[:, 1] = 1.0
         for i, (req, slot, seq, plen, _resumed, _hashes) in enumerate(batch):
             tokens[i, :plen] = seq
@@ -1193,6 +1245,7 @@ class Engine:
                 slot,
                 req.seed,
                 req.params.top_k,
+                req.adapter_idx,
                 # Resume: force the already-emitted last token.
                 req.out_tokens[-1] if req.out_tokens else -1,
             ]
@@ -1429,17 +1482,18 @@ class Engine:
         server sheds 429 and the router re-picks) and EngineDraining once
         drain has begun."""
         params = params or SamplingParams()
-        if adapter:
-            raise NotImplementedError("LoRA adapters are not ported yet (ROADMAP A item 8)")
         seq = list(prompt_tokens)
         plen = len(seq)
-        if plen == 0:
-            raise ValueError("empty prompt")
-        if plen >= self.cfg.max_seq_len:
-            raise ValueError(
-                f"prompt length {plen} >= max_seq_len {self.cfg.max_seq_len}"
-            )
         with self._lock:
+            # Under the lock, as in add_request: the row cannot change hands
+            # before the prefill reads it.
+            adapter_idx = self._adapter_index(adapter)
+            if plen == 0:
+                raise ValueError("empty prompt")
+            if plen >= self.cfg.max_seq_len:
+                raise ValueError(
+                    f"prompt length {plen} >= max_seq_len {self.cfg.max_seq_len}"
+                )
             # Overlap barrier: this borrows a slot and pages synchronously;
             # an unreaped chunk's stop-driven frees must land first.
             self._barrier_locked()
@@ -1461,10 +1515,11 @@ class Engine:
             try:
                 self._set_bt_row(slot, pages)
                 req = _Request(rid=rid, prompt=seq, params=params, seed=seed,
-                               client=client, stop_token_ids=self.eos_token_ids)
+                               adapter_idx=adapter_idx, client=client,
+                               stop_token_ids=self.eos_token_ids)
                 t0 = _now()
                 C = self.cfg.prefill_chunk
-                hashes = self._prefix_hashes(seq)
+                hashes = self._prefix_hashes(seq, adapter_idx)
                 if C > 0 and plen > C:
                     mids, last = self._chunk_plan(seq, plen, C)
                     tok = self._run_staged_chunks(req, slot, plen, mids, last)
@@ -1512,7 +1567,7 @@ class Engine:
                 max_tokens=params.max_tokens,
                 stop=tuple(params.stop),
                 prefix_hashes=tuple(h.hex() for h in hashes),
-                adapter="",
+                adapter=adapter or "",
                 client=client,
                 priority=priority,
                 model=model_name,
@@ -1561,11 +1616,11 @@ class Engine:
             self._barrier_locked()
             if self._draining:
                 raise EngineDraining("engine is draining")
+            adapter_idx = 0
             if handoff.adapter:
-                raise NotImplementedError(
-                    f"adapter {handoff.adapter!r}: LoRA adapters are not ported "
-                    "yet (ROADMAP A item 8)"
-                )
+                if self._lora is None or handoff.adapter not in self._adapter_slots:
+                    raise KeyError(f"adapter {handoff.adapter!r} not loaded here")
+                adapter_idx = self._adapter_slots[handoff.adapter]
             rid = self._next_rid
             self._next_rid += 1
             first = int(handoff.first_token)
@@ -1591,7 +1646,8 @@ class Engine:
                 rid=rid, prompt=list(handoff.token_ids), params=params,
                 seed=handoff.seed & 0xFFFFFFFF,
                 priority=handoff.priority or CLASS_STANDARD,
-                client=handoff.client, out_tokens=[first], slot=slot,
+                client=handoff.client, adapter_idx=adapter_idx,
+                out_tokens=[first], slot=slot,
                 position=plen, last_token=first,
                 stop_token_ids=self.eos_token_ids,
                 t_enqueue=now, t_admit_start=now, t_prev_token=now,
@@ -1664,6 +1720,7 @@ class Engine:
         for name, value in (
             ("tokens", req.last_token), ("positions", plen), ("seeds", req.seed),
             ("temp", p.temperature), ("topk", p.top_k), ("topp", p.top_p),
+            ("lora_idx", req.adapter_idx),
         ):
             st[name][slot] = value
 
@@ -2125,13 +2182,139 @@ class Engine:
                     return np.concatenate([prop, pad])
         return np.full(gamma, int(ctx[-1]), np.int32)  # repeat-last fallback
 
+    # ---- LoRA adapter admin ------------------------------------------------
+
+    def _adapter_index(self, adapter: str | None) -> int:
+        """The buffer row of a named adapter (0 for none), raising as the
+        JAX engine does: ValueError with LoRA off, KeyError when the
+        adapter is not loaded."""
+        if not adapter:
+            return 0
+        if self._lora is None:
+            raise ValueError("LoRA is disabled (max_adapters=0)")
+        if adapter not in self._adapter_slots:
+            raise KeyError(f"adapter {adapter!r} not loaded")
+        return self._adapter_slots[adapter]
+
+    def loaded_adapters(self) -> list[str]:
+        return sorted(self._adapter_slots)
+
+    def load_adapter(self, name: str, adapter_weights: dict) -> None:
+        """Install adapter weights into a free buffer row. Weights:
+        {target: (A [NL, in, r], B [NL, r, out])} (numpy arrays or CPU
+        tensors) with r <= max_lora_rank; the alpha/r scaling must already
+        be folded into B. Loading the same name again overwrites its row.
+
+        The rows are written in place under the engine lock, on the
+        engine's stream, behind any call already dispatched, and the
+        stream is synchronized before this returns: a request admitted
+        afterwards reads the new weights, and no program is captured
+        again. Every target and rank is checked before a row is taken or
+        written."""
+        if self._lora is None:
+            raise ValueError("LoRA is disabled (max_adapters=0)")
+        with self._lock:
+            if name in self._adapter_slots:
+                slot = self._adapter_slots[name]
+                if self._adapter_in_use_locked(slot):
+                    # Overwriting the row would flip in-flight streams to the
+                    # new weights mid-generation: the hazard unload_adapter
+                    # refuses.
+                    raise RuntimeError(
+                        f"adapter {name!r} has in-flight requests; retry "
+                        "after they finish"
+                    )
+            elif not self._adapter_free:
+                raise RuntimeError(
+                    f"adapter capacity ({self.cfg.max_adapters}) exhausted"
+                )
+            r_max = self.cfg.max_lora_rank
+            rows = {}
+            for target, (A, B) in adapter_weights.items():
+                if target not in self._lora:
+                    raise KeyError(f"unknown LoRA target {target!r}")
+                A, B = _host_tensor(A), _host_tensor(B)
+                r = A.shape[-1]
+                if r > r_max:
+                    raise ValueError(f"adapter rank {r} > max_lora_rank {r_max}")
+                rows[target] = (A, B, r)
+            if name not in self._adapter_slots:
+                slot = self._adapter_free.pop(0)
+            with torch.no_grad():
+                for target, (A, B, r) in rows.items():
+                    bufA, bufB = self._lora[target]["A"], self._lora[target]["B"]
+                    # One [NL, in, r_max] / [NL, r_max, out] host row each,
+                    # zero-padded past r, cast as the JAX engine casts.
+                    padA = torch.zeros(bufA[:, slot].shape, dtype=bufA.dtype)
+                    padB = torch.zeros(bufB[:, slot].shape, dtype=bufB.dtype)
+                    padA[..., :r] = A.to(bufA.dtype)
+                    padB[:, :r, :] = B.to(bufB.dtype)
+                    bufA[:, slot].copy_(padA)
+                    bufB[:, slot].copy_(padB)
+            self._sync_lora()
+            self._adapter_slots[name] = slot
+            # New weights in this row: prefix-cache entries hashed under
+            # the old generation must never hit again.
+            self._adapter_gen[slot] = self._adapter_gen.get(slot, 0) + 1
+
+    def adapter_in_use(self, name: str) -> bool:
+        """True when the adapter is loaded and a pending or active request
+        uses it. Advisory: the load and unload guards check again under
+        the lock; the server asks it to answer 409 before fetching
+        weights that a refused reload would discard."""
+        if self._lora is None:
+            return False
+        with self._lock:
+            slot = self._adapter_slots.get(name)
+            return slot is not None and self._adapter_in_use_locked(slot)
+
+    def _adapter_in_use_locked(self, slot: int) -> bool:
+        """True when a pending or active request uses the adapter row
+        (the caller holds the engine lock; step() holds it throughout, so
+        no request mid-admission is missed)."""
+        return any(
+            r.adapter_idx == slot for r in self._sched.items()
+        ) or any(r.adapter_idx == slot for r in self._active.values())
+
+    def unload_adapter(self, name: str) -> bool:
+        """Zero the adapter's row in place and free it. False when the
+        adapter is not loaded; RuntimeError while a request uses it
+        (zeroing the row would turn its stream into the base model's, and
+        a later load could give the row to another adapter mid-stream)."""
+        if self._lora is None or name not in self._adapter_slots:
+            return False
+        with self._lock:
+            slot = self._adapter_slots.get(name)
+            if slot is None:
+                return False
+            if self._adapter_in_use_locked(slot):
+                raise RuntimeError(
+                    f"adapter {name!r} has in-flight requests; retry after "
+                    "they finish"
+                )
+            del self._adapter_slots[name]
+            self._adapter_gen[slot] = self._adapter_gen.get(slot, 0) + 1
+            with torch.no_grad():
+                for bufs in self._lora.values():
+                    bufs["A"][:, slot].zero_()
+                    bufs["B"][:, slot].zero_()
+            self._sync_lora()
+            self._adapter_free.append(slot)
+            return True
+
+    def _sync_lora(self) -> None:
+        """Wait for the adapter-row writes on the engine's stream."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
     def generate(
         self,
         prompts: list[list[int]],
         params: SamplingParams | None = None,
+        adapter: str | None = None,
     ) -> list[list[int]]:
         """Blocking batch generation (tests/benchmarks)."""
-        rids = [self.add_request(p, params) for p in prompts]
+        rids = [self.add_request(p, params, adapter=adapter) for p in prompts]
         collected: dict[int, list[int]] = {r: [] for r in rids}
         while self.has_work():
             for ev in self.step():

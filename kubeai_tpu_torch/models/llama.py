@@ -12,8 +12,16 @@ can hand the same weights to both packages (kubeai_tpu_torch.parity):
 
 Layers are stacked on a leading [NL] axis and walked with a Python loop
 (the JAX version scans). Weights are bf16 (or f32 for the parity tests);
-int8 weights, LoRA, ring-attention prefill and pipeline parallelism are
-not ported and raise.
+int8 weights, ring-attention prefill and pipeline parallelism are not
+ported and raise.
+
+LoRA: every forward takes `lora` (the stacked adapter buffers of
+`init_lora_buffers`) and `lora_idx` ([B] adapter index per row, 0 = the
+all-zero "no adapter" row). Each of `LORA_TARGETS`' projections adds
+`_lora_delta` after its base product and bias, so one batch serves a mix
+of adapters. The delta is two small batched products per projection
+(torch.bmm on the gathered slices), as the JAX version computes it with
+jnp.einsum outside any Pallas kernel.
 
 Prefill attention goes through ops.flash_attention.flash_causal_prefill
 for every bucket (the CUDA kernel on the card); a staged chunk attends
@@ -199,9 +207,96 @@ def _layer(params: dict, i: int) -> dict:
     return {name: w[i] for name, w in params["layers"].items()}
 
 
-def _refuse_unported(lora=None, lora_idx=None, mesh=None) -> None:
-    if lora is not None or lora_idx is not None:
-        raise NotImplementedError("LoRA is not ported yet (ROADMAP A11)")
+# ---- LoRA (hot-swappable, batched) ------------------------------------------
+#
+# Adapter weights live in fixed-shape stacked buffers, so loading or
+# unloading an adapter writes a slice in place and never changes a shape
+# or an address (the captured CUDA graphs keep reading the same tensors):
+#
+#   A[target]: [NL, n_adapters, in, r_max]   B[target]: [NL, n_adapters, r_max, out]
+#
+# Layer-major, so each layer's [n, in, r] slice is contiguous (the JAX
+# buffers are adapter-major, [n, NL, ...]; kubeai_tpu_torch.parity carries
+# them across). Adapter index 0 stays all zeros ("no adapter"); selecting
+# a row's adapter is a gather over the adapter axis.
+
+LORA_TARGETS = ("wq", "wk", "wv", "wo")
+
+
+def lora_dims(cfg: LlamaConfig) -> dict[str, tuple[int, int]]:
+    """(in, out) of each LoRA target's projection."""
+    E, H, KVH, D = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_size
+    return {"wq": (E, H * D), "wk": (E, KVH * D), "wv": (E, KVH * D), "wo": (H * D, E)}
+
+
+def init_lora_buffers(
+    cfg: LlamaConfig,
+    n_adapters: int,
+    max_rank: int,
+    dtype=None,
+    device: str | torch.device | None = None,
+) -> dict:
+    """All-zero adapter buffers {target: {"A": [NL, n, in, r], "B": [NL, n,
+    r, out]}} in `dtype` (default: the model's) on `device` (default:
+    cuda)."""
+    dtype = dtype or cfg.dtype
+    dev = resolve_device(device)
+    NL = cfg.num_layers
+    return {
+        t: {
+            "A": torch.zeros((NL, n_adapters, i, max_rank), dtype=dtype, device=dev),
+            "B": torch.zeros((NL, n_adapters, max_rank, o), dtype=dtype, device=dev),
+        }
+        for t, (i, o) in lora_dims(cfg).items()
+    }
+
+
+def _layer_lora(lora: dict | None, i: int) -> dict | None:
+    """Layer i's adapter slices {target: (A [n, in, r], B [n, r, out])}."""
+    if lora is None:
+        return None
+    return {t: (ab["A"][i], ab["B"][i]) for t, ab in lora.items()}
+
+
+def _lora_delta(x, A, B, idx):
+    """x: [B, S, in] (or [B, in]); A: [n, in, r], B: [n, r, out] for ONE
+    layer; idx: [B] adapter index per row. Returns the low-rank delta,
+    [B, S, out] (or [B, out])."""
+    Ag = A.index_select(0, idx)  # [B, in, r]
+    Bg = B.index_select(0, idx)  # [B, r, out]
+    if x.dim() == 2:
+        return torch.bmm(torch.bmm(x[:, None], Ag), Bg)[:, 0]
+    return torch.bmm(torch.bmm(x, Ag), Bg)
+
+
+def _projector(lor: dict | None, lora_idx):
+    """proj(h, w, target, bias=None): the base product, then the bias,
+    then the row's adapter delta (the JAX version's order, which f32
+    parity depends on)."""
+
+    def proj(h, w, target, bias=None):
+        out = torch.matmul(h, w)
+        if bias is not None:
+            out = out + bias
+        if lor is not None:
+            A, B = lor[target]
+            out = out + _lora_delta(h, A, B, lora_idx)
+        return out
+
+    return proj
+
+
+def _lora_rows(lora, lora_idx, B: int, device) -> torch.Tensor | None:
+    """The [B] adapter index of each row (zeros when not given), or None
+    without adapters."""
+    if lora is None:
+        return None
+    if lora_idx is None:
+        return torch.zeros(B, dtype=torch.long, device=device)
+    return lora_idx.to(device).reshape(B)
+
+
+def _refuse_unported(mesh=None) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "ring-attention prefill over a mesh is not ported yet "
@@ -244,30 +339,27 @@ def prefill(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-prompt forward. Returns (last_token_logits f32 [B, V],
     k_all [NL, B, S, KVH, D], v_all [NL, B, S, KVH, D])."""
-    _refuse_unported(lora, lora_idx, mesh)
+    _refuse_unported(mesh)
     _check_weights(params)
     B, S = tokens.shape
     H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
     dev = tokens.device
     inv_freq, msc = _rope_tables(cfg, dev)
     positions = torch.arange(S, device=dev)[None, :].expand(B, S)
+    lora_idx = _lora_rows(lora, lora_idx, B, dev)
     x = params["embed"][tokens]  # [B, S, E]
     ks, vs = [], []
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
-
-        def proj(h, w, bias=None):
-            out = torch.matmul(h, w)
-            return out if bias is None else out + bias
-
+        proj = _projector(_layer_lora(lora, i), lora_idx)
         h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
-        q = proj(h, lp["wq"], lp.get("bq")).reshape(B, S, H, D)
-        k = proj(h, lp["wk"], lp.get("bk")).reshape(B, S, KVH, D)
-        v = proj(h, lp["wv"], lp.get("bv")).reshape(B, S, KVH, D)
+        q = proj(h, lp["wq"], "wq", lp.get("bq")).reshape(B, S, H, D)
+        k = proj(h, lp["wk"], "wk", lp.get("bk")).reshape(B, S, KVH, D)
+        v = proj(h, lp["wv"], "wv", lp.get("bv")).reshape(B, S, KVH, D)
         q = apply_rope(q, positions, inv_freq, msc)
         k = apply_rope(k, positions, inv_freq, msc)
         attn = flash_causal_prefill(q, k, v.contiguous())
-        x = x + proj(attn.reshape(B, S, H * D), lp["wo"])
+        x = x + proj(attn.reshape(B, S, H * D), lp["wo"], "wo")
         h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
         x = x + _mlp(h2, lp["w_gate"], lp["w_up"], lp["w_down"])
         ks.append(k)
@@ -299,7 +391,6 @@ def prefill_chunk(
     stale entries past the causal frontier are masked by position.
     Returns (f32 [1, V] logits at position `length - 1` when want_logits,
     else None; k_slot; v_slot)."""
-    _refuse_unported(lora, lora_idx)
     _check_weights(params)
     B, C = tokens.shape
     H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
@@ -310,25 +401,22 @@ def prefill_chunk(
     offs = torch.arange(C, device=dev)
     positions = (start + offs)[None, :]  # [1, C]
     rows = start.clamp(0, k_slot.shape[1] - C) + offs
+    lora_idx = _lora_rows(lora, lora_idx, B, dev)
     x = params["embed"][tokens]  # [1, C, E]
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
-
-        def proj(h, w, bias=None):
-            out = torch.matmul(h, w)
-            return out if bias is None else out + bias
-
+        proj = _projector(_layer_lora(lora, i), lora_idx)
         h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
-        q = proj(h, lp["wq"], lp.get("bq")).reshape(B, C, H, D)
-        k = proj(h, lp["wk"], lp.get("bk")).reshape(B, C, KVH, D)
-        v = proj(h, lp["wv"], lp.get("bv")).reshape(B, C, KVH, D)
+        q = proj(h, lp["wq"], "wq", lp.get("bq")).reshape(B, C, H, D)
+        k = proj(h, lp["wk"], "wk", lp.get("bk")).reshape(B, C, KVH, D)
+        v = proj(h, lp["wv"], "wv", lp.get("bv")).reshape(B, C, KVH, D)
         q = apply_rope(q, positions, inv_freq, msc)
         k = apply_rope(k, positions, inv_freq, msc)
         kc, vc = k_slot[i], v_slot[i]  # [L, KVH, D]
         kc.index_copy_(0, rows, k[0].to(kc.dtype))
         vc.index_copy_(0, rows, v[0].to(vc.dtype))
         attn = chunked_prefill_attention(q, kc[None], vc[None], start[None])
-        x = x + proj(attn.reshape(B, C, H * D), lp["wo"])
+        x = x + proj(attn.reshape(B, C, H * D), lp["wo"], "wo")
         h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
         x = x + _mlp(h2, lp["w_gate"], lp["w_up"], lp["w_down"])
     if not want_logits:
@@ -339,20 +427,18 @@ def prefill_chunk(
     return _logits(last, params["lm_head"]), k_slot, v_slot
 
 
-def _decode_layer_qkv(x, lp, cfg, inv_freq, msc, pos1):
-    """Decode-layer front half: norm, QKV projection (+bias), rope.
-    Returns (q [B, H, D], k [B, KVH, D], v [B, KVH, D], proj)."""
+def _decode_layer_qkv(x, lp, lor, cfg, inv_freq, msc, pos1, lora_idx):
+    """Decode-layer front half: norm, QKV projection (+bias, +LoRA),
+    rope. One body for both decode layouts, so the projection and LoRA
+    math cannot drift between them. Returns (q [B, H, D], k [B, KVH, D],
+    v [B, KVH, D], proj); proj is reused for the output projection."""
     B = x.shape[0]
     H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
-
-    def proj(h, w, bias=None):
-        out = torch.matmul(h, w)
-        return out if bias is None else out + bias
-
+    proj = _projector(lor, lora_idx)
     h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
-    q = proj(h, lp["wq"], lp.get("bq")).reshape(B, 1, H, D)
-    k = proj(h, lp["wk"], lp.get("bk")).reshape(B, 1, KVH, D)
-    v = proj(h, lp["wv"], lp.get("bv")).reshape(B, 1, KVH, D)
+    q = proj(h, lp["wq"], "wq", lp.get("bq")).reshape(B, 1, H, D)
+    k = proj(h, lp["wk"], "wk", lp.get("bk")).reshape(B, 1, KVH, D)
+    v = proj(h, lp["wv"], "wv", lp.get("bv")).reshape(B, 1, KVH, D)
     q = apply_rope(q, pos1, inv_freq, msc)[:, 0]  # [B, H, D]
     k = apply_rope(k, pos1, inv_freq, msc)[:, 0]  # [B, KVH, D]
     return q, k, v[:, 0], proj
@@ -362,20 +448,20 @@ def _decode_layer_finish(x, attn, lp, proj, cfg):
     """Decode-layer back half: output projection, residual, MLP."""
     B = x.shape[0]
     H, D = cfg.num_heads, cfg.head_size
-    x = x + proj(attn.reshape(B, H * D), lp["wo"])
+    x = x + proj(attn.reshape(B, H * D), lp["wo"], "wo")
     h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
     return x + _mlp(h2, lp["w_gate"], lp["w_up"], lp["w_down"])
 
 
 def _paged_decode_layer(
-    x, lp, kp, vp, cfg, inv_freq, msc, positions, lengths,
-    page_ids, offsets, block_tables,
+    x, lp, lor, kp, vp, cfg, inv_freq, msc, positions, lengths,
+    page_ids, offsets, block_tables, lora_idx,
 ):
     """One decode layer against this layer's page pools: project, rope,
     scatter the new token's K/V through the block tables (in place),
     attend over resident pages, MLP."""
     q, k, v, proj = _decode_layer_qkv(
-        x, lp, cfg, inv_freq, msc, positions[:, None]
+        x, lp, lor, cfg, inv_freq, msc, positions[:, None], lora_idx
     )
     scatter_decode_token(kp, vp, k, v, page_ids, offsets)
     attn = paged_decode_attention(q.contiguous(), kp, vp, block_tables, lengths)
@@ -410,7 +496,6 @@ def decode_step_paged(
 
     The pools are updated in place and returned (the JAX version returns
     new arrays)."""
-    _refuse_unported(lora, lora_idx)
     _check_weights(params)
     attn_kernel = resolve_decode_kernel(attn_kernel)
     if isinstance(k_pages, QuantizedPool) and attn_kernel != "per_layer":
@@ -421,14 +506,16 @@ def decode_step_paged(
     dev = tokens.device
     inv_freq, msc = _rope_tables(cfg, dev)
     page_size = k_pages.shape[2]
+    lora_idx = _lora_rows(lora, lora_idx, tokens.shape[0], dev)
     x = params["embed"][tokens]  # [B, E]
     page_ids, offsets = token_page_coords(block_tables, positions, page_size)
     if attn_kernel == "per_layer":
         lengths = (positions + 1).to(torch.int32)
         for i in range(cfg.num_layers):
             x = _paged_decode_layer(
-                x, _layer(params, i), k_pages[i], v_pages[i], cfg, inv_freq,
-                msc, positions, lengths, page_ids, offsets, block_tables,
+                x, _layer(params, i), _layer_lora(lora, i), k_pages[i],
+                v_pages[i], cfg, inv_freq, msc, positions, lengths, page_ids,
+                offsets, block_tables, lora_idx,
             )
     else:
         pos32 = positions.to(torch.int32)
@@ -436,7 +523,8 @@ def decode_step_paged(
         for i in range(cfg.num_layers):
             lp = _layer(params, i)
             q, k, v, proj = _decode_layer_qkv(
-                x, lp, cfg, inv_freq, msc, positions[:, None]
+                x, lp, _layer_lora(lora, i), cfg, inv_freq, msc,
+                positions[:, None], lora_idx,
             )
             k, v = k.contiguous(), v.contiguous()
             attn = paged_decode_attention_fused(
@@ -464,29 +552,26 @@ def _verify_page_coords(block_tables, positions, K, page_size):
 
 
 def _paged_verify_layer(
-    x, lp, kp, vp, cfg, inv_freq, msc, pos_k, page_ids, offsets,
-    block_tables, positions,
+    x, lp, lor, kp, vp, cfg, inv_freq, msc, pos_k, page_ids, offsets,
+    block_tables, positions, lora_idx,
 ):
     """One verify layer over a [B, K, E] window against this layer's page
-    pools: project, rope, write the window's K/V through the block tables
-    (in place), attend through paged_verify_attention, MLP."""
+    pools: project (+LoRA), rope, write the window's K/V through the
+    block tables (in place), attend through paged_verify_attention,
+    MLP."""
     B, K, _ = x.shape
     H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
-
-    def proj(h, w, bias=None):
-        out = torch.matmul(h, w)
-        return out if bias is None else out + bias
-
+    proj = _projector(lor, lora_idx)
     h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
-    q = proj(h, lp["wq"], lp.get("bq")).reshape(B, K, H, D)
-    k = proj(h, lp["wk"], lp.get("bk")).reshape(B, K, KVH, D)
-    v = proj(h, lp["wv"], lp.get("bv")).reshape(B, K, KVH, D)
+    q = proj(h, lp["wq"], "wq", lp.get("bq")).reshape(B, K, H, D)
+    k = proj(h, lp["wk"], "wk", lp.get("bk")).reshape(B, K, KVH, D)
+    v = proj(h, lp["wv"], "wv", lp.get("bv")).reshape(B, K, KVH, D)
     q = apply_rope(q, pos_k, inv_freq, msc)
     k = apply_rope(k, pos_k, inv_freq, msc)
     kp[page_ids, offsets] = k.to(kp.dtype)
     vp[page_ids, offsets] = v.to(vp.dtype)
     attn = paged_verify_attention(q.contiguous(), kp, vp, block_tables, positions)
-    x = x + proj(attn.reshape(B, K, H * D), lp["wo"])
+    x = x + proj(attn.reshape(B, K, H * D), lp["wo"], "wo")
     h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
     return x + _mlp(h2, lp["w_gate"], lp["w_up"], lp["w_down"])
 
@@ -509,7 +594,6 @@ def decode_verify_paged(
     window position, [B, K, V], so the engine can accept the longest
     matching proposal prefix. The pools are updated in place and
     returned."""
-    _refuse_unported(lora, lora_idx)
     _check_weights(params)
     B, K = tokens.shape
     dev = tokens.device
@@ -519,10 +603,12 @@ def decode_verify_paged(
     x = params["embed"][tokens]  # [B, K, E]
     page_ids, offsets = _verify_page_coords(block_tables, positions, K, page_size)
     pos32 = positions.to(torch.int32)
+    lora_idx = _lora_rows(lora, lora_idx, B, dev)
     for i in range(cfg.num_layers):
         x = _paged_verify_layer(
-            x, _layer(params, i), k_pages[i], v_pages[i], cfg, inv_freq, msc,
-            pos_k, page_ids, offsets, block_tables, pos32,
+            x, _layer(params, i), _layer_lora(lora, i), k_pages[i],
+            v_pages[i], cfg, inv_freq, msc, pos_k, page_ids, offsets,
+            block_tables, pos32, lora_idx,
         )
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     logits = _logits(x.reshape(B * K, -1), params["lm_head"])

@@ -7,6 +7,10 @@ layer dict, optional q/k/v biases, and a tied `lm_head` when the tree
 shares one array with `embed` (or has no `lm_head`). The tests use it so
 that both packages compute with the same weights. bf16 arrays (numpy's
 ml_dtypes bfloat16) are taken bit for bit.
+
+`lora_from_numpy` does the same for the JAX `llama.init_lora_buffers`
+tree: adapter-major [n, NL, ...] buffers become the port's layer-major
+[NL, n, ...] ones.
 """
 
 from __future__ import annotations
@@ -44,3 +48,20 @@ def params_from_numpy(
     else:
         out["lm_head"] = _tensor(head, device, dtype)
     return out
+
+
+def lora_from_numpy(
+    tree: dict,
+    device: str | torch.device = "cpu",
+    dtype: torch.dtype | None = None,
+) -> dict:
+    """numpy LoRA buffers {target: {"A": [n, NL, in, r], "B": [n, NL, r,
+    out]}} -> the port's {target: {"A": [NL, n, in, r], "B": [NL, n, r,
+    out]}} on `device`, contiguous, cast to `dtype` when given."""
+    return {
+        target: {
+            name: _tensor(np.moveaxis(np.asarray(buf), 1, 0), device, dtype).contiguous()
+            for name, buf in ab.items()
+        }
+        for target, ab in tree.items()
+    }

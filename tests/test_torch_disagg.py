@@ -484,11 +484,20 @@ def test_import_refusals_match_jax(models, port_engines, jax_side):
         messages.append(str(got.value))
     assert "casting would break token-identity" in messages[0]
     assert "does not match this model" in messages[1] and ">= max_seq_len" in messages[2]
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 8"):
+    # An adapter's handoff into an engine that has not loaded it, and an
+    # adapter export with LoRA off: the JAX engine's types and messages.
+    # (Adapter handoffs that cross are tests/test_torch_lora.py's.)
+    with pytest.raises(KeyError) as got:
         eng.import_handoff(dataclasses.replace(
             handoff.deserialize(jhandoff.serialize(jh)), adapter="tenant-a"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 8"):
+    with pytest.raises(KeyError) as want:
+        jeng.import_handoff(dataclasses.replace(jh, adapter="tenant-a"))
+    assert str(got.value) == str(want.value) == "\"adapter 'tenant-a' not loaded here\""
+    with pytest.raises(ValueError) as got:
         eng.export_handoff([1, 2], adapter="tenant-a")
+    with pytest.raises(ValueError) as want:
+        jeng.export_handoff([1, 2], adapter="tenant-a")
+    assert str(got.value) == str(want.value) == "LoRA is disabled (max_adapters=0)"
     assert eng.num_active == 0 and not eng.has_work()
 
 

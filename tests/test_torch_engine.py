@@ -112,9 +112,8 @@ def test_stop_token_and_length_finish(models):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(quantization="int8"), "A12"),
-    (dict(max_adapters=2), "A11"),
     (dict(cache_mode="slot"), "A13"),
-])
+], ids=["kw0-A12", "kw2-A13"])  # the ids they had beside the LoRA case
 def test_unported_settings_raise(models, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         _torch_engine(models, **kw)

@@ -143,8 +143,13 @@ def test_from_hf_dict_and_unported_options():
             assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
     _, _, tcfg, tp = _models("llama")
     toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        tl.prefill(tp, tcfg, toks, torch.tensor([4]), lora={})
+    # All-zero adapter buffers (row 0, "no adapter") leave the forward as
+    # it is without them.
+    lora = tl.init_lora_buffers(tcfg, 2, 4, device="cpu")
+    with_lora = tl.prefill(tp, tcfg, toks, torch.tensor([4]), lora=lora,
+                           lora_idx=torch.tensor([1]))
+    for got, want in zip(with_lora, tl.prefill(tp, tcfg, toks, torch.tensor([4]))):
+        assert torch.equal(got, want)
     with pytest.raises(NotImplementedError, match="A14"):
         tl.prefill(tp, tcfg, toks, torch.tensor([4]), mesh=object())
 

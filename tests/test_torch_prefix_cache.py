@@ -12,7 +12,7 @@ tests/unit/test_prefix_cache.py. The JAX engine runs it once per module
 (one engine per scenario, step_overlap off); the port runs it with
 overlap on and off, and each call's greedy or seeded streams and the
 engine's `prefix_stats` must equal the JAX engine's. The JAX file's
-adapter-generation case is left out: LoRA is not ported (ROADMAP A11).
+adapter-generation case is tests/test_torch_lora.py's.
 """
 
 import dataclasses

@@ -72,9 +72,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 UNPORTED_SERIES = {
     "kubeai_objstore_retries_total",
 }
-# /v1/state keys of features the port does not serve yet: the adapters
-# (ROADMAP A item 8).
-UNPORTED_STATE_KEYS = {"adapters"}
+# /v1/state keys of features the port does not serve yet: none since the
+# adapters (ROADMAP A item 8) were ported.
+UNPORTED_STATE_KEYS: set[str] = set()
 # Exposition samples whose values count requests and tokens: equal on
 # both servers after the same requests.
 COUNT_SAMPLES = (
@@ -404,7 +404,7 @@ def test_state_matches_jax(served):
     for key in ("kv_cache", "prefix_stats", "spec_stats", "cold_start", "model",
                 "healthy", "draining", "slots_active", "requests_pending",
                 "kv_utilization", "role", "pending_handoffs", "kv_sharing",
-                "kv_share"):
+                "kv_share", "adapters"):
         assert tstate[key] == jstate[key], key
     assert tstate["prefix_stats"]["hit_tokens"] > 0
     assert set(tstate["scheduler"]) == set(jstate["scheduler"])
@@ -704,7 +704,6 @@ def test_main_serves_a_checkpoint_and_drains_on_sigterm(checkpoints, tmp_path, c
     (["--snapshot-url", "file:///snapshots"], 9),
     (["--snapshot-dir", "/snapshots"], 9),
     (["--snapshot-no-publish"], 9),
-    (["--max-adapters", "4"], 8),
 ], ids=lambda v: v if isinstance(v, int) else "_".join(v).lstrip("-"))
 def test_main_refuses_unported_flags(checkpoints, argv, item):
     model_dir, _ = checkpoints["llama-safetensors"]
