@@ -25,7 +25,14 @@ Phases, each fatal on failure:
                B1-int8 also: group sizes 1, 2, 7 and 8 at D 128 and 64,
                the split and combine kernels' times (torch.profiler) and a
                cold-L2 time (calls rotating over copies of the pools)
-               beside the warm one;
+               beside the warm one. B1 and B4 at head_dim 256 (Gemma),
+               entries of their own in the kernels line: at Gemma-2-9B's
+               shape (B=8, H=16, KVH=8, lengths to 8192), plain and with
+               window 4096 + softcap 50, timed beside SDPA; the same bits
+               from two calls and a graph replay; B1's split edges and
+               slots past the table, B4's split edges; G 2 and 8 with
+               plain, softcap 50, window 100, window 4096 and softcap +
+               window;
   3. model   — a small model (head_dim 128) on the card through the kernels
                against the same weights in f32 on the CPU through the plain
                versions: prefill, paged-decode (both layouts) and
@@ -117,6 +124,17 @@ Phases, each fatal on failure:
                and graph pool unchanged. It profiles the LoRA decode
                step, verify window and prefill against the bf16 ones and
                prints the adapter buffers' MiB;
+  4b. serve_gemma — Gemma-2 on random Gemma-2-9B-shape weights, all 42
+               layers (head_dim 256, window 4096 on alternate layers,
+               softcaps 50 and 30), num_slots=8, max_seq_len=8192: four
+               chat requests of 28-4,200 prompt tokens (one seeded, one
+               streamed; the longest passes the window) served per_layer
+               (B1 at head_dim 256 must launch), fused (B4) and with
+               prefill_chunk=512 and the prefix cache over two waves (hits
+               by the cache rule); B2 must not launch (Gemma-2's prefill is
+               the plain attention). Every stream must equal an eager
+               synchronous engine's; the decode step is profiled from its
+               graph in both layouts;
   5. serve_cli — the engine Pod's entry point: a random-weight Llama
                checkpoint at Llama-3-8B width (4 layers, bf16) written with
                `weights.save_safetensors`, served by `python -m
@@ -142,7 +160,11 @@ Phases, each fatal on failure:
                rate, the cold-start phases and TTFT. Then a `--role
                prefill` and a `--role decode` process side by side: one
                greedy body through the two hops must give the decode
-               process's direct text.
+               process's direct text. Then a 2-layer Gemma-2 checkpoint at
+               Gemma-2-9B width, served by the CLI once with its defaults:
+               /v1/load_lora_adapter must answer 400 (ROADMAP fault C10),
+               the loaded tensors must be the ones written and the greedy
+               streams an in-process engine's.
 
 The last lines are the kernel JSON line, the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -216,6 +238,16 @@ KERNELS = {
     "paged_decode_attention_int8": (
         "kubeai_tpu_torch/csrc/paged_decode.cu",
         "kubeai_tpu/ops/paged_attention.py:309",
+    ),
+    # The head_dim-256 builds of B1 and B4 (Gemma), which serve_gemma
+    # drives: entries of their own in the kernels line.
+    "paged_decode_attention_d256": (
+        "kubeai_tpu_torch/csrc/paged_decode.cu",
+        "kubeai_tpu/ops/paged_attention.py:309",
+    ),
+    "paged_decode_attention_fused_d256": (
+        "kubeai_tpu_torch/csrc/paged_decode_fused.cu",
+        "kubeai_tpu/ops/paged_attention.py:837",
     ),
 }
 
@@ -568,7 +600,10 @@ def _time_decode(args, kw: dict, library: bool) -> dict:
             kp, vp = kp[idx], vp[idx]
         kd = kp.reshape(B, L, KVH, D).transpose(1, 2).contiguous()
         vd = vp.reshape(B, L, KVH, D).transpose(1, 2).contiguous()
-        mask = (torch.arange(L, device="cuda")[None, :] < lengths[:, None].long())[:, None, None, :]
+        col, n = torch.arange(L, device="cuda")[None, :], lengths[:, None].long()
+        # The window masks as B1 does; SDPA has no softcap, so with one
+        # its yardstick skips the tanh.
+        mask = ((col < n) & ((col >= n - win) if win else True))[:, None, None, :]
         q4 = q[:, :, None, :]
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q4, kd, vd, attn_mask=mask, enable_gqa=True)
@@ -588,8 +623,10 @@ def check_decode_split_edges(q, kp, vp, gen) -> None:
     from kubeai_tpu_torch.ops.paged_attention import fused_split, int8_split
 
     B, page, mp = q.shape[0], kp.shape[1], 32
-    split = int8_split if isinstance(kp, QuantizedPool) else fused_split
-    _, per = split(B, kp.shape[2], mp, page)
+    if isinstance(kp, QuantizedPool):
+        _, per = int8_split(B, kp.shape[2], mp, page)
+    else:
+        _, per = fused_split(B, kp.shape[2], mp, page, kp.shape[3])
     edge = per * page  # tokens in a split
     lengths = torch.tensor([edge, edge - 1, edge + 1, 1, 0, 2 * edge,
                             2 * edge - 1, 2 * edge + 1][:B])
@@ -1153,8 +1190,11 @@ def _time_fused(args, kw: dict, library: bool) -> dict:
         kd = torch.cat([kp[layer][idx].reshape(B, L, KVH, D), kn[:, None]], 1)
         vd = torch.cat([vp[layer][idx].reshape(B, L, KVH, D), vn[:, None]], 1)
         kd, vd = (x.transpose(1, 2).contiguous() for x in (kd, vd))
-        col = torch.arange(L + 1, device="cuda")
-        mask = ((col[None, :] < pos.long()[:, None]) | (col[None, :] == L))[:, None, None, :]
+        col = torch.arange(L + 1, device="cuda")[None, :]
+        old = col < pos.long()[:, None]
+        if kw.get("window"):  # B4's window, the new column always kept
+            old = old & (col >= pos.long()[:, None] + 1 - kw["window"])
+        mask = (old | (col == L))[:, None, None, :]
         q4 = q[:, :, None, :]
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q4, kd, vd, attn_mask=mask, enable_gqa=True)
@@ -1193,7 +1233,7 @@ def check_fused_split_edges(q, kp, vp, kn, vn, layer: int, gen) -> None:
     from kubeai_tpu_torch.ops.paged_attention import fused_split
 
     B, page, mp = q.shape[0], kp.shape[2], 32
-    _, per = fused_split(B, kp.shape[3], mp, page)
+    _, per = fused_split(B, kp.shape[3], mp, page, kp.shape[4])
     edge = per * page  # tokens in a split
     positions = torch.tensor([edge, edge - 1, edge + 1, 1, 0, 2 * edge,
                               2 * edge - 1, 2 * edge + 1][:B])
@@ -1295,6 +1335,161 @@ def check_head_dim_64() -> None:
           f"B2: S=200, 512): max |err| {['%.3e' % e for e in errs]}", flush=True)
 
 
+def check_head_dim_256() -> dict:
+    """B1 and B4 at head_dim 256 (Gemma), which no Llama shape runs: at
+    Gemma-2-9B's shape (B=8, H=16, KVH=8, page 64, ragged lengths up to
+    8192, slot 0 the whole table, slot 1 one token) plain and with
+    Gemma-2's window 4096 and softcap 50, timed as the 128 cases are, SDPA
+    beside them on the same keys (with the window's mask); two calls and a
+    CUDA-graph replay that must give the same bits; B1's split edges and
+    slots past the table and B4's split edges on the same pools; then
+    `check_head_dim_256_groups`. Returns the two plain cases' lines for
+    the kernels line, keyed by KERNELS' head_dim-256 names."""
+    import torch
+
+    from kubeai_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_fused,
+    )
+
+    gen = torch.Generator().manual_seed(21)
+    q, kp, vp, bt, lengths = _paged_inputs(gen, B=8, H=16, KVH=8, D=256, page=64,
+                                           max_len=8192)
+    B, H, D = q.shape
+    measured = {}
+    for cap, win in ((None, None), (50.0, 4096)):
+        kw = dict(logit_softcap=cap, window=win)
+        _, err = _check_decode_case(f"D=256 softcap={cap} window={win}",
+                                    (q, kp, vp, bt, lengths), kw)
+        line = _time_decode((q, kp, vp, bt, lengths), kw, library=True)
+        line["max_abs_err"] = err
+        measured.setdefault("paged_decode_attention_d256", dict(line))
+        print("kernel paged_decode_attention B=%d H=%d KVH=8 D=%d page=64 max_len=%d %s" % (
+            B, H, D, int(lengths.max()), json.dumps(line)), flush=True)
+    args = (q, kp, vp, bt, lengths)
+    _same_bits("paged_decode D=256", lambda: paged_decode_attention(
+        *args, logit_softcap=50.0, window=4096))
+    report_d256_split_caps(q, kp, vp, bt, lengths, gen)
+    check_decode_split_edges(q, kp, vp, gen)
+    check_decode_past_table(q, kp, vp, gen)
+
+    # B4 on a 2-layer stacked pool (layer 1) of the same keys: old lengths
+    # are B1's lengths less the new token.
+    kp2, vp2 = torch.stack([vp, kp]), torch.stack([kp, vp])
+    del kp, vp
+    cg = torch.Generator("cuda").manual_seed(22)
+    kn, vn = (torch.randn(B, 8, D, generator=cg, device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    pos = (lengths - 1).to(torch.int32)
+    args = (q, kp2, vp2, kn, vn, bt, pos, 1)
+    for cap, win in ((None, None), (50.0, 4096)):
+        kw = dict(logit_softcap=cap, window=win)
+        _, err = _check_fused_case(f"D=256 softcap={cap} window={win}", args, kw)
+        line = _time_fused(args, kw, library=True)
+        line["max_abs_err"] = err
+        measured.setdefault("paged_decode_attention_fused_d256", dict(line))
+        print("kernel paged_decode_attention_fused NL=2 layer=1 B=%d H=%d KVH=8 D=%d "
+              "page=64 positions<=%d %s" % (B, H, D, int(pos.max()), json.dumps(line)),
+              flush=True)
+    _same_bits("paged_fused D=256", lambda: paged_decode_attention_fused(
+        *args, logit_softcap=50.0, window=4096))
+    check_fused_split_edges(q, kp2, vp2, kn, vn, 1, gen)
+    del kp2, vp2, args
+    torch.cuda.empty_cache()
+    check_head_dim_256_groups()
+    return measured
+
+
+def report_d256_split_caps(q, kp, vp, bt, lengths, gen) -> None:
+    """B1 at head_dim 256 from a CUDA graph with its splits capped at 256,
+    512 and 1,024 tokens (`paged_attention._D256_MAX_SPLIT_TOKENS`), plain
+    and with window 4096 + softcap 50, on the kernel phase's slots (8,
+    ragged up to 8192) and on the served Gemma-2-9B run's contexts (60,
+    349, 1,132 and 4,232 tokens and four 1-token slots, in the same
+    128-page table): the measurement the cap (512) was chosen from.
+    Prints one line a shape."""
+    import torch
+
+    from kubeai_tpu_torch.ops import paged_attention as pa
+
+    served = torch.tensor([60, 349, 1132, 4232, 1, 1, 1, 1])
+    shapes = {"kernel phase": (bt, lengths),
+              "served": (_table(served.tolist(), 64, bt.shape[1], gen).to("cuda"),
+                         served.to("cuda", torch.int32))}
+    kept = pa._D256_MAX_SPLIT_TOKENS
+    try:
+        for label, (table, n) in shapes.items():
+            times = {}
+            for cap in (256, 512, 1024):
+                pa._D256_MAX_SPLIT_TOKENS = cap
+                for softcap, win in ((None, None), (50.0, 4096)):
+                    times[f"cap {cap} softcap={softcap} window={win}"] = graph_ms(
+                        lambda: pa.paged_decode_attention(q, kp, vp, table, n,
+                                                          logit_softcap=softcap, window=win))
+            print(f"paged_decode D=256 split caps, {label} (lengths {n.tolist()}): ms "
+                  f"{json.dumps(times)}", flush=True)
+    finally:
+        pa._D256_MAX_SPLIT_TOKENS = kept
+
+
+def _same_bits(name: str, call) -> None:
+    """Two eager calls, and one call captured in a CUDA graph and
+    replayed, give the same bits."""
+    import torch
+
+    first = call()
+    if not torch.equal(first, call()):
+        fail(f"{name}: two calls on the same inputs differ")
+    graph, captured = capture(call)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(captured, first):
+        fail(f"{name}: the CUDA-graph replay differs from the eager call")
+    print(f"{name}: two eager calls bit-identical; CUDA-graph replay equals the eager "
+          "call", flush=True)
+
+
+def check_head_dim_256_groups() -> None:
+    """B1 and B4 at head_dim 256 for both group builds: G = 2
+    (Gemma-2-9B: 16 q heads over 8 kv heads, MG 4) and G = 8 (Gemma-2B: 8
+    over 1, MG 8), at B=4 with lengths up to 4608, plain, softcap 50,
+    window 100, window 4096, and softcap 50 + window 4096. No timing."""
+    import torch
+
+    from kubeai_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_fused,
+        ref_paged_decode_attention,
+    )
+
+    B, D, page, max_len = 4, 256, 64, 4608
+    mp = max_len // page
+    gen = torch.Generator().manual_seed(23)
+    lengths = torch.tensor([max_len, 1, 4100, 777])
+    bt = _table(lengths.tolist(), page, mp, gen).to("cuda")
+    n = lengths.to("cuda", torch.int32)
+    cg = torch.Generator("cuda").manual_seed(24)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=cg, device="cuda").to(torch.bfloat16)
+
+    errs = []
+    for H, KVH in ((16, 8), (8, 1)):
+        kp, vp = rnd(2, 1 + B * mp, page, KVH, D), rnd(2, 1 + B * mp, page, KVH, D)
+        q, kn, vn = rnd(B, H, D), rnd(B, KVH, D), rnd(B, KVH, D)
+        for cap, win in ((None, None), (50.0, None), (None, 100), (None, 4096),
+                         (50.0, 4096)):
+            kw = dict(logit_softcap=cap, window=win)
+            tag = f"D=256 G={H // KVH} softcap={cap} window={win}"
+            got = paged_decode_attention(q, kp[0], vp[0], bt, n, **kw)
+            errs.append(compare(f"paged_decode {tag}", got, ref_paged_decode_attention(
+                q, kp[0], vp[0], bt, n, **kw), PAGED_ATOL, PAGED_RTOL))
+            errs.append(_check_fused_case(tag, (q, kp, vp, kn, vn, bt, n - 1, 1), kw)[1])
+    print(f"kernels at head_dim 256 (B1, B4; G 2, 8 x plain, softcap 50, window 100, "
+          f"window 4096, softcap 50 + window 4096): max |err| "
+          f"{['%.3e' % e for e in errs]}", flush=True)
+
+
 def phase_kernels() -> dict:
     measured = {
         "paged_decode_attention": check_paged_decode(),
@@ -1304,6 +1499,7 @@ def phase_kernels() -> dict:
         "paged_decode_attention_int8": check_paged_decode(int8=True),
     }
     check_head_dim_64()
+    measured.update(check_head_dim_256())
     return measured
 
 
@@ -1488,13 +1684,15 @@ def _default_bodies() -> list[list[dict]]:
     ]]
 
 
-def serve_run(params, cfg, label: str, waves=None, adapters=None, **extra) -> dict:
+def serve_run(params, cfg, label: str, waves=None, adapters=None, family: str = "llama",
+              config: dict = SERVE_CONFIG, **extra) -> dict:
     """One EngineServer run over `params` with the engine's defaults (graphs
     and overlap): a warm-up request, then each wave of chat completions
     (default: `_default_bodies`) sent concurrently, a wave only after the
     one before it has finished, with every kernel's launch count and every
     device program's replay count set to 0 just before the first wave and
-    read just after the last. `extra` adds to the smoke EngineConfig;
+    read just after the last. `family` names the model family and
+    `config` the EngineConfig (default: the 8B smoke's), which `extra` adds to;
     `adapters` ({name: LoRA weight tree}) are loaded, in order, after the
     engine captured its programs, and a body names one in its `model`.
     Returns the launches (eager calls plus launches per replay x
@@ -1509,7 +1707,7 @@ def serve_run(params, cfg, label: str, waves=None, adapters=None, **extra) -> di
 
     tok = ByteTokenizer()
     t0 = time.perf_counter()
-    engine = Engine("llama", cfg, params, cfg=EngineConfig(**SERVE_CONFIG, **extra),
+    engine = Engine(family, cfg, params, cfg=EngineConfig(**config, **extra),
                     eos_token_ids=tok.eos_token_ids)
     if not engine._overlap:
         fail(f"serve {label}: the default engine does not overlap its steps")
@@ -1563,7 +1761,7 @@ def serve_run(params, cfg, label: str, waves=None, adapters=None, **extra) -> di
             return fn()
         setattr(engine, attr, counted)
     wrappers = _wrappers()
-    server = EngineServer(engine, tok, "llama-3-8b-shape", port=0)
+    server = EngineServer(engine, tok, f"{family}-smoke", port=0)
     server.start()
     try:
         status, _, _, _ = _post(server.port, {
@@ -1667,7 +1865,7 @@ def serve_run(params, cfg, label: str, waves=None, adapters=None, **extra) -> di
             "engine": engine, "bodies": bodies, "rid_of": rid_of, "ttft": ttft,
             "waves": wave_rids, "stage_calls": dict(stage_calls),
             "dispatches": dispatches, "adapters": dict(adapter_of),
-            "adapter_weights": adapters}
+            "adapter_weights": adapters, "family": family, "config": config}
 
 
 def check_streams_equal_eager(params, cfg, label: str, run: dict, adapters=None, **extra):
@@ -1683,8 +1881,8 @@ def check_streams_equal_eager(params, cfg, label: str, run: dict, adapters=None,
     class EagerEngine(Engine):
         _capture_graphs = False
 
-    ref = EagerEngine("llama", cfg, params, cfg=EngineConfig(
-        **SERVE_CONFIG, step_overlap="off", **extra),
+    ref = EagerEngine(run.get("family", "llama"), cfg, params, cfg=EngineConfig(
+        **run.get("config", SERVE_CONFIG), step_overlap="off", **extra),
         eos_token_ids=run["engine"].eos_token_ids)
     if ref._overlap or ref._decode_program.graph is not None:
         fail(f"serve {label}: the reference engine is not eager and synchronous")
@@ -3510,6 +3708,164 @@ def profile_prefill(params, cfg) -> None:
               f"{b2_us / max(total, 1):.3f} of its device time", flush=True)
 
 
+# ---- serve_gemma: Gemma-2-9B shapes at full depth ----------------------------------
+
+# HF google/gemma-2-9b config.json, all 42 layers: head_dim 256, a sliding
+# window of 4096 on the even layers, attention softcap 50, final softcap 30.
+GEMMA_9B = dict(
+    vocab_size=256000, hidden_size=3584, intermediate_size=14336, num_layers=42,
+    num_heads=16, num_kv_heads=8, head_dim=256, rope_theta=10000.0, rms_norm_eps=1e-6,
+    max_position_embeddings=8192, sandwich_norms=True, final_logit_softcapping=30.0,
+    attn_logit_softcapping=50.0, query_pre_attn_scalar=256, sliding_window=4096,
+)
+# 384 pages of 64 tokens (344 KB of K/V a token: 8.5 GB a pool pair) hold
+# both prefix waves' pages with room; a slot's 8,192 tokens take 128.
+GEMMA_SERVE_CONFIG = dict(num_slots=8, max_seq_len=8192, page_size=64, decode_chunk=8,
+                          num_pages=1 + 3 * 128)
+
+
+def _gemma_bodies(again: bool = False) -> list[dict]:
+    """Four chat completions of about 28, 317, 1,100 and 4,200 prompt
+    tokens, 32 completion tokens each: the second seeded, the last
+    streamed. The 4,200-token context passes Gemma-2's window of 4,096,
+    so the window masks keys in served decode. Each prompt is alone in its
+    prefill bucket (32, 512, 2048, 8192), so the served and the eager
+    engine admit them alike. With `again`, each content gains a short
+    tail: a second wave whose prompts share their first pages with the
+    first wave's (prefix hits) and whose lengths differ from them."""
+    text = "The quick brown fox jumps over the lazy dog. "
+    contents = ["Hello there", (text * 7)[:300], (text * 25)[:1083], (text * 93)[:4183]]
+    bodies = []
+    for j, content in enumerate(contents):
+        body = {"messages": [{"role": "user", "content": content + (f" Again {j}." if again
+                                                                     else "")}],
+                "max_tokens": 32, "temperature": 0}
+        if j == 1:
+            body.update(temperature=0.8, seed=3 if again else 2)
+        if j == 3:
+            body["stream"] = True
+        bodies.append(body)
+    return bodies
+
+
+def gemma_weights():
+    """(random Gemma-2-9B-shape weights on cuda, all 42 layers, made from a
+    seed; the config), after one prefill's shapes and finite logits are
+    checked."""
+    import torch
+
+    from kubeai_tpu_torch.models import gemma
+
+    cfg = gemma.GemmaConfig(**GEMMA_9B)
+    t0 = time.perf_counter()
+    params = gemma.init_params(cfg, torch.Generator("cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    n_bytes = sum(t.nbytes for t in [params["embed"], params["final_norm"],
+                                     *params["layers"].values()])
+    print(f"serve_gemma: random Gemma-2-9B-shape weights on cuda, {n_bytes / 1e9:.3f} GB "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    with torch.no_grad():
+        toks = torch.randint(0, cfg.vocab_size, (1, 64), device="cuda")
+        logits, k_all, _ = gemma.prefill(params, cfg, toks, torch.tensor([64], device="cuda"))
+    want_k = (cfg.num_layers, 1, 64, cfg.num_kv_heads, cfg.head_size)
+    if tuple(logits.shape) != (1, cfg.vocab_size) or tuple(k_all.shape) != want_k:
+        fail(f"Gemma-2-9B prefill shapes {tuple(logits.shape)} {tuple(k_all.shape)}")
+    if not torch.isfinite(logits).all():
+        fail("Gemma-2-9B prefill logits are not finite")
+    if float(logits.abs().max()) > cfg.final_logit_softcapping:
+        fail("Gemma-2-9B logits pass the final softcap")
+    del logits, k_all
+    return params, cfg
+
+
+def _gemma_gates(label: str, run: dict, decode: str) -> None:
+    """What every gemma serve run must show: its decode kernel launched,
+    the other decode kernels and B2 not at all (Gemma-2's prefill is the
+    plain attention, as in the JAX package), and a served context past the
+    window."""
+    launched = run["launches"]
+    if launched[decode] <= 0:
+        fail(f"serve {label}: main path never launched {decode}")
+    for name in ("paged_decode_attention", "paged_decode_attention_fused",
+                 "paged_verify_attention", "paged_decode_attention_int8",
+                 "flash_causal_prefill"):
+        if name != decode and launched[name]:
+            fail(f"serve {label}: {name} launched {launched[name]} times")
+    longest = max(len(p) for p, *_ in run["requests"].values())
+    if longest <= GEMMA_9B["sliding_window"]:
+        fail(f"serve {label}: no served context passes the window ({longest} tokens)")
+    print(f"serve {label}: the longest served context ({longest} prompt tokens) passes "
+          f"the window of {GEMMA_9B['sliding_window']}", flush=True)
+
+
+def serve_gemma() -> dict:
+    """Phase 4b: Gemma-2 served on random Gemma-2-9B-shape weights at full
+    depth (`gemma_weights`), with GEMMA_SERVE_CONFIG, graphs and overlap:
+    the four `_gemma_bodies` per_layer (B1 at head_dim 256 with softcap 50
+    and the window of 4,096 on alternate layers), fused (B4 at head_dim
+    256), and with `prefill_chunk=512, prefix_cache=True` (per_layer) over
+    two waves whose second hits the first's pages. Gates: `_gemma_gates`,
+    every stream equal to an eager synchronous engine's, the staged-chunk
+    programs dispatched only as graph replays, hit tokens by the cache
+    rule and equal to the eager engine's. Profiles the decode step from
+    its graph in both layouts. Returns the head_dim-256 kernels' launches
+    on the main path (the per_layer and the fused run)."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    params, cfg = gemma_weights()
+    run_kw = dict(family="gemma", config=GEMMA_SERVE_CONFIG)
+    launches = {}
+    for label, layout, decode, key in (
+            ("gemma per_layer", "per_layer", "paged_decode_attention",
+             "paged_decode_attention_d256"),
+            ("gemma fused", "fused", "paged_decode_attention_fused",
+             "paged_decode_attention_fused_d256")):
+        run = serve_run(params, cfg, label, waves=[_gemma_bodies()], decode_kernel=layout,
+                        **run_kw)
+        _gemma_gates(label, run, decode)
+        launches[key] = run["launches"][decode]
+        check_streams_equal_eager(params, cfg, label, run, decode_kernel=layout)
+        profile_program(run["engine"], f"{label} decode step", "decode chunk")
+        free(run)
+
+    label = "gemma prefix"
+    extra = dict(decode_kernel="per_layer", prefill_chunk=PREFIX_CHUNK, prefix_cache=True)
+    run = serve_run(params, cfg, label, waves=[_gemma_bodies(), _gemma_bodies(again=True)],
+                    **run_kw, **extra)
+    _gemma_gates(label, run, "paged_decode_attention")
+    if run["stage_calls"]:
+        fail(f"serve {label}: staged-chunk functions ran outside their graphs: "
+             f"{run['stage_calls']}")
+    for name in ("mid chunk", "final chunk", "prefix gather"):
+        if run["dispatches"].get(name, 0) <= 0:
+            fail(f"serve {label}: the {name} program was never dispatched")
+    order = sorted(run["requests"])
+    per = expected_hits([run["requests"][rid][0] for rid in order],
+                        GEMMA_SERVE_CONFIG["page_size"], PREFIX_CHUNK,
+                        GEMMA_SERVE_CONFIG["max_seq_len"])
+    stats = dict(run["engine"].prefix_stats)
+    wave2 = sum(dict(zip(order, per))[rid] for rid in run["waves"][1])
+    print(f"serve {label} prefix_stats {json.dumps(stats)}; the cache rule gives "
+          f"{sum(per)} hit tokens ({wave2} in wave 2)", flush=True)
+    if wave2 <= GEMMA_9B["sliding_window"] or stats["hit_tokens"] < sum(per):
+        fail(f"serve {label}: {stats['hit_tokens']} hit tokens, the rule gives {sum(per)} "
+             f"({wave2} in wave 2)")
+    ref = check_streams_equal_eager(params, cfg, label, run, **extra)
+    if ref.prefix_stats["hit_tokens"] != stats["hit_tokens"]:
+        fail(f"serve {label}: eager engine hit {ref.prefix_stats['hit_tokens']} tokens, "
+             f"the served engine {stats['hit_tokens']}")
+    del ref
+    free(run)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serve_gemma took {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return launches
+
+
 # ---- phase 5: the engine Pod's entry point -------------------------------------
 
 # A Llama-3-8B-width checkpoint (bench.py:59-74) cut to CLI_LAYERS layers:
@@ -3579,16 +3935,18 @@ def cli_tensors() -> dict:
     return out
 
 
-def check_loaded_bits(params: dict, tensors: dict) -> int:
+def check_loaded_bits(params: dict, tensors: dict, leaves=CLI_LEAVES,
+                      layer_leaves=CLI_LAYER_LEAVES, num_layers: int = CLI_LAYERS) -> int:
     """Fails unless every leaf `load_params` put on the card is bit-equal
     to the tensor written (transposed where the port's layout is
-    [in, out]). Returns the leaves checked."""
+    [in, out]); the leaves default to the llama checkpoint's. Returns the
+    leaves checked."""
     import torch
 
-    pairs = [(params[leaf], name, t) for leaf, name, t in CLI_LEAVES]
-    for i in range(CLI_LAYERS):
+    pairs = [(params[leaf], name, t) for leaf, name, t in leaves]
+    for i in range(num_layers):
         pairs += [(params["layers"][leaf][i], f"model.layers.{i}.{name}", t)
-                  for leaf, name, t in CLI_LAYER_LEAVES]
+                  for leaf, name, t in layer_leaves]
     for got, name, transposed in pairs:
         want = tensors[name].to(got.device)
         want = want.T if transposed else want
@@ -3912,6 +4270,62 @@ def cli_admin_round(port: int, dirs: dict, served: str = "model") -> None:
           f"{other[1]['status']!r}; unknown model 404; unloads {unloads}", flush=True)
 
 
+def check_cli_run(label: str, run: dict, engine) -> None:
+    """A `cli_run`'s gates against `engine`, built in-process on the card
+    with the run's configuration from the same checkpoint: the same token
+    capacity, each greedy stream served over HTTP equal to the engine's
+    (the streamed one by its token ids too), and on /metrics the requests
+    sent, a TTFT count of as many and the generated tokens the responses
+    report."""
+    from kubeai_tpu_torch.engine import SamplingParams
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    bodies = run["bodies"]
+    capacity = engine.kv_cache_info()["token_capacity"]
+    if capacity != run["state"]["kv_cache"]["token_capacity"]:
+        fail(f"serve_cli {label}: token capacity "
+             f"{run['state']['kv_cache']['token_capacity']} on the CLI, {capacity} "
+             "in-process")
+    rids = [engine.add_request(tok.apply_chat_template(b["messages"]), SamplingParams(
+        temperature=b["temperature"], max_tokens=b["max_tokens"], seed=b.get("seed")))
+        for b in bodies]
+    streams = {rid: [] for rid in rids}
+    while engine.has_work():
+        for ev in engine.step():
+            streams[ev.rid].append(ev.token)
+    ttft = {int(t[2][4:]): t[1] for t in engine.drain_timing() if t[0] == "ttft"}
+    for i, rid in enumerate(rids):
+        want = streams[rid]
+        same = tok.decode(want) == run["texts"][i]
+        if bodies[i].get("stream"):
+            same = same and run["streamed_ids"] == want
+        printable = sum(32 <= t < 127 for t in want) / max(1, len(want))
+        kind = "greedy" if bodies[i]["temperature"] == 0 else "seeded"
+        print(f"serve_cli {label} request {i} ({kind}): HTTP stream "
+              f"{'equals' if same else 'DIFFERS FROM'} the in-process engine's "
+              f"({len(want)} tokens, {printable:.2f} printable bytes); in-process "
+              f"ttft_s={ttft[rid]:.4f}", flush=True)
+        if kind == "greedy" and not same:
+            fail(f"serve_cli {label} request {i}: the greedy stream served over "
+                 f"HTTP differs from the in-process engine's: "
+                 f"{run['texts'][i]!r} vs {tok.decode(want)!r}")
+    m = run["metrics"]
+    print(f"serve_cli {label} /metrics: kubeai_engine_requests_total "
+          f"{m['requests']:.0f}, kubeai_engine_generated_tokens_total "
+          f"{m['generated']:.0f} (responses: {run['completion']}), TTFT count "
+          f"{m['ttft_count']:.0f}", flush=True)
+    if m["requests"] != len(bodies):
+        fail(f"serve_cli {label}: kubeai_engine_requests_total {m['requests']}, "
+             f"sent {len(bodies)}")
+    if m["generated"] != run["completion"]:
+        fail(f"serve_cli {label}: kubeai_engine_generated_tokens_total "
+             f"{m['generated']}, the responses report {run['completion']}")
+    if m["ttft_count"] != len(bodies):
+        fail(f"serve_cli {label}: TTFT histogram count {m['ttft_count']}, sent "
+             f"{len(bodies)}")
+
+
 def serve_cli() -> None:
     """Phase 5: the engine Pod's entry point. Writes a random-weight Llama
     checkpoint at Llama-3-8B width (CLI_LAYERS layers, bf16) with
@@ -3935,7 +4349,7 @@ def serve_cli() -> None:
 
     import torch
 
-    from kubeai_tpu_torch.engine import Engine, EngineConfig, SamplingParams
+    from kubeai_tpu_torch.engine import Engine, EngineConfig
     from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
     from kubeai_tpu_torch.engine.weights import load_hf_config, load_params, save_safetensors
     from kubeai_tpu_torch.models import llama
@@ -3979,60 +4393,136 @@ def serve_cli() -> None:
               f"written; {ckpt_bytes / 1e9:.3f} GB in {load_s:.4f} s = "
               f"{ckpt_bytes / 1e9 / load_s:.3f} GB/s", flush=True)
         for label, _, _, extra in CLI_RUNS:
-            run = runs[label]
-            bodies = run["bodies"]
             # The CLI's default --max-adapters 4: every request pays the
             # (all-zero) delta of adapter row 0.
             engine = Engine("llama", cfg, params, cfg=EngineConfig(
                 num_slots=8, max_seq_len=2048, max_adapters=4, **extra),
                 eos_token_ids=tok.eos_token_ids)
-            capacity = engine.kv_cache_info()["token_capacity"]
-            if capacity != run["state"]["kv_cache"]["token_capacity"]:
-                fail(f"serve_cli {label}: token capacity "
-                     f"{run['state']['kv_cache']['token_capacity']} on the CLI, {capacity} "
-                     "in-process")
-            rids = [engine.add_request(tok.apply_chat_template(b["messages"]), SamplingParams(
-                temperature=b["temperature"], max_tokens=b["max_tokens"], seed=b.get("seed")))
-                for b in bodies]
-            streams = {rid: [] for rid in rids}
-            while engine.has_work():
-                for ev in engine.step():
-                    streams[ev.rid].append(ev.token)
-            ttft = {int(t[2][4:]): t[1] for t in engine.drain_timing() if t[0] == "ttft"}
-            for i, rid in enumerate(rids):
-                want = streams[rid]
-                same = tok.decode(want) == run["texts"][i]
-                if bodies[i].get("stream"):
-                    same = same and run["streamed_ids"] == want
-                printable = sum(32 <= t < 127 for t in want) / max(1, len(want))
-                kind = "greedy" if bodies[i]["temperature"] == 0 else "seeded"
-                print(f"serve_cli {label} request {i} ({kind}): HTTP stream "
-                      f"{'equals' if same else 'DIFFERS FROM'} the in-process engine's "
-                      f"({len(want)} tokens, {printable:.2f} printable bytes); in-process "
-                      f"ttft_s={ttft[rid]:.4f}", flush=True)
-                if kind == "greedy" and not same:
-                    fail(f"serve_cli {label} request {i}: the greedy stream served over "
-                         f"HTTP differs from the in-process engine's: "
-                         f"{run['texts'][i]!r} vs {tok.decode(want)!r}")
+            check_cli_run(label, runs[label], engine)
             del engine
-            m = run["metrics"]
-            print(f"serve_cli {label} /metrics: kubeai_engine_requests_total "
-                  f"{m['requests']:.0f}, kubeai_engine_generated_tokens_total "
-                  f"{m['generated']:.0f} (responses: {run['completion']}), TTFT count "
-                  f"{m['ttft_count']:.0f}", flush=True)
-            if m["requests"] != len(bodies):
-                fail(f"serve_cli {label}: kubeai_engine_requests_total {m['requests']}, "
-                     f"sent {len(bodies)}")
-            if m["generated"] != run["completion"]:
-                fail(f"serve_cli {label}: kubeai_engine_generated_tokens_total "
-                     f"{m['generated']}, the responses report {run['completion']}")
-            if m["ttft_count"] != len(bodies):
-                fail(f"serve_cli {label}: TTFT histogram count {m['ttft_count']}, sent "
-                     f"{len(bodies)}")
         if runs["speculate"]["state"]["spec_stats"]["windows"] <= 0:
             fail("serve_cli speculate: the CLI ran no speculation window")
         print(f"serve_cli card: {gpu_line()}", flush=True)
         del params
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# A Gemma-2 checkpoint at Gemma-2-9B width, 2 of its 42 layers, for the CLI.
+GEMMA_CLI_LAYERS = 2
+GEMMA_CLI_CONFIG = {
+    "architectures": ["Gemma2ForCausalLM"], "model_type": "gemma2",
+    "vocab_size": 256000, "hidden_size": 3584, "intermediate_size": 14336,
+    "num_hidden_layers": GEMMA_CLI_LAYERS, "num_attention_heads": 16,
+    "num_key_value_heads": 8, "head_dim": 256, "rope_theta": 10000.0,
+    "rms_norm_eps": 1e-6, "max_position_embeddings": 8192, "sliding_window": 4096,
+    "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0,
+    "query_pre_attn_scalar": 256, "torch_dtype": "bfloat16",
+}
+GEMMA_CLI_LEAVES = (("embed", "model.embed_tokens.weight", False),
+                    ("final_norm", "model.norm.weight", False))
+GEMMA_CLI_LAYER_LEAVES = (
+    ("input_norm", "input_layernorm.weight", False),
+    ("wq", "self_attn.q_proj.weight", True), ("wk", "self_attn.k_proj.weight", True),
+    ("wv", "self_attn.v_proj.weight", True), ("wo", "self_attn.o_proj.weight", True),
+    ("post_attn_norm", "post_attention_layernorm.weight", False),
+    ("pre_mlp_norm", "pre_feedforward_layernorm.weight", False),
+    ("post_mlp_norm", "post_feedforward_layernorm.weight", False),
+    ("w_gate", "mlp.gate_proj.weight", True), ("w_up", "mlp.up_proj.weight", True),
+    ("w_down", "mlp.down_proj.weight", True))
+
+
+def gemma_cli_tensors() -> dict:
+    """Random bf16 tensors under Gemma-2's Hugging Face names, drawn on
+    the card from a seed as `gemma.init_params` draws them (N(0, 0.02),
+    zero-centred norms at 0) and kept on the host. Logits are tied to the
+    embedding, so its rows of the printable ASCII bytes are drawn
+    ASCII_HEAD_SCALE times larger, as the llama checkpoint's head rows are."""
+    import torch
+
+    c = GEMMA_CLI_CONFIG
+    E, M, V = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
+    HD, KD = c["num_attention_heads"] * c["head_dim"], c["num_key_value_heads"] * c["head_dim"]
+    gen = torch.Generator("cuda").manual_seed(2)
+    shapes = {"self_attn.q_proj.weight": (HD, E), "self_attn.k_proj.weight": (KD, E),
+              "self_attn.v_proj.weight": (KD, E), "self_attn.o_proj.weight": (E, HD),
+              "mlp.gate_proj.weight": (M, E), "mlp.up_proj.weight": (M, E),
+              "mlp.down_proj.weight": (E, M)}
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda") * 0.02
+
+    embed = rnd(V, E)
+    embed[32:127] *= ASCII_HEAD_SCALE
+    out = {"model.embed_tokens.weight": embed.to(torch.bfloat16).cpu()}
+    for i in range(GEMMA_CLI_LAYERS):
+        for _, name, _ in GEMMA_CLI_LAYER_LEAVES:
+            shape = shapes.get(name)
+            out[f"model.layers.{i}.{name}"] = (
+                torch.zeros(E, dtype=torch.bfloat16) if shape is None
+                else rnd(*shape).to(torch.bfloat16).cpu())
+    out["model.norm.weight"] = torch.zeros(E, dtype=torch.bfloat16)
+    return out
+
+
+def serve_cli_gemma() -> None:
+    """Phase 5b: the entry point on a Gemma-2 checkpoint at Gemma-2-9B
+    width (GEMMA_CLI_LAYERS layers, bf16, `gemma_cli_tensors`) written with
+    `weights.save_safetensors`: one `cli_run` with the default flags
+    (--max-adapters 4), whose admin step must get 400 naming ROADMAP fault
+    C10 from /v1/load_lora_adapter; then the checkpoint loaded in-process
+    with `weights.load_params` must be bit-equal to the tensors written,
+    and an in-process engine of the run's configuration must give the
+    greedy streams served over HTTP (`check_cli_run`)."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from kubeai_tpu_torch.engine import Engine, EngineConfig
+    from kubeai_tpu_torch.engine.weights import load_hf_config, load_params, save_safetensors
+    from kubeai_tpu_torch.models import gemma
+
+    def refuse_adapters(port: int) -> None:
+        status, res, _, _ = _post(port, {"lora_name": "tenant", "lora_path": root},
+                                  path="/v1/load_lora_adapter")
+        if status != 400 or "C10" not in json.dumps(res):
+            fail(f"serve_cli gemma: an adapter load got HTTP {status} {res}, not 400 (C10)")
+        print(f"serve_cli gemma: /v1/load_lora_adapter answers 400: {json.dumps(res)}",
+              flush=True)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="kubeai-serve-cli-gemma-")
+    try:
+        t0 = time.perf_counter()
+        tensors = gemma_cli_tensors()
+        model_dir = os.path.join(root, "model")
+        save_safetensors(model_dir, tensors, GEMMA_CLI_CONFIG)
+        ckpt_bytes = os.path.getsize(os.path.join(model_dir, "model.safetensors"))
+        print(f"serve_cli gemma checkpoint: {GEMMA_CLI_LAYERS} layers at Gemma-2-9B width, "
+              f"bf16, {ckpt_bytes / 1e9:.3f} GB in {len(tensors)} tensors, drawn and written "
+              f"in {time.perf_counter() - t0:.2f} s", flush=True)
+        sink = OtlpSink()
+        try:
+            run = cli_run(model_dir, "gemma", [], {}, ckpt_bytes, sink, admin=refuse_adapters)
+        finally:
+            sink.stop()
+        cfg = gemma.GemmaConfig.from_hf_dict(load_hf_config(model_dir))
+        params = load_params("gemma", model_dir, cfg, device="cuda")
+        n = check_loaded_bits(params, tensors, GEMMA_CLI_LEAVES, GEMMA_CLI_LAYER_LEAVES,
+                              GEMMA_CLI_LAYERS)
+        del tensors
+        print(f"serve_cli gemma load_params in-process: {n} leaves bit-equal to the "
+              "tensors written", flush=True)
+        engine = Engine("gemma", cfg, params, cfg=EngineConfig(
+            num_slots=8, max_seq_len=2048, max_adapters=4, decode_kernel="per_layer"))
+        check_cli_run("gemma", run, engine)
+        del engine, params
     finally:
         shutil.rmtree(root, ignore_errors=True)
         gc.collect()
@@ -4074,7 +4564,9 @@ def main() -> None:
     measured = phase_kernels()
     phase_model()
     launches = phase_serve()
+    launches.update(serve_gemma())
     serve_cli()
+    serve_cli_gemma()
     kernels = []
     for name, m in measured.items():
         kernels.append({

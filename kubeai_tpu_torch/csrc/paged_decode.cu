@@ -161,7 +161,8 @@ int launch(const __nv_bfloat16* q, const void* kp, const void* vp, const float* 
 }
 
 // The checks and the build choice both entries share: one build per head
-// size and group bound, 4 rows (Llama-3, Mistral) or 8.
+// size (64, 128, and 256 for bf16 pools) and group bound, 4 rows
+// (Llama-3, Mistral, Gemma-2-9B) or 8.
 template <bool kInt8>
 int dispatch(const void* q, const void* k_pages, const void* v_pages, const float* ks,
              const float* vs, const void* block_tables, const void* lengths, void* out,
@@ -192,6 +193,12 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages, const floa
   if (D == 128) KUBEAI_DECODE_LAUNCH(128, 8);
   if (D == 64 && small) KUBEAI_DECODE_LAUNCH(64, 4);
   if (D == 64) KUBEAI_DECODE_LAUNCH(64, 8);
+  // Gemma's head size: Gemma-2-9B (16 over 8 kv heads) and Gemma-2B (8
+  // over 1). The int8 walk's layout has no D = 256 build.
+  if constexpr (!kInt8) {
+    if (D == 256 && small) KUBEAI_DECODE_LAUNCH(256, 4);
+    if (D == 256) KUBEAI_DECODE_LAUNCH(256, 8);
+  }
 #undef KUBEAI_DECODE_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

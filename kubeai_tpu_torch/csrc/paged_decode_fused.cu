@@ -37,7 +37,8 @@
 
 namespace {
 
-// One CTA of kCombineWays * D threads per (slot, kv head, query row g).
+// One CTA of kCombineWays * D threads per (slot, kv head, query row g): 1,024
+// at D = 256, the most a CTA takes.
 // The CTA reduces the row's S partials' max and weighted sum in a fixed
 // order and keeps each split's weight in shared memory (S floats). Thread
 // (r, d) sums element d over splits r, r + kCombineWays, ... in order; the
@@ -192,7 +193,8 @@ extern "C" int kubeai_paged_decode_fused_bf16(
   const auto* ps = static_cast<const int*>(positions);
   auto* op = static_cast<__nv_bfloat16*>(out);
   auto* part = static_cast<float*>(scratch);
-  // One build per head size and group bound: 4 rows (Llama-3, Mistral) or 8.
+  // One build per head size (64, 128 and Gemma's 256) and group bound: 4
+  // rows (Llama-3, Mistral, Gemma-2-9B) or 8.
   const bool small = H / KVH <= 4;
 #define KUBEAI_FUSED_LAUNCH(D_, MG_)                                              \
   return launch<D_, MG_>(qp, kp, vp, kn, vn, bt, ps, op, part, B, H, KVH,       \
@@ -202,6 +204,8 @@ extern "C" int kubeai_paged_decode_fused_bf16(
   if (D == 128) KUBEAI_FUSED_LAUNCH(128, 8);
   if (D == 64 && small) KUBEAI_FUSED_LAUNCH(64, 4);
   if (D == 64) KUBEAI_FUSED_LAUNCH(64, 8);
+  if (D == 256 && small) KUBEAI_FUSED_LAUNCH(256, 4);
+  if (D == 256) KUBEAI_FUSED_LAUNCH(256, 8);
 #undef KUBEAI_FUSED_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -25,9 +25,10 @@
 //   2. No loads in flight during math, four barriers a tile: each of the
 //      CTA's four warps owns a ring of kStages 16-token K/V tiles in
 //      dynamic shared memory (102 KB a CTA at D=128, G <= 4; two CTAs an
-//      SM), filled with 16-byte cp.async, zero-filled outside the kept
-//      range, while it works on the oldest. In the walk a warp waits only
-//      on itself (__syncwarp); the CTA meets once, at the end of its split.
+//      SM; see D = 256 below), filled with 16-byte cp.async, zero-filled
+//      outside the kept range, while it works on the oldest. In the walk
+//      a warp waits only on itself (__syncwarp); the CTA meets once, at
+//      the end of its split.
 //   3. A 5-step warp reduction per (token, row): lanes l and l + 16 own
 //      token l of the tile and half of its head dims each; they dot their
 //      half of the K row against the G query rows (f32, scaled, broadcast
@@ -37,10 +38,10 @@
 //      warp reduction per tile; its sum l stays per lane and is reduced
 //      once per split.
 //   4. A serial scalar p.V: lane l owns D/32 head dims, reads them as one
-//      bf16x4 (bf16x2 at D=64) per token, over the tile's 16 tokens
-//      unrolled, into G x D/32 f32 accumulators; P comes from shared
-//      memory as float4 broadcasts. The four warps' partials are merged
-//      once per split, in warp order.
+//      bf16x4 (bf16x2 at D=64, bf16x8 at D=256) per token, over the tile's
+//      16 tokens unrolled, into G x D/32 f32 accumulators; P comes from
+//      shared memory as float4 broadcasts. The four warps' partials are
+//      merged once per split, in warp order.
 //   5. Spills: the walk is built for a group bound MG of 4 (Llama-3,
 //      Mistral) or 8 and declares two CTAs an SM, so ptxas may use up to
 //      255 registers. It computes all MG rows with no per-row guard (rows
@@ -57,7 +58,18 @@
 //     (layer 0).
 // A length past the block table keeps only the table's keys, as the TPU
 // kernel's (B, MP) grid does. Both keep max(page_id, 0) for an unallocated
-// entry, the finite NEG_INF, softcap, and D 64 and 128.
+// entry, the finite NEG_INF, softcap, and D 64, 128 and 256.
+// D = 256 (Gemma): the same walk and the same kStages. Its ring is 4 warps
+// x 3 tiles x 16 tokens x (264 + 256) bf16 = 199,680 B, so a CTA takes
+// 200 KB (MG 4) or 205 KB (MG 8) of the 227 KB an SM offers, and one CTA
+// fits an SM where two fit at D = 128. The bytes in flight per SM stay
+// the same: one CTA's 3 tiles of 1 KiB rows against two CTAs' of 512 B,
+// so the ring keeps its depth. What changes is the split: a CTA walks its
+// split alone, at twice the bytes a token, so fused_split caps a
+// head_dim-256 split at 512 tokens (the measurement is beside the cap in
+// ops/paged_attention.py). acc doubles to MG x 8 floats a lane (64 at MG
+// 8) under the same 255-register bound: 177 registers at MG 8, 122 at MG
+// 4, no spills.
 
 #pragma once
 
@@ -324,7 +336,9 @@ paged_split_walk_kernel(const __nv_bfloat16* __restrict__ q,        // [B, H, D]
     for (int t = 0; t < kTile; ++t) {
       float vf[L::kDims];
       const __nv_bfloat16* vrow = v_st + t * D + lane * L::kDims;
-      if constexpr (L::kDims == 4) {
+      if constexpr (L::kDims == 8) {
+        unpack8(*reinterpret_cast<const uint4*>(vrow), vf);
+      } else if constexpr (L::kDims == 4) {
         const uint2 u = *reinterpret_cast<const uint2*>(vrow);
         const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
         const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));

@@ -51,6 +51,11 @@ engines through the wire formats of disagg/handoff.py:
 The imports write the pools, the slot state and the block tables in
 place, at the addresses the captured device programs read.
 
+Families: llama, qwen and gemma (models/registry.py). On a CUDA device
+the engine refuses, at construction, a model whose head_dim a kernel on
+its path has no build for (`refuse_kernel_head_dims`), and a family with
+no adapter buffers refuses adapter loads (ROADMAP fault C10).
+
 Ported: paged mode, synchronous and overlapped stepping, preemption by
 recompute, the SLO scheduler, both decode layouts, speculative decoding
 by prompt lookup (adaptive or always on), chunked prefill, the automatic
@@ -90,8 +95,8 @@ from kubeai_tpu_torch.engine.paged_cache import (
 )
 from kubeai_tpu_torch.engine.sampling import SamplingParams, sample
 from kubeai_tpu_torch.fleet.profiler import StepProfiler
-from kubeai_tpu_torch.models import llama
 from kubeai_tpu_torch.models.registry import ModelFamily, get_model_family
+from kubeai_tpu_torch.ops.flash_attention import flash_causal_prefill
 from kubeai_tpu_torch.ops.kv_quant import (
     QuantizedPool,
     dequantize_kv,
@@ -101,6 +106,10 @@ from kubeai_tpu_torch.ops.kv_quant import (
 from kubeai_tpu_torch.ops.paged_attention import (
     batched_scatter_sequence,
     batched_sequence_page_coords,
+    paged_decode_attention,
+    paged_decode_attention_fused,
+    paged_decode_attention_int8,
+    paged_verify_attention,
     resolve_decode_kernel,
     scatter_sequence_prequantized,
 )
@@ -345,6 +354,47 @@ def _refuse_unported(cfg: EngineConfig, mesh, draft, decode_kernel: str) -> None
         )
 
 
+# The kernels that have no build yet for a head dim a served family has,
+# with the ROADMAP item that adds it.
+_HEAD_DIM_ITEMS = {
+    (flash_causal_prefill, 256): "ROADMAP B, B2 at head_dim 256",
+    (paged_decode_attention_int8, 256): "ROADMAP B, B1-int8 at head_dim 256",
+}
+
+
+def refuse_kernel_head_dims(
+    family: ModelFamily, model_cfg, cfg: EngineConfig, decode_kernel: str,
+    speculate: int, device: torch.device,
+) -> None:
+    """On a CUDA device, raise NotImplementedError when a kernel on the
+    engine's path has no build for the model's head_dim: B2 where the
+    family's whole-prompt prefill goes through it, the decode kernel of
+    the layout and pool dtype (B1, B4 or B1-int8), and B3 when the engine
+    speculates. Checked at construction, before any capture: a wrapper
+    would raise only inside it. The CPU runs the plain versions, which
+    take any head_dim."""
+    if device.type != "cuda":
+        return
+    path = [paged_verify_attention] if speculate else []
+    if family.prefill_uses_flash(model_cfg):
+        path.append(flash_causal_prefill)
+    if resolve_kv_dtype(cfg.kv_dtype) == "int8":
+        path.append(paged_decode_attention_int8)
+    elif decode_kernel == "fused":
+        path.append(paged_decode_attention_fused)
+    else:
+        path.append(paged_decode_attention)
+    d = model_cfg.head_size
+    for kernel in path:
+        if d not in kernel.head_dims:
+            item = _HEAD_DIM_ITEMS.get((kernel, d))
+            raise NotImplementedError(
+                f"{family.name} at head_dim {d} on {device}: "
+                f"{kernel.__name__} takes head_dim {kernel.head_dims}"
+                + (f" ({item})" if item else "")
+            )
+
+
 def _to_device(tree, device: torch.device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -456,6 +506,8 @@ class Engine:
                     "forward; running vanilla decode",
                     cfg.speculate, self.family.name,
                 )
+        refuse_kernel_head_dims(self.family, model_cfg, cfg, self.decode_kernel,
+                                self._spec, self.device)
 
         self.params = _to_device(params, self.device)
 
@@ -541,9 +593,18 @@ class Engine:
         # row 0, the base model, stays at generation 0).
         self._adapter_gen: dict[int, int] = {}
         self._adapter_free: list[int] = []
-        if cfg.max_adapters > 0:
-            # Both ported families are the llama computation.
-            self._lora = llama.init_lora_buffers(
+        # Why every adapter load is refused whatever max_adapters says: the
+        # family takes no adapters ("" where it does). The JAX engine builds
+        # llama's buffers for such a family, whose forwards then ignore them
+        # (ROADMAP fault C10).
+        self.adapter_refusal = ""
+        if cfg.max_adapters > 0 and self.family.init_lora_buffers is None:
+            self.adapter_refusal = (
+                f"the {self.family.name} family takes no LoRA adapters "
+                "(ROADMAP fault C10)"
+            )
+        elif cfg.max_adapters > 0:
+            self._lora = self.family.init_lora_buffers(
                 model_cfg, cfg.max_adapters + 1, cfg.max_lora_rank, device=dev
             )
             self._adapter_free = list(range(1, cfg.max_adapters + 1))
@@ -2191,7 +2252,7 @@ class Engine:
         if not adapter:
             return 0
         if self._lora is None:
-            raise ValueError("LoRA is disabled (max_adapters=0)")
+            raise ValueError(self.adapter_refusal or "LoRA is disabled (max_adapters=0)")
         if adapter not in self._adapter_slots:
             raise KeyError(f"adapter {adapter!r} not loaded")
         return self._adapter_slots[adapter]
@@ -2210,9 +2271,10 @@ class Engine:
         stream is synchronized before this returns: a request admitted
         afterwards reads the new weights, and no program is captured
         again. Every target and rank is checked before a row is taken or
-        written."""
+        written. A family that takes no adapters raises ValueError with
+        `adapter_refusal`."""
         if self._lora is None:
-            raise ValueError("LoRA is disabled (max_adapters=0)")
+            raise ValueError(self.adapter_refusal or "LoRA is disabled (max_adapters=0)")
         with self._lock:
             if name in self._adapter_slots:
                 slot = self._adapter_slots[name]

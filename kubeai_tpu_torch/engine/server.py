@@ -59,11 +59,13 @@ An adapter with requests in flight is neither reloaded nor unloaded
 rows make their chains incomparable across replicas.
 
 Not ported yet: embeddings and the routes and series that belong to
-them (ROADMAP A item 10), and the object store behind the spill and
-behind s3://, gs:// and oss:// adapter URLs (item 9). Tenancy is the
-front door's; this server reads only the scheduling headers.
+them, and the mixtral and whisper families (ROADMAP A item 10), and the
+object store behind the spill and behind s3://, gs:// and oss:// adapter
+URLs (item 9). Tenancy is the front door's; this server reads only the
+scheduling headers.
 
 Run: python -m kubeai_tpu_torch.engine.server --model-url <dir> [--port N]
+(a llama, mistral, qwen2, gemma or gemma2 checkpoint)
 """
 
 from __future__ import annotations
@@ -1276,6 +1278,9 @@ class EngineServer:
         if not name:
             return http._json(400, {"error": {"message": "lora_name required"}})
         path_or_url = body.get("lora_path") or body.get("lora_url") or ""
+        if self.engine.adapter_refusal:
+            # The family takes no adapters: refuse before fetching weights.
+            return http._json(400, {"error": {"message": self.engine.adapter_refusal}})
         if name in self.loaded_adapters():
             # Idempotent only for the same source: a changed path or url
             # means the adapter was updated (the operator re-sends on a

@@ -1,6 +1,6 @@
 """Checkpoint loading: Hugging Face-format directories to the port's
-parameter dict. Counterpart of kubeai_tpu/engine/weights.py (the llama
-and qwen loaders, `resolve_model_dir` and `load_params`).
+parameter dict. Counterpart of kubeai_tpu/engine/weights.py (the llama,
+qwen and gemma loaders, `resolve_model_dir` and `load_params`).
 
 Tensors are read lazily, as in the JAX package: safetensors headers are
 parsed once, and each tensor is seek-read from its shard only when its
@@ -15,8 +15,8 @@ is bit-equal to the JAX loader's tree.
 
 Sources: local directories, `pvc://` (the operator mounts the PVC at
 /model) and `hf://` (through huggingface_hub). Object-store URLs and the
-gemma, mixtral and whisper families are not ported and raise naming
-their ROADMAP item.
+mixtral and whisper families are not ported and raise naming their
+ROADMAP item.
 
 `save_safetensors` writes a checkpoint in the same format; tests and
 `chip_smoke.py` use it to make checkpoints from random weights. Nothing
@@ -219,6 +219,45 @@ def load_llama_params(
     return params
 
 
+def load_gemma_params(
+    model_dir: str, cfg, dtype=torch.bfloat16,
+    device: str | torch.device | None = None,
+) -> dict:
+    """Map a HF GemmaForCausalLM or Gemma2ForCausalLM checkpoint onto the
+    port's stacked-layer dict (kubeai_tpu_torch.models.gemma). Gemma-1's
+    `post_attention_layernorm` is its pre-MLP norm; Gemma-2 names the
+    pre-MLP norm `pre_feedforward_layernorm` and adds the post-attention
+    and post-MLP norms. Logits are tied to the embedding: no lm_head.
+    `device` defaults to cuda."""
+    dev = resolve_device(device)
+    _, stack, leaf = _stream_helpers(model_dir, cfg.num_layers, dtype, dev)
+
+    def norms(name: str) -> torch.Tensor:
+        return stack(f"model.layers.{{i}}.{name}.weight", transpose=False)
+
+    layers = {
+        "input_norm": norms("input_layernorm"),
+        "wq": stack("model.layers.{i}.self_attn.q_proj.weight"),
+        "wk": stack("model.layers.{i}.self_attn.k_proj.weight"),
+        "wv": stack("model.layers.{i}.self_attn.v_proj.weight"),
+        "wo": stack("model.layers.{i}.self_attn.o_proj.weight"),
+        "w_gate": stack("model.layers.{i}.mlp.gate_proj.weight"),
+        "w_up": stack("model.layers.{i}.mlp.up_proj.weight"),
+        "w_down": stack("model.layers.{i}.mlp.down_proj.weight"),
+    }
+    if cfg.sandwich_norms:
+        layers["post_attn_norm"] = norms("post_attention_layernorm")
+        layers["pre_mlp_norm"] = norms("pre_feedforward_layernorm")
+        layers["post_mlp_norm"] = norms("post_feedforward_layernorm")
+    else:
+        layers["pre_mlp_norm"] = norms("post_attention_layernorm")
+    return {
+        "embed": leaf("model.embed_tokens.weight"),
+        "layers": layers,
+        "final_norm": leaf("model.norm.weight"),
+    }
+
+
 def resolve_model_dir(model_url: str, model_dir: str = "") -> str:
     """Resolve a Model URL to a local directory.
 
@@ -255,12 +294,11 @@ def resolve_model_dir(model_url: str, model_dir: str = "") -> str:
 _LOADERS = {
     "llama": load_llama_params,
     "qwen": load_llama_params,  # same layout + biases (attention_bias)
+    "gemma": load_gemma_params,
 }
 # Architectures of the JAX package's families whose models are not
 # ported yet (ROADMAP A item 10), with their family.
 UNPORTED_ARCHITECTURES = {
-    "GemmaForCausalLM": "gemma",
-    "Gemma2ForCausalLM": "gemma",
     "MixtralForCausalLM": "mixtral",
     "WhisperForConditionalGeneration": "whisper",
 }

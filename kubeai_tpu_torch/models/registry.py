@@ -1,7 +1,7 @@
 """Model-family registry: maps engine model ids and HF `architectures` to
 implementations. Counterpart of kubeai_tpu/models/registry.py, with the
-families this port serves: `llama` (also Mistral) and `qwen` (the llama
-computation with q/k/v biases).
+families this port serves: `llama` (also Mistral), `qwen` (the llama
+computation with q/k/v biases) and `gemma` (Gemma 1 and 2).
 """
 
 from __future__ import annotations
@@ -29,6 +29,12 @@ class ModelFamily:
     # cache unsupported for this family).
     prefill_chunk: Callable | None = None
     hf_architectures: tuple[str, ...] = ()
+    # LoRA adapter buffers (None = the family takes no adapters; the
+    # engine refuses them).
+    init_lora_buffers: Callable | None = None
+    # Whether whole-prompt prefill attends through flash_causal_prefill
+    # (B2) for a config: the engine checks B2's head dims on the card then.
+    prefill_uses_flash: Callable = lambda cfg: True
 
 
 def register_model_family(family: ModelFamily) -> ModelFamily:
@@ -55,7 +61,7 @@ def _ensure_builtin() -> None:
     global _LOADED
     if _LOADED:
         return
-    from kubeai_tpu_torch.models import llama
+    from kubeai_tpu_torch.models import gemma, llama
 
     register_model_family(
         ModelFamily(
@@ -68,6 +74,7 @@ def _ensure_builtin() -> None:
             decode_verify_paged=llama.decode_verify_paged,
             prefill_chunk=llama.prefill_chunk,
             hf_architectures=("LlamaForCausalLM", "MistralForCausalLM"),
+            init_lora_buffers=llama.init_lora_buffers,
         )
     )
     # Qwen2 is the Llama computation plus q/k/v biases — one
@@ -86,6 +93,22 @@ def _ensure_builtin() -> None:
             # The chunk carries the q/k/v biases too.
             prefill_chunk=llama.prefill_chunk,
             hf_architectures=("Qwen2ForCausalLM",),
+            init_lora_buffers=llama.init_lora_buffers,
+        )
+    )
+    # No verify forward, as in the JAX package: speculate > 0 runs vanilla
+    # decode. No adapters (ROADMAP fault C10).
+    register_model_family(
+        ModelFamily(
+            "gemma",
+            config_from_hf=gemma.GemmaConfig.from_hf_dict,
+            tiny_config=gemma.GemmaConfig.tiny,
+            init_params=gemma.init_params,
+            prefill=gemma.prefill,
+            decode_step_paged=gemma.decode_step_paged,
+            prefill_chunk=gemma.prefill_chunk,
+            hf_architectures=("GemmaForCausalLM", "Gemma2ForCausalLM"),
+            prefill_uses_flash=gemma.prefill_uses_flash,
         )
     )
     _LOADED = True

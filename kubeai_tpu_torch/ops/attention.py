@@ -21,6 +21,19 @@ def _window_tensor(window, device) -> torch.Tensor:
     return torch.as_tensor(window, dtype=torch.int32, device=device)
 
 
+def _in_window(dist: torch.Tensor, window) -> torch.Tensor | None:
+    """Where `dist` (query position minus key position) lies inside the
+    sliding window, or None where no window applies (None, or <= 0). A
+    Python int window stays on the host, so a CUDA graph can capture the
+    mask: a capture refuses the host-to-device copy of a new tensor."""
+    if window is None or (isinstance(window, int) and window <= 0):
+        return None
+    if isinstance(window, int):
+        return dist < window
+    win = _window_tensor(window, dist.device)
+    return (win <= 0) | (dist < win)
+
+
 def causal_prefill_attention(
     q: torch.Tensor,  # [B, S, H, D]
     k: torch.Tensor,  # [B, S, KVH, D]
@@ -42,9 +55,9 @@ def causal_prefill_attention(
     q_pos = torch.arange(s, device=q.device) + q_offset
     k_pos = torch.arange(k.shape[1], device=q.device)
     mask = q_pos[:, None] >= k_pos[None, :]  # [Sq, Sk]
-    if window is not None:
-        win = _window_tensor(window, q.device)
-        mask = mask & ((win <= 0) | (q_pos[:, None] - k_pos[None, :] < win))
+    in_window = _in_window(q_pos[:, None] - k_pos[None, :], window)
+    if in_window is not None:
+        mask = mask & in_window
     logits = torch.where(mask[None, None, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
@@ -76,9 +89,9 @@ def chunked_prefill_attention(
     q_pos = start[:, None] + torch.arange(s, device=q.device)[None, :]  # [B, Sq]
     l_pos = torch.arange(k_cache.shape[1], device=q.device)  # [L]
     mask = q_pos[:, :, None] >= l_pos[None, None, :]  # [B, Sq, L]
-    if window is not None:
-        win = _window_tensor(window, q.device)
-        mask = mask & ((win <= 0) | (q_pos[:, :, None] - l_pos[None, None, :] < win))
+    in_window = _in_window(q_pos[:, :, None] - l_pos[None, None, :], window)
+    if in_window is not None:
+        mask = mask & in_window
     logits = torch.where(mask[:, None, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgql,blkd->bqkgd", probs, v_cache.float())

@@ -22,8 +22,6 @@ import torch
 from kubeai_tpu_torch.ops import _build
 from kubeai_tpu_torch.ops.attention import causal_prefill_attention
 
-_HEAD_DIMS = (64, 128)
-
 
 def _check_prefill_args(q, k, v):
     for name, t in (("k", k), ("v", v)):
@@ -39,8 +37,8 @@ def _check_prefill_args(q, k, v):
     b, s, h, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[1] != s or k.shape[3] != d:
         raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {_HEAD_DIMS}")
+    if d not in flash_causal_prefill.head_dims:
+        raise ValueError(f"head_dim {d} not in {flash_causal_prefill.head_dims}")
     if h % k.shape[2]:
         raise ValueError(f"{h} q heads not divisible by {k.shape[2]} kv heads")
 
@@ -73,3 +71,5 @@ def flash_causal_prefill(
 
 # Kernel launches since the count was last set to 0.
 flash_causal_prefill.launches = 0
+# The head dims the kernel has a build for.
+flash_causal_prefill.head_dims = (64, 128)

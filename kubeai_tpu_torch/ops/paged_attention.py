@@ -119,7 +119,6 @@ def ref_paged_decode_attention(
 
 _MAX_GROUP = 8  # query heads per kv head the decode kernels take
 _MAX_VERIFY_ROWS = 64  # (window tokens x group) rows the verify kernel takes
-_HEAD_DIMS = (64, 128)
 
 
 def _check_common(kernel: str, bf16: dict, int32: dict, window) -> None:
@@ -142,9 +141,10 @@ def _check_common(kernel: str, bf16: dict, int32: dict, window) -> None:
         raise TypeError(f"the {kernel} kernel takes window as a Python int")
 
 
-def _check_heads(d: int, pool_d: int, h: int, kvh: int, max_group: int) -> None:
-    if pool_d != d or d not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {d} (pool {pool_d}) not in {_HEAD_DIMS}")
+def _check_heads(d: int, pool_d: int, h: int, kvh: int, max_group: int,
+                 head_dims: tuple[int, ...]) -> None:
+    if pool_d != d or d not in head_dims:
+        raise ValueError(f"head_dim {d} (pool {pool_d}) not in {head_dims}")
     if h % kvh or h // kvh > max_group:
         raise ValueError(
             f"{h} q heads over {kvh} kv heads: group must divide and be <= {max_group}"
@@ -172,7 +172,8 @@ def _check_decode_args(q, k_pages, v_pages, block_tables, lengths, window):
             f"{tuple(v_pages.shape)}: want q [B, H, D], pools [P, page, KVH, D]"
         )
     b, h, d = q.shape
-    _check_heads(d, k_pages.shape[3], h, k_pages.shape[2], _MAX_GROUP)
+    _check_heads(d, k_pages.shape[3], h, k_pages.shape[2], _MAX_GROUP,
+                 paged_decode_attention.head_dims)
     _check_tables(block_tables, lengths, b)
 
 
@@ -188,7 +189,7 @@ def paged_decode_attention(
     window: int | None = None,
 ) -> torch.Tensor:
     """Paged decode attention. CUDA tensors launch the kernel (bf16,
-    head_dim 64 or 128, group <= 8); anything else it does not take
+    head_dim 64, 128 or 256, group <= 8); anything else it does not take
     raises. CPU tensors take ref_paged_decode_attention. Quantized pools
     go to paged_decode_attention_int8.
 
@@ -214,7 +215,7 @@ def paged_decode_attention(
     mp = block_tables.shape[1]
     # From shapes alone: nothing here reads a device value, so the call
     # never waits for the card and can be captured in a CUDA graph.
-    num_splits, pages_per_split = fused_split(b, kvh, mp, page)
+    num_splits, pages_per_split = fused_split(b, kvh, mp, page, d)
     out = torch.empty_like(q)
     # Per (slot, kv head, split): m[G], l[G], then acc[G, D], in f32.
     scratch = torch.empty(b * kvh * num_splits * (h // kvh) * (d + 2),
@@ -237,6 +238,9 @@ def paged_decode_attention(
 
 # Kernel launches since the count was last set to 0.
 paged_decode_attention.launches = 0
+# The head dims the kernel has a build for: B1 and B4 share a walk with a
+# head_dim-256 build (Gemma); B3 and B1-int8 have none.
+paged_decode_attention.head_dims = (64, 128, 256)
 
 
 def _check_decode_int8_args(q, k_pages, v_pages, block_tables, lengths, window):
@@ -272,7 +276,8 @@ def _check_decode_int8_args(q, k_pages, v_pages, block_tables, lengths, window):
             "q [B, H, D], pages [P, page, KVH, D], scales [P, page, KVH]"
         )
     b, h, d = q.shape
-    _check_heads(d, kq.shape[3], h, kq.shape[2], _MAX_GROUP)
+    _check_heads(d, kq.shape[3], h, kq.shape[2], _MAX_GROUP,
+                 paged_decode_attention_int8.head_dims)
     _check_tables(block_tables, lengths, b)
 
 
@@ -329,6 +334,8 @@ def paged_decode_attention_int8(
 
 
 paged_decode_attention_int8.launches = 0
+# The int8 walk's layout is defined for these alone.
+paged_decode_attention_int8.head_dims = (64, 128)
 
 
 # ---- speculative verify (B3) -------------------------------------------------
@@ -394,7 +401,8 @@ def _check_verify_args(q, k_pages, v_pages, block_tables, positions, window):
         )
     b, kq, h, d = q.shape
     kvh = k_pages.shape[2]
-    _check_heads(d, k_pages.shape[3], h, kvh, _MAX_VERIFY_ROWS)
+    _check_heads(d, k_pages.shape[3], h, kvh, _MAX_VERIFY_ROWS,
+                 paged_verify_attention.head_dims)
     if kq * (h // kvh) > _MAX_VERIFY_ROWS:
         raise ValueError(
             f"{kq} window tokens x group {h // kvh} = {kq * (h // kvh)} rows; "
@@ -454,6 +462,7 @@ def paged_verify_attention(
 
 
 paged_verify_attention.launches = 0
+paged_verify_attention.head_dims = (64, 128)
 
 
 # ---- fused decode over the stacked pool (B4) ---------------------------------
@@ -520,7 +529,8 @@ def _check_fused_args(q, k_pages, v_pages, k_new, v_new, block_tables,
         )
     b, h, d = q.shape
     kvh = k_pages.shape[3]
-    _check_heads(d, k_pages.shape[4], h, kvh, _MAX_GROUP)
+    _check_heads(d, k_pages.shape[4], h, kvh, _MAX_GROUP,
+                 paged_decode_attention_fused.head_dims)
     for name, t in (("k_new", k_new), ("v_new", v_new)):
         if tuple(t.shape) != (b, kvh, d):
             raise ValueError(f"{name} {tuple(t.shape)}: want [B, KVH, D] = {(b, kvh, d)}")
@@ -533,7 +543,8 @@ def _check_fused_args(q, k_pages, v_pages, k_new, v_new, block_tables,
 
 # The split walk of the decode kernels (B4's, which B1 shares) runs one CTA
 # per (slot, kv head, split), two of them to an SM at head_dim 128: aim at
-# two waves over an H100's 132 SMs, with at least 64 tokens (one 16-token
+# two waves over an H100's 132 SMs (four waves of one CTA an SM at head_dim
+# 256, with the same bytes in flight an SM; csrc/paged_split_walk.cuh), with at least 64 tokens (one 16-token
 # tile per warp) and at most 64 block-table entries (the kernel keeps them
 # in shared memory) in a split. The verify kernel splits the same way (two
 # CTAs an SM, one 64-token tile at least): at the serving shapes its walk
@@ -542,14 +553,28 @@ def _check_fused_args(q, k_pages, v_pages, k_new, v_new, block_tables,
 _FUSED_TARGET_CTAS = 4 * 132
 _FUSED_MIN_SPLIT_TOKENS = 64
 _FUSED_MAX_SPLIT_PAGES = 64
+# At head_dim 256 a token's K and V take 1 KiB a kv head and one CTA fits
+# an SM, so a split's walk, serial within its CTA, sets a call's time when
+# one slot is long: at 8 slots x 128 pages the choice above is 16 pages
+# (1 MiB a CTA), and B1 took 56 us a call in served Gemma-2-9B decode
+# with one 4,232-token context. Capped at 512 tokens it took 35 us there
+# and 3% more than uncapped with 8 long slots; at 256 tokens, 13% more
+# (chip_smoke.py, report_d256_split_caps; PERF.md, section 6).
+_D256_MAX_SPLIT_TOKENS = 512
 
 
-def fused_split(batch: int, kv_heads: int, max_pages: int, page_size: int) -> tuple[int, int]:
+def fused_split(batch: int, kv_heads: int, max_pages: int, page_size: int,
+                head_dim: int = 128) -> tuple[int, int]:
     """(num_splits, pages_per_split) for the fused kernel's page walk, from
     shapes alone: split s of a slot takes block-table entries
     [s * pages_per_split, (s + 1) * pages_per_split), and the splits cover
-    all max_pages of them, the last possibly short."""
-    return _split(batch * kv_heads * max_pages, max_pages, page_size, _FUSED_TARGET_CTAS)
+    all max_pages of them, the last possibly short. B1 splits the same
+    way."""
+    cap = _FUSED_MAX_SPLIT_PAGES
+    if head_dim > 128:
+        cap = max(1, _D256_MAX_SPLIT_TOKENS // page_size)
+    return _split(batch * kv_heads * max_pages, max_pages, page_size, _FUSED_TARGET_CTAS,
+                  cap)
 
 
 # B1's int8 walk (csrc/paged_split_walk_int8.cuh) fits three CTAs to an
@@ -573,10 +598,11 @@ def int8_split(batch: int, kv_heads: int, max_pages: int, page_size: int) -> tup
     return _split(batch * kv_heads * max_pages, max_pages, page_size, target)
 
 
-def _split(entries: int, max_pages: int, page_size: int, target_ctas: int) -> tuple[int, int]:
+def _split(entries: int, max_pages: int, page_size: int, target_ctas: int,
+           max_split_pages: int = _FUSED_MAX_SPLIT_PAGES) -> tuple[int, int]:
     per = -(-entries // target_ctas)
     per = max(per, -(-_FUSED_MIN_SPLIT_TOKENS // page_size), 1)
-    per = min(per, max_pages, _FUSED_MAX_SPLIT_PAGES)
+    per = min(per, max_pages, max_split_pages)
     return -(-max_pages // per), per
 
 
@@ -597,8 +623,8 @@ def paged_decode_attention_fused(
     """Fused paged decode attention: reads one layer's pages straight out
     of the stacked pool and folds the new token in as an extra column, so
     the caller writes every layer's new K/V in one scatter after the
-    layer loop. CUDA tensors launch the kernel (bf16, head_dim 64 or 128,
-    group <= 8); anything else it does not take raises. CPU tensors take
+    layer loop. CUDA tensors launch the kernel (bf16, head_dim 64, 128 or
+    256, group <= 8); anything else it does not take raises. CPU tensors take
     ref_paged_decode_attention_fused."""
     if q.device.type == "cpu":
         return ref_paged_decode_attention_fused(
@@ -614,7 +640,7 @@ def paged_decode_attention_fused(
     mp = block_tables.shape[1]
     # From shapes alone: nothing here reads a device value, so the call
     # never waits for the card and can be captured in a CUDA graph.
-    num_splits, pages_per_split = fused_split(b, kvh, mp, page)
+    num_splits, pages_per_split = fused_split(b, kvh, mp, page, d)
     out = torch.empty_like(q)
     # Per (slot, kv head, split): m[G], l[G], then acc[G, D], in f32.
     scratch = torch.empty(b * kvh * num_splits * (h // kvh) * (d + 2),
@@ -637,6 +663,7 @@ def paged_decode_attention_fused(
 
 
 paged_decode_attention_fused.launches = 0
+paged_decode_attention_fused.head_dims = (64, 128, 256)
 
 
 # ---- paged cache writes (decode + admission) ---------------------------------

@@ -1,11 +1,13 @@
 """Carry a parameter tree of the JAX package into the port.
 
-`params_from_numpy` takes the JAX `llama.init_params` dict after it was
-turned into numpy arrays (e.g. `jax.tree.map(np.asarray, params)`) and
-returns the port's parameter dict: the same keys, the stacked [NL, ...]
-layer dict, optional q/k/v biases, and a tied `lm_head` when the tree
-shares one array with `embed` (or has no `lm_head`). The tests use it so
-that both packages compute with the same weights. bf16 arrays (numpy's
+`params_from_numpy` takes the JAX `llama.init_params` or
+`gemma.init_params` dict after it was turned into numpy arrays (e.g.
+`jax.tree.map(np.asarray, params)`) and returns the port's parameter
+dict: the same keys, the stacked [NL, ...] layer dict with whatever
+stacks it holds (q/k/v biases, Gemma-2's three norm stacks), and a tied
+`lm_head` when the tree shares one array with `embed` or has none (gemma
+ties its logits to `embed` and never reads it). The tests use it so that
+both packages compute with the same weights. bf16 arrays (numpy's
 ml_dtypes bfloat16) are taken bit for bit.
 
 `lora_from_numpy` does the same for the JAX `llama.init_lora_buffers`

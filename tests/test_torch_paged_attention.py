@@ -126,7 +126,7 @@ def test_decode_wrapper_reads_no_device_value():
     cuda_path = src.split('if q.device.type != "cuda"', 1)[1]
     for reader in (".item(", ".tolist(", ".cpu(", ".numpy(", "int(lengths", "lengths.max"):
         assert reader not in cuda_path
-    assert "fused_split(b, kvh, mp, page)" in cuda_path
+    assert "fused_split(b, kvh, mp, page, d)" in cuda_path
     assert "torch.empty(" in cuda_path
 
 

@@ -196,5 +196,5 @@ def test_fused_wrapper_reads_no_device_value():
     cuda_path = src.split('if q.device.type != "cuda"', 1)[1]
     for reader in (".item(", ".tolist(", ".cpu(", ".numpy(", "int(positions", "positions.max"):
         assert reader not in cuda_path
-    assert "fused_split(b, kvh, mp, page)" in cuda_path
+    assert "fused_split(b, kvh, mp, page, d)" in cuda_path
     assert "torch.empty(" in cuda_path
