@@ -30,9 +30,14 @@ Phases, each fatal on failure:
                shape (B=8, H=16, KVH=8, lengths to 8192), plain and with
                window 4096 + softcap 50, timed beside SDPA; the same bits
                from two calls and a graph replay; B1's split edges and
-               slots past the table, B4's split edges; G 2 and 8 with
+               slots past the table, B4's split edges; G 1, 2 and 8 with
                plain, softcap 50, window 100, window 4096 and softcap +
-               window;
+               window. B2 at head_dim 256 (Gemma-1), an entry of its own:
+               Gemma-7B's heads (H=16, KVH=16) at B=1 over S 32-8192 and
+               B=4 at 1024, Gemma-2B's (H=8, KVH=1) at 512 and 8192,
+               against the plain version, timed beside SDPA and the
+               bound; the same bits from two calls and a graph replay; no
+               spills;
   3. model   — a small model (head_dim 128) on the card through the kernels
                against the same weights in f32 on the CPU through the plain
                versions: prefill, paged-decode (both layouts) and
@@ -64,7 +69,10 @@ Phases, each fatal on failure:
                the streams must equal an eager synchronous engine's; it
                reports TTFT of hits and misses, agreement with whole-prompt
                streams, and a miss and a hit admission from the graphs and
-               eagerly. After the per_layer run, `serve_resume` sends the
+               eagerly. The phases after it serve the same width at
+               SHALLOW_LAYERS (8) layers, with their bf16 decode step and
+               verify window profiled at that depth first
+               (`shallow_baselines`). `serve_resume` sends the
                proxy's continuation request (`kubeai_resume`): the four
                bodies, greedy and seeded, cut after 1, 5 and 17 tokens,
                then each body alone cut after 1 and 5, then one greedy and
@@ -135,6 +143,15 @@ Phases, each fatal on failure:
                the plain attention). Every stream must equal an eager
                synchronous engine's; the decode step is profiled from its
                graph in both layouts;
+  4c. serve_gemma1 — `serve_gemma(GEMMA_7B, ...)`: Gemma-1 on random
+               Gemma-7B-shape weights, all 28
+               layers (16 heads over 16 kv heads at head_dim 256, no
+               softcap, no window), the same four requests and config:
+               per_layer (B1 at G=1) and fused (B4), where B2 at head_dim
+               256 must launch 28 times in every prefill admission, then
+               the prefix run; every stream equal to an eager engine's,
+               hits by the rule; the decode step from its graph and B2's
+               device ms in one 8192-bucket admission;
   5. serve_cli — the engine Pod's entry point: a random-weight Llama
                checkpoint at Llama-3-8B width (4 layers, bf16) written with
                `weights.save_safetensors`, served by `python -m
@@ -161,10 +178,15 @@ Phases, each fatal on failure:
                prefill` and a `--role decode` process side by side: one
                greedy body through the two hops must give the decode
                process's direct text. Then a 2-layer Gemma-2 checkpoint at
-               Gemma-2-9B width, served by the CLI once with its defaults:
-               /v1/load_lora_adapter must answer 400 (ROADMAP fault C10),
-               the loaded tensors must be the ones written and the greedy
-               streams an in-process engine's.
+               Gemma-2-9B width and a 2-layer Gemma-1 (GemmaForCausalLM)
+               checkpoint at Gemma-7B width, each served by the CLI once
+               with its defaults: /v1/load_lora_adapter must answer 400
+               (ROADMAP fault C10), the loaded tensors must be the ones
+               written and the greedy streams an in-process engine's.
+
+Each phase prints its seconds on a line of its own ("phase <name>: s"),
+and its start and end on stderr. A run still going after WATCHDOG_S
+prints every thread's stack to stderr and exits 1.
 
 The last lines are the kernel JSON line, the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -249,11 +271,24 @@ KERNELS = {
         "kubeai_tpu_torch/csrc/paged_decode_fused.cu",
         "kubeai_tpu/ops/paged_attention.py:837",
     ),
+    # B2's head_dim-256 build (Gemma-1), which serve_gemma1 drives.
+    "flash_causal_prefill_d256": (
+        "kubeai_tpu_torch/csrc/flash_prefill.cu",
+        "kubeai_tpu/ops/pallas_attention.py:108",
+    ),
 }
+
+
+# The run must end within 1200 s: past WATCHDOG_S it prints every
+# thread's stack to stderr and exits 1. A request that gets no answer
+# within REQUEST_TIMEOUT_S fails its phase.
+WATCHDOG_S = 1140
+REQUEST_TIMEOUT_S = 180
 
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -723,19 +758,63 @@ def check_decode_long_context(int8: bool = False) -> None:
     torch.cuda.empty_cache()
 
 
-def check_flash_prefill() -> dict:
-    """B2 at the serving widths (H=32, KVH=8, D=128): B=1 and 4 over the
-    serve phase's buckets and a ragged 200, and B=1 at 2048 and 8192, each
-    against the plain version and timed beside SDPA; then two calls and a
-    CUDA-graph replay that must give the same bits, and B2's registers and
-    spills from the build log."""
+def _flash_case(B: int, S: int, H: int, KVH: int, D: int, gen) -> tuple[dict, object]:
+    """One B2 case on inputs drawn from `gen`: the kernel against the
+    plain version at FLASH_ATOL / FLASH_RTOL, timed from a CUDA graph and
+    eagerly (back-to-back calls from Python, which the host's launch
+    overhead can bound at the small shapes) beside SDPA (enable_gqa) and
+    the bound. Prints the case's line; returns it and the kernel's call on
+    the case's inputs."""
     import torch
     import torch.nn.functional as F
 
     from kubeai_tpu_torch.ops.attention import causal_prefill_attention
     from kubeai_tpu_torch.ops.flash_attention import flash_causal_prefill
 
-    H, KVH, D = 32, 8, 128
+    mk = lambda h: torch.randn(B, S, h, D, generator=gen, device="cpu").to(  # noqa: E731
+        "cuda", torch.bfloat16)
+    q, k, v = mk(H), mk(KVH), mk(KVH)
+    got = flash_causal_prefill(q, k, v)
+    torch.cuda.synchronize()
+    want = causal_prefill_attention(q, k, v)
+    err = compare(f"flash_prefill B={B} S={S} H={H} KVH={KVH} D={D}", got, want,
+                  FLASH_ATOL, FLASH_RTOL)
+    del got, want
+    call = lambda: flash_causal_prefill(q, k, v)  # noqa: E731
+    ms, eager_ms = graph_ms(call), cuda_ms(call)
+    # The plain version's f32 logits take 8.6 GB at H=32, S=8192: few
+    # calls there.
+    few = S >= 4096
+    plain_ms = cuda_ms(lambda: causal_prefill_attention(q, k, v),
+                       iters=1 if few else 5, warmup=1 if few else 3)
+    torch.cuda.empty_cache()
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_ms, lib_eager_ms = graph_ms(sdpa), cuda_ms(sdpa)
+    del qt, kt, vt
+    flops = 4.0 * B * H * D * S * (S + 1) / 2
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * KVH * D)
+    t_flops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    line = dict(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, library_eager_ms=lib_eager_ms,
+                bound_ms=max(t_flops, t_bytes),
+                bound_by="operations" if t_flops >= t_bytes else "bytes",
+                tflops=flops / ms * 1e-9)
+    print("kernel flash_causal_prefill B=%d S=%d H=%d KVH=%d D=%d %s"
+          % (B, S, H, KVH, D, json.dumps(line)), flush=True)
+    return line, call
+
+
+def check_flash_prefill() -> dict:
+    """B2 at the serving widths (H=32, KVH=8, D=128): B=1 and 4 over the
+    serve phase's buckets and a ragged 200, and B=1 at 2048 and 8192
+    (`_flash_case`); then two calls and a CUDA-graph replay that must give
+    the same bits, and B2's registers and spills from the build log.
+    Returns the B=1 S=512 line for the kernels line."""
+    import torch
+
     gen = torch.Generator().manual_seed(2)
     main = None
     # S=32 and 128 are the buckets of the serve phase's two short prompts
@@ -743,60 +822,44 @@ def check_flash_prefill() -> dict:
     # ones; 2048 is its max_seq_len; 8192 a long prompt.
     cases = [(B, S) for B in (1, 4) for S in (32, 128, 200, 512, 1024)]
     for B, S in cases + [(1, 2048), (1, 8192)]:
-        mk = lambda h: torch.randn(B, S, h, D, generator=gen, device="cpu").to(  # noqa: E731
-            "cuda", torch.bfloat16)
-        q, k, v = mk(H), mk(KVH), mk(KVH)
-        got = flash_causal_prefill(q, k, v)
-        torch.cuda.synchronize()
-        want = causal_prefill_attention(q, k, v)
-        err = compare(f"flash_prefill B={B} S={S}", got, want, FLASH_ATOL, FLASH_RTOL)
-        del got, want
-        # B2 and SDPA from a CUDA graph (device time per call) and eagerly
-        # (back-to-back calls from Python, which the host's launch overhead
-        # can bound at the small shapes). The plain version's f32 logits
-        # take 8.6 GB at S=8192: few calls there.
-        call = lambda: flash_causal_prefill(q, k, v)  # noqa: E731
-        ms, eager_ms = graph_ms(call), cuda_ms(call)
-        few = S >= 4096
-        plain_ms = cuda_ms(lambda: causal_prefill_attention(q, k, v),
-                           iters=1 if few else 5, warmup=1 if few else 3)
-        torch.cuda.empty_cache()
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-        lib_ms, lib_eager_ms = graph_ms(sdpa), cuda_ms(sdpa)
-        flops = 4.0 * B * H * D * S * (S + 1) / 2
-        nbytes = 2 * (2 * B * S * H * D + 2 * B * S * KVH * D)
-        t_flops = flops / PEAK_BF16_FLOPS * 1e3
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        line = dict(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                    library_ms=lib_ms, library_eager_ms=lib_eager_ms,
-                    bound_ms=max(t_flops, t_bytes),
-                    bound_by="operations" if t_flops >= t_bytes else "bytes",
-                    tflops=flops / ms * 1e-9)
-        print("kernel flash_causal_prefill B=%d S=%d H=%d KVH=%d D=%d %s"
-              % (B, S, H, KVH, D, json.dumps(line)), flush=True)
+        line, call = _flash_case(B, S, 32, 8, 128, gen)
         if (B, S) == (1, 512):
             main = line
         if (B, S) == (4, 1024):
-            # Every CTA writes its own rows, in one order: two calls give
-            # the same bits. The wrapper reads no device value and builds
-            # its TMA maps on the host: a CUDA-graph replay of one call
-            # gives the eager call's output.
-            first = flash_causal_prefill(q, k, v)
-            if not torch.equal(first, flash_causal_prefill(q, k, v)):
-                fail("flash_prefill: two calls on the same inputs differ")
-            graph, captured = capture(call)
-            graph.replay()
-            torch.cuda.synchronize()
-            if not torch.equal(captured, first):
-                fail("flash_prefill: the CUDA-graph replay differs from the eager call")
-            print("flash_prefill: two eager calls bit-identical; CUDA-graph replay "
-                  "equals the eager call", flush=True)
-            del first, captured, graph
-        del q, k, v, qt, kt, vt
+            # Every CTA writes its own rows, in one order. The wrapper
+            # reads no device value and builds its TMA maps on the host.
+            _same_bits("flash_prefill", call)
+        del call
         torch.cuda.empty_cache()
     check_ptxas("flash_prefill.cu")
+    return main
+
+
+def check_flash_prefill_d256() -> dict:
+    """B2's head_dim-256 build (Gemma-1; 64-row blocks, 64-key K/V tiles):
+    Gemma-7B's heads (H=16, KVH=16) at B=1 over the serve_gemma1 buckets
+    (32, 512, 2048, 8192), 128, a ragged 200 and 1024, and at B=4 for
+    S=1024; Gemma-2B's (H=8 over KVH=1, G=8) at B=1 for S 512 and 8192
+    (`_flash_case`); then two calls and a graph replay that must give the
+    same bits, and the D=256 instantiation's registers and spills. Returns
+    the B=1 S=8192 Gemma-7B line (the bucket of serve_gemma1's longest
+    prompt) for the kernels line."""
+    import torch
+
+    gen = torch.Generator().manual_seed(25)
+    main = None
+    cases = [(16, 16, 1, S) for S in (32, 128, 200, 512, 1024, 2048, 8192)]
+    cases += [(16, 16, 4, 1024), (8, 1, 1, 512), (8, 1, 1, 8192)]
+    for H, KVH, B, S in cases:
+        line, call = _flash_case(B, S, H, KVH, 256, gen)
+        if (H, B, S) == (16, 1, 8192):
+            main = line
+        if (H, B, S) == (16, 4, 1024):
+            _same_bits("flash_prefill D=256", call)
+        del call
+        torch.cuda.empty_cache()
+    check_ptxas("flash_prefill.cu", select=lambda name: name.endswith("<256>"))
+    print(f"flash_prefill D=256 card: {gpu_line()}", flush=True)
     return main
 
 
@@ -1450,10 +1513,11 @@ def _same_bits(name: str, call) -> None:
 
 
 def check_head_dim_256_groups() -> None:
-    """B1 and B4 at head_dim 256 for both group builds: G = 2
-    (Gemma-2-9B: 16 q heads over 8 kv heads, MG 4) and G = 8 (Gemma-2B: 8
-    over 1, MG 8), at B=4 with lengths up to 4608, plain, softcap 50,
-    window 100, window 4096, and softcap 50 + window 4096. No timing."""
+    """B1 and B4 at head_dim 256 for both group builds: G = 1 (Gemma-7B:
+    16 q heads over 16 kv heads, MG 4), G = 2 (Gemma-2-9B: 16 over 8, MG
+    4) and G = 8 (Gemma-2B: 8 over 1, MG 8), at B=4 with lengths up to
+    4608, plain, softcap 50, window 100, window 4096, and softcap 50 +
+    window 4096. No timing."""
     import torch
 
     from kubeai_tpu_torch.ops.paged_attention import (
@@ -1474,7 +1538,7 @@ def check_head_dim_256_groups() -> None:
         return torch.randn(*shape, generator=cg, device="cuda").to(torch.bfloat16)
 
     errs = []
-    for H, KVH in ((16, 8), (8, 1)):
+    for H, KVH in ((16, 16), (16, 8), (8, 1)):
         kp, vp = rnd(2, 1 + B * mp, page, KVH, D), rnd(2, 1 + B * mp, page, KVH, D)
         q, kn, vn = rnd(B, H, D), rnd(B, KVH, D), rnd(B, KVH, D)
         for cap, win in ((None, None), (50.0, None), (None, 100), (None, 4096),
@@ -1485,7 +1549,7 @@ def check_head_dim_256_groups() -> None:
             errs.append(compare(f"paged_decode {tag}", got, ref_paged_decode_attention(
                 q, kp[0], vp[0], bt, n, **kw), PAGED_ATOL, PAGED_RTOL))
             errs.append(_check_fused_case(tag, (q, kp, vp, kn, vn, bt, n - 1, 1), kw)[1])
-    print(f"kernels at head_dim 256 (B1, B4; G 2, 8 x plain, softcap 50, window 100, "
+    print(f"kernels at head_dim 256 (B1, B4; G 1, 2, 8 x plain, softcap 50, window 100, "
           f"window 4096, softcap 50 + window 4096): max |err| "
           f"{['%.3e' % e for e in errs]}", flush=True)
 
@@ -1500,6 +1564,7 @@ def phase_kernels() -> dict:
     }
     check_head_dim_64()
     measured.update(check_head_dim_256())
+    measured["flash_causal_prefill_d256"] = check_flash_prefill_d256()
     return measured
 
 
@@ -1610,7 +1675,7 @@ def _post(port: int, body: dict, headers: dict | None = None,
     import http.client
 
     t0 = time.perf_counter()
-    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=REQUEST_TIMEOUT_S)
     conn.request("POST", path, json.dumps(body),
                  {"Content-Type": "application/json", **(headers or {})})
     resp = conn.getresponse()
@@ -1698,8 +1763,8 @@ def serve_run(params, cfg, label: str, waves=None, adapters=None, family: str = 
     Returns the launches (eager calls plus launches per replay x
     replays), each request's prompt, sampling params, adapter, engine
     token stream and TTFT, the rids of each wave, the calls of the
-    staged-chunk functions made outside their programs, and the
-    engine."""
+    staged-chunk functions made outside their programs, the whole-prompt
+    prefill admissions, and the engine."""
     from kubeai_tpu_torch.engine import Engine, EngineConfig
     from kubeai_tpu_torch.engine.server import EngineServer
     from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
@@ -1760,6 +1825,15 @@ def serve_run(params, cfg, label: str, waves=None, adapters=None, family: str = 
             stage_calls[attr] = stage_calls.get(attr, 0) + 1
             return fn()
         setattr(engine, attr, counted)
+    # Whole-prompt prefill admissions (batched `_prefill_admit` calls).
+    admissions = [0]
+    prefill_admit = engine._prefill_admit
+
+    def admit_and_count(*a, **kw):
+        admissions[0] += 1
+        return prefill_admit(*a, **kw)
+
+    engine._prefill_admit = admit_and_count
     wrappers = _wrappers()
     server = EngineServer(engine, tok, f"{family}-smoke", port=0)
     server.start()
@@ -1775,6 +1849,7 @@ def serve_run(params, cfg, label: str, waves=None, adapters=None, family: str = 
         requests.clear()
         adapter_of.clear()
         stage_calls.clear()
+        admissions[0] = 0
         waves = waves or _default_bodies()
         bodies = [body for wave in waves for body in wave]
         max_tokens = bodies[0]["max_tokens"]
@@ -1864,6 +1939,7 @@ def serve_run(params, cfg, label: str, waves=None, adapters=None, family: str = 
     return {"launches": launches, "requests": requests, "streams": streams,
             "engine": engine, "bodies": bodies, "rid_of": rid_of, "ttft": ttft,
             "waves": wave_rids, "stage_calls": dict(stage_calls),
+            "admissions": admissions[0],
             "dispatches": dispatches, "adapters": dict(adapter_of),
             "adapter_weights": adapters, "family": family, "config": config}
 
@@ -1961,12 +2037,66 @@ def free(run: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def timed(name: str, fn, *args, **kw):
+    """fn(*args, **kw), with its seconds printed on a line of their own;
+    its start and end also go to stderr, whose tail then names the phase
+    that a stalled run was in."""
+    print(f"phase {name}: started", file=sys.stderr, flush=True)
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    line = f"phase {name}: {time.perf_counter() - t0:.2f} s"
+    print(line, flush=True)
+    print(line, file=sys.stderr, flush=True)
+    return out
+
+
+# The llama runs that PERF.md's tables do not compare against serve the
+# 8B width at this depth (`shallow`): the continuations, disaggregation,
+# KV sharing, int8 pools and LoRA, with their bf16 baselines
+# (`shallow_baselines`) at the same depth. The per_layer, speculate, fused
+# and prefix runs keep all 32 layers.
+SHALLOW_LAYERS = 8
+
+
+def shallow(params: dict, cfg, num_layers: int = SHALLOW_LAYERS):
+    """The first `num_layers` layers of the llama `params` (views: no
+    copy) and the config cut to them."""
+    import dataclasses
+
+    layers = {name: w[:num_layers] for name, w in params["layers"].items()}
+    return {**params, "layers": layers}, dataclasses.replace(cfg, num_layers=num_layers)
+
+
+def shallow_baselines(params, cfg) -> tuple[dict, dict]:
+    """The bf16 decode step and verify window, without adapters, of
+    engines at `cfg`'s depth that generated the four default prompts:
+    what serve_int8 and serve_lora compare against (`profile_program`)."""
+    from kubeai_tpu_torch.engine import Engine, EngineConfig, SamplingParams
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    prompts = [tok.apply_chat_template(b["messages"]) for b in _default_bodies()[0]]
+    out = []
+    for unit, program, extra in (
+            ("decode step", "decode chunk", dict(decode_kernel="per_layer")),
+            ("verify window", "verify window",
+             dict(decode_kernel="per_layer", speculate=4, spec_adaptive=False))):
+        engine = Engine("llama", cfg, params, cfg=EngineConfig(**SERVE_CONFIG, **extra),
+                        eos_token_ids=tok.eos_token_ids)
+        engine.generate(prompts, SamplingParams(temperature=0.0, max_tokens=32))
+        out.append(profile_program(engine, f"{cfg.num_layers}-layer {unit}", program))
+        del engine
+        free({})
+    return out[0], out[1]
+
+
 def phase_serve() -> dict:
     params, cfg = serve_weights()
     layout_gaps(params, cfg)
     launches = {}
     # Run 1: the per_layer layout, passed explicitly so that the env var
     # cannot flip it. B1 and B2 must launch.
+    t0 = time.perf_counter()
     extra = dict(decode_kernel="per_layer")
     run = serve_run(params, cfg, "per_layer", **extra)
     for name in ("paged_decode_attention", "flash_causal_prefill"):
@@ -1975,12 +2105,13 @@ def phase_serve() -> dict:
         launches[name] = run["launches"][name]
     check_streams_equal_eager(params, cfg, "per_layer", run, **extra)
     base = {i: run["streams"][rid] for i, rid in run["rid_of"].items()}
-    bf16_step = profile_program(run["engine"], "decode step", "decode chunk")
+    profile_program(run["engine"], "decode step", "decode chunk")
     profile_prefill(params, cfg)
     free(run)
-    serve_resume(params, cfg)
+    print(f"phase serve per_layer: {time.perf_counter() - t0:.2f} s", flush=True)
     # Run 2: prompt-lookup speculation in every decode call. B3 launches,
     # B1 does not.
+    t0 = time.perf_counter()
     extra = dict(decode_kernel="per_layer", speculate=4, spec_adaptive=False)
     run = serve_run(params, cfg, "speculate", **extra)
     if run["launches"]["paged_verify_attention"] <= 0:
@@ -1993,9 +2124,11 @@ def phase_serve() -> dict:
           f"{stats['accepted'] / max(1, stats['proposed']):.4f}", flush=True)
     check_streams_equal_eager(params, cfg, "speculate", run, **extra)
     report_agreement("speculate", base, run)
-    bf16_verify = profile_program(run["engine"], "verify window", "verify window")
+    profile_program(run["engine"], "verify window", "verify window")
     free(run)
+    print(f"phase serve speculate: {time.perf_counter() - t0:.2f} s", flush=True)
     # Run 3: the fused layout. B4 launches, B1 does not.
+    t0 = time.perf_counter()
     extra = dict(decode_kernel="fused")
     run = serve_run(params, cfg, "fused", **extra)
     if run["launches"]["paged_decode_attention_fused"] <= 0:
@@ -2007,21 +2140,28 @@ def phase_serve() -> dict:
     report_agreement("fused", base, run)
     profile_program(run["engine"], "fused decode step", "decode chunk")
     free(run)
+    print(f"phase serve fused: {time.perf_counter() - t0:.2f} s", flush=True)
     # Run 4: chunked prefill and the prefix cache. B1 and B2 launch.
-    serve_prefix(params, cfg)
+    timed("serve_prefix", serve_prefix, params, cfg)
+    # The rest at SHALLOW_LAYERS, full width.
+    params, cfg = shallow(params, cfg)
+    bf16_step, bf16_verify = timed(f"bf16 baselines at {cfg.num_layers} layers",
+                                   shallow_baselines, params, cfg)
+    timed("serve_resume", serve_resume, params, cfg)
     # Disaggregated prefill/decode (B2 on the prefill side, B1 and B4 on
     # the decode side) and the KV-sharing tier.
-    serve_disagg(params, cfg)
-    serve_kv_share(params, cfg)
+    timed("serve_disagg", serve_disagg, params, cfg)
+    timed("serve_kv_share", serve_kv_share, params, cfg)
     # Int8 KV pools: the per_layer serve run, a prefix run and a
     # prefill/decode pair, each on int8 pools. B1's int8 read launches,
     # bf16 B1 does not.
-    launches["paged_decode_attention_int8"] = serve_int8(params, cfg, bf16_step)
-    serve_prefix(params, cfg, int8=True)
-    serve_disagg_int8(params, cfg)
+    launches["paged_decode_attention_int8"] = timed("serve_int8", serve_int8, params, cfg,
+                                                    bf16_step)
+    timed("serve_prefix int8", serve_prefix, params, cfg, int8=True)
+    timed("serve_disagg_int8", serve_disagg_int8, params, cfg)
     # LoRA adapters through every decode, verify and prefill path, and a
     # hot swap under the captured graphs.
-    serve_lora(params, cfg, bf16_step, bf16_verify)
+    timed("serve_lora", serve_lora, params, cfg, bf16_step, bf16_verify)
     return launches
 
 
@@ -2540,8 +2680,8 @@ def serve_int8(params, cfg, bf16_step: dict) -> int:
     stream equals an eager synchronous int8 engine's. Reports the pool's
     GiB against a bf16 pool of the same pages, /v1/state's kv_cache facts,
     and the decode step from its graph (wall and device ms) beside the
-    per_layer bf16 step's of the same run (`bf16_step`). Returns B1-int8's
-    launches on the main path."""
+    bf16 step of an engine at the same depth (`bf16_step`). Returns
+    B1-int8's launches on the main path."""
     t_phase = time.perf_counter()
     label = "int8"
     extra = dict(decode_kernel="per_layer", kv_dtype="int8")
@@ -2568,7 +2708,7 @@ def serve_int8(params, cfg, bf16_step: dict) -> int:
     check_streams_equal_eager(params, cfg, label, run, **extra)
     step = profile_program(engine, "int8 decode step", "decode chunk")
     print(f"serve int8 decode step from its graph: wall {step['wall_ms']:.3f} ms, device "
-          f"{step['device_ms']:.3f} ms; per_layer bf16 step of this run: wall "
+          f"{step['device_ms']:.3f} ms; bf16 step at {cfg.num_layers} layers: wall "
           f"{bf16_step['wall_ms']:.3f} ms, device {bf16_step['device_ms']:.3f} ms", flush=True)
     launches = got["paged_decode_attention_int8"]
     del engine
@@ -3592,8 +3732,8 @@ def report_agreement(label: str, base: dict, run: dict,
 
 
 def profile(engine, unit: str, call, e_steps: int, calls: int = 2) -> dict:
-    """torch.profiler over `calls` calls of `call(engine)` (two decode
-    calls at the serving shapes: all num_slots rows; the requests have
+    """torch.profiler over `calls` calls of `call(engine)` (decode calls
+    at the serving shapes: all num_slots rows; the requests have
     finished, so the rows write scratch page 0): device time per `unit`
     (a call covers e_steps of them) by kernel, and the device's idle share
     against the wall time of the same calls run without the profiler
@@ -3640,9 +3780,12 @@ def profile(engine, unit: str, call, e_steps: int, calls: int = 2) -> dict:
     return out
 
 
-def profile_program(engine, unit: str, program: str, calls: int = 2) -> dict:
+def profile_program(engine, unit: str, program: str, calls: int | None = None) -> dict:
     """One device program of `engine` ("decode chunk" or "verify window")
-    replayed from its CUDA graph `calls` times back to back, each dispatch
+    replayed from its CUDA graph `calls` times back to back (default: one
+    decode chunk, whose 8 steps already average; two verify windows;
+    torch.profiler's processing of its events, not the card, takes most
+    of this function's seconds), each dispatch
     read back before the next as a synchronous step does, and the same
     calls run eagerly (the program's function, through the same buffers),
     in one call: wall time, device time and idle share per `unit`, side by
@@ -3653,6 +3796,7 @@ def profile_program(engine, unit: str, program: str, calls: int = 2) -> dict:
     replay runs)."""
     prog = _programs(engine)[program]
     e_steps = engine._chunk_out.shape[0] if program == "decode chunk" else 1
+    calls = calls or (1 if program == "decode chunk" else 2)
 
     def replay(_):
         prog.read(prog.dispatch())
@@ -3680,22 +3824,23 @@ def profile_program(engine, unit: str, program: str, calls: int = 2) -> dict:
     return {"wall_ms": graph["wall_ms"], "device_ms": device, "kernels": kernels}
 
 
-def profile_prefill(params, cfg) -> None:
-    """torch.profiler over llama.prefill, the function
-    Engine._prefill_admit calls, at B=1 for the serve phase's two long
-    buckets (512 and 1024) on the 8B-shape weights: device time by kernel,
-    the idle share, and B2's device ms and launches per admission. This is
-    the layer number that ties B2 to TTFT."""
+def profile_prefill(params, cfg, model=None, buckets=(512, 1024), tag: str = "") -> None:
+    """torch.profiler over `model`.prefill (default llama), the function
+    Engine._prefill_admit calls, at B=1 for `buckets` (default the serve
+    phase's two long buckets, 512 and 1024, on the 8B-shape weights):
+    device time by kernel, the idle share, and B2's device ms and launches
+    per admission. This is the layer number that ties B2 to TTFT."""
     import torch
 
-    from kubeai_tpu_torch.models import llama
+    if model is None:
+        from kubeai_tpu_torch.models import llama as model
 
     gen = torch.Generator("cuda").manual_seed(12)
-    for S in (512, 1024):
+    for S in buckets:
         toks = torch.randint(0, cfg.vocab_size, (1, S), generator=gen, device="cuda")
         lengths = torch.tensor([S], device="cuda")
-        prof = profile(None, f"prefill S={S}",
-                       lambda _: llama.prefill(params, cfg, toks, lengths),
+        prof = profile(None, f"{tag}prefill S={S}",
+                       lambda _: model.prefill(params, cfg, toks, lengths),
                        e_steps=1, calls=1)
         rows, steps = prof["rows"], prof["steps"]
         total = sum(getattr(e, "self_device_time_total", 0) for e in rows)
@@ -3703,7 +3848,7 @@ def profile_prefill(params, cfg) -> None:
         if not b2:
             fail(f"prefill S={S}: the profile shows no flash_prefill_kernel")
         b2_us = sum(getattr(e, "self_device_time_total", 0) for e in b2)
-        print(f"profile prefill_S={S} B2 {b2_us / 1e3 / steps:.4f} ms in "
+        print(f"profile {tag}prefill_S={S} B2 {b2_us / 1e3 / steps:.4f} ms in "
               f"{sum(e.count for e in b2) / steps:.0f} launches per admission, "
               f"{b2_us / max(total, 1):.3f} of its device time", flush=True)
 
@@ -3748,49 +3893,52 @@ def _gemma_bodies(again: bool = False) -> list[dict]:
     return bodies
 
 
-def gemma_weights():
-    """(random Gemma-2-9B-shape weights on cuda, all 42 layers, made from a
-    seed; the config), after one prefill's shapes and finite logits are
-    checked."""
+def gemma_weights(shape: dict = GEMMA_9B, name: str = "Gemma-2-9B"):
+    """(random weights of `shape` on cuda, all its layers, made from a
+    seed; the config), after one prefill's shapes and finite logits (and
+    Gemma-2's final softcap) are checked."""
     import torch
 
     from kubeai_tpu_torch.models import gemma
 
-    cfg = gemma.GemmaConfig(**GEMMA_9B)
+    cfg = gemma.GemmaConfig(**shape)
     t0 = time.perf_counter()
     params = gemma.init_params(cfg, torch.Generator("cuda").manual_seed(0), device="cuda")
     torch.cuda.synchronize()
     n_bytes = sum(t.nbytes for t in [params["embed"], params["final_norm"],
                                      *params["layers"].values()])
-    print(f"serve_gemma: random Gemma-2-9B-shape weights on cuda, {n_bytes / 1e9:.3f} GB "
+    print(f"serve_gemma: random {name}-shape weights on cuda, {n_bytes / 1e9:.3f} GB "
           f"in {time.perf_counter() - t0:.2f} s", flush=True)
     with torch.no_grad():
         toks = torch.randint(0, cfg.vocab_size, (1, 64), device="cuda")
         logits, k_all, _ = gemma.prefill(params, cfg, toks, torch.tensor([64], device="cuda"))
     want_k = (cfg.num_layers, 1, 64, cfg.num_kv_heads, cfg.head_size)
     if tuple(logits.shape) != (1, cfg.vocab_size) or tuple(k_all.shape) != want_k:
-        fail(f"Gemma-2-9B prefill shapes {tuple(logits.shape)} {tuple(k_all.shape)}")
+        fail(f"{name} prefill shapes {tuple(logits.shape)} {tuple(k_all.shape)}")
     if not torch.isfinite(logits).all():
-        fail("Gemma-2-9B prefill logits are not finite")
-    if float(logits.abs().max()) > cfg.final_logit_softcapping:
-        fail("Gemma-2-9B logits pass the final softcap")
+        fail(f"{name} prefill logits are not finite")
+    cap = cfg.final_logit_softcapping
+    if cap and float(logits.abs().max()) > cap:
+        fail(f"{name} logits pass the final softcap")
     del logits, k_all
     return params, cfg
 
 
-def _gemma_gates(label: str, run: dict, decode: str) -> None:
-    """What every gemma serve run must show: its decode kernel launched,
-    the other decode kernels and B2 not at all (Gemma-2's prefill is the
-    plain attention, as in the JAX package), and a served context past the
-    window."""
+def _gemma_gates(label: str, run: dict, decode: str, gemma2: bool = True) -> None:
+    """What every gemma serve run must show: its decode kernel launched
+    and the other decode kernels not at all; for Gemma-2, B2 not at all
+    (its prefill is the plain attention, as in the JAX package) and a
+    served context past the window."""
     launched = run["launches"]
     if launched[decode] <= 0:
         fail(f"serve {label}: main path never launched {decode}")
-    for name in ("paged_decode_attention", "paged_decode_attention_fused",
-                 "paged_verify_attention", "paged_decode_attention_int8",
-                 "flash_causal_prefill"):
+    others = ["paged_decode_attention", "paged_decode_attention_fused",
+              "paged_verify_attention", "paged_decode_attention_int8"]
+    for name in others + ["flash_causal_prefill"] * gemma2:
         if name != decode and launched[name]:
             fail(f"serve {label}: {name} launched {launched[name]} times")
+    if not gemma2:
+        return
     longest = max(len(p) for p, *_ in run["requests"].values())
     if longest <= GEMMA_9B["sliding_window"]:
         fail(f"serve {label}: no served context passes the window ({longest} tokens)")
@@ -3798,44 +3946,75 @@ def _gemma_gates(label: str, run: dict, decode: str) -> None:
           f"the window of {GEMMA_9B['sliding_window']}", flush=True)
 
 
-def serve_gemma() -> dict:
-    """Phase 4b: Gemma-2 served on random Gemma-2-9B-shape weights at full
-    depth (`gemma_weights`), with GEMMA_SERVE_CONFIG, graphs and overlap:
-    the four `_gemma_bodies` per_layer (B1 at head_dim 256 with softcap 50
-    and the window of 4,096 on alternate layers), fused (B4 at head_dim
-    256), and with `prefill_chunk=512, prefix_cache=True` (per_layer) over
-    two waves whose second hits the first's pages. Gates: `_gemma_gates`,
-    every stream equal to an eager synchronous engine's, the staged-chunk
-    programs dispatched only as graph replays, hit tokens by the cache
-    rule and equal to the eager engine's. Profiles the decode step from
-    its graph in both layouts. Returns the head_dim-256 kernels' launches
-    on the main path (the per_layer and the fused run)."""
+# The whole-prompt gemma serve runs: (layout, decode kernel).
+GEMMA_RUNS = (("per_layer", "paged_decode_attention"),
+              ("fused", "paged_decode_attention_fused"))
+
+
+def serve_gemma(shape: dict = GEMMA_9B, name: str = "Gemma-2-9B", tag: str = "gemma") -> dict:
+    """Phase 4b (Gemma-2, the default) and 4c (Gemma-1: GEMMA_7B, tag
+    "gemma1"): random weights of `shape` at full depth (`gemma_weights`),
+    served with GEMMA_SERVE_CONFIG, graphs and overlap: the four
+    `_gemma_bodies` (each alone in its bucket, the longest at 8192)
+    per_layer (B1 at head_dim 256; Gemma-2's softcap 50 and window of
+    4,096 on alternate layers) and fused (B4 at head_dim 256), then
+    `gemma_prefix_run`. Gates: `_gemma_gates`, every stream equal to an
+    eager synchronous engine's; for Gemma-1, B2 (head_dim 256) launches
+    num_layers times in every prefill admission of the whole-prompt runs,
+    counted. Profiles the decode step from its graph in both layouts and,
+    for Gemma-1, one 8192-bucket prefill admission (B2's device ms).
+    Returns the head_dim-256 kernels' launches in the whole-prompt runs:
+    B1's and B4's for Gemma-2, B2's for Gemma-1."""
     import gc
 
     import torch
 
+    from kubeai_tpu_torch.models import gemma
+
     t_phase = time.perf_counter()
-    params, cfg = gemma_weights()
-    run_kw = dict(family="gemma", config=GEMMA_SERVE_CONFIG)
-    launches = {}
-    for label, layout, decode, key in (
-            ("gemma per_layer", "per_layer", "paged_decode_attention",
-             "paged_decode_attention_d256"),
-            ("gemma fused", "fused", "paged_decode_attention_fused",
-             "paged_decode_attention_fused_d256")):
-        run = serve_run(params, cfg, label, waves=[_gemma_bodies()], decode_kernel=layout,
-                        **run_kw)
-        _gemma_gates(label, run, decode)
-        launches[key] = run["launches"][decode]
+    params, cfg = gemma_weights(shape, name)
+    gemma2 = cfg.sandwich_norms
+    launches = {} if gemma2 else {"flash_causal_prefill_d256": 0}
+    for layout, decode in GEMMA_RUNS:
+        label = f"{tag} {layout}"
+        run = serve_run(params, cfg, label, waves=[_gemma_bodies()], family="gemma",
+                        config=GEMMA_SERVE_CONFIG, decode_kernel=layout)
+        _gemma_gates(label, run, decode, gemma2)
+        if gemma2:
+            launches[f"{decode}_d256"] = run["launches"][decode]
+        else:
+            b2, admitted = run["launches"]["flash_causal_prefill"], run["admissions"]
+            print(f"serve {label}: flash_causal_prefill (head_dim 256) launched {b2} times "
+                  f"in {admitted} prefill admissions ({cfg.num_layers} layers)", flush=True)
+            if admitted < 1 or b2 != cfg.num_layers * admitted:
+                fail(f"serve {label}: B2 launched {b2} times in {admitted} admissions, "
+                     f"not {cfg.num_layers} an admission")
+            launches["flash_causal_prefill_d256"] += b2
         check_streams_equal_eager(params, cfg, label, run, decode_kernel=layout)
         profile_program(run["engine"], f"{label} decode step", "decode chunk")
         free(run)
+    if not gemma2:
+        profile_prefill(params, cfg, model=gemma, buckets=(8192,), tag=f"{tag} ")
+    gemma_prefix_run(params, cfg, f"{tag} prefix", gemma2)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serve {tag} took {time.perf_counter() - t_phase:.2f} s; card: {gpu_line()}",
+          flush=True)
+    return launches
 
-    label = "gemma prefix"
+
+def gemma_prefix_run(params, cfg, label: str, gemma2: bool) -> None:
+    """`prefill_chunk=512, prefix_cache=True` (per_layer) over two waves
+    of `_gemma_bodies` whose second hits the first's pages. Gates:
+    `_gemma_gates`, the staged-chunk programs dispatched only as graph
+    replays, hit tokens the cache rule's (for Gemma-2 with more than a
+    window of them in wave 2) and the eager synchronous engine's, every
+    stream equal to that engine's."""
     extra = dict(decode_kernel="per_layer", prefill_chunk=PREFIX_CHUNK, prefix_cache=True)
     run = serve_run(params, cfg, label, waves=[_gemma_bodies(), _gemma_bodies(again=True)],
-                    **run_kw, **extra)
-    _gemma_gates(label, run, "paged_decode_attention")
+                    family="gemma", config=GEMMA_SERVE_CONFIG, **extra)
+    _gemma_gates(label, run, "paged_decode_attention", gemma2)
     if run["stage_calls"]:
         fail(f"serve {label}: staged-chunk functions ran outside their graphs: "
              f"{run['stage_calls']}")
@@ -3849,8 +4028,10 @@ def serve_gemma() -> dict:
     stats = dict(run["engine"].prefix_stats)
     wave2 = sum(dict(zip(order, per))[rid] for rid in run["waves"][1])
     print(f"serve {label} prefix_stats {json.dumps(stats)}; the cache rule gives "
-          f"{sum(per)} hit tokens ({wave2} in wave 2)", flush=True)
-    if wave2 <= GEMMA_9B["sliding_window"] or stats["hit_tokens"] < sum(per):
+          f"{sum(per)} hit tokens ({wave2} in wave 2); B2 launched "
+          f"{run['launches']['flash_causal_prefill']} times in {run['admissions']} "
+          "whole-prompt admissions", flush=True)
+    if stats["hit_tokens"] != sum(per) or (gemma2 and wave2 <= GEMMA_9B["sliding_window"]):
         fail(f"serve {label}: {stats['hit_tokens']} hit tokens, the rule gives {sum(per)} "
              f"({wave2} in wave 2)")
     ref = check_streams_equal_eager(params, cfg, label, run, **extra)
@@ -3859,11 +4040,20 @@ def serve_gemma() -> dict:
              f"the served engine {stats['hit_tokens']}")
     del ref
     free(run)
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"serve_gemma took {time.perf_counter() - t_phase:.2f} s", flush=True)
-    return launches
+
+
+# ---- serve_gemma1: Gemma-7B shapes at full depth -----------------------------------
+
+# HF google/gemma-7b config.json, all 28 layers: 16 heads over 16 kv heads
+# at head_dim 256, no softcaps and no window, so whole-prompt prefill runs
+# through B2's head_dim-256 build. 8.54 B parameters (17.1 GB in bf16);
+# 448 KiB of K/V a token, 11.3 GB a pool pair at GEMMA_SERVE_CONFIG's 385
+# pages. Served by `serve_gemma(GEMMA_7B, "Gemma-7B", "gemma1")`.
+GEMMA_7B = dict(
+    vocab_size=256000, hidden_size=3072, intermediate_size=24576, num_layers=28,
+    num_heads=16, num_kv_heads=16, head_dim=256, rope_theta=10000.0, rms_norm_eps=1e-6,
+    max_position_embeddings=8192,
+)
 
 
 # ---- phase 5: the engine Pod's entry point -------------------------------------
@@ -4432,17 +4622,34 @@ GEMMA_CLI_LAYER_LEAVES = (
     ("post_mlp_norm", "post_feedforward_layernorm.weight", False),
     ("w_gate", "mlp.gate_proj.weight", True), ("w_up", "mlp.up_proj.weight", True),
     ("w_down", "mlp.down_proj.weight", True))
+# A Gemma-1 checkpoint at Gemma-7B width (GEMMA_7B), 2 of its 28 layers.
+# Gemma-1's `post_attention_layernorm` is its pre-MLP norm.
+GEMMA1_CLI_CONFIG = {
+    "architectures": ["GemmaForCausalLM"], "model_type": "gemma",
+    "vocab_size": 256000, "hidden_size": 3072, "intermediate_size": 24576,
+    "num_hidden_layers": GEMMA_CLI_LAYERS, "num_attention_heads": 16,
+    "num_key_value_heads": 16, "head_dim": 256, "rope_theta": 10000.0,
+    "rms_norm_eps": 1e-6, "max_position_embeddings": 8192, "torch_dtype": "bfloat16",
+}
+GEMMA1_CLI_LAYER_LEAVES = (
+    ("input_norm", "input_layernorm.weight", False),
+    ("wq", "self_attn.q_proj.weight", True), ("wk", "self_attn.k_proj.weight", True),
+    ("wv", "self_attn.v_proj.weight", True), ("wo", "self_attn.o_proj.weight", True),
+    ("pre_mlp_norm", "post_attention_layernorm.weight", False),
+    ("w_gate", "mlp.gate_proj.weight", True), ("w_up", "mlp.up_proj.weight", True),
+    ("w_down", "mlp.down_proj.weight", True))
 
 
-def gemma_cli_tensors() -> dict:
-    """Random bf16 tensors under Gemma-2's Hugging Face names, drawn on
-    the card from a seed as `gemma.init_params` draws them (N(0, 0.02),
-    zero-centred norms at 0) and kept on the host. Logits are tied to the
-    embedding, so its rows of the printable ASCII bytes are drawn
-    ASCII_HEAD_SCALE times larger, as the llama checkpoint's head rows are."""
+def gemma_cli_tensors(c: dict = GEMMA_CLI_CONFIG,
+                      layer_leaves=GEMMA_CLI_LAYER_LEAVES) -> dict:
+    """Random bf16 tensors under the Hugging Face names of `c` (default
+    Gemma-2's), drawn on the card from a seed as `gemma.init_params` draws
+    them (N(0, 0.02), zero-centred norms at 0) and kept on the host.
+    Logits are tied to the embedding, so its rows of the printable ASCII
+    bytes are drawn ASCII_HEAD_SCALE times larger, as the llama
+    checkpoint's head rows are."""
     import torch
 
-    c = GEMMA_CLI_CONFIG
     E, M, V = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
     HD, KD = c["num_attention_heads"] * c["head_dim"], c["num_key_value_heads"] * c["head_dim"]
     gen = torch.Generator("cuda").manual_seed(2)
@@ -4457,8 +4664,8 @@ def gemma_cli_tensors() -> dict:
     embed = rnd(V, E)
     embed[32:127] *= ASCII_HEAD_SCALE
     out = {"model.embed_tokens.weight": embed.to(torch.bfloat16).cpu()}
-    for i in range(GEMMA_CLI_LAYERS):
-        for _, name, _ in GEMMA_CLI_LAYER_LEAVES:
+    for i in range(c["num_hidden_layers"]):
+        for _, name, _ in layer_leaves:
             shape = shapes.get(name)
             out[f"model.layers.{i}.{name}"] = (
                 torch.zeros(E, dtype=torch.bfloat16) if shape is None
@@ -4467,9 +4674,12 @@ def gemma_cli_tensors() -> dict:
     return out
 
 
-def serve_cli_gemma() -> None:
-    """Phase 5b: the entry point on a Gemma-2 checkpoint at Gemma-2-9B
-    width (GEMMA_CLI_LAYERS layers, bf16, `gemma_cli_tensors`) written with
+def serve_cli_gemma(config: dict = GEMMA_CLI_CONFIG, layer_leaves=GEMMA_CLI_LAYER_LEAVES,
+                    label: str = "gemma", width: str = "Gemma-2-9B") -> None:
+    """Phase 5b: the entry point on a gemma checkpoint (default: Gemma-2
+    at Gemma-2-9B width; GEMMA1_CLI_CONFIG: Gemma-1 at Gemma-7B width,
+    whose prefill runs B2 at head_dim 256 in the server process),
+    GEMMA_CLI_LAYERS layers, bf16, `gemma_cli_tensors`, written with
     `weights.save_safetensors`: one `cli_run` with the default flags
     (--max-adapters 4), whose admin step must get 400 naming ROADMAP fault
     C10 from /v1/load_lora_adapter; then the checkpoint loaded in-process
@@ -4491,8 +4701,8 @@ def serve_cli_gemma() -> None:
         status, res, _, _ = _post(port, {"lora_name": "tenant", "lora_path": root},
                                   path="/v1/load_lora_adapter")
         if status != 400 or "C10" not in json.dumps(res):
-            fail(f"serve_cli gemma: an adapter load got HTTP {status} {res}, not 400 (C10)")
-        print(f"serve_cli gemma: /v1/load_lora_adapter answers 400: {json.dumps(res)}",
+            fail(f"serve_cli {label}: an adapter load got HTTP {status} {res}, not 400 (C10)")
+        print(f"serve_cli {label}: /v1/load_lora_adapter answers 400: {json.dumps(res)}",
               flush=True)
 
     gc.collect()
@@ -4500,28 +4710,28 @@ def serve_cli_gemma() -> None:
     root = tempfile.mkdtemp(prefix="kubeai-serve-cli-gemma-")
     try:
         t0 = time.perf_counter()
-        tensors = gemma_cli_tensors()
+        tensors = gemma_cli_tensors(config, layer_leaves)
         model_dir = os.path.join(root, "model")
-        save_safetensors(model_dir, tensors, GEMMA_CLI_CONFIG)
+        save_safetensors(model_dir, tensors, config)
         ckpt_bytes = os.path.getsize(os.path.join(model_dir, "model.safetensors"))
-        print(f"serve_cli gemma checkpoint: {GEMMA_CLI_LAYERS} layers at Gemma-2-9B width, "
+        print(f"serve_cli {label} checkpoint: {GEMMA_CLI_LAYERS} layers at {width} width, "
               f"bf16, {ckpt_bytes / 1e9:.3f} GB in {len(tensors)} tensors, drawn and written "
               f"in {time.perf_counter() - t0:.2f} s", flush=True)
         sink = OtlpSink()
         try:
-            run = cli_run(model_dir, "gemma", [], {}, ckpt_bytes, sink, admin=refuse_adapters)
+            run = cli_run(model_dir, label, [], {}, ckpt_bytes, sink, admin=refuse_adapters)
         finally:
             sink.stop()
         cfg = gemma.GemmaConfig.from_hf_dict(load_hf_config(model_dir))
         params = load_params("gemma", model_dir, cfg, device="cuda")
-        n = check_loaded_bits(params, tensors, GEMMA_CLI_LEAVES, GEMMA_CLI_LAYER_LEAVES,
+        n = check_loaded_bits(params, tensors, GEMMA_CLI_LEAVES, layer_leaves,
                               GEMMA_CLI_LAYERS)
         del tensors
-        print(f"serve_cli gemma load_params in-process: {n} leaves bit-equal to the "
+        print(f"serve_cli {label} load_params in-process: {n} leaves bit-equal to the "
               "tensors written", flush=True)
         engine = Engine("gemma", cfg, params, cfg=EngineConfig(
             num_slots=8, max_seq_len=2048, max_adapters=4, decode_kernel="per_layer"))
-        check_cli_run("gemma", run, engine)
+        check_cli_run(label, run, engine)
         del engine, params
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -4554,19 +4764,29 @@ def gpu_line() -> str:
 
 
 def main() -> None:
+    import faulthandler
+
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script runs on the card")
+    # A stalled run ends here, before its time limit, with every thread's
+    # stack on stderr.
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True, file=sys.stderr)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
-    phase_build()
-    measured = phase_kernels()
-    phase_model()
-    launches = phase_serve()
-    launches.update(serve_gemma())
-    serve_cli()
-    serve_cli_gemma()
+    t_all = time.perf_counter()
+    timed("build", phase_build)
+    measured = timed("kernels", phase_kernels)
+    timed("model", phase_model)
+    launches = timed("serve", phase_serve)
+    launches.update(timed("serve_gemma", serve_gemma))
+    launches.update(timed("serve_gemma1", serve_gemma, GEMMA_7B, "Gemma-7B", "gemma1"))
+    timed("serve_cli", serve_cli)
+    timed("serve_cli_gemma", serve_cli_gemma)
+    timed("serve_cli_gemma1", serve_cli_gemma, GEMMA1_CLI_CONFIG, GEMMA1_CLI_LAYER_LEAVES,
+          "gemma1", "Gemma-7B")
+    print(f"phases: {time.perf_counter() - t_all:.2f} s in all", flush=True)
     kernels = []
     for name, m in measured.items():
         kernels.append({

@@ -357,7 +357,6 @@ def _refuse_unported(cfg: EngineConfig, mesh, draft, decode_kernel: str) -> None
 # The kernels that have no build yet for a head dim a served family has,
 # with the ROADMAP item that adds it.
 _HEAD_DIM_ITEMS = {
-    (flash_causal_prefill, 256): "ROADMAP B, B2 at head_dim 256",
     (paged_decode_attention_int8, 256): "ROADMAP B, B1-int8 at head_dim 256",
 }
 

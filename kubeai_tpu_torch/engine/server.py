@@ -15,6 +15,8 @@ operator and the fleet read):
   POST /v1/profile            an N-step per-phase timeline of the
                               engine loop, optionally with a
                               torch.profiler trace of the window
+                              (started and stopped on the serve
+                              loop's thread, between two steps)
   POST /v1/kv/import          receive a KV handoff (chunked upload) for a
                               later X-Disagg-Handoff generate
   POST /v1/kv/export          serve a peer's prefix-page fetch (KVP1 blob)
@@ -71,6 +73,7 @@ Run: python -m kubeai_tpu_torch.engine.server --model-url <dir> [--port N]
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import json
 import logging
@@ -726,6 +729,8 @@ class EngineServer:
         self._wedged = False
         self._watchdog_thread: threading.Thread | None = None
         self._loop_thread = threading.Thread(target=self._serve_loop, daemon=True)
+        # Calls that must not run beside a step (`_on_loop`).
+        self._loop_calls: queue.Queue[tuple] = queue.Queue()
 
         outer = self
 
@@ -933,6 +938,7 @@ class EngineServer:
     def _serve_loop(self) -> None:
         while not self._stop.is_set():
             try:
+                self._run_loop_calls()
                 if not self.engine.has_work():
                     self._work.wait(timeout=0.01)
                     self._work.clear()
@@ -958,6 +964,36 @@ class EngineServer:
                 )
                 self._loop_dead = True
                 return
+
+    def _run_loop_calls(self) -> None:
+        while True:
+            try:
+                fn, fut = self._loop_calls.get_nowait()
+            except queue.Empty:
+                return
+            if fut.set_running_or_notify_cancel():
+                try:
+                    fut.set_result(fn())
+                except BaseException as e:  # noqa: BLE001 — raised in the caller
+                    fut.set_exception(e)
+
+    def _on_loop(self, fn):
+        """fn() on the serve loop's thread, between two steps, or here
+        when that loop is not running. torch.profiler must start and stop
+        there: on the card, stopping it on another thread while the loop
+        replays a CUDA graph can hang both threads."""
+        if threading.current_thread() is self._loop_thread:
+            return fn()
+        fut = concurrent.futures.Future()
+        self._loop_calls.put((fn, fut))
+        self._work.set()
+        while True:
+            try:
+                return fut.result(timeout=0.05)
+            except TimeoutError:
+                loop_down = not self._loop_thread.is_alive() or self._loop_dead
+                if loop_down and fut.cancel():
+                    return fn()
 
     _loop_dead = False
     _last_progress = 0.0
@@ -1197,7 +1233,7 @@ class EngineServer:
                 400, {"error": {"message": "timeout_s must be in (0, 120]"}}
             )
         fresh = bool(body.get("fresh", False))
-        trace = self._start_trace() if body.get("jax_trace") else None
+        trace = self._on_loop(self._start_trace) if body.get("jax_trace") else None
         captured = 0
         try:
             if fresh:
@@ -1245,13 +1281,13 @@ class EngineServer:
             return None
         return prof, tempfile.mkdtemp(prefix="kubeai-profile-")
 
-    @staticmethod
-    def _stop_trace(trace) -> str | None:
-        """Stop the profiler and write its Chrome trace; the directory, or
-        None when either step failed."""
+    def _stop_trace(self, trace) -> str | None:
+        """Stop the profiler (on the serve loop's thread) and write its
+        Chrome trace (here); the directory, or None when either step
+        failed."""
         prof, trace_dir = trace
         try:
-            prof.__exit__(None, None, None)
+            self._on_loop(lambda: prof.__exit__(None, None, None))
             prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
         except Exception:  # noqa: BLE001
             logger.exception("/v1/profile: torch.profiler did not stop")

@@ -25,15 +25,15 @@ hand the same weights to both packages (kubeai_tpu_torch.parity):
                 Gemma-2: "post_attn_norm", "post_mlp_norm": [NL, E]}}
 
 Attention: Gemma-1's prefill goes through ops.flash_attention
-.flash_causal_prefill (B2; on the card it takes head_dim 64 and 128 only,
-so the engine refuses Gemma-1 there). Gemma-2's prefill and every staged
-chunk attend through the plain ops.attention functions, which carry the
-softcap and the window, as the JAX version branches. Decode attention
-goes through paged_decode_attention (B1, "per_layer") or
-paged_decode_attention_fused (B4, "fused") with the layer's softcap and
-window: the layer loop is Python, so each layer passes its window as the
-int the wrappers take and a captured graph bakes it in. Int8 pools run
-per_layer only, as in the JAX version.
+.flash_causal_prefill (B2, which has a head_dim-256 build on the card).
+Gemma-2's prefill and every staged chunk attend through the plain
+ops.attention functions, which carry the softcap and the window, as the
+JAX version branches. Decode attention goes through
+paged_decode_attention (B1, "per_layer") or paged_decode_attention_fused
+(B4, "fused") with the layer's softcap and window: the layer loop is
+Python, so each layer passes its window as the int the wrappers take and
+a captured graph bakes it in. Int8 pools run per_layer only, as in the
+JAX version.
 
 Not here: the slot-cache `decode_step` (ROADMAP A item 10e), a verify
 forward (the JAX family has none: speculation falls back to vanilla

@@ -6,13 +6,15 @@ which replaces the Pallas kernel B2. Its plain version is
 `ops.attention.causal_prefill_attention`: CPU tensors take it, and the
 tests and chip_smoke.py hold the kernel against it.
 
-The Pallas kernel pads head_dim to 128 and needs S % 128 == 0 (TPU
-tiling rules). The Hopper kernel needs neither: it masks the ragged S
-tail and takes head_dim 64 or 128, so on the card every prefill bucket
-goes through it. Its C entry point builds the TMA maps on the host from
-the pointers and shapes on each call, so the wrapper reads no device
-value and a CUDA graph can capture it; a pointer that is not 16-byte
-aligned makes the launch fail and the wrapper raise.
+The Pallas kernel pads head_dim to a multiple of 128 and needs
+S % 128 == 0 (TPU tiling rules). The Hopper kernel needs neither: it masks the
+ragged S tail and takes head_dim 64, 128 or 256 (Gemma; that build
+splits O's columns between its two consumer warpgroups over 64-row
+blocks and 64-key K/V tiles), so on the card every prefill bucket goes
+through it. Its C entry point builds the TMA maps on the host from the
+pointers and shapes on each call, so the wrapper reads no device value
+and a CUDA graph can capture it; a pointer that is not 16-byte aligned
+makes the launch fail and the wrapper raise.
 """
 
 from __future__ import annotations
@@ -49,8 +51,8 @@ def flash_causal_prefill(
     v: torch.Tensor,
 ) -> torch.Tensor:
     """Flash attention with the causal_prefill_attention contract. CUDA
-    tensors launch the kernel (bf16, head_dim 64 or 128) or raise; CPU
-    tensors take causal_prefill_attention."""
+    tensors launch the kernel (bf16, head_dim 64, 128 or 256) or raise;
+    CPU tensors take causal_prefill_attention."""
     if q.device.type == "cpu":
         return causal_prefill_attention(q, k, v)
     if q.device.type != "cuda":
@@ -72,4 +74,4 @@ def flash_causal_prefill(
 # Kernel launches since the count was last set to 0.
 flash_causal_prefill.launches = 0
 # The head dims the kernel has a build for.
-flash_causal_prefill.head_dims = (64, 128)
+flash_causal_prefill.head_dims = (64, 128, 256)

@@ -22,9 +22,10 @@ window.
   preemption.
 - The weights: a Gemma and a Gemma-2 checkpoint written with HF names
   load bit-equal through both packages' loaders.
-- The card's refusals (a device argument, no card): Gemma-1's prefill
-  (B2 at head_dim 256), int8 pools at head_dim 256 (B1-int8) and a head
-  dim no kernel on the path takes, each at construction.
+- The card's refusals (a device argument, no card): int8 pools at
+  head_dim 256 (B1-int8) and a head dim no kernel on the path takes, each
+  at construction; Gemma-1 on bf16 pools passes them (B2 has a
+  head_dim-256 build).
 - Fault C10: the JAX engine loads an adapter on gemma and serves the base
   model under its name; the port refuses the load, and its route answers
   400.
@@ -60,7 +61,7 @@ from kubeai_tpu_torch.models import llama as tl
 from kubeai_tpu_torch.models.registry import get_model_family
 from kubeai_tpu_torch.ops import kv_quant as tkq
 from kubeai_tpu_torch.ops import paged_attention as tpa
-from kubeai_tpu_torch.ops.flash_attention import flash_causal_prefill
+from kubeai_tpu_torch.ops.flash_attention import _check_prefill_args, flash_causal_prefill
 from kubeai_tpu_torch.parity import params_from_numpy
 
 TOK = ByteTokenizer()
@@ -417,10 +418,17 @@ def _refusal(model_cfg, family="gemma", device=CUDA, speculate=0, **kw):
 
 def test_card_refusals():
     g1 = tg.GemmaConfig()  # Gemma-2B: head_dim 256, B2's path
+    g7 = dataclasses.replace(g1, hidden_size=3072, intermediate_size=24576,
+                             num_layers=28, num_heads=16, num_kv_heads=16)  # Gemma-7B
     g2 = tg.GemmaConfig.from_hf_dict(hf_config(True, head_dim=256))
-    assert "B2 at head_dim 256" in _refusal(g1)
-    assert "ROADMAP" in _refusal(g1) and "flash_causal_prefill" in _refusal(g1)
-    assert "B1-int8 at head_dim 256" in _refusal(g2, kv_dtype="int8")
+    # Gemma-1 takes B2, B1 and B4 at 256; on int8 pools B1-int8 refuses it.
+    for cfg in (g1, g7):
+        assert get_model_family("gemma").prefill_uses_flash(cfg)
+        assert _refusal(cfg) is None and _refusal(cfg, decode_kernel="fused") is None
+    for cfg in (g1, g2):
+        msg = _refusal(cfg, kv_dtype="int8")
+        assert "B1-int8 at head_dim 256" in msg and "ROADMAP" in msg, msg
+        assert "paged_decode_attention_int8" in msg
     # Gemma-2 at 256 takes B1 and B4, and no B2 (its prefill is plain).
     assert _refusal(g2) is None and _refusal(g2, decode_kernel="fused") is None
     # A llama whose head_dim no kernel takes: refused, not left to capture.
@@ -432,8 +440,8 @@ def test_card_refusals():
     wide = tl.LlamaConfig(hidden_size=4096, num_heads=16, head_dim=256)
     assert "paged_verify_attention" in _refusal(wide, family="llama", speculate=4)
     # The CPU runs the plain versions, which take any head_dim.
-    for device_cfg in ((g1, {}), (g2, dict(kv_dtype="int8"))):
-        assert _refusal(device_cfg[0], device=CPU, **device_cfg[1]) is None
+    for cfg in (g1, g2):
+        assert _refusal(cfg, device=CPU, kv_dtype="int8") is None
 
 
 def test_engine_refuses_before_building(monkeypatch):
@@ -449,15 +457,16 @@ def test_engine_refuses_before_building(monkeypatch):
     monkeypatch.setattr(teng, "resolve_device", lambda device=None: CUDA)
     monkeypatch.setattr(teng.PagedKVCache, "create", no_cache)
     wide = dataclasses.replace(cfg, head_dim=256)
-    with pytest.raises(NotImplementedError, match="B2 at head_dim 256"):
-        Engine("gemma", wide, params, cfg=EngineConfig(num_slots=2, max_seq_len=32))
+    with pytest.raises(NotImplementedError, match="B1-int8 at head_dim 256"):
+        Engine("gemma", wide, params, cfg=EngineConfig(num_slots=2, max_seq_len=32,
+                                                       kv_dtype="int8"))
 
 
 def test_kernel_wrappers_take_head_dim_256_where_built():
-    assert 256 in tpa.paged_decode_attention.head_dims
-    assert 256 in tpa.paged_decode_attention_fused.head_dims
-    for kernel in (tpa.paged_verify_attention, tpa.paged_decode_attention_int8,
+    for kernel in (tpa.paged_decode_attention, tpa.paged_decode_attention_fused,
                    flash_causal_prefill):
+        assert 256 in kernel.head_dims, kernel.__name__
+    for kernel in (tpa.paged_verify_attention, tpa.paged_decode_attention_int8):
         assert 256 not in kernel.head_dims, kernel.__name__
     B, H, KVH, D = 2, 16, 8, 256
     q = torch.zeros(B, H, D, dtype=torch.bfloat16)
@@ -472,6 +481,15 @@ def test_kernel_wrappers_take_head_dim_256_where_built():
                            torch.zeros(3, 8, KVH))
     with pytest.raises(ValueError, match="head_dim 256"):
         tpa._check_decode_int8_args(q, q8, q8, bt, n, window=None)
+    # Gemma-7B's prefill: 16 q heads over 16 kv heads, and Gemma-2B's 8
+    # over 1.
+    for h, kvh in ((16, 16), (8, 1)):
+        qf = torch.zeros(1, 128, h, D, dtype=torch.bfloat16)
+        kf = torch.zeros(1, 128, kvh, D, dtype=torch.bfloat16)
+        _check_prefill_args(qf, kf, kf)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        x = torch.zeros(1, 128, 8, 96, dtype=torch.bfloat16)
+        _check_prefill_args(x, x, x)
 
 
 @pytest.mark.parametrize("shape,d,want", [

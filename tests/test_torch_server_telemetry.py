@@ -200,6 +200,52 @@ def test_profile_trace_that_cannot_start_gives_null(servers, monkeypatch):
     assert status == 200 and got["jax_trace_dir"] is None and got["steps"]
 
 
+def test_profile_trace_starts_and_stops_on_the_serve_loop(servers, monkeypatch):
+    """The profiler is entered and left on the serve loop's thread, never
+    beside a step: on the card, leaving it on a handler thread while the
+    loop replays a CUDA graph can hang both threads."""
+    _, tsrv = servers
+    import torch.profiler
+
+    seen = []
+
+    class Recorder:
+        def __init__(self, *a, **kw):
+            pass
+
+        def __enter__(self):
+            seen.append(("enter", threading.current_thread()))
+            return self
+
+        def __exit__(self, *exc):
+            seen.append(("exit", threading.current_thread()))
+
+        def export_chrome_trace(self, path):
+            with open(path, "w") as f:
+                json.dump({"traceEvents": []}, f)
+
+    monkeypatch.setattr(torch.profiler, "profile", Recorder)
+    status, got, statuses = _profile_under_load(
+        tsrv, {"steps": 2, "fresh": True, "timeout_s": 60, "jax_trace": True})
+    shutil.rmtree(got["jax_trace_dir"], ignore_errors=True)
+    assert status == 200 and got["steps_captured"] >= 2 and set(statuses) == {200}
+    assert seen == [("enter", tsrv._loop_thread), ("exit", tsrv._loop_thread)]
+
+
+def test_on_loop_runs_inline_without_a_loop_and_raises_the_callers_error():
+    srv = EngineServer(types.SimpleNamespace(), TOK, "tiny", port=0)
+    try:
+        assert srv._on_loop(threading.current_thread) is threading.current_thread()
+
+        def boom():
+            raise ValueError("boom")
+
+        with pytest.raises(ValueError, match="boom"):
+            srv._on_loop(boom)
+    finally:
+        srv.httpd.server_close()
+
+
 # ---- the flight recorder -------------------------------------------------------------
 
 
