@@ -37,7 +37,14 @@ Phases, each fatal on failure:
                B=4 at 1024, Gemma-2B's (H=8, KVH=1) at 512 and 8192,
                against the plain version, timed beside SDPA and the
                bound; the same bits from two calls and a graph replay; no
-               spills;
+               spills. B1-int8 at head_dim 256 (gemma on int8 pools), an
+               entry of its own: B1's Gemma-2-9B case on the same pools
+               quantized, plain and with window 4096 + softcap 50, timed
+               (graph, eager, cold L2) beside SDPA on the dequantized
+               view; the same bits from two calls and a graph replay; its
+               split edges and slots past the table; its splits' CTA
+               target and token cap measured on the kernel case and the
+               served contexts; G 1, 2 and 8 with the five cases;
   3. model   — a small model (head_dim 128) on the card through the kernels
                against the same weights in f32 on the CPU through the plain
                versions: prefill, paged-decode (both layouts) and
@@ -137,17 +144,22 @@ Phases, each fatal on failure:
                softcaps 50 and 30), num_slots=8, max_seq_len=8192: four
                chat requests of 28-4,200 prompt tokens (one seeded, one
                streamed; the longest passes the window) served per_layer
-               (B1 at head_dim 256 must launch), fused (B4) and with
-               prefill_chunk=512 and the prefix cache over two waves (hits
-               by the cache rule); B2 must not launch (Gemma-2's prefill is
-               the plain attention). Every stream must equal an eager
-               synchronous engine's; the decode step is profiled from its
-               graph in both layouts;
+               (B1 at head_dim 256 must launch), fused (B4), per_layer on
+               int8 pools (B1-int8 at head_dim 256 must launch 42 times a
+               step, only from replays, B1 never; the pools' GiB against
+               bf16's) and with prefill_chunk=512 and the prefix cache
+               over two waves (hits by the cache rule), on bf16 and on
+               int8 pools; B2 must not launch (Gemma-2's prefill is the
+               plain attention). Every stream must equal an eager
+               synchronous engine's (an int8 one on int8 pools); the
+               decode step is profiled from its graph in each run
+               (eagerly too per_layer);
   4c. serve_gemma1 — `serve_gemma(GEMMA_7B, ...)`: Gemma-1 on random
                Gemma-7B-shape weights, all 28
                layers (16 heads over 16 kv heads at head_dim 256, no
                softcap, no window), the same four requests and config:
-               per_layer (B1 at G=1) and fused (B4), where B2 at head_dim
+               per_layer (B1 at G=1), fused (B4) and on int8 pools
+               (B1-int8 at G=1, with the int8 gates), where B2 at head_dim
                256 must launch 28 times in every prefill admission, then
                the prefix run; every stream equal to an eager engine's,
                hits by the rule; the decode step from its graph and B2's
@@ -180,9 +192,11 @@ Phases, each fatal on failure:
                process's direct text. Then a 2-layer Gemma-2 checkpoint at
                Gemma-2-9B width and a 2-layer Gemma-1 (GemmaForCausalLM)
                checkpoint at Gemma-7B width, each served by the CLI once
-               with its defaults: /v1/load_lora_adapter must answer 400
-               (ROADMAP fault C10), the loaded tensors must be the ones
-               written and the greedy streams an in-process engine's.
+               with its defaults, and the Gemma-2 one again with
+               `--kv-dtype int8` (/v1/state must report int8 pools):
+               /v1/load_lora_adapter must answer 400 (ROADMAP fault C10),
+               the loaded tensors must be the ones written and the greedy
+               streams an in-process engine's.
 
 Each phase prints its seconds on a line of its own ("phase <name>: s"),
 and its start and end on stderr. A run still going after WATCHDOG_S
@@ -275,6 +289,12 @@ KERNELS = {
     "flash_causal_prefill_d256": (
         "kubeai_tpu_torch/csrc/flash_prefill.cu",
         "kubeai_tpu/ops/pallas_attention.py:108",
+    ),
+    # B1-int8's head_dim-256 build (gemma on int8 pools), which
+    # serve_gemma's int8 run drives.
+    "paged_decode_attention_int8_d256": (
+        "kubeai_tpu_torch/csrc/paged_decode.cu",
+        "kubeai_tpu/ops/paged_attention.py:309",
     ),
 }
 
@@ -659,7 +679,7 @@ def check_decode_split_edges(q, kp, vp, gen) -> None:
 
     B, page, mp = q.shape[0], kp.shape[1], 32
     if isinstance(kp, QuantizedPool):
-        _, per = int8_split(B, kp.shape[2], mp, page)
+        _, per = int8_split(B, kp.shape[2], mp, page, kp.shape[3])
     else:
         _, per = fused_split(B, kp.shape[2], mp, page, kp.shape[3])
     edge = per * page  # tokens in a split
@@ -1399,14 +1419,16 @@ def check_head_dim_64() -> None:
 
 
 def check_head_dim_256() -> dict:
-    """B1 and B4 at head_dim 256 (Gemma), which no Llama shape runs: at
-    Gemma-2-9B's shape (B=8, H=16, KVH=8, page 64, ragged lengths up to
-    8192, slot 0 the whole table, slot 1 one token) plain and with
+    """B1, B4 and B1-int8 at head_dim 256 (Gemma), which no Llama shape
+    runs: at Gemma-2-9B's shape (B=8, H=16, KVH=8, page 64, ragged lengths
+    up to 8192, slot 0 the whole table, slot 1 one token) plain and with
     Gemma-2's window 4096 and softcap 50, timed as the 128 cases are, SDPA
-    beside them on the same keys (with the window's mask); two calls and a
-    CUDA-graph replay that must give the same bits; B1's split edges and
-    slots past the table and B4's split edges on the same pools; then
-    `check_head_dim_256_groups`. Returns the two plain cases' lines for
+    beside them on the same keys (with the window's mask; for B1-int8 on
+    the dequantized pages, with a cold-L2 time); two calls and a
+    CUDA-graph replay that must give the same bits; B1's and B1-int8's
+    split edges and slots past the table and B4's split edges on the same
+    pools (B1-int8's quantized by kv_quant.quantize_kv); then
+    `check_head_dim_256_groups`. Returns the three plain cases' lines for
     the kernels line, keyed by KERNELS' head_dim-256 names."""
     import torch
 
@@ -1435,6 +1457,25 @@ def check_head_dim_256() -> dict:
     report_d256_split_caps(q, kp, vp, bt, lengths, gen)
     check_decode_split_edges(q, kp, vp, gen)
     check_decode_past_table(q, kp, vp, gen)
+
+    # B1-int8 on the same pools quantized by kv_quant.quantize_kv, against
+    # the plain version on the same int8 pages and scales.
+    kq, vq = _quantize_pool(kp), _quantize_pool(vp)
+    args = (q, kq, vq, bt, lengths)
+    for cap, win in ((None, None), (50.0, 4096)):
+        kw = dict(logit_softcap=cap, window=win)
+        _, err = _check_decode_case(f"D=256 softcap={cap} window={win}", args, kw)
+        line = _time_decode(args, kw, library=True)
+        line["max_abs_err"] = err
+        measured.setdefault("paged_decode_attention_int8_d256", dict(line))
+        print("kernel paged_decode_attention_int8 B=%d H=%d KVH=8 D=%d page=64 max_len=%d %s"
+              % (B, H, D, int(lengths.max()), json.dumps(line)), flush=True)
+    _same_bits("paged_decode_int8 D=256", lambda: paged_decode_attention(
+        *args, logit_softcap=50.0, window=4096))
+    report_int8_d256_splits(q, kq, vq, bt, lengths, gen)
+    check_decode_split_edges(q, kq, vq, gen)
+    check_decode_past_table(q, kq, vq, gen)
+    del kq, vq, args
 
     # B4 on a 2-layer stacked pool (layer 1) of the same keys: old lengths
     # are B1's lengths less the new token.
@@ -1495,6 +1536,127 @@ def report_d256_split_caps(q, kp, vp, bt, lengths, gen) -> None:
         pa._D256_MAX_SPLIT_TOKENS = kept
 
 
+def report_int8_d256_splits(q, kp, vp, bt, lengths, gen) -> None:
+    """B1-int8 at head_dim 256 from a CUDA graph with the split's CTA
+    target for several slots (`paged_attention._INT8_TARGET_CTAS`, which
+    D = 128 shares) at 2, 4 and 8 x 132 and its cap at 128, 256, 512,
+    1,024 and 4,096 tokens (`_INT8_D256_MAX_SPLIT_TOKENS`; 4,096 is the
+    walk's own 64 entries), plain and with window 4096 + softcap 50, on
+    the kernel phase's slots and on the served Gemma-2-9B contexts, as
+    `report_d256_split_caps` does for B1: the measurement the two were
+    chosen from. Prints one line a shape."""
+    import torch
+
+    from kubeai_tpu_torch.ops import paged_attention as pa
+
+    served = torch.tensor([60, 349, 1132, 4232, 1, 1, 1, 1])
+    shapes = {"kernel phase": (bt, lengths),
+              "served": (_table(served.tolist(), 64, bt.shape[1], gen).to("cuda"),
+                         served.to("cuda", torch.int32))}
+    kept = pa._INT8_TARGET_CTAS, pa._INT8_D256_MAX_SPLIT_TOKENS
+    try:
+        for label, (table, n) in shapes.items():
+            times = {}
+            for waves in (2, 4, 8):
+                for cap in (128, 256, 512, 1024, 4096):
+                    pa._INT8_TARGET_CTAS, pa._INT8_D256_MAX_SPLIT_TOKENS = waves * 132, cap
+                    split = pa.int8_split(table.shape[0], kp.shape[2], table.shape[1], 64, 256)
+                    for softcap, win in ((None, None), (50.0, 4096)):
+                        times[f"{waves}x132 cap {cap} {split} softcap={softcap} "
+                              f"window={win}"] = graph_ms(
+                            lambda: pa.paged_decode_attention(
+                                q, kp, vp, table, n, logit_softcap=softcap, window=win))
+            print(f"paged_decode_int8 D=256 splits, {label} (lengths {n.tolist()}): ms "
+                  f"{json.dumps(times)}", flush=True)
+    finally:
+        pa._INT8_TARGET_CTAS, pa._INT8_D256_MAX_SPLIT_TOKENS = kept
+
+
+# One-constant changes of csrc/paged_split_walk_int8.cuh that
+# `report_int8_d256_variants` times against the repo's build.
+INT8_D256_VARIANTS = {
+    "K rows unswizzled at D=256": ("kSwizzle = D >= 128 ? 4 : 0", "kSwizzle = D == 128 ? 4 : 0"),
+    "4-deep ring (one CTA an SM)": ("constexpr int kStagesD256 = 3;",
+                                    "constexpr int kStagesD256 = 4;"),
+}
+
+
+def report_int8_d256_variants() -> None:
+    """B1-int8 at head_dim 256 against builds of its walk that each change
+    one constant of paged_split_walk_int8.cuh (INT8_D256_VARIANTS): K
+    rows without the swizzle (the score's reads of rows gq and gq + 1 on
+    the same banks) and a 4-deep ring. Each variant's csrc/ is a copy
+    under a temporary directory, built by `_build` and loaded in place of
+    the repo's library for its turn; the wrapper and its split are the
+    repo's. Timed from CUDA graphs in one process, in turns (repo,
+    variants, repo), on the kernel phase's Gemma-2-9B case and the
+    served contexts, plain and with window 4096 + softcap 50, each
+    variant's output checked against the repo build's: how the swizzle
+    and the ring depth were checked on the card, where no profiler reads
+    bank conflicts. Not part of the smoke's own run. Prints one line."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from kubeai_tpu_torch.ops import _build
+    from kubeai_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    gen = torch.Generator().manual_seed(21)
+    q, kp, vp, bt, lengths = _paged_inputs(gen, B=8, H=16, KVH=8, D=256, page=64,
+                                           max_len=8192)
+    kq, vq = _quantize_pool(kp), _quantize_pool(vp)
+    del kp, vp
+    served = torch.tensor([60, 349, 1132, 4232, 1, 1, 1, 1])
+    cases = {"kernel phase": (bt, lengths),
+             "served": (_table(served.tolist(), 64, bt.shape[1], gen).to("cuda"),
+                        served.to("cuda", torch.int32))}
+    kept = _build.CSRC, _build.BUILD_ROOT, _build._lib
+    libs = {"repo": kept[2] or _build.load()}
+    tmp = Path(tempfile.mkdtemp(prefix="int8_variants_"))
+    try:
+        for name, (old, new) in INT8_D256_VARIANTS.items():
+            src = tmp / name.split()[0] / "csrc"
+            shutil.copytree(kept[0], src)
+            header = src / "paged_split_walk_int8.cuh"
+            text = header.read_text()
+            if old not in text:
+                fail(f"int8 variant {name}: {old!r} not in the walk's source")
+            header.write_text(text.replace(old, new))
+            _build.CSRC, _build.BUILD_ROOT, _build._lib = src, src.parent / "build", None
+            t0 = time.perf_counter()
+            libs[name] = _build.load()
+            print(f"int8 variant {name}: built in {time.perf_counter() - t0:.2f} s", flush=True)
+            for entry, regs, spills in ptxas_report("paged_decode.cu"):
+                if "int8" in entry and "Li256E" in entry:
+                    print(f"  ptxas {entry[:60]}: {regs} registers, {spills} bytes spilled",
+                          flush=True)
+        times: dict[str, float] = {}
+        want = {}
+        for name in ["repo", *INT8_D256_VARIANTS, "repo again"]:
+            _build._lib = libs[name.replace(" again", "")]
+            for label, (table, n) in cases.items():
+                for cap, win in ((None, None), (50.0, 4096)):
+                    def call():
+                        return paged_decode_attention(q, kq, vq, table, n,
+                                                      logit_softcap=cap, window=win)
+                    key = f"{label} softcap={cap} window={win}"
+                    out = call()
+                    torch.cuda.synchronize()
+                    if key in want:
+                        compare(f"int8 variant {name} {key}", out, want[key], PAGED_ATOL,
+                                PAGED_RTOL)
+                    else:
+                        want[key] = out
+                    times[f"{name}: {key}"] = graph_ms(call)
+        print(f"paged_decode_int8 D=256 variants, ms from CUDA graphs: {json.dumps(times)}",
+              flush=True)
+    finally:
+        _build.CSRC, _build.BUILD_ROOT, _build._lib = kept
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _same_bits(name: str, call) -> None:
     """Two eager calls, and one call captured in a CUDA graph and
     replayed, give the same bits."""
@@ -1513,11 +1675,12 @@ def _same_bits(name: str, call) -> None:
 
 
 def check_head_dim_256_groups() -> None:
-    """B1 and B4 at head_dim 256 for both group builds: G = 1 (Gemma-7B:
-    16 q heads over 16 kv heads, MG 4), G = 2 (Gemma-2-9B: 16 over 8, MG
-    4) and G = 8 (Gemma-2B: 8 over 1, MG 8), at B=4 with lengths up to
-    4608, plain, softcap 50, window 100, window 4096, and softcap 50 +
-    window 4096. No timing."""
+    """B1, B4 and B1-int8 at head_dim 256 for both group builds: G = 1
+    (Gemma-7B: 16 q heads over 16 kv heads, MG 4), G = 2 (Gemma-2-9B: 16
+    over 8, MG 4) and G = 8 (Gemma-2B: 8 over 1, MG 8), at B=4 with
+    lengths up to 4608, plain, softcap 50, window 100, window 4096, and
+    softcap 50 + window 4096; B1-int8 on the layer-0 pools quantized by
+    kv_quant.quantize_kv. No timing."""
     import torch
 
     from kubeai_tpu_torch.ops.paged_attention import (
@@ -1537,9 +1700,10 @@ def check_head_dim_256_groups() -> None:
     def rnd(*shape):
         return torch.randn(*shape, generator=cg, device="cuda").to(torch.bfloat16)
 
-    errs = []
+    errs, errs8 = [], []
     for H, KVH in ((16, 16), (16, 8), (8, 1)):
         kp, vp = rnd(2, 1 + B * mp, page, KVH, D), rnd(2, 1 + B * mp, page, KVH, D)
+        kq, vq = _quantize_pool(kp[0]), _quantize_pool(vp[0])
         q, kn, vn = rnd(B, H, D), rnd(B, KVH, D), rnd(B, KVH, D)
         for cap, win in ((None, None), (50.0, None), (None, 100), (None, 4096),
                          (50.0, 4096)):
@@ -1549,9 +1713,12 @@ def check_head_dim_256_groups() -> None:
             errs.append(compare(f"paged_decode {tag}", got, ref_paged_decode_attention(
                 q, kp[0], vp[0], bt, n, **kw), PAGED_ATOL, PAGED_RTOL))
             errs.append(_check_fused_case(tag, (q, kp, vp, kn, vn, bt, n - 1, 1), kw)[1])
+            errs8.append(_check_decode_case(tag, (q, kq, vq, bt, n), kw)[1])
     print(f"kernels at head_dim 256 (B1, B4; G 1, 2, 8 x plain, softcap 50, window 100, "
           f"window 4096, softcap 50 + window 4096): max |err| "
           f"{['%.3e' % e for e in errs]}", flush=True)
+    print(f"paged_decode_int8 at head_dim 256 (G 1, 2, 8 x the same five cases): max |err| "
+          f"{['%.3e' % e for e in errs8]}", flush=True)
 
 
 def phase_kernels() -> dict:
@@ -2695,16 +2862,7 @@ def serve_int8(params, cfg, bf16_step: dict) -> int:
         fail("serve int8: paged_decode_attention (bf16) launched on int8 pools")
     if got["flash_causal_prefill"] <= 0:
         fail("serve int8: main path never launched flash_causal_prefill")
-    info = engine.kv_cache_info()
-    nl, n_pages, page, kvh, d = engine.cache.pages_shape
-    bf16_bytes = 2 * nl * n_pages * page * kvh * d * 2
-    if not info["quantized"] or info["dtype"] != "int8" or info["pool_bytes"] != (
-            2 * nl * n_pages * page * kvh * (d + 4)):
-        fail(f"serve int8: kv_cache_info {info}")
-    print(f"serve int8 pools: {info['pool_bytes'] / 2**30:.4f} GiB of int8 pages and scales "
-          f"against {bf16_bytes / 2**30:.4f} GiB for the same {n_pages} pages in bf16 "
-          f"(x{info['pool_bytes'] / bf16_bytes:.4f}); kv_cache_info {json.dumps(info)}",
-          flush=True)
+    check_int8_pools(label, engine, cfg.num_layers)
     check_streams_equal_eager(params, cfg, label, run, **extra)
     step = profile_program(engine, "int8 decode step", "decode chunk")
     print(f"serve int8 decode step from its graph: wall {step['wall_ms']:.3f} ms, device "
@@ -3780,20 +3938,21 @@ def profile(engine, unit: str, call, e_steps: int, calls: int = 2) -> dict:
     return out
 
 
-def profile_program(engine, unit: str, program: str, calls: int | None = None) -> dict:
+def profile_program(engine, unit: str, program: str, calls: int | None = None,
+                    eager: bool = True) -> dict:
     """One device program of `engine` ("decode chunk" or "verify window")
     replayed from its CUDA graph `calls` times back to back (default: one
     decode chunk, whose 8 steps already average; two verify windows;
     torch.profiler's processing of its events, not the card, takes most
     of this function's seconds), each dispatch
-    read back before the next as a synchronous step does, and the same
-    calls run eagerly (the program's function, through the same buffers),
-    in one call: wall time, device time and idle share per `unit`, side by
-    side, and the graph pool's memory. Where torch.profiler does not see
-    the kernels inside a replay, the device time is the CUDA-event span.
-    Returns the graph's wall and device ms per `unit` and the kernel
-    launches per `unit` (from the eager profile: the same kernels a
-    replay runs)."""
+    read back before the next as a synchronous step does, and, with
+    `eager`, the same calls run eagerly (the program's function, through
+    the same buffers), in one call: wall time, device time and idle share
+    per `unit`, side by side, and the graph pool's memory. Where
+    torch.profiler does not see the kernels inside a replay, the device
+    time is the CUDA-event span. Returns the graph's wall and device ms
+    per `unit` and the kernel launches per `unit` (from the eager profile:
+    the same kernels a replay runs; from the graph's without `eager`)."""
     prog = _programs(engine)[program]
     e_steps = engine._chunk_out.shape[0] if program == "decode chunk" else 1
     calls = calls or (1 if program == "decode chunk" else 2)
@@ -3801,11 +3960,24 @@ def profile_program(engine, unit: str, program: str, calls: int | None = None) -
     def replay(_):
         prog.read(prog.dispatch())
 
-    def eager(_):
+    def run_eager(_):
         prog.fn()
 
     graph = profile(engine, f"{unit} graph", replay, e_steps, calls)
-    eager_run = profile(engine, f"{unit} eager", eager, e_steps, calls)
+    tag = unit.replace(" ", "_")
+    if not eager:
+        # The eager pass's seconds go to torch.profiler's processing of
+        # thousands of launches; the graph alone is the served step.
+        device, source = graph["device_ms"], "torch.profiler"
+        if device < 0.5 * graph["event_ms"]:
+            device, source = graph["event_ms"], "CUDA events"
+        print(f"profile {tag} graph: wall {graph['wall_ms']:.3f} ms/{tag}; device "
+              f"{device:.3f} [{source}] ms/{tag}; idle share "
+              f"{max(0.0, 1 - device / graph['wall_ms']):.3f}; graph pool "
+              f"{prog.pool_bytes / 2**20:.2f} MiB", flush=True)
+        kernels = sum(e.count for e in graph["rows"]) / graph["steps"]
+        return {"wall_ms": graph["wall_ms"], "device_ms": device, "kernels": kernels}
+    eager_run = profile(engine, f"{unit} eager", run_eager, e_steps, calls)
     if eager_run["device_ms"] <= 0:
         fail(f"profile {unit}: torch.profiler recorded no device kernels")
     device, source = graph["device_ms"], "torch.profiler"
@@ -3813,7 +3985,6 @@ def profile_program(engine, unit: str, program: str, calls: int | None = None) -
         device = graph["event_ms"]
         source = ("CUDA events (torch.profiler attributed "
                   f"{graph['device_ms']:.3f} ms to the replay)")
-    tag = unit.replace(" ", "_")
     print(f"profile {tag} graph vs eager: wall {graph['wall_ms']:.3f} vs "
           f"{eager_run['wall_ms']:.3f} ms/{tag}; device {device:.3f} [{source}] vs "
           f"{eager_run['device_ms']:.3f} ms/{tag}; idle share "
@@ -3946,9 +4117,15 @@ def _gemma_gates(label: str, run: dict, decode: str, gemma2: bool = True) -> Non
           f"the window of {GEMMA_9B['sliding_window']}", flush=True)
 
 
-# The whole-prompt gemma serve runs: (layout, decode kernel).
-GEMMA_RUNS = (("per_layer", "paged_decode_attention"),
-              ("fused", "paged_decode_attention_fused"))
+# The whole-prompt gemma serve runs: (label, decode kernel, engine
+# settings, whether the decode step is also profiled eagerly). Only the
+# per_layer step keeps its eager profile: torch.profiler's processing of
+# an eager gemma step's ~3,000 launches took ~20 s a pass, on ~1 s of
+# calls, and the other runs are compared graph to graph.
+GEMMA_RUNS = (("per_layer", "paged_decode_attention", dict(decode_kernel="per_layer"), True),
+              ("fused", "paged_decode_attention_fused", dict(decode_kernel="fused"), False),
+              ("int8", "paged_decode_attention_int8",
+               dict(decode_kernel="per_layer", kv_dtype="int8"), False))
 
 
 def serve_gemma(shape: dict = GEMMA_9B, name: str = "Gemma-2-9B", tag: str = "gemma") -> dict:
@@ -3957,14 +4134,18 @@ def serve_gemma(shape: dict = GEMMA_9B, name: str = "Gemma-2-9B", tag: str = "ge
     served with GEMMA_SERVE_CONFIG, graphs and overlap: the four
     `_gemma_bodies` (each alone in its bucket, the longest at 8192)
     per_layer (B1 at head_dim 256; Gemma-2's softcap 50 and window of
-    4,096 on alternate layers) and fused (B4 at head_dim 256), then
-    `gemma_prefix_run`. Gates: `_gemma_gates`, every stream equal to an
-    eager synchronous engine's; for Gemma-1, B2 (head_dim 256) launches
-    num_layers times in every prefill admission of the whole-prompt runs,
-    counted. Profiles the decode step from its graph in both layouts and,
-    for Gemma-1, one 8192-bucket prefill admission (B2's device ms).
-    Returns the head_dim-256 kernels' launches in the whole-prompt runs:
-    B1's and B4's for Gemma-2, B2's for Gemma-1."""
+    4,096 on alternate layers), fused (B4 at head_dim 256) and per_layer on
+    int8 pools (B1-int8 at head_dim 256), then `gemma_prefix_run`, and for
+    Gemma-2 the prefix run again on int8 pools. Gates: `_gemma_gates`,
+    every stream equal to an eager synchronous engine's (an int8 one for
+    the int8 runs); on int8 pools `check_int8_pools` (num_layers launches
+    of B1-int8 a step, pool bytes); for Gemma-1, B2 (head_dim 256)
+    launches num_layers times in every prefill admission of the
+    whole-prompt runs, counted. Profiles the decode step from its graph in
+    each run (per_layer eagerly too) and, for Gemma-1, one 8192-bucket
+    prefill admission (B2's device ms). Returns the head_dim-256 kernels'
+    launches in the whole-prompt runs: B1's, B4's and B1-int8's for
+    Gemma-2, B2's for Gemma-1."""
     import gc
 
     import torch
@@ -3975,11 +4156,14 @@ def serve_gemma(shape: dict = GEMMA_9B, name: str = "Gemma-2-9B", tag: str = "ge
     params, cfg = gemma_weights(shape, name)
     gemma2 = cfg.sandwich_norms
     launches = {} if gemma2 else {"flash_causal_prefill_d256": 0}
-    for layout, decode in GEMMA_RUNS:
+    steps = {}
+    for layout, decode, extra, eager in GEMMA_RUNS:
         label = f"{tag} {layout}"
         run = serve_run(params, cfg, label, waves=[_gemma_bodies()], family="gemma",
-                        config=GEMMA_SERVE_CONFIG, decode_kernel=layout)
+                        config=GEMMA_SERVE_CONFIG, **extra)
         _gemma_gates(label, run, decode, gemma2)
+        if extra.get("kv_dtype") == "int8":
+            check_int8_pools(label, run["engine"], cfg.num_layers)
         if gemma2:
             launches[f"{decode}_d256"] = run["launches"][decode]
         else:
@@ -3989,13 +4173,21 @@ def serve_gemma(shape: dict = GEMMA_9B, name: str = "Gemma-2-9B", tag: str = "ge
             if admitted < 1 or b2 != cfg.num_layers * admitted:
                 fail(f"serve {label}: B2 launched {b2} times in {admitted} admissions, "
                      f"not {cfg.num_layers} an admission")
-            launches["flash_causal_prefill_d256"] += b2
-        check_streams_equal_eager(params, cfg, label, run, decode_kernel=layout)
-        profile_program(run["engine"], f"{label} decode step", "decode chunk")
+            if layout != "int8":
+                launches["flash_causal_prefill_d256"] += b2
+        check_streams_equal_eager(params, cfg, label, run, **extra)
+        steps[layout] = profile_program(run["engine"], f"{label} decode step", "decode chunk",
+                                        eager=eager)
         free(run)
+    print(f"serve {tag} decode step from its graph on int8 pools: wall "
+          f"{steps['int8']['wall_ms']:.3f} ms, device {steps['int8']['device_ms']:.3f} ms; "
+          f"on bf16 pools (per_layer): wall {steps['per_layer']['wall_ms']:.3f} ms, device "
+          f"{steps['per_layer']['device_ms']:.3f} ms", flush=True)
     if not gemma2:
         profile_prefill(params, cfg, model=gemma, buckets=(8192,), tag=f"{tag} ")
     gemma_prefix_run(params, cfg, f"{tag} prefix", gemma2)
+    if gemma2:
+        gemma_prefix_run(params, cfg, f"{tag} prefix int8", gemma2, int8=True)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4004,17 +4196,43 @@ def serve_gemma(shape: dict = GEMMA_9B, name: str = "Gemma-2-9B", tag: str = "ge
     return launches
 
 
-def gemma_prefix_run(params, cfg, label: str, gemma2: bool) -> None:
+def check_int8_pools(label: str, engine, num_layers: int) -> None:
+    """An engine on int8 pools: kv_cache_info reports them (dtype int8,
+    D + 4 bytes a token and kv head a pool), their GiB against bf16 pools
+    of the same pages, and, in a decode-chunk replay, B1-int8 launches
+    once a layer and step (num_layers x the chunk's steps)."""
+    info = engine.kv_cache_info()
+    nl, n_pages, page, kvh, d = engine.cache.pages_shape
+    bf16_bytes = 2 * nl * n_pages * page * kvh * d * 2
+    if not info["quantized"] or info["dtype"] != "int8" or info["pool_bytes"] != (
+            2 * nl * n_pages * page * kvh * (d + 4)):
+        fail(f"serve {label}: kv_cache_info {info}")
+    print(f"serve {label} pools: {info['pool_bytes'] / 2**30:.4f} GiB of int8 pages and "
+          f"scales against {bf16_bytes / 2**30:.4f} GiB for the same {n_pages} pages in bf16 "
+          f"(x{info['pool_bytes'] / bf16_bytes:.4f}); kv_cache_info {json.dumps(info)}",
+          flush=True)
+    per_replay = _programs(engine)["decode chunk"].launches_per_replay
+    want = num_layers * engine._chunk_out.shape[0]
+    if per_replay.get("paged_decode_attention_int8") != want:
+        fail(f"serve {label}: B1-int8 launches per decode-chunk replay {per_replay}, not "
+             f"{num_layers} layers x {engine._chunk_out.shape[0]} steps = {want}")
+
+
+def gemma_prefix_run(params, cfg, label: str, gemma2: bool, int8: bool = False) -> None:
     """`prefill_chunk=512, prefix_cache=True` (per_layer) over two waves
-    of `_gemma_bodies` whose second hits the first's pages. Gates:
-    `_gemma_gates`, the staged-chunk programs dispatched only as graph
-    replays, hit tokens the cache rule's (for Gemma-2 with more than a
-    window of them in wave 2) and the eager synchronous engine's, every
-    stream equal to that engine's."""
+    of `_gemma_bodies` whose second hits the first's pages, on int8 pools
+    with `int8`. Gates: `_gemma_gates` (B1, or B1-int8 with `int8`), the
+    staged-chunk programs dispatched only as graph replays, hit tokens the
+    cache rule's (for Gemma-2 with more than a window of them in wave 2)
+    and the eager synchronous engine's, every stream equal to that
+    engine's."""
     extra = dict(decode_kernel="per_layer", prefill_chunk=PREFIX_CHUNK, prefix_cache=True)
+    if int8:
+        extra["kv_dtype"] = "int8"
     run = serve_run(params, cfg, label, waves=[_gemma_bodies(), _gemma_bodies(again=True)],
                     family="gemma", config=GEMMA_SERVE_CONFIG, **extra)
-    _gemma_gates(label, run, "paged_decode_attention", gemma2)
+    _gemma_gates(label, run, "paged_decode_attention_int8" if int8 else
+                 "paged_decode_attention", gemma2)
     if run["stage_calls"]:
         fail(f"serve {label}: staged-chunk functions ran outside their graphs: "
              f"{run['stage_calls']}")
@@ -4675,17 +4893,18 @@ def gemma_cli_tensors(c: dict = GEMMA_CLI_CONFIG,
 
 
 def serve_cli_gemma(config: dict = GEMMA_CLI_CONFIG, layer_leaves=GEMMA_CLI_LAYER_LEAVES,
-                    label: str = "gemma", width: str = "Gemma-2-9B") -> None:
+                    label: str = "gemma", width: str = "Gemma-2-9B", int8: bool = False) -> None:
     """Phase 5b: the entry point on a gemma checkpoint (default: Gemma-2
     at Gemma-2-9B width; GEMMA1_CLI_CONFIG: Gemma-1 at Gemma-7B width,
     whose prefill runs B2 at head_dim 256 in the server process),
     GEMMA_CLI_LAYERS layers, bf16, `gemma_cli_tensors`, written with
     `weights.save_safetensors`: one `cli_run` with the default flags
-    (--max-adapters 4), whose admin step must get 400 naming ROADMAP fault
-    C10 from /v1/load_lora_adapter; then the checkpoint loaded in-process
-    with `weights.load_params` must be bit-equal to the tensors written,
-    and an in-process engine of the run's configuration must give the
-    greedy streams served over HTTP (`check_cli_run`)."""
+    (--max-adapters 4; with `int8`, also --kv-dtype int8, and /v1/state
+    must report int8 pools), whose admin step must get 400 naming ROADMAP
+    fault C10 from /v1/load_lora_adapter; then the checkpoint loaded
+    in-process with `weights.load_params` must be bit-equal to the tensors
+    written, and an in-process engine of the run's configuration must give
+    the greedy streams served over HTTP (`check_cli_run`)."""
     import gc
     import os
     import shutil
@@ -4719,9 +4938,13 @@ def serve_cli_gemma(config: dict = GEMMA_CLI_CONFIG, layer_leaves=GEMMA_CLI_LAYE
               f"in {time.perf_counter() - t0:.2f} s", flush=True)
         sink = OtlpSink()
         try:
-            run = cli_run(model_dir, label, [], {}, ckpt_bytes, sink, admin=refuse_adapters)
+            run = cli_run(model_dir, label, ["--kv-dtype", "int8"] if int8 else [], {},
+                          ckpt_bytes, sink, admin=refuse_adapters)
         finally:
             sink.stop()
+        kv = run["state"]["kv_cache"]
+        if (kv["dtype"], kv["quantized"]) != (("int8", True) if int8 else ("bfloat16", False)):
+            fail(f"serve_cli {label}: /v1/state kv_cache {kv}")
         cfg = gemma.GemmaConfig.from_hf_dict(load_hf_config(model_dir))
         params = load_params("gemma", model_dir, cfg, device="cuda")
         n = check_loaded_bits(params, tensors, GEMMA_CLI_LEAVES, layer_leaves,
@@ -4730,7 +4953,8 @@ def serve_cli_gemma(config: dict = GEMMA_CLI_CONFIG, layer_leaves=GEMMA_CLI_LAYE
         print(f"serve_cli {label} load_params in-process: {n} leaves bit-equal to the "
               "tensors written", flush=True)
         engine = Engine("gemma", cfg, params, cfg=EngineConfig(
-            num_slots=8, max_seq_len=2048, max_adapters=4, decode_kernel="per_layer"))
+            num_slots=8, max_seq_len=2048, max_adapters=4, decode_kernel="per_layer",
+            kv_dtype="int8" if int8 else ""))
         check_cli_run(label, run, engine)
         del engine, params
     finally:
@@ -4784,6 +5008,8 @@ def main() -> None:
     launches.update(timed("serve_gemma1", serve_gemma, GEMMA_7B, "Gemma-7B", "gemma1"))
     timed("serve_cli", serve_cli)
     timed("serve_cli_gemma", serve_cli_gemma)
+    timed("serve_cli_gemma int8", serve_cli_gemma, GEMMA_CLI_CONFIG, GEMMA_CLI_LAYER_LEAVES,
+          "gemma int8", "Gemma-2-9B", True)
     timed("serve_cli_gemma1", serve_cli_gemma, GEMMA1_CLI_CONFIG, GEMMA1_CLI_LAYER_LEAVES,
           "gemma1", "Gemma-7B")
     print(f"phases: {time.perf_counter() - t_all:.2f} s in all", flush=True)

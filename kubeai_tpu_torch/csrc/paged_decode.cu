@@ -42,9 +42,9 @@
 // time here. This entry runs a walk of its own, designed for int8 rows
 // (paged_split_walk_int8.cuh: the score on tensor cores with one scale per
 // dot, V's scale folded into P, a split from the wrapper's int8_split and a
-// deeper ring), with B1's combine, partial layout and edge rules. Its bound
-// is the kept rows' D + 4 bytes each against bf16's 2D, about half of B1's
-// at D = 128.
+// deeper ring), with B1's combine, partial layout and edge rules, at D 64,
+// 128 and 256. Its bound is the kept rows' D + 4 bytes each against
+// bf16's 2D, about half of B1's at D = 128 and 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -161,8 +161,8 @@ int launch(const __nv_bfloat16* q, const void* kp, const void* vp, const float* 
 }
 
 // The checks and the build choice both entries share: one build per head
-// size (64, 128, and 256 for bf16 pools) and group bound, 4 rows
-// (Llama-3, Mistral, Gemma-2-9B) or 8.
+// size (64, 128, 256) and group bound, 4 rows (Llama-3, Mistral,
+// Gemma-7B, Gemma-2-9B) or 8.
 template <bool kInt8>
 int dispatch(const void* q, const void* k_pages, const void* v_pages, const float* ks,
              const float* vs, const void* block_tables, const void* lengths, void* out,
@@ -193,12 +193,14 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages, const floa
   if (D == 128) KUBEAI_DECODE_LAUNCH(128, 8);
   if (D == 64 && small) KUBEAI_DECODE_LAUNCH(64, 4);
   if (D == 64) KUBEAI_DECODE_LAUNCH(64, 8);
-  // Gemma's head size: Gemma-2-9B (16 over 8 kv heads) and Gemma-2B (8
-  // over 1). The int8 walk's layout has no D = 256 build.
-  if constexpr (!kInt8) {
-    if (D == 256 && small) KUBEAI_DECODE_LAUNCH(256, 4);
-    if (D == 256) KUBEAI_DECODE_LAUNCH(256, 8);
-  }
+  // Gemma's head size: Gemma-7B (16 over 16 kv heads) and Gemma-2-9B (16
+  // over 8) at MG 4, Gemma-2B (8 over 1) at MG 8. The bf16 walk keeps
+  // one CTA an SM there (paged_split_walk.cuh); the int8 walk a 3-deep
+  // ring of 8,320-byte stages a warp, 102 KB of shared memory at MG 8,
+  // two CTAs an SM (paged_split_walk_int8.cuh, its header has the card's
+  // times), with int8_split's D = 256 splits.
+  if (D == 256 && small) KUBEAI_DECODE_LAUNCH(256, 4);
+  if (D == 256) KUBEAI_DECODE_LAUNCH(256, 8);
 #undef KUBEAI_DECODE_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -7,8 +7,8 @@
 //
 // The function is B1's over dequantized pages, keys in [max(n - window, 0),
 // min(n, MP * page)) for a length n that holds the new token, with GQA,
-// softcap, D 64 and 128, max(page_id, 0) for an unallocated entry, the
-// finite NEG_INF, and 0 for a slot that keeps no key.
+// softcap, D 64, 128 and 256, max(page_id, 0) for an unallocated entry,
+// the finite NEG_INF, and 0 for a slot that keeps no key.
 //
 // What bounds it on this card: bytes, D + 4 a kept row (D int8 values and
 // one f32 scale), against 2D for bf16 B1: 21.6 MB and 6.45 us at the 8B
@@ -59,6 +59,30 @@
 // runs; 0.0243 before), of which the walk 0.0126-0.0128 and B1's combine
 // 0.0032, and 0.0185-0.0188 ms at B=1 and 16k (B1 0.0385-0.0389): 2.5x
 // its 0.00645 ms bound at the 8B case.
+//
+// D = 256 (Gemma: MG 4 for Gemma-7B's and Gemma-2-9B's groups of 1 and 2,
+// MG 8 for Gemma-2B's 8) keeps that design. What changes:
+//   - A K row is 256 bytes, two whole bank cycles, so rows gq and gq + 1
+//     meet the same banks as at 128: the same XOR of the 16-byte unit by
+//     (r & 1) * 4 keeps an 8-lane phase on distinct banks.
+//   - In p.V a lane owns 8 head dims, 8 bytes of a V row: two words.
+//   - A stage is 2 * 16 * 256 + 128 = 8,320 bytes. Four of them a warp
+//     would be 133,120 bytes a CTA and one CTA an SM; the ring is
+//     kStagesD256 = 3 deep instead: 99,840 bytes, plus 2,176 of P' at
+//     MG 8 (102,016), so two CTAs fit an SM. The end-of-split merge
+//     takes 4 * 8 * 258 * 4 = 33,024 bytes of the ring.
+//   - ptxas gives the MG 4 build 144 registers and MG 8 159 (acc is 8 MG
+//     f32 a lane, q's fragments 32 words), no spills.
+//   - int8_split gives D = 256 its own cap: 256 tokens a split.
+// On the card (H100 80GB HBM3, 700 W; PERF.md, section 6) at Gemma-2-9B's
+// kernel case (8 slots, 8 kv heads, lengths <= 8192): 0.0639 ms a call
+// from a CUDA graph (cold L2 0.0646; bf16 B1 at D = 256 0.1070 in the same
+// run), 1.7x its 0.0375 ms bound; 0.0533 with window 4096 and softcap 50;
+// 0.0206-0.0208 at the served contexts (60-4,232 tokens). Without the
+// swizzle it took 1.2-1.6% more; with a 4-deep ring, one CTA an SM,
+// 26-44% more; with splits of 512 tokens 28-38% more at the served
+// contexts (chip_smoke.py, report_int8_d256_variants and
+// report_int8_d256_splits).
 
 #pragma once
 
@@ -75,7 +99,8 @@ namespace int8_walk {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 16;           // tokens per warp tile: the mma's m16
-constexpr int kStages = 4;          // tiles in each warp's ring
+constexpr int kStages = 4;          // tiles in each warp's ring, D <= 128
+constexpr int kStagesD256 = 3;      // at D = 256: two CTAs an SM
 constexpr int kMaxGroup = 8;        // query heads per kv head: the mma's n8
 constexpr int kMaxSplitPages = 64;  // block-table entries per split
 
@@ -117,14 +142,20 @@ __device__ __forceinline__ void mma_f16(float* c, const uint32_t* a, const uint3
 template <int D, int MG>
 struct Layout {
   static constexpr int kUnits = D / 16;          // 16-byte units per row
-  static constexpr int kSwizzle = D == 128 ? 4 : 0;  // K unit u of row r at u ^ (r & 1) * kSwizzle
+  // K unit u of row r at u ^ (r & 1) * kSwizzle. From D = 128 on, a row
+  // spans a whole number of 128-byte bank cycles, so rows gq and gq + 1
+  // meet the same banks unless one of them moves its units by half a
+  // cycle (4 units); the XOR stays within the row's units.
+  static constexpr int kSwizzle = D >= 128 ? 4 : 0;
   static constexpr int kCopies = kTile * kUnits / 32;  // units a lane copies of K (and V) a tile
   static constexpr int kHalves = D / 64;         // 16-byte reads a lane makes per K row
   static constexpr int kChunks = D / 16;         // k16 steps of the score
   static constexpr int kDims = D / 32;           // head dims a lane owns in p.V
+  static constexpr int kVWords = (kDims + 3) / 4;  // 32-bit words of them in a V row
+  static constexpr int kRing = D > 128 ? kStagesD256 : kStages;  // tiles in each warp's ring
   // A stage: K rows, V rows, then K and V scales of its 16 tokens.
   static constexpr int kStageBytes = 2 * kTile * D + 2 * kTile * 4;
-  static constexpr int kRingBytes = kWarps * kStages * kStageBytes;
+  static constexpr int kRingBytes = kWarps * kRing * kStageBytes;
   // Per warp: P' of each token, then each row's rescale factor.
   static constexpr int kPBytes = kWarps * (kTile + 1) * MG * 4;
   static constexpr int kSmemBytes = kRingBytes + kPBytes;
@@ -236,13 +267,13 @@ paged_split_walk_int8_kernel(const __nv_bfloat16* __restrict__ q,  // [B, H, D]
     qb[c][1] = *reinterpret_cast<const uint32_t*>(&y);
   }
 
-  unsigned char* my_ring = ring + warp * kStages * L::kStageBytes;
+  unsigned char* my_ring = ring + warp * L::kRing * L::kStageBytes;
   float* p_s = p_all + warp * (kTile + 1) * MG;
 
   const int n_tiles = (t_hi - t_lo + kTile - 1) / kTile;
   const int my_tiles = n_tiles > warp ? (n_tiles - warp + kWarps - 1) / kWarps : 0;
 
-  // Start the copy of this warp's i-th tile into ring slot i % kStages;
+  // Start the copy of this warp's i-th tile into ring slot i % kRing;
   // called for i = 0, 1, 2, ... in turn. Lane l finds token l % 16's row
   // from its page and offset, which step by kWarps * kTile tokens a call
   // (no division in the walk); lanes then copy 16-byte units, neighbours on
@@ -258,7 +289,7 @@ paged_split_walk_int8_kernel(const __nv_bfloat16* __restrict__ q,  // [B, H, D]
       long long row = -1;  // the (token, kv head) row: D bytes of pages, one scale
       if (p < t_hi) row = ((long long)page_s[pg] * page_size + pg_off) * KVH + kh;
       for (pg_off += kWarps * kTile; pg_off >= page_size; pg_off -= page_size) ++pg;
-      unsigned char* k_dst = my_ring + (i % kStages) * L::kStageBytes;
+      unsigned char* k_dst = my_ring + (i % L::kRing) * L::kStageBytes;
       unsigned char* v_dst = k_dst + kTile * D;
       float* s_dst = reinterpret_cast<float*>(v_dst + kTile * D);
 #pragma unroll
@@ -289,13 +320,13 @@ paged_split_walk_int8_kernel(const __nv_bfloat16* __restrict__ q,  // [B, H, D]
 
   __syncthreads();  // page_s is written
 #pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) issue(i);
+  for (int i = 0; i < L::kRing - 1; ++i) issue(i);
 
   for (int i = 0; i < my_tiles; ++i) {
-    issue(i + kStages - 1);
-    cp_async_wait<kStages - 1>();
+    issue(i + L::kRing - 1);
+    cp_async_wait<L::kRing - 1>();
     __syncwarp();
-    const unsigned char* k_st = my_ring + (i % kStages) * L::kStageBytes;
+    const unsigned char* k_st = my_ring + (i % L::kRing) * L::kStageBytes;
     const unsigned char* v_st = k_st + kTile * D;
     const float* ks_st = reinterpret_cast<const float*>(v_st + kTile * D);
     const float* vs_st = ks_st + kTile;
@@ -372,15 +403,22 @@ paged_split_walk_int8_kernel(const __nv_bfloat16* __restrict__ q,  // [B, H, D]
     }
 #pragma unroll
     for (int t = 0; t < kTile; ++t) {
-      uint32_t w;
-      if constexpr (L::kDims == 4)
-        w = *reinterpret_cast<const uint32_t*>(v_st + t * D + 4 * lane);
-      else
-        w = *reinterpret_cast<const uint16_t*>(v_st + t * D + 2 * lane);
-      w ^= 0x80808080u;
+      // The lane's kDims int8 values of V row t: 8 bytes (D = 256), 4
+      // (128) or 2 (64), in kVWords words.
+      uint32_t w[L::kVWords];
+      if constexpr (L::kDims == 8) {
+        const uint2 u = *reinterpret_cast<const uint2*>(v_st + t * D + 8 * lane);
+        w[0] = u.x;
+        w[1] = u.y;
+      } else if constexpr (L::kDims == 4) {
+        w[0] = *reinterpret_cast<const uint32_t*>(v_st + t * D + 4 * lane);
+      } else {
+        static_assert(L::kDims == 2, "D is 64, 128 or 256");
+        w[0] = *reinterpret_cast<const uint16_t*>(v_st + t * D + 2 * lane);
+      }
       float vf[L::kDims];
 #pragma unroll
-      for (int d = 0; d < L::kDims; ++d) vf[d] = i8_to_f32(w, d);
+      for (int d = 0; d < L::kDims; ++d) vf[d] = i8_to_f32(w[d / 4] ^ 0x80808080u, d % 4);
 #pragma unroll
       for (int j = 0; j < MG / 4; ++j) {
         const float4 x = reinterpret_cast<const float4*>(p_s + t * MG)[j];

@@ -354,10 +354,10 @@ def _refuse_unported(cfg: EngineConfig, mesh, draft, decode_kernel: str) -> None
         )
 
 
-# The kernels that have no build yet for a head dim a served family has,
-# with the ROADMAP item that adds it.
+# The kernels that have no build yet for a head dim a family's checkpoint
+# may have, with the ROADMAP item that adds it.
 _HEAD_DIM_ITEMS = {
-    (paged_decode_attention_int8, 256): "ROADMAP B, B1-int8 at head_dim 256",
+    (paged_verify_attention, 256): "ROADMAP B, B3 at head_dim 256",
 }
 
 

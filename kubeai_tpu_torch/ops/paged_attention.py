@@ -14,9 +14,9 @@ raises.
       QuantizedPool) goes to paged_decode_attention_int8, B1's int8 read:
       a walk of its own over int8 pages and their scales
       (csrc/paged_split_walk_int8.cuh: the score on tensor cores with one
-      scale per dot, V's scale folded into P, splits from int8_split) and
-      B1's combine (the JAX package sends such a pool to its reference
-      path).
+      scale per dot, V's scale folded into P, splits from int8_split; head
+      dims 64, 128 and 256) and B1's combine (the JAX package sends such a
+      pool to its reference path).
   paged_verify_attention       — K query tokens per slot, the speculative
       verify window, each seeing the keys up to its own position
       (csrc/paged_verify.cu, replaces B3: the page walk split across CTAs
@@ -296,8 +296,8 @@ def paged_decode_attention_int8(
     (csrc/paged_split_walk_int8.cuh), which reads int8 pages and their
     per-token scales and applies each scale once per dot (K's to the
     score, V's to P), and B1's combine. CUDA tensors launch the kernel
-    (bf16 q, head_dim 64 or 128, group <= 8); anything else it does not
-    take raises. CPU tensors take ref_paged_decode_attention. The edge
+    (bf16 q, head_dim 64, 128 or 256, group <= 8); anything else it does
+    not take raises. CPU tensors take ref_paged_decode_attention. The edge
     rules are B1's."""
     if q.device.type == "cpu":
         return ref_paged_decode_attention(
@@ -311,7 +311,7 @@ def paged_decode_attention_int8(
     page, kvh = k_pages.shape[1], k_pages.shape[2]
     mp = block_tables.shape[1]
     # From shapes alone, as B1's: the call never waits for the card.
-    num_splits, pages_per_split = int8_split(b, kvh, mp, page)
+    num_splits, pages_per_split = int8_split(b, kvh, mp, page, d)
     out = torch.empty_like(q)
     # Per (slot, kv head, split): m[G], l[G], then acc[G, D], in f32.
     scratch = torch.empty(b * kvh * num_splits * (h // kvh) * (d + 2),
@@ -335,7 +335,7 @@ def paged_decode_attention_int8(
 
 paged_decode_attention_int8.launches = 0
 # The int8 walk's layout is defined for these alone.
-paged_decode_attention_int8.head_dims = (64, 128)
+paged_decode_attention_int8.head_dims = (64, 128, 256)
 
 
 # ---- speculative verify (B3) -------------------------------------------------
@@ -589,13 +589,27 @@ def fused_split(batch: int, kv_heads: int, max_pages: int, page_size: int,
 # split's entries in shared memory, kMaxSplitPages of them).
 _INT8_TARGET_CTAS = 4 * 132
 _INT8_ONE_SLOT_TARGET_CTAS = 2 * 132
+# At head_dim 256 the walk fits two CTAs to an SM (a 3-deep ring of
+# 8,320-byte stages a warp), so the same targets hold, and, as fused_split
+# does at 256, a split's serial walk is capped in tokens. On the card,
+# with Gemma-2-9B's heads, the cap set the time and the target for
+# several slots (2, 4 or 8 x 132) moved it by under 2%: at the served
+# contexts (60 to 4,232 tokens in 8 slots) 256-token splits took 0.0207
+# ms, 512 0.0265, 128 0.0238; at 8 slots ragged to 8,192, 0.0631 against
+# 0.0601 at 512, and 0.0523 against 0.0573 with Gemma-2's window
+# (chip_smoke.py, report_int8_d256_splits; PERF.md, section 6).
+_INT8_D256_MAX_SPLIT_TOKENS = 256
 
 
-def int8_split(batch: int, kv_heads: int, max_pages: int, page_size: int) -> tuple[int, int]:
+def int8_split(batch: int, kv_heads: int, max_pages: int, page_size: int,
+               head_dim: int = 128) -> tuple[int, int]:
     """(num_splits, pages_per_split) for the int8 decode walk, from shapes
     alone, with fused_split's meaning."""
     target = _INT8_TARGET_CTAS if batch > 1 else _INT8_ONE_SLOT_TARGET_CTAS
-    return _split(batch * kv_heads * max_pages, max_pages, page_size, target)
+    cap = _FUSED_MAX_SPLIT_PAGES
+    if head_dim > 128:
+        cap = max(1, _INT8_D256_MAX_SPLIT_TOKENS // page_size)
+    return _split(batch * kv_heads * max_pages, max_pages, page_size, target, cap)
 
 
 def _split(entries: int, max_pages: int, page_size: int, target_ctas: int,

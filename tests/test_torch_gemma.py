@@ -22,10 +22,10 @@ window.
   preemption.
 - The weights: a Gemma and a Gemma-2 checkpoint written with HF names
   load bit-equal through both packages' loaders.
-- The card's refusals (a device argument, no card): int8 pools at
-  head_dim 256 (B1-int8) and a head dim no kernel on the path takes, each
-  at construction; Gemma-1 on bf16 pools passes them (B2 has a
-  head_dim-256 build).
+- The card's refusals (a device argument, no card): a head dim no
+  kernel on the path takes, and a speculating engine at head_dim 256
+  (B3), each at construction; Gemma-1 and Gemma-2 on bf16 and int8 pools
+  pass them (B1, B2, B4 and B1-int8 have head_dim-256 builds).
 - Fault C10: the JAX engine loads an adapter on gemma and serves the base
   model under its name; the port refuses the load, and its route answers
   400.
@@ -421,14 +421,12 @@ def test_card_refusals():
     g7 = dataclasses.replace(g1, hidden_size=3072, intermediate_size=24576,
                              num_layers=28, num_heads=16, num_kv_heads=16)  # Gemma-7B
     g2 = tg.GemmaConfig.from_hf_dict(hf_config(True, head_dim=256))
-    # Gemma-1 takes B2, B1 and B4 at 256; on int8 pools B1-int8 refuses it.
+    # Gemma-1 takes B2, B1 and B4 at 256, and B1-int8 on int8 pools.
     for cfg in (g1, g7):
         assert get_model_family("gemma").prefill_uses_flash(cfg)
         assert _refusal(cfg) is None and _refusal(cfg, decode_kernel="fused") is None
-    for cfg in (g1, g2):
-        msg = _refusal(cfg, kv_dtype="int8")
-        assert "B1-int8 at head_dim 256" in msg and "ROADMAP" in msg, msg
-        assert "paged_decode_attention_int8" in msg
+    for cfg in (g1, g7, g2):
+        assert _refusal(cfg, kv_dtype="int8") is None
     # Gemma-2 at 256 takes B1 and B4, and no B2 (its prefill is plain).
     assert _refusal(g2) is None and _refusal(g2, decode_kernel="fused") is None
     # A llama whose head_dim no kernel takes: refused, not left to capture.
@@ -436,9 +434,11 @@ def test_card_refusals():
     assert "head_dim 96" in _refusal(odd, family="llama")
     assert _refusal(tl.LlamaConfig(), family="llama", speculate=4) is None
     # B3 takes 64 and 128 (a family with a verify forward at 256 would
-    # need it).
+    # need it): the refusal names its ROADMAP item.
     wide = tl.LlamaConfig(hidden_size=4096, num_heads=16, head_dim=256)
-    assert "paged_verify_attention" in _refusal(wide, family="llama", speculate=4)
+    msg = _refusal(wide, family="llama", speculate=4)
+    assert "paged_verify_attention" in msg and "ROADMAP B, B3 at head_dim 256" in msg, msg
+    assert _refusal(wide, family="llama") is None
     # The CPU runs the plain versions, which take any head_dim.
     for cfg in (g1, g2):
         assert _refusal(cfg, device=CPU, kv_dtype="int8") is None
@@ -452,22 +452,21 @@ def test_engine_refuses_before_building(monkeypatch):
     def no_cache(*a, **kw):
         raise AssertionError("the engine built its pools")
 
-    cfg = tg.GemmaConfig.tiny()
-    params = tg.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cfg = tl.LlamaConfig.tiny()
+    params = tl.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     monkeypatch.setattr(teng, "resolve_device", lambda device=None: CUDA)
     monkeypatch.setattr(teng.PagedKVCache, "create", no_cache)
     wide = dataclasses.replace(cfg, head_dim=256)
-    with pytest.raises(NotImplementedError, match="B1-int8 at head_dim 256"):
-        Engine("gemma", wide, params, cfg=EngineConfig(num_slots=2, max_seq_len=32,
-                                                       kv_dtype="int8"))
+    with pytest.raises(NotImplementedError, match="ROADMAP B, B3 at head_dim 256"):
+        Engine("llama", wide, params, cfg=EngineConfig(num_slots=2, max_seq_len=32,
+                                                       speculate=4))
 
 
 def test_kernel_wrappers_take_head_dim_256_where_built():
     for kernel in (tpa.paged_decode_attention, tpa.paged_decode_attention_fused,
-                   flash_causal_prefill):
+                   tpa.paged_decode_attention_int8, flash_causal_prefill):
         assert 256 in kernel.head_dims, kernel.__name__
-    for kernel in (tpa.paged_verify_attention, tpa.paged_decode_attention_int8):
-        assert 256 not in kernel.head_dims, kernel.__name__
+    assert 256 not in tpa.paged_verify_attention.head_dims
     B, H, KVH, D = 2, 16, 8, 256
     q = torch.zeros(B, H, D, dtype=torch.bfloat16)
     pool = torch.zeros(3, 8, KVH, D, dtype=torch.bfloat16)
@@ -477,10 +476,13 @@ def test_kernel_wrappers_take_head_dim_256_where_built():
     tpa._check_fused_args(q, pool[None], pool[None], new, new, bt, n, 0, 4096)
     with pytest.raises(ValueError, match="head_dim 256"):
         tpa._check_verify_args(q[:, None], pool, pool, bt, n, window=None)
-    q8 = tkq.QuantizedPool(torch.zeros(3, 8, KVH, D, dtype=torch.int8),
-                           torch.zeros(3, 8, KVH))
-    with pytest.raises(ValueError, match="head_dim 256"):
-        tpa._check_decode_int8_args(q, q8, q8, bt, n, window=None)
+    # Gemma-2-9B's heads, Gemma-7B's (16 over 16) and Gemma-2B's (8 over 1)
+    # on int8 pools.
+    for h, kvh in ((H, KVH), (16, 16), (8, 1)):
+        q8 = tkq.QuantizedPool(torch.zeros(3, 8, kvh, D, dtype=torch.int8),
+                               torch.zeros(3, 8, kvh))
+        qh = torch.zeros(B, h, D, dtype=torch.bfloat16)
+        tpa._check_decode_int8_args(qh, q8, q8, bt, n, window=4096)
     # Gemma-7B's prefill: 16 q heads over 16 kv heads, and Gemma-2B's 8
     # over 1.
     for h, kvh in ((16, 16), (8, 1)):

@@ -144,15 +144,16 @@ B, KVH, G, D, MP = 3, 2, 4, 32, 4
 H, P = KVH * G, 1 + B * MP
 
 
-def _int8_setup(lengths, seed=0, mp=MP):
+def _int8_setup(lengths, seed=0, mp=MP, d=D):
     """q, int8 pools with their scales (from quantize_kv of numpy values),
-    block tables of `mp` entries with each slot's pages shuffled, lengths."""
+    block tables of `mp` entries with each slot's pages shuffled, lengths;
+    head_dim `d`."""
     rng = np.random.default_rng(seed)
     n_pages = 1 + B * mp
-    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    q = rng.standard_normal((B, H, d)).astype(np.float32)
     pools = []
     for _ in range(2):
-        q8, scale = jkq.quantize_kv(jnp.asarray(rng.standard_normal((n_pages, 8, KVH, D)),
+        q8, scale = jkq.quantize_kv(jnp.asarray(rng.standard_normal((n_pages, 8, KVH, d)),
                                                 jnp.float32))
         pools.append((np.asarray(q8), np.asarray(scale)))
     perm = rng.permutation(np.arange(1, n_pages))
@@ -226,6 +227,61 @@ def test_int8_split_walk_matches_jax_reference(pages_per_split, case, cap, win):
     np.testing.assert_allclose(got[keeps], want[keeps], atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("pages_per_split", [1, 3, None])
+@pytest.mark.parametrize("case,cap,win", [
+    ("boundary", None, None), ("short", 50.0, 5), ("past", 50.0, 12),
+])
+def test_int8_split_walk_at_head_dim_256_matches_jax_reference(pages_per_split, case, cap,
+                                                               win):
+    """B1's int8 read at Gemma's head_dim 256, emulated with the D = 256
+    split (None: int8_split(..., 256) on a 32-entry table), Gemma-2's
+    softcap 50 and a window, against JAX's reference on the same int8
+    pages and scales, at split edges and past the table."""
+    mp, d = INT8_SPLIT_MP, 256
+    if pages_per_split is None:
+        num_splits, pages_per_split = tpa.int8_split(B, KVH, mp, 8, d)
+        assert num_splits > 1
+    e, L = pages_per_split * 8, mp * 8
+    lengths = {"boundary": [e, e - 1, e + 1], "short": [0, 1, min(2 * e + 1, L)],
+               "past": [L + 3, L + 17, e]}[case]
+    q, pools, bt, ln = _int8_setup(lengths, seed=61 + pages_per_split, mp=mp, d=d)
+    (tk, tv), (jk, jv) = _pools(pools)
+    got = emulate_split_walk(q, tk, tv, bt, ln, pages_per_split, cap=cap, win=win)
+    want = np.asarray(jpa.ref_paged_decode_attention(
+        jnp.asarray(q), jk, jv, jnp.asarray(bt), jnp.asarray(ln),
+        logit_softcap=cap, window=win))
+    keeps = np.array([n > 0 and (not win or n - win < L) for n in ln])
+    assert not got[~keeps].any()
+    np.testing.assert_allclose(got[keeps], want[keeps], atol=1e-4, rtol=1e-4)
+
+
+# Shapes of the head_dim-256 int8 walk: Gemma-2-9B (8 kv heads), Gemma-7B
+# (16) and Gemma-2B (1) at 8 slots of 8,192 tokens, one slot, 16- and
+# 128-token pages, short and odd tables.
+D256_SHAPES = [(8, 8, 128, 64), (8, 16, 128, 64), (8, 1, 128, 64), (1, 8, 128, 64),
+               (8, 8, 512, 16), (2, 4, 1000, 128), (8, 8, 4, 64), (3, 2, 4, 8),
+               (64, 8, 128, 64)]
+
+
+@pytest.mark.parametrize("shape", D256_SHAPES)
+def test_int8_split_at_head_dim_256_covers_every_entry_within_its_cap(shape):
+    """At head_dim 256 every block-table entry falls in one split, a split
+    holds at most _INT8_D256_MAX_SPLIT_TOKENS tokens (one page if a page
+    is longer) and at most kMaxSplitPages entries, and at least one
+    16-token tile a warp where the table allows; head_dim 128 keeps its
+    own choice."""
+    batch, kv_heads, max_pages, page = shape
+    num_splits, per = tpa.int8_split(*shape, 256)
+    bound = constant("paged_split_walk_int8.cuh", "kMaxSplitPages")
+    assert 1 <= per <= min(max_pages, bound)
+    assert per <= max(1, tpa._INT8_D256_MAX_SPLIT_TOKENS // page)
+    assert num_splits * per >= max_pages > (num_splits - 1) * per
+    assert per * page >= min(64, max_pages * page)
+    assert tpa.int8_split(*shape) == tpa.int8_split(*shape, 128)
+    if batch == 1:  # a lone slot: one wave of two CTAs an SM
+        assert kv_heads * num_splits <= 2 * 132
+
+
 # The fused_split values B1, B3 and B4 take at these shapes; int8_split
 # leaves them as they are.
 FUSED_SPLITS = {
@@ -282,7 +338,7 @@ def test_int8_wrapper_splits_from_shapes():
     cuda_path = src.split('if q.device.type != "cuda"', 1)[1]
     for reader in (".item(", ".tolist(", ".cpu(", ".numpy(", "int(lengths", "lengths.max"):
         assert reader not in cuda_path
-    assert "int8_split(b, kvh, mp, page)" in cuda_path
+    assert "int8_split(b, kvh, mp, page, d)" in cuda_path
     assert "fused_split" not in cuda_path
 
 
