@@ -411,7 +411,7 @@ def phase_build() -> None:
     if log.exists():
         for line in log.read_text().splitlines():
             if ("registers" in line or "spill" in line or "Compiling entry" in line
-                    or line.startswith("==")):
+                    or "warning" in line or line.startswith("==")):
                 print(f"  {line.strip()}")
 
 
@@ -856,19 +856,21 @@ def check_flash_prefill() -> dict:
 
 
 def check_flash_prefill_d256() -> dict:
-    """B2's head_dim-256 build (Gemma-1; 64-row blocks, 64-key K/V tiles):
-    Gemma-7B's heads (H=16, KVH=16) at B=1 over the serve_gemma1 buckets
-    (32, 512, 2048, 8192), 128, a ragged 200 and 1024, and at B=4 for
-    S=1024; Gemma-2B's (H=8 over KVH=1, G=8) at B=1 for S 512 and 8192
-    (`_flash_case`); then two calls and a graph replay that must give the
-    same bits, and the D=256 instantiation's registers and spills. Returns
-    the B=1 S=8192 Gemma-7B line (the bucket of serve_gemma1's longest
-    prompt) for the kernels line."""
+    """B2's head_dim-256 build (Gemma-1; 128-row blocks, each consumer
+    warpgroup's 64 rows with O whole, 64-key K/V tiles): Gemma-7B's heads
+    (H=16, KVH=16) at B=1 over the serve_gemma1 buckets (32, 512, 2048,
+    8192), 128, 1024, and a ragged 160 and 200 (the second block's second
+    consumer has no row below S, or 8), and at B=4 for S=1024; Gemma-2B's
+    (H=8 over KVH=1, G=8) at B=1 for S 512 and 8192 (`_flash_case`, whose
+    lines carry tflops); then two calls and a graph replay that must give
+    the same bits, and the D=256 instantiation's registers, spills and
+    setmaxnreg warnings. Returns the B=1 S=8192 Gemma-7B line (the bucket
+    of serve_gemma1's longest prompt) for the kernels line."""
     import torch
 
     gen = torch.Generator().manual_seed(25)
     main = None
-    cases = [(16, 16, 1, S) for S in (32, 128, 200, 512, 1024, 2048, 8192)]
+    cases = [(16, 16, 1, S) for S in (32, 128, 160, 200, 512, 1024, 2048, 8192)]
     cases += [(16, 16, 4, 1024), (8, 1, 1, 512), (8, 1, 1, 8192)]
     for H, KVH, B, S in cases:
         line, call = _flash_case(B, S, H, KVH, 256, gen)
@@ -1138,10 +1140,30 @@ def ptxas_report(source: str) -> list[tuple[str, int, int]]:
     return rows
 
 
+def ptxas_warnings(source: str) -> list[str]:
+    """The warning lines of `source`'s section of the build log."""
+    from kubeai_tpu_torch.ops import _build
+
+    log = _build.build_dir() / "build.log"
+    lines, in_source = [], False
+    for line in log.read_text().splitlines():
+        line = line.strip()
+        if line.startswith("== "):
+            in_source = line[3:] == source
+        elif in_source and "warning" in line.lower():
+            lines.append(line)
+    return lines
+
+
 def check_ptxas(source: str, select=None) -> None:
     """Print the registers and spills of every kernel ptxas compiled from
     `source` (those whose readable name `select` accepts, if given); fail
-    if there is no report or any of them spills."""
+    if there is no report, any of them spills, or ptxas says it ignored a
+    setmaxnreg of the source (the consumers would then run on the
+    launch's registers)."""
+    ignored = [w for w in ptxas_warnings(source) if "setmaxnreg" in w]
+    if ignored:
+        fail(f"{source}: ptxas ignored setmaxnreg: {ignored}")
     rows = []
     for entry, regs, spills in ptxas_report(source):
         # _ZN...paged_split_walk_kernelILi128ELi4ELb0EEEv... ->
@@ -1652,6 +1674,199 @@ def report_int8_d256_variants() -> None:
                     times[f"{name}: {key}"] = graph_ms(call)
         print(f"paged_decode_int8 D=256 variants, ms from CUDA graphs: {json.dumps(times)}",
               flush=True)
+    finally:
+        _build.CSRC, _build.BUILD_ROOT, _build._lib = kept
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# Builds of flash_prefill.cu that report_flash_d256_registers compiles
+# beside the repo's: name -> ((text, replacement) pairs, extra nvcc flags).
+_UNIFORM_WG = "const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);"
+FLASH_D256_PROBES = {
+    "no setmaxnreg": ((
+        ('asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));', ""),
+        ('asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));', ""),
+    ), ()),
+    "wg = threadIdx.x / 128": (((_UNIFORM_WG, "const int wg = threadIdx.x / 128;"),), ()),
+    "a trap in every wait": ((("if constexpr (kTrap)", "if constexpr (true)"),), ()),
+    "setmaxnreg 24 / 240": ((("constexpr int kProducerRegs = 40;", "constexpr int kProducerRegs = 24;"),
+                             ("constexpr int kConsumerRegs = 232;", "constexpr int kConsumerRegs = 240;")), ()),
+    "__launch_bounds__(kThreads)": (
+        (("__launch_bounds__(kThreads, 1)", "__launch_bounds__(kThreads)"),), ()),
+    "-maxrregcount=232": ((), ("-maxrregcount=232",)),
+    "consumer in an else branch": ((
+        ("    return;\n  }\n\n  // Consumer warpgroup c", "  } else {\n  // Consumer warpgroup c"),
+        ("  }\n}\n\n// ---- host", "  }\n  }\n}\n\n// ---- host")), ()),
+}
+
+
+def _sass_stats(obj, nvcc: str) -> dict:
+    """Per kernel of an object file: the highest register its SASS names,
+    its local-memory loads and stores (spills), and its USETMAXREG lines,
+    from cuobjdump."""
+    from pathlib import Path
+
+    tool = Path(nvcc).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(obj)], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    stats, name = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            stats[name] = {"max_register": -1, "local_ld_st": 0, "setmaxreg": []}
+        elif name:
+            regs = [int(r) for r in re.findall(r"\bR(\d+)\b", line)]
+            if regs:
+                stats[name]["max_register"] = max(stats[name]["max_register"], *regs)
+            if re.search(r"\b(LDL|STL)\b", line):
+                stats[name]["local_ld_st"] += 1
+            if "SETMAXREG" in line:
+                stats[name]["setmaxreg"].append(line.split("*/")[1].split(";")[0].strip()
+                                                if "*/" in line else line.strip())
+    return stats
+
+
+def report_flash_d256_registers(parent_csrc: str | None = None) -> None:
+    """How ptxas gives B2's head_dim-256 consumers their registers: compiles
+    csrc/flash_prefill.cu with `_build`'s flags as it is, and as each of
+    FLASH_D256_PROBES changes it (and `parent_csrc`'s flash_prefill.cu,
+    an earlier build, if given), all at once in a temporary directory;
+    prints for every <256> kernel ptxas's registers, spills and any
+    warning, and from the SASS the highest register named, the
+    local-memory accesses and the setmaxnreg instructions. A consumer
+    path that names registers past the launch's 168 was given them by
+    setmaxnreg.inc. Not part of the smoke's own run."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from kubeai_tpu_torch.ops import _build
+
+    nvcc = _build._nvcc()
+    text = (_build.CSRC / "flash_prefill.cu").read_text()
+    builds = {"repo": (text, ())}
+    for name, (pairs, flags) in FLASH_D256_PROBES.items():
+        t = text
+        for old, new in pairs:
+            if old not in t:
+                fail(f"flash probe {name}: {old!r} not in flash_prefill.cu")
+            t = t.replace(old, new)
+        builds[name] = (t, flags)
+    if parent_csrc:
+        builds["parent"] = ((Path(parent_csrc) / "flash_prefill.cu").read_text(), ())
+    tmp = Path(tempfile.mkdtemp(prefix="flash_probe_"))
+    try:
+        procs = {}
+        for i, (name, (t, flags)) in enumerate(builds.items()):
+            src = tmp / f"probe{i}.cu"
+            src.write_text(t)
+            cmd = [nvcc, *_build.NVCC_FLAGS, *flags, "-c", str(src), "-o", str(tmp / f"probe{i}.o")]
+            procs[name] = (tmp / f"probe{i}.o", subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name, (obj, proc) in procs.items():
+            log, _ = proc.communicate()
+            print(f"flash probe {name}: nvcc exit {proc.returncode}", flush=True)
+            keep, in256 = [], False
+            for line in log.splitlines():
+                if "Compiling entry function" in line:
+                    in256 = "Li256E" in line
+                if in256 or "warning" in line.lower() or "error" in line.lower():
+                    keep.append(line.strip())
+            for line in keep:
+                print(f"  {line}", flush=True)
+            if proc.returncode == 0:
+                for fn, st in _sass_stats(obj, nvcc).items():
+                    if "Li256E" in fn:
+                        print(f"  sass {fn}: {json.dumps(st)}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# Builds of flash_prefill.cu that report_flash_d256_variants times beside
+# the repo's: name -> (text, replacement).
+FLASH_D256_VARIANTS = {
+    "no ping-pong": ("constexpr bool kPingPong = D == 256;", "constexpr bool kPingPong = false;"),
+}
+
+
+def report_flash_d256_variants(parent_csrc: str | None = None) -> None:
+    """B2 at head_dim 256 against builds of csrc/ that each change one line
+    of flash_prefill.cu (FLASH_D256_VARIANTS), and against `parent_csrc`
+    (an earlier csrc/, same C entry) if given, on every case of
+    check_flash_prefill_d256 and three head_dim-128 ones. Each build is a
+    copy under a temporary directory, built by `_build` and loaded in place
+    of the repo's library for its turn. Timed from CUDA graphs in one
+    process, in turns (parent, repo, variants, repo, variants, repo,
+    parent), SDPA beside
+    them; every build's output is held against the plain version at
+    FLASH_ATOL / FLASH_RTOL. Not part of the smoke's own run. Prints one
+    line a case."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import torch.nn.functional as F
+
+    from kubeai_tpu_torch.ops import _build
+    from kubeai_tpu_torch.ops.attention import causal_prefill_attention
+    from kubeai_tpu_torch.ops.flash_attention import flash_causal_prefill
+
+    kept = _build.CSRC, _build.BUILD_ROOT, _build._lib
+    libs = {"repo": kept[2] or _build.load()}
+    tmp = Path(tempfile.mkdtemp(prefix="flash_variants_"))
+    try:
+        sources = {name: (old, new) for name, (old, new) in FLASH_D256_VARIANTS.items()}
+        if parent_csrc:
+            sources["parent"] = None
+        for name, change in sources.items():
+            src = tmp / name.replace(" ", "_") / "csrc"
+            shutil.copytree(kept[0] if change else Path(parent_csrc), src)
+            if change:
+                f = src / "flash_prefill.cu"
+                text = f.read_text()
+                if change[0] not in text:
+                    fail(f"flash variant {name}: {change[0]!r} not in flash_prefill.cu")
+                f.write_text(text.replace(*change))
+            _build.CSRC, _build.BUILD_ROOT, _build._lib = src, src.parent / "build", None
+            t0 = time.perf_counter()
+            libs[name] = _build.load()
+            print(f"flash variant {name}: built in {time.perf_counter() - t0:.2f} s", flush=True)
+            for entry, regs, spills in ptxas_report("flash_prefill.cu"):
+                print(f"  ptxas {entry[:60]}: {regs} registers, {spills} bytes spilled",
+                      flush=True)
+        order = ["repo", *FLASH_D256_VARIANTS] * 2 + ["repo"]
+        if parent_csrc:
+            order = ["parent", *order, "parent"]
+        gen = torch.Generator().manual_seed(26)
+        cases = [(16, 16, 1, S, 256) for S in (32, 128, 160, 200, 512, 1024, 2048, 8192)]
+        cases += [(16, 16, 4, 1024, 256), (8, 1, 1, 512, 256), (8, 1, 1, 8192, 256)]
+        cases += [(32, 8, 1, 512, 128), (32, 8, 4, 1024, 128), (32, 8, 1, 8192, 128)]
+        for H, KVH, B, S, D in cases:
+            mk = lambda h: torch.randn(B, S, h, D, generator=gen, device="cpu").to(  # noqa: E731
+                "cuda", torch.bfloat16)
+            q, k, v = mk(H), mk(KVH), mk(KVH)
+            want = causal_prefill_attention(q, k, v)
+            times: dict[str, list] = {}
+            for name in order:
+                _build._lib = libs[name]
+                call = lambda: flash_causal_prefill(q, k, v)  # noqa: E731
+                if name not in times:
+                    compare(f"flash variant {name} B={B} S={S} H={H} D={D}", call(), want,
+                            FLASH_ATOL, FLASH_RTOL)
+                times.setdefault(name, []).append(graph_ms(call))
+            del want
+            torch.cuda.empty_cache()
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            times["sdpa"] = [graph_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))]
+            flops = 4.0 * B * H * D * S * (S + 1) / 2
+            print(f"flash variants B={B} S={S} H={H} KVH={KVH} D={D} "
+                  f"(useful {flops:.4g} flops), ms from CUDA graphs: {json.dumps(times)}",
+                  flush=True)
+            del q, k, v, qt, kt, vt
+            torch.cuda.empty_cache()
+        print(f"flash variants card: {gpu_line()}", flush=True)
     finally:
         _build.CSRC, _build.BUILD_ROOT, _build._lib = kept
         shutil.rmtree(tmp, ignore_errors=True)

@@ -22,49 +22,60 @@
 // - Grid (H, B, q blocks), the q blocks in reverse order, so that the
 //   longest causal walks start first. A CTA owns kBQ = 128 query rows of
 //   one head and is three warpgroups: a producer and two consumers of 64
-//   rows each (at D = 256, below, 64 rows that both consumers share). The
-//   producer gives up registers (setmaxnreg.dec) and one of its threads
-//   issues TMA: Q once, then the kBK-key K and V tiles of kv head h /
-//   group up to the causal frontier (tiles past it are never loaded)
-//   into a 2-stage ring (kBK is 128, and 64 at D = 256), each stage with
-//   a full mbarrier for K, one for V and an empty one the consumer warps
-//   arrive on. The consumers take the registers (setmaxnreg.inc).
-// - S = Q K^T: wgmma m64n128k16 (m64n64k16 at D = 256) with Q and K in
-//   shared memory, both K-major, D / 16 k-steps; the kBK / 2 f32 scores
-//   a thread stay in registers.
+//   rows each. The producer gives up registers (setmaxnreg.dec) and one
+//   of its threads issues TMA: Q once, then the kBK-key K and V tiles of
+//   kv head h / group up to the causal frontier (tiles past it are never
+//   loaded) into a 2-stage ring (kBK is 128, and 64 at D = 256), each
+//   stage with a full mbarrier for K, one for V and an empty one the
+//   consumer warps arrive on. The consumers take the registers
+//   (setmaxnreg.inc): 232 a thread.
+// - S = Q K^T: each consumer its own 64 rows, wgmma m64n128k16 (m64n64k16
+//   at D = 256) with Q and K in shared memory, both K-major, D / 16
+//   k-steps; the kBK / 2 f32 scores a thread stay in registers. So every
+//   query row's score against every key it needs is computed once, and
+//   every K/V tile taken from L2 serves the block's 128 rows.
 // - Online softmax in registers in the log2 domain (exp2 with the scale
 //   folded into log2(e)), the row max and sum over the 4 lanes that share
 //   a row; the JAX kernel's finite NEG_INF and max(l, 1e-30). Only the
-//   tile that crosses the diagonal applies the q_pos >= k_pos mask. Rows
-//   at or past S are computed on the zeros TMA fills in and not written;
-//   keys at or past S are masked by causality.
+//   tile that crosses the diagonal applies the q_pos >= k_pos mask. A
+//   consumer computes no tile whose keys all lie past its last row below
+//   S (at D = 256, consumer 0's last tile of each block), and none at all
+//   if its rows all lie at or past S; it still waits for each such tile
+//   and arrives on its empty barrier, so the ring turns. Rows past S that
+//   share a consumer with rows below it are computed on the zeros TMA
+//   fills in and not written; keys at or past S are masked by causality.
 // - O += P V: P converted to bf16 in registers is the A operand (the
 //   score accumulator layout is wgmma's A-fragment layout), V enters as
-//   an MN-major B operand through the descriptor's transpose bit; O stays
-//   in registers in f32.
-// - At D = 256 O for 64 rows would be 128 f32 a thread, beside the
-//   scores, and ptxas compiles each thread of the CTA for 168 registers
-//   whatever setmaxnreg.inc hands out at run time (a build that kept O
-//   whole spilled). So there a CTA owns 64 query rows, and consumer c
-//   computes all of their S and softmax but O's columns 128 c .. 128 c +
-//   127 only, from its half of V (64 f32 of O and 32 scores a thread).
-//   The product Q K^T is done twice, 1.5x the tensor work of one pass.
-// - Epilogue: O / l as bf16 into the warpgroup's rows of Q's shared
-//   memory (at D = 256 its column boxes, once both consumers are done
-//   with Q) in the map's swizzle, then a TMA store, which clips the rows
-//   past S.
-// - Shared memory: Q 32 KB and 2 x (K + V) 128 KB at D = 128; at D = 256
-//   Q (64 rows) 32 KB and 2 x (K + V) of 64 keys 128 KB (128-key tiles
-//   would need 288 KB). No output tile. Every tile uses the 128-byte
+//   an MN-major B operand through the descriptor's transpose bit, 128 of
+//   O's columns a wgmma; O stays whole in each consumer's registers in
+//   f32: 128 f32 a thread at D = 256, beside its 32 scores. ptxas
+//   compiles the 384-thread CTA for 168 registers a thread at launch and
+//   allocates the consumer path, which runs only after setmaxnreg.inc,
+//   within 232 (the D = 256 build names up to R183 there), as long as no
+//   trap lies on that path (mbar_wait); no build spills.
+// - At D = 256 the consumers take turns issuing Q K^T (kPingPong).
+// - Epilogue: O / l as bf16 into the consumer's own rows of Q's shared
+//   memory (no other warpgroup reads them) in the map's swizzle, then one
+//   TMA store per 64-column box, which clips the rows past S.
+// - Shared memory: Q (128 rows) 32 KB and 2 x (K + V) 128 KB at D = 128;
+//   at D = 256 Q 64 KB and 2 x (K + V) of 64 keys 128 KB (128-key tiles
+//   would need 320 KB). No output tile. Every tile uses the 128-byte
 //   swizzle, in the TMA maps and in the wgmma descriptors; a tile is
 //   D / 64 boxes of 64 columns. The rank-4 (D, heads, S, B) maps are
 //   built on the host for each call and passed as __grid_constant__
 //   parameters, so a CUDA graph captures them with the launch, and a box
 //   never crosses into the next batch row.
 //
-// Left for later: overlapping one consumer's softmax with the other's
-// GEMMs (FA3's ping-pong), overlapping within a consumer, a persistent
-// grid.
+// What bounds the D = 256 build at Gemma's long prompts: tensor-core
+// flops (5.5e11 for the causal product at B=1, S=8192, 16 heads; about
+// 62% of the card's peak reached there), and behind them the K/V tiles
+// each CTA takes from L2 (4.4 GB there). At S <= 512 the grid has fewer
+// CTAs than the card has SMs (64 for 16 heads at 512), and each walks
+// twice the rows of a 64-row block: there latency bounds it.
+//
+// Left for later: overlapping one consumer's softmax with its own next
+// GEMMs (the registers allow S of two tiles at D = 256), K/V tiles
+// multicast to a cluster of q blocks, a persistent grid.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -75,22 +86,24 @@
 namespace {
 
 constexpr int kConsumers = 2;  // consumer warpgroups
-// At D = 256 the two consumers share the block's 64 rows and each owns
-// half of O's columns: O for 64 rows at D = 256 is 128 f32 a thread, and
-// ptxas compiles every thread of a 384-thread CTA for 168 registers
-// (setmaxnreg.inc does not raise that limit: a build that kept O whole
-// spilled). Each consumer computes the block's whole S; its P.V reads
-// its half of V.
-template <int D>
-constexpr bool kSplitD = D == 256;
-// Query rows per CTA: 64 per consumer, or the shared 64 at D = 256.
-template <int D>
-constexpr int kBQ = D == 256 ? 64 : 128;
+// Query rows per CTA: 64 per consumer warpgroup.
+constexpr int kBQ = 128;
 // Keys per K/V tile: 128, or 64 at D = 256, where two stages of 128-key
 // K and V tiles (256 KB) would pass the 227 KB a block may have.
 template <int D>
 constexpr int kBK = D == 256 ? 64 : 128;
+// O's columns per P.V wgmma: all of them, or 128 at D = 256 (two wgmmas
+// a k-step over O kept whole).
+template <int D>
+constexpr int kPVN = D < 128 ? D : 128;
 constexpr int kStages = 2;     // K/V tiles in flight
+// FA3's ping-pong at D = 256: the two consumers take turns issuing Q K^T
+// (named barriers kTurnBar + c, 256 threads), so that one's softmax runs
+// beside the other's products (3-4% off at S 200-1024 on an H100, none
+// measurable at 8192).
+template <int D>
+constexpr bool kPingPong = D == 256;
+constexpr int kTurnBar = 1 + kConsumers;
 constexpr int kThreads = 128 * (1 + kConsumers);  // warpgroup 0 produces
 // setmaxnreg: the producer gives registers up, the consumers take them
 // (40 * 128 + 232 * 256 <= 65536).
@@ -99,14 +112,15 @@ constexpr int kConsumerRegs = 232;
 constexpr int kBox = 64;       // bf16 columns per TMA box (128-byte swizzle)
 constexpr float kNegInf = -1e30f;  // the JAX package's finite NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
-// An mbarrier wait that spins this long traps instead of hanging the card.
+// An mbarrier wait that spins this long gives up instead of hanging the
+// card (mbar_wait).
 constexpr uint32_t kSpinLimit = 1u << 28;
 
 // Byte offsets from the 1024-byte-aligned base of dynamic shared memory.
 // Every tile is [D / 64 column boxes][rows][128 bytes], swizzled.
 template <int D>
 struct Smem {
-  static constexpr int kQBytes = kBQ<D> * D * 2;
+  static constexpr int kQBytes = kBQ * D * 2;
   static constexpr int kKVBytes = kBK<D> * D * 2;  // one K or V tile
   static constexpr int q = 0;
   static constexpr int k = q + kQBytes;
@@ -138,7 +152,14 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
 }
 
-// Wait until the phase of parity `parity` has completed.
+// Wait until the phase of parity `parity` has completed. A wait that
+// spins kSpinLimit times gives up: the producer's (kTrap) traps, which
+// ends the grid with an error; a consumer's exits its thread, so that the
+// producer's next wait traps. A trap on the consumers' path would cost
+// them their registers: ptxas then allocates the whole kernel within the
+// launch's 168 a thread, whatever setmaxnreg.inc asks for, and the D = 256
+// consumers, which hold O whole, spill.
+template <bool kTrap>
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t spins = 0;
   while (true) {
@@ -151,7 +172,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
     if (done) return;
-    if (++spins == kSpinLimit) __trap();
+    if (++spins == kSpinLimit) {
+      if constexpr (kTrap)
+        __trap();
+      else
+        asm volatile("exit;");
+    }
   }
 }
 
@@ -298,11 +324,11 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// O += P V over one k16 step, for a consumer's DO columns of O.
-template <int DO>
-__device__ __forceinline__ void wgmma_pv(float (&o)[DO / 2], const uint32_t (&a)[4],
+// O += P V over one k16 step, for N of O's columns.
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&o)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db) {
-  if constexpr (DO == 128) {
+  if constexpr (N == 128) {
     wgmma_rs_n128(o, a, db);
   } else {
     wgmma_rs_n64(o, a, db);
@@ -358,15 +384,15 @@ __device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2], float
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,  // box kBQ<D> rows
+flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,  // box kBQ rows
                      const __grid_constant__ CUtensorMap k_map,  // box kBK<D> rows
                      const __grid_constant__ CUtensorMap v_map,  // box kBK<D> rows
                      const __grid_constant__ CUtensorMap o_map,  // box 64 rows
                      int S, int group, float sl2) {
   using L = Smem<D>;
-  constexpr int BQ = kBQ<D>;
+  constexpr int BQ = kBQ;
   constexpr int BK = kBK<D>;
-  constexpr int DO = kSplitD<D> ? D / 2 : D;  // O columns a consumer owns
+  constexpr int PVN = kPVN<D>;
   constexpr int kHalves = D / kBox;
   constexpr int kRowBytes = kBox * 2;  // one swizzled row of a half
   extern __shared__ unsigned char smem_raw[];
@@ -383,7 +409,9 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,  // box kBQ<D> r
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
-  const int wg = threadIdx.x / 128;
+  // The warpgroup index, broadcast from lane 0 so that ptxas knows it is
+  // warp-uniform (CUTLASS's canonical_warp_group_idx).
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   const int tid = threadIdx.x % 128;
   // Key tiles up to the causal frontier of the block's last row below S.
   const int n_kt = (min(q0 + BQ, S) + BK - 1) / BK;
@@ -412,7 +440,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,  // box kBQ<D> r
     for (int t = 0; t < n_kt; ++t) {
       const int st = t % kStages;
       // The consumers released the tile this stage held before.
-      if (t >= kStages) mbar_wait(empty + 8 * st, (t / kStages - 1) & 1);
+      if (t >= kStages) mbar_wait<true>(empty + 8 * st, (t / kStages - 1) & 1);
       mbar_expect_tx(k_full + 8 * st, L::kKVBytes);
 #pragma unroll
       for (int hf = 0; hf < kHalves; ++hf)
@@ -427,25 +455,38 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,  // box kBQ<D> r
     return;
   }
 
-  // Consumer warpgroup c: query rows r0 .. r0 + 63 of the block, O's
-  // 64-column boxes ob0 .. ob0 + DO / 64 - 1.
+  // Consumer warpgroup c: query rows r0 .. r0 + 63 of the block, all of
+  // O's columns.
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
   const int c = wg - 1;
-  const int r0 = kSplitD<D> ? q0 : q0 + 64 * c;
-  const int ob0 = kSplitD<D> ? c * (DO / kBox) : 0;
+  const int r0 = q0 + 64 * c;
+  // The key tiles its rows below S need: up to the last such row, none if
+  // it has none.
+  const int n_mine = r0 < S ? (min(r0 + 64, S) + BK - 1) / BK : 0;
   const int lane = tid & 31;
   const int row = 16 * (tid >> 5) + (lane >> 2);  // this thread's rows: row, row + 8
   const uint32_t q_wg = q_s + (r0 - q0) * kRowBytes;
 
-  float o[DO / 2];
+  float o[D / PVN][PVN / 2];  // O in column groups of one P.V wgmma each
   float s[BK / 2];
 #pragma unroll
-  for (int i = 0; i < DO / 2; ++i) o[i] = 0.f;
+  for (int n = 0; n < D / PVN; ++n)
+#pragma unroll
+    for (int i = 0; i < PVN / 2; ++i) o[n][i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
-  mbar_wait(q_full, 0);
+  mbar_wait<false>(q_full, 0);
+  // Consumer 0 takes the first turn; each passes the turn on after its
+  // Q K^T of every tile, but the last of consumer 1's, so each barrier
+  // sees as many arrivals as waits.
+  if (kPingPong<D> && c == 1)
+    asm volatile("bar.arrive %0, 256;" ::"r"(kTurnBar) : "memory");
+  const auto pass_turn = [&](int t) {
+    if (kPingPong<D> && (c == 0 || t + 1 < n_kt))
+      asm volatile("bar.arrive %0, 256;" ::"r"(kTurnBar + 1 - c) : "memory");
+  };
 
   for (int t = 0; t < n_kt; ++t) {
     const int st = t % kStages;
@@ -453,8 +494,19 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,  // box kBQ<D> r
     const uint32_t k_tile = k_s + st * L::kKVBytes;
     const uint32_t v_tile = v_s + st * L::kKVBytes;
 
+    mbar_wait<false>(k_full + 8 * st, parity);
+    if constexpr (kPingPong<D>) asm volatile("bar.sync %0, 256;" ::"r"(kTurnBar + c) : "memory");
+    if (t >= n_mine) {
+      pass_turn(t);
+      // No row of this consumer needs the tile; the other one may. Its
+      // warps release the stage all the same, now that the producer has
+      // filled it (an arrival before then would count toward the tile
+      // the stage held before).
+      if (lane == 0) mbar_arrive(empty + 8 * st);
+      continue;
+    }
+
     // S = Q K^T: both K-major; k-step kk reads columns 16 kk of half kk / 4.
-    mbar_wait(k_full + 8 * st, parity);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
@@ -463,6 +515,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,  // box kBQ<D> r
                    desc(k_tile + (kk / 4) * BK * kRowBytes + off, 16, 1024), kk > 0);
     }
     wgmma_commit();
+    pass_turn(t);
     wgmma_wait_all();
     fence_regs(s);
 
@@ -473,13 +526,16 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,  // box kBQ<D> r
     else
       softmax_tile<false>(s, m, l, alpha, sl2, r0 + row, t * BK + 2 * (lane & 3));
 #pragma unroll
-    for (int i = 0; i < DO / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int n = 0; n < D / PVN; ++n)
+#pragma unroll
+      for (int i = 0; i < PVN / 2; ++i) o[n][i] *= alpha[(i >> 1) & 1];
 
     // O += P V: P from registers (the score layout is the A-fragment
-    // layout), V MN-major: k-step j reads keys 16 j.. of this consumer's
+    // layout), V MN-major: k-step j reads keys 16 j.. of column group n's
     // 64-column boxes (LBO apart).
-    mbar_wait(v_full + 8 * st, parity);
-    fence_regs(o);
+    mbar_wait<false>(v_full + 8 * st, parity);
+#pragma unroll
+    for (int n = 0; n < D / PVN; ++n) fence_regs(o[n]);
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < BK / 16; ++j) {
@@ -487,19 +543,24 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,  // box kBQ<D> r
                              pack_bf16(s[8 * j + 2], s[8 * j + 3]),
                              pack_bf16(s[8 * j + 4], s[8 * j + 5]),
                              pack_bf16(s[8 * j + 6], s[8 * j + 7])};
-      wgmma_pv<DO>(o, a, desc(v_tile + (ob0 * BK + j * 16) * kRowBytes, BK * kRowBytes, 1024));
+#pragma unroll
+      for (int n = 0; n < D / PVN; ++n)
+        wgmma_pv<PVN>(o[n], a,
+                      desc(v_tile + (n * (PVN / kBox) * BK + j * 16) * kRowBytes,
+                           BK * kRowBytes, 1024));
     }
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs(o);
+#pragma unroll
+    for (int n = 0; n < D / PVN; ++n) fence_regs(o[n]);
     // This warp is done with the stage.
     if (lane == 0) mbar_arrive(empty + 8 * st);
   }
+  if (n_mine == 0) return;  // every row at or past S: nothing to write
 
-  // Epilogue: O / l as bf16 into this warpgroup's rows and boxes of Q's
-  // shared memory in the map's swizzle, then one TMA store per box (rows
-  // past S are clipped). Where the consumers share their rows, both must
-  // be done reading Q first.
+  // Epilogue: O / l as bf16 into this warpgroup's own rows of Q's shared
+  // memory in the map's swizzle, then one TMA store per box (rows past S
+  // are clipped).
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -507,27 +568,24 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,  // box kBQ<D> r
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
-  if constexpr (kSplitD<D>)
-    asm volatile("bar.sync %0, %1;" ::"r"(1 + kConsumers), "n"(128 * kConsumers) : "memory");
   unsigned char* o_s = smem_raw + (q_wg - raw);
 #pragma unroll
-  for (int n = 0; n < DO / 8; ++n) {
-    const int hf = ob0 + n / 8;
-    const int chunk = n % 8;
+  for (int g = 0; g < D / 8; ++g) {  // 8-column group g: box g / 8, chunk g % 8
+    const int n = g / (PVN / 8), i = 4 * (g % (PVN / 8));
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int rr = row + 8 * r;
-      unsigned char* dst = o_s + hf * BQ * kRowBytes + rr * kRowBytes +
-                           ((chunk ^ (rr & 7)) << 4) + 4 * (lane & 3);
+      unsigned char* dst = o_s + (g / 8) * BQ * kRowBytes + rr * kRowBytes +
+                           (((g % 8) ^ (rr & 7)) << 4) + 4 * (lane & 3);
       *reinterpret_cast<uint32_t*>(dst) =
-          pack_bf16(o[4 * n + 2 * r] * inv[r], o[4 * n + 2 * r + 1] * inv[r]);
+          pack_bf16(o[n][i + 2 * r] * inv[r], o[n][i + 2 * r + 1] * inv[r]);
     }
   }
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   asm volatile("bar.sync %0, 128;" ::"r"(1 + c) : "memory");  // this warpgroup
   if (tid == 0) {
 #pragma unroll
-    for (int hf = ob0; hf < ob0 + DO / kBox; ++hf)
+    for (int hf = 0; hf < kHalves; ++hf)
       tma_store(&o_map, q_wg + hf * BQ * kRowBytes, hf * kBox, h, r0, b);
     asm volatile("cp.async.bulk.commit_group;" ::: "memory");
     asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
@@ -582,10 +640,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
     configured = true;
   }
   CUtensorMap q_map, k_map, v_map, o_map;
-  if (!make_map(&q_map, q, B, S, H, D, kBQ<D>) || !make_map(&k_map, k, B, S, KVH, D, kBK<D>) ||
+  if (!make_map(&q_map, q, B, S, H, D, kBQ) || !make_map(&k_map, k, B, S, KVH, D, kBK<D>) ||
       !make_map(&v_map, v, B, S, KVH, D, kBK<D>) || !make_map(&o_map, out, B, S, H, D, 64))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(H, B, (S + kBQ<D> - 1) / kBQ<D>);
+  const dim3 grid(H, B, (S + kBQ - 1) / kBQ);
   flash_prefill_kernel<D><<<grid, kThreads, bytes, stream>>>(
       q_map, k_map, v_map, o_map, S, H / KVH, scale * kLog2e);
   return (int)cudaGetLastError();

@@ -8,10 +8,15 @@ tests and chip_smoke.py hold the kernel against it.
 
 The Pallas kernel pads head_dim to a multiple of 128 and needs
 S % 128 == 0 (TPU tiling rules). The Hopper kernel needs neither: it masks the
-ragged S tail and takes head_dim 64, 128 or 256 (Gemma; that build
-splits O's columns between its two consumer warpgroups over 64-row
-blocks and 64-key K/V tiles), so on the card every prefill bucket goes
-through it. Its C entry point builds the TMA maps on the host from the
+ragged S tail and takes head_dim 64, 128 or 256 (Gemma), so on the card
+every prefill bucket goes through it. Every build's CTA owns 128 query
+rows, 64 to each of two consumer warpgroups that hold O whole, so each
+score is computed once and each K/V tile serves 128 rows; at 256 the
+K/V tiles are 64 keys and the consumers take turns issuing Q K^T. There
+its consumers need ~183 registers a thread, which ptxas grants past the
+launch's 168 (setmaxnreg) only while no trap lies on their path; it is
+bound by tensor-core flops at Gemma's long prompts and by latency at
+S <= 512, where the grid has fewer CTAs than the card has SMs. Its C entry point builds the TMA maps on the host from the
 pointers and shapes on each call, so the wrapper reads no device value
 and a CUDA graph can capture it; a pointer that is not 16-byte aligned
 makes the launch fail and the wrapper raise.
