@@ -44,7 +44,13 @@ Phases, each fatal on failure:
                view; the same bits from two calls and a graph replay; its
                split edges and slots past the table; its splits' CTA
                target and token cap measured on the kernel case and the
-               served contexts; G 1, 2 and 8 with the five cases;
+               served contexts; G 1, 2 and 8 with the five cases. At
+               Qwen2.5-0.5B's heads (H=14 over KVH=2, a group of 7, D=64;
+               `check_qwen_heads`): B2 at B=1 over S 32-2048 and B=8 at
+               128 and 2048, timed beside SDPA and the bound, the same
+               bits from two calls and a graph replay (an entry of its
+               own in the kernels line, B=8 S=2048); B1, B1-int8 and B4
+               against their plain versions, plain and softcap + window;
   3. model   — a small model (head_dim 128) on the card through the kernels
                against the same weights in f32 on the CPU through the plain
                versions: prefill, paged-decode (both layouts) and
@@ -139,8 +145,9 @@ Phases, each fatal on failure:
                and graph pool unchanged. It profiles the LoRA decode
                step, verify window and prefill against the bf16 ones and
                prints the adapter buffers' MiB;
-  4b. serve_gemma — Gemma-2 on random Gemma-2-9B-shape weights, all 42
-               layers (head_dim 256, window 4096 on alternate layers,
+  4b. serve_gemma — Gemma-2 on random Gemma-2-9B-shape weights, cut to
+               GEMMA_9B_LAYERS (14) of its 42 layers (head_dim 256, window
+               4096 on alternate layers,
                softcaps 50 and 30), num_slots=8, max_seq_len=8192: four
                chat requests of 28-4,200 prompt tokens (one seeded, one
                streamed; the longest passes the window) served per_layer
@@ -164,6 +171,31 @@ Phases, each fatal on failure:
                the prefix run; every stream equal to an eager engine's,
                hits by the rule; the decode step from its graph and B2's
                device ms in one 8192-bucket admission;
+  4d. serve_embed — /v1/embeddings on the catalog's embedder: random
+               Qwen2.5-0.5B weights at full width and depth (24 layers,
+               14 heads over 2 at head_dim 64, q/k/v biases, tied
+               embeddings; bf16), written as a checkpoint and loaded back
+               bit-equal. In-process EngineServer: greedy and seeded chat
+               (one streamed) while batches of 8 embeddings (5 to 1,500
+               tokens) land between its steps; B2 must launch 24 times a
+               batch and an admission, every vector must be bit-equal to
+               in-process hidden_states and the streams equal an eager
+               engine's; each batch's time on the serve loop (the delay it
+               adds to the next step). torch.profiler over one batch (24
+               B2 launches, B2's share); the vectors against the plain f32
+               path (max |err|, least cosine). Then `main` in a subprocess:
+               batches of 8 and of 1 (5, 200, 1,500 tokens), each
+               bit-equal to in-process hidden_states, ms per request and
+               tokens/s, the prompt tokens on /metrics, exit 0 on SIGINT;
+  4e. serve_whisper — whisper-small at full width and depth (12 + 12
+               layers, d_model 768; f32, random), written in the HF
+               layout and loaded back bit-equal; encode and
+               decoder_logits on the card within 1e-3 of the port on the
+               CPU; transcribe_tokens over a 5-second 16 kHz WAV made
+               here (encode ms, ms a token, tokens, real-time factor);
+               then `main` in a subprocess on the card: the served ids
+               (twice) equal the in-process ones, /metrics counts the
+               requests and the audio seconds, exit 0 on SIGINT;
   5. serve_cli — the engine Pod's entry point: a random-weight Llama
                checkpoint at Llama-3-8B width (4 layers, bf16) written with
                `weights.save_safetensors`, served by `python -m
@@ -210,6 +242,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -284,6 +317,12 @@ KERNELS = {
     "paged_decode_attention_fused_d256": (
         "kubeai_tpu_torch/csrc/paged_decode_fused.cu",
         "kubeai_tpu/ops/paged_attention.py:837",
+    ),
+    # B2's head_dim-64 build at Qwen2.5-0.5B's heads (G=7), which
+    # serve_embed's /v1/embeddings drives: 24 launches a batch.
+    "flash_causal_prefill_d64": (
+        "kubeai_tpu_torch/csrc/flash_prefill.cu",
+        "kubeai_tpu/ops/pallas_attention.py:108",
     ),
     # B2's head_dim-256 build (Gemma-1), which serve_gemma1 drives.
     "flash_causal_prefill_d256": (
@@ -1440,6 +1479,54 @@ def check_head_dim_64() -> None:
           f"B2: S=200, 512): max |err| {['%.3e' % e for e in errs]}", flush=True)
 
 
+# Qwen2.5-0.5B's attention heads (the catalog's embedder, and its
+# qwen2.5-0.5b-instruct): 14 query heads over 2 kv heads, a group of 7, at
+# head_dim 64.
+QWEN_H, QWEN_KVH, QWEN_D = 14, 2, 64
+
+
+def check_qwen_heads() -> dict:
+    """The kernels at Qwen2.5-0.5B's heads (H=14 over KVH=2, G=7, D=64),
+    which no other case runs. B2 at B=1 over S 32, 200, 512 and 2048 and at
+    B=8 over S 128 and 2048 (`_flash_case`: against the plain version at
+    FLASH_ATOL / FLASH_RTOL, timed beside SDPA and the bound), with two
+    calls and a graph replay that must give the same bits; B1 on bf16 and
+    int8 pools and B4 (a 2-layer stacked pool at layer 1) against their
+    plain versions at their limits: B=8, lengths ragged to 2048 (one full,
+    one of a single token), plain and with softcap 50 + window 100. Returns
+    B2's B=8 S=2048 line (serve_embed's batch of 8 in its largest bucket)
+    for the kernels line."""
+    import torch
+
+    gen = torch.Generator().manual_seed(64)
+    main = None
+    for B, S in ((1, 32), (1, 200), (1, 512), (1, 2048), (8, 128), (8, 2048)):
+        line, call = _flash_case(B, S, QWEN_H, QWEN_KVH, QWEN_D, gen)
+        if (B, S) == (8, 2048):
+            main = line
+        if (B, S) == (8, 128):
+            _same_bits("flash_prefill qwen heads", call)
+        del call
+        torch.cuda.empty_cache()
+    q, kp, vp, bt, lengths = _paged_inputs(gen, H=QWEN_H, KVH=QWEN_KVH, D=QWEN_D)
+    mk = lambda *shape: torch.randn(*shape, generator=gen).to(  # noqa: E731
+        "cuda", torch.bfloat16)
+    kps, vps = torch.stack([mk(*kp.shape), kp]), torch.stack([mk(*vp.shape), vp])
+    kn, vn = mk(q.shape[0], QWEN_KVH, QWEN_D), mk(q.shape[0], QWEN_KVH, QWEN_D)
+    k8, v8 = _quantize_pool(kp), _quantize_pool(vp)
+    errs = []
+    for cap, win in ((None, None), (50.0, 100)):
+        kw = dict(logit_softcap=cap, window=win)
+        tag = f"qwen heads softcap={cap} window={win}"
+        errs.append(_check_decode_case(tag, (q, kp, vp, bt, lengths), kw)[1])
+        errs.append(_check_decode_case(tag, (q, k8, v8, bt, lengths), kw)[1])
+        errs.append(_check_fused_case(tag, (q, kps, vps, kn, vn, bt, lengths - 1, 1), kw)[1])
+    print(f"kernels at Qwen2.5-0.5B's heads (H={QWEN_H}, KVH={QWEN_KVH}, D={QWEN_D}): B1, "
+          f"B1-int8, B4 (plain, softcap 50 + window 100): max |err| "
+          f"{['%.3e' % e for e in errs]}; card: {gpu_line()}", flush=True)
+    return main
+
+
 def check_head_dim_256() -> dict:
     """B1, B4 and B1-int8 at head_dim 256 (Gemma), which no Llama shape
     runs: at Gemma-2-9B's shape (B=8, H=16, KVH=8, page 64, ragged lengths
@@ -1945,6 +2032,7 @@ def phase_kernels() -> dict:
         "paged_decode_attention_int8": check_paged_decode(int8=True),
     }
     check_head_dim_64()
+    measured["flash_causal_prefill_d64"] = check_qwen_heads()
     measured.update(check_head_dim_256())
     measured["flash_causal_prefill_d256"] = check_flash_prefill_d256()
     return measured
@@ -2132,7 +2220,7 @@ def _default_bodies() -> list[list[dict]]:
 
 
 def serve_run(params, cfg, label: str, waves=None, adapters=None, family: str = "llama",
-              config: dict = SERVE_CONFIG, **extra) -> dict:
+              config: dict = SERVE_CONFIG, side=None, **extra) -> dict:
     """One EngineServer run over `params` with the engine's defaults (graphs
     and overlap): a warm-up request, then each wave of chat completions
     (default: `_default_bodies`) sent concurrently, a wave only after the
@@ -2142,6 +2230,9 @@ def serve_run(params, cfg, label: str, waves=None, adapters=None, family: str = 
     `config` the EngineConfig (default: the 8B smoke's), which `extra` adds to;
     `adapters` ({name: LoRA weight tree}) are loaded, in order, after the
     engine captured its programs, and a body names one in its `model`.
+    `side(port)`, when given, runs in a thread beside the waves (started
+    with the first, joined after the last), and its launches count with
+    theirs; an exception in it fails the run.
     Returns the launches (eager calls plus launches per replay x
     replays), each request's prompt, sampling params, adapter, engine
     token stream and TTFT, the rids of each wave, the calls of the
@@ -2243,7 +2334,18 @@ def serve_run(params, cfg, label: str, waves=None, adapters=None, family: str = 
         _zero_launches(engine)
         first_step = engine.profiler.steps_completed
         wave_rids: list[list[int]] = []
+        side_errors: list = []
+
+        def run_side():
+            try:
+                side(server.port)
+            except BaseException as e:  # noqa: BLE001 — failed below, on this thread
+                side_errors.append(e)
+
+        side_thread = threading.Thread(target=run_side) if side else None
         t_start = time.perf_counter()
+        if side_thread:
+            side_thread.start()
         first = 0
         for wave in waves:
             before = set(requests)
@@ -2255,6 +2357,8 @@ def serve_run(params, cfg, label: str, waves=None, adapters=None, family: str = 
                 t.join()
             first += len(wave)
             wave_rids.append(sorted(set(requests) - before))
+        if side_thread:
+            side_thread.join()
         wall = time.perf_counter() - t_start
         eager = {name: fn.launches for name, fn in wrappers.items()}
         replayed = {name: 0 for name in wrappers}
@@ -2264,6 +2368,8 @@ def serve_run(params, cfg, label: str, waves=None, adapters=None, family: str = 
         dispatches = {name: prog.dispatches for name, prog in _programs(engine).items()}
     finally:
         server.stop()
+    if side_errors:
+        fail(f"serve {label}: the traffic beside the waves failed: {side_errors[0]!r}")
     for i, (status, res, first_s, total_s) in enumerate(results):
         if status != 200:
             fail(f"serve {label} request {i}: HTTP {status} {res}")
@@ -4249,6 +4355,10 @@ GEMMA_9B = dict(
     max_position_embeddings=8192, sandwich_norms=True, final_logit_softcapping=30.0,
     attn_logit_softcapping=50.0, query_pre_attn_scalar=256, sliding_window=4096,
 )
+# serve_gemma serves Gemma-2-9B's width at this depth (an even count: half
+# the layers windowed), every gate kept; the kernel phase holds B1 and B4 at
+# its full shapes.
+GEMMA_9B_LAYERS = 14
 # 384 pages of 64 tokens (344 KB of K/V a token: 8.5 GB a pool pair) hold
 # both prefix waves' pages with room; a slot's 8,192 tokens take 128.
 GEMMA_SERVE_CONFIG = dict(num_slots=8, max_seq_len=8192, page_size=64, decode_chunk=8,
@@ -5189,6 +5299,552 @@ def _post_status(port: int, path: str) -> int:
     return resp.status
 
 
+# ---- serve_embed: the catalog's embedder through /v1/embeddings --------------------
+
+# HF Qwen/Qwen2.5-0.5B-Instruct config.json (the catalog's qwen2-embed-tpu and
+# qwen2.5-0.5b-instruct-tpu), all 24 layers: 14 heads over 2 kv heads at
+# head_dim 64, q/k/v biases, tied embeddings; 0.494 B parameters, 0.99 GB in
+# bf16.
+QWEN_05B_CONFIG = {
+    "architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
+    "vocab_size": 151936, "hidden_size": 896, "intermediate_size": 4864,
+    "num_hidden_layers": 24, "num_attention_heads": QWEN_H,
+    "num_key_value_heads": QWEN_KVH, "rope_theta": 1000000.0, "rms_norm_eps": 1e-6,
+    "max_position_embeddings": 32768, "tie_word_embeddings": True,
+    "torch_dtype": "bfloat16",
+}
+QWEN_LEAVES = CLI_LEAVES[:2]  # the head is the embedding
+QWEN_LAYER_LEAVES = CLI_LAYER_LEAVES + (("bq", "self_attn.q_proj.bias", False),
+                                        ("bk", "self_attn.k_proj.bias", False),
+                                        ("bv", "self_attn.v_proj.bias", False))
+# Embedding inputs, ByteTokenizer's one token a byte: a batch of 8 with
+# ragged lengths from 5 to 1,500 tokens (the 2048 bucket), and single
+# inputs of 5, 200 and 1,500.
+EMBED_LENGTHS = (5, 17, 64, 200, 333, 700, 1024, 1500)
+EMBED_SINGLE = (5, 200, 1500)
+EMBED_REPEATS = 5
+# The served vectors (bf16 weights, B2) against the plain path in f32 on the
+# same weights (upcast) on the card: bf16 activations through 24 layers,
+# compared as unit vectors. A sound trunk read max |err| 1.534e-3 and least
+# cosine 0.999904 on an H100; the same f32 path without its last layer
+# must read outside both limits, or the check could not see a broken trunk.
+EMBED_ATOL = 5e-3
+EMBED_MIN_COS = 0.9995
+# Chat traffic served beside the embeddings (greedy and seeded, one
+# streamed), long enough that batches land between its steps.
+EMBED_CHAT = [
+    {"messages": [{"role": "user", "content": "Tell me about the sea."}],
+     "max_tokens": 192, "temperature": 0, "stream": True},
+    {"messages": [{"role": "user", "content": "List some rivers, please: " * 9}],
+     "max_tokens": 192, "temperature": 0.7, "seed": 4},
+]
+
+
+def _embed_texts(lengths, seed: int) -> list[str]:
+    """Printable ASCII strings of the given lengths, from a seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return ["".join(map(chr, rng.integers(32, 127, n))) for n in lengths]
+
+
+def _embed_inputs(texts: list[str], config: dict = SERVE_CONFIG):
+    """(tokens [B, bucket], lengths [B]) as EngineServer builds them for
+    ByteTokenizer: right-padded to the engine's prefill bucket."""
+    import torch
+
+    from kubeai_tpu_torch.engine import EngineConfig
+
+    ids = [list(t.encode()) or [0] for t in texts]
+    n = max(map(len, ids))
+    bucket = next(b for b in EngineConfig(**config).buckets() if n <= b)
+    tokens = torch.zeros((len(ids), bucket), dtype=torch.long)
+    for row, i in enumerate(ids):
+        tokens[row, : len(i)] = torch.tensor(i)
+    return tokens, torch.tensor([len(i) for i in ids])
+
+
+def _in_process_vectors(params, cfg, texts):
+    """llama.hidden_states on the card over `texts` as the server pads them."""
+    import torch
+
+    from kubeai_tpu_torch.models import llama
+
+    tokens, lengths = _embed_inputs(texts)
+    with torch.no_grad():
+        return llama.hidden_states(params, cfg, tokens.cuda(), lengths.cuda()).cpu()
+
+
+def _same_vectors(label: str, served: list, want) -> None:
+    """Served JSON vectors bit-equal to `want` (f32 through JSON's repr)."""
+    import torch
+
+    got = torch.tensor(served, dtype=torch.float32)
+    if got.shape != want.shape or not torch.equal(got, want):
+        err = (got - want).abs().max() if got.shape == want.shape else "shape"
+        fail(f"serve_embed {label}: served vectors {tuple(got.shape)} differ from the "
+             f"in-process hidden_states {tuple(want.shape)} (max |err| {err})")
+
+
+def qwen_weights():
+    """(random Qwen2.5-0.5B weights on the card, all 24 layers, from a seed,
+    with q/k/v biases drawn; their HF-named tensors on the host; the
+    config)."""
+    import torch
+
+    from kubeai_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.from_hf_dict(QWEN_05B_CONFIG)
+    gen = torch.Generator("cuda").manual_seed(5)
+    params = llama.init_params(cfg, gen, device="cuda")
+    for name in ("bk", "bv"):
+        params["layers"][name].copy_(torch.randn(params["layers"][name].shape,
+                                                 generator=gen, device="cuda") * 0.02)
+    tensors = {leaf_name: params[leaf] for leaf, leaf_name, _ in QWEN_LEAVES}
+    for i in range(cfg.num_layers):
+        for leaf, name, transposed in QWEN_LAYER_LEAVES:
+            w = params["layers"][leaf][i]
+            tensors[f"model.layers.{i}.{name}"] = (w.T if transposed else w).contiguous()
+    tensors = {name: t.cpu() for name, t in tensors.items()}
+    return params, tensors, cfg
+
+
+@contextlib.contextmanager
+def cli_process(model_dir: str, label: str, flags=()):
+    """`python -m kubeai_tpu_torch.engine.server --model-url model_dir` on a
+    free port, as a new process group under `timeout --foreground` (which
+    passes a signal to the server once; without it the server would get
+    it a second time through the group): yields the port once /health
+    answers 200 (within CLI_READY_S). Afterwards SIGINT must end it with
+    exit 0 within CLI_DRAIN_S; on any failure the group is killed."""
+    import os
+    import signal
+    import socket
+    import tempfile
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "kubeai_tpu_torch.engine.server", "--model-url", model_dir,
+           "--port", str(port), *flags]
+    print(f"{label} command: {' '.join(cmd[1:])}", flush=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    log_fd, log_path = tempfile.mkstemp(prefix=f"kubeai-{label}-", suffix=".log")
+
+    def tail() -> str:
+        with open(log_path) as f:
+            return "".join(f.readlines()[-30:])
+
+    proc = subprocess.Popen(["timeout", "--foreground", "-k", "10", str(CLI_READY_S + 300),
+                             *cmd], cwd=here, env=dict(os.environ, PYTHONPATH=here),
+                            stdout=log_fd, stderr=subprocess.STDOUT, start_new_session=True)
+    try:
+        t0 = time.perf_counter()
+        while True:
+            if proc.poll() is not None:
+                fail(f"{label}: the server exited {proc.returncode} before it was ready:\n"
+                     f"{tail()}")
+            try:
+                if _get(port, "/health")[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.perf_counter() - t0 > CLI_READY_S:
+                fail(f"{label}: not ready within {CLI_READY_S} s:\n{tail()}")
+            time.sleep(0.25)
+        print(f"{label}: ready {time.perf_counter() - t0:.2f} s after the process started",
+              flush=True)
+        yield port
+        proc.send_signal(signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=CLI_DRAIN_S)
+        except subprocess.TimeoutExpired:
+            fail(f"{label}: no exit within {CLI_DRAIN_S} s of SIGINT:\n{tail()}")
+        if rc != 0:
+            fail(f"{label}: the server exited {rc} after SIGINT:\n{tail()}")
+        print(f"{label}: exit 0 after SIGINT", flush=True)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        os.close(log_fd)
+        os.unlink(log_path)
+
+
+def serve_embed() -> dict:
+    """Phase 6: /v1/embeddings on the catalog's embedder, Qwen2.5-0.5B at
+    full width and depth (QWEN_05B_CONFIG, random bf16 weights from a
+    seed), written with `weights.save_safetensors` and loaded back
+    bit-equal. In-process (`serve_run`, the counted main path): greedy and
+    seeded chat (EMBED_CHAT) while batches of 8 embeddings (EMBED_LENGTHS)
+    are posted until three of them ran while a stream was live. Gates: B2
+    launches 24 times a batch and a prefill admission; every served
+    vector bit-equal to in-process `hidden_states` on the card; the chat
+    streams equal an eager synchronous engine's. Reports each batch's time
+    on the serve loop (the delay it adds to the streams' next step). Then
+    torch.profiler over one batch of 8 (B2's launches, which must be 24,
+    and its share of device time), the vectors against the plain f32 path
+    (EMBED_ATOL, EMBED_MIN_COS, which that path without its last layer must
+    read outside), and the checkpoint through `main` in a
+    subprocess (`cli_process`): batches of 8 and single inputs, each
+    bit-equal to in-process `hidden_states`, ms per request and tokens/s,
+    the prompt tokens on /metrics. Returns B2's launches in the
+    in-process run."""
+    import dataclasses
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from kubeai_tpu_torch.engine.server import EngineServer
+    from kubeai_tpu_torch.engine.weights import load_params, save_safetensors
+    from kubeai_tpu_torch.models import llama
+    from kubeai_tpu_torch.ops.attention import causal_prefill_attention
+
+    root = tempfile.mkdtemp(prefix="kubeai-serve-embed-")
+    try:
+        t0 = time.perf_counter()
+        params, tensors, cfg = qwen_weights()
+        model_dir = os.path.join(root, "qwen")
+        save_safetensors(model_dir, tensors, QWEN_05B_CONFIG)
+        nbytes = os.path.getsize(os.path.join(model_dir, "model.safetensors"))
+        del params
+        params = load_params("qwen", model_dir, cfg, device="cuda")
+        n = check_loaded_bits(params, tensors, QWEN_LEAVES, QWEN_LAYER_LEAVES,
+                              cfg.num_layers)
+        if params["lm_head"] is not params["embed"]:
+            fail("serve_embed: the loaded Qwen2.5-0.5B head is not tied to the embedding")
+        del tensors
+        print(f"serve_embed: random Qwen2.5-0.5B weights ({cfg.num_layers} layers, "
+              f"{cfg.num_heads} heads over {cfg.num_kv_heads} at head_dim {cfg.head_size}, "
+              f"biases, tied), {nbytes / 1e9:.3f} GB written and loaded back ({n} leaves "
+              f"bit-equal) in {time.perf_counter() - t0:.2f} s", flush=True)
+
+        # In-process: chat streams with embedding batches between their steps.
+        texts8 = _embed_texts(EMBED_LENGTHS, 6)
+        calls, on_loop = [], []
+        embed = EngineServer.embed
+
+        def timed_embed(self, tokens, lengths):
+            live = self.engine.has_work()
+            t = time.perf_counter()
+            out = embed(self, tokens, lengths)
+            on_loop.append((time.perf_counter() - t, live))
+            return out
+
+        def side(port):
+            while sum(live for _, live in on_loop) < 3 and len(calls) < 40:
+                status, res, _, total_s = _post(port, {"input": texts8},
+                                                path="/v1/embeddings")
+                if status != 200:
+                    raise RuntimeError(f"/v1/embeddings: HTTP {status} {res}")
+                calls.append(([d["embedding"] for d in res["data"]], total_s))
+
+        EngineServer.embed = timed_embed
+        try:
+            run = serve_run(params, cfg, "embed", waves=[EMBED_CHAT], family="qwen",
+                            side=side)
+        finally:
+            EngineServer.embed = embed
+        b2, admitted = run["launches"]["flash_causal_prefill"], run["admissions"]
+        print(f"serve embed: {len(calls)} batches of 8 beside the chat streams; "
+              f"flash_causal_prefill launched {b2} times for them and {admitted} prefill "
+              f"admissions ({cfg.num_layers} layers)", flush=True)
+        if b2 != cfg.num_layers * (len(calls) + admitted):
+            fail(f"serve embed: B2 launched {b2} times, not {cfg.num_layers} a batch and "
+                 "an admission")
+        live = [s * 1e3 for s, was_live in on_loop if was_live]
+        if len(live) < 3:
+            fail(f"serve embed: only {len(live)} batches ran while a stream was live")
+        print(f"serve embed: a batch of 8 (bucket 2048) on the serve loop took "
+              f"{json.dumps([round(s * 1e3, 3) for s, _ in on_loop])} ms, "
+              f"{json.dumps([round(x, 3) for x in live])} of them between two steps of "
+              f"live streams: the delay each added to the streams' next step; client "
+              f"seconds {json.dumps([round(t, 4) for _, t in calls])}", flush=True)
+        want8 = _in_process_vectors(params, cfg, texts8)
+        for served, _ in calls:
+            _same_vectors("in-process server", served, want8)
+        print(f"serve embed: all {len(calls)} served batches bit-equal to in-process "
+              "hidden_states on the card", flush=True)
+        check_streams_equal_eager(params, cfg, "embed chat", run)
+        free(run)
+
+        # B2 in one batch of 8, and the plain f32 path on the same weights.
+        tokens, lengths = (t.cuda() for t in _embed_inputs(texts8))
+        prof = profile(None, "embed batch 8",
+                       lambda _: llama.hidden_states(params, cfg, tokens, lengths),
+                       e_steps=1, calls=1)
+        total = sum(getattr(e, "self_device_time_total", 0) for e in prof["rows"])
+        b2_rows = [e for e in prof["rows"] if "flash_prefill_kernel" in e.key]
+        b2_us = sum(getattr(e, "self_device_time_total", 0) for e in b2_rows)
+        b2_n = sum(e.count for e in b2_rows)
+        print(f"profile embed_batch_8 B2 {b2_us / 1e3:.4f} ms in {b2_n} launches, "
+              f"{b2_us / max(total, 1):.3f} of its device time ({total / 1e3:.4f} ms)",
+              flush=True)
+        if b2_n != cfg.num_layers:
+            fail(f"serve embed: torch.profiler saw {b2_n} B2 launches in a batch, not "
+                 f"{cfg.num_layers}")
+        p32 = {k: v.float() for k, v in params.items() if k != "layers"}
+        p32["layers"] = {k: v.float() for k, v in params["layers"].items()}
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        # A broken trunk for the limits to catch: the last layer left out.
+        short = dict(p32, layers={k: v[:-1] for k, v in p32["layers"].items()})
+        flash = llama.flash_causal_prefill
+        llama.flash_causal_prefill = causal_prefill_attention
+        try:
+            with torch.no_grad():
+                plain = llama.hidden_states(p32, cfg32, tokens, lengths).cpu()
+                broken = llama.hidden_states(
+                    short, dataclasses.replace(cfg32, num_layers=cfg.num_layers - 1),
+                    tokens, lengths).cpu()
+        finally:
+            llama.flash_causal_prefill = flash
+        del p32, short
+        err = float((want8 - plain).abs().max())
+        cos = float((want8 * plain).sum(-1).min())
+        b_err = float((broken - plain).abs().max())
+        b_cos = float((broken * plain).sum(-1).min())
+        print(f"serve embed: batch of 8 against the plain f32 path: max |err| {err:.3e} "
+              f"(limit {EMBED_ATOL}), least cosine {cos:.6f} (limit {EMBED_MIN_COS}); "
+              f"the f32 path without its last layer reads {b_err:.3e} and {b_cos:.6f}",
+              flush=True)
+        if err > EMBED_ATOL or cos < EMBED_MIN_COS:
+            fail("serve embed: the served vectors are off the plain f32 path")
+        if b_err <= EMBED_ATOL or b_cos >= EMBED_MIN_COS:
+            fail("serve embed: a trunk without its last layer reads within the limits, "
+                 "so they cannot tell a broken trunk")
+
+        # The entry point: main in a subprocess.
+        gc.collect()
+        torch.cuda.empty_cache()
+        with cli_process(model_dir, "serve_embed main", ["--num-slots", "8", "--max-seq-len",
+                                                        "2048"]) as port:
+            batches = [("batch 8", texts8)] + [
+                (f"batch 1 of {n}", [t]) for n, t in zip(EMBED_SINGLE,
+                                                         _embed_texts(EMBED_SINGLE, 7))]
+            posted = 0
+            for label, texts in batches:
+                want = _in_process_vectors(params, cfg, texts)
+                secs = []
+                for _ in range(EMBED_REPEATS):
+                    status, res, _, total_s = _post(port, {"input": texts},
+                                                    path="/v1/embeddings")
+                    if status != 200:
+                        fail(f"serve_embed main {label}: HTTP {status} {res}")
+                    _same_vectors(f"main {label}", [d["embedding"] for d in res["data"]],
+                                  want)
+                    secs.append(total_s)
+                    posted += res["usage"]["prompt_tokens"]
+                ntok = sum(len(t) for t in texts)
+                med = sorted(secs)[len(secs) // 2]
+                print(f"serve_embed main {label}: {ntok} tokens; ms per request "
+                      f"{json.dumps([round(s * 1e3, 3) for s in secs])} (median "
+                      f"{med * 1e3:.3f}); {ntok / med:.1f} tokens/s; every response "
+                      "bit-equal to in-process hidden_states", flush=True)
+            counted = _parse_metrics(_get(port, "/metrics")[1]).get(
+                ("kubeai_engine_prompt_tokens_total", ()), 0.0)
+            if counted < posted:
+                fail(f"serve_embed main: /metrics counts {counted} prompt tokens, "
+                     f"{posted} were embedded")
+        print(f"serve_embed card: {gpu_line()}", flush=True)
+        del params
+        return {"flash_causal_prefill_d64": b2}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ---- serve_whisper: whisper-small through /v1/audio/transcriptions -----------------
+
+# HF openai/whisper-small config.json, all 12 + 12 layers: d_model 768, 12
+# heads, ffn 3072, 80 mel bins, vocab 51865, 1500 / 448 positions; 0.242 B
+# parameters, 0.97 GB in f32.
+WHISPER_SMALL_CONFIG = {
+    "architectures": ["WhisperForConditionalGeneration"], "model_type": "whisper",
+    "vocab_size": 51865, "num_mel_bins": 80, "d_model": 768, "encoder_layers": 12,
+    "encoder_attention_heads": 12, "decoder_layers": 12, "decoder_attention_heads": 12,
+    "encoder_ffn_dim": 3072, "decoder_ffn_dim": 3072, "max_source_positions": 1500,
+    "max_target_positions": 448, "decoder_start_token_id": 50258, "eos_token_id": 50257,
+}
+WHISPER_AUDIO_S = 5
+# The card in f32 (TF32 off, PyTorch's default) against the CPU in f32: only
+# the sum order differs.
+WHISPER_ATOL = 1e-3
+
+
+def _speech_wav(seconds: int, seed: int) -> bytes:
+    """16 kHz mono 16-bit WAV: a chirp from 200 Hz to 2 kHz under noise."""
+    import io
+    import wave
+
+    import numpy as np
+
+    sr = 16000
+    t = np.arange(seconds * sr) / sr
+    pcm = 0.4 * np.sin(2 * np.pi * (200 * t + 180 * t ** 2))
+    pcm += 0.05 * np.random.default_rng(seed).standard_normal(len(t))
+    buf = io.BytesIO()
+    with wave.open(buf, "w") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes((np.clip(pcm, -1, 1) * 32767).astype(np.int16).tobytes())
+    return buf.getvalue()
+
+
+def _leaves_of(tree, prefix: str = ""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves_of(v, f"{prefix}{k}.")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves_of(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def serve_whisper() -> None:
+    """Phase 7: whisper-small at full width and depth (WHISPER_SMALL_CONFIG,
+    random f32 weights from a seed) written in the HF layout
+    (`weights.whisper_hf_tensors`) and loaded back bit-equal. On the card
+    in-process: `encode` and `decoder_logits` within WHISPER_ATOL of the
+    port on the CPU (decoder on the card's encoder states), and
+    `transcribe_tokens` over a 5-second 16 kHz WAV made here: encode ms,
+    ms per decoded token, tokens decoded, the real-time factor. Then the
+    checkpoint through `main` in a subprocess (`cli_process`, on cuda by
+    default): the served text (token ids: the directory has no tokenizer)
+    must be the in-process ids, and /metrics must count one request and 5
+    seconds of audio."""
+    import gc
+    import http.client
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from kubeai_tpu_torch.engine.weights import (
+        load_params,
+        save_safetensors,
+        whisper_hf_tensors,
+    )
+    from kubeai_tpu_torch.models import whisper
+
+    cfg = whisper.WhisperConfig.from_hf_dict(WHISPER_SMALL_CONFIG)
+    root = tempfile.mkdtemp(prefix="kubeai-serve-whisper-")
+    try:
+        t0 = time.perf_counter()
+        drawn = whisper.init_params(cfg, torch.Generator("cuda").manual_seed(8), device="cuda")
+        model_dir = os.path.join(root, "whisper")
+        save_safetensors(model_dir, whisper_hf_tensors(drawn, cfg), WHISPER_SMALL_CONFIG)
+        params = load_params("whisper", model_dir, cfg, dtype=torch.float32, device="cuda")
+        leaves = dict(_leaves_of(params))
+        for name, want in _leaves_of(drawn):
+            if not torch.equal(leaves[name], want):
+                fail(f"serve_whisper: loaded {name} is not the tensor written")
+        nbytes = sum(t.nbytes for t in leaves.values())
+        del drawn
+        print(f"serve_whisper: random whisper-small weights ({cfg.encoder_layers} + "
+              f"{cfg.decoder_layers} layers, d_model {cfg.d_model}), f32, "
+              f"{nbytes / 1e9:.3f} GB written and loaded back ({len(leaves)} leaves "
+              f"bit-equal) in {time.perf_counter() - t0:.2f} s", flush=True)
+        wav = _speech_wav(WHISPER_AUDIO_S, 9)
+        mel = whisper.log_mel_spectrogram(whisper.decode_wav(wav), cfg.num_mel_bins,
+                                          2 * cfg.max_source_positions)
+        mel_t = torch.from_numpy(mel)[None]
+        with torch.no_grad():
+            enc = whisper.encode(params, cfg, mel_t.cuda())
+        encode_ms = cuda_ms(lambda: whisper.encode(params, cfg, mel_t.cuda()), iters=3,
+                            warmup=1)
+        t0 = time.perf_counter()
+        ids = whisper.transcribe_tokens(params, cfg, mel)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not ids:
+            fail("serve_whisper: transcribe_tokens decoded no token")
+        per_token = (wall * 1e3 - encode_ms) / len(ids)
+        print(f"serve_whisper transcribe_tokens on the card: encode {encode_ms:.3f} ms "
+              f"(3000 mel frames -> {enc.shape[1]} states); {len(ids)} tokens decoded "
+              f"(cap {cfg.max_target_positions - 1}) in {wall:.3f} s: {per_token:.3f} ms "
+              f"a token after the encode; real-time factor {wall / WHISPER_AUDIO_S:.4f} "
+              f"for {WHISPER_AUDIO_S} s of audio", flush=True)
+
+        # The port on the CPU, on the same weights and inputs.
+        def to_cpu(tree):
+            if isinstance(tree, dict):
+                return {k: to_cpu(v) for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [to_cpu(v) for v in tree]
+            return tree.cpu()
+
+        params_cpu = to_cpu(params)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            enc_cpu = whisper.encode(params_cpu, cfg, mel_t)
+            prefix = torch.tensor([[cfg.decoder_start_token_id, *ids[:15]]])
+            logits = whisper.decoder_logits(params, cfg, prefix.cuda(), enc).cpu()
+            logits_cpu = whisper.decoder_logits(params_cpu, cfg, prefix, enc.cpu())
+        enc_err = float((enc.cpu() - enc_cpu).abs().max())
+        logit_err = float((logits - logits_cpu).abs().max())
+        print(f"serve_whisper card against the CPU (f32 both; CPU {time.perf_counter() - t0:.2f}"
+              f" s): encode max |err| {enc_err:.3e}, decoder_logits over {prefix.shape[1]} "
+              f"tokens max |err| {logit_err:.3e} (limit {WHISPER_ATOL}); greedy picks "
+              f"{'equal' if logits.argmax(-1).equal(logits_cpu.argmax(-1)) else 'differ'}",
+              flush=True)
+        if enc_err > WHISPER_ATOL or logit_err > WHISPER_ATOL:
+            fail("serve_whisper: the card is off the CPU")
+        del params_cpu, enc_cpu
+
+        # The entry point: main in a subprocess, on the card by default.
+        gc.collect()
+        torch.cuda.empty_cache()
+        boundary = "kubeai-smoke"
+        body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+                f"filename=\"a.wav\"\r\nContent-Type: audio/wav\r\n\r\n").encode()
+        body += wav + f"\r\n--{boundary}--\r\n".encode()
+        with cli_process(model_dir, "serve_whisper main") as port:
+            served_s = []
+            for _ in range(2):  # the first request includes the process's first calls
+                t0 = time.perf_counter()
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=REQUEST_TIMEOUT_S)
+                conn.request("POST", "/v1/audio/transcriptions", body,
+                             {"Content-Type": f"multipart/form-data; boundary={boundary}"})
+                resp = conn.getresponse()
+                res = json.loads(resp.read())
+                conn.close()
+                served_s.append(time.perf_counter() - t0)
+                if resp.status != 200:
+                    fail(f"serve_whisper main: HTTP {resp.status} {res}")
+                served = [int(x) for x in res["text"].split()]
+                if served != ids:
+                    step = _leading_equal(served, ids)
+                    fail(f"serve_whisper main: served ids differ from in-process "
+                         f"transcribe_tokens at token {step}: {served[step:step + 4]} vs "
+                         f"{ids[step:step + 4]}")
+            metrics = _parse_metrics(_get(port, "/metrics")[1])
+            reqs = sum(v for (n, _), v in metrics.items()
+                       if n == "kubeai_engine_requests_total")
+            audio = metrics.get(("kubeai_engine_audio_seconds_total", ()))
+            if reqs != 2 or audio != 2 * WHISPER_AUDIO_S:
+                fail(f"serve_whisper main: /metrics counts {reqs} requests and {audio} s "
+                     "of audio, not 2 and 2 x {WHISPER_AUDIO_S}")
+            print(f"serve_whisper main: {len(ids)} served ids equal to in-process "
+                  f"transcribe_tokens, twice; requests {served_s[0]:.3f} s and "
+                  f"{served_s[1]:.3f} s for {WHISPER_AUDIO_S} s of audio (real-time factor "
+                  f"{served_s[1] / WHISPER_AUDIO_S:.4f} for the second); /metrics "
+                  f"{reqs:.0f} requests, {audio} s of audio", flush=True)
+        print(f"serve_whisper card: {gpu_line()}", flush=True)
+        del params, enc
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 # ---- entry --------------------------------------------------------------------
 
 
@@ -5219,8 +5875,11 @@ def main() -> None:
     measured = timed("kernels", phase_kernels)
     timed("model", phase_model)
     launches = timed("serve", phase_serve)
-    launches.update(timed("serve_gemma", serve_gemma))
+    launches.update(timed("serve_gemma", serve_gemma, dict(GEMMA_9B, num_layers=GEMMA_9B_LAYERS),
+                          f"Gemma-2-9B ({GEMMA_9B_LAYERS} of 42 layers)"))
     launches.update(timed("serve_gemma1", serve_gemma, GEMMA_7B, "Gemma-7B", "gemma1"))
+    launches.update(timed("serve_embed", serve_embed))
+    timed("serve_whisper", serve_whisper)
     timed("serve_cli", serve_cli)
     timed("serve_cli_gemma", serve_cli_gemma)
     timed("serve_cli_gemma int8", serve_cli_gemma, GEMMA_CLI_CONFIG, GEMMA_CLI_LAYER_LEAVES,

@@ -441,6 +441,11 @@ class Engine:
         self.family = (
             get_model_family(family) if isinstance(family, str) else family
         )
+        if self.family.prefill is None:
+            raise ValueError(
+                f"the {self.family.name} family ({self.family.feature}) is not "
+                "served by the slot engine"
+            )
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.eos_token_ids = eos_token_ids

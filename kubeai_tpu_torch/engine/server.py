@@ -20,6 +20,8 @@ operator and the fleet read):
   POST /v1/kv/import          receive a KV handoff (chunked upload) for a
                               later X-Disagg-Handoff generate
   POST /v1/kv/export          serve a peer's prefix-page fetch (KVP1 blob)
+  POST /v1/embeddings         mean-pooled, L2-normalized embeddings
+                              (the TextEmbedding feature)
   POST /v1/load_lora_adapter  LoRA adapter admin, the operator's seam
   POST /v1/unload_lora_adapter
 
@@ -60,14 +62,24 @@ An adapter with requests in flight is neither reloaded nor unloaded
 (409). Adapter requests skip the peer prefix fetch: per-replica adapter
 rows make their chains incomparable across replicas.
 
-Not ported yet: embeddings and the routes and series that belong to
-them, and the mixtral and whisper families (ROADMAP A item 10), and the
-object store behind the spill and behind s3://, gs:// and oss:// adapter
-URLs (item 9). Tenancy is the front door's; this server reads only the
+Embeddings run the family's `hidden_states` over the inputs right-padded
+to the engine's prefill bucket, in one batch, on the serve loop's thread
+between two steps (`_on_loop`): on the card its trunk attends through B2
+and must not run beside a CUDA-graph replay, so a batch delays the
+streams' next step by its own device time. Gemma has no embedding
+forward (400), as in the JAX package.
+
+A whisper checkpoint (WhisperForConditionalGeneration) boots
+engine/whisper_server.py's TranscriptionServer instead of the slot
+engine: POST /v1/audio/transcriptions.
+
+Not ported yet: the mixtral family (ROADMAP A item 10), and the object
+store behind the spill and behind s3://, gs:// and oss:// adapter URLs
+(item 9). Tenancy is the front door's; this server reads only the
 scheduling headers.
 
 Run: python -m kubeai_tpu_torch.engine.server --model-url <dir> [--port N]
-(a llama, mistral, qwen2, gemma or gemma2 checkpoint)
+(a llama, mistral, qwen2, gemma, gemma2 or whisper checkpoint)
 """
 
 from __future__ import annotations
@@ -110,7 +122,7 @@ from kubeai_tpu_torch.engine.engine import (
 )
 from kubeai_tpu_torch.engine.lora_weights import load_peft_adapter
 from kubeai_tpu_torch.engine.sampling import SamplingParams
-from kubeai_tpu_torch.engine.tokenizer import Tokenizer, load_tokenizer
+from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer, Tokenizer, load_tokenizer
 from kubeai_tpu_torch.engine.weights import (
     UNPORTED_ARCHITECTURES,
     WeightLoadError,
@@ -840,6 +852,8 @@ class EngineServer:
                         return outer._handle_generate(self, body, chat=True)
                     if path == "/v1/completions":
                         return outer._handle_generate(self, body, chat=False)
+                    if path == "/v1/embeddings":
+                        return outer._handle_embeddings(self, body)
                     return self._json(404, {"error": {"message": "not found"}})
                 except BrokenPipeError as e:
                     span.set_attribute("http.status_code", self._last_status)
@@ -1306,6 +1320,51 @@ class EngineServer:
         if not requested or requested == self.served_model_name:
             return self.served_model_name, None
         return None
+
+    # -- embeddings (TextEmbedding feature) ------------------------------------
+
+    def _handle_embeddings(self, http, body: dict):
+        fam = self.engine.family
+        if fam.hidden_states is None:
+            return http._json(400, {"error": {"message": (
+                f"model family {fam.name} has no embedding support")}})
+        inputs = body.get("input", "")
+        if isinstance(inputs, str):
+            inputs = [inputs]
+        if not inputs or not all(isinstance(i, str) for i in inputs):
+            return http._json(400, {"error": {"message": (
+                "input must be a string or list of strings")}})
+        ids = [self.tokenizer.encode(t) or [0] for t in inputs]
+        if any(len(i) > self.engine.cfg.max_seq_len for i in ids):
+            return http._json(400, {"error": {"message": "input too long"}})
+        bucket = self.engine._bucket(max(len(i) for i in ids))
+        tokens = torch.zeros((len(ids), bucket), dtype=torch.long)
+        for row, i in enumerate(ids):
+            tokens[row, : len(i)] = torch.tensor(i)
+        lengths = torch.tensor([len(i) for i in ids])
+        vecs = self._on_loop(lambda: self.embed(tokens, lengths)).tolist()
+        total_tokens = int(sum(len(i) for i in ids))
+        self.metrics.prompt_tokens.inc(total_tokens)
+        return http._json(200, {
+            "object": "list",
+            "model": self.served_model_name,
+            "data": [
+                {"object": "embedding", "index": i, "embedding": vecs[i]}
+                for i in range(len(ids))
+            ],
+            "usage": {"prompt_tokens": total_tokens, "total_tokens": total_tokens},
+        })
+
+    def embed(self, tokens: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        """The family's hidden_states over right-padded `tokens` [B, S] with
+        `lengths` [B], on the engine's device: f32 [B, E] on the host."""
+        dev = self.engine.device
+        with torch.no_grad():
+            vecs = self.engine.family.hidden_states(
+                self.engine.params, self.engine.model_cfg, tokens.to(dev),
+                lengths.to(dev),
+            )
+        return vecs.cpu()
 
     # -- adapter admin ----------------------------------------------------------
 
@@ -2385,6 +2444,29 @@ def engine_config(args: argparse.Namespace) -> EngineConfig:
     )
 
 
+def serve_transcriptions(args, params, model_cfg, model_dir: str, log) -> int:
+    """main's SpeechToText branch: a TranscriptionServer over the loaded
+    whisper `params`, until interrupted."""
+    from kubeai_tpu_torch.engine.whisper_server import TranscriptionServer
+
+    # Token ids as text unless the checkpoint carries a tokenizer (fault C4).
+    tokenizer = load_tokenizer(model_dir)
+    if isinstance(tokenizer, ByteTokenizer):
+        tokenizer = None
+    tserver = TranscriptionServer(
+        params, model_cfg, args.served_model_name,
+        tokenizer=tokenizer, host=args.host, port=args.port,
+    )
+    tserver.start()
+    log.info("transcription engine serving on %s:%d", args.host, tserver.port)
+    try:
+        while True:
+            time.sleep(5)
+    except KeyboardInterrupt:
+        tserver.stop()
+    return 0
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
@@ -2404,12 +2486,19 @@ def main(argv=None) -> int:
         model_cfg = family.config_from_hf(hf_cfg)
         log.info("loading %s (%s) from %s onto %s",
                  args.served_model_name, arch, model_dir, device)
+        speech = family.feature == "SpeechToText"
         with tracker.phase("load"):
-            params = load_params(family.name, model_dir, model_cfg, device=device)
+            # Whisper runs in f32, as its loader makes it (fault C13).
+            params = load_params(
+                family.name, model_dir, model_cfg,
+                dtype=torch.float32 if speech else torch.bfloat16, device=device,
+            )
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
     except (WeightLoadError, KeyError) as e:  # KeyError: an unknown family or field
         raise SystemExit(f"cannot load {args.model_url}: {e}") from e
+    if speech:
+        return serve_transcriptions(args, params, model_cfg, model_dir, log)
 
     shares: dict[str, float] = {}
     if args.queue_shares:

@@ -113,3 +113,4 @@ def load_tokenizer(model_dir: str | None) -> Tokenizer:
         return ByteTokenizer()
     logger.info("tokenizer: Hugging Face tokenizer from %s", model_dir)
     return tok
+

@@ -1,6 +1,6 @@
 """Checkpoint loading: Hugging Face-format directories to the port's
 parameter dict. Counterpart of kubeai_tpu/engine/weights.py (the llama,
-qwen and gemma loaders, `resolve_model_dir` and `load_params`).
+qwen, gemma and whisper loaders, `resolve_model_dir` and `load_params`).
 
 Tensors are read lazily, as in the JAX package: safetensors headers are
 parsed once, and each tensor is seek-read from its shard only when its
@@ -15,8 +15,10 @@ is bit-equal to the JAX loader's tree.
 
 Sources: local directories, `pvc://` (the operator mounts the PVC at
 /model) and `hf://` (through huggingface_hub). Object-store URLs and the
-mixtral and whisper families are not ported and raise naming their
-ROADMAP item.
+mixtral family are not ported and raise naming their ROADMAP item.
+Whisper's loader keeps the JAX package's nested tree in f32 (the JAX
+entry point passes `load_params`' bf16 default to it, which its model
+cannot run: ROADMAP fault C13).
 
 `save_safetensors` writes a checkpoint in the same format; tests and
 `chip_smoke.py` use it to make checkpoints from random weights. Nothing
@@ -291,16 +293,138 @@ def resolve_model_dir(model_url: str, model_dir: str = "") -> str:
     raise WeightLoadError(f"unsupported model url {model_url!r}")
 
 
+def load_whisper_params(
+    model_dir: str, cfg, dtype=torch.float32,
+    device: str | torch.device | None = None,
+) -> dict:
+    """Map a HF WhisperForConditionalGeneration checkpoint onto the port's
+    whisper tree (kubeai_tpu_torch.models.whisper): [out, in] projections
+    become [in, out], the conv kernels [out, in, k] become [k, in, out].
+    `device` defaults to cuda."""
+    dev = resolve_device(device)
+    t = LazyTensors(model_dir)
+
+    def get(name: str, *perm: int) -> torch.Tensor:
+        if name not in t:
+            raise WeightLoadError(f"missing tensor {name}")
+        a = t.stored(name).to(dev)
+        return (a.permute(*perm) if perm else a).to(dtype).contiguous()
+
+    def attn(prefix: str) -> dict:
+        return {
+            "wq": get(f"{prefix}.q_proj.weight", 1, 0),
+            "bq": get(f"{prefix}.q_proj.bias"),
+            "wk": get(f"{prefix}.k_proj.weight", 1, 0),
+            "wv": get(f"{prefix}.v_proj.weight", 1, 0),
+            "bv": get(f"{prefix}.v_proj.bias"),
+            "wo": get(f"{prefix}.out_proj.weight", 1, 0),
+            "bo": get(f"{prefix}.out_proj.bias"),
+        }
+
+    def ln(name: str) -> dict:
+        return {"w": get(f"{name}.weight"), "b": get(f"{name}.bias")}
+
+    def ffn(prefix: str) -> dict:
+        return {
+            "w1": get(f"{prefix}.fc1.weight", 1, 0), "b1": get(f"{prefix}.fc1.bias"),
+            "w2": get(f"{prefix}.fc2.weight", 1, 0), "b2": get(f"{prefix}.fc2.bias"),
+        }
+
+    enc, dec = "model.encoder", "model.decoder"
+    return {
+        "conv1_w": get(f"{enc}.conv1.weight", 2, 1, 0),
+        "conv1_b": get(f"{enc}.conv1.bias"),
+        "conv2_w": get(f"{enc}.conv2.weight", 2, 1, 0),
+        "conv2_b": get(f"{enc}.conv2.bias"),
+        "enc_pos": get(f"{enc}.embed_positions.weight"),
+        "enc_layers": [
+            {
+                "ln1": ln(f"{enc}.layers.{i}.self_attn_layer_norm"),
+                "attn": attn(f"{enc}.layers.{i}.self_attn"),
+                "ln2": ln(f"{enc}.layers.{i}.final_layer_norm"),
+                "ffn": ffn(f"{enc}.layers.{i}"),
+            }
+            for i in range(cfg.encoder_layers)
+        ],
+        "enc_ln": ln(f"{enc}.layer_norm"),
+        "dec_embed": get(f"{dec}.embed_tokens.weight"),
+        "dec_pos": get(f"{dec}.embed_positions.weight"),
+        "dec_layers": [
+            {
+                "ln1": ln(f"{dec}.layers.{i}.self_attn_layer_norm"),
+                "self_attn": attn(f"{dec}.layers.{i}.self_attn"),
+                "ln2": ln(f"{dec}.layers.{i}.encoder_attn_layer_norm"),
+                "cross_attn": attn(f"{dec}.layers.{i}.encoder_attn"),
+                "ln3": ln(f"{dec}.layers.{i}.final_layer_norm"),
+                "ffn": ffn(f"{dec}.layers.{i}"),
+            }
+            for i in range(cfg.decoder_layers)
+        ],
+        "dec_ln": ln(f"{dec}.layer_norm"),
+    }
+
+
+def whisper_hf_tensors(params: dict, cfg) -> dict[str, torch.Tensor]:
+    """The port's whisper tree under the HF WhisperForConditionalGeneration
+    names and layouts (the inverse of `load_whisper_params`), for
+    `save_safetensors`: tests and chip_smoke.py write checkpoints with it."""
+    out: dict[str, torch.Tensor] = {}
+
+    def put(name: str, a: torch.Tensor, *perm: int) -> None:
+        out[name] = (a.permute(*perm) if perm else a).contiguous()
+
+    def attn(prefix: str, p: dict) -> None:
+        for w, b, hf in (("wq", "bq", "q_proj"), ("wk", None, "k_proj"),
+                         ("wv", "bv", "v_proj"), ("wo", "bo", "out_proj")):
+            put(f"{prefix}.{hf}.weight", p[w], 1, 0)
+            if b is not None:
+                put(f"{prefix}.{hf}.bias", p[b])
+
+    def ln(name: str, p: dict) -> None:
+        put(f"{name}.weight", p["w"])
+        put(f"{name}.bias", p["b"])
+
+    def ffn(prefix: str, p: dict) -> None:
+        put(f"{prefix}.fc1.weight", p["w1"], 1, 0)
+        put(f"{prefix}.fc1.bias", p["b1"])
+        put(f"{prefix}.fc2.weight", p["w2"], 1, 0)
+        put(f"{prefix}.fc2.bias", p["b2"])
+
+    enc, dec = "model.encoder", "model.decoder"
+    put(f"{enc}.conv1.weight", params["conv1_w"], 2, 1, 0)
+    put(f"{enc}.conv1.bias", params["conv1_b"])
+    put(f"{enc}.conv2.weight", params["conv2_w"], 2, 1, 0)
+    put(f"{enc}.conv2.bias", params["conv2_b"])
+    put(f"{enc}.embed_positions.weight", params["enc_pos"])
+    for i, lp in enumerate(params["enc_layers"]):
+        ln(f"{enc}.layers.{i}.self_attn_layer_norm", lp["ln1"])
+        attn(f"{enc}.layers.{i}.self_attn", lp["attn"])
+        ln(f"{enc}.layers.{i}.final_layer_norm", lp["ln2"])
+        ffn(f"{enc}.layers.{i}", lp["ffn"])
+    ln(f"{enc}.layer_norm", params["enc_ln"])
+    put(f"{dec}.embed_tokens.weight", params["dec_embed"])
+    put(f"{dec}.embed_positions.weight", params["dec_pos"])
+    for i, lp in enumerate(params["dec_layers"]):
+        ln(f"{dec}.layers.{i}.self_attn_layer_norm", lp["ln1"])
+        attn(f"{dec}.layers.{i}.self_attn", lp["self_attn"])
+        ln(f"{dec}.layers.{i}.encoder_attn_layer_norm", lp["ln2"])
+        attn(f"{dec}.layers.{i}.encoder_attn", lp["cross_attn"])
+        ln(f"{dec}.layers.{i}.final_layer_norm", lp["ln3"])
+        ffn(f"{dec}.layers.{i}", lp["ffn"])
+    ln(f"{dec}.layer_norm", params["dec_ln"])
+    return out
+
+
 _LOADERS = {
     "llama": load_llama_params,
     "qwen": load_llama_params,  # same layout + biases (attention_bias)
     "gemma": load_gemma_params,
+    "whisper": load_whisper_params,
 }
 # Architectures of the JAX package's families whose models are not
 # ported yet (ROADMAP A item 10), with their family.
 UNPORTED_ARCHITECTURES = {
     "MixtralForCausalLM": "mixtral",
-    "WhisperForConditionalGeneration": "whisper",
 }
 
 

@@ -1,8 +1,10 @@
 """Llama-family decoder (Llama 2/3/3.1, Mistral, Qwen2 with q/k/v biases).
 Counterpart of kubeai_tpu/models/llama.py: the whole-prompt `prefill`,
 `prefill_chunk` (one staged chunk of a long or prefix-cached prompt),
-`decode_step_paged` in both layouts ("per_layer" and "fused") and the
-speculative verify forward `decode_verify_paged`.
+`decode_step_paged` in both layouts ("per_layer" and "fused"), the
+speculative verify forward `decode_verify_paged`, and the embedding
+forward `hidden_states` (`_trunk` over `trunk_layer`: mean-pooled,
+L2-normalized final hidden states, the TextEmbedding feature).
 
 Parameters are a plain dict with the JAX package's layout, so the tests
 can hand the same weights to both packages (kubeai_tpu_torch.parity):
@@ -23,7 +25,7 @@ of adapters. The delta is two small batched products per projection
 (torch.bmm on the gathered slices), as the JAX version computes it with
 jnp.einsum outside any Pallas kernel.
 
-Prefill attention goes through ops.flash_attention.flash_causal_prefill
+Prefill and trunk attention go through ops.flash_attention.flash_causal_prefill
 for every bucket (the CUDA kernel on the card); a staged chunk attends
 through the plain ops.attention.chunked_prefill_attention, as the JAX
 version's chunk does (plain jnp there, no Pallas kernel). Decode attention goes
@@ -328,6 +330,25 @@ def _logits(x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), lm_head.t().float())
 
 
+def _prefill_layer(x, lp, proj, cfg, inv_freq, msc, positions):
+    """One layer over whole [B, S, E] sequences from position 0: project
+    (proj: the base product, bias and adapter delta), rope, causal
+    attention through flash_causal_prefill (B2 on the card), MLP.
+    Returns (x, k [B, S, KVH, D], v [B, S, KVH, D])."""
+    B, S, _ = x.shape
+    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
+    h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
+    q = proj(h, lp["wq"], "wq", lp.get("bq")).reshape(B, S, H, D)
+    k = proj(h, lp["wk"], "wk", lp.get("bk")).reshape(B, S, KVH, D)
+    v = proj(h, lp["wv"], "wv", lp.get("bv")).reshape(B, S, KVH, D)
+    q = apply_rope(q, positions, inv_freq, msc)
+    k = apply_rope(k, positions, inv_freq, msc)
+    attn = flash_causal_prefill(q, k, v.contiguous())
+    x = x + proj(attn.reshape(B, S, H * D), lp["wo"], "wo")
+    h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
+    return x + _mlp(h2, lp["w_gate"], lp["w_up"], lp["w_down"]), k, v
+
+
 def prefill(
     params: dict,
     cfg: LlamaConfig,
@@ -342,7 +363,6 @@ def prefill(
     _refuse_unported(mesh)
     _check_weights(params)
     B, S = tokens.shape
-    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
     dev = tokens.device
     inv_freq, msc = _rope_tables(cfg, dev)
     positions = torch.arange(S, device=dev)[None, :].expand(B, S)
@@ -350,18 +370,8 @@ def prefill(
     x = params["embed"][tokens]  # [B, S, E]
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        lp = _layer(params, i)
         proj = _projector(_layer_lora(lora, i), lora_idx)
-        h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
-        q = proj(h, lp["wq"], "wq", lp.get("bq")).reshape(B, S, H, D)
-        k = proj(h, lp["wk"], "wk", lp.get("bk")).reshape(B, S, KVH, D)
-        v = proj(h, lp["wv"], "wv", lp.get("bv")).reshape(B, S, KVH, D)
-        q = apply_rope(q, positions, inv_freq, msc)
-        k = apply_rope(k, positions, inv_freq, msc)
-        attn = flash_causal_prefill(q, k, v.contiguous())
-        x = x + proj(attn.reshape(B, S, H * D), lp["wo"], "wo")
-        h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
-        x = x + _mlp(h2, lp["w_gate"], lp["w_up"], lp["w_down"])
+        x, k, v = _prefill_layer(x, _layer(params, i), proj, cfg, inv_freq, msc, positions)
         ks.append(k)
         vs.append(v)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
@@ -369,6 +379,43 @@ def prefill(
     idx = torch.clamp(lengths.to(dev).long() - 1, 0, S - 1)
     last = x[torch.arange(B, device=dev), idx]  # [B, E]
     return _logits(last, params["lm_head"]), torch.stack(ks), torch.stack(vs)
+
+
+def trunk_layer(x: torch.Tensor, lp: dict, cfg: LlamaConfig) -> torch.Tensor:
+    """One trunk layer [B, S, E] -> [B, S, E] (per-layer params `lp`): the
+    prefill layer without adapters, its K/V dropped."""
+    B, S, _ = x.shape
+    inv_freq, msc = _rope_tables(cfg, x.device)
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    return _prefill_layer(x, lp, _projector(None, None), cfg, inv_freq, msc, positions)[0]
+
+
+def _trunk(params: dict, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Transformer trunk: [B, S] tokens -> [B, S, E] final hidden states."""
+    x = params["embed"][tokens]
+    for i in range(cfg.num_layers):
+        x = trunk_layer(x, _layer(params, i), cfg)
+    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+
+
+def hidden_states(
+    params: dict,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [B, S] right-padded
+    lengths: torch.Tensor,  # [B]
+) -> torch.Tensor:
+    """Mean-pooled, L2-normalized embeddings, f32 [B, E]: the mean of each
+    row's first `lengths` final hidden states in f32, over its norm
+    floored at 1e-9. Causal attention keeps the right padding out of the
+    valid rows, so the padded rows are computed and then masked."""
+    _check_weights(params)
+    x = _trunk(params, cfg, tokens)  # [B, S, E]
+    S = tokens.shape[1]
+    lengths = lengths.to(tokens.device)
+    mask = (torch.arange(S, device=tokens.device)[None, :] < lengths[:, None]).float()
+    summed = torch.einsum("bse,bs->be", x.float(), mask)
+    pooled = summed / torch.clamp(lengths[:, None].float(), min=1.0)
+    return pooled / torch.clamp(torch.linalg.norm(pooled, dim=-1, keepdim=True), min=1e-9)
 
 
 def prefill_chunk(

@@ -1,7 +1,9 @@
 """Model-family registry: maps engine model ids and HF `architectures` to
 implementations. Counterpart of kubeai_tpu/models/registry.py, with the
 families this port serves: `llama` (also Mistral), `qwen` (the llama
-computation with q/k/v biases) and `gemma` (Gemma 1 and 2).
+computation with q/k/v biases), `gemma` (Gemma 1 and 2) and `whisper`
+(the SpeechToText feature: served by engine/whisper_server.py, not by
+the slot engine, so it has no engine functions).
 """
 
 from __future__ import annotations
@@ -20,8 +22,10 @@ class ModelFamily:
     config_from_hf: Callable
     tiny_config: Callable
     init_params: Callable
-    prefill: Callable
-    decode_step_paged: Callable
+    # The slot engine's forwards (None for a family the engine does not
+    # serve, as whisper).
+    prefill: Callable | None = None
+    decode_step_paged: Callable | None = None
     # Multi-position verify forward for speculative decoding (None =
     # speculation unsupported for this family).
     decode_verify_paged: Callable | None = None
@@ -35,6 +39,11 @@ class ModelFamily:
     # Whether whole-prompt prefill attends through flash_causal_prefill
     # (B2) for a config: the engine checks B2's head dims on the card then.
     prefill_uses_flash: Callable = lambda cfg: True
+    # Mean-pooled embeddings (None = /v1/embeddings answers 400).
+    hidden_states: Callable | None = None
+    # The catalog feature the family serves: "TextGeneration" (the slot
+    # engine, plus TextEmbedding through hidden_states) or "SpeechToText".
+    feature: str = "TextGeneration"
 
 
 def register_model_family(family: ModelFamily) -> ModelFamily:
@@ -61,7 +70,7 @@ def _ensure_builtin() -> None:
     global _LOADED
     if _LOADED:
         return
-    from kubeai_tpu_torch.models import gemma, llama
+    from kubeai_tpu_torch.models import gemma, llama, whisper
 
     register_model_family(
         ModelFamily(
@@ -75,6 +84,7 @@ def _ensure_builtin() -> None:
             prefill_chunk=llama.prefill_chunk,
             hf_architectures=("LlamaForCausalLM", "MistralForCausalLM"),
             init_lora_buffers=llama.init_lora_buffers,
+            hidden_states=llama.hidden_states,
         )
     )
     # Qwen2 is the Llama computation plus q/k/v biases — one
@@ -94,6 +104,7 @@ def _ensure_builtin() -> None:
             prefill_chunk=llama.prefill_chunk,
             hf_architectures=("Qwen2ForCausalLM",),
             init_lora_buffers=llama.init_lora_buffers,
+            hidden_states=llama.hidden_states,
         )
     )
     # No verify forward, as in the JAX package: speculate > 0 runs vanilla
@@ -109,6 +120,16 @@ def _ensure_builtin() -> None:
             prefill_chunk=gemma.prefill_chunk,
             hf_architectures=("GemmaForCausalLM", "Gemma2ForCausalLM"),
             prefill_uses_flash=gemma.prefill_uses_flash,
+        )
+    )
+    register_model_family(
+        ModelFamily(
+            "whisper",
+            config_from_hf=whisper.WhisperConfig.from_hf_dict,
+            tiny_config=whisper.WhisperConfig.tiny,
+            init_params=whisper.init_params,
+            hf_architectures=("WhisperForConditionalGeneration",),
+            feature="SpeechToText",
         )
     )
     _LOADED = True

@@ -13,6 +13,10 @@ ml_dtypes bfloat16) are taken bit for bit.
 `lora_from_numpy` does the same for the JAX `llama.init_lora_buffers`
 tree: adapter-major [n, NL, ...] buffers become the port's layer-major
 [NL, n, ...] ones.
+
+`whisper_params_from_numpy` carries the JAX `whisper.init_params` (or
+`load_whisper_params`) tree across: the same nested dicts, with the
+encoder and decoder layers as lists of layer dicts.
 """
 
 from __future__ import annotations
@@ -67,3 +71,18 @@ def lora_from_numpy(
         }
         for target, ab in tree.items()
     }
+
+
+def whisper_params_from_numpy(
+    tree,
+    device: str | torch.device = "cpu",
+    dtype: torch.dtype | None = None,
+):
+    """numpy whisper tree (nested dicts and lists of layer dicts) -> the
+    same structure of torch tensors on `device`, cast to `dtype` when
+    given."""
+    if isinstance(tree, dict):
+        return {k: whisper_params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [whisper_params_from_numpy(v, device, dtype) for v in tree]
+    return _tensor(tree, device, dtype)

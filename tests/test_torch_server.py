@@ -145,7 +145,6 @@ def test_stop_string(servers):
     ("/v1/chat/completions", {"messages": [], "n": 9}, 400),
     ("/v1/chat/completions", {"messages": [], "top_p": 0.0}, 400),
     ("/v1/completions", {"prompt": "x" * 300}, 400),
-    ("/v1/embeddings", {"input": "x"}, 404),
 ])
 def test_request_errors(servers, path, payload, status):
     _, addr = servers

@@ -755,16 +755,44 @@ def test_main_serves_roles_and_sharing(checkpoints, monkeypatch, argv, role, sha
 @pytest.mark.parametrize("arch,url,reason", [
     ("Gemma2ForCausalLM", None, None),
     ("MixtralForCausalLM", None, "ROADMAP A item 10"),
-    ("WhisperForConditionalGeneration", None, "ROADMAP A item 10"),
+    ("WhisperForConditionalGeneration", None, None),
     (None, "gs://bucket/llama", "ROADMAP A item 9"),
     ("GPT2LMHeadModel", None, "unknown model family"),
     (None, None, "no config.json"),
 ], ids=["gemma", "mixtral", "whisper", "object-store", "unknown", "no-config"])
 def test_main_refuses_unported_models(tmp_path, monkeypatch, arch, url, reason):
-    """Each unported model exits naming its ROADMAP item. The gemma case
-    was one of them until the port took the family: main now loads a
-    Gemma-2 checkpoint on the CPU, with the default --max-adapters 4, and
-    builds its server (tests/test_torch_gemma.py holds the rest)."""
+    """Each unported model exits naming its ROADMAP item. The gemma and
+    whisper cases were among them until the port took the families: main
+    now loads a Gemma-2 checkpoint on the CPU, with the default
+    --max-adapters 4, and builds its server (tests/test_torch_gemma.py
+    holds the rest), and loads a whisper checkpoint in f32 and builds a
+    TranscriptionServer (tests/test_torch_whisper.py)."""
+    if arch == "WhisperForConditionalGeneration":
+        from kubeai_tpu_torch.engine import whisper_server
+        from kubeai_tpu_torch.engine.weights import save_safetensors, whisper_hf_tensors
+        from kubeai_tpu_torch.models import whisper
+
+        built = {}
+
+        def capture_whisper(params, cfg, name, **kw):
+            built.update(kw, params=params, cfg=cfg)
+            raise _ServerBuilt
+
+        monkeypatch.setattr(whisper_server, "TranscriptionServer", capture_whisper)
+        wcfg = whisper.WhisperConfig.tiny()
+        save_safetensors(str(tmp_path), whisper_hf_tensors(
+            whisper.init_params(wcfg, torch.Generator().manual_seed(0), "cpu"), wcfg), {
+            "architectures": [arch], "vocab_size": wcfg.vocab_size,
+            "num_mel_bins": wcfg.num_mel_bins, "d_model": wcfg.d_model,
+            "encoder_layers": 2, "encoder_attention_heads": 2, "decoder_layers": 2,
+            "decoder_attention_heads": 2, "encoder_ffn_dim": wcfg.ffn_dim,
+            "max_source_positions": 50, "max_target_positions": 32,
+            "decoder_start_token_id": 1, "eos_token_id": 2})
+        with pytest.raises(_ServerBuilt):
+            main(["--model-url", str(tmp_path), "--device", "cpu"])
+        assert built["cfg"] == wcfg and built["tokenizer"] is None
+        assert built["params"]["dec_embed"].dtype == torch.float32
+        return
     if reason is None:
         from kubeai_tpu_torch.engine import server as server_mod
 

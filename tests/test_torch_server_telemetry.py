@@ -639,6 +639,12 @@ def test_engine_span_continues_the_client_trace(servers, collector):
         time.sleep(0.02)
     assert all(path == "/v1/traces" for path, _ in collector.batches)
     assert len(port_spans) == len(jax_spans) == 2
+    # A span reaches the collector when its handler ends it, after the
+    # reply: a handler descheduled between the two lets the second
+    # request's span arrive first. The requests ran one after the other,
+    # so their spans' start times give their order.
+    for spans in (port_spans, jax_spans):
+        spans.sort(key=lambda s: int(s["startTimeUnixNano"]))
     for got, want in zip(port_spans, jax_spans):
         assert got["name"] == want["name"] == "engine /v1/completions"
         assert got["traceId"] == client_trace and got["parentSpanId"] == client_span
