@@ -50,7 +50,12 @@ Phases, each fatal on failure:
                128 and 2048, timed beside SDPA and the bound, the same
                bits from two calls and a graph replay (an entry of its
                own in the kernels line, B=8 S=2048); B1, B1-int8 and B4
-               against their plain versions, plain and softcap + window;
+               against their plain versions, plain and softcap + window.
+               At Llama-3.2-1B's heads (H=32 over KVH=8, G=4, D=64;
+               `check_draft_heads`, the draft model's prefill): B2 at B=1
+               over S 512 and 2048 and B=8 at 128, timed beside SDPA and
+               the bound, the same bits from two calls and a graph replay
+               (an entry of its own in the kernels line, B=1 S=512);
   3. model   — a small model (head_dim 128) on the card through the kernels
                against the same weights in f32 on the CPU through the plain
                versions: prefill, paged-decode (both layouts) and
@@ -82,10 +87,35 @@ Phases, each fatal on failure:
                the streams must equal an eager synchronous engine's; it
                reports TTFT of hits and misses, agreement with whole-prompt
                streams, and a miss and a hit admission from the graphs and
-               eagerly. The phases after it serve the same width at
+               eagerly. A fifth run (`serve_draft`) serves the same
+               32-layer weights as Llama-3.1-8B (its rope scaling) with a
+               random Llama-3.2-1B draft (16 layers, 32 heads over 8 at
+               head_dim 64, tied embeddings), speculate=4,
+               spec_adaptive=False: B3 must launch 32 times a verify
+               window and B1 never, each admission must launch B2 32
+               times for the target and 16 for the draft, and the streams
+               must equal an eager engine's with the same draft; it prints
+               acceptance, the propose chain and verify window from their
+               graphs (the chain's kernels from an eager pass) and the
+               draft cache's MiB; each draft row must hold, at layer 0,
+               the K/V of the draft's own prefill of its tokens within
+               2e-2. Then the 1B with itself as the draft on the four
+               requests made greedy (acceptance at least 0.8, streams
+               equal an eager engine's) and the same with
+               spec_adaptive=True and spec_probe_every=2 (chunk-mode
+               windows must run, and the verify windows after the first
+               keep acceptance at least 0.8: the catch-up program keeps
+               the draft in step). The
+               phases after it serve the same width at
                SHALLOW_LAYERS (8) layers, with their bf16 decode step and
                verify window profiled at that depth first
-               (`shallow_baselines`). `serve_resume` sends the
+               (`shallow_baselines`). `serve_slot` serves the four
+               requests from the slot cache (cache_mode="slot"),
+               whole-prompt and with prefill_chunk=256: B2 once a layer in
+               every whole-prompt admission, the two long prompts chunked,
+               no paged kernel, streams equal an eager slot engine's; the
+               slot decode step from its graph beside the paged per_layer
+               step at the same depth. `serve_resume` sends the
                proxy's continuation request (`kubeai_resume`): the four
                bodies, greedy and seeded, cut after 1, 5 and 17 tokens,
                then each body alone cut after 1 and 5, then one greedy and
@@ -199,9 +229,11 @@ Phases, each fatal on failure:
   5. serve_cli — the engine Pod's entry point: a random-weight Llama
                checkpoint at Llama-3-8B width (4 layers, bf16) written with
                `weights.save_safetensors`, served by `python -m
-               kubeai_tpu_torch.engine.server` in a subprocess three times
-               (default, `--speculate 4`, and the fused layout through
-               KUBEAI_TPU_DECODE_KERNEL); each run: the four chat requests
+               kubeai_tpu_torch.engine.server` in a subprocess four times
+               (default, `--speculate 4`, the fused layout through
+               KUBEAI_TPU_DECODE_KERNEL, and `--speculate 4 --draft-url`
+               with a 2-layer draft checkpoint at the same width written
+               beside it); each run: the four chat requests
                of the serve runs (one streamed), /metrics and /v1/state,
                /v1/drain and SIGTERM, which must exit 0 within the drain
                budget. The same checkpoint loaded in-process through
@@ -321,6 +353,12 @@ KERNELS = {
     # B2's head_dim-64 build at Qwen2.5-0.5B's heads (G=7), which
     # serve_embed's /v1/embeddings drives: 24 launches a batch.
     "flash_causal_prefill_d64": (
+        "kubeai_tpu_torch/csrc/flash_prefill.cu",
+        "kubeai_tpu/ops/pallas_attention.py:108",
+    ),
+    # B2's head_dim-64 build at Llama-3.2-1B's heads (G=4), which the
+    # draft model's admissions in serve_draft drive: 16 launches each.
+    "flash_causal_prefill_d64_g4": (
         "kubeai_tpu_torch/csrc/flash_prefill.cu",
         "kubeai_tpu/ops/pallas_attention.py:108",
     ),
@@ -1527,6 +1565,48 @@ def check_qwen_heads() -> dict:
     return main
 
 
+# Llama-3.2-1B-Instruct (meta-llama/Llama-3.2-1B-Instruct config.json), the
+# catalog's draft for Llama-3.1-8B: its heads are B2's group of 4 at
+# head_dim 64.
+DRAFT_1B = dict(vocab_size=128256, hidden_size=2048, intermediate_size=8192,
+                num_layers=16, num_heads=32, num_kv_heads=8, head_dim=64,
+                rope_theta=500000.0, rms_norm_eps=1e-5,
+                rope_scaling={"rope_type": "llama3", "factor": 32.0,
+                              "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                              "original_max_position_embeddings": 8192},
+                max_position_embeddings=131072, tie_word_embeddings=True)
+# Llama-3.1-8B's rope scaling (meta-llama/Llama-3.1-8B-Instruct
+# config.json), over serve_weights' Llama-3-8B shapes: the draft run's
+# target.
+LLAMA31_ROPE = {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+                "high_freq_factor": 4.0, "original_max_position_embeddings": 8192}
+
+
+def check_draft_heads() -> dict:
+    """B2 at Llama-3.2-1B's heads (H=32 over KVH=8, G=4, D=64), the draft
+    model's prefill in serve_draft, which no other case runs: B=1 at S 512
+    and 2048 and B=8 at 128 (`_flash_case`: against the plain version at
+    FLASH_ATOL / FLASH_RTOL, timed beside SDPA and the bound), and two
+    calls and a graph replay that must give the same bits. Returns the B=1
+    S=512 line (a draft admission of a 317-token prompt in its bucket)
+    for the kernels line."""
+    import torch
+
+    gen = torch.Generator().manual_seed(65)
+    main = None
+    H, KVH, D = DRAFT_1B["num_heads"], DRAFT_1B["num_kv_heads"], DRAFT_1B["head_dim"]
+    for B, S in ((1, 512), (1, 2048), (8, 128)):
+        line, call = _flash_case(B, S, H, KVH, D, gen)
+        if (B, S) == (1, 512):
+            main = line
+            _same_bits("flash_prefill draft heads", call)
+        del call
+        torch.cuda.empty_cache()
+    print(f"kernels at Llama-3.2-1B's heads (H={H}, KVH={KVH}, D={D}): B2 checked; card: "
+          f"{gpu_line()}", flush=True)
+    return main
+
+
 def check_head_dim_256() -> dict:
     """B1, B4 and B1-int8 at head_dim 256 (Gemma), which no Llama shape
     runs: at Gemma-2-9B's shape (B=8, H=16, KVH=8, page 64, ragged lengths
@@ -2033,6 +2113,7 @@ def phase_kernels() -> dict:
     }
     check_head_dim_64()
     measured["flash_causal_prefill_d64"] = check_qwen_heads()
+    measured["flash_causal_prefill_d64_g4"] = check_draft_heads()
     measured.update(check_head_dim_256())
     measured["flash_causal_prefill_d256"] = check_flash_prefill_d256()
     return measured
@@ -2188,6 +2269,8 @@ def _programs(engine) -> dict:
     """The engine's device programs, by name."""
     progs = {"decode chunk": engine._decode_program}
     for name, prog in (("verify window", engine._spec_program),
+                       ("propose chain", engine._draft_propose_program),
+                       ("draft catch-up", engine._draft_catchup_program),
                        ("mid chunk", engine._stage_mid_program),
                        ("final chunk", engine._stage_last_program),
                        ("prefix gather", engine._stage_pages_program)):
@@ -2219,8 +2302,14 @@ def _default_bodies() -> list[list[dict]]:
     ]]
 
 
+# The engine's admission functions: a serve run counts each call and the
+# B2 launches it made (the target's batched or slot-cache admission, its
+# slot-cache chunked admission, the draft model's admission).
+ADMIT_FUNCTIONS = ("_prefill_admit", "_prefill_admit_slot", "_admit_chunked", "_draft_admit")
+
+
 def serve_run(params, cfg, label: str, waves=None, adapters=None, family: str = "llama",
-              config: dict = SERVE_CONFIG, side=None, **extra) -> dict:
+              config: dict = SERVE_CONFIG, side=None, draft=None, **extra) -> dict:
     """One EngineServer run over `params` with the engine's defaults (graphs
     and overlap): a warm-up request, then each wave of chat completions
     (default: `_default_bodies`) sent concurrently, a wave only after the
@@ -2229,7 +2318,8 @@ def serve_run(params, cfg, label: str, waves=None, adapters=None, family: str = 
     read just after the last. `family` names the model family and
     `config` the EngineConfig (default: the 8B smoke's), which `extra` adds to;
     `adapters` ({name: LoRA weight tree}) are loaded, in order, after the
-    engine captured its programs, and a body names one in its `model`.
+    engine captured its programs, and a body names one in its `model`;
+    `draft` ((config, params)) is the engine's draft model.
     `side(port)`, when given, runs in a thread beside the waves (started
     with the first, joined after the last), and its launches count with
     theirs; an exception in it fails the run.
@@ -2237,7 +2327,8 @@ def serve_run(params, cfg, label: str, waves=None, adapters=None, family: str = 
     replays), each request's prompt, sampling params, adapter, engine
     token stream and TTFT, the rids of each wave, the calls of the
     staged-chunk functions made outside their programs, the whole-prompt
-    prefill admissions, and the engine."""
+    prefill admissions, the B2 launches of each call of ADMIT_FUNCTIONS,
+    and the engine."""
     from kubeai_tpu_torch.engine import Engine, EngineConfig
     from kubeai_tpu_torch.engine.server import EngineServer
     from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
@@ -2246,7 +2337,7 @@ def serve_run(params, cfg, label: str, waves=None, adapters=None, family: str = 
     tok = ByteTokenizer()
     t0 = time.perf_counter()
     engine = Engine(family, cfg, params, cfg=EngineConfig(**config, **extra),
-                    eos_token_ids=tok.eos_token_ids)
+                    eos_token_ids=tok.eos_token_ids, draft=draft)
     if not engine._overlap:
         fail(f"serve {label}: the default engine does not overlap its steps")
     for name, prog in _programs(engine).items():
@@ -2281,6 +2372,16 @@ def serve_run(params, cfg, label: str, waves=None, adapters=None, family: str = 
         return events
 
     engine.step = step_and_count
+    # The slot each request was admitted to (the last admission's, for a
+    # preempted one).
+    slot_of: dict[int, int] = {}
+    finish_admission = engine._finish_admission
+
+    def admit_and_note(req, slot, *a, **kw):
+        slot_of[req.rid] = slot
+        return finish_admission(req, slot, *a, **kw)
+
+    engine._finish_admission = admit_and_note
     # The engine's latency records, as the server's metrics sync drains
     # them after each step.
     timing: list[tuple] = []
@@ -2298,15 +2399,16 @@ def serve_run(params, cfg, label: str, waves=None, adapters=None, family: str = 
             stage_calls[attr] = stage_calls.get(attr, 0) + 1
             return fn()
         setattr(engine, attr, counted)
-    # Whole-prompt prefill admissions (batched `_prefill_admit` calls).
-    admissions = [0]
-    prefill_admit = engine._prefill_admit
-
-    def admit_and_count(*a, **kw):
-        admissions[0] += 1
-        return prefill_admit(*a, **kw)
-
-    engine._prefill_admit = admit_and_count
+    # The B2 launches of each admission call, by function.
+    admit_b2: dict[str, list[int]] = {}
+    b2 = _wrappers()["flash_causal_prefill"]
+    for attr in ADMIT_FUNCTIONS:
+        def admit_and_count(*a, fn=getattr(engine, attr), attr=attr, **kw):
+            before = b2.launches
+            out = fn(*a, **kw)
+            admit_b2.setdefault(attr, []).append(b2.launches - before)
+            return out
+        setattr(engine, attr, admit_and_count)
     wrappers = _wrappers()
     server = EngineServer(engine, tok, f"{family}-smoke", port=0)
     server.start()
@@ -2322,7 +2424,7 @@ def serve_run(params, cfg, label: str, waves=None, adapters=None, family: str = 
         requests.clear()
         adapter_of.clear()
         stage_calls.clear()
-        admissions[0] = 0
+        admit_b2.clear()
         waves = waves or _default_bodies()
         bodies = [body for wave in waves for body in wave]
         max_tokens = bodies[0]["max_tokens"]
@@ -2427,7 +2529,9 @@ def serve_run(params, cfg, label: str, waves=None, adapters=None, family: str = 
     return {"launches": launches, "requests": requests, "streams": streams,
             "engine": engine, "bodies": bodies, "rid_of": rid_of, "ttft": ttft,
             "waves": wave_rids, "stage_calls": dict(stage_calls),
-            "admissions": admissions[0],
+            "admissions": len(admit_b2.get("_prefill_admit", []))
+            + len(admit_b2.get("_prefill_admit_slot", [])),
+            "admit_b2": admit_b2, "draft": draft, "slot_of": dict(slot_of),
             "dispatches": dispatches, "adapters": dict(adapter_of),
             "adapter_weights": adapters, "family": family, "config": config}
 
@@ -2435,7 +2539,7 @@ def serve_run(params, cfg, label: str, waves=None, adapters=None, family: str = 
 def check_streams_equal_eager(params, cfg, label: str, run: dict, adapters=None, **extra):
     """The serve run's streams, greedy and seeded, against an eager
     synchronous engine (no graphs, step_overlap="off") on the same weights
-    fed the same prompts, sampling params, adapters (loaded first, in the
+    (and the run's draft model) fed the same prompts, sampling params, adapters (loaded first, in the
     run's order; `adapters` replaces them) and continuation prefixes (a
     request's optional third item), wave by wave as the run sent them.
     Any difference fails, with the first differing step. Returns the
@@ -2447,7 +2551,7 @@ def check_streams_equal_eager(params, cfg, label: str, run: dict, adapters=None,
 
     ref = EagerEngine(run.get("family", "llama"), cfg, params, cfg=EngineConfig(
         **run.get("config", SERVE_CONFIG), step_overlap="off", **extra),
-        eos_token_ids=run["engine"].eos_token_ids)
+        eos_token_ids=run["engine"].eos_token_ids, draft=run.get("draft"))
     if ref._overlap or ref._decode_program.graph is not None:
         fail(f"serve {label}: the reference engine is not eager and synchronous")
     if adapters is None:
@@ -2631,10 +2735,16 @@ def phase_serve() -> dict:
     print(f"phase serve fused: {time.perf_counter() - t0:.2f} s", flush=True)
     # Run 4: chunked prefill and the prefix cache. B1 and B2 launch.
     timed("serve_prefix", serve_prefix, params, cfg)
+    # Run 5: the 8B (as Llama-3.1) with a Llama-3.2-1B draft. B3 and B2
+    # (both models' admissions) launch, B1 does not.
+    launches.update(timed("serve_draft", serve_draft, params, cfg))
     # The rest at SHALLOW_LAYERS, full width.
     params, cfg = shallow(params, cfg)
     bf16_step, bf16_verify = timed(f"bf16 baselines at {cfg.num_layers} layers",
                                    shallow_baselines, params, cfg)
+    # The slot cache, whole-prompt and chunked. B2 launches on every
+    # whole-prompt admission.
+    timed("serve_slot", serve_slot, params, cfg, bf16_step)
     timed("serve_resume", serve_resume, params, cfg)
     # Disaggregated prefill/decode (B2 on the prefill side, B1 and B4 on
     # the decode side) and the KV-sharing tier.
@@ -2651,6 +2761,270 @@ def phase_serve() -> dict:
     # hot swap under the captured graphs.
     timed("serve_lora", serve_lora, params, cfg, bf16_step, bf16_verify)
     return launches
+
+
+# ---- serve_draft: an 8B target with a 1B draft -----------------------------------
+
+
+def draft_weights(shape: dict = DRAFT_1B, seed: int = 2):
+    """(random bf16 weights on cuda at `shape` (default Llama-3.2-1B, all 16
+    layers, tied embeddings), its config)."""
+    import torch
+
+    from kubeai_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(**shape)
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, torch.Generator("cuda").manual_seed(seed), device="cuda")
+    torch.cuda.synchronize()
+    print(f"serve_draft: random Llama-3.2-1B-shape weights on cuda in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return params, cfg
+
+
+# Greedy acceptance below this in a self-draft run means the draft cache
+# is out of step with the target's: target and draft compute the same
+# function, differing only in attention path (B3 against the plain
+# slot-cache attention) and rounding, which flips a near-tied greedy pick
+# now and then. A sampled request accepts a greedy proposal only where its
+# sample lands on the argmax, so the self-draft runs are greedy.
+SELF_DRAFT_MIN_ACCEPTANCE = 0.8
+# A draft slot row against the draft's own prefill of the same tokens, at
+# layer 0, where each position's K and V depend only on its token: the
+# two differ by the bf16 rounding of two GEMM shapes (~0.3%), while a
+# position the draft never wrote, or wrote with another token, reads ~1.
+DRAFT_ROW_RTOL = 0.02
+
+
+def check_draft_rows(label: str, engine, seqs: dict) -> float:
+    """The draft cache in step: `seqs` maps each slot to the token
+    sequence (prompt + emitted tokens) its request ended with; the draft's
+    row must hold the K/V of every position but the last (the last token
+    is the input of a window that never ran). Each row is held against
+    `llama.prefill` of the draft over those tokens (B2): at layer 0 every
+    position's relative L2 error of K and of V within DRAFT_ROW_RTOL. The
+    largest error over all layers is printed: rounding grows with depth.
+    Returns the layer-0 maximum."""
+    import torch
+
+    from kubeai_tpu_torch.models import llama
+
+    dcfg, dparams, cache = engine._draft_cfg, engine._draft_params, engine.draft_cache
+    worst0 = worst = 0.0
+    positions = 0
+    for slot, seq in sorted(seqs.items()):
+        ctx = seq[:-1]
+        L = len(ctx)
+        toks = torch.zeros(1, engine._bucket(L), dtype=torch.long, device="cuda")
+        toks[0, :L] = torch.tensor(ctx, device="cuda")
+        with torch.no_grad():
+            _, k_all, v_all = llama.prefill(dparams, dcfg, toks, torch.tensor([L], device="cuda"))
+        for ref, row in ((k_all[:, 0, :L], cache.k[:, slot, :L]),
+                         (v_all[:, 0, :L], cache.v[:, slot, :L])):
+            ref = ref.float()
+            err = ((row.float() - ref).norm(dim=(-1, -2))
+                   / ref.norm(dim=(-1, -2)).clamp_min(1e-6))  # [NL, L]
+            worst0 = max(worst0, float(err[0].max()))
+            worst = max(worst, float(err.max()))
+        positions += L
+    print(f"serve {label}: the draft cache's rows against the draft's prefill of the same "
+          f"tokens ({len(seqs)} rows, {positions} positions): layer-0 relative error max "
+          f"{worst0:.3e} (limit {DRAFT_ROW_RTOL}), all {dcfg.num_layers} layers max "
+          f"{worst:.3e}", flush=True)
+    if worst0 > DRAFT_ROW_RTOL:
+        fail(f"serve {label}: a draft row is out of step with its tokens (layer-0 error "
+             f"{worst0:.3e} > {DRAFT_ROW_RTOL})")
+    return worst0
+
+
+def _run_seqs(run: dict) -> dict:
+    """{slot: prompt + emitted tokens} of a serve run's requests."""
+    return {run["slot_of"][rid]: list(run["requests"][rid][0]) + run["streams"][rid]
+            for rid in run["requests"]}
+
+
+def _acceptance(stats: dict) -> float:
+    return stats["accepted"] / max(1, stats["proposed"])
+
+
+def _draft_gates(label: str, run: dict, cfg, dcfg) -> None:
+    """B3 launches once a layer in every verify window (only from the
+    graph), B1 never; every target admission launches B2 once a target
+    layer and every draft admission once a draft layer, one draft
+    admission per target admission."""
+    engine, launches = run["engine"], run["launches"]
+    per_window = engine._spec_program.launches_per_replay.get("paged_verify_attention")
+    if per_window != cfg.num_layers:
+        fail(f"serve {label}: B3 launches {per_window} times a verify window, not "
+             f"{cfg.num_layers}")
+    if launches["paged_verify_attention"] <= 0 or launches["paged_decode_attention"] != 0:
+        fail(f"serve {label}: launches {json.dumps(launches)}: B3 must launch, B1 must not")
+    adm = run["admit_b2"]
+    target, draft = adm.get("_prefill_admit", []), adm.get("_draft_admit", [])
+    if not target or any(n != cfg.num_layers for n in target):
+        fail(f"serve {label}: target admissions launched B2 {target} times")
+    if len(draft) != len(target) or any(n != dcfg.num_layers for n in draft):
+        fail(f"serve {label}: draft admissions launched B2 {draft} times "
+             f"({len(target)} target admissions)")
+    print(f"serve {label}: B3 {per_window} launches a verify window; B2 {target[0]} + "
+          f"{draft[0]} launches an admission over {len(target)} admissions", flush=True)
+
+
+def serve_draft(params, cfg) -> dict:
+    """Draft-model speculation on the card (the catalog's
+    llama-3.1-8b-draft-spec-tpu): the 8B-shape `params`, all 32 layers,
+    with Llama-3.1's rope scaling as the target and random
+    Llama-3.2-1B-shape weights (DRAFT_1B, 16 layers) as the draft, served
+    with speculate=4, spec_adaptive=False on the four default chat
+    requests (`serve_run`). Gates: `_draft_gates`; the draft's rows in
+    step with the served tokens (`check_draft_rows`); every stream equal
+    to an eager synchronous engine's with the same draft. Prints
+    spec_stats and acceptance, the propose chain and the verify window
+    from their graphs (device and wall ms; the chain's kernels from an
+    eager pass), the graph pools and the draft cache's MiB. Then the 1B
+    shape with itself as the draft on the four requests made greedy: the
+    same gates, and acceptance at least SELF_DRAFT_MIN_ACCEPTANCE; and an
+    engine with spec_adaptive=True and spec_probe_every=2 whose
+    chunk-mode windows must run, after which the verify windows'
+    acceptance must stay at least SELF_DRAFT_MIN_ACCEPTANCE and the rows
+    in step (the catch-up keeps the draft in step).
+    Returns the draft admissions' B2 launches for the kernels line."""
+    import dataclasses
+
+    from kubeai_tpu_torch.engine import Engine, EngineConfig, SamplingParams
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    target_cfg = dataclasses.replace(cfg, rope_scaling=LLAMA31_ROPE)
+    dparams, dcfg = draft_weights()
+    extra = dict(decode_kernel="per_layer", speculate=4, spec_adaptive=False)
+    run = serve_run(params, target_cfg, "draft", draft=(dcfg, dparams), **extra)
+    engine = run["engine"]
+    _draft_gates("draft", run, target_cfg, dcfg)
+    draft_b2 = sum(run["admit_b2"]["_draft_admit"])
+    stats = engine.spec_stats
+    print(f"serve draft spec_stats {json.dumps(stats)} acceptance {_acceptance(stats):.4f}",
+          flush=True)
+    check_draft_rows("draft", engine, _run_seqs(run))
+    check_streams_equal_eager(params, target_cfg, "draft", run, **extra)
+    propose = profile_program(engine, "propose chain", "propose chain")
+    verify = profile_program(engine, "draft verify window", "verify window", eager=False)
+    print(f"serve draft window (32-layer 8B target, 16-layer 1B draft, gamma 4, "
+          f"{SERVE_CONFIG['num_slots']} slots): propose chain device "
+          f"{propose['device_ms']:.3f} ms wall {propose['wall_ms']:.3f} ms + verify device "
+          f"{verify['device_ms']:.3f} ms wall {verify['wall_ms']:.3f} ms = device "
+          f"{propose['device_ms'] + verify['device_ms']:.3f} ms; draft cache "
+          f"{engine.draft_cache.nbytes() / 2**20:.1f} MiB; card: {gpu_line()}", flush=True)
+    del engine
+    free(run)
+    # The 1B with itself as its draft, on the four requests made greedy:
+    # acceptance says whether the draft cache is in step.
+    greedy = [[{k: v for k, v in b.items() if k != "seed"} | {"temperature": 0}
+               for b in _default_bodies()[0]]]
+    run = serve_run(dparams, dcfg, "self-draft", waves=greedy, draft=(dcfg, dparams), **extra)
+    _draft_gates("self-draft", run, dcfg, dcfg)
+    stats = run["engine"].spec_stats
+    print(f"serve self-draft spec_stats {json.dumps(stats)} acceptance "
+          f"{_acceptance(stats):.4f}", flush=True)
+    if _acceptance(stats) < SELF_DRAFT_MIN_ACCEPTANCE:
+        fail(f"serve self-draft: acceptance {_acceptance(stats):.4f} < "
+             f"{SELF_DRAFT_MIN_ACCEPTANCE}: the draft cache is out of step")
+    check_draft_rows("self-draft", run["engine"], _run_seqs(run))
+    ref = check_streams_equal_eager(dparams, dcfg, "self-draft", run, **extra)
+    print(f"serve self-draft eager reference spec_stats {json.dumps(ref.spec_stats)}",
+          flush=True)
+    del ref
+    free(run)
+    # Adaptive: chunk-mode windows between verify windows; the catch-up
+    # program replays each chunk through the draft.
+    tok = ByteTokenizer()
+    engine = Engine("llama", dcfg, dparams, cfg=EngineConfig(
+        **SERVE_CONFIG, decode_kernel="per_layer", speculate=4, spec_adaptive=True,
+        spec_probe_every=2), eos_token_ids=tok.eos_token_ids, draft=(dcfg, dparams))
+    if engine._draft_catchup_program.graph is None:
+        fail("serve self-draft adaptive: the catch-up is not a CUDA graph on the card")
+    first_chunk: dict = {}
+    catchup = engine._draft_catchup_program.dispatch
+
+    def catchup_and_note():
+        if not first_chunk:
+            first_chunk.update(engine.spec_stats)
+        return catchup()
+
+    engine._draft_catchup_program.dispatch = catchup_and_note
+    slot_of: dict[int, int] = {}
+    finish_admission = engine._finish_admission
+
+    def admit_and_note(req, slot, *a, **kw):
+        slot_of[req.rid] = slot
+        return finish_admission(req, slot, *a, **kw)
+
+    engine._finish_admission = admit_and_note
+    prompts = [tok.apply_chat_template(b["messages"]) for b in _default_bodies()[0]]
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, SamplingParams(temperature=0.0, max_tokens=96))
+    stats = engine.spec_stats
+    after = {k: stats[k] - first_chunk.get(k, 0) for k in stats}
+    chunks = engine._mode_calls.get("chunk", 0)
+    print(f"serve self-draft adaptive: {chunks} chunk-mode and "
+          f"{engine._mode_calls.get('spec', 0)} verify calls in "
+          f"{time.perf_counter() - t0:.2f} s; spec_stats {json.dumps(stats)}; after the "
+          f"first chunk window {json.dumps(after)} acceptance {_acceptance(after):.4f}",
+          flush=True)
+    if chunks < 2 or after["proposed"] <= 0:
+        fail(f"serve self-draft adaptive: {chunks} chunk windows, {after['proposed']} "
+             "proposals after the first")
+    if _acceptance(after) < SELF_DRAFT_MIN_ACCEPTANCE:
+        fail(f"serve self-draft adaptive: acceptance {_acceptance(after):.4f} after the "
+             f"chunk windows < {SELF_DRAFT_MIN_ACCEPTANCE}: the catch-up left the draft "
+             "out of step")
+    check_draft_rows("self-draft adaptive", engine,
+                     {slot_of[rid]: prompts[rid] + outs[rid] for rid in range(len(prompts))})
+    del engine
+    free({})
+    return {"flash_causal_prefill_d64_g4": draft_b2}
+
+
+# ---- serve_slot: the slot KV cache at 8B width ------------------------------------
+
+
+def serve_slot(params, cfg, bf16_step: dict) -> None:
+    """The slot cache (cache_mode="slot") on the 8B-shape `params` at
+    `cfg`'s depth: the four default chat requests served (`serve_run`),
+    whole-prompt, then with prefill_chunk=256 (the 317- and 717-token
+    prompts chunk into their rows through the plain chunk attention).
+    Gates: the decode chunk a CUDA graph; the paged kernels never
+    launched; each whole-prompt admission B2 once a layer; the chunked
+    run's two long prompts admitted by chunks; every stream equal to an
+    eager synchronous slot engine's. Prints the slot decode step from its
+    graph beside the paged per_layer step at the same depth (`bf16_step`)
+    and the slot cache's MiB."""
+    paged = ("paged_decode_attention", "paged_verify_attention",
+             "paged_decode_attention_fused", "paged_decode_attention_int8")
+    for label, extra, chunked in (("slot", dict(cache_mode="slot"), 0),
+                                  ("slot chunked", dict(cache_mode="slot", prefill_chunk=256), 2)):
+        run = serve_run(params, cfg, label, **extra)
+        engine = run["engine"]
+        adm = run["admit_b2"]
+        whole = adm.get("_prefill_admit_slot", [])
+        if engine.cache_mode != "slot" or any(run["launches"][k] for k in paged):
+            fail(f"serve {label}: cache {engine.cache_mode}, launches "
+                 f"{json.dumps(run['launches'])}")
+        if (len(whole) != 4 - chunked or any(n != cfg.num_layers for n in whole)
+                or len(adm.get("_admit_chunked", [])) != chunked):
+            fail(f"serve {label}: admissions {json.dumps(adm)}")
+        print(f"serve {label}: B2 {whole[0]} launches in each of {len(whole)} whole-prompt "
+              f"admissions, {chunked} chunked admissions", flush=True)
+        check_streams_equal_eager(params, cfg, label, run, **extra)
+        if not chunked:
+            step = profile_program(engine, f"{cfg.num_layers}-layer slot decode step",
+                                   "decode chunk", eager=False)
+            print(f"serve slot: decode step device {step['device_ms']:.3f} ms wall "
+                  f"{step['wall_ms']:.3f} ms against the paged per_layer step's device "
+                  f"{bf16_step['device_ms']:.3f} ms wall {bf16_step['wall_ms']:.3f} ms at "
+                  f"{cfg.num_layers} layers; slot cache {engine.cache.nbytes() / 2**20:.1f} "
+                  f"MiB; card: {gpu_line()}", flush=True)
+        del engine
+        free(run)
 
 
 # ---- serve_resume: the continuation request on the 8B-shape model ----------------
@@ -4634,16 +5008,21 @@ CLI_LAYER_LEAVES = (("input_norm", "input_layernorm.weight", False),
                     ("w_down", "mlp.down_proj.weight", True))
 
 
-def cli_tensors() -> dict:
-    """Random bf16 tensors under their Hugging Face names, drawn on the card
-    from a seed as `llama.init_params` draws them (N(0, 0.02), norms 1) and
+# The --draft-url run's draft: the CLI checkpoint's width at 2 layers,
+# drawn from another seed.
+CLI_DRAFT_CONFIG = dict(CLI_CONFIG, num_hidden_layers=2)
+
+
+def cli_tensors(c: dict = CLI_CONFIG, seed: int = 1) -> dict:
+    """Random bf16 tensors under their Hugging Face names for the llama
+    checkpoint config `c` (default CLI_CONFIG), drawn on the card from
+    `seed` as `llama.init_params` draws them (N(0, 0.02), norms 1) and
     kept on the host for the writer."""
     import torch
 
-    c = CLI_CONFIG
     E, M, V = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
     HD, KD = c["num_attention_heads"] * c["head_dim"], c["num_key_value_heads"] * c["head_dim"]
-    gen = torch.Generator("cuda").manual_seed(1)
+    gen = torch.Generator("cuda").manual_seed(seed)
 
     def rnd(*shape, scale_ascii=False):
         w = torch.randn(shape, generator=gen, device="cuda") * 0.02
@@ -4719,11 +5098,15 @@ def _get(port: int, path: str) -> tuple[int, str]:
 # in-process engine's EngineConfig settings for the same run). The default
 # runs B1 and B2; speculation runs B3 in every decode call; the fused
 # layout, chosen by the environment as an engine Pod would, runs B4.
+# (label, flags, environment, in-process EngineConfig fields); "{draft}"
+# in the flags is the draft checkpoint's directory.
 CLI_RUNS = (
     ("default", [], {}, dict(decode_kernel="per_layer")),
     ("speculate", ["--speculate", "4", "--spec-adaptive", "off"], {},
      dict(decode_kernel="per_layer", speculate=4, spec_adaptive=False)),
     ("fused", [], {"KUBEAI_TPU_DECODE_KERNEL": "fused"}, dict(decode_kernel="fused")),
+    ("draft", ["--speculate", "4", "--spec-adaptive", "off", "--draft-url", "{draft}"], {},
+     dict(decode_kernel="per_layer", speculate=4, spec_adaptive=False)),
 )
 
 
@@ -5063,15 +5446,17 @@ def serve_cli() -> None:
     """Phase 5: the engine Pod's entry point. Writes a random-weight Llama
     checkpoint at Llama-3-8B width (CLI_LAYERS layers, bf16) with
     `weights.save_safetensors` into a temporary directory and serves it
-    with `python -m kubeai_tpu_torch.engine.server` three times
-    (`cli_run`, CLI_RUNS: default, `--speculate 4`, and the fused layout
-    from the environment), then loads the same checkpoint in-process with
+    with `python -m kubeai_tpu_torch.engine.server` four times
+    (`cli_run`, CLI_RUNS: default, `--speculate 4`, the fused layout from
+    the environment, and `--speculate 4 --draft-url` with a 2-layer draft
+    checkpoint written beside it), then loads the same checkpoint
+    in-process with
     `weights.load_params` on the card and builds an engine of each run's
     configuration on it. Gates, besides `cli_run`'s: the loaded tensors
     bit-equal to those written; each run's greedy streams over HTTP equal
     to its in-process engine's; on /metrics 4 requests, a TTFT count of 4
     and the generated tokens the responses report; speculation windows in
-    the speculative run; the same token capacity as in-process. The
+    the two speculative runs; the same token capacity as in-process. The
     default run (--max-adapters 4, the default) also runs
     `cli_admin_round` over two PEFT adapters written for the checkpoint.
     Reports the load rate, the cold-start phases, TTFT and the card."""
@@ -5099,13 +5484,16 @@ def serve_cli() -> None:
         print(f"serve_cli checkpoint: {CLI_LAYERS} layers at Llama-3-8B width, bf16, "
               f"{ckpt_bytes / 1e9:.3f} GB in {len(tensors)} tensors, drawn and written in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
+        draft_dir = os.path.join(root, "draft")
+        save_safetensors(draft_dir, cli_tensors(CLI_DRAFT_CONFIG, seed=3), CLI_DRAFT_CONFIG)
         cli_cfg = llama.LlamaConfig.from_hf_dict(CLI_CONFIG)
         dirs = {name: write_peft_adapter(os.path.join(root, f"lora-{name}"), cli_cfg, seed)
                 for name, seed in (("a", 31), ("b", 32))}
         sink = OtlpSink()
         try:
             runs = {label: cli_run(
-                model_dir, label, flags, env, ckpt_bytes, sink,
+                model_dir, label, [f.replace("{draft}", draft_dir) for f in flags], env,
+                ckpt_bytes, sink,
                 admin=(lambda port: cli_admin_round(port, dirs)) if label == "default" else None)
                 for label, flags, env, _ in CLI_RUNS}
         finally:
@@ -5125,16 +5513,24 @@ def serve_cli() -> None:
         print(f"serve_cli load_params in-process: {n} leaves bit-equal to the tensors "
               f"written; {ckpt_bytes / 1e9:.3f} GB in {load_s:.4f} s = "
               f"{ckpt_bytes / 1e9 / load_s:.3f} GB/s", flush=True)
-        for label, _, _, extra in CLI_RUNS:
+        dcfg = llama.LlamaConfig.from_hf_dict(CLI_DRAFT_CONFIG)
+        draft = (dcfg, load_params("llama", draft_dir, dcfg, device="cuda"))
+        for label, flags, _, extra in CLI_RUNS:
             # The CLI's default --max-adapters 4: every request pays the
             # (all-zero) delta of adapter row 0.
             engine = Engine("llama", cfg, params, cfg=EngineConfig(
                 num_slots=8, max_seq_len=2048, max_adapters=4, **extra),
-                eos_token_ids=tok.eos_token_ids)
+                eos_token_ids=tok.eos_token_ids,
+                draft=draft if "--draft-url" in flags else None)
             check_cli_run(label, runs[label], engine)
             del engine
-        if runs["speculate"]["state"]["spec_stats"]["windows"] <= 0:
-            fail("serve_cli speculate: the CLI ran no speculation window")
+        for label in ("speculate", "draft"):
+            stats = runs[label]["state"]["spec_stats"]
+            if stats["windows"] <= 0:
+                fail(f"serve_cli {label}: the CLI ran no speculation window")
+            print(f"serve_cli {label} spec_stats {json.dumps(stats)} acceptance "
+                  f"{_acceptance(stats):.4f}", flush=True)
+        del draft
         print(f"serve_cli card: {gpu_line()}", flush=True)
         del params
     finally:

@@ -51,14 +51,29 @@ engines through the wire formats of disagg/handoff.py:
 The imports write the pools, the slot state and the block tables in
 place, at the addresses the captured device programs read.
 
+Slot mode (cache_mode="slot"): one [max_seq_len] K/V row per slot
+(engine/kvcache.py) instead of pages. Admission prefills one request a
+call into its row (whole prompt, or chunk by chunk into the row in
+place); the decode chunk runs the family's slot-cache `decode_step`. No
+speculation, prefix cache, handoffs or int8 pools, as in the JAX engine.
+
+Draft-model speculation (`draft=(cfg, params)`, paged mode, speculate >
+0): a small model of the same family keeps its own slot cache. Each
+window its greedy chain of gamma + 1 steps (the propose-chain program)
+writes the proposals straight into the verify program's input; every
+admission prefills the draft too (batched, chunked, prefix hit and
+handoff import); a chunk-mode window under spec_adaptive is followed by
+the catch-up program, which replays the chunk through the draft.
+
 Families: llama, qwen and gemma (models/registry.py). On a CUDA device
 the engine refuses, at construction, a model whose head_dim a kernel on
 its path has no build for (`refuse_kernel_head_dims`), and a family with
 no adapter buffers refuses adapter loads (ROADMAP fault C10).
 
-Ported: paged mode, synchronous and overlapped stepping, preemption by
-recompute, the SLO scheduler, both decode layouts, speculative decoding
-by prompt lookup (adaptive or always on), chunked prefill, the automatic
+Ported: paged and slot modes, synchronous and overlapped stepping,
+preemption by recompute, the SLO scheduler, both decode layouts,
+speculative decoding by prompt lookup or a draft model (adaptive or
+always on), chunked prefill, the automatic
 prefix cache, KV handoff export and import, prefix-page sharing and
 spill, int8 KV pools (kv_dtype="int8", ops/kv_quant.py: quantized as
 pages are written, read by B1's int8 kernel, shipped verbatim on every
@@ -88,6 +103,7 @@ from kubeai_tpu_torch.disagg.handoff import (
     serialize_pages,
 )
 from kubeai_tpu_torch.engine.graphs import DeviceProgram, HostStaging
+from kubeai_tpu_torch.engine.kvcache import KVCache, insert_sequence, insert_sequences
 from kubeai_tpu_torch.engine.paged_cache import (
     OutOfPages,
     PageAllocator,
@@ -134,7 +150,10 @@ class EngineConfig:
 
     num_slots: int = 8
     max_seq_len: int = 1024
-    cache_mode: str = "paged"  # "slot" is not ported (ROADMAP A13)
+    # "paged" (block tables over a shared page pool) or "slot" (one
+    # [max_seq_len] row per slot, engine/kvcache.py; no speculation, no
+    # prefix cache, no handoffs, no int8 pools).
+    cache_mode: str = "paged"
     page_size: int = 64
     # Page-pool size. 0 = full reservation (num_slots * max_seq_len worth
     # of pages + the reserved scratch page). Smaller oversubscribes:
@@ -317,16 +336,26 @@ def _resolve_overlap(cfg: EngineConfig) -> bool:
     return overlap != "off"
 
 
-def _refuse_unported(cfg: EngineConfig, mesh, draft, decode_kernel: str) -> None:
-    """Raise for every JAX engine setting this port does not serve."""
-    if cfg.cache_mode == "slot":
-        raise NotImplementedError(
-            "cache_mode='slot' is not ported (ROADMAP A13); use 'paged'"
-        )
-    if cfg.cache_mode != "paged":
+def _resolve_cache_mode(cfg: EngineConfig, family: ModelFamily) -> str:
+    """The cache mode, as the JAX engine resolves it: paged needs the
+    family's paged decode, else the slot cache."""
+    if cfg.cache_mode == "paged" and family.decode_step_paged is None:
+        return "slot"
+    if cfg.cache_mode not in ("paged", "slot"):
         raise ValueError(f"unknown cache_mode {cfg.cache_mode!r}")
+    return cfg.cache_mode
+
+
+def _refuse_unported(cfg: EngineConfig, mesh, draft, decode_kernel: str,
+                     cache_mode: str) -> None:
+    """Raise for every JAX engine setting this port does not serve, and
+    for the settings the JAX engine refuses, in its words."""
     if resolve_kv_dtype(cfg.kv_dtype) == "int8":
-        # The JAX engine's refusals, word for word.
+        if cache_mode != "paged":
+            raise ValueError(
+                "kv_dtype='int8' requires cache_mode='paged' (pages "
+                "are the quantization unit)"
+            )
         if cfg.speculate > 0 or draft is not None:
             raise ValueError(
                 "kv_dtype='int8' does not compose with speculative "
@@ -346,12 +375,6 @@ def _refuse_unported(cfg: EngineConfig, mesh, draft, decode_kernel: str) -> None
         raise NotImplementedError(
             "meshes and parallelism are not ported yet (ROADMAP A14)"
         )
-    if draft is not None:
-        raise NotImplementedError(
-            "draft-model speculation is not ported yet: it drafts through "
-            "the slot cache (ROADMAP A13); prompt-lookup speculation "
-            "(speculate > 0, no draft) is"
-        )
 
 
 # The kernels that have no build yet for a head dim a family's checkpoint
@@ -363,32 +386,38 @@ _HEAD_DIM_ITEMS = {
 
 def refuse_kernel_head_dims(
     family: ModelFamily, model_cfg, cfg: EngineConfig, decode_kernel: str,
-    speculate: int, device: torch.device,
+    speculate: int, device: torch.device, cache_mode: str = "paged",
+    draft_cfg=None,
 ) -> None:
     """On a CUDA device, raise NotImplementedError when a kernel on the
     engine's path has no build for the model's head_dim: B2 where the
-    family's whole-prompt prefill goes through it, the decode kernel of
-    the layout and pool dtype (B1, B4 or B1-int8), and B3 when the engine
-    speculates. Checked at construction, before any capture: a wrapper
-    would raise only inside it. The CPU runs the plain versions, which
-    take any head_dim."""
+    family's whole-prompt prefill goes through it (for the draft model's
+    head_dim too), the paged decode kernel of the layout and pool dtype
+    (B1, B4 or B1-int8; the slot cache decodes through the plain
+    attention), and B3 when the engine speculates. Checked at
+    construction, before any capture: a wrapper would raise only inside
+    it. The CPU runs the plain versions, which take any head_dim."""
     if device.type != "cuda":
         return
-    path = [paged_verify_attention] if speculate else []
-    if family.prefill_uses_flash(model_cfg):
-        path.append(flash_causal_prefill)
-    if resolve_kv_dtype(cfg.kv_dtype) == "int8":
-        path.append(paged_decode_attention_int8)
-    elif decode_kernel == "fused":
-        path.append(paged_decode_attention_fused)
-    else:
-        path.append(paged_decode_attention)
-    d = model_cfg.head_size
-    for kernel in path:
+    name = family.name
+    path = [(paged_verify_attention, model_cfg, name)] if speculate else []
+    for mcfg, who in ((model_cfg, name), (draft_cfg, "the draft")):
+        if mcfg is not None and family.prefill_uses_flash(mcfg):
+            path.append((flash_causal_prefill, mcfg, who))
+    if cache_mode == "paged":
+        if resolve_kv_dtype(cfg.kv_dtype) == "int8":
+            decode = paged_decode_attention_int8
+        elif decode_kernel == "fused":
+            decode = paged_decode_attention_fused
+        else:
+            decode = paged_decode_attention
+        path.append((decode, model_cfg, name))
+    for kernel, mcfg, who in path:
+        d = mcfg.head_size
         if d not in kernel.head_dims:
             item = _HEAD_DIM_ITEMS.get((kernel, d))
             raise NotImplementedError(
-                f"{family.name} at head_dim {d} on {device}: "
+                f"{who} at head_dim {d} on {device}: "
                 f"{kernel.__name__} takes head_dim {kernel.head_dims}"
                 + (f" ({item})" if item else "")
             )
@@ -430,14 +459,12 @@ class Engine:
         draft: tuple[Any, Any] | None = None,
     ):
         """`device` defaults to cuda (raising without a GPU); pass "cpu"
-        to run the plain PyTorch versions of the kernels. `draft` (a
-        draft model for speculation) is not ported and raises."""
+        to run the plain PyTorch versions of the kernels. `draft` =
+        (draft config, draft params): a small model of the same family
+        whose greedy chain proposes each speculative window (needs
+        cfg.speculate > 0 and the paged cache)."""
         self.device = resolve_device(device)
         self.decode_kernel = resolve_decode_kernel(cfg.decode_kernel)
-        _refuse_unported(cfg, mesh, draft, self.decode_kernel)
-        self._kv_quant = resolve_kv_dtype(cfg.kv_dtype) == "int8"
-        # Resolved: the step loop overlaps unless step_overlap says no.
-        self._overlap = _resolve_overlap(cfg)
         self.family = (
             get_model_family(family) if isinstance(family, str) else family
         )
@@ -446,6 +473,11 @@ class Engine:
                 f"the {self.family.name} family ({self.family.feature}) is not "
                 "served by the slot engine"
             )
+        self.cache_mode = _resolve_cache_mode(cfg, self.family)
+        _refuse_unported(cfg, mesh, draft, self.decode_kernel, self.cache_mode)
+        self._kv_quant = resolve_kv_dtype(cfg.kv_dtype) == "int8"
+        # Resolved: the step loop overlaps unless step_overlap says no.
+        self._overlap = _resolve_overlap(cfg)
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.eos_token_ids = eos_token_ids
@@ -498,23 +530,128 @@ class Engine:
         # Events reaped outside step() (the cancel and drain barriers):
         # delivered first by the next step().
         self._pending_events: list[StepEvent] = []
-        # Resolved speculation window: cfg.speculate where the family has
-        # a verify forward, else 0 (vanilla decode, with a warning).
+        # Resolved speculation window: cfg.speculate where the paged cache
+        # and the family's verify forward allow it, else 0 (vanilla
+        # decode, with a warning). A draft model is refused where it
+        # cannot propose, as the JAX engine refuses it.
         self._spec = 0
+        self._draft = False
+        verify = self.family.decode_verify_paged is not None
         if cfg.speculate > 0:
-            if self.family.decode_verify_paged is not None:
+            if self.cache_mode == "paged" and verify:
                 self._spec = cfg.speculate
+            elif draft is not None:
+                raise ValueError(
+                    "draft model provided but speculation is "
+                    f"unavailable (cache_mode={self.cache_mode!r}, "
+                    f"pp=1, family verify={verify})"
+                )
             else:
                 logging.getLogger(__name__).warning(
-                    "speculate=%d requested but family %s has no verify "
-                    "forward; running vanilla decode",
-                    cfg.speculate, self.family.name,
+                    "speculate=%d requested but unavailable (%s); running "
+                    "vanilla decode", cfg.speculate,
+                    f"family {self.family.name} has no verify forward"
+                    if not verify else f"cache_mode={self.cache_mode!r}",
+                )
+        elif draft is not None:
+            raise ValueError("draft model provided but cfg.speculate == 0")
+        draft_cfg = None
+        if draft is not None:
+            draft_cfg, draft_params = draft
+            if draft_cfg.vocab_size > model_cfg.vocab_size:
+                # A proposal past the target's embedding table would index
+                # out of range in the verify window (on the card, a
+                # device-side assert).
+                raise ValueError(
+                    f"draft vocabulary ({draft_cfg.vocab_size}) is larger than "
+                    f"the target's ({model_cfg.vocab_size})"
                 )
         refuse_kernel_head_dims(self.family, model_cfg, cfg, self.decode_kernel,
-                                self._spec, self.device)
+                                self._spec, self.device, self.cache_mode, draft_cfg)
 
         self.params = _to_device(params, self.device)
+        if draft is not None:
+            # The draft keeps its own slot cache (engine/kvcache.py) on the
+            # engine's device: its proposals run the family's decode_step.
+            self._draft = True
+            self._draft_cfg = draft_cfg
+            self._draft_params = _to_device(draft_params, self.device)
+            self.draft_cache = KVCache.create(
+                draft_cfg.num_layers, cfg.num_slots, cfg.max_seq_len,
+                draft_cfg.num_kv_heads, draft_cfg.head_size, cfg.cache_dtype,
+                device=self.device,
+            )
+        self._chunk_fn = None
+        if cfg.prefill_chunk > 0:
+            self._chunk_fn = self.family.prefill_chunk
+            if self._chunk_fn is None:
+                raise ValueError(
+                    f"family {self.family.name} does not support chunked prefill"
+                )
+            if cfg.prefill_chunk > cfg.max_seq_len:
+                raise ValueError(
+                    f"prefill_chunk={cfg.prefill_chunk} exceeds "
+                    f"max_seq_len={cfg.max_seq_len}: a chunk must fit the "
+                    "staging buffer"
+                )
+        if self.cache_mode == "paged":
+            self._init_paged()
+        else:
+            if cfg.prefix_cache:
+                raise ValueError(
+                    "prefix_cache requires cache_mode='paged' (pages are "
+                    "the sharing unit)"
+                )
+            self._prefix_cache = False
+            self.cache = KVCache.create(
+                model_cfg.num_layers, cfg.num_slots, cfg.max_seq_len,
+                model_cfg.num_kv_heads, model_cfg.head_size, cfg.cache_dtype,
+                device=self.device,
+            )
 
+        # Per-slot decode state on the device: steady-state decode needs
+        # no host-to-device copy per chunk.
+        B, dev = cfg.num_slots, self.device
+        self._state = {
+            "tokens": torch.zeros(B, dtype=torch.int64, device=dev),
+            "positions": torch.zeros(B, dtype=torch.int64, device=dev),
+            "seeds": torch.zeros(B, dtype=torch.int64, device=dev),
+            "temp": torch.zeros(B, dtype=torch.float32, device=dev),
+            "topk": torch.zeros(B, dtype=torch.int64, device=dev),
+            "topp": torch.ones(B, dtype=torch.float32, device=dev),
+            "lora_idx": torch.zeros(B, dtype=torch.int64, device=dev),
+        }
+        # LoRA adapter buffers: fixed shapes and addresses, row 0 all zeros
+        # ("no adapter"). A load or an unload writes a row in place: the
+        # captured programs read the new weights with no capture again.
+        self._lora = None
+        self._adapter_slots: dict[str, int] = {}
+        # Buffer row -> weight generation (the prefix-cache hash seed;
+        # row 0, the base model, stays at generation 0).
+        self._adapter_gen: dict[int, int] = {}
+        self._adapter_free: list[int] = []
+        # Why every adapter load is refused whatever max_adapters says: the
+        # family takes no adapters ("" where it does). The JAX engine builds
+        # llama's buffers for such a family, whose forwards then ignore them
+        # (ROADMAP fault C10).
+        self.adapter_refusal = ""
+        if cfg.max_adapters > 0 and self.family.init_lora_buffers is None:
+            self.adapter_refusal = (
+                f"the {self.family.name} family takes no LoRA adapters "
+                "(ROADMAP fault C10)"
+            )
+        elif cfg.max_adapters > 0:
+            self._lora = self.family.init_lora_buffers(
+                model_cfg, cfg.max_adapters + 1, cfg.max_lora_rank, device=dev
+            )
+            self._adapter_free = list(range(1, cfg.max_adapters + 1))
+        self._build_programs()
+
+    def _init_paged(self) -> None:
+        """The paged cache: the page pools, their host allocator, the
+        prefix cache's settings and the host mirror of the block
+        tables."""
+        cfg, model_cfg = self.cfg, self.model_cfg
         n_pages = cfg.effective_num_pages()
         self._n_pages = n_pages
         max_pages = -(-cfg.max_seq_len // cfg.page_size)
@@ -556,19 +693,6 @@ class Engine:
                     "(page_size=%d) — shrink prefill_chunk",
                     cfg.prefill_chunk, cfg.max_seq_len, cfg.page_size,
                 )
-        self._chunk_fn = None
-        if cfg.prefill_chunk > 0:
-            self._chunk_fn = self.family.prefill_chunk
-            if self._chunk_fn is None:
-                raise ValueError(
-                    f"family {self.family.name} does not support chunked prefill"
-                )
-            if cfg.prefill_chunk > cfg.max_seq_len:
-                raise ValueError(
-                    f"prefill_chunk={cfg.prefill_chunk} exceeds "
-                    f"max_seq_len={cfg.max_seq_len}: a chunk must fit the "
-                    "staging buffer"
-                )
         # Host mirror of the block tables: page growth/release edits this;
         # one [slots, MP] copy refreshes the device table in place before
         # the next decode (_bt_dirty).
@@ -576,60 +700,30 @@ class Engine:
         self._bt_dirty = False
         self._bt_staging = HostStaging(self.cache.block_tables)
 
-        # Per-slot decode state on the device: steady-state decode needs
-        # no host-to-device copy per chunk.
-        B, dev = cfg.num_slots, self.device
-        self._state = {
-            "tokens": torch.zeros(B, dtype=torch.int64, device=dev),
-            "positions": torch.zeros(B, dtype=torch.int64, device=dev),
-            "seeds": torch.zeros(B, dtype=torch.int64, device=dev),
-            "temp": torch.zeros(B, dtype=torch.float32, device=dev),
-            "topk": torch.zeros(B, dtype=torch.int64, device=dev),
-            "topp": torch.ones(B, dtype=torch.float32, device=dev),
-            "lora_idx": torch.zeros(B, dtype=torch.int64, device=dev),
-        }
-        # LoRA adapter buffers: fixed shapes and addresses, row 0 all zeros
-        # ("no adapter"). A load or an unload writes a row in place: the
-        # captured programs read the new weights with no capture again.
-        self._lora = None
-        self._adapter_slots: dict[str, int] = {}
-        # Buffer row -> weight generation (the prefix-cache hash seed;
-        # row 0, the base model, stays at generation 0).
-        self._adapter_gen: dict[int, int] = {}
-        self._adapter_free: list[int] = []
-        # Why every adapter load is refused whatever max_adapters says: the
-        # family takes no adapters ("" where it does). The JAX engine builds
-        # llama's buffers for such a family, whose forwards then ignore them
-        # (ROADMAP fault C10).
-        self.adapter_refusal = ""
-        if cfg.max_adapters > 0 and self.family.init_lora_buffers is None:
-            self.adapter_refusal = (
-                f"the {self.family.name} family takes no LoRA adapters "
-                "(ROADMAP fault C10)"
-            )
-        elif cfg.max_adapters > 0:
-            self._lora = self.family.init_lora_buffers(
-                model_cfg, cfg.max_adapters + 1, cfg.max_lora_rank, device=dev
-            )
-            self._adapter_free = list(range(1, cfg.max_adapters + 1))
-        self._build_programs()
-
     def _build_programs(self) -> None:
-        """The decode-chunk program, the verify-window program when the
-        engine speculates, and the staged-chunk programs when it chunks,
-        with their fixed inputs and outputs. On a CUDA device each is
-        captured as a CUDA graph (all share one memory pool: their
-        replays run in order on one stream). Capture happens here, while
-        no slot is live: every block-table row is -1, so the warm-up calls
-        write K/V only to scratch page 0; the decode warm-ups advance the
-        slot state, which is reset after, and the staged-chunk warm-ups
-        carry a masked slot index, so they write no slot state."""
+        """The decode-chunk program (paged or slot cache), the
+        verify-window program when the engine speculates, the draft's
+        propose-chain and catch-up programs when a draft proposes, and
+        the staged-chunk programs when a paged engine chunks, with their
+        fixed inputs and outputs. On a CUDA device each is captured as a
+        CUDA graph (all share one memory pool: their replays run in order
+        on one stream). Capture happens here, while no slot is live:
+        every block-table row is -1, so the paged warm-ups write K/V only
+        to scratch page 0; the slot-cache and draft warm-ups write rows
+        of the slot caches, and the decode warm-ups advance the slot
+        state, so both are reset after; the staged-chunk warm-ups carry a
+        masked slot index, so they write no slot state."""
         B, dev = self.cfg.num_slots, self.device
         capture = dev.type == "cuda" and self._capture_graphs
         pool = torch.cuda.graph_pool_handle() if capture else None
         self._chunk_out = torch.zeros(
             max(1, self.cfg.decode_chunk), B, dtype=torch.int64, device=dev
         )
+        if self._draft:
+            # With a draft, the decode chunk copies the slot state it starts
+            # from here: the catch-up replays the chunk's inputs.
+            self._pre_tokens = torch.zeros(B, dtype=torch.int64, device=dev)
+            self._pre_positions = torch.zeros(B, dtype=torch.int64, device=dev)
         with torch.no_grad():
             self._decode_program = DeviceProgram(
                 self._decode_chunk, (self._chunk_out,), dev,
@@ -648,12 +742,25 @@ class Engine:
                     self._spec_step, (self._spec_choices, self._spec_n_emit),
                     dev, capture=capture, pool=pool,
                 )
+            self._draft_propose_program = self._draft_catchup_program = None
+            if self._draft:
+                self._draft_propose_program = DeviceProgram(
+                    self._draft_propose, (), dev, capture=capture, pool=pool
+                )
+                self._draft_catchup_program = DeviceProgram(
+                    self._draft_catchup, (), dev, capture=capture, pool=pool
+                )
             self._stage_mid_program = self._stage_last_program = None
             self._stage_pages_program = None
-            if self._chunk_fn is not None:
+            if self._chunk_fn is not None and self.cache_mode == "paged":
                 self._build_stage_programs(capture, pool)
         self._state["tokens"].zero_()
         self._state["positions"].zero_()
+        for cache in (self.cache if self.cache_mode == "slot" else None,
+                      self.draft_cache if self._draft else None):
+            if cache is not None:
+                cache.k.zero_()
+                cache.v.zero_()
 
     def _build_stage_programs(self, capture: bool, pool) -> None:
         """The one-slot staging buffers [NL, max_seq_len, KVH, D] that
@@ -823,21 +930,33 @@ class Engine:
             dst.copy_(pages.reshape(nl, mp * pg, kvh, d)[:, : dst.shape[1]])
 
     def _decode_chunk(self) -> None:
-        """The decode-chunk program: `decode_chunk` paged decode steps over
-        every slot, each followed by sample. Writes the [chunk, num_slots]
-        tokens into _chunk_out and the advanced tokens and positions into
-        the slot state, in place. The block tables are read-only here:
-        the host grows pages to cover position + chunk before dispatch."""
+        """The decode-chunk program: `decode_chunk` decode steps over every
+        slot (paged, or against the slot cache), each followed by sample.
+        Writes the [chunk, num_slots] tokens into _chunk_out and the
+        advanced tokens and positions into the slot state, in place. The
+        block tables are read-only here: the host grows pages to cover
+        position + chunk before dispatch. With a draft, the tokens and
+        positions the chunk starts from are first copied aside for the
+        catch-up (`_draft_catchup`)."""
         st = self._state
         max_len = self.cfg.max_seq_len
         tokens, positions = st["tokens"], st["positions"]
+        if self._draft:
+            self._pre_tokens.copy_(tokens)
+            self._pre_positions.copy_(positions)
         for k in range(self._chunk_out.shape[0]):
-            logits, _, _ = self.family.decode_step_paged(
-                self.params, self.model_cfg, tokens, positions,
-                self.cache.k_pages, self.cache.v_pages,
-                self.cache.block_tables, attn_kernel=self.decode_kernel,
-                **self._lora_kw(st["lora_idx"]),
-            )
+            if self.cache_mode == "paged":
+                logits, _, _ = self.family.decode_step_paged(
+                    self.params, self.model_cfg, tokens, positions,
+                    self.cache.k_pages, self.cache.v_pages,
+                    self.cache.block_tables, attn_kernel=self.decode_kernel,
+                    **self._lora_kw(st["lora_idx"]),
+                )
+            else:
+                logits, _, _ = self.family.decode_step(
+                    self.params, self.model_cfg, tokens, positions,
+                    self.cache.k, self.cache.v, **self._lora_kw(st["lora_idx"]),
+                )
             tokens = sample(
                 logits, st["seeds"], positions + 1, st["temp"],
                 st["topk"], st["topp"],
@@ -881,6 +1000,85 @@ class Engine:
             torch.clamp(positions + n_emit, max=self.cfg.max_seq_len - 1)
         )
         st["tokens"].copy_(torch.gather(choices, 1, accepted[:, None])[:, 0])
+
+    # ---- the draft model ---------------------------------------------------
+
+    def _draft_step(self, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """One draft decode step over every slot against the draft's slot
+        cache (in place). Returns f32 logits [num_slots, V_draft]."""
+        logits, _, _ = self.family.decode_step(
+            self._draft_params, self._draft_cfg, tokens, positions,
+            self.draft_cache.k, self.draft_cache.v,
+        )
+        return logits
+
+    def _draft_propose(self) -> None:
+        """The propose-chain program: gamma + 1 greedy draft steps, each
+        argmax feeding the next, from the true last emitted token at its
+        true position (the slot state), writing the first gamma picks into
+        `_proposals`, the verify program's fixed input: proposals never
+        cross the host. The chain runs one step past the last proposal so
+        that proposal gamma's own K/V is written too: on a fully accepted
+        window that token is emitted and the next window starts after it,
+        and without the extra step its position would be a hole in the
+        draft cache that poisons every later window's proposals."""
+        st = self._state
+        tokens, positions = st["tokens"], st["positions"]
+        max_len = self.cfg.max_seq_len
+        for k in range(self._spec + 1):
+            tokens = torch.argmax(self._draft_step(tokens, positions), dim=-1)
+            positions = torch.clamp(positions + 1, max=max_len - 1)
+            if k < self._spec:
+                self._proposals[:, k].copy_(tokens)
+
+    def _draft_catchup(self) -> None:
+        """The catch-up program: a teacher-forced draft pass over a decode
+        chunk's inputs (the token the chunk started from, then its emitted
+        tokens but the last, which is the next call's input) from the
+        chunk's first positions. A chunk-mode window under spec_adaptive
+        advances the sequences without the draft; without this pass the
+        draft cache falls out of step after the first such window and
+        acceptance collapses for the rest of each request."""
+        max_len = self.cfg.max_seq_len
+        positions = self._pre_positions
+        for k in range(self._chunk_out.shape[0]):
+            tokens = self._pre_tokens if k == 0 else self._chunk_out[k - 1]
+            self._draft_step(tokens, positions)
+            positions = torch.clamp(positions + 1, max=max_len - 1)
+
+    def _draft_admit(self, tokens: torch.Tensor, lengths: torch.Tensor,
+                     slots: list[int]) -> None:
+        """Draft prefill of an admission batch ([A, S] prompts, eager): the
+        draft's slot rows must hold the prompts' K/V before the first
+        window. Padding rows (slot num_slots) write nothing."""
+        _, k_all, v_all = self.family.prefill(
+            self._draft_params, self._draft_cfg, tokens, lengths
+        )
+        insert_sequences(self.draft_cache.k, self.draft_cache.v, k_all, v_all, slots)
+
+    def _draft_admit_chunked(self, seq: list[int], plen: int, slot: int) -> None:
+        """The draft's prefill for a chunked or prefix-hit admission: the
+        whole prompt in prefill_chunk chunks into the draft's slot row
+        (the draft shares no pages with the target's prefix cache, so a
+        cache hit still prefills the draft over the full sequence)."""
+        if not self._draft:
+            return
+        C = self.cfg.prefill_chunk
+        if plen >= C:
+            mids, last = self._chunk_plan(seq, plen, C)
+            chunks = [*mids, last]
+        else:
+            padded = np.zeros((1, C), np.int64)
+            padded[0, :plen] = seq
+            chunks = [(0, padded)]
+        dev, dc = self.device, self.draft_cache
+        with torch.no_grad():
+            for start, tokens in chunks:
+                self._chunk_fn(
+                    self._draft_params, self._draft_cfg,
+                    torch.from_numpy(np.asarray(tokens, np.int64)).to(dev),
+                    start, plen, dc.k[:, slot], dc.v[:, slot], want_logits=False,
+                )
 
     # ---- requests ------------------------------------------------------------
 
@@ -1017,13 +1215,20 @@ class Engine:
             return [h.hex() for h in self._alloc.holdings()]
 
     def kv_utilization(self) -> float:
-        """Fraction of the page pool in use: allocated pages over the pool
-        (page 0, the scratch page, excluded). Pages parked idle in the
-        prefix cache count as free: any admission can reclaim them."""
-        total = self._n_pages - 1
-        if total <= 0:
+        """Fraction of KV capacity in use: allocated pages over the pool
+        (page 0, the scratch page, excluded) in paged mode, occupied token
+        positions over the slots' capacity in slot mode. Pages parked idle
+        in the prefix cache count as free: any admission can reclaim
+        them."""
+        if self.cache_mode == "paged":
+            total = self._n_pages - 1
+            if total <= 0:
+                return 0.0
+            return 1.0 - self._alloc.free_pages / total
+        cap = self.cfg.num_slots * self.cfg.max_seq_len
+        if cap <= 0:
             return 0.0
-        return 1.0 - self._alloc.free_pages / total
+        return sum(r.position for r in self._active.values()) / cap
 
     def kv_cache_info(self) -> dict:
         """KV-cache capacity facts for /v1/state and the metrics plane, as
@@ -1033,16 +1238,18 @@ class Engine:
         pools, scales included."""
         factor = (kv_capacity_factor(self.model_cfg.head_size)
                   if self._kv_quant else 1.0)
-        return {
+        info = {
             "dtype": self._kv_dtype_name(),
             "quantized": self._kv_quant,
             "capacity_factor": factor,
             "slot_capacity": self.cfg.num_slots,
-            "num_pages": self._n_pages,
-            "page_size": self.cfg.page_size,
-            "token_capacity": (self._n_pages - 1) * self.cfg.page_size,
-            "pool_bytes": self.cache.nbytes(),
         }
+        if self.cache_mode == "paged":
+            info["num_pages"] = self._n_pages
+            info["page_size"] = self.cfg.page_size
+            info["token_capacity"] = (self._n_pages - 1) * self.cfg.page_size
+        info["pool_bytes"] = self.cache.nbytes()
+        return info
 
     def _pop_pending(self) -> None:
         """Dequeue the scheduler's head for admission, stamping when it
@@ -1058,6 +1265,101 @@ class Engine:
         return self.cfg.max_seq_len
 
     # ---- admission -------------------------------------------------------
+
+    def _admit_pending(self) -> list[StepEvent]:
+        """Prefill pending requests into free slots. Returns the emitted
+        first tokens."""
+        if self.cache_mode == "paged":
+            return self._admit_pending_paged()
+        return self._admit_pending_slot()
+
+    def _admit_pending_slot(self) -> list[StepEvent]:
+        """Slot-cache admission, one request a call: the whole prompt
+        through the bucketed prefill (`_prefill_admit_slot`), or a prompt
+        longer than prefill_chunk chunk by chunk into its slot row
+        (`_admit_chunked`). A continuation or a preempted request
+        re-prefills prompt + prefix[:-1] as context with its last emitted
+        token forced, as in paged mode."""
+        emitted: list[StepEvent] = []
+        C = self.cfg.prefill_chunk
+        while len(self._sched) and self._free_slots:
+            req = self._sched.peek()
+            slot = self._free_slots[-1]
+            resumed = bool(req.out_tokens)
+            seq = req.prompt + req.out_tokens[:-1] if resumed else req.prompt
+            plen = len(seq)
+            self._pop_pending()
+            self._free_slots.pop()
+            req.slot = slot
+            if C > 0 and plen > C:
+                tok = self._admit_chunked(req, slot, seq, plen, C)
+            else:
+                tok = self._prefill_admit_slot(req, slot, seq, plen)
+            ev = self._finish_admission(req, slot, plen, tok, resumed)
+            if ev is not None:
+                emitted.append(ev)
+        return emitted
+
+    def _sample_first(self, logits: torch.Tensor, req: _Request, slot: int,
+                      plen: int) -> int:
+        """A slot admission's first token: sample it from the prompt's
+        last logits (forced to the last emitted token on a resume), and
+        write the slot's decode state. Returns the token."""
+        dev, p = self.device, req.params
+        forced = req.out_tokens[-1] if req.out_tokens else -1
+        seed = torch.tensor([req.seed], dtype=torch.int64, device=dev)
+        length = torch.tensor([plen], dtype=torch.int64, device=dev)
+        temp = torch.tensor([p.temperature], dtype=torch.float32, device=dev)
+        topk = torch.tensor([p.top_k], dtype=torch.int64, device=dev)
+        topp = torch.tensor([p.top_p], dtype=torch.float32, device=dev)
+        tok = sample(logits, seed, length, temp, topk, topp)
+        if forced >= 0:
+            tok = torch.full_like(tok, forced)
+        st = self._state
+        for name, value in (("tokens", tok), ("positions", length), ("seeds", seed),
+                            ("temp", temp), ("topk", topk), ("topp", topp)):
+            st[name][slot] = value[0]
+        st["lora_idx"][slot] = req.adapter_idx
+        return int(tok[0])
+
+    def _prefill_admit_slot(self, req: _Request, slot: int, seq: list[int],
+                            plen: int) -> int:
+        """Slot-cache admission of one request, eager: prefill the [1,
+        bucket] prompt, write its K/V into the slot row
+        (kvcache.insert_sequence), sample the first token and write the
+        slot's decode state. Returns the token."""
+        dev = self.device
+        tokens = np.zeros((1, self._bucket(plen)), np.int64)
+        tokens[0, :plen] = seq
+        adapter = torch.tensor([req.adapter_idx], dtype=torch.int64, device=dev)
+        with torch.no_grad():
+            logits, k_all, v_all = self.family.prefill(
+                self.params, self.model_cfg, torch.from_numpy(tokens).to(dev),
+                torch.tensor([plen], device=dev), **self._lora_kw(adapter),
+            )
+            insert_sequence(self.cache.k, self.cache.v, k_all[:, 0], v_all[:, 0], slot)
+            return self._sample_first(logits, req, slot, plen)
+
+    def _admit_chunked(self, req: _Request, slot: int, seq: list[int], plen: int,
+                       C: int) -> int:
+        """Slot-cache chunked prefill, eager: the chunks of `_chunk_plan`
+        written straight into the slot's row of the cache (a view: the
+        chunk function writes it in place); the final chunk's logits give
+        the first token. `seq` includes a continuation's prefix (the
+        forced token then overrides the sample)."""
+        mids, last = self._chunk_plan(seq, plen, C)
+        dev = self.device
+        adapter = torch.tensor([req.adapter_idx], dtype=torch.int64, device=dev)
+        k_slot, v_slot = self.cache.k[:, slot], self.cache.v[:, slot]
+        with torch.no_grad():
+            for (start, tokens), want in [*((m, False) for m in mids), (last, True)]:
+                logits, _, _ = self._chunk_fn(
+                    self.params, self.model_cfg,
+                    torch.from_numpy(np.asarray(tokens, np.int64)).to(dev),
+                    start, plen, k_slot, v_slot, want_logits=want,
+                    **self._lora_kw(adapter),
+                )
+            return self._sample_first(logits, req, slot, plen)
 
     def _admit_pending_paged(self) -> list[StepEvent]:
         """Paged admission, batched: same-bucket pending prompts prefill in
@@ -1159,6 +1461,7 @@ class Engine:
                 req.slot = slot
                 self._set_bt_row(slot, pages)
                 mids, last = self._chunk_plan(seq, plen, C)
+                self._draft_admit_chunked(seq, plen, slot)
                 tok = self._run_staged_chunks(req, slot, plen, mids, last)
                 if not resumed:
                     self._note_prefix_admission(slot, plen, 0, hashes)
@@ -1240,6 +1543,7 @@ class Engine:
             padded = np.zeros((1, C), np.int32)
             padded[0, : plen - cached_len] = arr[cached_len:plen]
             last = (cached_len, padded)
+        self._draft_admit_chunked(seq, plen, slot)
         return self._run_staged_chunks(req, slot, plen, mids, last, from_pages=True)
 
     def _run_staged_chunks(
@@ -1318,12 +1622,16 @@ class Engine:
             bt_rows[i] = self._bt_host[slot]
         dev = self.device
         with torch.no_grad():
+            tokens_dev = torch.from_numpy(tokens).to(dev)
             toks = self._prefill_admit(
-                torch.from_numpy(tokens).to(dev),
+                tokens_dev,
                 torch.from_numpy(ints).to(dev),
                 torch.from_numpy(floats).to(dev),
                 torch.from_numpy(bt_rows).to(dev),
             )
+            if self._draft:
+                self._draft_admit(tokens_dev, torch.from_numpy(ints[:, 0]).to(dev),
+                                  ints[:, 1].tolist())
         return toks[:A].cpu().numpy()
 
     def _finish_admission(
@@ -1456,12 +1764,13 @@ class Engine:
         if req.slot >= 0:
             self._active.pop(req.slot, None)
             self._free_slots.append(req.slot)
-            # Free the pages and clear the row before the next decode: a
-            # stale row would scatter the junk token of a freed slot into
-            # pages that may now belong to a live sequence.
-            self._alloc.release(req.slot)
-            self._bt_host[req.slot] = -1
-            self._bt_dirty = True
+            if self.cache_mode == "paged":
+                # Free the pages and clear the row before the next decode:
+                # a stale row would scatter the junk token of a freed slot
+                # into pages that may now belong to a live sequence.
+                self._alloc.release(req.slot)
+                self._bt_host[req.slot] = -1
+                self._bt_dirty = True
             req.slot = -1
         self._requests.pop(req.rid, None)
 
@@ -1546,6 +1855,11 @@ class Engine:
         Raises EngineBusy when no slot or pages are free right now (the
         server sheds 429 and the router re-picks) and EngineDraining once
         drain has begun."""
+        if self.cache_mode != "paged":
+            raise RuntimeError(
+                "KV handoff export requires cache_mode='paged' (pages are "
+                "the transfer unit)"
+            )
         params = params or SamplingParams()
         seq = list(prompt_tokens)
         plen = len(seq)
@@ -1653,7 +1967,13 @@ class Engine:
         The stream is token-identical to a unified run: the pages hold the
         exporter's KV bits, the slot resumes the same seeded sampler at
         the same position, and decode runs the same program. Geometry and
-        dtype mismatches raise HandoffError: refuse, never cast."""
+        dtype mismatches raise HandoffError: refuse, never cast.
+
+        On an engine with a draft model the draft prefills the handoff's
+        tokens into its slot row, as a direct admission does (the JAX
+        engine leaves the row stale: ROADMAP fault C14)."""
+        if self.cache_mode != "paged":
+            raise RuntimeError("KV handoff import requires cache_mode='paged'")
         self._check_wire_geometry("handoff", handoff.k_pages)
         plen = handoff.plen
         if plen >= self.cfg.max_seq_len:
@@ -1742,6 +2062,11 @@ class Engine:
                     slot, plen, _pages_to_device(k_seq, dtype, dev),
                     _pages_to_device(v_seq, dtype, dev), req, scales,
                 )
+                if self._draft:
+                    tokens = np.zeros((1, self._bucket(plen)), np.int64)
+                    tokens[0, :plen] = handoff.token_ids
+                    self._draft_admit(torch.from_numpy(tokens).to(dev),
+                                      torch.tensor([plen], device=dev), [slot])
             self._timing.append(("kv_transfer", time.perf_counter() - t_kv))
             if self._prefix_cache and handoff.prefix_hashes:
                 n_reg = min(plen // self.cfg.page_size, len(handoff.prefix_hashes))
@@ -1995,7 +2320,7 @@ class Engine:
             if self._inflight is not None and (len(self._sched) or self._spec):
                 emitted.extend(self._reap_inflight_locked())
             t_admit = time.perf_counter()
-            emitted.extend(self._admit_pending_paged())
+            emitted.extend(self._admit_pending())
             phases["prefill"] = time.perf_counter() - t_admit
             prev, self._inflight = self._inflight, None
             current = None
@@ -2014,7 +2339,7 @@ class Engine:
                 ):
                     emitted.extend(self._process_chunk(prev))
                     prev = None
-            if self._active:
+            if self._active and self.cache_mode == "paged":
                 self._ensure_decode_pages(
                     inflight_lag=prev.chunk_len if prev is not None else 0
                 )
@@ -2023,11 +2348,16 @@ class Engine:
                     self._bt_staging.upload(self._bt_host)
                     self._bt_dirty = False
                     self._note_phase("dispatch", time.perf_counter() - t_up)
+            if self._active:
                 riders = list(self._active.items())
                 with torch.no_grad():
                     if self._spec and self._spec_pick():
                         mode = "spec"
-                        self._proposal_staging.upload(self._build_proposals())
+                        if self._draft:
+                            # The chain writes the verify program's input.
+                            self._draft_propose_program.dispatch()
+                        else:
+                            self._proposal_staging.upload(self._build_proposals())
                         program, chunk_len = self._spec_program, 0
                     else:
                         if self._spec:
@@ -2042,6 +2372,9 @@ class Engine:
                         program, program.dispatch(), riders, chunk_len,
                         time.monotonic(),
                     )
+                    if self._draft and chunk_len:
+                        # Keep the draft cache in step with the chunk.
+                        self._draft_catchup_program.dispatch()
                 phases["decode"] = time.perf_counter() - t_dec
                 if self._overlap and not self._spec:
                     # Reap current next call. Speculation never overlaps:

@@ -2263,8 +2263,6 @@ _UNPORTED_FLAGS = (
      "multihost lockstep serving (ROADMAP A item 11)"),
     ("--quantization int8", lambda a: a.quantization == "int8",
      "int8 weights (ROADMAP A item 9)"),
-    ("--draft-url", lambda a: bool(a.draft_url),
-     "draft-model speculation (ROADMAP A item 10)"),
     ("--kv-spill-url", lambda a: bool(a.kv_spill_url),
      "KV spill to an object store (ROADMAP A item 9)"),
     ("--snapshot-url/--snapshot-dir/--snapshot-no-publish",
@@ -2324,13 +2322,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument(
         "--speculate", type=int, default=0,
         help="speculative-decoding window (0 = off); prompt-lookup "
-        "proposals",
+        "proposals unless --draft-url provides a draft model",
     )
     ap.add_argument(
         "--spec-adaptive", choices=["on", "off"], default="on",
         help="measure speculative vs chunk decode and run the faster",
     )
-    ap.add_argument("--draft-url", default="", help="not ported")
+    ap.add_argument(
+        "--draft-url", default="",
+        help="small SAME-FAMILY draft model whose chain proposes the "
+        "speculative window (requires --speculate > 0); any model URL "
+        "scheme --model-url accepts",
+    )
+    ap.add_argument(
+        "--draft-dir", default="", help="pre-downloaded draft cache dir"
+    )
     ap.add_argument(
         "--prefill-chunk", type=int, default=0,
         help="chunked prefill size (0 = whole-prompt bucketed prefill)",
@@ -2467,6 +2473,37 @@ def serve_transcriptions(args, params, model_cfg, model_dir: str, log) -> int:
     return 0
 
 
+def load_draft(args, family, arch: str, model_cfg, device, log) -> tuple:
+    """The --draft-url model as (config, params), loaded through the
+    port's loader onto the target's device in bf16. Exits when
+    --speculate is off, when the draft's family is not the target's, or
+    when its vocabulary is larger than the target's embedding table (a
+    proposal past the table would index out of range in the verify
+    window)."""
+    if args.speculate <= 0:
+        raise SystemExit("--draft-url requires --speculate > 0")
+    try:
+        draft_dir = resolve_model_dir(args.draft_url, args.draft_dir)
+        draft_hf = load_hf_config(draft_dir)
+        draft_arch = (draft_hf.get("architectures") or [arch])[0]
+        if get_model_family(draft_arch) is not family:
+            raise SystemExit(
+                f"draft model family ({draft_arch}) must match the "
+                f"target's ({arch})"
+            )
+        draft_cfg = family.config_from_hf(draft_hf)
+        if draft_cfg.vocab_size > model_cfg.vocab_size:
+            raise SystemExit(
+                f"draft vocabulary ({draft_cfg.vocab_size}) is larger than the "
+                f"target's embedding table ({model_cfg.vocab_size})"
+            )
+        draft_params = load_params(family.name, draft_dir, draft_cfg, device=device)
+    except (WeightLoadError, KeyError) as e:
+        raise SystemExit(f"cannot load draft {args.draft_url}: {e}") from e
+    log.info("loaded draft model (%s) from %s", draft_arch, draft_dir)
+    return draft_cfg, draft_params
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
@@ -2499,6 +2536,7 @@ def main(argv=None) -> int:
         raise SystemExit(f"cannot load {args.model_url}: {e}") from e
     if speech:
         return serve_transcriptions(args, params, model_cfg, model_dir, log)
+    draft = load_draft(args, family, arch, model_cfg, device, log) if args.draft_url else None
 
     shares: dict[str, float] = {}
     if args.queue_shares:
@@ -2525,7 +2563,7 @@ def main(argv=None) -> int:
         engine = Engine(
             family, model_cfg, params, cfg=engine_cfg,
             eos_token_ids=tuple(getattr(tokenizer, "eos_token_ids", ())),
-            scheduler=scheduler, device=device,
+            scheduler=scheduler, device=device, draft=draft,
         )
         engine.generate([[1, 2, 3]], warm)
     with tracker.phase("warmup"):

@@ -1,7 +1,8 @@
 """Gemma-family decoder (Gemma 1 and 2). Counterpart of
 kubeai_tpu/models/gemma.py: the whole-prompt `prefill`, `prefill_chunk`
-(one staged chunk of a long or prefix-cached prompt) and
-`decode_step_paged` in both layouts ("per_layer" and "fused").
+(one staged chunk of a long or prefix-cached prompt), `decode_step`
+against the slot cache (the engine's slot mode) and `decode_step_paged`
+in both layouts ("per_layer" and "fused").
 
 What differs from llama, all from the config:
   - the embedding is scaled by sqrt(hidden_size), in f32, then cast back
@@ -28,17 +29,18 @@ Attention: Gemma-1's prefill goes through ops.flash_attention
 .flash_causal_prefill (B2, which has a head_dim-256 build on the card).
 Gemma-2's prefill and every staged chunk attend through the plain
 ops.attention functions, which carry the softcap and the window, as the
-JAX version branches. Decode attention goes through
-paged_decode_attention (B1, "per_layer") or paged_decode_attention_fused
-(B4, "fused") with the layer's softcap and window: the layer loop is
-Python, so each layer passes its window as the int the wrappers take and
-a captured graph bakes it in. Int8 pools run per_layer only, as in the
+JAX version branches, and so does the slot-cache `decode_step` (the
+plain decode_attention, as the JAX version's jnp). Paged decode
+attention goes through paged_decode_attention (B1, "per_layer") or
+paged_decode_attention_fused (B4, "fused") with the layer's softcap and
+window: the layer loop is Python, so each layer passes its window as
+the int the wrappers take and a captured graph bakes it in. Int8 pools run per_layer only, as in the
 JAX version.
 
-Not here: the slot-cache `decode_step` (ROADMAP A item 10e), a verify
-forward (the JAX family has none: speculation falls back to vanilla
-decode) and LoRA (the JAX family takes adapters and ignores them; the
-port's engine refuses them, ROADMAP fault C10).
+Not here: a verify forward (the JAX family has none: speculation falls
+back to vanilla decode, and a draft model is refused) and LoRA (the JAX
+family takes adapters and ignores them; the port's engine refuses them,
+ROADMAP fault C10).
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from kubeai_tpu_torch.models.llama import _logits
 from kubeai_tpu_torch.ops.attention import (
     causal_prefill_attention,
     chunked_prefill_attention,
+    decode_attention,
 )
 from kubeai_tpu_torch.ops.flash_attention import flash_causal_prefill
 from kubeai_tpu_torch.ops.kv_quant import QuantizedPool
@@ -363,6 +366,40 @@ def prefill_chunk(
     idx = torch.clamp(length - 1 - start, 0, C - 1)
     last = x.index_select(1, idx.reshape(1))[:, 0]  # [1, E]
     return _final_logits(last, params, cfg), k_slot, v_slot
+
+
+def decode_step(
+    params: dict,
+    cfg: GemmaConfig,
+    tokens: torch.Tensor,  # [B] one token per slot
+    positions: torch.Tensor,  # [B] absolute position of each token
+    k_cache: torch.Tensor,  # [NL, B, L, KVH, D] slot cache (engine/kvcache.py)
+    v_cache: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step for every slot against the slot cache, as
+    llama.decode_step (the new token's K/V written into its slot row in
+    place, then the plain ops.attention.decode_attention over the row),
+    with each layer's softcap and window. Returns (f32 logits [B, V],
+    k_cache, v_cache)."""
+    B = tokens.shape[0]
+    dev = tokens.device
+    inv_freq = _inv_freq(cfg, dev)
+    x = _embed(params, cfg, tokens)  # [B, E]
+    lengths = positions + 1
+    slot_idx = torch.arange(B, device=dev)
+    for i, win in enumerate(cfg.layer_windows()):
+        lp = _layer(params, i)
+        q, k, v = _qkv(x[:, None], lp, cfg, positions[:, None], inv_freq)
+        kc, vc = k_cache[i], v_cache[i]  # [B, L, KVH, D]
+        kc[slot_idx, positions] = k[:, 0].to(kc.dtype)
+        vc[slot_idx, positions] = v[:, 0].to(vc.dtype)
+        attn = decode_attention(
+            q[:, 0], kc, vc, lengths,
+            logit_softcap=cfg.attn_logit_softcapping,
+            window=win if cfg.sliding_window else None,
+        )
+        x = _finish(x, attn, lp, cfg)
+    return _final_logits(x, params, cfg), k_cache, v_cache
 
 
 def decode_step_paged(

@@ -1,7 +1,9 @@
 """Llama-family decoder (Llama 2/3/3.1, Mistral, Qwen2 with q/k/v biases).
 Counterpart of kubeai_tpu/models/llama.py: the whole-prompt `prefill`,
 `prefill_chunk` (one staged chunk of a long or prefix-cached prompt),
-`decode_step_paged` in both layouts ("per_layer" and "fused"), the
+`decode_step` against the slot cache (engine/kvcache.py: the engine's
+slot mode and the draft model's proposals), `decode_step_paged` in both
+layouts ("per_layer" and "fused"), the
 speculative verify forward `decode_verify_paged`, and the embedding
 forward `hidden_states` (`_trunk` over `trunk_layer`: mean-pooled,
 L2-normalized final hidden states, the TextEmbedding feature).
@@ -28,8 +30,10 @@ jnp.einsum outside any Pallas kernel.
 Prefill and trunk attention go through ops.flash_attention.flash_causal_prefill
 for every bucket (the CUDA kernel on the card); a staged chunk attends
 through the plain ops.attention.chunked_prefill_attention, as the JAX
-version's chunk does (plain jnp there, no Pallas kernel). Decode attention goes
-through ops.paged_attention, once per layer per step:
+version's chunk does (plain jnp there, no Pallas kernel), and so does
+the slot-cache `decode_step` (plain ops.attention.decode_attention).
+Paged decode attention goes through ops.paged_attention, once per layer
+per step:
 paged_decode_attention ("per_layer"), paged_decode_attention_fused
 ("fused"), or paged_verify_attention for a speculative window. The
 per_layer decode also takes int8 pools (ops/kv_quant.py): the new token
@@ -46,7 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from kubeai_tpu_torch.device import resolve_device
-from kubeai_tpu_torch.ops.attention import chunked_prefill_attention
+from kubeai_tpu_torch.ops.attention import chunked_prefill_attention, decode_attention
 from kubeai_tpu_torch.ops.flash_attention import flash_causal_prefill
 from kubeai_tpu_torch.ops.kv_quant import QuantizedPool
 from kubeai_tpu_torch.ops.norms import rms_norm
@@ -498,6 +502,46 @@ def _decode_layer_finish(x, attn, lp, proj, cfg):
     x = x + proj(attn.reshape(B, H * D), lp["wo"], "wo")
     h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
     return x + _mlp(h2, lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
+def decode_step(
+    params: dict,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [B] one token per slot
+    positions: torch.Tensor,  # [B] absolute position of each token
+    k_cache: torch.Tensor,  # [NL, B, L, KVH, D] slot cache (engine/kvcache.py)
+    v_cache: torch.Tensor,
+    lora: dict | None = None,
+    lora_idx: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step for every slot against the slot cache: each
+    layer writes the new token's K/V into its slot row at its position
+    (in place), then attends over the row through the plain
+    ops.attention.decode_attention, as the JAX version's jnp does (it
+    reaches no Pallas kernel). The engine's slot mode and the draft
+    model's proposals run here. Returns (f32 logits [B, V], k_cache,
+    v_cache)."""
+    _check_weights(params)
+    B = tokens.shape[0]
+    dev = tokens.device
+    inv_freq, msc = _rope_tables(cfg, dev)
+    lora_idx = _lora_rows(lora, lora_idx, B, dev)
+    x = params["embed"][tokens]  # [B, E]
+    lengths = positions + 1  # the valid length, the new token included
+    slot_idx = torch.arange(B, device=dev)
+    for i in range(cfg.num_layers):
+        lp = _layer(params, i)
+        q, k, v, proj = _decode_layer_qkv(
+            x, lp, _layer_lora(lora, i), cfg, inv_freq, msc,
+            positions[:, None], lora_idx,
+        )
+        kc, vc = k_cache[i], v_cache[i]  # [B, L, KVH, D]
+        kc[slot_idx, positions] = k.to(kc.dtype)
+        vc[slot_idx, positions] = v.to(vc.dtype)
+        attn = decode_attention(q, kc, vc, lengths)
+        x = _decode_layer_finish(x, attn, lp, proj, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return _logits(x, params["lm_head"]), k_cache, v_cache
 
 
 def _paged_decode_layer(

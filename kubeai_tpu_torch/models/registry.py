@@ -25,6 +25,9 @@ class ModelFamily:
     # The slot engine's forwards (None for a family the engine does not
     # serve, as whisper).
     prefill: Callable | None = None
+    # One decode step against the slot cache (engine/kvcache.py): the
+    # engine's slot mode and a draft model's proposals.
+    decode_step: Callable | None = None
     decode_step_paged: Callable | None = None
     # Multi-position verify forward for speculative decoding (None =
     # speculation unsupported for this family).
@@ -79,6 +82,7 @@ def _ensure_builtin() -> None:
             tiny_config=llama.LlamaConfig.tiny,
             init_params=llama.init_params,
             prefill=llama.prefill,
+            decode_step=llama.decode_step,
             decode_step_paged=llama.decode_step_paged,
             decode_verify_paged=llama.decode_verify_paged,
             prefill_chunk=llama.prefill_chunk,
@@ -98,6 +102,7 @@ def _ensure_builtin() -> None:
             ),
             init_params=llama.init_params,
             prefill=llama.prefill,
+            decode_step=llama.decode_step,
             decode_step_paged=llama.decode_step_paged,
             decode_verify_paged=llama.decode_verify_paged,
             # The chunk carries the q/k/v biases too.
@@ -108,7 +113,7 @@ def _ensure_builtin() -> None:
         )
     )
     # No verify forward, as in the JAX package: speculate > 0 runs vanilla
-    # decode. No adapters (ROADMAP fault C10).
+    # decode and a draft model is refused. No adapters (ROADMAP fault C10).
     register_model_family(
         ModelFamily(
             "gemma",
@@ -116,6 +121,7 @@ def _ensure_builtin() -> None:
             tiny_config=gemma.GemmaConfig.tiny,
             init_params=gemma.init_params,
             prefill=gemma.prefill,
+            decode_step=gemma.decode_step,
             decode_step_paged=gemma.decode_step_paged,
             prefill_chunk=gemma.prefill_chunk,
             hf_architectures=("GemmaForCausalLM", "Gemma2ForCausalLM"),

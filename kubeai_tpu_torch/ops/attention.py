@@ -120,9 +120,11 @@ def decode_attention(
     l_pos = torch.arange(k_cache.shape[1], device=q.device)
     lengths = lengths.to(q.device)
     mask = l_pos[None, :] < lengths[:, None]  # [B, L]
-    if window is not None:
-        win = _window_tensor(window, q.device)
-        mask = mask & ((win <= 0) | (l_pos[None, :] >= lengths[:, None] - win))
+    # The new token sits at lengths - 1: a key is in the window when its
+    # distance from it is below the window.
+    in_window = _in_window((lengths[:, None] - 1) - l_pos[None, :], window)
+    if in_window is not None:
+        mask = mask & in_window
     logits = torch.where(mask[:, None, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgl,blkd->bkgd", probs, v_cache.float())

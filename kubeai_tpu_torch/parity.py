@@ -14,6 +14,11 @@ ml_dtypes bfloat16) are taken bit for bit.
 tree: adapter-major [n, NL, ...] buffers become the port's layer-major
 [NL, n, ...] ones.
 
+`slot_cache_from_numpy` turns the K and V arrays of a JAX
+`kvcache.KVCache` ([NL, slots, max_len, KVH, D]) into the port's
+engine/kvcache.KVCache; a draft model's parameters go through
+`params_from_numpy` like any other.
+
 `whisper_params_from_numpy` carries the JAX `whisper.init_params` (or
 `load_whisper_params`) tree across: the same nested dicts, with the
 encoder and decoder layers as lists of layer dicts.
@@ -86,3 +91,17 @@ def whisper_params_from_numpy(
     if isinstance(tree, (list, tuple)):
         return [whisper_params_from_numpy(v, device, dtype) for v in tree]
     return _tensor(tree, device, dtype)
+
+
+def slot_cache_from_numpy(
+    k,
+    v,
+    device: str | torch.device = "cpu",
+    dtype: torch.dtype | None = None,
+):
+    """numpy K and V slot-cache arrays [NL, slots, max_len, KVH, D] ->
+    the port's KVCache on `device`, cast to `dtype` when given."""
+    from kubeai_tpu_torch.engine.kvcache import KVCache
+
+    return KVCache(k=_tensor(k, device, dtype).contiguous(),
+                   v=_tensor(v, device, dtype).contiguous())

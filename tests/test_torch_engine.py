@@ -115,6 +115,20 @@ def test_stop_token_and_length_finish(models):
     (dict(cache_mode="slot"), "A13"),
 ], ids=["kw0-A12", "kw2-A13"])  # the ids they had beside the LoRA case
 def test_unported_settings_raise(models, kw, item):
+    """int8 weights raise naming their ROADMAP item. The slot cache (A13)
+    was refused until the port took it: it now builds and serves the JAX
+    slot engine's greedy streams (tests/test_torch_slot_cache.py holds
+    the rest)."""
+    if kw.get("cache_mode") == "slot":
+        jcfg, jparams, _, _ = models
+        sp = SAMPLING["greedy"]
+        want = JEngine("llama", jcfg, jparams, cfg=JEngineConfig(
+            cache_dtype=jnp.float32, step_overlap="off", **BASE, **kw)).generate(
+            _prompts()["mixed"], JSamplingParams(**sp))
+        eng = _torch_engine(models, **kw)
+        assert eng.cache_mode == "slot"
+        assert eng.generate(_prompts()["mixed"], SamplingParams(**sp)) == want
+        return
     with pytest.raises(NotImplementedError, match=item):
         _torch_engine(models, **kw)
 
@@ -314,10 +328,21 @@ def test_decode_kernel_env_override_matches_jax(models, monkeypatch):
 
 
 def test_draft_and_int8_refusals(models):
-    _, _, tcfg, tparams = models
-    with pytest.raises(NotImplementedError, match="A13"):
-        Engine("llama", tcfg, tparams, cfg=EngineConfig(**BASE, speculate=3),
-               draft=(tcfg, tparams), device="cpu")
+    """A draft model was refused (ROADMAP A13) until the port took it: the
+    target as its own draft now serves the JAX draft engine's greedy
+    streams and spec_stats (tests/test_torch_draft_spec.py holds the
+    rest). kv_dtype="int8" is refused with speculation and with the fused
+    layout, as the JAX engine refuses it."""
+    jcfg, jparams, tcfg, tparams = models
+    kw = dict(cache_dtype=jnp.float32, step_overlap="off", **BASE, speculate=3,
+              spec_adaptive=False)
+    prompts, sp = _prompts()["mixed"], SAMPLING["greedy"]
+    jeng = JEngine("llama", jcfg, jparams, cfg=JEngineConfig(**kw), draft=(jcfg, jparams))
+    want = jeng.generate(prompts, JSamplingParams(**sp))
+    eng = Engine("llama", tcfg, tparams, cfg=EngineConfig(
+        **{**kw, "cache_dtype": torch.float32}), draft=(tcfg, tparams), device="cpu")
+    assert eng.generate(prompts, SamplingParams(**sp)) == want
+    assert eng.spec_stats == jeng.spec_stats
     # kv_dtype="int8" is refused as the JAX engine refuses it.
     with pytest.raises(ValueError, match="speculative"):
         _torch_engine(models, kv_dtype="int8", speculate=2)

@@ -706,11 +706,51 @@ def test_main_serves_a_checkpoint_and_drains_on_sigterm(checkpoints, tmp_path, c
     (["--snapshot-dir", "/snapshots"], 9),
     (["--snapshot-no-publish"], 9),
 ], ids=lambda v: v if isinstance(v, int) else "_".join(v).lstrip("-"))
-def test_main_refuses_unported_flags(checkpoints, argv, item):
+def test_main_refuses_unported_flags(checkpoints, monkeypatch, argv, item):
+    """Each unported flag exits naming its ROADMAP item. --draft-url was
+    one of them until the port took draft-model speculation: with
+    --speculate 2, main now loads the draft (here pvc://models/draft
+    resolves to a local checkpoint through --draft-dir) and builds a draft
+    engine, which serves the warm-up."""
     model_dir, _ = checkpoints["llama-safetensors"]
+    if argv[0] == "--draft-url":
+        from kubeai_tpu_torch.engine import server as server_mod
+
+        built = {}
+
+        def capture(engine, tokenizer, name, **kw):
+            built["engine"] = engine
+            raise _ServerBuilt
+
+        monkeypatch.setattr(server_mod, "EngineServer", capture)
+        draft_dir, _ = checkpoints["llama-bin"]
+        with pytest.raises(_ServerBuilt):
+            main(["--model-url", model_dir, "--device", "cpu", "--num-slots", "2",
+                  "--max-seq-len", "128", "--speculate", "2", "--spec-adaptive", "off",
+                  *argv, "--draft-dir", draft_dir])
+        engine = built["engine"]
+        assert engine._draft and engine._spec == 2
+        assert engine._draft_cfg == engine.model_cfg
+        assert engine.spec_stats["windows"] > 0  # the warm-up went through the draft
+        return
     with pytest.raises(SystemExit) as e:
         main(["--model-url", model_dir, "--device", "cpu", *argv])
     assert isinstance(e.value.code, str) and f"ROADMAP A item {item}" in e.value.code
+
+
+@pytest.mark.parametrize("argv,words", [
+    ([], "--draft-url requires --speculate > 0"),
+    (["--speculate", "2"], "must match the target's"),
+], ids=["no-speculate", "other-family"])
+def test_main_refuses_draft_as_jax(checkpoints, argv, words):
+    """--draft-url without --speculate, and a draft of another family (a
+    qwen draft for a llama target), exit as the JAX entry point does."""
+    model_dir, _ = checkpoints["llama-safetensors"]
+    draft_dir, _ = checkpoints["qwen-safetensors"]
+    with pytest.raises(SystemExit) as e:
+        main(["--model-url", model_dir, "--device", "cpu", "--num-slots", "2",
+              "--max-seq-len", "128", "--draft-url", draft_dir, *argv])
+    assert isinstance(e.value.code, str) and words in e.value.code
 
 
 class _ServerBuilt(Exception):
