@@ -55,7 +55,16 @@ Phases, each fatal on failure:
                `check_draft_heads`, the draft model's prefill): B2 at B=1
                over S 512 and 2048 and B=8 at 128, timed beside SDPA and
                the bound, the same bits from two calls and a graph replay
-               (an entry of its own in the kernels line, B=1 S=512);
+               (an entry of its own in the kernels line, B=1 S=512).
+               The W8A16 GEMM of int8 weights (`check_int8_gemm`, an
+               entry of its own, M=8 at w_gate's shape): Llama-3-8B's four
+               weight shapes at M 1, 8, 37, 40, 96, 512 and 4096 against
+               the plain version (GEMM_ATOL / GEMM_RTOL), timed from a
+               graph of 20 calls beside the plain version, cuBLAS on the
+               dequantized bf16 weight and the bound; a dead channel
+               exactly 0; Qwen2.5-0.5B's shapes; the same bits from two
+               calls and a graph replay on both kernels; registers and
+               spills;
   3. model   — a small model (head_dim 128) on the card through the kernels
                against the same weights in f32 on the CPU through the plain
                versions: prefill, paged-decode (both layouts) and
@@ -78,7 +87,16 @@ Phases, each fatal on failure:
                time by kernel; the graph pools' memory and the step
                profiler's phase totals are printed. After the per_layer run
                it times one prefill admission at B=1 for the 512 and 1024
-               buckets, with B2's device ms and launches. A fourth run
+               buckets, with B2's device ms and launches. Then
+               `serve_int8_weights` quantizes the same weights on the
+               card (int8 layer weights, GiB before and after) and serves
+               the three layouts again with quantization="int8": the
+               W8A16 kernel must launch 7 x 32 times a model step in every
+               replay, every stream must equal an eager engine's on the
+               int8 weights; each step is profiled beside its bf16 one
+               with the weight GEMMs' shares, the greedy streams'
+               agreement with bf16 is reported, and one 512-bucket
+               prefill is profiled on bf16 and int8 weights. A fourth run
                (`serve_prefix`) turns on chunked prefill (prefill_chunk=512)
                and the prefix cache and sends two waves of chat requests
                over one 1,024-token system prompt: B1 and B2 must launch,
@@ -192,12 +210,12 @@ Phases, each fatal on failure:
                decode step is profiled from its graph in each run
                (eagerly too per_layer);
   4c. serve_gemma1 — `serve_gemma(GEMMA_7B, ...)`: Gemma-1 on random
-               Gemma-7B-shape weights, all 28
+               Gemma-7B-shape weights, GEMMA_7B_LAYERS (14) of its 28
                layers (16 heads over 16 kv heads at head_dim 256, no
                softcap, no window), the same four requests and config:
                per_layer (B1 at G=1), fused (B4) and on int8 pools
                (B1-int8 at G=1, with the int8 gates), where B2 at head_dim
-               256 must launch 28 times in every prefill admission, then
+               256 must launch once a layer in every prefill admission, then
                the prefix run; every stream equal to an eager engine's,
                hits by the rule; the decode step from its graph and B2's
                device ms in one 8192-bucket admission;
@@ -229,11 +247,12 @@ Phases, each fatal on failure:
   5. serve_cli — the engine Pod's entry point: a random-weight Llama
                checkpoint at Llama-3-8B width (4 layers, bf16) written with
                `weights.save_safetensors`, served by `python -m
-               kubeai_tpu_torch.engine.server` in a subprocess four times
+               kubeai_tpu_torch.engine.server` in a subprocess five times
                (default, `--speculate 4`, the fused layout through
-               KUBEAI_TPU_DECODE_KERNEL, and `--speculate 4 --draft-url`
+               KUBEAI_TPU_DECODE_KERNEL, `--speculate 4 --draft-url`
                with a 2-layer draft checkpoint at the same width written
-               beside it); each run: the four chat requests
+               beside it, and `--quantization int8`, which must log the
+               weights' GiB); each run: the four chat requests
                of the serve runs (one streamed), /metrics and /v1/state,
                /v1/drain and SIGTERM, which must exit 0 within the drain
                budget. The same checkpoint loaded in-process through
@@ -316,7 +335,8 @@ FUSED_RTOL = 1e-2
 # f32 accumulator; rounding the logits to bf16 would move them by about
 # 2^-9 of their size (~1e-3 here).
 LOGITS_ATOL = 1e-4
-# Kernel name -> (its CUDA source, the TPU kernel's pallas_call it replaces).
+# Kernel name -> (its CUDA source, the TPU kernel's pallas_call it replaces,
+# or for the W8A16 GEMM the JAX line whose fused dequantize it stands for).
 KERNELS = {
     "paged_decode_attention": (
         "kubeai_tpu_torch/csrc/paged_decode.cu",
@@ -372,6 +392,13 @@ KERNELS = {
     "paged_decode_attention_int8_d256": (
         "kubeai_tpu_torch/csrc/paged_decode.cu",
         "kubeai_tpu/ops/paged_attention.py:309",
+    ),
+    # The W8A16 GEMM of int8 weights, which serve_int8_weights drives. Not
+    # a pallas_call: it stands for XLA's fused dequantize-into-dot, `_w`
+    # in the JAX llama forward.
+    "int8_linear": (
+        "kubeai_tpu_torch/csrc/w8a16_gemm.cu",
+        "kubeai_tpu/models/llama.py:39",
     ),
 }
 
@@ -1607,6 +1634,127 @@ def check_draft_heads() -> dict:
     return main
 
 
+# ---- the W8A16 GEMM (int8 weights) ------------------------------------------
+
+# W8A16 GEMM against its plain version, both on the card in bf16 on the same
+# int8 weights and scales: each weight is formed as the same bf16 value, so
+# the two differ only in the order of the f32 sums and in where each bf16
+# output rounds: one bf16 step of the output (2^-8 to 2^-7 of it, under
+# GEMM_RTOL), plus the sum order and cuBLAS's split-K rounding near zero
+# (under GEMM_ATOL; the outputs are O(1)). A misplaced fragment or a wrong
+# scale moves outputs by O(1).
+GEMM_ATOL = 1e-2
+GEMM_RTOL = 1e-2
+# (K, N) of Llama-3-8B's four layer-weight shapes: wq and wo, wk and wv,
+# w_gate and w_up, w_down; then Qwen2.5-0.5B's (E=896, KVH*D=128, FFN 4864).
+GEMM_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+QWEN_GEMM_SHAPES = ((896, 896), (896, 128), (896, 4864), (4864, 896))
+# Rows: one slot, a decode step of 8 slots, ragged 37, a verify window of
+# 8 x 5, a prefill of 96 rows, the 512 bucket, a batch of 4 x 1024.
+GEMM_ROWS = (1, 8, 37, 40, 96, 512, 4096)
+
+
+def _int8_leaf(K: int, N: int, gen, dead: int | None = None) -> dict:
+    """A quantized [K, N] leaf (quantization.quantize_tensor, N-major, on
+    the card) of weights drawn at the smoke's scale (0.02); channel `dead`
+    all zero (its scale at the 1e-8 floor)."""
+    import torch
+
+    from kubeai_tpu_torch.engine.quantization import quantize_tensor
+
+    w = (torch.randn(K, N, generator=gen) * 0.02).to("cuda", torch.bfloat16)
+    if dead is not None:
+        w[:, dead] = 0
+    return quantize_tensor(w)
+
+
+def _gemm_case(M: int, K: int, N: int, leaf: dict, gen, timed: bool) -> dict:
+    """One W8A16 case: the kernel against the plain version on the card at
+    GEMM_ATOL / GEMM_RTOL, and against an f32 product of the same operands
+    (reported); with `timed`, the kernel's ms from a CUDA graph of 20
+    calls and eagerly, the plain version's, cuBLAS's (torch.matmul on a
+    bf16 copy of the dequantized weight, from a graph) and the bound."""
+    import torch
+
+    from kubeai_tpu_torch.ops.int8_matmul import dequantize_as, int8_linear
+
+    x = torch.randn(M, K, generator=gen).to("cuda", torch.bfloat16)
+    plain = lambda: torch.matmul(x, dequantize_as(leaf, torch.bfloat16))  # noqa: E731
+    got = int8_linear(x, leaf)
+    torch.cuda.synchronize()
+    deq = dequantize_as(leaf, torch.bfloat16)
+    err = compare(f"int8_linear M={M} K={K} N={N}", got, plain(), GEMM_ATOL, GEMM_RTOL)
+    ref32 = x.float() @ deq.float()
+    err32 = float((got.float() - ref32).abs().max())
+    line = dict(max_abs_err=err, max_abs_err_f32=err32)
+    if timed:
+        call = lambda: int8_linear(x, leaf)  # noqa: E731
+        line.update(ms=graph_ms(call), eager_ms=cuda_ms(call), plain_ms=cuda_ms(plain))
+        line["library_ms"] = graph_ms(lambda: torch.matmul(x, deq))
+        nbytes = K * N + 4 * N + 2 * M * K + 2 * M * N
+        flops = 2.0 * M * K * N
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_flops = flops / PEAK_BF16_FLOPS * 1e3
+        line.update(bound_ms=max(t_bytes, t_flops),
+                    bound_by="operations" if t_flops >= t_bytes else "bytes",
+                    weight_gb_s=K * N / line["ms"] * 1e-6, tflops=flops / line["ms"] * 1e-9)
+    print(f"kernel int8_linear M={M} K={K} N={N} {json.dumps(line)}", flush=True)
+    return line
+
+
+def check_int8_gemm() -> dict:
+    """The W8A16 GEMM (`ops.int8_matmul.int8_linear`, csrc/w8a16_gemm.cu):
+    at Llama-3-8B's four weight shapes for every M of GEMM_ROWS, timed
+    (`_gemm_case`); a dead output channel (scale at the 1e-8 floor) that
+    must come out exactly 0; Qwen2.5-0.5B's four shapes at M 8 and 512; two
+    calls and a graph replay that must give the same bits on each kernel
+    (skinny at M=8, tiled at M=512); f32 activations and a weight not
+    packed N-major must raise; registers and spills. Returns the decode
+    step's w_gate line (M=8, K=4096, N=14336) for the kernels line."""
+    import torch
+
+    from kubeai_tpu_torch.ops.int8_matmul import int8_linear
+
+    gen = torch.Generator().manual_seed(81)
+    main = None
+    for K, N in GEMM_SHAPES:
+        leaf = _int8_leaf(K, N, gen)
+        for M in GEMM_ROWS:
+            line = _gemm_case(M, K, N, leaf, gen, timed=True)
+            if (M, K, N) == (8, 4096, 14336):
+                main = line
+        del leaf
+        torch.cuda.empty_cache()
+    leaf = _int8_leaf(4096, 1024, gen, dead=77)
+    if float(leaf["scale"].reshape(-1)[77]) != torch.tensor(1e-8).item():
+        fail("int8_linear: the dead channel's scale is not the 1e-8 floor")
+    for M in (8, 512):
+        x = torch.randn(M, 4096, generator=gen).to("cuda", torch.bfloat16)
+        out = int8_linear(x, leaf)
+        if out[:, 77].any():
+            fail(f"int8_linear M={M}: the dead channel is not exactly 0")
+        _same_bits(f"int8_linear M={M}", lambda: int8_linear(x, leaf))
+        _gemm_case(M, 4096, 1024, leaf, gen, timed=False)
+    for exc, bad in ((TypeError, lambda: int8_linear(x.float(), leaf)),
+                     (ValueError, lambda: int8_linear(x, {
+                         "w8": leaf["w8"].contiguous(), "scale": leaf["scale"]}))):
+        try:
+            bad()
+        except exc as e:
+            print(f"int8_linear refuses: {e}", flush=True)
+        else:
+            fail(f"int8_linear did not raise {exc.__name__}")
+    for K, N in QWEN_GEMM_SHAPES:
+        leaf = _int8_leaf(K, N, gen)
+        for M in (8, 512):
+            _gemm_case(M, K, N, leaf, gen, timed=False)
+    del leaf
+    torch.cuda.empty_cache()
+    check_ptxas("w8a16_gemm.cu")
+    print(f"int8_linear checked; card: {gpu_line()}", flush=True)
+    return main
+
+
 def check_head_dim_256() -> dict:
     """B1, B4 and B1-int8 at head_dim 256 (Gemma), which no Llama shape
     runs: at Gemma-2-9B's shape (B=8, H=16, KVH=8, page 64, ragged lengths
@@ -2116,6 +2264,7 @@ def phase_kernels() -> dict:
     measured["flash_causal_prefill_d64_g4"] = check_draft_heads()
     measured.update(check_head_dim_256())
     measured["flash_causal_prefill_d256"] = check_flash_prefill_d256()
+    measured["int8_linear"] = check_int8_gemm()
     return measured
 
 
@@ -2697,7 +2846,7 @@ def phase_serve() -> dict:
         launches[name] = run["launches"][name]
     check_streams_equal_eager(params, cfg, "per_layer", run, **extra)
     base = {i: run["streams"][rid] for i, rid in run["rid_of"].items()}
-    profile_program(run["engine"], "decode step", "decode chunk")
+    bf16 = {"per_layer": profile_program(run["engine"], "decode step", "decode chunk")}
     profile_prefill(params, cfg)
     free(run)
     print(f"phase serve per_layer: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -2716,7 +2865,7 @@ def phase_serve() -> dict:
           f"{stats['accepted'] / max(1, stats['proposed']):.4f}", flush=True)
     check_streams_equal_eager(params, cfg, "speculate", run, **extra)
     report_agreement("speculate", base, run)
-    profile_program(run["engine"], "verify window", "verify window")
+    bf16["speculate"] = profile_program(run["engine"], "verify window", "verify window")
     free(run)
     print(f"phase serve speculate: {time.perf_counter() - t0:.2f} s", flush=True)
     # Run 3: the fused layout. B4 launches, B1 does not.
@@ -2730,9 +2879,12 @@ def phase_serve() -> dict:
     launches["paged_decode_attention_fused"] = run["launches"]["paged_decode_attention_fused"]
     check_streams_equal_eager(params, cfg, "fused", run, **extra)
     report_agreement("fused", base, run)
-    profile_program(run["engine"], "fused decode step", "decode chunk")
+    bf16["fused"] = profile_program(run["engine"], "fused decode step", "decode chunk")
     free(run)
     print(f"phase serve fused: {time.perf_counter() - t0:.2f} s", flush=True)
+    # The same three runs on int8 layer weights (the W8A16 kernel).
+    launches["int8_linear"] = timed("serve_int8_weights", serve_int8_weights, params, cfg,
+                                    bf16, base)
     # Run 4: chunked prefill and the prefix cache. B1 and B2 launch.
     timed("serve_prefix", serve_prefix, params, cfg)
     # Run 5: the 8B (as Llama-3.1) with a Llama-3.2-1B draft. B3 and B2
@@ -2761,6 +2913,128 @@ def phase_serve() -> dict:
     # hot swap under the captured graphs.
     timed("serve_lora", serve_lora, params, cfg, bf16_step, bf16_verify)
     return launches
+
+
+# ---- serve_int8_weights: int8 layer weights on the 8B -----------------------------
+
+# The catalog's llama-3.1-8b-instruct-int8-tpu (catalog/models.yaml:193-201)
+# runs `--quantization int8`: the smoke's 32-layer 8B weights quantized on
+# the card, served in each layout (label, EngineConfig additions, the
+# attention kernel that must launch, the device program profiled).
+INT8_WEIGHT_RUNS = (
+    ("per_layer", dict(decode_kernel="per_layer"), "paged_decode_attention", "decode chunk"),
+    ("fused", dict(decode_kernel="fused"), "paged_decode_attention_fused", "decode chunk"),
+    ("speculate", dict(decode_kernel="per_layer", speculate=4, spec_adaptive=False),
+     "paged_verify_attention", "verify window"),
+)
+# Name fragments of the library's GEMM kernels in a profile (cuBLAS on
+# Hopper: nvjet; older builds: gemm, xmma, cutlass).
+LIBRARY_GEMMS = ("nvjet", "gemm", "xmma", "cutlass")
+
+
+def weight_gemms(prof: dict) -> str:
+    """The W8A16 kernels' and the library GEMMs' device ms per unit of a
+    profile, and their shares of its device time."""
+    rows, steps = prof["rows"], prof["steps"]
+    total = sum(getattr(e, "self_device_time_total", 0) for e in rows) or 1
+    w8 = sum(getattr(e, "self_device_time_total", 0) for e in rows if "w8a16" in e.key)
+    lib = sum(getattr(e, "self_device_time_total", 0) for e in rows
+              if "w8a16" not in e.key and any(k in e.key.lower() for k in LIBRARY_GEMMS))
+    return (f"W8A16 {w8 / 1e3 / steps:.4f} ms ({w8 / total:.3f}), library GEMMs "
+            f"{lib / 1e3 / steps:.4f} ms ({lib / total:.3f})")
+
+
+def serve_int8_weights(params, cfg, bf16: dict, base: dict) -> int:
+    """The 32-layer 8B on int8 layer weights (quantization="int8",
+    `quantization.quantize_params` on the card): weights' GiB before and
+    after, then a serve run (graphs and overlap, the four default chat
+    requests) per INT8_WEIGHT_RUNS. Gates: int8_linear (the W8A16 kernel)
+    launches, 7 x 32 times a model step in each replay (x decode_chunk in
+    the decode chunk, once a verify window), B2 in the admissions and each
+    layout's attention kernel; B1 never in the fused and speculative runs;
+    every stream equals an eager synchronous engine's on the same int8
+    weights. Reports each run's step (decode step or verify window) from
+    its graph, wall and device ms, beside the bf16 one of the same smoke
+    (`bf16`), the weight GEMMs' share of it, and the greedy streams'
+    agreement with the bf16 per_layer run's (`base`; random weights give
+    flat logits, so not a gate); then one prefill at the 512 bucket on
+    bf16 and on int8 weights, profiled. Returns int8_linear's launches on
+    the main path (the per_layer run)."""
+    import torch
+
+    from kubeai_tpu_torch.engine.quantization import quantize_params, weight_bytes
+    from kubeai_tpu_torch.models import llama
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = quantize_params(params)
+    torch.cuda.synchronize()
+    print(f"serve int8 weights: quantized on the card in {time.perf_counter() - t0:.2f} s; "
+          f"weights {weight_bytes(params) / 2**30:.3f} GiB in bf16, "
+          f"{weight_bytes(qparams) / 2**30:.3f} GiB with int8 layer weights", flush=True)
+    per_model_step = 7 * cfg.num_layers
+    launches = 0
+    for label, extra, attn, program in INT8_WEIGHT_RUNS:
+        tag = f"int8 weights {label}"
+        extra = dict(extra, quantization="int8")
+        run = serve_run(qparams, cfg, tag, **extra)
+        got = run["launches"]
+        engine = run["engine"]
+        for name in ("int8_linear", "flash_causal_prefill", attn):
+            if got[name] <= 0:
+                fail(f"serve {tag}: main path never launched {name}")
+        if label != "per_layer" and got["paged_decode_attention"]:
+            fail(f"serve {tag}: paged_decode_attention launched")
+        steps = engine.cfg.decode_chunk if program == "decode chunk" else 1
+        per_replay = _programs(engine)[program].launches_per_replay.get("int8_linear", 0)
+        if per_replay != per_model_step * steps:
+            fail(f"serve {tag}: int8_linear launches {per_replay} times a {program} replay, "
+                 f"not {per_model_step} x {steps}")
+        print(f"serve {tag}: int8_linear {per_replay} launches a {program} replay "
+              f"({per_model_step} a model step), {got['int8_linear']} in the run", flush=True)
+        check_streams_equal_eager(qparams, cfg, tag, run, **extra)
+        report_agreement(tag, base, run, against="the bf16 per_layer run's")
+        unit = "decode step" if program == "decode chunk" else "verify window"
+        step = profile_program(engine, f"int8-weight {label} {unit}", program)
+        ref = bf16[label]
+        print(f"serve {tag} {unit} from its graph: wall {step['wall_ms']:.3f} ms, device "
+              f"{step['device_ms']:.3f} ms; bf16 weights in this smoke: wall "
+              f"{ref['wall_ms']:.3f} ms, device {ref['device_ms']:.3f} ms; weight GEMMs: "
+              f"int8 {weight_gemms(step)}; bf16 {weight_gemms(ref)}", flush=True)
+        if label == "per_layer":
+            launches = got["int8_linear"]
+        del engine
+        free(run)
+    gen = torch.Generator("cuda").manual_seed(12)
+    toks = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen, device="cuda")
+    lengths = torch.tensor([512], device="cuda")
+    for name, p in (("bf16", params), ("int8", qparams)):
+        prof = profile(None, f"{name}-weight prefill S=512",
+                       lambda _, p=p: llama.prefill(p, cfg, toks, lengths), e_steps=1, calls=1)
+        print(f"profile {name}-weight prefill S=512 weight GEMMs: {weight_gemms(prof)}",
+              flush=True)
+    del qparams
+    free({})
+    print(f"serve int8 weights card: {gpu_line()}", flush=True)
+    return launches
+
+
+def serve_int8_weights_alone() -> int:
+    """serve_int8_weights with what it compares against, as phase_serve
+    runs it: random 8B weights, the bf16 per_layer, fused and speculate=4
+    serve runs with each step profiled from its graph, then the int8
+    runs. Not part of the smoke's own run (phase_serve calls
+    serve_int8_weights itself)."""
+    params, cfg = serve_weights()
+    bf16, base = {}, {}
+    for label, extra, _, program in INT8_WEIGHT_RUNS:
+        run = serve_run(params, cfg, label, **extra)
+        if label == "per_layer":
+            base = {i: run["streams"][rid] for i, rid in run["rid_of"].items()}
+        unit = "decode step" if program == "decode chunk" else "verify window"
+        bf16[label] = profile_program(run["engine"], f"{label} {unit}", program)
+        free(run)
+    return timed("serve_int8_weights", serve_int8_weights, params, cfg, bf16, base)
 
 
 # ---- serve_draft: an 8B target with a 1B draft -----------------------------------
@@ -4647,7 +4921,8 @@ def profile_program(engine, unit: str, program: str, calls: int | None = None,
     torch.profiler does not see the kernels inside a replay, the device
     time is the CUDA-event span. Returns the graph's wall and device ms
     per `unit` and the kernel launches per `unit` (from the eager profile:
-    the same kernels a replay runs; from the graph's without `eager`)."""
+    the same kernels a replay runs; from the graph's without `eager`), and
+    that profile's device rows and the units they cover."""
     prog = _programs(engine)[program]
     e_steps = engine._chunk_out.shape[0] if program == "decode chunk" else 1
     calls = calls or (1 if program == "decode chunk" else 2)
@@ -4671,7 +4946,8 @@ def profile_program(engine, unit: str, program: str, calls: int | None = None,
               f"{max(0.0, 1 - device / graph['wall_ms']):.3f}; graph pool "
               f"{prog.pool_bytes / 2**20:.2f} MiB", flush=True)
         kernels = sum(e.count for e in graph["rows"]) / graph["steps"]
-        return {"wall_ms": graph["wall_ms"], "device_ms": device, "kernels": kernels}
+        return {"wall_ms": graph["wall_ms"], "device_ms": device, "kernels": kernels,
+                "rows": graph["rows"], "steps": graph["steps"]}
     eager_run = profile(engine, f"{unit} eager", run_eager, e_steps, calls)
     if eager_run["device_ms"] <= 0:
         fail(f"profile {unit}: torch.profiler recorded no device kernels")
@@ -4687,7 +4963,8 @@ def profile_program(engine, unit: str, program: str, calls: int | None = None,
           f"{max(0.0, 1 - eager_run['device_ms'] / eager_run['wall_ms']):.3f}; graph pool "
           f"{prog.pool_bytes / 2**20:.2f} MiB", flush=True)
     kernels = sum(e.count for e in eager_run["rows"]) / eager_run["steps"]
-    return {"wall_ms": graph["wall_ms"], "device_ms": device, "kernels": kernels}
+    return {"wall_ms": graph["wall_ms"], "device_ms": device, "kernels": kernels,
+            "rows": eager_run["rows"], "steps": eager_run["steps"]}
 
 
 def profile_prefill(params, cfg, model=None, buckets=(512, 1024), tag: str = "") -> None:
@@ -4959,7 +5236,7 @@ def gemma_prefix_run(params, cfg, label: str, gemma2: bool, int8: bool = False) 
     free(run)
 
 
-# ---- serve_gemma1: Gemma-7B shapes at full depth -----------------------------------
+# ---- serve_gemma1: Gemma-7B shapes -------------------------------------------------
 
 # HF google/gemma-7b config.json, all 28 layers: 16 heads over 16 kv heads
 # at head_dim 256, no softcaps and no window, so whole-prompt prefill runs
@@ -4971,6 +5248,9 @@ GEMMA_7B = dict(
     num_heads=16, num_kv_heads=16, head_dim=256, rope_theta=10000.0, rms_norm_eps=1e-6,
     max_position_embeddings=8192,
 )
+# The smoke serves Gemma-7B's width at this depth, every gate kept (B2 once
+# a layer in every admission): the int8-weight phases took the time.
+GEMMA_7B_LAYERS = 14
 
 
 # ---- phase 5: the engine Pod's entry point -------------------------------------
@@ -5107,6 +5387,7 @@ CLI_RUNS = (
     ("fused", [], {"KUBEAI_TPU_DECODE_KERNEL": "fused"}, dict(decode_kernel="fused")),
     ("draft", ["--speculate", "4", "--spec-adaptive", "off", "--draft-url", "{draft}"], {},
      dict(decode_kernel="per_layer", speculate=4, spec_adaptive=False)),
+    ("int8", ["--quantization", "int8"], {}, dict(decode_kernel="per_layer", quantization="int8")),
 )
 
 
@@ -5316,10 +5597,13 @@ def cli_run(model_dir: str, label: str, flags: list, env_extra: dict,
             fail(f"serve_cli {label}: no exit within the drain budget after SIGTERM:\n{tail()}")
         if rc != 0:
             fail(f"serve_cli {label}: the server exited {rc} after SIGTERM:\n{tail()}")
+        weights_log = []
         with open(log_path) as f:
             for line in f:
-                if "tokenizer:" in line or "drain complete" in line:
+                if "tokenizer:" in line or "drain complete" in line or "weights:" in line:
                     print(f"serve_cli {label} log: {line.strip()}", flush=True)
+                if "weights:" in line:
+                    weights_log.append(line.strip())
         print(f"serve_cli {label}: exit 0 after SIGTERM", flush=True)
     finally:
         if proc is not None and proc.poll() is None:
@@ -5334,7 +5618,8 @@ def cli_run(model_dir: str, label: str, flags: list, env_extra: dict,
         "ttft_count": ttft_count,
     }
     return {"texts": texts, "streamed_ids": streamed_ids, "completion": completion,
-            "state": state, "metrics": metric_values, "bodies": bodies}
+            "state": state, "metrics": metric_values, "bodies": bodies,
+            "weights_log": weights_log}
 
 
 def cli_admin_round(port: int, dirs: dict, served: str = "model") -> None:
@@ -5446,10 +5731,10 @@ def serve_cli() -> None:
     """Phase 5: the engine Pod's entry point. Writes a random-weight Llama
     checkpoint at Llama-3-8B width (CLI_LAYERS layers, bf16) with
     `weights.save_safetensors` into a temporary directory and serves it
-    with `python -m kubeai_tpu_torch.engine.server` four times
+    with `python -m kubeai_tpu_torch.engine.server` five times
     (`cli_run`, CLI_RUNS: default, `--speculate 4`, the fused layout from
-    the environment, and `--speculate 4 --draft-url` with a 2-layer draft
-    checkpoint written beside it), then loads the same checkpoint
+    the environment, `--speculate 4 --draft-url` with a 2-layer draft
+    checkpoint written beside it, and `--quantization int8`), then loads the same checkpoint
     in-process with
     `weights.load_params` on the card and builds an engine of each run's
     configuration on it. Gates, besides `cli_run`'s: the loaded tensors
@@ -5524,6 +5809,8 @@ def serve_cli() -> None:
                 draft=draft if "--draft-url" in flags else None)
             check_cli_run(label, runs[label], engine)
             del engine
+        if not any("int8 layer weights" in line for line in runs["int8"]["weights_log"]):
+            fail("serve_cli int8: the server logged no int8 weight GiB")
         for label in ("speculate", "draft"):
             stats = runs[label]["state"]["spec_stats"]
             if stats["windows"] <= 0:
@@ -6273,7 +6560,8 @@ def main() -> None:
     launches = timed("serve", phase_serve)
     launches.update(timed("serve_gemma", serve_gemma, dict(GEMMA_9B, num_layers=GEMMA_9B_LAYERS),
                           f"Gemma-2-9B ({GEMMA_9B_LAYERS} of 42 layers)"))
-    launches.update(timed("serve_gemma1", serve_gemma, GEMMA_7B, "Gemma-7B", "gemma1"))
+    launches.update(timed("serve_gemma1", serve_gemma, dict(GEMMA_7B, num_layers=GEMMA_7B_LAYERS),
+                          f"Gemma-7B ({GEMMA_7B_LAYERS} of 28 layers)", "gemma1"))
     launches.update(timed("serve_embed", serve_embed))
     timed("serve_whisper", serve_whisper)
     timed("serve_cli", serve_cli)

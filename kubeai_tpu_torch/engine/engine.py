@@ -77,11 +77,13 @@ always on), chunked prefill, the automatic
 prefix cache, KV handoff export and import, prefix-page sharing and
 spill, int8 KV pools (kv_dtype="int8", ops/kv_quant.py: quantized as
 pages are written, read by B1's int8 kernel, shipped verbatim on every
-wire), and LoRA adapters (max_adapters > 0): per-request adapters
+wire), LoRA adapters (max_adapters > 0): per-request adapters
 batched through every device program, loaded and unloaded by writes into
-fixed buffers, so no program is captured again. Settings of the JAX
-engine that are not ported raise NotImplementedError naming their
-ROADMAP item.
+fixed buffers, so no program is captured again, and int8 weights
+(quantization="int8", llama family: engine/quantization.py, the W8A16
+kernel of ops/int8_matmul.py on every product of a layer weight).
+Settings of the JAX engine that are not ported raise NotImplementedError
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -109,10 +111,12 @@ from kubeai_tpu_torch.engine.paged_cache import (
     PageAllocator,
     PagedKVCache,
 )
+from kubeai_tpu_torch.engine.quantization import is_quantized, quantize_params
 from kubeai_tpu_torch.engine.sampling import SamplingParams, sample
 from kubeai_tpu_torch.fleet.profiler import StepProfiler
 from kubeai_tpu_torch.models.registry import ModelFamily, get_model_family
 from kubeai_tpu_torch.ops.flash_attention import flash_causal_prefill
+from kubeai_tpu_torch.ops.int8_matmul import check_weight
 from kubeai_tpu_torch.ops.kv_quant import (
     QuantizedPool,
     dequantize_kv,
@@ -194,7 +198,10 @@ class EngineConfig:
     # Decode steps run per step() call; tokens past a request's stop point
     # within a chunk are discarded on the host.
     decode_chunk: int = 8
-    quantization: str = ""  # "int8" weights: ROADMAP A12
+    # Weight-only quantization: "" (bf16) or "int8" (per-channel symmetric;
+    # engine/quantization.py), applied to the target's params at
+    # construction. The llama family only (ROADMAP fault C15).
+    quantization: str = ""
     # Decode attention layout: "per_layer" | "fused"; "" = the
     # $KUBEAI_TPU_DECODE_KERNEL env var, default "per_layer".
     decode_kernel: str = ""
@@ -347,7 +354,7 @@ def _resolve_cache_mode(cfg: EngineConfig, family: ModelFamily) -> str:
 
 
 def _refuse_unported(cfg: EngineConfig, mesh, draft, decode_kernel: str,
-                     cache_mode: str) -> None:
+                     cache_mode: str, family: ModelFamily) -> None:
     """Raise for every JAX engine setting this port does not serve, and
     for the settings the JAX engine refuses, in its words."""
     if resolve_kv_dtype(cfg.kv_dtype) == "int8":
@@ -367,9 +374,15 @@ def _refuse_unported(cfg: EngineConfig, mesh, draft, decode_kernel: str,
                 "decode_kernel='fused' (the fused kernel reads a "
                 "stacked bf16 pool); use per_layer"
             )
-    if cfg.quantization == "int8":
-        raise NotImplementedError("int8 weights are not ported yet (ROADMAP A12)")
-    if cfg.quantization:
+    if cfg.quantization == "int8" and not family.int8_weights:
+        # The JAX engine quantizes such a family's weights, and its first
+        # admission then fails: the forwards read no quantized leaf.
+        raise NotImplementedError(
+            f"quantization='int8' on the {family.name} family: its forwards "
+            "read no int8 weights (ROADMAP fault C15); int8 weights serve "
+            "the llama family (llama, mistral, qwen)"
+        )
+    if cfg.quantization not in ("", "int8"):
         raise ValueError(f"unknown quantization {cfg.quantization!r}")
     if mesh is not None:
         raise NotImplementedError(
@@ -474,7 +487,8 @@ class Engine:
                 "served by the slot engine"
             )
         self.cache_mode = _resolve_cache_mode(cfg, self.family)
-        _refuse_unported(cfg, mesh, draft, self.decode_kernel, self.cache_mode)
+        _refuse_unported(cfg, mesh, draft, self.decode_kernel, self.cache_mode,
+                         self.family)
         self._kv_quant = resolve_kv_dtype(cfg.kv_dtype) == "int8"
         # Resolved: the step loop overlaps unless step_overlap says no.
         self._overlap = _resolve_overlap(cfg)
@@ -570,6 +584,14 @@ class Engine:
                                 self._spec, self.device, self.cache_mode, draft_cfg)
 
         self.params = _to_device(params, self.device)
+        if cfg.quantization == "int8":
+            # On the engine's device, one layer slice at a time; the draft
+            # stays unquantized, as in the JAX engine.
+            self.params = quantize_params(self.params)
+            if self.device.type == "cuda":
+                for name, leaf in self.params["layers"].items():
+                    if is_quantized(leaf):
+                        check_weight(leaf, name)
         if draft is not None:
             # The draft keeps its own slot cache (engine/kvcache.py) on the
             # engine's device: its proposals run the family's decode_step.

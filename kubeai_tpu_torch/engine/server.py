@@ -69,6 +69,12 @@ and must not run beside a CUDA-graph replay, so a batch delays the
 streams' next step by its own device time. Gemma has no embedding
 forward (400), as in the JAX package.
 
+`--quantization int8` loads the checkpoint in bf16, quantizes the llama
+family's layer weights on the device (engine/quantization.py) and logs
+the weights' GiB before and after; the engine's products then read them
+through the W8A16 kernel. A gemma checkpoint exits at boot naming ROADMAP
+fault C15; whisper ignores the flag, as in the JAX server.
+
 A whisper checkpoint (WhisperForConditionalGeneration) boots
 engine/whisper_server.py's TranscriptionServer instead of the slot
 engine: POST /v1/audio/transcriptions.
@@ -121,6 +127,7 @@ from kubeai_tpu_torch.engine.engine import (
     StepEvent,
 )
 from kubeai_tpu_torch.engine.lora_weights import load_peft_adapter
+from kubeai_tpu_torch.engine.quantization import quantize_params, weight_bytes
 from kubeai_tpu_torch.engine.sampling import SamplingParams
 from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer, Tokenizer, load_tokenizer
 from kubeai_tpu_torch.engine.weights import (
@@ -2261,8 +2268,6 @@ _UNPORTED_FLAGS = (
     ("--dcn-coordinator/--process-id/--num-processes",
      lambda a: bool(a.dcn_coordinator) or a.process_id != 0 or a.num_processes > 1,
      "multihost lockstep serving (ROADMAP A item 11)"),
-    ("--quantization int8", lambda a: a.quantization == "int8",
-     "int8 weights (ROADMAP A item 9)"),
     ("--kv-spill-url", lambda a: bool(a.kv_spill_url),
      "KV spill to an object store (ROADMAP A item 9)"),
     ("--snapshot-url/--snapshot-dir/--snapshot-no-publish",
@@ -2305,7 +2310,8 @@ def parse_args(argv=None) -> argparse.Namespace:
         "H100 (PERF.md). 0 turns LoRA off and removes that cost")
     ap.add_argument("--decode-chunk", type=int, default=8)
     ap.add_argument("--quantization", default="", choices=["", "int8"],
-                    help="int8 is not ported")
+                    help="int8: weight-only int8 layer weights (llama family), "
+                    "quantized on the device after the bf16 load")
     ap.add_argument("--kv-dtype", default="", choices=["", "bfloat16", "int8"],
                     help="paged KV-cache storage dtype: int8 stores pages as "
                     "int8 with per-token scales (about half the bytes)")
@@ -2442,6 +2448,7 @@ def engine_config(args: argparse.Namespace) -> EngineConfig:
         decode_chunk=args.decode_chunk,
         max_adapters=args.max_adapters,
         step_overlap=args.step_overlap,
+        quantization=args.quantization,
         kv_dtype=args.kv_dtype,
         speculate=args.speculate,
         spec_adaptive=args.spec_adaptive == "on",
@@ -2521,15 +2528,30 @@ def main(argv=None) -> int:
             )
         family = get_model_family(arch)
         model_cfg = family.config_from_hf(hf_cfg)
+        speech = family.feature == "SpeechToText"
+        # The JAX server takes the flag for such a family and then fails
+        # every request; whisper ignores it there and here.
+        if args.quantization == "int8" and not speech and not family.int8_weights:
+            raise SystemExit(
+                f"--quantization int8: the {family.name} family reads no int8 "
+                "weights (ROADMAP fault C15); int8 weights serve the llama "
+                "family (llama, mistral, qwen)"
+            )
         log.info("loading %s (%s) from %s onto %s",
                  args.served_model_name, arch, model_dir, device)
-        speech = family.feature == "SpeechToText"
         with tracker.phase("load"):
             # Whisper runs in f32, as its loader makes it (fault C13).
             params = load_params(
                 family.name, model_dir, model_cfg,
                 dtype=torch.float32 if speech else torch.bfloat16, device=device,
             )
+            if args.quantization == "int8" and not speech:
+                # Layer by layer on the device; the bf16 stacks go with
+                # the old tree.
+                bf16_bytes = weight_bytes(params)
+                params = quantize_params(params)
+                log.info("weights: %.3f GiB in bf16, %.3f GiB with int8 layer "
+                         "weights", bf16_bytes / 2**30, weight_bytes(params) / 2**30)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
     except (WeightLoadError, KeyError) as e:  # KeyError: an unknown family or field

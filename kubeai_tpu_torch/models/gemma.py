@@ -40,7 +40,11 @@ JAX version.
 Not here: a verify forward (the JAX family has none: speculation falls
 back to vanilla decode, and a draft model is refused) and LoRA (the JAX
 family takes adapters and ignores them; the port's engine refuses them,
-ROADMAP fault C10).
+ROADMAP fault C10) and int8 weights (the JAX engine quantizes gemma's
+layer weights, and its forwards then fail on the first admission: they
+read no quantized leaf; the port's engine refuses quantization="int8" for
+this family at construction, models/registry.py's `int8_weights`, ROADMAP
+fault C15).
 """
 
 from __future__ import annotations

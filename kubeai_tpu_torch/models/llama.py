@@ -16,8 +16,15 @@ can hand the same weights to both packages (kubeai_tpu_torch.parity):
 
 Layers are stacked on a leading [NL] axis and walked with a Python loop
 (the JAX version scans). Weights are bf16 (or f32 for the parity tests);
-int8 weights, ring-attention prefill and pipeline parallelism are not
-ported and raise.
+ring-attention prefill and pipeline parallelism are not ported and raise.
+
+Int8 weights (EngineConfig.quantization="int8"): a layer weight may be a
+quantized leaf {"w8", "scale"} (engine/quantization.py). Every base
+product goes through `_matmul`, which sends such a leaf to
+ops.int8_matmul.int8_linear (the W8A16 kernel on the card, the plain
+dequantize-then-matmul on the CPU), as the JAX version's `_w` does on
+every path: prefill, the trunk, `prefill_chunk`, both decode steps and
+the verify forward. `embed` and `lm_head` stay bf16.
 
 LoRA: every forward takes `lora` (the stacked adapter buffers of
 `init_lora_buffers`) and `lora_idx` ([B] adapter index per row, 0 = the
@@ -52,6 +59,7 @@ import torch.nn.functional as F
 from kubeai_tpu_torch.device import resolve_device
 from kubeai_tpu_torch.ops.attention import chunked_prefill_attention, decode_attention
 from kubeai_tpu_torch.ops.flash_attention import flash_causal_prefill
+from kubeai_tpu_torch.ops.int8_matmul import int8_linear
 from kubeai_tpu_torch.ops.kv_quant import QuantizedPool
 from kubeai_tpu_torch.ops.norms import rms_norm
 from kubeai_tpu_torch.ops.paged_attention import (
@@ -210,7 +218,16 @@ def _rope_tables(cfg: LlamaConfig, device: torch.device) -> tuple[torch.Tensor, 
 
 
 def _layer(params: dict, i: int) -> dict:
-    return {name: w[i] for name, w in params["layers"].items()}
+    """Layer i's weights (a quantized leaf's w8 and scale both indexed)."""
+    return {
+        name: {k: v[i] for k, v in w.items()} if isinstance(w, dict) else w[i]
+        for name, w in params["layers"].items()
+    }
+
+
+def _matmul(h, w):
+    """The base product h @ w: the W8A16 kernel for a quantized leaf."""
+    return int8_linear(h, w) if isinstance(w, dict) else torch.matmul(h, w)
 
 
 # ---- LoRA (hot-swappable, batched) ------------------------------------------
@@ -281,7 +298,7 @@ def _projector(lor: dict | None, lora_idx):
     parity depends on)."""
 
     def proj(h, w, target, bias=None):
-        out = torch.matmul(h, w)
+        out = _matmul(h, w)
         if bias is not None:
             out = out + bias
         if lor is not None:
@@ -310,15 +327,8 @@ def _refuse_unported(mesh=None) -> None:
         )
 
 
-def _check_weights(params: dict) -> None:
-    if isinstance(params["layers"]["wq"], dict):
-        raise NotImplementedError(
-            "int8 weights are not ported yet (ROADMAP A12)"
-        )
-
-
 def _mlp(x, gate, up, down):
-    return torch.matmul(F.silu(torch.matmul(x, gate)) * torch.matmul(x, up), down)
+    return _matmul(F.silu(_matmul(x, gate)) * _matmul(x, up), down)
 
 
 def _logits(x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
@@ -365,7 +375,6 @@ def prefill(
     """Full-prompt forward. Returns (last_token_logits f32 [B, V],
     k_all [NL, B, S, KVH, D], v_all [NL, B, S, KVH, D])."""
     _refuse_unported(mesh)
-    _check_weights(params)
     B, S = tokens.shape
     dev = tokens.device
     inv_freq, msc = _rope_tables(cfg, dev)
@@ -412,7 +421,6 @@ def hidden_states(
     row's first `lengths` final hidden states in f32, over its norm
     floored at 1e-9. Causal attention keeps the right padding out of the
     valid rows, so the padded rows are computed and then masked."""
-    _check_weights(params)
     x = _trunk(params, cfg, tokens)  # [B, S, E]
     S = tokens.shape[1]
     lengths = lengths.to(tokens.device)
@@ -442,7 +450,6 @@ def prefill_chunk(
     stale entries past the causal frontier are masked by position.
     Returns (f32 [1, V] logits at position `length - 1` when want_logits,
     else None; k_slot; v_slot)."""
-    _check_weights(params)
     B, C = tokens.shape
     H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
     dev = tokens.device
@@ -521,7 +528,6 @@ def decode_step(
     reaches no Pallas kernel). The engine's slot mode and the draft
     model's proposals run here. Returns (f32 logits [B, V], k_cache,
     v_cache)."""
-    _check_weights(params)
     B = tokens.shape[0]
     dev = tokens.device
     inv_freq, msc = _rope_tables(cfg, dev)
@@ -587,7 +593,6 @@ def decode_step_paged(
 
     The pools are updated in place and returned (the JAX version returns
     new arrays)."""
-    _check_weights(params)
     attn_kernel = resolve_decode_kernel(attn_kernel)
     if isinstance(k_pages, QuantizedPool) and attn_kernel != "per_layer":
         raise ValueError(
@@ -685,7 +690,6 @@ def decode_verify_paged(
     window position, [B, K, V], so the engine can accept the longest
     matching proposal prefix. The pools are updated in place and
     returned."""
-    _check_weights(params)
     B, K = tokens.shape
     dev = tokens.device
     inv_freq, msc = _rope_tables(cfg, dev)

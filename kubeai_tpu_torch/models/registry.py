@@ -44,6 +44,10 @@ class ModelFamily:
     prefill_uses_flash: Callable = lambda cfg: True
     # Mean-pooled embeddings (None = /v1/embeddings answers 400).
     hidden_states: Callable | None = None
+    # Whether the family's forwards read int8 weight leaves
+    # (EngineConfig.quantization="int8"); the engine refuses int8 weights
+    # for any other (ROADMAP fault C15).
+    int8_weights: bool = False
     # The catalog feature the family serves: "TextGeneration" (the slot
     # engine, plus TextEmbedding through hidden_states) or "SpeechToText".
     feature: str = "TextGeneration"
@@ -89,6 +93,7 @@ def _ensure_builtin() -> None:
             hf_architectures=("LlamaForCausalLM", "MistralForCausalLM"),
             init_lora_buffers=llama.init_lora_buffers,
             hidden_states=llama.hidden_states,
+            int8_weights=True,
         )
     )
     # Qwen2 is the Llama computation plus q/k/v biases — one
@@ -110,10 +115,12 @@ def _ensure_builtin() -> None:
             hf_architectures=("Qwen2ForCausalLM",),
             init_lora_buffers=llama.init_lora_buffers,
             hidden_states=llama.hidden_states,
+            int8_weights=True,
         )
     )
     # No verify forward, as in the JAX package: speculate > 0 runs vanilla
-    # decode and a draft model is refused. No adapters (ROADMAP fault C10).
+    # decode and a draft model is refused. No adapters (ROADMAP fault C10)
+    # and no int8 weights (ROADMAP fault C15).
     register_model_family(
         ModelFamily(
             "gemma",

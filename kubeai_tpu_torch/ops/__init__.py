@@ -9,6 +9,7 @@ from kubeai_tpu_torch.ops.attention import (
     decode_attention,
 )
 from kubeai_tpu_torch.ops.flash_attention import flash_causal_prefill
+from kubeai_tpu_torch.ops.int8_matmul import int8_linear
 from kubeai_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_fused,
@@ -27,5 +28,6 @@ COUNTED_KERNELS = {
         paged_verify_attention,
         paged_decode_attention_fused,
         paged_decode_attention_int8,
+        int8_linear,
     )
 }

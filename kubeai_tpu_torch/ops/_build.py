@@ -69,6 +69,8 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
         _I, _I, _F, _F, _I, _P,
     ),
+    # x, w8 (N-major), scale, out, scratch, M, N, K, splits, stream
+    "kubeai_w8a16_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -8,7 +8,9 @@ stacks it holds (q/k/v biases, Gemma-2's three norm stacks), and a tied
 `lm_head` when the tree shares one array with `embed` or has none (gemma
 ties its logits to `embed` and never reads it). The tests use it so that
 both packages compute with the same weights. bf16 arrays (numpy's
-ml_dtypes bfloat16) are taken bit for bit.
+ml_dtypes bfloat16) are taken bit for bit. A quantized layer leaf
+(`quantize_params`' {"w8": int8, "scale": f32}) is carried as a dict of
+the same two arrays, int8 and f32, outside the `dtype` cast.
 
 `lora_from_numpy` does the same for the JAX `llama.init_lora_buffers`
 tree: adapter-major [n, NL, ...] buffers become the port's layer-major
@@ -39,6 +41,14 @@ def _tensor(a, device, dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
 
 
+def _leaf(w, device, dtype):
+    """A layer leaf; a quantized {"w8", "scale"} leaf keeps int8 and f32
+    and takes no `dtype` cast."""
+    if isinstance(w, dict):
+        return {k: _tensor(v, device, None) for k, v in w.items()}
+    return _tensor(w, device, dtype)
+
+
 def params_from_numpy(
     tree: dict,
     device: str | torch.device = "cpu",
@@ -50,7 +60,7 @@ def params_from_numpy(
         "embed": _tensor(tree["embed"], device, dtype),
         "final_norm": _tensor(tree["final_norm"], device, dtype),
         "layers": {
-            name: _tensor(w, device, dtype) for name, w in tree["layers"].items()
+            name: _leaf(w, device, dtype) for name, w in tree["layers"].items()
         },
     }
     head = tree.get("lm_head")

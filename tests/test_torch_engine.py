@@ -115,22 +115,22 @@ def test_stop_token_and_length_finish(models):
     (dict(cache_mode="slot"), "A13"),
 ], ids=["kw0-A12", "kw2-A13"])  # the ids they had beside the LoRA case
 def test_unported_settings_raise(models, kw, item):
-    """int8 weights raise naming their ROADMAP item. The slot cache (A13)
-    was refused until the port took it: it now builds and serves the JAX
-    slot engine's greedy streams (tests/test_torch_slot_cache.py holds
-    the rest)."""
+    """Both settings were refused until the port took them: int8 weights
+    (A12, ROADMAP A item 9c) and the slot cache (A13) now build and serve
+    the JAX engine's greedy streams (tests/test_torch_int8_weights.py and
+    tests/test_torch_slot_cache.py hold the rest)."""
+    jcfg, jparams, _, _ = models
+    sp = SAMPLING["greedy"]
+    want = JEngine("llama", jcfg, jparams, cfg=JEngineConfig(
+        cache_dtype=jnp.float32, step_overlap="off", **BASE, **kw)).generate(
+        _prompts()["mixed"], JSamplingParams(**sp))
+    eng = _torch_engine(models, **kw)
     if kw.get("cache_mode") == "slot":
-        jcfg, jparams, _, _ = models
-        sp = SAMPLING["greedy"]
-        want = JEngine("llama", jcfg, jparams, cfg=JEngineConfig(
-            cache_dtype=jnp.float32, step_overlap="off", **BASE, **kw)).generate(
-            _prompts()["mixed"], JSamplingParams(**sp))
-        eng = _torch_engine(models, **kw)
         assert eng.cache_mode == "slot"
-        assert eng.generate(_prompts()["mixed"], SamplingParams(**sp)) == want
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        _torch_engine(models, **kw)
+    else:
+        assert isinstance(eng.params["layers"]["wq"], dict), item
+        assert eng.params["layers"]["wq"]["w8"].dtype == torch.int8
+    assert eng.generate(_prompts()["mixed"], SamplingParams(**sp)) == want
 
 
 def test_int8_kv_pools_serve(models):

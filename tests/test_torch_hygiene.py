@@ -15,6 +15,7 @@ from kubeai_tpu_torch.engine import Engine, EngineConfig, SamplingParams
 from kubeai_tpu_torch.models import llama as tl
 from kubeai_tpu_torch.ops import _build
 from kubeai_tpu_torch.ops.flash_attention import flash_causal_prefill
+from kubeai_tpu_torch.ops.int8_matmul import int8_linear
 from kubeai_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_fused,
@@ -22,7 +23,7 @@ from kubeai_tpu_torch.ops.paged_attention import (
 )
 
 WRAPPERS = (paged_decode_attention, paged_verify_attention,
-            paged_decode_attention_fused, flash_causal_prefill)
+            paged_decode_attention_fused, flash_causal_prefill, int8_linear)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = pathlib.Path(kubeai_tpu_torch.__file__).resolve().parent
@@ -78,7 +79,8 @@ def test_entry_points_raise_without_cuda(no_cuda):
 
 @pytest.mark.parametrize("kw", [
     {}, dict(speculate=3, spec_adaptive=False), dict(decode_kernel="fused"),
-], ids=["per_layer", "speculate", "fused"])
+    dict(quantization="int8"),
+], ids=["per_layer", "speculate", "fused", "int8"])
 def test_cpu_engine_launches_no_kernel(kw):
     for fn in WRAPPERS:
         fn.launches = 0
@@ -112,14 +114,20 @@ def test_wrappers_refuse_devices_without_a_path():
     new = torch.empty(2, 2, 64, dtype=torch.bfloat16, **meta)
     with pytest.raises(ValueError, match="no path"):
         paged_decode_attention_fused(q, stacked, stacked, new, new, bt, pos, 1)
+    leaf = {"w8": torch.empty(64, 32, dtype=torch.int8, **meta),
+            "scale": torch.empty(1, 32, **meta)}
+    with pytest.raises(ValueError, match="no path"):
+        int8_linear(torch.empty(3, 64, dtype=torch.bfloat16, **meta), leaf)
 
 
 def test_kernel_sources_and_bindings():
     names = [p.name for p in _build.sources()]
     assert names == ["flash_prefill.cu", "paged_decode.cu",
-                     "paged_decode_fused.cu", "paged_verify.cu"]
+                     "paged_decode_fused.cu", "paged_verify.cu", "w8a16_gemm.cu"]
     head = {p.name: p.read_text()[:600] for p in _build.sources()}
     assert "kubeai_tpu/ops/pallas_attention.py" in head["flash_prefill.cu"]
+    # The W8A16 GEMM stands for no pallas_call: XLA's dequantize-into-dot.
+    assert "kubeai_tpu/engine/quantization.py" in head["w8a16_gemm.cu"]
     for name, tpu_kernel in (("paged_decode.cu", "_paged_kernel"),
                              ("paged_verify.cu", "_paged_verify_kernel"),
                              ("paged_decode_fused.cu", "_paged_fused_kernel")):
@@ -142,6 +150,8 @@ def test_kernel_sources_and_bindings():
     assert _build.SIGNATURES["kubeai_paged_verify_bf16"][-1] is ctypes.c_void_p
     assert _build.SIGNATURES["kubeai_paged_decode_fused_bf16"][:8] == (ctypes.c_void_p,) * 8
     assert _build.SIGNATURES["kubeai_paged_decode_fused_bf16"][-1] is ctypes.c_void_p
+    assert _build.SIGNATURES["kubeai_w8a16_gemm"][:4] == (ctypes.c_void_p,) * 4
+    assert _build.SIGNATURES["kubeai_w8a16_gemm"][-1] is ctypes.c_void_p
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.build_dir().parent == ROOT / "build" / "kernels"
 

@@ -711,8 +711,34 @@ def test_main_refuses_unported_flags(checkpoints, monkeypatch, argv, item):
     one of them until the port took draft-model speculation: with
     --speculate 2, main now loads the draft (here pvc://models/draft
     resolves to a local checkpoint through --draft-dir) and builds a draft
-    engine, which serves the warm-up."""
+    engine, which serves the warm-up. --quantization int8 was one until
+    the port took int8 weights (ROADMAP A item 9c): main now quantizes the
+    llama checkpoint's layer weights and builds an int8 engine, which
+    serves the warm-up."""
     model_dir, _ = checkpoints["llama-safetensors"]
+    if argv[0] == "--quantization":
+        from kubeai_tpu_torch.engine import server as server_mod
+        from kubeai_tpu_torch.engine.quantization import QUANTIZABLE
+
+        built = {}
+
+        def capture_int8(engine, tokenizer, name, **kw):
+            built["engine"] = engine
+            raise _ServerBuilt
+
+        monkeypatch.setattr(server_mod, "EngineServer", capture_int8)
+        with pytest.raises(_ServerBuilt):
+            main(["--model-url", model_dir, "--device", "cpu", "--num-slots", "2",
+                  "--max-seq-len", "128", *argv])
+        engine = built["engine"]
+        assert engine.cfg.quantization == "int8"
+        layers = engine.params["layers"]
+        for name in QUANTIZABLE:
+            assert layers[name]["w8"].dtype == torch.int8
+            assert layers[name]["scale"].dtype == torch.float32
+        assert not isinstance(engine.params["embed"], dict)
+        assert engine.profiler.steps_completed > 0  # the warm-up was served
+        return
     if argv[0] == "--draft-url":
         from kubeai_tpu_torch.engine import server as server_mod
 
