@@ -56,15 +56,19 @@ Phases, each fatal on failure:
                over S 512 and 2048 and B=8 at 128, timed beside SDPA and
                the bound, the same bits from two calls and a graph replay
                (an entry of its own in the kernels line, B=1 S=512).
-               The W8A16 GEMM of int8 weights (`check_int8_gemm`, an
-               entry of its own, M=8 at w_gate's shape): Llama-3-8B's four
-               weight shapes at M 1, 8, 37, 40, 96, 512 and 4096 against
-               the plain version (GEMM_ATOL / GEMM_RTOL), timed from a
-               graph of 20 calls beside the plain version, cuBLAS on the
-               dequantized bf16 weight and the bound; a dead channel
-               exactly 0; Qwen2.5-0.5B's shapes; the same bits from two
-               calls and a graph replay on both kernels; registers and
-               spills;
+               The W8A16 GEMM of int8 weights (`check_int8_gemm`; an
+               entry each for its skinny kernel, M=8 at w_gate's shape,
+               and its wgmma kernel, M=512): Llama-3-8B's four weight
+               shapes at every M of GEMM_ROWS (1 to 4096), each kernel
+               that takes M against the plain version (GEMM_ATOL /
+               GEMM_RTOL) and timed from a graph of 20 calls beside the
+               plain version, cuBLAS on the dequantized bf16 weight and
+               the bound; where both kernels take M (M <= 8) the routed
+               one within ROUTE_SLACK of the faster over a layer, each
+               timed ROUTE_ROUNDS times in turns (median); a dead channel exactly 0 from
+               each kernel; Qwen2.5-0.5B's shapes; the same bits from two
+               calls and a graph replay (M 8, 40, 512, and split K);
+               registers and spills;
   3. model   — a small model (head_dim 128) on the card through the kernels
                against the same weights in f32 on the CPU through the plain
                versions: prefill, paged-decode (both layouts) and
@@ -91,8 +95,11 @@ Phases, each fatal on failure:
                `serve_int8_weights` quantizes the same weights on the
                card (int8 layer weights, GiB before and after) and serves
                the three layouts again with quantization="int8": the
-               W8A16 kernel must launch 7 x 32 times a model step in every
-               replay, every stream must equal an eager engine's on the
+               W8A16 kernel `route` sends the replay's rows to (the
+               skinny one in the decode chunk, the wgmma one in the verify
+               window) must launch 7 x 32 times a model step in every
+               replay and the other never, the wgmma one in the
+               admissions, every stream must equal an eager engine's on the
                int8 weights; each step is profiled beside its bf16 one
                with the weight GEMMs' shares, the greedy streams'
                agreement with bf16 is reported, and one 512-bucket
@@ -296,6 +303,7 @@ from __future__ import annotations
 import contextlib
 import json
 import re
+import statistics
 import subprocess
 import sys
 import threading
@@ -393,10 +401,15 @@ KERNELS = {
         "kubeai_tpu_torch/csrc/paged_decode.cu",
         "kubeai_tpu/ops/paged_attention.py:309",
     ),
-    # The W8A16 GEMM of int8 weights, which serve_int8_weights drives. Not
-    # a pallas_call: it stands for XLA's fused dequantize-into-dot, `_w`
-    # in the JAX llama forward.
-    "int8_linear": (
+    # The W8A16 GEMM of int8 weights, which serve_int8_weights drives: its
+    # skinny kernel (decode steps) and its wgmma kernel (admissions and
+    # verify windows). Not a pallas_call: it stands for XLA's fused
+    # dequantize-into-dot, `_w` in the JAX llama forward.
+    "w8a16_skinny": (
+        "kubeai_tpu_torch/csrc/w8a16_gemm.cu",
+        "kubeai_tpu/models/llama.py:39",
+    ),
+    "w8a16_wgmma": (
         "kubeai_tpu_torch/csrc/w8a16_gemm.cu",
         "kubeai_tpu/models/llama.py:39",
     ),
@@ -1649,9 +1662,21 @@ GEMM_RTOL = 1e-2
 # w_gate and w_up, w_down; then Qwen2.5-0.5B's (E=896, KVH*D=128, FFN 4864).
 GEMM_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
 QWEN_GEMM_SHAPES = ((896, 896), (896, 128), (896, 4864), (4864, 896))
-# Rows: one slot, a decode step of 8 slots, ragged 37, a verify window of
-# 8 x 5, a prefill of 96 rows, the 512 bucket, a batch of 4 x 1024.
-GEMM_ROWS = (1, 8, 37, 40, 96, 512, 4096)
+# How often each shape of GEMM_SHAPES runs in a layer (wq and wo, wk and
+# wv, w_gate and w_up, w_down): the weights of a layer's time.
+LAYER_USES = (2, 2, 2, 1)
+# Rows: one slot, a decode step of 8 slots, 16, 24 and 32 about the
+# crossover, ragged 37, a verify window of 8 x 5, 48, the skinny kernel's
+# limit and one past it, prefills of 96 and 128 rows, the 512 bucket, 1024,
+# a batch of 4 x 1024.
+GEMM_ROWS = (1, 8, 16, 24, 32, 37, 40, 48, 64, 65, 96, 128, 512, 1024, 4096)
+# Where both kernels take M (M <= SKINNY_MAX_M), the one `route` sends it
+# to may be this share slower than the other over a layer's seven products
+# before the smoke fails. Each kernel is timed ROUTE_ROUNDS times, the two
+# in turns, and its median kept: two single timings of one kernel in one
+# run differed by up to ~10%, the medians of such rounds by a few percent.
+ROUTE_SLACK = 0.05
+ROUTE_ROUNDS = 5
 
 
 def _int8_leaf(K: int, N: int, gen, dead: int | None = None) -> dict:
@@ -1668,29 +1693,73 @@ def _int8_leaf(K: int, N: int, gen, dead: int | None = None) -> dict:
     return quantize_tensor(w)
 
 
+def _gemm_kernels(x, leaf) -> dict:
+    """The W8A16 kernels that take x's rows, by name: the wgmma kernel at
+    any M (gemm_plan's rows a CTA and K splits), the skinny one up to
+    SKINNY_MAX_M."""
+    from kubeai_tpu_torch.ops.int8_matmul import SKINNY_MAX_M, w8a16_skinny, w8a16_wgmma
+
+    kernels = {"w8a16_wgmma": lambda: w8a16_wgmma(x, leaf)}
+    if x.shape[0] <= SKINNY_MAX_M:
+        kernels["w8a16_skinny"] = lambda: w8a16_skinny(x, leaf)
+    return kernels
+
+
+def _alternating_ms(calls: dict, rounds: int) -> dict:
+    """Each call's median ms from CUDA graphs (graph_ms) over `rounds`
+    rounds, the calls timed in turns within each round; one timing each
+    when there is one call."""
+    if len(calls) == 1:
+        return {name: graph_ms(fn) for name, fn in calls.items()}
+    times = {name: [] for name in calls}
+    for _ in range(rounds):
+        for name, fn in calls.items():
+            times[name].append(graph_ms(fn))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def _plan(M: int, N: int, K: int) -> str:
+    """What int8_linear runs for M rows of a [K, N] weight."""
+    from kubeai_tpu_torch.ops.int8_matmul import gemm_plan, route, w8a16_wgmma
+
+    fn = route(M)
+    if fn is w8a16_wgmma:
+        return "w8a16_wgmma, {} rows a CTA, K in {}".format(*gemm_plan(M, N, K))
+    return fn.__name__
+
+
 def _gemm_case(M: int, K: int, N: int, leaf: dict, gen, timed: bool) -> dict:
-    """One W8A16 case: the kernel against the plain version on the card at
-    GEMM_ATOL / GEMM_RTOL, and against an f32 product of the same operands
-    (reported); with `timed`, the kernel's ms from a CUDA graph of 20
-    calls and eagerly, the plain version's, cuBLAS's (torch.matmul on a
-    bf16 copy of the dequantized weight, from a graph) and the bound."""
+    """One W8A16 case: each kernel that takes M (`_gemm_kernels`) against
+    the plain version on the card at GEMM_ATOL / GEMM_RTOL, int8_linear
+    equal to the kernel `route` sends M to, and against an f32 product of
+    the same operands (reported); with `timed`, each kernel's ms from CUDA
+    graphs of 20 calls (medians of ROUTE_ROUNDS in turns where two take
+    M), int8_linear's eagerly, the plain version's, cuBLAS's (torch.matmul
+    on a bf16 copy of the dequantized weight, from a graph) and the bound.
+    `kernel` names the routed kernel and `ms`, `max_abs_err` are its."""
     import torch
 
-    from kubeai_tpu_torch.ops.int8_matmul import dequantize_as, int8_linear
+    from kubeai_tpu_torch.ops.int8_matmul import dequantize_as, int8_linear, route
 
     x = torch.randn(M, K, generator=gen).to("cuda", torch.bfloat16)
     plain = lambda: torch.matmul(x, dequantize_as(leaf, torch.bfloat16))  # noqa: E731
+    want = plain()
+    kernels = _gemm_kernels(x, leaf)
+    routed = route(M).__name__
+    errs = {name: compare(f"{name} M={M} K={K} N={N}", fn(), want, GEMM_ATOL, GEMM_RTOL)
+            for name, fn in kernels.items()}
     got = int8_linear(x, leaf)
-    torch.cuda.synchronize()
+    if not torch.equal(got, kernels[routed]()):
+        fail(f"int8_linear M={M} K={K} N={N}: not the bits of {routed}, its route")
     deq = dequantize_as(leaf, torch.bfloat16)
-    err = compare(f"int8_linear M={M} K={K} N={N}", got, plain(), GEMM_ATOL, GEMM_RTOL)
-    ref32 = x.float() @ deq.float()
-    err32 = float((got.float() - ref32).abs().max())
-    line = dict(max_abs_err=err, max_abs_err_f32=err32)
+    err32 = float((got.float() - x.float() @ deq.float()).abs().max())
+    line = dict(kernel=routed, plan=_plan(M, N, K), max_abs_err=errs[routed],
+                max_abs_err_f32=err32, errs={k: v for k, v in errs.items() if k != routed})
     if timed:
-        call = lambda: int8_linear(x, leaf)  # noqa: E731
-        line.update(ms=graph_ms(call), eager_ms=cuda_ms(call), plain_ms=cuda_ms(plain))
-        line["library_ms"] = graph_ms(lambda: torch.matmul(x, deq))
+        times = _alternating_ms(kernels, ROUTE_ROUNDS)
+        line.update(ms=times[routed], eager_ms=cuda_ms(lambda: int8_linear(x, leaf)),
+                    plain_ms=cuda_ms(plain), library_ms=graph_ms(lambda: torch.matmul(x, deq)))
+        line["other_ms"] = {k: v for k, v in times.items() if k != routed}
         nbytes = K * N + 4 * N + 2 * M * K + 2 * M * N
         flops = 2.0 * M * K * N
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -1699,42 +1768,71 @@ def _gemm_case(M: int, K: int, N: int, leaf: dict, gen, timed: bool) -> dict:
                     bound_by="operations" if t_flops >= t_bytes else "bytes",
                     weight_gb_s=K * N / line["ms"] * 1e-6, tflops=flops / line["ms"] * 1e-9)
     print(f"kernel int8_linear M={M} K={K} N={N} {json.dumps(line)}", flush=True)
+    line["times"] = times if timed else {}
     return line
 
 
 def check_int8_gemm() -> dict:
     """The W8A16 GEMM (`ops.int8_matmul.int8_linear`, csrc/w8a16_gemm.cu):
-    at Llama-3-8B's four weight shapes for every M of GEMM_ROWS, timed
-    (`_gemm_case`); a dead output channel (scale at the 1e-8 floor) that
-    must come out exactly 0; Qwen2.5-0.5B's four shapes at M 8 and 512; two
-    calls and a graph replay that must give the same bits on each kernel
-    (skinny at M=8, tiled at M=512); f32 activations and a weight not
-    packed N-major must raise; registers and spills. Returns the decode
-    step's w_gate line (M=8, K=4096, N=14336) for the kernels line."""
+    at Llama-3-8B's four weight shapes for every M of GEMM_ROWS, each
+    kernel that takes M against the plain version and timed
+    (`_gemm_case`); where both take M, the routed kernel within
+    ROUTE_SLACK of the faster over a layer's seven products (LAYER_USES),
+    from medians of ROUTE_ROUNDS timings in turns; a dead output
+    channel (scale at the 1e-8 floor) that must come out exactly 0 from
+    each kernel; Qwen2.5-0.5B's four shapes at M 8, 40 and 512; two calls
+    and a graph replay that must give the same bits (the skinny kernel at
+    M=8; the wgmma kernel at M=40 and 512, at w_gate's shape and at wk's,
+    whose tiles are few enough that K is split); f32 activations and a
+    weight not packed N-major must
+    raise; registers and spills. Returns the lines of the decode step's
+    w_gate (M=8, the skinny kernel) and of the 512 bucket's (M=512, the
+    wgmma kernel) for the kernels line, by kernel."""
     import torch
 
-    from kubeai_tpu_torch.ops.int8_matmul import int8_linear
+    from kubeai_tpu_torch.ops.int8_matmul import int8_linear, route
 
     gen = torch.Generator().manual_seed(81)
-    main = None
-    for K, N in GEMM_SHAPES:
+    main = {}
+    layer: dict[int, dict[str, float]] = {M: {} for M in GEMM_ROWS}
+    for (K, N), uses in zip(GEMM_SHAPES, LAYER_USES):
         leaf = _int8_leaf(K, N, gen)
         for M in GEMM_ROWS:
             line = _gemm_case(M, K, N, leaf, gen, timed=True)
-            if (M, K, N) == (8, 4096, 14336):
-                main = line
+            for name, ms in line["times"].items():
+                layer[M][name] = layer[M].get(name, 0.0) + uses * ms
+            if (M, K, N) in ((8, 4096, 14336), (512, 4096, 14336)):
+                main[line["kernel"]] = line
         del leaf
         torch.cuda.empty_cache()
+    for M in GEMM_ROWS:
+        routed = route(M).__name__
+        best = min(layer[M], key=layer[M].get)
+        print(f"int8_linear M={M}: a layer's seven products (ms) "
+              f"{json.dumps({k: round(v, 5) for k, v in layer[M].items()})}; routed to "
+              f"{routed}, the faster: {best}", flush=True)
+        if layer[M][routed] > layer[M][best] * (1 + ROUTE_SLACK):
+            fail(f"int8_linear M={M}: routed to {routed} ({layer[M][routed]:.5f} ms a layer), "
+                 f"{best} takes {layer[M][best]:.5f}")
     leaf = _int8_leaf(4096, 1024, gen, dead=77)
     if float(leaf["scale"].reshape(-1)[77]) != torch.tensor(1e-8).item():
         fail("int8_linear: the dead channel's scale is not the 1e-8 floor")
-    for M in (8, 512):
+    for M in (8, 40, 512):
         x = torch.randn(M, 4096, generator=gen).to("cuda", torch.bfloat16)
-        out = int8_linear(x, leaf)
-        if out[:, 77].any():
-            fail(f"int8_linear M={M}: the dead channel is not exactly 0")
-        _same_bits(f"int8_linear M={M}", lambda: int8_linear(x, leaf))
+        for name, call in _gemm_kernels(x, leaf).items():
+            if call()[:, 77].any():
+                fail(f"{name} M={M}: the dead channel is not exactly 0")
+        _same_bits(f"int8_linear M={M} ({_plan(M, 1024, 4096)})",
+                   lambda: int8_linear(x, leaf))
         _gemm_case(M, 4096, 1024, leaf, gen, timed=False)
+    x = torch.randn(40, 4096, generator=gen).to("cuda", torch.bfloat16)
+    big = _int8_leaf(4096, 14336, gen)
+    _same_bits(f"int8_linear M=40 N=14336 ({_plan(40, 14336, 4096)})",
+               lambda: int8_linear(x, big))
+    x = torch.randn(512, 4096, generator=gen).to("cuda", torch.bfloat16)
+    _same_bits(f"int8_linear M=512 N=14336 ({_plan(512, 14336, 4096)})",
+               lambda: int8_linear(x, big))
+    del big
     for exc, bad in ((TypeError, lambda: int8_linear(x.float(), leaf)),
                      (ValueError, lambda: int8_linear(x, {
                          "w8": leaf["w8"].contiguous(), "scale": leaf["scale"]}))):
@@ -1746,13 +1844,135 @@ def check_int8_gemm() -> dict:
             fail(f"int8_linear did not raise {exc.__name__}")
     for K, N in QWEN_GEMM_SHAPES:
         leaf = _int8_leaf(K, N, gen)
-        for M in (8, 512):
+        for M in (8, 40, 512):
             _gemm_case(M, K, N, leaf, gen, timed=False)
     del leaf
     torch.cuda.empty_cache()
     check_ptxas("w8a16_gemm.cu")
     print(f"int8_linear checked; card: {gpu_line()}", flush=True)
     return main
+
+
+# Builds of w8a16_gemm.cu that report_w8a16_variants times beside the
+# repo's, each without one part of the wgmma kernel's work (wrong sums;
+# timing only): name -> (text, replacement) pairs.
+_W8_FRAGMENT = """  a[0] = deq2_bf16(lds32(ra) ^ 0x80808080u, sel_lo, sel_hi, s0);
+  a[1] = deq2_bf16(lds32(rb) ^ 0x80808080u, sel_lo, sel_hi, s1);
+  a[2] = deq2_bf16(lds32(ra + 8) ^ 0x80808080u, sel_lo, sel_hi, s0);
+  a[3] = deq2_bf16(lds32(rb + 8) ^ 0x80808080u, sel_lo, sel_hi, s1);
+"""
+_W8_RAW = "  a[0] = ra; a[1] = rb; a[2] = s0 ^ sel_lo; a[3] = s1 ^ sel_hi;\n"
+_W8_MMA = "      wgmma_rs<BM>(acc, a[j & 1], desc(xs + 32 * j, 16, 1024));\n"
+_W8_LOADS = """      tma_load(base + L::w + st * kWTileBytes, &w_map, full + 8 * st, k, n0);
+      tma_load(base + L::x + st * L::kXBytes, &x_map, full + 8 * st, k, m0);
+"""
+W8A16_VARIANTS = {
+    "no fragment loads or conversion": ((_W8_FRAGMENT, _W8_RAW),),
+    "no TMA loads": ((_W8_LOADS, ""), ("mbar_expect_tx(full + 8 * st, kWTileBytes + L::kXBytes);",
+                                       "mbar_arrive(full + 8 * st);")),
+    "TMA loads only": ((_W8_FRAGMENT, _W8_RAW),
+                       (_W8_MMA, "      acc[0] += __uint_as_float(a[j & 1][0]);\n")),
+    "no wait in the loop": (("      wgmma_wait<1>();\n      fence_regs(acc);\n",
+                             "      fence_regs(acc);\n"),),
+}
+
+
+def report_w8a16_variants() -> None:
+    """The wgmma kernel against builds of w8a16_gemm.cu that each drop one
+    part of its work (W8A16_VARIANTS: the A fragments' shared-memory loads
+    and conversion, the TMA loads, everything but the TMA loads, the wait
+    for the previous step's wgmma), at w_gate's shape for M 40, 512 and
+    4096 and w_down's for 4096, timed from CUDA graphs in one process in
+    turns (repo, variants, repo): how the card showed what bounds the
+    kernel, where no profiler reads stalls. The variants' sums are wrong
+    and not checked. Not part of the smoke's own run. Prints one line."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from kubeai_tpu_torch.ops import _build
+    from kubeai_tpu_torch.ops.int8_matmul import w8a16_wgmma
+
+    gen = torch.Generator().manual_seed(13)
+    cases = {}
+    for M, K, N in ((40, 4096, 14336), (512, 4096, 14336), (4096, 4096, 14336),
+                    (4096, 14336, 4096)):
+        leaf = _int8_leaf(K, N, gen)
+        cases[f"M={M} K={K} N={N}"] = (torch.randn(M, K, generator=gen).to(
+            "cuda", torch.bfloat16), leaf)
+    kept = _build.CSRC, _build.BUILD_ROOT, _build._lib
+    libs = {"repo": kept[2] or _build.load()}
+    tmp = Path(tempfile.mkdtemp(prefix="w8a16_variants_"))
+    try:
+        for n, (name, edits) in enumerate(W8A16_VARIANTS.items()):
+            src = tmp / str(n) / "csrc"
+            shutil.copytree(kept[0], src)
+            f = src / "w8a16_gemm.cu"
+            text = f.read_text()
+            for old, new in edits:
+                if old not in text:
+                    fail(f"w8a16 variant {name}: {old!r} not in the kernel's source")
+                text = text.replace(old, new)
+            f.write_text(text)
+            _build.CSRC, _build.BUILD_ROOT, _build._lib = src, src.parent / "build", None
+            libs[name] = _build.load()
+        times: dict[str, dict[str, float]] = {}
+        for name in ["repo", *W8A16_VARIANTS, "repo again"]:
+            _build._lib = libs[name.replace(" again", "")]
+            for key, (x, leaf) in cases.items():
+                times.setdefault(key, {})[name] = graph_ms(lambda: w8a16_wgmma(x, leaf))
+        print(f"w8a16_wgmma variants, ms from CUDA graphs: {json.dumps(times)}; card: "
+              f"{gpu_line()}", flush=True)
+    finally:
+        _build.CSRC, _build.BUILD_ROOT, _build._lib = kept
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# Rows at which report_w8a16_tiles sweeps the wgmma kernel's plans.
+TILE_SWEEP_ROWS = (16, 40, 64, 96, 128, 200, 512, 1024)
+
+
+def report_w8a16_tiles() -> None:
+    """The wgmma kernel at every rows a CTA of WGMMA_ROWS up to the
+    smallest that holds M (256 above) and every K split of SPLITS that
+    leaves MIN_SPLIT_CHUNKS chunks a split, on Llama-3-8B's and
+    Qwen2.5-0.5B's weight shapes at TILE_SWEEP_ROWS, each timed from CUDA
+    graphs in three rounds in turns (median), beside the plan gemm_plan
+    chooses: the data gemm_plan's cost model was fitted to. Not part of
+    the smoke's own run. One line a case."""
+    import torch
+
+    from kubeai_tpu_torch.ops.int8_matmul import (
+        K_MULTIPLE,
+        MIN_SPLIT_CHUNKS,
+        SPLITS,
+        WGMMA,
+        WGMMA_ROWS,
+        _launch,
+        gemm_plan,
+    )
+
+    gen = torch.Generator().manual_seed(17)
+    for K, N in GEMM_SHAPES + QWEN_GEMM_SHAPES:
+        leaf = _int8_leaf(K, N, gen)
+        for M in TILE_SWEEP_ROWS:
+            x = torch.randn(M, K, generator=gen).to("cuda", torch.bfloat16)
+            top = next((b for b in WGMMA_ROWS if b >= M), WGMMA_ROWS[-1])
+            plans = {(bm, z) for bm in WGMMA_ROWS if bm <= top for z in SPLITS
+                     if z == 1 or K // K_MULTIPLE // z >= MIN_SPLIT_CHUNKS}
+            calls = {f"{bm}/{z}": (lambda bm=bm, z=z: _launch(WGMMA, x, leaf, bm, z))
+                     for bm, z in sorted(plans)}
+            times = _alternating_ms(calls, 3)
+            plan = "{}/{}".format(*gemm_plan(M, N, K))
+            best = min(times, key=times.get)
+            print(f"w8a16_wgmma tiles M={M} K={K} N={N}: plan {plan} {times[plan]:.5f} ms, "
+                  f"best {best} {times[best]:.5f}; all {json.dumps(times)}", flush=True)
+            del x, calls
+        del leaf
+        torch.cuda.empty_cache()
+    print(f"w8a16_wgmma tiles swept; card: {gpu_line()}", flush=True)
 
 
 def check_head_dim_256() -> dict:
@@ -2003,7 +2223,7 @@ FLASH_D256_PROBES = {
         ('asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));', ""),
     ), ()),
     "wg = threadIdx.x / 128": (((_UNIFORM_WG, "const int wg = threadIdx.x / 128;"),), ()),
-    "a trap in every wait": ((("if constexpr (kTrap)", "if constexpr (true)"),), ()),
+    "a trap in every wait": ((("mbar_wait<false>", "mbar_wait<true>"),), ()),
     "setmaxnreg 24 / 240": ((("constexpr int kProducerRegs = 40;", "constexpr int kProducerRegs = 24;"),
                              ("constexpr int kConsumerRegs = 232;", "constexpr int kConsumerRegs = 240;")), ()),
     "__launch_bounds__(kThreads)": (
@@ -2075,7 +2295,8 @@ def report_flash_d256_registers(parent_csrc: str | None = None) -> None:
         for i, (name, (t, flags)) in enumerate(builds.items()):
             src = tmp / f"probe{i}.cu"
             src.write_text(t)
-            cmd = [nvcc, *_build.NVCC_FLAGS, *flags, "-c", str(src), "-o", str(tmp / f"probe{i}.o")]
+            cmd = [nvcc, *_build.NVCC_FLAGS, *flags, "-I", str(_build.CSRC), "-c", str(src),
+                   "-o", str(tmp / f"probe{i}.o")]
             procs[name] = (tmp / f"probe{i}.o", subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         for name, (obj, proc) in procs.items():
@@ -2264,7 +2485,7 @@ def phase_kernels() -> dict:
     measured["flash_causal_prefill_d64_g4"] = check_draft_heads()
     measured.update(check_head_dim_256())
     measured["flash_causal_prefill_d256"] = check_flash_prefill_d256()
-    measured["int8_linear"] = check_int8_gemm()
+    measured.update(check_int8_gemm())
     return measured
 
 
@@ -2883,8 +3104,7 @@ def phase_serve() -> dict:
     free(run)
     print(f"phase serve fused: {time.perf_counter() - t0:.2f} s", flush=True)
     # The same three runs on int8 layer weights (the W8A16 kernel).
-    launches["int8_linear"] = timed("serve_int8_weights", serve_int8_weights, params, cfg,
-                                    bf16, base)
+    launches.update(timed("serve_int8_weights", serve_int8_weights, params, cfg, bf16, base))
     # Run 4: chunked prefill and the prefix cache. B1 and B2 launch.
     timed("serve_prefix", serve_prefix, params, cfg)
     # Run 5: the 8B (as Llama-3.1) with a Llama-3.2-1B draft. B3 and B2
@@ -2944,26 +3164,30 @@ def weight_gemms(prof: dict) -> str:
             f"{lib / 1e3 / steps:.4f} ms ({lib / total:.3f})")
 
 
-def serve_int8_weights(params, cfg, bf16: dict, base: dict) -> int:
+def serve_int8_weights(params, cfg, bf16: dict, base: dict) -> dict:
     """The 32-layer 8B on int8 layer weights (quantization="int8",
     `quantization.quantize_params` on the card): weights' GiB before and
     after, then a serve run (graphs and overlap, the four default chat
-    requests) per INT8_WEIGHT_RUNS. Gates: int8_linear (the W8A16 kernel)
-    launches, 7 x 32 times a model step in each replay (x decode_chunk in
-    the decode chunk, once a verify window), B2 in the admissions and each
-    layout's attention kernel; B1 never in the fused and speculative runs;
-    every stream equals an eager synchronous engine's on the same int8
-    weights. Reports each run's step (decode step or verify window) from
-    its graph, wall and device ms, beside the bf16 one of the same smoke
-    (`bf16`), the weight GEMMs' share of it, and the greedy streams'
-    agreement with the bf16 per_layer run's (`base`; random weights give
-    flat logits, so not a gate); then one prefill at the 512 bucket on
-    bf16 and on int8 weights, profiled. Returns int8_linear's launches on
-    the main path (the per_layer run)."""
+    requests) per INT8_WEIGHT_RUNS. Gates: the W8A16 kernels launch as
+    `route` sends them, 7 x 32 times a model step in each replay: the
+    skinny kernel in the decode chunk (x decode_chunk), the wgmma kernel in
+    the verify window (M = 8 x 5) and in the admissions, and neither
+    kernel in the other's replays; B2 in the admissions and each layout's
+    attention kernel; B1 never in the fused and speculative runs; every
+    stream equals an eager synchronous engine's on the same int8 weights.
+    Reports each run's step (decode step or verify window) from its graph,
+    wall and device ms, beside the bf16 one of the same smoke (`bf16`),
+    the weight GEMMs' share of it, and the greedy streams' agreement with
+    the bf16 per_layer run's (`base`; random weights give flat logits, so
+    not a gate); then one prefill at the 512 bucket on bf16 and on int8
+    weights, profiled. Returns both kernels' launches on the main path
+    (the per_layer run: the skinny kernel's in decode replays, the wgmma
+    kernel's in the admissions)."""
     import torch
 
     from kubeai_tpu_torch.engine.quantization import quantize_params, weight_bytes
     from kubeai_tpu_torch.models import llama
+    from kubeai_tpu_torch.ops.int8_matmul import route
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2973,25 +3197,31 @@ def serve_int8_weights(params, cfg, bf16: dict, base: dict) -> int:
           f"weights {weight_bytes(params) / 2**30:.3f} GiB in bf16, "
           f"{weight_bytes(qparams) / 2**30:.3f} GiB with int8 layer weights", flush=True)
     per_model_step = 7 * cfg.num_layers
-    launches = 0
+    launches = {}
     for label, extra, attn, program in INT8_WEIGHT_RUNS:
         tag = f"int8 weights {label}"
         extra = dict(extra, quantization="int8")
         run = serve_run(qparams, cfg, tag, **extra)
         got = run["launches"]
         engine = run["engine"]
-        for name in ("int8_linear", "flash_causal_prefill", attn):
+        for name in ("w8a16_wgmma", "flash_causal_prefill", attn):
             if got[name] <= 0:
                 fail(f"serve {tag}: main path never launched {name}")
         if label != "per_layer" and got["paged_decode_attention"]:
             fail(f"serve {tag}: paged_decode_attention launched")
         steps = engine.cfg.decode_chunk if program == "decode chunk" else 1
-        per_replay = _programs(engine)[program].launches_per_replay.get("int8_linear", 0)
-        if per_replay != per_model_step * steps:
-            fail(f"serve {tag}: int8_linear launches {per_replay} times a {program} replay, "
-                 f"not {per_model_step} x {steps}")
-        print(f"serve {tag}: int8_linear {per_replay} launches a {program} replay "
-              f"({per_model_step} a model step), {got['int8_linear']} in the run", flush=True)
+        rows = engine.cfg.num_slots * (engine.cfg.speculate + 1 if steps == 1 else 1)
+        routed = route(rows).__name__
+        per_replay = _programs(engine)[program].launches_per_replay
+        for name in ("w8a16_skinny", "w8a16_wgmma"):
+            want = per_model_step * steps if name == routed else 0
+            if per_replay.get(name, 0) != want:
+                fail(f"serve {tag}: {name} launches {per_replay.get(name, 0)} times a "
+                     f"{program} replay of {rows} rows, not {want}")
+        print(f"serve {tag}: {routed} {per_replay.get(routed, 0)} launches a {program} "
+              f"replay of {rows} rows ({per_model_step} a model step); in the run: "
+              f"w8a16_skinny {got['w8a16_skinny']}, w8a16_wgmma {got['w8a16_wgmma']}",
+              flush=True)
         check_streams_equal_eager(qparams, cfg, tag, run, **extra)
         report_agreement(tag, base, run, against="the bf16 per_layer run's")
         unit = "decode step" if program == "decode chunk" else "verify window"
@@ -3002,7 +3232,7 @@ def serve_int8_weights(params, cfg, bf16: dict, base: dict) -> int:
               f"{ref['wall_ms']:.3f} ms, device {ref['device_ms']:.3f} ms; weight GEMMs: "
               f"int8 {weight_gemms(step)}; bf16 {weight_gemms(ref)}", flush=True)
         if label == "per_layer":
-            launches = got["int8_linear"]
+            launches = {name: got[name] for name in ("w8a16_skinny", "w8a16_wgmma")}
         del engine
         free(run)
     gen = torch.Generator("cuda").manual_seed(12)
@@ -3019,7 +3249,7 @@ def serve_int8_weights(params, cfg, bf16: dict, base: dict) -> int:
     return launches
 
 
-def serve_int8_weights_alone() -> int:
+def serve_int8_weights_alone() -> dict:
     """serve_int8_weights with what it compares against, as phase_serve
     runs it: random 8B weights, the bf16 per_layer, fused and speculate=4
     serve runs with each step profiled from its graph, then the int8

@@ -52,7 +52,7 @@
 //   compiles the 384-thread CTA for 168 registers a thread at launch and
 //   allocates the consumer path, which runs only after setmaxnreg.inc,
 //   within 232 (the D = 256 build names up to R183 there), as long as no
-//   trap lies on that path (mbar_wait); no build spills.
+//   trap lies on that path (hopper.cuh's mbar_wait); no build spills.
 // - At D = 256 the consumers take turns issuing Q K^T (kPingPong).
 // - Epilogue: O / l as bf16 into the consumer's own rows of Q's shared
 //   memory (no other warpgroup reads them) in the map's swizzle, then one
@@ -83,6 +83,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kConsumers = 2;  // consumer warpgroups
@@ -112,9 +114,6 @@ constexpr int kConsumerRegs = 232;
 constexpr int kBox = 64;       // bf16 columns per TMA box (128-byte swizzle)
 constexpr float kNegInf = -1e30f;  // the JAX package's finite NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
-// An mbarrier wait that spins this long gives up instead of hanging the
-// card (mbar_wait).
-constexpr uint32_t kSpinLimit = 1u << 28;
 
 // Byte offsets from the 1024-byte-aligned base of dynamic shared memory.
 // Every tile is [D / 64 column boxes][rows][128 bytes], swizzled.
@@ -130,56 +129,6 @@ struct Smem {
   static constexpr int bytes = bars + 8 * (1 + 3 * kStages) + 1024;
   static_assert(bytes <= 232448, "a block has at most 227 KB of shared memory");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarrier --------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed. A wait that
-// spins kSpinLimit times gives up: the producer's (kTrap) traps, which
-// ends the grid with an error; a consumer's exits its thread, so that the
-// producer's next wait traps. A trap on the consumers' path would cost
-// them their registers: ptxas then allocates the whole kernel within the
-// launch's 168 a thread, whatever setmaxnreg.inc asks for, and the D = 256
-// consumers, which hold O whole, spill.
-template <bool kTrap>
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t spins = 0;
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (++spins == kSpinLimit) {
-      if constexpr (kTrap)
-        __trap();
-      else
-        asm volatile("exit;");
-    }
-  }
-}
 
 // ---- TMA -------------------------------------------------------------------
 
@@ -206,29 +155,6 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, 
 }
 
 // ---- wgmma -----------------------------------------------------------------
-
-// Shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Pin accumulator registers in program order around wgmma's async writes.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // d[64] (+)= A(smem, K-major) * B(smem, K-major), m64n128k16; scale_d = 0
 // overwrites d.
@@ -516,7 +442,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,  // box kBQ rows
     }
     wgmma_commit();
     pass_turn(t);
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(s);
 
     float alpha[2];
@@ -550,7 +476,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,  // box kBQ rows
                            BK * kRowBytes, 1024));
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
 #pragma unroll
     for (int n = 0; n < D / PVN; ++n) fence_regs(o[n]);
     // This warp is done with the stage.
@@ -593,23 +519,6 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap q_map,  // box kBQ rows
 }
 
 // ---- host ------------------------------------------------------------------
-
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) p = nullptr;
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }();
-  return fn;
-}
 
 // A rank-4 (D, heads, S, B) map of a contiguous [B, S, heads, D] bf16
 // tensor with {64, 1, rows, 1} boxes and the 128-byte swizzle. Rows past S

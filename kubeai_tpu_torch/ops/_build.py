@@ -69,8 +69,9 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
         _I, _I, _F, _F, _I, _P,
     ),
-    # x, w8 (N-major), scale, out, scratch, M, N, K, splits, stream
-    "kubeai_w8a16_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, w8 (N-major), scale, out, scratch, M, N, K, kernel, bm, splits,
+    # stream
+    "kubeai_w8a16_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -15,7 +15,7 @@ from kubeai_tpu_torch.engine import Engine, EngineConfig, SamplingParams
 from kubeai_tpu_torch.models import llama as tl
 from kubeai_tpu_torch.ops import _build
 from kubeai_tpu_torch.ops.flash_attention import flash_causal_prefill
-from kubeai_tpu_torch.ops.int8_matmul import int8_linear
+from kubeai_tpu_torch.ops.int8_matmul import int8_linear, w8a16_skinny, w8a16_wgmma
 from kubeai_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_fused,
@@ -23,7 +23,7 @@ from kubeai_tpu_torch.ops.paged_attention import (
 )
 
 WRAPPERS = (paged_decode_attention, paged_verify_attention,
-            paged_decode_attention_fused, flash_causal_prefill, int8_linear)
+            paged_decode_attention_fused, flash_causal_prefill, w8a16_skinny, w8a16_wgmma)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = pathlib.Path(kubeai_tpu_torch.__file__).resolve().parent
@@ -116,8 +116,25 @@ def test_wrappers_refuse_devices_without_a_path():
         paged_decode_attention_fused(q, stacked, stacked, new, new, bt, pos, 1)
     leaf = {"w8": torch.empty(64, 32, dtype=torch.int8, **meta),
             "scale": torch.empty(1, 32, **meta)}
+    x = torch.empty(3, 64, dtype=torch.bfloat16, **meta)
     with pytest.raises(ValueError, match="no path"):
-        int8_linear(torch.empty(3, 64, dtype=torch.bfloat16, **meta), leaf)
+        int8_linear(x, leaf)
+    # The kernels' own launchers check their operands before the device: a
+    # wrong dtype or layout raises, never reaches the kernel as other bytes.
+    packed = {"w8": torch.empty(32, 64, dtype=torch.int8, **meta).t(),
+              "scale": torch.empty(1, 32, **meta)}
+    for launcher in (w8a16_skinny, w8a16_wgmma):
+        with pytest.raises(ValueError, match="no path"):
+            launcher(x, packed)
+        with pytest.raises(TypeError, match="bf16 activations"):
+            launcher(x.float(), packed)
+        with pytest.raises(ValueError, match="N-major"):
+            launcher(x, leaf)
+        with pytest.raises(ValueError, match="contiguous"):
+            launcher(x.reshape(1, 3, 64), packed)
+    with pytest.raises(ValueError, match="at most 8 rows"):
+        w8a16_skinny(torch.empty(9, 64, dtype=torch.bfloat16, **meta), packed)
+    assert w8a16_skinny.launches == w8a16_wgmma.launches == 0
 
 
 def test_kernel_sources_and_bindings():

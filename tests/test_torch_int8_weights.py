@@ -186,12 +186,15 @@ def test_int8_linear_plain_version(dtype):
     rng = np.random.default_rng(5)
     leaf = tq.quantize_tensor(torch.from_numpy(rng.standard_normal((64, 48)).astype(np.float32)))
     x = torch.from_numpy(rng.standard_normal((2, 3, 64)).astype(np.float32)).to(dtype)
-    before = int8_linear.launches
+    kernels = (int8_matmul.w8a16_skinny, int8_matmul.w8a16_wgmma)
+    before = [k.launches for k in kernels]
     got = int8_linear(x, leaf)
     want = torch.matmul(x, int8_matmul.dequantize_as(leaf, dtype))
     assert got.dtype == dtype and tuple(got.shape) == (2, 3, 48)
     assert torch.equal(got, want)
-    assert int8_linear.launches == before  # CPU tensors launch nothing
+    for kernel in kernels:  # each kernel's own plain version, on the same rows
+        assert torch.equal(kernel(x.reshape(6, 64), leaf), want.reshape(6, 48))
+    assert [k.launches for k in kernels] == before  # CPU tensors launch nothing
     deq = int8_matmul.dequantize_as(leaf, dtype)
     if dtype == torch.bfloat16:  # the kernel's weight: dequantize's, bit for bit
         assert torch.equal(deq.view(torch.int16), tq.dequantize(leaf).view(torch.int16))
@@ -230,7 +233,8 @@ def test_check_weight_names_a_shape_it_does_not_take(k, n):
 
 
 def _source_int(name: str) -> int:
-    return int(re.search(rf"constexpr int {name} = (\d+);", CSRC.read_text()).group(1))
+    return int(re.search(rf"constexpr (?:int|uint32_t) {name} = (0x[0-9A-Fa-f]+|\d+);",
+                         CSRC.read_text()).group(1), 0)
 
 
 def test_byte_to_float_is_exact():
@@ -242,34 +246,32 @@ def test_byte_to_float_is_exact():
     np.testing.assert_array_equal(f, b.astype(np.float32))
 
 
-def _emulate(x: np.ndarray, w8t: np.ndarray, deq_t: np.ndarray, n0: int, m0: int,
-             chunks, mt_tiles: int) -> np.ndarray:
-    """The kernel's products for 16 channels from n0 and 8 * mt_tiles rows
-    from m0 over `chunks`, lane by lane as csrc/w8a16_gemm.cu assigns them:
-    lane (g, t) in k16 step j of a chunk holds channel rows g and g + 8 at
-    bytes 16t + 4j .. + 3 (A slots 2t, 2t+1, 2t+8, 2t+9) and x's row g at
-    the same four k (B). Returns the [16, 8 * mt_tiles] accumulator."""
+def _emulate(x: np.ndarray, w8t: np.ndarray, deq_t: np.ndarray, n0: int,
+             chunks) -> np.ndarray:
+    """The skinny kernel's products for 16 channels from n0 and its one
+    8-row tile over `chunks`, lane by lane as csrc/w8a16_gemm.cu assigns
+    them: lane (g, t) in k16 step j of a chunk holds channel rows g and
+    g + 8 at bytes 16t + 4j .. + 3 (A slots 2t, 2t+1, 2t+8, 2t+9) and x's
+    row g at the same four k (B). Returns the [16, 8] accumulator."""
     chunk = _source_int("kChunk")
-    acc = np.zeros((16, 8 * mt_tiles))
+    acc = np.zeros((16, 8))
     for c in chunks:
         for j in range(4):
-            for mt in range(mt_tiles):
-                A, B = np.zeros((16, 16)), np.zeros((16, 8))
-                for g in range(8):
-                    for t in range(4):
-                        ks = c * chunk + 16 * t + 4 * j + np.arange(4)
-                        slots = [2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9]
-                        A[g, slots] = deq_t[n0 + g, ks]
-                        A[g + 8, slots] = deq_t[n0 + g + 8, ks]
-                        m = m0 + mt * 8 + g
-                        B[slots, g] = x[m, ks] if m < x.shape[0] else 0.0
-                acc[:, mt * 8:(mt + 1) * 8] += A @ B
+            A, B = np.zeros((16, 16)), np.zeros((16, 8))
+            for g in range(8):
+                for t in range(4):
+                    ks = c * chunk + 16 * t + 4 * j + np.arange(4)
+                    slots = [2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9]
+                    A[g, slots] = deq_t[n0 + g, ks]
+                    A[g + 8, slots] = deq_t[n0 + g + 8, ks]
+                    B[slots, g] = x[g, ks] if g < x.shape[0] else 0.0
+            acc += A @ B
     return acc
 
 
 def test_kernel_fragment_mapping_sums_each_product_once():
     rng = np.random.default_rng(8)
-    M, N, K = 13, 32, 2 * _source_int("kChunk")
+    M, N, K = 5, 32, 2 * _source_int("kChunk")
     w = rng.standard_normal((K, N)).astype(np.float32)
     leaf = tq.quantize_tensor(torch.from_numpy(w))
     deq_t = tq.dequantize(leaf).float().numpy().T.astype(np.float64)  # [N, K]
@@ -277,36 +279,244 @@ def test_kernel_fragment_mapping_sums_each_product_once():
     x = rng.standard_normal((M, K))
     want = x @ deq_t.T  # [M, N]
     for n0 in (0, 16):
-        # Skinny: its warps take the chunks in any split; tiled: in order.
-        got = _emulate(x, w8t, deq_t, n0, 0, [1, 0], 2)
+        # The skinny kernel's warps take the chunks in any split.
+        got = _emulate(x, w8t, deq_t, n0, [1, 0])
         np.testing.assert_allclose(got[:, :M].T, want[:, n0:n0 + 16], rtol=1e-12, atol=1e-12)
     # The skinny kernel's reduction places each (lane, register) once.
-    mt_tiles, seen = 8, set()
-    for e in range(mt_tiles * 4 * 32):
+    seen = set()
+    for e in range(4 * 32):
         i, lane = e >> 5, e & 31
-        n = (lane >> 2) + (8 if (i & 3) >= 2 else 0)
-        m = (i >> 2) * 8 + 2 * (lane & 3) + (i & 1)
-        seen.add((n, m))
-    assert seen == {(n, m) for n in range(16) for m in range(8 * mt_tiles)}
-    assert _source_int("kSkinnyMaxM") == int8_matmul.SKINNY_MAX_M
+        seen.add(((lane >> 2) + (8 if i >= 2 else 0), 2 * (lane & 3) + (i & 1)))
+    assert seen == {(n, m) for n in range(16) for m in range(8)}
+    assert _source_int("kSkinnyMaxM") == int8_matmul.SKINNY_MAX_M == 8
     assert _source_int("kTileN") == int8_matmul.TILE_N
 
 
+# ---- the wgmma kernel's spec ------------------------------------------------------
+
+
+def _bf16(a: np.ndarray) -> np.ndarray:
+    return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _swizzle(row: int, chunk: int, row_bytes: int) -> int:
+    """TMA's swizzle of a 16-byte chunk of a row: address bits 4.. XOR the
+    bits 7.. (64-byte rows: 2 bits, (row >> 1) & 3; 128-byte rows: 3 bits,
+    row & 7)."""
+    return chunk ^ (((row * row_bytes) >> 7) & (row_bytes // 16 - 1))
+
+
+def _byte_perm_float(word: int, sel: int) -> np.float32:
+    """byte_to_float: __byte_perm(word, 0x4B000000, sel) as f32, minus
+    2^23 + 128."""
+    src = [(word >> (8 * i)) & 0xFF for i in range(4)] + [0x00, 0x00, 0x00, 0x4B]
+    out = sum(src[(sel >> (4 * i)) & 7] << (8 * i) for i in range(4))
+    return np.array([out], np.uint32).view(np.float32)[0] - np.float32(8388736.0)
+
+
+def _emulate_wgmma_cta(x, w8t, scale, n0, m0, chunks, bm):
+    """One CTA of the wgmma kernel (csrc/w8a16_gemm.cu) over `chunks`,
+    lane by lane: the weight tile as TMA stores it (rows of 64 bytes,
+    64-byte swizzle, rows past N zero), each consumer lane's A fragment as
+    `load_fragment` reads and converts it, x^T as wgmma's B (k 16 j .. of
+    the tile's rows, rows past M zero). Returns ({(channel, x row): f32
+    sum}, and how many times each (channel, k) of the CTA entered an A
+    fragment)."""
+    chunk, tile_n = _source_int("kChunk"), _source_int("kTileN")
+    sel = _source_int("kSel")
+    N, K = w8t.shape
+    M = x.shape[0]
+    s_bf = _bf16(scale)
+    acc = np.zeros((tile_n, bm))
+    seen = np.zeros((tile_n, len(chunks) * chunk), int)
+    for ci, c in enumerate(chunks):
+        tile = np.zeros(tile_n * 64, np.uint8)  # the weight tile in shared memory
+        for r in range(tile_n):
+            if n0 + r < N:
+                row = w8t[n0 + r, c * chunk:(c + 1) * chunk].view(np.uint8)
+                for q in range(4):
+                    at = r * 64 + 16 * _swizzle(r, q, 64)
+                    tile[at:at + 16] = row[16 * q:16 * q + 16]
+        xs = np.zeros((bm, chunk))
+        rows = min(bm, M - m0)
+        xs[:rows] = x[m0:m0 + rows, c * chunk:(c + 1) * chunk]
+        for j in range(chunk // 16):
+            A = np.zeros((tile_n, 16))
+            for cons in range(2):
+                for warp in range(4):
+                    for lane in range(32):
+                        g, t = lane >> 2, lane & 3
+                        r = 64 * cons + 16 * warp + g
+                        sw = (r >> 1) & 3
+                        s0 = s_bf[n0 + r] if n0 + r < N else 0.0
+                        s1 = s_bf[n0 + r + 8] if n0 + r + 8 < N else 0.0
+                        for rr, s in ((r, s0), (r + 8, s1)):
+                            at = rr * 64 + 16 * (j ^ sw)
+                            words = tile[at:at + 16].view("<u4")
+                            for half in (0, 1):  # k 2t.. and 2t + 8..
+                                word = int(words[2 * half + (1 if t & 2 else 0)]) ^ 0x80808080
+                                for e in (0, 1):
+                                    f = _byte_perm_float(word, sel | (2 * (t & 1) + e))
+                                    k = 8 * half + 2 * t + e
+                                    A[rr, k] = _bf16(np.float32(f) * np.float32(s))
+                                    seen[rr, ci * chunk + 16 * j + k] += 1
+            acc += A.astype(np.float64) @ xs[:, 16 * j:16 * j + 16].T
+    return acc, seen
+
+
+def _emulate_epilogue(acc, n0, m0, bm, N, M):
+    """Where the consumers' registers land in out: wgmma's accumulator
+    layout, stmatrix .trans into each consumer's [bm rows][64 channels]
+    tile in the 128-byte swizzle, and the TMA store that reads it back
+    (clipping rows past M and channels past N). Returns {(x row, channel):
+    value}, failing if two registers land on one element."""
+    out = {}
+    for cons in range(2):
+        smem = {}
+        for warp in range(4):
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                for i in range(bm // 2):
+                    ch = 16 * warp + g + 8 * ((i >> 1) & 1)  # channel in the consumer's 64
+                    xr = 8 * (i >> 2) + 2 * t + (i & 1)
+                    # stmatrix x4 .trans: register q = (i % 8) // 2 of block pair
+                    # b = 2 * (i // 8) holds matrix q, whose row xr % 8 goes to
+                    # the address lane 8 q + xr % 8 gives.
+                    b, q = 2 * (i // 8), (i % 8) // 2
+                    row = 8 * (b + (q >> 1)) + (xr & 7)
+                    assert row == xr
+                    chunk = 2 * warp + (q & 1)
+                    addr = row * 128 + 16 * _swizzle(row, chunk, 128) + 2 * (ch & 7)
+                    assert addr not in smem
+                    smem[addr] = acc[64 * cons + ch, xr]
+        for addr, v in smem.items():  # the TMA store: unswizzle
+            row, chunk = addr // 128, _swizzle(addr // 128, (addr % 128) // 16, 128)
+            ch = 64 * cons + 8 * chunk + (addr % 16) // 2
+            if m0 + row < M and n0 + ch < N:
+                assert (m0 + row, n0 + ch) not in out
+                out[m0 + row, n0 + ch] = v
+    return out
+
+
+@pytest.mark.parametrize("M,N,K,bm,splits", [
+    (20, 112, 128, 32, 1),    # rows past M, channels past N in consumer 1
+    (16, 128, 192, 16, 3),    # split K three ways: f32 partials, summed in order
+])
+def test_wgmma_fragment_mapping_sums_each_product_once(M, N, K, bm, splits):
+    """csrc/w8a16_gemm.cu's wgmma kernel, emulated in numpy: every
+    (channel, k) of a CTA enters its A fragments once, converted with its
+    own channel's scale (the rows a lane holds are fixed channels), the
+    products sum to x @ deq, and each output element is written once, by
+    the epilogue or by the split-K partials and the reduce."""
+    rng = np.random.default_rng(23)
+    w = (rng.standard_normal((K, N)) * 0.02).astype(np.float32)
+    w[:, 5] = 0.0  # a dead channel
+    leaf = tq.quantize_tensor(torch.from_numpy(w))
+    w8t = leaf["w8"].t().contiguous().numpy()  # [N, K], as the kernel reads it
+    scale = leaf["scale"].reshape(-1).numpy()
+    deq = tq.dequantize(leaf).float().numpy().astype(np.float64)  # [K, N]
+    x = _bf16(rng.standard_normal((M, K))).astype(np.float64)
+    want = x @ deq
+    chunk = _source_int("kChunk")
+    n_chunks = K // chunk
+    cps = -(-n_chunks // splits)
+    parts = []
+    for z in range(-(-n_chunks // cps)):
+        chunks = range(z * cps, min(n_chunks, (z + 1) * cps))
+        acc, seen = _emulate_wgmma_cta(x, w8t, scale, 0, 0, list(chunks), bm)
+        assert (seen == 1).all()  # channels past N too, as zeros
+        if splits == 1:
+            out = _emulate_epilogue(acc, 0, 0, bm, N, M)
+            assert set(out) == {(m, n) for m in range(M) for n in range(N)}
+            got = np.array([[out[m, n] for n in range(N)] for m in range(M)])
+            np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
+            assert not got[:, 5].any()
+        else:
+            parts.append(acc[:N, :M].T)  # part[z][m][n] = acc[n, m], m < M, n < N
+    if parts:
+        total = parts[0].copy()
+        for p_ in parts[1:]:  # the reduce kernel: split order
+            total += p_
+        np.testing.assert_allclose(total, want, rtol=1e-9, atol=1e-9)
+        assert not total[:, 5].any()
+
+
+def test_wgmma_builds_and_layout_match_the_wrapper():
+    """The wrapper's WGMMA_ROWS are the source's wgmma builds, each a
+    whole number of stmatrix block pairs; the shared-memory layout each
+    build's constants give fits a block with a ring of at least 4, and the
+    setmaxnreg counts fit the launch's registers."""
+    src = CSRC.read_text()
+    builds = tuple(int(b) for b in re.findall(r"case (\d+): return launch_wgmma<\1>", src))
+    assert builds == int8_matmul.WGMMA_ROWS
+    limit, max_stages = _source_int("kSmemLimit"), _source_int("kMaxStages")
+    w_tile = _source_int("kTileN") * _source_int("kChunk")
+    consumers = _source_int("kConsumers")
+    for bm in builds:
+        assert bm % 16 == 0 and bm <= 256  # wgmma's N; stmatrix x4 takes 16 rows
+        x_tile, out_tile = bm * 128, bm * 128
+        stages = min(max_stages, (limit - 1024 - 16 * max_stages - consumers * out_tile)
+                     // (w_tile + x_tile))
+        assert stages >= 4
+        assert stages * (w_tile + x_tile) + consumers * out_tile + 16 * stages + 1024 <= limit
+        assert x_tile % 1024 == 0  # every tile 1024-byte aligned for the swizzles
+    threads = 128 * (1 + consumers)
+    launch = 65536 // threads // 8 * 8  # one CTA an SM: 168 a thread
+    assert (_source_int("kProducerRegs") * 128 + _source_int("kConsumerRegs") * 128 * consumers
+            <= launch * threads)
+
+
+def test_route_by_rows():
+    """route: the skinny kernel up to SKINNY_MAX_M rows (the decode step's
+    8), the wgmma kernel above, whatever N and K; gemm_plan: a build of
+    WGMMA_ROWS no larger than the smallest that holds M (256 above) and a
+    split of SPLITS that leaves MIN_SPLIT_CHUNKS chunks a split."""
+    for m in range(1, 300):
+        want = int8_matmul.w8a16_skinny if m <= 8 else int8_matmul.w8a16_wgmma
+        assert int8_matmul.route(m) is want
+    for n, k in ((14336, 4096), (1024, 4096), (4096, 14336), (128, 896), (896, 4864)):
+        for m in (*range(9, 300), 512, 1000, 1024, 4096):
+            bm, z = int8_matmul.gemm_plan(m, n, k)
+            top = next((b for b in int8_matmul.WGMMA_ROWS if b >= m), 256)
+            assert bm in int8_matmul.WGMMA_ROWS and bm <= top
+            assert z in int8_matmul.SPLITS
+            assert z == 1 or k // 64 // z >= int8_matmul.MIN_SPLIT_CHUNKS
+
+
+@pytest.mark.parametrize("m,n,k,want", [
+    (40, 14336, 4096, (48, 1)),    # the verify window, w_gate: 112 tiles fill the card
+    (40, 4096, 4096, (48, 4)),     # wq: 32 tiles, split 4 ways
+    (512, 14336, 4096, (256, 1)),  # the 512 bucket's w_gate
+    (512, 4096, 4096, (256, 2)),
+    (512, 1024, 4096, (128, 4)),   # wk: 128 rows and 4 splits beat 256 and 8 on the card
+    (4096, 14336, 4096, (256, 1)),
+    (512, 128, 896, (16, 1)),      # Qwen2.5-0.5B's wk: 14 chunks, no split; 32 small tiles
+    (512, 896, 896, (32, 1)),
+    (512, 4864, 896, (256, 1)),
+])
+def test_gemm_plan_takes_the_cheapest_plan(m, n, k, want):
+    """gemm_plan at shapes whose every plan the card timed
+    (chip_smoke.report_w8a16_tiles, PERF.md section 6): the plan the card
+    found fastest."""
+    assert int8_matmul.gemm_plan(m, n, k) == want
+
+
 def test_gemm_splits_fill_the_card_from_shapes():
-    """The tiled kernel's K split: none for the skinny kernel or where the
-    tiles fill two waves; for a 96- or 128-row prefill on Llama-3-8B's
-    narrow weights, enough 64-row tiles for two CTAs an SM, each split at
-    least MIN_SPLIT_CHUNKS chunks."""
-    splits = int8_matmul.gemm_splits
-    assert splits(64, 1024, 4096) == 1 and splits(4096, 14336, 4096) == 1
-    for m, n, k in ((96, 4096, 4096), (128, 1024, 4096), (512, 1024, 4096),
-                    (128, 4096, 14336)):
-        z = splits(m, n, k)
-        tiles = -(-n // int8_matmul.TILE_N) * -(-m // 64)
-        assert 1 < z <= int8_matmul.MAX_SPLITS
-        assert tiles * z <= 2 * int8_matmul.SMS
+    """The wgmma kernel's K split: none where the tiles fill the card; on
+    Llama-3-8B's narrow weights (wk, wv: 8 channel tiles) and at a verify
+    window's rows, enough for the card's SMs in one wave, each split at
+    least MIN_SPLIT_CHUNKS chunks; from the shapes alone."""
+    plan = int8_matmul.gemm_plan
+    assert plan(4096, 14336, 4096)[1] == 1 and plan(512, 14336, 4096)[1] == 1
+    for m, n, k in ((40, 1024, 4096), (40, 4096, 4096), (512, 1024, 4096),
+                    (96, 1024, 4096), (40, 4096, 14336)):
+        bm, z = plan(m, n, k)
+        tiles = -(-n // int8_matmul.TILE_N) * -(-m // bm)
+        assert 1 < z <= max(int8_matmul.SPLITS)
+        assert tiles * z <= int8_matmul.SMS
         assert k // 64 // z >= int8_matmul.MIN_SPLIT_CHUNKS
-    assert splits(128, 128, 896) == 1  # Qwen2.5-0.5B's wk: 14 chunks
+        assert plan(m, n, k) == (bm, z)  # shapes alone: a graph replays the same split
+    assert plan(128, 128, 896)[1] == 1  # Qwen2.5-0.5B's wk: 14 chunks
 
 
 # ---- the model --------------------------------------------------------------------
