@@ -173,7 +173,9 @@ Phases, each fatal on failure:
                holds over /v1/kv/export (X-KV-Source): B's hit tokens,
                its 16 imported pages, their bits and its stream must be
                A's; an eviction of A's idle pages spills into A's
-               KVSpillStore and fills back bit-equal. Int8 KV pools last:
+               in-memory KVSpillStore and fills back bit-equal, and the
+               same on B, whose store is a gs:// bucket on a fake GCS
+               server on 127.0.0.1. Int8 KV pools last:
                `serve_int8` serves the four prompts greedy, then seeded,
                on int8 pools (B1-int8 must launch, only from replays, and
                B1 not at all; streams equal an eager int8 engine's) and
@@ -253,13 +255,24 @@ Phases, each fatal on failure:
                requests and the audio seconds, exit 0 on SIGINT;
   5. serve_cli — the engine Pod's entry point: a random-weight Llama
                checkpoint at Llama-3-8B width (4 layers, bf16) written with
-               `weights.save_safetensors`, served by `python -m
-               kubeai_tpu_torch.engine.server` in a subprocess five times
-               (default, `--speculate 4`, the fused layout through
+               `weights.save_safetensors`, uploaded to a fake S3 on
+               127.0.0.1 and served by `python -m
+               kubeai_tpu_torch.engine.server` in a subprocess six times.
+               First the object-store boots, `--model-url s3://...` with
+               `--snapshot-url gs://...` (a fake GCS): `--speculate 4`
+               loads in full and publishes its snapshot after the
+               warm-up; the same flags again from a copy of the package
+               whose build/ is empty must restore (the tree bit-equal to
+               the tensors written, the kernel library put in place so no
+               nvcc runs) and load an adapter through lora_url s3://; the
+               default config with --snapshot-no-publish must miss and
+               load in full (events published, restored, absent; seconds
+               to Ready, every phase, restore GB/s against load GB/s
+               through the fake S3). Then the fused layout through
                KUBEAI_TPU_DECODE_KERNEL, `--speculate 4 --draft-url`
                with a 2-layer draft checkpoint at the same width written
                beside it, and `--quantization int8`, which must log the
-               weights' GiB); each run: the four chat requests
+               weights' GiB; each run: the four chat requests
                of the serve runs (one streamed), /metrics and /v1/state,
                /v1/drain and SIGTERM, which must exit 0 within the drain
                budget. The same checkpoint loaded in-process through
@@ -4777,24 +4790,34 @@ def serve_disagg_int8(params, cfg) -> None:
 def serve_kv_share(params, cfg) -> None:
     """The cluster KV-sharing tier at full width, on serve_prefix's
     configuration (prefill_chunk=512, prefix_cache=True): two kv_sharing
-    EngineServers A and B, each with an in-memory KVSpillStore. A serves
+    EngineServers A and B, A with an in-memory KVSpillStore, B with one
+    on a gs:// bucket. A serves
     the 1,024-token system-prompt body (a miss); B gets the same body with
     X-KV-Source naming A and pulls the prefix pages over /v1/kv/export.
     Gates: B's hit tokens equal the cache rule's count, B imported 16
     pages, B's adopted pages are bit-equal to A's, and B's stream equals
     A's for the same body sent again to A (a hit). Then an eviction of A's
-    idle pages spills them into A's store and import_prefix_pages(...,
-    source="spill") fills them back bit-equal. Reports the fetch's ms and
-    MB/s."""
+    idle pages spills them into A's store (in memory) and
+    import_prefix_pages(..., source="spill") fills them back bit-equal;
+    the same on B, whose store is a gs:// bucket on a fake GCS
+    (--kv-spill-url's path). Reports the fetch's ms and MB/s."""
+    import os
+    import shutil
+    import tempfile
+
     import torch
 
-    from kubeai_tpu_torch.disagg.handoff import deserialize_pages
     from kubeai_tpu_torch.objstore import KVSpillStore
 
     t_phase = time.perf_counter()
     extra = dict(decode_kernel="per_layer", prefill_chunk=PREFIX_CHUNK, prefix_cache=True)
+    gcs_root = tempfile.mkdtemp(prefix="kubeai-kv-spill-")
+    gcs = FakeBucket("gcs", gcs_root)
+    saved_env = os.environ.get("STORAGE_EMULATOR_HOST")
+    os.environ["STORAGE_EMULATOR_HOST"] = gcs.endpoint
+    stores = {"A": KVSpillStore(), "B": KVSpillStore("gs://kv-spill/pages")}
     sides = {name: _DisaggSide(params, cfg, "unified", f"kv_share {name}",
-                               server_kw=dict(kv_sharing=True, kv_spill_store=KVSpillStore()),
+                               server_kw=dict(kv_sharing=True, kv_spill_store=stores[name]),
                                **extra)
              for name in ("A", "B")}
     a, b = sides["A"], sides["B"]
@@ -4851,33 +4874,56 @@ def serve_kv_share(params, cfg) -> None:
             fail(f"serve_kv_share: B's stream differs from A's hit at token {step}")
         print(f"serve_kv_share: B's {len(pages_b)} adopted pages bit-equal to A's; B's stream "
               f"({len(stream_b)} tokens) equals A's for the same body as a hit", flush=True)
-        # Spill and fill on A: evict its idle pages into its store.
-        eng, store = a.engine, a.server.kv_spill
-        held = [pool[:, pages_a].clone() for pool in (eng.cache.k_pages, eng.cache.v_pages)]
-        with eng._lock:
-            alloc = eng._alloc
-            free, alloc._free = alloc._free, []
-            taken = [alloc._take_free() for _ in range(alloc.cached_idle_pages)]
-            alloc._free = free + taken
-        spilled = eng.kv_share_stats["spilled_pages"]
-        if eng._alloc.lookup(hashes) or spilled < len(chain):
-            fail(f"serve_kv_share: the eviction spilled {spilled} pages")
-        t0 = time.perf_counter()
-        filled = sum(eng.import_prefix_pages(deserialize_pages(store.get(h)), source="spill")
-                     for h in chain)
-        fill_s = time.perf_counter() - t0
-        pages = eng._alloc.lookup(hashes)
-        for pool, want in zip((eng.cache.k_pages, eng.cache.v_pages), held):
-            if filled != len(chain) or not torch.equal(pool[:, pages], want):
-                fail(f"serve_kv_share: the spill fill wrote {filled} pages, not A's bits")
-        print(f"serve_kv_share spill: {spilled} pages spilled ({store.puts} puts), "
-              f"{filled} filled back bit-equal in {fill_s * 1e3:.3f} ms "
-              f"(kv_share_stats {json.dumps(eng.kv_share_stats)})", flush=True)
+        spill_and_fill(a, "A (in memory)", chain)
+        spill_and_fill(b, "B (gs:// on a fake GCS)", chain)
+        print(f"serve_kv_share B's bucket: {gcs.received} bytes put, {gcs.sent} bytes got",
+              flush=True)
     finally:
         for side in sides.values():
             side.stop()
+        gcs.stop()
+        shutil.rmtree(gcs_root, ignore_errors=True)
+        if saved_env is None:
+            os.environ.pop("STORAGE_EMULATOR_HOST", None)
+        else:
+            os.environ["STORAGE_EMULATOR_HOST"] = saved_env
     print(f"serve_kv_share took {time.perf_counter() - t_phase:.2f} s; card: {gpu_line()}",
           flush=True)
+
+
+def spill_and_fill(side, label: str, chain: list) -> None:
+    """Evict `side`'s idle pages into its server's spill store, then fill
+    the chain back with import_prefix_pages(..., source="spill"): fails
+    unless every page spilled and came back with the bits it left with."""
+    import torch
+
+    from kubeai_tpu_torch.disagg.handoff import deserialize_pages
+
+    eng, store = side.engine, side.server.kv_spill
+    hashes = [bytes.fromhex(h) for h in chain]
+    held = [pool[:, eng._alloc.lookup(hashes)].clone()
+            for pool in (eng.cache.k_pages, eng.cache.v_pages)]
+    spilled0 = eng.kv_share_stats["spilled_pages"]
+    with eng._lock:
+        alloc = eng._alloc
+        free, alloc._free = alloc._free, []
+        taken = [alloc._take_free() for _ in range(alloc.cached_idle_pages)]
+        alloc._free = free + taken
+    spilled = eng.kv_share_stats["spilled_pages"] - spilled0
+    if eng._alloc.lookup(hashes) or spilled < len(chain):
+        fail(f"serve_kv_share {label}: the eviction spilled {spilled} pages")
+    t0 = time.perf_counter()
+    filled = sum(eng.import_prefix_pages(deserialize_pages(store.get(h)), source="spill")
+                 for h in chain)
+    fill_s = time.perf_counter() - t0
+    pages = eng._alloc.lookup(hashes)
+    for pool, want in zip((eng.cache.k_pages, eng.cache.v_pages), held):
+        if filled != len(chain) or not torch.equal(pool[:, pages], want):
+            fail(f"serve_kv_share {label}: the spill fill wrote {filled} pages, not the bits "
+                 "spilled")
+    print(f"serve_kv_share spill {label}: {spilled} pages spilled ({store.puts} puts), "
+          f"{filled} filled back bit-equal in {fill_s * 1e3:.3f} ms "
+          f"(kv_share_stats {json.dumps(eng.kv_share_stats)})", flush=True)
 
 
 def cli_role_pair(model_dir: str) -> None:
@@ -5608,12 +5654,21 @@ def _get(port: int, path: str) -> tuple[int, str]:
 # in-process engine's EngineConfig settings for the same run). The default
 # runs B1 and B2; speculation runs B3 in every decode call; the fused
 # layout, chosen by the environment as an engine Pod would, runs B4.
-# (label, flags, environment, in-process EngineConfig fields); "{draft}"
-# in the flags is the draft checkpoint's directory.
+# "{draft}" in the flags is the draft checkpoint's directory, "{s3}" the
+# checkpoint's URL on a fake S3, "{gs}" a snapshot bucket on a fake GCS
+# and "{work}" the run's own staging directory. The first three runs are
+# the object-store boots: a full load that publishes its snapshot after
+# the warm-up; the same flags from a copy of the package whose build/ is
+# empty ("restored": it must restore the tree and the kernel library, so
+# no nvcc runs); and another engine config with --snapshot-no-publish (a
+# miss, then a full load).
+SPEC_FLAGS = ["--speculate", "4", "--spec-adaptive", "off"]
+SPEC_CONFIG = dict(decode_kernel="per_layer", speculate=4, spec_adaptive=False)
+BOOT_FLAGS = ["--model-url", "{s3}", "--snapshot-url", "{gs}", "--snapshot-dir", "{work}"]
 CLI_RUNS = (
-    ("default", [], {}, dict(decode_kernel="per_layer")),
-    ("speculate", ["--speculate", "4", "--spec-adaptive", "off"], {},
-     dict(decode_kernel="per_layer", speculate=4, spec_adaptive=False)),
+    ("speculate", [*SPEC_FLAGS, *BOOT_FLAGS], {}, SPEC_CONFIG),
+    ("restored", [*SPEC_FLAGS, *BOOT_FLAGS], {}, SPEC_CONFIG),
+    ("default", [*BOOT_FLAGS, "--snapshot-no-publish"], {}, dict(decode_kernel="per_layer")),
     ("fused", [], {"KUBEAI_TPU_DECODE_KERNEL": "fused"}, dict(decode_kernel="fused")),
     ("draft", ["--speculate", "4", "--spec-adaptive", "off", "--draft-url", "{draft}"], {},
      dict(decode_kernel="per_layer", speculate=4, spec_adaptive=False)),
@@ -5671,6 +5726,138 @@ class OtlpSink:
         self.httpd.server_close()
 
 
+class FakeBucket:
+    """A GCS (JSON API) or S3 (path-style REST) fake on 127.0.0.1 over a
+    directory, for the boots through `--model-url s3://...`,
+    `--snapshot-url gs://...` and the KV spill to gs://: objects are
+    files under <root>/<bucket>/<name>; downloads honour Range and go out
+    with sendfile; uploads stream to a private name renamed into place.
+    It counts the bytes it sends and receives. Its rates measure this
+    host and a Python server, not a cloud bucket."""
+
+    def __init__(self, kind: str, root: str):
+        import os
+        import urllib.parse
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        bucket_fake = self
+        self.kind, self.root = kind, root
+        self.sent = self.received = 0
+        self._lock = threading.Lock()
+
+        def path_of(bucket: str, name: str) -> str:
+            return os.path.join(root, bucket, *name.split("/"))
+
+        def listed(bucket: str, prefix: str) -> list[tuple[str, int]]:
+            base, out = os.path.join(root, bucket), []
+            for d, _, files in os.walk(base):
+                for f in files:
+                    if f.endswith(".inflight"):
+                        continue
+                    full = os.path.join(d, f)
+                    name = os.path.relpath(full, base).replace(os.sep, "/")
+                    if name.startswith(prefix):
+                        out.append((name, os.path.getsize(full)))
+            return sorted(out)
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def send(self, status: int, body: bytes = b"", ctype="application/json"):
+                self.send_response(status)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def send_object(self, bucket: str, name: str):
+                path = path_of(bucket, name)
+                if not os.path.isfile(path):
+                    return self.send(404, b"{}")
+                size = os.path.getsize(path)
+                rng = self.headers.get("Range")
+                start, end = 0, size - 1
+                if rng:
+                    a, _, b = rng.removeprefix("bytes=").partition("-")
+                    start, end = int(a), min(int(b), size - 1) if b else size - 1
+                self.send_response(206 if rng else 200)
+                self.send_header("Content-Type", "application/octet-stream")
+                self.send_header("Content-Length", str(end - start + 1))
+                if rng:
+                    self.send_header("Content-Range", f"bytes {start}-{end}/{size}")
+                self.end_headers()
+                with open(path, "rb") as f:
+                    self.connection.sendfile(f, start, end - start + 1)
+                with bucket_fake._lock:
+                    bucket_fake.sent += end - start + 1
+
+            def receive(self, bucket: str, name: str):
+                path = path_of(bucket, name)
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                left = n = int(self.headers.get("Content-Length", 0))
+                buf = memoryview(bytearray(1 << 20))
+                with open(path + ".inflight", "wb") as f:
+                    while left:
+                        got = self.rfile.readinto(buf[:min(left, len(buf))])
+                        if not got:
+                            return self.send(400, b"{}")
+                        f.write(buf[:got])
+                        left -= got
+                os.replace(path + ".inflight", path)
+                with bucket_fake._lock:
+                    bucket_fake.received += n
+                self.send(200, b"{}")
+
+            def do_GET(self):
+                parsed = urllib.parse.urlparse(self.path)
+                q = urllib.parse.parse_qs(parsed.query)
+                parts = parsed.path.split("/")
+                if kind == "gcs" and parsed.path.startswith("/download/storage/v1/b/"):
+                    return self.send_object(parts[5], urllib.parse.unquote(parts[7]))
+                if kind == "gcs" and parsed.path.startswith("/storage/v1/b/"):
+                    items = [{"name": n, "size": str(z)}
+                             for n, z in listed(parts[4], q.get("prefix", [""])[0])]
+                    return self.send(200, json.dumps({"items": items}).encode())
+                if kind == "s3":
+                    bucket, _, key = parsed.path.lstrip("/").partition("/")
+                    if "list-type" in q:
+                        contents = "".join(
+                            f"<Contents><Key>{n}</Key><Size>{z}</Size></Contents>"
+                            for n, z in listed(bucket, q.get("prefix", [""])[0]))
+                        return self.send(200, (
+                            "<ListBucketResult><IsTruncated>false</IsTruncated>"
+                            f"{contents}</ListBucketResult>").encode(), "application/xml")
+                    return self.send_object(bucket, urllib.parse.unquote(key))
+                self.send(404, b"{}")
+
+            def do_POST(self):
+                parsed = urllib.parse.urlparse(self.path)
+                if kind == "gcs" and parsed.path.startswith("/upload/storage/v1/b/"):
+                    name = urllib.parse.parse_qs(parsed.query)["name"][0]
+                    return self.receive(parsed.path.split("/")[5], name)
+                self.send(404, b"{}")
+
+            def do_PUT(self):
+                if kind != "s3":
+                    return self.send(404, b"{}")
+                bucket, _, key = urllib.parse.urlparse(self.path).path.lstrip("/").partition("/")
+                self.receive(bucket, urllib.parse.unquote(key))
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.httpd.daemon_threads = True
+        self._thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self._thread.start()
+
+    @property
+    def endpoint(self) -> str:
+        return f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def stop(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
 def check_trace(port: int, sink: OtlpSink, label: str) -> None:
     """One request with a client's traceparent and an X-Request-Id: fails
     unless the engine's server span reaches the sink with the client's
@@ -5699,15 +5886,18 @@ def check_trace(port: int, sink: OtlpSink, label: str) -> None:
 
 
 def cli_run(model_dir: str, label: str, flags: list, env_extra: dict,
-            ckpt_bytes: int, sink: OtlpSink, admin=None) -> dict:
+            ckpt_bytes: int, sink: OtlpSink, admin=None, root: str | None = None) -> dict:
     """One `python -m kubeai_tpu_torch.engine.server` run over `model_dir`
-    in a subprocess of its own session: ready within CLI_READY_S, the
+    (unless `flags` name a --model-url) in a subprocess of its own
+    session, from the checkout or from `root`, a copy of the package
+    (its working directory and PYTHONPATH): ready within CLI_READY_S, the
     four requests of `_default_bodies` sent together (all 200), /metrics
     and /v1/state read, then /v1/drain (a new request gets 503, no slot
     stays active) and SIGTERM (exit 0 within the drain budget). Returns
     the responses' texts, the streamed token ids, the completion tokens
-    the responses report, the state read before the drain and the
-    /metrics values the phase gates. The server exports its spans to
+    the responses report, the state read before the drain, the /metrics
+    values the phase gates, the seconds to Ready and the server's log
+    lines about weights, downloads and snapshots. The server exports its spans to
     `sink` (OTEL_EXPORTER_OTLP_TRACES_ENDPOINT); `check_trace` runs
     before the drain, then `admin(port)` when given."""
     import os
@@ -5720,14 +5910,15 @@ def cli_run(model_dir: str, label: str, flags: list, env_extra: dict,
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
+    source = [] if "--model-url" in flags else ["--model-url", model_dir]
     cmd = [sys.executable, "-m", "kubeai_tpu_torch.engine.server",
-           "--model-url", model_dir, "--port", str(port), "--num-slots", "8",
+           *source, "--port", str(port), "--num-slots", "8",
            "--max-seq-len", "2048", "--drain-timeout", str(CLI_DRAIN_S),
            "--watchdog-timeout", "60", *flags]
     env_text = " ".join(f"{k}={v}" for k, v in env_extra.items())
     print(f"serve_cli {label} command: {env_text} {' '.join(cmd[1:])}".replace("  ", " "),
           flush=True)
-    here = os.path.dirname(os.path.abspath(__file__))
+    here = root or os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items() if k != "KUBEAI_TPU_DECODE_KERNEL"}
     env.update(env_extra, PYTHONPATH=here, OTEL_EXPORTER_OTLP_TRACES_ENDPOINT=sink.endpoint)
     log_fd, log_path = tempfile.mkstemp(prefix="kubeai-serve-cli-", suffix=".log")
@@ -5787,11 +5978,12 @@ def cli_run(model_dir: str, label: str, flags: list, env_extra: dict,
         state = json.loads(_get(port, "/v1/state")[1])
         _, ttft_count, ttft_sum = hist_buckets(metrics, "kubeai_engine_ttft_seconds")
         cold = state["cold_start"]
-        load_s = cold["phases"]["load"]
+        how = "restore" if cold["restored"] else "load"
+        load_s = cold["phases"][how]
         print(f"serve_cli {label} cold start (/v1/state): phases_s "
               f"{json.dumps({k: round(v, 4) for k, v in cold['phases'].items()})} total_s "
-              f"{cold['total_s']:.4f}; ready {ready_s:.2f} s after the process started; load "
-              f"{ckpt_bytes / 1e9:.3f} GB in {load_s:.4f} s = "
+              f"{cold['total_s']:.4f}; events {cold['events']}; ready {ready_s:.2f} s after "
+              f"the process started; {how} {ckpt_bytes / 1e9:.3f} GB in {load_s:.4f} s = "
               f"{ckpt_bytes / 1e9 / load_s:.3f} GB/s", flush=True)
         print(f"serve_cli {label} TTFT (/metrics): count {ttft_count:.0f}, mean "
               f"{ttft_sum / max(1, ttft_count):.4f} s; bucket upper bound -> rid "
@@ -5827,11 +6019,13 @@ def cli_run(model_dir: str, label: str, flags: list, env_extra: dict,
             fail(f"serve_cli {label}: no exit within the drain budget after SIGTERM:\n{tail()}")
         if rc != 0:
             fail(f"serve_cli {label}: the server exited {rc} after SIGTERM:\n{tail()}")
-        weights_log = []
+        weights_log, log = [], []
         with open(log_path) as f:
             for line in f:
-                if "tokenizer:" in line or "drain complete" in line or "weights:" in line:
+                if any(k in line for k in ("tokenizer:", "drain complete", "weights:",
+                                           "downloaded", "snapshot")):
                     print(f"serve_cli {label} log: {line.strip()}", flush=True)
+                    log.append(line.strip())
                 if "weights:" in line:
                     weights_log.append(line.strip())
         print(f"serve_cli {label}: exit 0 after SIGTERM", flush=True)
@@ -5849,7 +6043,7 @@ def cli_run(model_dir: str, label: str, flags: list, env_extra: dict,
     }
     return {"texts": texts, "streamed_ids": streamed_ids, "completion": completion,
             "state": state, "metrics": metric_values, "bodies": bodies,
-            "weights_log": weights_log}
+            "weights_log": weights_log, "log": log, "ready_s": ready_s}
 
 
 def cli_admin_round(port: int, dirs: dict, served: str = "model") -> None:
@@ -5957,24 +6151,130 @@ def check_cli_run(label: str, run: dict, engine) -> None:
              f"{len(bodies)}")
 
 
+def cli_s3_adapter(port: int, url: str) -> None:
+    """An adapter loaded through `lora_url` from the fake S3 on a CLI
+    server: the load answers 200 "loaded", a request naming it is served
+    in full, and it unloads."""
+    t0 = time.perf_counter()
+    status, res, _, _ = _post(port, {"lora_name": "s3-tenant", "lora_url": url},
+                              path="/v1/load_lora_adapter")
+    if (status, res) != (200, {"status": "loaded", "lora_name": "s3-tenant"}):
+        fail(f"serve_cli restored: loading an adapter from {url}: HTTP {status} {res}")
+    load_s = time.perf_counter() - t0
+    body = {**_default_bodies()[0][0], "max_tokens": 8, "model": "s3-tenant"}
+    status, res, _, total_s = _post(port, body)
+    if status != 200 or res["usage"]["completion_tokens"] < 1 or res["model"] != "s3-tenant":
+        fail(f"serve_cli restored: a request for the s3:// adapter: HTTP {status} {res}")
+    tokens = res["usage"]["completion_tokens"]
+    status, res, _, _ = _post(port, {"lora_name": "s3-tenant"}, path="/v1/unload_lora_adapter")
+    if status != 200:
+        fail(f"serve_cli restored: unloading the s3:// adapter: HTTP {status} {res}")
+    print(f"serve_cli restored: adapter loaded through lora_url {url} in {load_s:.3f} s; "
+          f"a request naming it served {tokens} tokens in {total_s:.4f} s; unloaded",
+          flush=True)
+
+
+def _logged_seconds(run: dict, word: str) -> float:
+    """The seconds at the end of the server's log line holding `word`
+    ("downloaded ... in 3.141 s")."""
+    for line in run["log"]:
+        if word in line:
+            return float(re.search(r"in ([0-9.]+) s", line).group(1))
+    fail(f"serve_cli: no {word!r} line in the server's log: {run['log']}")
+
+
+def check_boots(runs: dict, tensors: dict, ckpt_bytes: int, gcs: FakeBucket, snap_url: str,
+                copy_root: str) -> None:
+    """The object-store boots' gates: snapshot events `absent, published`,
+    then `restored`, then `absent`; one fingerprint for the two speculate
+    boots and another for the changed config; the restored boot put the
+    snapshot's kernel library into its copy's empty build/ and ran no nvcc
+    (the build directory holds the library alone, no objects, no log);
+    the snapshot's tree bit-equal to the tensors written and its library
+    the one this run built. Reports seconds to Ready, every phase, the
+    nvcc seconds the restored boot skipped, and the GB/s of a restore
+    against a load through the fake S3."""
+    import os
+
+    from kubeai_tpu_torch.engine.weights import load_native_checkpoint
+    from kubeai_tpu_torch.objstore import parse_url
+    from kubeai_tpu_torch.ops import _build
+
+    cold = {label: runs[label]["state"]["cold_start"]
+            for label in ("speculate", "restored", "default")}
+    events = [cold[k]["events"] for k in ("speculate", "restored", "default")]
+    if events != [["absent", "published"], ["restored"], ["absent"]]:
+        fail(f"serve_cli boots: snapshot events {events}, not published, restored, absent")
+    fp = cold["speculate"]["fingerprint"]
+    if cold["restored"]["fingerprint"] != fp or cold["default"]["fingerprint"] == fp:
+        fail(f"serve_cli boots: fingerprints {[c['fingerprint'] for c in cold.values()]}")
+    lib_dir = os.path.join(copy_root, "build", "kernels", _build.build_dir().name)
+    listing = sorted(os.listdir(lib_dir)) if os.path.isdir(lib_dir) else []
+    if listing != [_build.LIB_NAME] or not any(
+            lib_dir in line for line in runs["restored"]["log"] if "restored snapshot" in line):
+        fail(f"serve_cli restored: the copy's build directory holds {listing} (nvcc ran, or "
+             f"no library was restored); log {runs['restored']['log']}")
+    _, bucket, prefix = parse_url(snap_url)
+    key = os.path.join(gcs.root, bucket, *prefix.split("/"), "model", fp)
+    with open(os.path.join(key, "kernels", _build.build_dir().name, _build.LIB_NAME), "rb") as a:
+        with open(_build.installed_library(), "rb") as b:
+            if a.read() != b.read():
+                fail("serve_cli boots: the snapshot's kernel library is not this run's build")
+    import torch
+
+    snap_bytes = os.path.getsize(os.path.join(key, "params", "params.safetensors"))
+    params = load_native_checkpoint(os.path.join(key, "params"), "cuda")
+    n = check_loaded_bits(params, tensors)
+    del params
+    torch.cuda.empty_cache()
+    full, restored, missed = (cold[k]["phases"] for k in ("speculate", "restored", "default"))
+    download_s = _logged_seconds(runs["speculate"], "downloaded")
+    load_rate = ckpt_bytes / 1e9 / (download_s + full["load"])
+    restore_rate = snap_bytes / 1e9 / (restored["fetch"] + restored["restore"])
+    for label in ("speculate", "restored", "default"):
+        c = cold[label]
+        print(f"serve_cli boot {label}: events {c['events']}, fingerprint {c['fingerprint']}, "
+              f"ready {runs[label]['ready_s']:.2f} s after the process started, total_s "
+              f"{c['total_s']:.4f}, phases_s "
+              f"{json.dumps({k: round(v, 4) for k, v in c['phases'].items()})}", flush=True)
+    print(f"serve_cli boots: the snapshot's tree ({n} leaves, {snap_bytes / 1e9:.3f} GB) "
+          f"bit-equal to the tensors written; its kernel library is this run's build; the "
+          f"restored boot ran no nvcc (this run's build took {_build.last_build_seconds:.2f} s "
+          f"of nvcc) and its compile phase took {restored['compile']:.3f} s against the full "
+          f"boot's {full['compile']:.3f} s", flush=True)
+    print(f"serve_cli boots (fake S3 and GCS on 127.0.0.1, Python servers: host rates, not a "
+          f"cloud bucket's): load through S3 {ckpt_bytes / 1e9:.3f} GB = download "
+          f"{download_s:.3f} s + load {full['load']:.3f} s = {load_rate:.3f} GB/s; restore "
+          f"{snap_bytes / 1e9:.3f} GB = fetch {restored['fetch']:.3f} s + restore "
+          f"{restored['restore']:.3f} s = {restore_rate:.3f} GB/s; the missed boot's fetch "
+          f"{missed['fetch']:.4f} s and load {missed['load']:.3f} s (from the weights cache); "
+          f"GCS sent {gcs.sent / 1e9:.3f} GB and received {gcs.received / 1e9:.3f} GB; card "
+          f"{gpu_line()}", flush=True)
+
+
 def serve_cli() -> None:
     """Phase 5: the engine Pod's entry point. Writes a random-weight Llama
     checkpoint at Llama-3-8B width (CLI_LAYERS layers, bf16) with
-    `weights.save_safetensors` into a temporary directory and serves it
-    with `python -m kubeai_tpu_torch.engine.server` five times
-    (`cli_run`, CLI_RUNS: default, `--speculate 4`, the fused layout from
-    the environment, `--speculate 4 --draft-url` with a 2-layer draft
-    checkpoint written beside it, and `--quantization int8`), then loads the same checkpoint
-    in-process with
-    `weights.load_params` on the card and builds an engine of each run's
-    configuration on it. Gates, besides `cli_run`'s: the loaded tensors
-    bit-equal to those written; each run's greedy streams over HTTP equal
-    to its in-process engine's; on /metrics 4 requests, a TTFT count of 4
-    and the generated tokens the responses report; speculation windows in
-    the two speculative runs; the same token capacity as in-process. The
-    default run (--max-adapters 4, the default) also runs
-    `cli_admin_round` over two PEFT adapters written for the checkpoint.
-    Reports the load rate, the cold-start phases, TTFT and the card."""
+    `weights.save_safetensors` into a temporary directory, uploads it to a
+    fake S3 (FakeBucket, with a PEFT adapter) and serves it with `python -m
+    kubeai_tpu_torch.engine.server` six times (`cli_run`, CLI_RUNS): the
+    object-store boots (`--speculate 4` from s3:// with a gs:// snapshot
+    bucket on a fake GCS, publishing; the same again from a copy of the
+    package with an empty build/, restoring, which also loads the adapter
+    through lora_url s3://; the default config with --snapshot-no-publish,
+    missing; gated by `check_boots`), the fused layout from the
+    environment, `--speculate 4 --draft-url` with a 2-layer draft
+    checkpoint written beside it, and `--quantization int8`. Then it loads
+    the same checkpoint in-process with `weights.load_params` on the card
+    and builds an engine of each run's configuration on it. Gates, besides
+    `cli_run`'s: the loaded tensors bit-equal to those written; each run's
+    greedy streams over HTTP equal to its in-process engine's; on /metrics
+    4 requests, a TTFT count of 4 and the generated tokens the responses
+    report; speculation windows in the speculative runs; the same token
+    capacity as in-process. The default run (--max-adapters 4, the
+    default) also runs `cli_admin_round` over two PEFT adapters written
+    for the checkpoint. Reports the load rate, the cold-start phases, TTFT
+    and the card."""
     import gc
     import os
     import shutil
@@ -5986,11 +6286,14 @@ def serve_cli() -> None:
     from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
     from kubeai_tpu_torch.engine.weights import load_hf_config, load_params, save_safetensors
     from kubeai_tpu_torch.models import llama
+    from kubeai_tpu_torch.objstore import S3Client, upload_dir
 
     gc.collect()
     torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="kubeai-serve-cli-")
+    stores = []
     try:
+        disk = shutil.disk_usage(root)
         t0 = time.perf_counter()
         tensors = cli_tensors()
         model_dir = os.path.join(root, "model")
@@ -5998,21 +6301,61 @@ def serve_cli() -> None:
         ckpt_bytes = os.path.getsize(os.path.join(model_dir, "model.safetensors"))
         print(f"serve_cli checkpoint: {CLI_LAYERS} layers at Llama-3-8B width, bf16, "
               f"{ckpt_bytes / 1e9:.3f} GB in {len(tensors)} tensors, drawn and written in "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
+              f"{time.perf_counter() - t0:.2f} s; {disk.free / 1e9:.1f} GB free in "
+              f"{os.path.dirname(root)} before", flush=True)
         draft_dir = os.path.join(root, "draft")
         save_safetensors(draft_dir, cli_tensors(CLI_DRAFT_CONFIG, seed=3), CLI_DRAFT_CONFIG)
         cli_cfg = llama.LlamaConfig.from_hf_dict(CLI_CONFIG)
         dirs = {name: write_peft_adapter(os.path.join(root, f"lora-{name}"), cli_cfg, seed)
                 for name, seed in (("a", 31), ("b", 32))}
+        s3 = FakeBucket("s3", os.path.join(root, "fake-s3"))
+        gcs = FakeBucket("gcs", os.path.join(root, "fake-gcs"))
+        stores += [s3, gcs]
+        t0 = time.perf_counter()
+        upload_dir(model_dir, "s3://ckpt/llama-8b-4l", client=S3Client(endpoint=s3.endpoint))
+        upload_s = time.perf_counter() - t0
+        upload_dir(dirs["a"], "s3://ckpt/adapters/a", client=S3Client(endpoint=s3.endpoint))
+        print(f"serve_cli: the checkpoint uploaded to the fake S3 in {upload_s:.3f} s = "
+              f"{ckpt_bytes / 1e9 / upload_s:.3f} GB/s (host rate)", flush=True)
+        snap_url = "gs://snapshots/boots"
+        store_env = {"AWS_ENDPOINT_URL": s3.endpoint, "STORAGE_EMULATOR_HOST": gcs.endpoint,
+                     "KUBEAI_WEIGHTS_CACHE": os.path.join(root, "weights-cache")}
+        # The restored boot's package: a copy with no build/ beside it.
+        here = os.path.dirname(os.path.abspath(__file__))
+        copy_root = os.path.join(root, "package-copy")
+        shutil.copytree(os.path.join(here, "kubeai_tpu_torch"),
+                        os.path.join(copy_root, "kubeai_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+
+        def flags_of(label: str, flags: list) -> list:
+            sub = {"{draft}": draft_dir, "{s3}": "s3://ckpt/llama-8b-4l", "{gs}": snap_url,
+                   "{work}": os.path.join(root, "snapshot-work", label)}
+            return [sub.get(f, f) for f in flags]
+
+        def admin_of(label: str):
+            if label == "default":
+                return lambda port: cli_admin_round(port, dirs)
+            if label == "restored":
+                return lambda port: cli_s3_adapter(port, "s3://ckpt/adapters/a")
+            return None
+
         sink = OtlpSink()
+        runs = {}
         try:
-            runs = {label: cli_run(
-                model_dir, label, [f.replace("{draft}", draft_dir) for f in flags], env,
-                ckpt_bytes, sink,
-                admin=(lambda port: cli_admin_round(port, dirs)) if label == "default" else None)
-                for label, flags, env, _ in CLI_RUNS}
+            for label, flags, env, _ in CLI_RUNS:
+                runs[label] = cli_run(
+                    model_dir, label, flags_of(label, flags), {**env, **store_env},
+                    ckpt_bytes, sink, admin=admin_of(label),
+                    root=copy_root if label == "restored" else None)
+                shutil.rmtree(os.path.join(root, "snapshot-work", label), ignore_errors=True)
         finally:
             sink.stop()
+        check_boots(runs, tensors, ckpt_bytes, gcs, snap_url, copy_root)
+        for store in stores:
+            store.stop()
+            shutil.rmtree(store.root, ignore_errors=True)
+        stores = []
+        shutil.rmtree(store_env["KUBEAI_WEIGHTS_CACHE"], ignore_errors=True)
         cli_role_pair(model_dir)
 
         # The same checkpoint in-process, on the card.
@@ -6030,18 +6373,23 @@ def serve_cli() -> None:
               f"{ckpt_bytes / 1e9 / load_s:.3f} GB/s", flush=True)
         dcfg = llama.LlamaConfig.from_hf_dict(CLI_DRAFT_CONFIG)
         draft = (dcfg, load_params("llama", draft_dir, dcfg, device="cuda"))
+        engine, engine_key = None, None
         for label, flags, _, extra in CLI_RUNS:
-            # The CLI's default --max-adapters 4: every request pays the
-            # (all-zero) delta of adapter row 0.
-            engine = Engine("llama", cfg, params, cfg=EngineConfig(
-                num_slots=8, max_seq_len=2048, max_adapters=4, **extra),
-                eos_token_ids=tok.eos_token_ids,
-                draft=draft if "--draft-url" in flags else None)
+            key = (json.dumps(extra, sort_keys=True), "--draft-url" in flags)
+            if key != engine_key:
+                # The CLI's default --max-adapters 4: every request pays the
+                # (all-zero) delta of adapter row 0.
+                del engine
+                engine = Engine("llama", cfg, params, cfg=EngineConfig(
+                    num_slots=8, max_seq_len=2048, max_adapters=4, **extra),
+                    eos_token_ids=tok.eos_token_ids,
+                    draft=draft if "--draft-url" in flags else None)
+                engine_key = key
             check_cli_run(label, runs[label], engine)
-            del engine
+        del engine
         if not any("int8 layer weights" in line for line in runs["int8"]["weights_log"]):
             fail("serve_cli int8: the server logged no int8 weight GiB")
-        for label in ("speculate", "draft"):
+        for label in ("speculate", "restored", "draft"):
             stats = runs[label]["state"]["spec_stats"]
             if stats["windows"] <= 0:
                 fail(f"serve_cli {label}: the CLI ran no speculation window")
@@ -6051,6 +6399,8 @@ def serve_cli() -> None:
         print(f"serve_cli card: {gpu_line()}", flush=True)
         del params
     finally:
+        for store in stores:
+            store.stop()
         shutil.rmtree(root, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()

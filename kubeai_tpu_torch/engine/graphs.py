@@ -26,6 +26,7 @@ tensor through pinned buffers without blocking the host.
 
 from __future__ import annotations
 
+import gc
 from typing import Callable
 
 import numpy as np
@@ -90,9 +91,18 @@ class DeviceProgram:
         # are kept.
         before = {name: w.launches for name, w in COUNTED_KERNELS.items()}
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
-            reserved = torch.cuda.memory_reserved(device)
-            self.fn()
+        # A collection during the capture could free a dead engine's graph,
+        # and a graph's reset while a stream captures voids the capture:
+        # the collector waits until the capture ends.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+                reserved = torch.cuda.memory_reserved(device)
+                self.fn()
+        finally:
+            if collecting:
+                gc.enable()
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
         self.launches_per_replay = {
             name: w.launches - before[name]

@@ -79,10 +79,20 @@ A whisper checkpoint (WhisperForConditionalGeneration) boots
 engine/whisper_server.py's TranscriptionServer instead of the slot
 engine: POST /v1/audio/transcriptions.
 
-Not ported yet: the mixtral family (ROADMAP A item 10), and the object
-store behind the spill and behind s3://, gs:// and oss:// adapter URLs
-(item 9). Tenancy is the front door's; this server reads only the
-scheduling headers.
+Boot (`main`): --model-url, --draft-url and an adapter's lora_url take
+a directory, pvc://, hf:// or an object store (gs://, s3://, oss://,
+file://; kubeai_tpu_torch/objstore.py), downloaded into the weights
+cache that the JAX server uses too. With --snapshot-url the load runs
+under engine/coldstart.py's ColdStartManager: a complete snapshot of
+this model, engine config and device restores the tree and the kernel
+library (no nvcc); otherwise the full load runs and, after the warm-up,
+the snapshot is published (not with --snapshot-no-publish).
+`/v1/state.cold_start` and `kubeai_coldstart_*` show which path the
+boot took and why; `kubeai_objstore_retries_total` counts the store's
+retries. --kv-spill-url spills evicted KV pages to a bucket.
+
+Not ported yet: the mixtral family (ROADMAP A item 10). Tenancy is the
+front door's; this server reads only the scheduling headers.
 
 Run: python -m kubeai_tpu_torch.engine.server --model-url <dir> [--port N]
 (a llama, mistral, qwen2, gemma, gemma2 or whisper checkpoint)
@@ -106,7 +116,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import torch
 
 from kubeai_tpu_torch.device import resolve_device
-from kubeai_tpu_torch.engine.coldstart import ColdStartTracker
+from kubeai_tpu_torch.engine.coldstart import ColdStartManager
 from kubeai_tpu_torch.disagg.handoff import (
     HandoffError,
     deserialize,
@@ -143,6 +153,7 @@ from kubeai_tpu_torch.metrics.registry import (
     Counter,
     Gauge,
     Histogram,
+    ObjstoreRetries,
     Registry,
     TracingDroppedSpans,
 )
@@ -491,6 +502,13 @@ class EngineMetrics:
             "published, absent, mismatch, error). `mismatch` means the "
             "stored fingerprint disagreed and the boot fell back to full "
             "load — a stale layout is never served.",
+            self.registry,
+        )
+        self.objstore_retries = ObjstoreRetries(
+            "kubeai_objstore_retries_total",
+            "Object-store requests retried after a transient failure "
+            "(5xx/429, connection reset, short read) across every "
+            "client in the process.",
             self.registry,
         )
 
@@ -2268,11 +2286,6 @@ _UNPORTED_FLAGS = (
     ("--dcn-coordinator/--process-id/--num-processes",
      lambda a: bool(a.dcn_coordinator) or a.process_id != 0 or a.num_processes > 1,
      "multihost lockstep serving (ROADMAP A item 11)"),
-    ("--kv-spill-url", lambda a: bool(a.kv_spill_url),
-     "KV spill to an object store (ROADMAP A item 9)"),
-    ("--snapshot-url/--snapshot-dir/--snapshot-no-publish",
-     lambda a: bool(a.snapshot_url or a.snapshot_dir or a.snapshot_no_publish),
-     "snapshot restore-first boots (ROADMAP A item 9)"),
 )
 
 
@@ -2420,13 +2433,28 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     ap.add_argument(
         "--kv-spill-url", default="",
-        help="where evicted idle KV pages spill and are re-filled from; "
-        "empty = in memory (an object-store URL is not ported)",
+        help="object-store URL evicted idle KV pages spill to and are "
+        "re-filled from; empty = in-memory spill "
+        "(CRD kvSharing.spillURL)",
     )
-    ap.add_argument("--snapshot-url", default="", help="not ported")
-    ap.add_argument("--snapshot-dir", default="", help="not ported")
-    ap.add_argument("--snapshot-no-publish", action="store_true",
-                    help="not ported")
+    ap.add_argument(
+        "--snapshot-url", default="",
+        help="object-store URL for engine boot snapshots (the loaded "
+        "param tree + the kernel library, keyed by model/config/device "
+        "fingerprint): boot restores from it when a matching snapshot "
+        "exists and writes one back on the first full-load boot; empty "
+        "disables (CRD coldStart.snapshotURL)",
+    )
+    ap.add_argument(
+        "--snapshot-dir", default="",
+        help="local staging dir for snapshot fetch/publish (default: a "
+        "fresh temp dir)",
+    )
+    ap.add_argument(
+        "--snapshot-no-publish", action="store_true",
+        help="restore-only consumer: never write a snapshot back after "
+        "a full-load boot (CRD coldStart.publish=false)",
+    )
     args = ap.parse_args(argv)
     for flag, is_set, needs in _UNPORTED_FLAGS:
         if is_set(args):
@@ -2516,7 +2544,16 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     log = logging.getLogger("kubeai-tpu-torch-engine")
     device = resolve_device(args.device)
-    tracker = ColdStartTracker()
+    engine_cfg = engine_config(args)
+    # Restore-first boot: a complete snapshot under this (model, config,
+    # device) fingerprint skips the checkpoint conversion, and its kernel
+    # library skips nvcc. Absence, mismatch or a failed fetch falls back
+    # to the full load path, recording which.
+    coldstart = ColdStartManager(
+        args.snapshot_url, args.served_model_name, engine_cfg, device,
+        work_dir=args.snapshot_dir or None, publish=not args.snapshot_no_publish,
+    )
+    tracker = coldstart.tracker
     try:
         model_dir = resolve_model_dir(args.model_url, args.model_dir)
         hf_cfg = load_hf_config(model_dir)
@@ -2539,7 +2576,8 @@ def main(argv=None) -> int:
             )
         log.info("loading %s (%s) from %s onto %s",
                  args.served_model_name, arch, model_dir, device)
-        with tracker.phase("load"):
+
+        def full_load():
             # Whisper runs in f32, as its loader makes it (fault C13).
             params = load_params(
                 family.name, model_dir, model_cfg,
@@ -2554,6 +2592,16 @@ def main(argv=None) -> int:
                          "weights", bf16_bytes / 2**30, weight_bytes(params) / 2**30)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
+            return params
+
+        if speech:
+            # Transcription boots take no snapshot, as in the JAX server.
+            with tracker.phase("load"):
+                params = full_load()
+        else:
+            # The snapshot holds the tree `full_load` returns (quantized
+            # with --quantization int8).
+            params = coldstart.acquire_params(full_load)
     except (WeightLoadError, KeyError) as e:  # KeyError: an unknown family or field
         raise SystemExit(f"cannot load {args.model_url}: {e}") from e
     if speech:
@@ -2576,7 +2624,6 @@ def main(argv=None) -> int:
         )
     )
     tokenizer = load_tokenizer(model_dir)
-    engine_cfg = engine_config(args)
     # Warm-up before Ready. The engine captures its CUDA graphs when it
     # is built and the kernels' library is built at its first launch, so
     # `compile` covers both; `warmup` times a second, warmed generate.
@@ -2590,12 +2637,17 @@ def main(argv=None) -> int:
         engine.generate([[1, 2, 3]], warm)
     with tracker.phase("warmup"):
         engine.generate([[1, 2, 3]], warm)
+    # Write-back on a full-load boot, after the warm-up has built (or
+    # found) the kernel library the snapshot carries.
+    coldstart.maybe_publish(params)
     tracker.finish()
     # The warm-up's latency records are dropped: /metrics counts served
     # requests.
     engine.drain_timing()
-    log.info("warm-up complete (cold start %.2fs: %s)", tracker.total_s,
-             json.dumps({k: round(v, 3) for k, v in tracker.phases.items()}))
+    log.info("warm-up complete (cold start %.2fs, %s: %s; snapshot events %s)",
+             tracker.total_s, "restored" if tracker.restored else "full load",
+             json.dumps({k: round(v, 3) for k, v in tracker.phases.items()}),
+             tracker.events)
 
     def _watchdog_exit():
         # The watchdog already flipped /health; exiting nonzero hands the

@@ -14,26 +14,40 @@ model's bf16 embedding), not a host copy of the model. The loaded dict
 is bit-equal to the JAX loader's tree.
 
 Sources: local directories, `pvc://` (the operator mounts the PVC at
-/model) and `hf://` (through huggingface_hub). Object-store URLs and the
-mixtral family are not ported and raise naming their ROADMAP item.
+/model), `hf://` (through huggingface_hub) and the object stores
+(`gs://`, `s3://`, `oss://`, `file://`; kubeai_tpu_torch/objstore.py),
+downloaded into the same `$KUBEAI_WEIGHTS_CACHE` directory the JAX
+package uses, so a node's replicas of either package share it. The
+mixtral family is not ported and raises naming its ROADMAP item.
 Whisper's loader keeps the JAX package's nested tree in f32 (the JAX
 entry point passes `load_params`' bf16 default to it, which its model
 cannot run: ROADMAP fault C13).
 
 `save_safetensors` writes a checkpoint in the same format; tests and
-`chip_smoke.py` use it to make checkpoints from random weights. Nothing
-on the serving path calls it.
+`chip_smoke.py` use it to make checkpoints from random weights.
+`save_native_checkpoint` / `load_native_checkpoint` keep the tree the
+engine is built from (after conversion and quantization) in the port's
+own format, where the JAX package uses orbax: a boot snapshot
+(engine/coldstart.py) restores it without converting again.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
+import logging
 import os
+import shutil
+import tempfile
+import time
 
 import numpy as np
 import torch
 
+from kubeai_tpu_torch import objstore
 from kubeai_tpu_torch.device import resolve_device
+
+logger = logging.getLogger(__name__)
 
 
 class WeightLoadError(RuntimeError):
@@ -54,6 +68,7 @@ _ST_DTYPES = {
     "BF16": torch.bfloat16,
     "I64": torch.int64,
     "I32": torch.int32,
+    "I8": torch.int8,
     "U8": torch.uint8,
 }
 
@@ -264,8 +279,9 @@ def resolve_model_dir(model_url: str, model_dir: str = "") -> str:
     """Resolve a Model URL to a local directory.
 
     pvc://name/path -> /model/path (the operator mounts the PVC at
-    /model); hf://repo -> a huggingface_hub snapshot; plain paths pass
-    through. `model_dir` (the cache dir) wins when set."""
+    /model); hf://repo -> a huggingface_hub snapshot; gs://, s3://,
+    oss:// and file:// -> a download into the weights cache; plain paths
+    pass through. `model_dir` (the cache dir) wins when set."""
     if model_dir:
         return model_dir
     if model_url.startswith("pvc://"):
@@ -282,15 +298,52 @@ def resolve_model_dir(model_url: str, model_dir: str = "") -> str:
             raise WeightLoadError(
                 f"cannot download {repo} (offline?): {e}"
             ) from e
-    if model_url.split("://")[0] in ("s3", "gs", "oss"):
-        raise WeightLoadError(
-            f"object-store model URLs ({model_url.split('://')[0]}://) are "
-            "not ported yet (ROADMAP A item 9); mount the checkpoint and "
-            "pass its directory or a pvc:// URL"
-        )
+    if model_url.split("://")[0] in ("s3", "gs", "oss", "file"):
+        return _download_to_cache(model_url)
     if os.path.isdir(model_url):
         return model_url
     raise WeightLoadError(f"unsupported model url {model_url!r}")
+
+
+def _download_to_cache(model_url: str) -> str:
+    """An object-store checkpoint's local copy: every object under the
+    URL streamed to disk one at a time into
+    `$KUBEAI_WEIGHTS_CACHE/<sha256(url)[:16]>`, as the JAX package's
+    loader names it, with a `.kubeai-complete` marker. The download goes
+    into a process-private staging directory that is renamed into place
+    whole, so replicas sharing the cache (of either package) never read
+    a half-written shard, and the loser of the rename race uses the
+    winner's copy. A complete directory is reused without a request."""
+    cache_root = os.environ.get("KUBEAI_WEIGHTS_CACHE", "/tmp/kubeai-weights")
+    digest = hashlib.sha256(model_url.encode()).hexdigest()[:16]
+    dest = os.path.join(cache_root, digest)
+    done_marker = os.path.join(dest, ".kubeai-complete")
+    if os.path.exists(done_marker):
+        return dest
+    os.makedirs(cache_root, exist_ok=True)
+    staging = tempfile.mkdtemp(dir=cache_root, prefix=f".{digest}-")
+    try:
+        t0 = time.perf_counter()
+        try:
+            paths = objstore.download_prefix(model_url.split("?")[0], staging)
+        except objstore.ObjStoreError as e:
+            raise WeightLoadError(f"cannot download {model_url}: {e}") from e
+        logger.info(
+            "downloaded %d objects, %d bytes from %s in %.3f s", len(paths),
+            sum(os.path.getsize(p) for p in paths), model_url,
+            time.perf_counter() - t0,
+        )
+        with open(os.path.join(staging, ".kubeai-complete"), "w") as f:
+            f.write(model_url)
+        try:
+            os.rename(staging, dest)
+        except OSError:
+            if not os.path.exists(done_marker):
+                raise
+    finally:
+        if os.path.exists(staging):
+            shutil.rmtree(staging, ignore_errors=True)
+    return dest
 
 
 def load_whisper_params(
@@ -448,18 +501,15 @@ _TORCH_ST_DTYPES = {
     torch.bfloat16: "BF16",
     torch.int64: "I64",
     torch.int32: "I32",
+    torch.int8: "I8",
     torch.uint8: "U8",
 }
 
 
-def save_safetensors(
-    model_dir: str, tensors: dict[str, torch.Tensor], config: dict
-) -> None:
-    """Write `tensors` as `model_dir/model.safetensors` (an 8-byte
-    little-endian header length, the JSON header padded with spaces to
-    8 bytes, then each tensor's raw little-endian bytes in order) and
-    `config` as `model_dir/config.json`."""
-    os.makedirs(model_dir, exist_ok=True)
+def _write_safetensors(path: str, tensors: dict[str, torch.Tensor]) -> None:
+    """Write `tensors` as one safetensors file: an 8-byte little-endian
+    header length, the JSON header padded with spaces to 8 bytes, then
+    each tensor's raw little-endian bytes in order."""
     header: dict = {"__metadata__": {"format": "pt"}}
     offset = 0
     for name, t in tensors.items():
@@ -474,10 +524,83 @@ def save_safetensors(
         offset += nbytes
     blob = json.dumps(header, separators=(",", ":")).encode()
     blob += b" " * (-len(blob) % 8)
-    with open(os.path.join(model_dir, "model.safetensors"), "wb") as f:
+    with open(path, "wb") as f:
         f.write(len(blob).to_bytes(8, "little"))
         f.write(blob)
         for t in tensors.values():
             f.write(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
+
+
+def save_safetensors(
+    model_dir: str, tensors: dict[str, torch.Tensor], config: dict
+) -> None:
+    """Write `tensors` as `model_dir/model.safetensors` and `config` as
+    `model_dir/config.json`."""
+    os.makedirs(model_dir, exist_ok=True)
+    _write_safetensors(os.path.join(model_dir, "model.safetensors"), tensors)
     with open(os.path.join(model_dir, "config.json"), "w") as f:
         json.dump(config, f, indent=2)
+
+
+NATIVE_TREE = "tree.json"
+NATIVE_TENSORS = "params.safetensors"
+
+
+def save_native_checkpoint(path: str, params) -> None:
+    """Write a param tree (nested dicts of tensors, int8 `{"w8",
+    "scale"}` leaves included) as `path/params.safetensors`, one
+    entry per tensor under its dotted path, and `path/tree.json`, the
+    tree with each tensor replaced by its entry's name. No pickling. A
+    tensor that appears twice in the tree (a tied `lm_head`) is written
+    once and restored as one tensor. A tensor whose last two axes are
+    stored transposed (the N-major int8 weights) is written in its memory
+    order and listed under "transposed", so it comes back in that order."""
+    tensors: dict[str, torch.Tensor] = {}
+    names: dict[int, str] = {}
+    transposed: list[str] = []
+
+    def walk(node, name: str):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{name}.{k}" if name else str(k))
+                    for k, v in node.items()}
+        if not isinstance(node, torch.Tensor):
+            raise WeightLoadError(f"{name}: not a tensor ({type(node).__name__})")
+        if id(node) in names:
+            return names[id(node)]
+        names[id(node)] = name
+        if (node.dim() >= 2 and not node.is_contiguous()
+                and node.transpose(-1, -2).is_contiguous()):
+            transposed.append(name)
+            node = node.transpose(-1, -2)
+        tensors[name] = node
+        return name
+
+    tree = walk(params, "")
+    os.makedirs(path, exist_ok=True)
+    _write_safetensors(os.path.join(path, NATIVE_TENSORS), tensors)
+    with open(os.path.join(path, NATIVE_TREE), "w") as f:
+        json.dump({"tree": tree, "transposed": transposed}, f)
+
+
+def load_native_checkpoint(path: str, device: str | torch.device | None = None):
+    """The tree `save_native_checkpoint` wrote, bit for bit, with every
+    tensor on `device` (default cuda), in the layout it was saved in."""
+    dev = resolve_device(device)
+    with open(os.path.join(path, NATIVE_TREE)) as f:
+        meta = json.load(f)
+    stored = LazyTensors(path)
+    transposed = set(meta["transposed"])
+    loaded: dict[str, torch.Tensor] = {}
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        if node not in loaded:
+            t = stored.stored(node).to(dev)
+            loaded[node] = t.transpose(-1, -2) if node in transposed else t
+        return loaded[node]
+
+    params = build(meta["tree"])
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return params

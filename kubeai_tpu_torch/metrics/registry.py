@@ -99,6 +99,19 @@ class TracingDroppedSpans(Counter):
         return super().collect()
 
 
+class ObjstoreRetries(Counter):
+    """Live view of the object-store layer's transient-failure retry
+    count (5xx/429, connection resets, short reads). Synced from
+    `objstore.RETRIES` at collect time, as TracingDroppedSpans is."""
+
+    def collect(self) -> list[str]:
+        from kubeai_tpu_torch import objstore
+
+        with self._lock:
+            self._values[self._key({})] = float(objstore.RETRIES["total"])
+        return super().collect()
+
+
 class Gauge(_Metric):
     TYPE = "gauge"
 

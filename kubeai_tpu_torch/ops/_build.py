@@ -7,6 +7,11 @@ plain C interface, which is loaded with `ctypes`. The build goes under
 `.gitignore`), keyed by a hash of the sources and flags, so an unchanged
 tree reuses its library and a changed one rebuilds.
 
+A boot snapshot (engine/coldstart.py) carries the library as its
+compile artefact: `installed_library` reads it for the current hash, and
+`install_library` puts a restored copy in place before the first launch,
+so `build` finds it and `nvcc` does not run.
+
 Each source compiles to its own object file, all at once, and one link
 makes the library. Nothing here includes PyTorch's headers: that keeps a
 build to seconds. A failed build raises with the compiler's output.
@@ -109,6 +114,24 @@ def build_dir() -> Path:
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def installed_library() -> Path | None:
+    """The library built for the current sources and flags, or None."""
+    lib_path = build_dir() / LIB_NAME
+    return lib_path if lib_path.exists() else None
+
+
+def install_library(src: str | Path) -> Path:
+    """Put a library built for the current sources and flags (a
+    snapshot's copy) in place. It is copied under a private name and
+    renamed: a half-copied file never passes `build`'s check."""
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    shutil.copyfile(src, tmp)
+    os.replace(tmp, out_dir / LIB_NAME)
+    return out_dir / LIB_NAME
 
 
 def build() -> Path:

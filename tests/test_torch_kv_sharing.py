@@ -17,8 +17,8 @@ of tests/unit/test_kv_sharing.py.
 - Spill: evicted idle pages go to a KVSpillStore and fill back bit for
   bit, through the engine and through the server's pre-admission fetch
   (`filled_pages` counts it); the store's LRU and counters behave as the
-  JAX package's in-memory store, and an object-store URL names ROADMAP A
-  item 9.
+  JAX package's in-memory store, and over a file:// bucket pages cross
+  between the two packages' stores.
 
 Weights: the same tiny f32 llama on both sides (params_from_numpy).
 """
@@ -374,7 +374,7 @@ def test_spill_fills_back_bit_for_bit(models):
         srv.stop()
 
 
-def test_spill_store_matches_jax():
+def test_spill_store_matches_jax(tmp_path):
     mine, theirs = KVSpillStore(max_bytes=10), JKVSpillStore(max_bytes=10)
     for store in (mine, theirs):
         store.put("a", b"1234")
@@ -385,5 +385,12 @@ def test_spill_store_matches_jax():
     for key in ("a", "b", "c", "huge", "a"):
         assert mine.get(key) == theirs.get(key)
     assert (mine.puts, mine.gets, mine.hits) == (theirs.puts, theirs.gets, theirs.hits) == (5, 5, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 9"):
-        KVSpillStore("s3://bucket/spill")
+    # An object-store URL (refused, naming ROADMAP A item 9, until the
+    # port took the object store): one bucket, pages crossing both ways
+    # (tests/test_torch_objstore.py holds gs:// too).
+    url = f"file://{tmp_path}/spill"
+    mine, theirs = KVSpillStore(url), JKVSpillStore(url)
+    mine.put("aa", b"port page")
+    theirs.put("bb", b"jax page")
+    assert theirs.get("aa") == b"port page" and mine.get("bb") == b"jax page"
+    assert mine.get("cc") is None and theirs.get("cc") is None

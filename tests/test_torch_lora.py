@@ -37,6 +37,7 @@ import pytest
 import torch
 
 from testutil import http_get, http_post
+from torch_objstore_fakes import FakeS3
 
 from kubeai_tpu.disagg import handoff as jhandoff
 from kubeai_tpu.engine import Engine as JEngine
@@ -354,8 +355,27 @@ def test_load_peft_adapter_refusals_match_jax(tmp_path, models, adapters):
         with pytest.raises(JWeightLoadError) as want:
             j_load_peft_adapter(path, jcfg)
         assert str(got.value) == str(want.value), case
-    with pytest.raises(WeightLoadError, match="A item 9"):
-        load_peft_adapter("s3://bucket/adapter", tcfg)
+    # An s3:// adapter (refused, naming ROADMAP A item 9, until the port
+    # took the object store) loads as the JAX package loads it.
+    src = write_peft(str(tmp_path / "s3src"), adapters["a1"], 4, 8.0, "")
+    fake = FakeS3()
+    try:
+        for fname in os.listdir(src):
+            with open(os.path.join(src, fname), "rb") as f:
+                fake.objects[("bucket", f"adapters/a1/{fname}")] = f.read()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("AWS_ENDPOINT_URL", fake.endpoint)
+            mp.setenv("KUBEAI_WEIGHTS_CACHE", str(tmp_path / "cache"))
+            got = load_peft_adapter("s3://bucket/adapters/a1", tcfg)
+            want = j_load_peft_adapter("s3://bucket/adapters/a1", jcfg)
+    finally:
+        fake.close()
+    local = load_peft_adapter(src, tcfg)
+    assert set(got) == set(want) == set(local)
+    for t in got:
+        for g, w, loc in zip(got[t], want[t], local[t]):
+            assert np.array_equal(g.view(np.uint32), np.asarray(w).view(np.uint32))
+            assert np.array_equal(g, loc)
 
 
 # ---- the engine ------------------------------------------------------------------

@@ -9,7 +9,7 @@ against the JAX package, on the CPU.
   `LazyTensors` and the `safetensors` library; `resolve_model_dir`.
 - /metrics and /v1/state: after the same requests, the port's
   EngineServer exposes the JAX server's series (names, types, labels)
-  and state keys, minus the named lists of unported features, with
+  and state keys, minus the named list of unported features, with
   equal counts, KV facts, prefix and speculation stats. The exposition
   format is the JAX registry's byte for byte.
 - Drain and the watchdog, on stub engines as the JAX suite drives them
@@ -40,6 +40,7 @@ import torch
 
 from testutil import http_get, http_post
 from torch_gemma_checkpoint import hf_config, write_gemma_checkpoint
+from torch_objstore_fakes import FakeGCS, FakeS3
 
 from kubeai_tpu.engine import Engine as JEngine
 from kubeai_tpu.engine import EngineConfig as JEngineConfig
@@ -68,11 +69,6 @@ from kubeai_tpu_torch.parity import params_from_numpy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# The JAX server's series of features the port does not serve yet: the
-# object store (ROADMAP A item 9).
-UNPORTED_SERIES = {
-    "kubeai_objstore_retries_total",
-}
 # /v1/state keys of features the port does not serve yet: none since the
 # adapters (ROADMAP A item 8) were ported.
 UNPORTED_STATE_KEYS: set[str] = set()
@@ -215,8 +211,27 @@ def test_resolve_model_dir(tmp_path):
         assert weights.resolve_model_dir(url) == jweights.resolve_model_dir(url)
     assert weights.resolve_model_dir("pvc://models/llama") == "/model/llama"
     assert weights.resolve_model_dir("s3://b/m", model_dir=str(tmp_path)) == str(tmp_path)
-    with pytest.raises(weights.WeightLoadError, match="ROADMAP A item 9"):
-        weights.resolve_model_dir("s3://bucket/model")
+    # An s3:// checkpoint (an object-store URL named ROADMAP A item 9 until
+    # the port took the object store): both packages download it into
+    # the same cache directory with the same files.
+    fake = FakeS3()
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("AWS_ENDPOINT_URL", fake.endpoint)
+            fake.objects[("bucket", "model/config.json")] = b'{"a": 1}'
+            fake.objects[("bucket", "model/model.safetensors")] = bytes(range(200))
+            dirs = []
+            for name, resolve in (("torch", weights.resolve_model_dir),
+                                  ("jax", jweights.resolve_model_dir)):
+                mp.setenv("KUBEAI_WEIGHTS_CACHE", str(tmp_path / f"cache-{name}"))
+                dirs.append(resolve("s3://bucket/model"))
+        assert os.path.basename(dirs[0]) == os.path.basename(dirs[1])
+        for fname in ("config.json", "model.safetensors", ".kubeai-complete"):
+            with open(os.path.join(dirs[0], fname), "rb") as a:
+                with open(os.path.join(dirs[1], fname), "rb") as b:
+                    assert a.read() == b.read(), fname
+    finally:
+        fake.close()
     with pytest.raises(weights.WeightLoadError, match="unsupported model url"):
         weights.resolve_model_dir(str(tmp_path / "absent"))
     with pytest.raises(weights.WeightLoadError, match="no safetensors"):
@@ -322,15 +337,11 @@ def test_metrics_series_match_jax(served):
     jsrv, tsrv, _ = served
     jtext, jparsed = _scrape(jsrv)
     ttext, tparsed = _scrape(tsrv)
-    jtypes, ttypes = _types(jtext), _types(ttext)
-    assert UNPORTED_SERIES <= set(jtypes)
-    assert ttypes == {k: v for k, v in jtypes.items() if k not in UNPORTED_SERIES}
-
-    def ported(parsed):
-        return {k: v for k, v in parsed.items()
-                if not any(k[0].startswith(u) for u in UNPORTED_SERIES)}
-
-    assert _series(ported(tparsed)) == _series(ported(jparsed))
+    # Every series of the JAX server, kubeai_objstore_retries_total
+    # included since the object store (ROADMAP A item 9) was ported.
+    assert _types(ttext) == _types(jtext)
+    assert ("kubeai_objstore_retries_total", ()) in tparsed
+    assert _series(tparsed) == _series(jparsed)
     phases = {v for name, labels in tparsed for k, v in labels
               if name.startswith("kubeai_engine_step_phase") and k == "phase"}
     assert phases and phases <= set(PHASES)
@@ -706,7 +717,7 @@ def test_main_serves_a_checkpoint_and_drains_on_sigterm(checkpoints, tmp_path, c
     (["--snapshot-dir", "/snapshots"], 9),
     (["--snapshot-no-publish"], 9),
 ], ids=lambda v: v if isinstance(v, int) else "_".join(v).lstrip("-"))
-def test_main_refuses_unported_flags(checkpoints, monkeypatch, argv, item):
+def test_main_refuses_unported_flags(checkpoints, monkeypatch, tmp_path, argv, item):
     """Each unported flag exits naming its ROADMAP item. --draft-url was
     one of them until the port took draft-model speculation: with
     --speculate 2, main now loads the draft (here pvc://models/draft
@@ -714,8 +725,48 @@ def test_main_refuses_unported_flags(checkpoints, monkeypatch, argv, item):
     engine, which serves the warm-up. --quantization int8 was one until
     the port took int8 weights (ROADMAP A item 9c): main now quantizes the
     llama checkpoint's layer weights and builds an int8 engine, which
-    serves the warm-up."""
+    serves the warm-up. The object-store flags were until the port took
+    the object store (ROADMAP A item 9): with --kv-sharing, main hands the
+    server a spill store on the URL, whose keys are the JAX store's;
+    --snapshot-url (here a temporary file:// bucket) records `absent`,
+    loads in full and publishes after the warm-up; --snapshot-dir (here a
+    temporary directory) and --snapshot-no-publish alone leave snapshots
+    off, as in the JAX server."""
     model_dir, _ = checkpoints["llama-safetensors"]
+    if argv[0].startswith(("--kv-spill-url", "--snapshot")):
+        from kubeai_tpu.objstore import KVSpillStore as JKVSpillStore
+        from kubeai_tpu_torch.engine import server as server_mod
+
+        built = {}
+
+        def capture_store(engine, tokenizer, name, **kw):
+            built.update(kw, engine=engine)
+            raise _ServerBuilt
+
+        monkeypatch.setattr(server_mod, "EngineServer", capture_store)
+        bucket = tmp_path / "snapshots"
+        flags = [f"file://{bucket}" if a == "file:///snapshots"
+                 else str(tmp_path / "work") if a == "/snapshots" else a for a in argv]
+        extra = ["--kv-sharing"] if argv[0] == "--kv-spill-url" else []
+        with pytest.raises(_ServerBuilt):
+            main(["--model-url", model_dir, "--device", "cpu", "--num-slots", "2",
+                  "--max-seq-len", "128", *flags, *extra])
+        cold = built["cold_start"]
+        assert built["engine"].profiler.steps_completed > 0  # the warm-up was served
+        if argv[0] == "--kv-spill-url":
+            store = built["kv_spill_store"]
+            assert store.url == argv[1] and cold["events"] == []
+            assert store._key("ab12") == JKVSpillStore(argv[1])._key("ab12") == (
+                "bucket", "spill/ab12.kvp")
+        elif argv[0] == "--snapshot-url":
+            assert cold["events"] == ["absent", "published"] and not cold["restored"]
+            assert set(cold["phases"]) == {"fetch", "load", "compile", "warmup"}
+            assert (bucket / "model" / cold["fingerprint"] / "MANIFEST.json").exists()
+        else:
+            assert cold["events"] == [] and not cold["restored"]
+            assert set(cold["phases"]) == {"load", "compile", "warmup"}
+            assert not (tmp_path / "work").exists()
+        return
     if argv[0] == "--quantization":
         from kubeai_tpu_torch.engine import server as server_mod
         from kubeai_tpu_torch.engine.quantization import QUANTIZABLE
@@ -822,17 +873,51 @@ def test_main_serves_roles_and_sharing(checkpoints, monkeypatch, argv, role, sha
     ("Gemma2ForCausalLM", None, None),
     ("MixtralForCausalLM", None, "ROADMAP A item 10"),
     ("WhisperForConditionalGeneration", None, None),
-    (None, "gs://bucket/llama", "ROADMAP A item 9"),
+    (None, "gs://bucket/llama", None),
     ("GPT2LMHeadModel", None, "unknown model family"),
     (None, None, "no config.json"),
 ], ids=["gemma", "mixtral", "whisper", "object-store", "unknown", "no-config"])
-def test_main_refuses_unported_models(tmp_path, monkeypatch, arch, url, reason):
+def test_main_refuses_unported_models(checkpoints, tmp_path, monkeypatch, arch, url, reason):
     """Each unported model exits naming its ROADMAP item. The gemma and
     whisper cases were among them until the port took the families: main
     now loads a Gemma-2 checkpoint on the CPU, with the default
     --max-adapters 4, and builds its server (tests/test_torch_gemma.py
     holds the rest), and loads a whisper checkpoint in f32 and builds a
-    TranscriptionServer (tests/test_torch_whisper.py)."""
+    TranscriptionServer (tests/test_torch_whisper.py). The gs:// case was
+    one until the port took the object store (ROADMAP A item 9): main
+    downloads the llama checkpoint from a fake GCS into the weights cache
+    and loads it bit-equal to the local directory's load."""
+    if url is not None:
+        from kubeai_tpu_torch.engine import server as server_mod
+
+        built = {}
+
+        def capture_gcs(engine, tokenizer, name, **kw):
+            built["engine"] = engine
+            raise _ServerBuilt
+
+        monkeypatch.setattr(server_mod, "EngineServer", capture_gcs)
+        model_dir, _ = checkpoints["llama-safetensors"]
+        fake = FakeGCS()
+        try:
+            for fname in os.listdir(model_dir):
+                with open(os.path.join(model_dir, fname), "rb") as f:
+                    fake.objects[("bucket", f"llama/{fname}")] = f.read()
+            monkeypatch.setenv("STORAGE_EMULATOR_HOST", fake.endpoint)
+            monkeypatch.setenv("KUBEAI_WEIGHTS_CACHE", str(tmp_path / "cache"))
+            with pytest.raises(_ServerBuilt):
+                main(["--model-url", url, "--device", "cpu", "--num-slots", "2",
+                      "--max-seq-len", "64"])
+        finally:
+            fake.close()
+        engine = built["engine"]
+        cfg = tl.LlamaConfig.from_hf_dict(weights.load_hf_config(model_dir))
+        local = weights.load_params("llama", model_dir, cfg, device="cpu")
+        assert engine.family.name == "llama"
+        for name in ("embed", "lm_head"):
+            assert torch.equal(engine.params[name], local[name]), name
+        assert torch.equal(engine.params["layers"]["wq"], local["layers"]["wq"])
+        return
     if arch == "WhisperForConditionalGeneration":
         from kubeai_tpu_torch.engine import whisper_server
         from kubeai_tpu_torch.engine.weights import save_safetensors, whisper_hf_tensors
