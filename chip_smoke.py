@@ -203,14 +203,14 @@ Phases, each fatal on failure:
                step, verify window and prefill against the bf16 ones and
                prints the adapter buffers' MiB;
   4b. serve_gemma — Gemma-2 on random Gemma-2-9B-shape weights, cut to
-               GEMMA_9B_LAYERS (14) of its 42 layers (head_dim 256, window
+               GEMMA_9B_LAYERS (8) of its 42 layers (head_dim 256, window
                4096 on alternate layers,
                softcaps 50 and 30), num_slots=8, max_seq_len=8192: four
                chat requests of 28-4,200 prompt tokens (one seeded, one
                streamed; the longest passes the window) served per_layer
                (B1 at head_dim 256 must launch), fused (B4), per_layer on
-               int8 pools (B1-int8 at head_dim 256 must launch 42 times a
-               step, only from replays, B1 never; the pools' GiB against
+               int8 pools (B1-int8 at head_dim 256 must launch once a layer
+               a step, only from replays, B1 never; the pools' GiB against
                bf16's) and with prefill_chunk=512 and the prefix cache
                over two waves (hits by the cache rule), on bf16 and on
                int8 pools; B2 must not launch (Gemma-2's prefill is the
@@ -219,7 +219,7 @@ Phases, each fatal on failure:
                decode step is profiled from its graph in each run
                (eagerly too per_layer);
   4c. serve_gemma1 — `serve_gemma(GEMMA_7B, ...)`: Gemma-1 on random
-               Gemma-7B-shape weights, GEMMA_7B_LAYERS (14) of its 28
+               Gemma-7B-shape weights, GEMMA_7B_LAYERS (8) of its 28
                layers (16 heads over 16 kv heads at head_dim 256, no
                softcap, no window), the same four requests and config:
                per_layer (B1 at G=1), fused (B4) and on int8 pools
@@ -253,6 +253,25 @@ Phases, each fatal on failure:
                then `main` in a subprocess on the card: the served ids
                (twice) equal the in-process ones, /metrics counts the
                requests and the audio seconds, exit 0 on SIGINT;
+  4f. serve_mixtral — Mixtral-8x7B's width (32 heads over 8 at head_dim
+               128, 8 experts of 14336, top-2; random bf16 weights from a
+               seed) at MIXTRAL_LAYERS (8) of its 32 layers, max_seq_len
+               4096: first the router's top-k on the card with forced ties
+               (the lower index first, as a stable host sort), then four
+               chat requests of 28-1,100 prompt tokens (one seeded, one
+               streamed) served per_layer (B1), fused (B4), on int8 pools
+               (B1-int8) and with speculate=2 (vanilla decode, logged; no
+               B3), then chunked prefill and the prefix cache over two
+               waves (hits by the rule). Each run: its decode kernel 8
+               times a step in every replay, B2 8 times in every
+               whole-prompt admission, every stream equal to an eager
+               synchronous engine's; each layout's decode step profiled
+               (the walk 8 times a step by torch.profiler, and no kernel
+               but a GEMM as slow a launch as moving one expert stack, so
+               no weight is copied). Prints the step's device ms against
+               its bytes bound, a 512-bucket admission's device ms (B2 8
+               launches), the MoE blocks' share of each, the weights' GiB
+               and the peak memory;
   5. serve_cli — the engine Pod's entry point: a random-weight Llama
                checkpoint at Llama-3-8B width (4 layers, bf16) written with
                `weights.save_safetensors`, uploaded to a fake S3 on
@@ -299,7 +318,12 @@ Phases, each fatal on failure:
                `--kv-dtype int8` (/v1/state must report int8 pools):
                /v1/load_lora_adapter must answer 400 (ROADMAP fault C10),
                the loaded tensors must be the ones written and the greedy
-               streams an in-process engine's.
+               streams an in-process engine's. Last a 2-layer Mixtral
+               checkpoint at Mixtral-8x7B width (6.3 GB) with its defaults:
+               /v1/load_lora_adapter 400 (C10), /v1/embeddings 400, every
+               tensor and expert slot loaded bit-equal, the greedy streams
+               an in-process engine's; `--quantization int8` must exit at
+               boot naming ROADMAP fault C15.
 
 Each phase prints its seconds on a line of its own ("phase <name>: s"),
 and its start and end on stderr. A run still going after WATCHDOG_S
@@ -315,6 +339,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import re
 import statistics
 import subprocess
@@ -5243,18 +5268,20 @@ def profile_program(engine, unit: str, program: str, calls: int | None = None,
             "rows": eager_run["rows"], "steps": eager_run["steps"]}
 
 
-def profile_prefill(params, cfg, model=None, buckets=(512, 1024), tag: str = "") -> None:
+def profile_prefill(params, cfg, model=None, buckets=(512, 1024), tag: str = "") -> dict:
     """torch.profiler over `model`.prefill (default llama), the function
     Engine._prefill_admit calls, at B=1 for `buckets` (default the serve
     phase's two long buckets, 512 and 1024, on the 8B-shape weights):
     device time by kernel, the idle share, and B2's device ms and launches
-    per admission. This is the layer number that ties B2 to TTFT."""
+    per admission. This is the layer number that ties B2 to TTFT. Returns
+    {bucket: (device ms, B2 launches) per admission}."""
     import torch
 
     if model is None:
         from kubeai_tpu_torch.models import llama as model
 
     gen = torch.Generator("cuda").manual_seed(12)
+    out = {}
     for S in buckets:
         toks = torch.randint(0, cfg.vocab_size, (1, S), generator=gen, device="cuda")
         lengths = torch.tensor([S], device="cuda")
@@ -5267,9 +5294,12 @@ def profile_prefill(params, cfg, model=None, buckets=(512, 1024), tag: str = "")
         if not b2:
             fail(f"prefill S={S}: the profile shows no flash_prefill_kernel")
         b2_us = sum(getattr(e, "self_device_time_total", 0) for e in b2)
+        launches = sum(e.count for e in b2) / steps
         print(f"profile {tag}prefill_S={S} B2 {b2_us / 1e3 / steps:.4f} ms in "
-              f"{sum(e.count for e in b2) / steps:.0f} launches per admission, "
+              f"{launches:.0f} launches per admission, "
               f"{b2_us / max(total, 1):.3f} of its device time", flush=True)
+        out[S] = (prof["device_ms"], launches)
+    return out
 
 
 # ---- serve_gemma: Gemma-2-9B shapes at full depth ----------------------------------
@@ -5284,8 +5314,8 @@ GEMMA_9B = dict(
 )
 # serve_gemma serves Gemma-2-9B's width at this depth (an even count: half
 # the layers windowed), every gate kept; the kernel phase holds B1 and B4 at
-# its full shapes.
-GEMMA_9B_LAYERS = 14
+# its full shapes. 8 layers leave the smoke's time to serve_mixtral.
+GEMMA_9B_LAYERS = 8
 # 384 pages of 64 tokens (344 KB of K/V a token: 8.5 GB a pool pair) hold
 # both prefix waves' pages with room; a slot's 8,192 tokens take 128.
 GEMMA_SERVE_CONFIG = dict(num_slots=8, max_seq_len=8192, page_size=64, decode_chunk=8,
@@ -5525,8 +5555,9 @@ GEMMA_7B = dict(
     max_position_embeddings=8192,
 )
 # The smoke serves Gemma-7B's width at this depth, every gate kept (B2 once
-# a layer in every admission): the int8-weight phases took the time.
-GEMMA_7B_LAYERS = 14
+# a layer in every admission): the int8-weight and the mixtral phases took
+# the time.
+GEMMA_7B_LAYERS = 8
 
 
 # ---- phase 5: the engine Pod's entry point -------------------------------------
@@ -6562,6 +6593,488 @@ def _post_status(port: int, path: str) -> int:
     return resp.status
 
 
+# ---- serve_mixtral: Mixtral-8x7B's width at a cut depth ----------------------------
+
+# HF mistralai/Mixtral-8x7B-v0.1 config.json (the catalog's
+# mixtral-8x7b-instruct-tpu): 32 heads over 8 kv heads at head_dim 128, 8
+# experts of intermediate 14336, top-2, rope theta 1e6. 46.7 B parameters,
+# 93.4 GB in bf16 (a layer 2.90 GB: 41.9 M attention and 1,409 M expert
+# parameters), past the card's 80 GB, and int8 weights do not apply
+# (ROADMAP fault C15): the smoke serves its full width at MIXTRAL_LAYERS.
+MIXTRAL_8X7B = dict(
+    vocab_size=32000, hidden_size=4096, intermediate_size=14336, num_layers=32,
+    num_heads=32, num_kv_heads=8, num_experts=8, num_experts_per_tok=2,
+    rope_theta=1e6, rms_norm_eps=1e-5, max_position_embeddings=32768,
+)
+MIXTRAL_LAYERS = 8
+# The 8 slots' pages at 4,096 tokens take 1.07 GB a pool pair at 8 layers
+# (32 KiB of K/V a token); the largest dense prefill temporaries (g, u and
+# g * u, [tokens, 8 x 14336] bf16) are 0.47 GB each at the 2048 bucket.
+MIXTRAL_SERVE_CONFIG = dict(num_slots=8, max_seq_len=4096, page_size=64, decode_chunk=8)
+# (label, decode kernel, engine settings). speculate=2 runs vanilla decode
+# (no verify forward): the per_layer kernels, and no B3.
+MIXTRAL_RUNS = (("per_layer", "paged_decode_attention", dict(decode_kernel="per_layer")),
+                ("fused", "paged_decode_attention_fused", dict(decode_kernel="fused")),
+                ("int8", "paged_decode_attention_int8",
+                 dict(decode_kernel="per_layer", kv_dtype="int8")),
+                ("speculate", "paged_decode_attention",
+                 dict(decode_kernel="per_layer", speculate=2)))
+# The paged decode kernels' walk, by name in a profile: B1 and B4 share it.
+DECODE_WALKS = {"paged_decode_attention": "paged_split_walk_kernel",
+                "paged_decode_attention_fused": "paged_split_walk_kernel",
+                "paged_decode_attention_int8": "paged_split_walk_int8_kernel"}
+# Library GEMM kernels by name (cuBLAS' GEMMs and gemv).
+GEMM_NAMES = LIBRARY_GEMMS + ("gemv", "splitKreduce")
+
+
+def _mixtral_bodies(again: bool = False) -> list[dict]:
+    """Four chat completions of about 28, 117, 317 and 1,100 prompt
+    tokens, 32 completion tokens each: the second seeded, the last
+    streamed; each alone in its prefill bucket (32, 128, 512, 2048), so
+    the served and the eager engine admit them alike. With `again`, each
+    content gains a short tail: a second wave whose prompts share their
+    first pages with the first wave's."""
+    text = "The quick brown fox jumps over the lazy dog. "
+    contents = ["Hello there", (text * 3)[:100], (text * 7)[:300], (text * 25)[:1083]]
+    bodies = []
+    for j, content in enumerate(contents):
+        tail = f" Again {j}." if again else ""
+        body = {"messages": [{"role": "user", "content": content + tail}],
+                "max_tokens": 32, "temperature": 0}
+        if j == 1:
+            body.update(temperature=0.8, seed=3 if again else 2)
+        if j == 3:
+            body["stream"] = True
+        bodies.append(body)
+    return bodies
+
+
+def mixtral_weights(num_layers: int = MIXTRAL_LAYERS):
+    """(random Mixtral-8x7B-width weights on cuda at `num_layers`, made
+    from a seed; the config; their bytes), after one prefill's shapes and
+    finite logits are checked."""
+    import torch
+
+    from kubeai_tpu_torch.models import mixtral
+
+    cfg = mixtral.MixtralConfig(**dict(MIXTRAL_8X7B, num_layers=num_layers))
+    t0 = time.perf_counter()
+    params = mixtral.init_params(cfg, torch.Generator("cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    n_bytes = sum(t.nbytes for t in [params["embed"], params["final_norm"],
+                                     params["lm_head"], *params["layers"].values()])
+    print(f"serve_mixtral: random Mixtral-8x7B-width weights at {num_layers} of 32 layers "
+          f"on cuda, {n_bytes / 2**30:.3f} GiB ({n_bytes / 1e9:.3f} GB) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    with torch.no_grad():
+        toks = torch.randint(0, cfg.vocab_size, (1, 64), device="cuda")
+        logits, k_all, _ = mixtral.prefill(params, cfg, toks, torch.tensor([64], device="cuda"))
+    want_k = (cfg.num_layers, 1, 64, cfg.num_kv_heads, cfg.head_size)
+    if tuple(logits.shape) != (1, cfg.vocab_size) or tuple(k_all.shape) != want_k:
+        fail(f"mixtral prefill shapes {tuple(logits.shape)} {tuple(k_all.shape)}")
+    if not torch.isfinite(logits).all():
+        fail("mixtral prefill logits are not finite")
+    return params, cfg, n_bytes
+
+
+def check_router_ties(cfg) -> None:
+    """The router's top-k on the card at the served widths (4,096 tokens
+    and one decode step's 8, 8 experts): activations and a router of
+    integers in {-1, 0, 1}, whose odd columns repeat the even ones, give
+    exact products with forced ties; `top_k_stable` must pick what a
+    stable sort by index picks on the host (the lower index first among
+    equal logits, jax.lax.top_k's order) in every row."""
+    import numpy as np
+    import torch
+
+    from kubeai_tpu_torch.models import mixtral
+
+    gen = torch.Generator("cuda").manual_seed(21)
+    X, k = cfg.num_experts, cfg.num_experts_per_tok
+    router = torch.randint(-1, 2, (cfg.hidden_size, X // 2), generator=gen, device="cuda")
+    router = router.repeat_interleave(2, dim=1).to(torch.bfloat16)  # columns in pairs
+    for T in (4096, 8):
+        h = torch.randint(-1, 2, (T, cfg.hidden_size), generator=gen, device="cuda")
+        logits = torch.matmul(h.to(torch.bfloat16), router).float()
+        if not torch.equal(logits[:, 0::2], logits[:, 1::2]):
+            fail("router ties: paired router columns gave different logits")
+        _, got = mixtral.top_k_stable(logits, k)
+        want = np.argsort(-logits.cpu().numpy(), axis=-1, kind="stable")[:, :k]
+        bad = int((got.cpu().numpy() != want).any(-1).sum())
+        if bad:
+            fail(f"router ties: top_k_stable picked other experts than a stable host sort "
+                 f"in {bad} of {T} rows")
+    print("serve_mixtral router ties: in 4,096 + 8 rows whose top two logits tie, "
+          "top_k_stable on the card picked the lower index first, as a stable host sort "
+          "does", flush=True)
+
+
+def _mixtral_gates(label: str, run: dict, decode: str, num_layers: int) -> None:
+    """A mixtral serve run: its decode kernel launched, num_layers times
+    a step in every decode-chunk replay, and no other paged kernel (no B3:
+    speculate falls back to vanilla decode); B2 num_layers times in every
+    whole-prompt admission."""
+    launched, engine = run["launches"], run["engine"]
+    if launched[decode] <= 0:
+        fail(f"serve {label}: main path never launched {decode}")
+    for name in ("paged_decode_attention", "paged_decode_attention_fused",
+                 "paged_verify_attention", "paged_decode_attention_int8"):
+        if name != decode and launched[name]:
+            fail(f"serve {label}: {name} launched {launched[name]} times")
+    steps = engine._chunk_out.shape[0]
+    per_replay = _programs(engine)["decode chunk"].launches_per_replay
+    if per_replay.get(decode) != num_layers * steps:
+        fail(f"serve {label}: {decode} launches per decode-chunk replay {per_replay}, not "
+             f"{num_layers} layers x {steps} steps")
+    per_admission = run["admit_b2"].get("_prefill_admit", [])
+    if not per_admission or any(n != num_layers for n in per_admission):
+        fail(f"serve {label}: B2 launches per whole-prompt admission {per_admission}, not "
+             f"{num_layers} each")
+    print(f"serve {label}: {decode} {per_replay[decode]} launches per decode-chunk replay "
+          f"({num_layers} layers x {steps} steps), {launched[decode]} in the run; B2 "
+          f"{per_admission} in {len(per_admission)} whole-prompt admissions", flush=True)
+
+
+def _walks_per_step(label: str, prof: dict, decode: str, num_layers: int) -> None:
+    """torch.profiler's count of the decode kernel's walk a step must be
+    num_layers."""
+    walk = DECODE_WALKS[decode]
+    n = sum(e.count for e in prof["rows"] if walk in e.key) / prof["steps"]
+    if n != num_layers:
+        fail(f"serve {label}: the profile shows {n} {walk} launches a step, not {num_layers}")
+    print(f"serve {label}: torch.profiler counts {n:.0f} {walk} launches a decode step",
+          flush=True)
+
+
+def _no_weight_copies(label: str, prof: dict, cfg, engine) -> None:
+    """The decode step moves no expert stack through anything but a GEMM:
+    every other kernel of the profile takes less a launch than one of a
+    layer's expert stacks ([X, E, M] bf16) takes to cross HBM once at the
+    card's peak, and the decode chunk's graph pool holds less than one."""
+    stack = cfg.num_experts * cfg.hidden_size * cfg.intermediate_size * 2
+    floor_ms = stack / PEAK_BYTES_PER_S * 1e3
+    worst = (0.0, "")
+    for e in prof["rows"]:
+        if any(g in e.key for g in GEMM_NAMES) or not e.count:
+            continue
+        per = getattr(e, "self_device_time_total", 0) / 1e3 / e.count
+        if per >= floor_ms:
+            fail(f"serve {label}: {e.key[:90]} takes {per:.4f} ms a launch, as long as "
+                 f"moving an expert stack ({stack / 1e9:.3f} GB, {floor_ms:.4f} ms)")
+        worst = max(worst, (per, e.key[:60]))
+    pool = _programs(engine)["decode chunk"].pool_bytes
+    if pool >= stack:
+        fail(f"serve {label}: the decode graph's pool holds {pool / 2**20:.1f} MiB, an "
+             "expert stack's worth")
+    print(f"serve {label}: no kernel but a GEMM moves an expert stack ({stack / 1e9:.3f} "
+          f"GB, {floor_ms:.4f} ms at peak): the slowest other launch {worst[0]:.4f} ms "
+          f"({worst[1]}); graph pool {pool / 2**20:.1f} MiB", flush=True)
+
+
+def moe_ms(params, cfg, tokens: int) -> float:
+    """Device ms of one forward's MoE blocks (`_moe_ffn` once a layer) on
+    `tokens` rows, from a CUDA graph."""
+    import torch
+
+    from kubeai_tpu_torch.models import mixtral
+
+    h = torch.randn(tokens, cfg.hidden_size, generator=torch.Generator("cuda").manual_seed(5),
+                    device="cuda").to(torch.bfloat16)
+    layers = [mixtral._layer(params, i) for i in range(cfg.num_layers)]
+
+    def call():
+        for lp in layers:
+            out = mixtral._moe_ffn(h, lp, cfg)
+        return out
+
+    return graph_ms(call, iters=1, replays=5)
+
+
+def mixtral_prefix_run(params, cfg, label: str = "mixtral prefix") -> None:
+    """`prefill_chunk=512, prefix_cache=True` (per_layer) over two waves of
+    `_mixtral_bodies` whose second hits the first's pages. Gates:
+    `_mixtral_gates`, the staged-chunk programs dispatched only as graph
+    replays, hit tokens the cache rule's and the eager engine's, every
+    stream equal to that engine's."""
+    extra = dict(decode_kernel="per_layer", prefill_chunk=PREFIX_CHUNK, prefix_cache=True)
+    run = serve_run(params, cfg, label, waves=[_mixtral_bodies(), _mixtral_bodies(again=True)],
+                    family="mixtral", config=MIXTRAL_SERVE_CONFIG, **extra)
+    _mixtral_gates(label, run, "paged_decode_attention", cfg.num_layers)
+    if run["stage_calls"]:
+        fail(f"serve {label}: staged-chunk functions ran outside their graphs: "
+             f"{run['stage_calls']}")
+    for name in ("mid chunk", "final chunk", "prefix gather"):
+        if run["dispatches"].get(name, 0) <= 0:
+            fail(f"serve {label}: the {name} program was never dispatched")
+    order = sorted(run["requests"])
+    per = expected_hits([run["requests"][rid][0] for rid in order],
+                        MIXTRAL_SERVE_CONFIG["page_size"], PREFIX_CHUNK,
+                        MIXTRAL_SERVE_CONFIG["max_seq_len"])
+    stats = dict(run["engine"].prefix_stats)
+    print(f"serve {label} prefix_stats {json.dumps(stats)}; the cache rule gives "
+          f"{sum(per)} hit tokens", flush=True)
+    if stats["hit_tokens"] != sum(per) or not stats["hit_tokens"]:
+        fail(f"serve {label}: {stats['hit_tokens']} hit tokens, the rule gives {sum(per)}")
+    ref = check_streams_equal_eager(params, cfg, label, run, **extra)
+    if ref.prefix_stats["hit_tokens"] != stats["hit_tokens"]:
+        fail(f"serve {label}: eager engine hit {ref.prefix_stats['hit_tokens']} tokens, "
+             f"the served engine {stats['hit_tokens']}")
+    del ref
+    free(run)
+
+
+class _Warnings(logging.Handler):
+    """The warnings logged while it is attached to a logger."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages: list[str] = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def serve_mixtral() -> dict:
+    """Phase 4f: Mixtral-8x7B's width at MIXTRAL_LAYERS layers
+    (`mixtral_weights`), served with MIXTRAL_SERVE_CONFIG, graphs and
+    overlap: the four `_mixtral_bodies` per_layer (B1), fused (B4), on int8
+    pools (B1-int8) and with speculate=2 (vanilla decode, logged; B1 and
+    no B3), then `mixtral_prefix_run`. Gates: `check_router_ties`,
+    `_mixtral_gates`, every stream equal to an eager synchronous engine's
+    (an int8 one on int8 pools), `check_int8_pools`, and in each layout's
+    decode-step profile the walk num_layers times a step
+    (`_walks_per_step`) and no kernel but a GEMM moving an expert stack
+    (`_no_weight_copies`). Prints the decode step's device ms against its
+    bytes bound, a 512-bucket admission's device ms, the MoE's share of
+    each, the weights' GiB and the peak memory. Returns the launches of
+    the whole-prompt runs by kernel."""
+    import gc
+
+    import torch
+
+    from kubeai_tpu_torch.models import mixtral
+
+    torch.cuda.reset_peak_memory_stats()
+    params, cfg, n_bytes = mixtral_weights()
+    check_router_ties(cfg)
+    launches: dict[str, int] = {}
+    steps = {}
+    logger = logging.getLogger("kubeai_tpu_torch.engine.engine")
+    for layout, decode, extra in MIXTRAL_RUNS:
+        label = f"mixtral {layout}"
+        warned = _Warnings()
+        logger.addHandler(warned)
+        try:
+            run = serve_run(params, cfg, label, waves=[_mixtral_bodies()], family="mixtral",
+                            config=MIXTRAL_SERVE_CONFIG, **extra)
+        finally:
+            logger.removeHandler(warned)
+        _mixtral_gates(label, run, decode, cfg.num_layers)
+        for name, n in run["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+        if layout == "speculate":
+            said = [m for m in warned.messages if "running vanilla decode" in m]
+            if run["engine"]._spec != 0 or not said:
+                fail(f"serve {label}: speculate=2 did not fall back to vanilla decode "
+                     f"with a warning ({warned.messages})")
+            print(f"serve {label}: the engine logged {said[0]!r}", flush=True)
+        if extra.get("kv_dtype") == "int8":
+            check_int8_pools(label, run["engine"], cfg.num_layers)
+        check_streams_equal_eager(params, cfg, label, run, **extra)
+        if layout != "speculate":  # its step is per_layer's
+            prof = profile_program(run["engine"], f"{label} decode step", "decode chunk")
+            _walks_per_step(label, prof, decode, cfg.num_layers)
+            _no_weight_copies(label, prof, cfg, run["engine"])
+            steps[layout] = prof
+        free(run)
+    mixtral_prefix_run(params, cfg)
+    # The step's bound: every weight but the embedding read once (the
+    # embedding's 8 rows and the pools' few MB aside).
+    step_bytes = n_bytes - params["embed"].nbytes
+    bound_ms = step_bytes / PEAK_BYTES_PER_S * 1e3
+    decode_moe = moe_ms(params, cfg, MIXTRAL_SERVE_CONFIG["num_slots"])
+    for layout, prof in steps.items():
+        print(f"serve_mixtral {layout} decode step from its graph: device "
+              f"{prof['device_ms']:.3f} ms, wall {prof['wall_ms']:.3f} ms; bytes bound "
+              f"{bound_ms:.3f} ms ({step_bytes / 1e9:.3f} GB at "
+              f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s; x{prof['device_ms'] / bound_ms:.2f}); "
+              f"the MoE blocks {decode_moe:.3f} ms ({decode_moe / prof['device_ms']:.3f} of "
+              "the step)", flush=True)
+    admission = profile_prefill(params, cfg, model=mixtral, buckets=(512,), tag="mixtral ")
+    adm_ms, b2 = admission[512]
+    if b2 != cfg.num_layers:
+        fail(f"serve_mixtral: the 512 admission's profile shows {b2} B2 launches, not "
+             f"{cfg.num_layers}")
+    prefill_moe = moe_ms(params, cfg, 512)
+    flops = 3 * 2 * 512 * cfg.hidden_size * cfg.intermediate_size * cfg.num_experts
+    flops *= cfg.num_layers
+    print(f"serve_mixtral 512-bucket admission: device {adm_ms:.3f} ms; the MoE blocks "
+          f"{prefill_moe:.3f} ms ({prefill_moe / adm_ms:.3f} of it; the dense expert "
+          f"products {flops / 1e12:.2f} TFLOP, {flops / PEAK_BF16_FLOPS * 1e3:.3f} ms at "
+          "peak)", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"serve_mixtral memory: weights {n_bytes / 2**30:.3f} GiB, peak allocated "
+          f"{peak / 2**30:.3f} GiB; card: {gpu_line()}", flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# A Mixtral checkpoint at Mixtral-8x7B width, 2 of its 32 layers, for the
+# CLI: 6.3 GB in bf16 under HF's names.
+MIXTRAL_CLI_LAYERS = 2
+MIXTRAL_CLI_CONFIG = {
+    "architectures": ["MixtralForCausalLM"], "model_type": "mixtral",
+    "vocab_size": 32000, "hidden_size": 4096, "intermediate_size": 14336,
+    "num_hidden_layers": MIXTRAL_CLI_LAYERS, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "num_local_experts": 8, "num_experts_per_tok": 2,
+    "rope_theta": 1e6, "rms_norm_eps": 1e-5, "max_position_embeddings": 32768,
+    "torch_dtype": "bfloat16",
+}
+MIXTRAL_CLI_LAYER_LEAVES = (
+    ("input_norm", "input_layernorm.weight", False),
+    ("wq", "self_attn.q_proj.weight", True), ("wk", "self_attn.k_proj.weight", True),
+    ("wv", "self_attn.v_proj.weight", True), ("wo", "self_attn.o_proj.weight", True),
+    ("post_attn_norm", "post_attention_layernorm.weight", False),
+    ("router", "block_sparse_moe.gate.weight", True))
+# Each expert's tensors: (the port's stack, HF name); w1 and w3 fill
+# [NL, E, X, M] stacks at [i, :, e], w2 the [NL, X, M, E] stack at [i, e].
+MIXTRAL_CLI_EXPERTS = (("w_gate", "w1"), ("w_up", "w3"), ("w_down", "w2"))
+
+
+def mixtral_cli_tensors(c: dict = MIXTRAL_CLI_CONFIG) -> dict:
+    """Random bf16 tensors under the Hugging Face names of `c`, drawn on
+    the card from a seed (N(0, 0.02), norms at 1) and kept on the host;
+    the head's rows of the printable ASCII bytes are drawn
+    ASCII_HEAD_SCALE times larger, as the llama checkpoint's are."""
+    import torch
+
+    E, M, V = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
+    HD = c["num_attention_heads"] * (E // c["num_attention_heads"])
+    KD = c["num_key_value_heads"] * (E // c["num_attention_heads"])
+    X = c["num_local_experts"]
+    gen = torch.Generator("cuda").manual_seed(3)
+
+    def rnd(*shape, ascii_rows: bool = False):
+        t = torch.randn(shape, generator=gen, device="cuda") * 0.02
+        if ascii_rows:
+            t[32:127] *= ASCII_HEAD_SCALE
+        return t.to(torch.bfloat16).cpu()
+
+    out = {"model.embed_tokens.weight": rnd(V, E)}
+    for i in range(c["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        out[p + "input_layernorm.weight"] = torch.ones(E, dtype=torch.bfloat16)
+        for name, shape in (("q_proj", (HD, E)), ("k_proj", (KD, E)), ("v_proj", (KD, E)),
+                            ("o_proj", (E, HD))):
+            out[f"{p}self_attn.{name}.weight"] = rnd(*shape)
+        out[p + "post_attention_layernorm.weight"] = torch.ones(E, dtype=torch.bfloat16)
+        out[p + "block_sparse_moe.gate.weight"] = rnd(X, E)
+        for e in range(X):
+            for name, shape in (("w1", (M, E)), ("w2", (E, M)), ("w3", (M, E))):
+                out[f"{p}block_sparse_moe.experts.{e}.{name}.weight"] = rnd(*shape)
+    out["model.norm.weight"] = torch.ones(E, dtype=torch.bfloat16)
+    out["lm_head.weight"] = rnd(V, E, ascii_rows=True)
+    return out
+
+
+def serve_cli_mixtral() -> None:
+    """Phase 5c: the entry point on a MIXTRAL_CLI_LAYERS-layer checkpoint
+    at Mixtral-8x7B width (`mixtral_cli_tensors`, written with
+    `weights.save_safetensors`): one `cli_run` with the default flags
+    (--max-adapters 4), whose admin step must get 400 naming ROADMAP fault
+    C10 from /v1/load_lora_adapter and 400 from /v1/embeddings; the
+    checkpoint loaded in-process with `weights.load_params` must be
+    bit-equal to the tensors written (every expert's w1, w3 and w2 in its
+    slot), and an in-process engine of the run's configuration must give
+    the greedy streams served over HTTP (`check_cli_run`); then `main`
+    with `--quantization int8`, called in this process, must exit at boot
+    naming C15."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from kubeai_tpu_torch.engine import Engine, EngineConfig
+    from kubeai_tpu_torch.engine.server import main as server_main
+    from kubeai_tpu_torch.engine.weights import load_hf_config, load_params, save_safetensors
+    from kubeai_tpu_torch.models import mixtral
+
+    def refusals(port: int) -> None:
+        status, res, _, _ = _post(port, {"lora_name": "tenant", "lora_path": root},
+                                  path="/v1/load_lora_adapter")
+        if status != 400 or "C10" not in json.dumps(res):
+            fail(f"serve_cli mixtral: an adapter load got HTTP {status} {res}, not 400 (C10)")
+        e_status, e_res, _, _ = _post(port, {"input": ["hello"], "model": "model"},
+                                      path="/v1/embeddings")
+        if e_status != 400:
+            fail(f"serve_cli mixtral: /v1/embeddings got HTTP {e_status} {e_res}, not 400")
+        print(f"serve_cli mixtral: /v1/load_lora_adapter answers 400: {json.dumps(res)}; "
+              f"/v1/embeddings answers 400: {json.dumps(e_res)}", flush=True)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="kubeai-serve-cli-mixtral-")
+    try:
+        t0 = time.perf_counter()
+        tensors = mixtral_cli_tensors()
+        model_dir = os.path.join(root, "model")
+        save_safetensors(model_dir, tensors, MIXTRAL_CLI_CONFIG)
+        ckpt_bytes = os.path.getsize(os.path.join(model_dir, "model.safetensors"))
+        print(f"serve_cli mixtral checkpoint: {MIXTRAL_CLI_LAYERS} layers at Mixtral-8x7B "
+              f"width, bf16, {ckpt_bytes / 1e9:.3f} GB in {len(tensors)} tensors, drawn and "
+              f"written in {time.perf_counter() - t0:.2f} s", flush=True)
+        sink = OtlpSink()
+        try:
+            run = cli_run(model_dir, "mixtral", [], {}, ckpt_bytes, sink, admin=refusals)
+        finally:
+            sink.stop()
+        cfg = mixtral.MixtralConfig.from_hf_dict(load_hf_config(model_dir))
+        params = load_params("mixtral", model_dir, cfg, device="cuda")
+        n = check_loaded_bits(params, tensors, CLI_LEAVES, MIXTRAL_CLI_LAYER_LEAVES,
+                              MIXTRAL_CLI_LAYERS)
+        for i in range(MIXTRAL_CLI_LAYERS):
+            for e in range(cfg.num_experts):
+                for leaf, hf in MIXTRAL_CLI_EXPERTS:
+                    stack = params["layers"][leaf][i]
+                    got = stack[e] if leaf == "w_down" else stack[:, e]
+                    want = tensors[f"model.layers.{i}.block_sparse_moe.experts.{e}.{hf}.weight"]
+                    if not torch.equal(got.view(torch.int16),
+                                       want.T.to(got.device).view(torch.int16)):
+                        fail(f"serve_cli mixtral: loaded {leaf}[{i}] expert {e} is not "
+                             f"bit-equal to {hf}")
+                    n += 1
+        del tensors
+        print(f"serve_cli mixtral load_params in-process: {n} leaves and expert slots "
+              "bit-equal to the tensors written", flush=True)
+        engine = Engine("mixtral", cfg, params, cfg=EngineConfig(
+            num_slots=8, max_seq_len=2048, max_adapters=4, decode_kernel="per_layer"))
+        check_cli_run("mixtral", run, engine)
+        del engine, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        # main exits at boot, before it loads a tensor.
+        t0 = time.perf_counter()
+        try:
+            server_main(["--model-url", model_dir, "--quantization", "int8"])
+        except SystemExit as e:
+            said = str(e.code)
+        else:
+            said = ""
+        if "C15" not in said:
+            fail(f"serve_cli mixtral: --quantization int8 did not exit at boot naming C15: "
+                 f"{said!r}")
+        print(f"serve_cli mixtral: main with --quantization int8 exits at boot in "
+              f"{time.perf_counter() - t0:.2f} s: {said}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 # ---- serve_embed: the catalog's embedder through /v1/embeddings --------------------
 
 # HF Qwen/Qwen2.5-0.5B-Instruct config.json (the catalog's qwen2-embed-tpu and
@@ -7142,6 +7655,8 @@ def main() -> None:
                           f"Gemma-2-9B ({GEMMA_9B_LAYERS} of 42 layers)"))
     launches.update(timed("serve_gemma1", serve_gemma, dict(GEMMA_7B, num_layers=GEMMA_7B_LAYERS),
                           f"Gemma-7B ({GEMMA_7B_LAYERS} of 28 layers)", "gemma1"))
+    mixtral_launches = timed("serve_mixtral", serve_mixtral)
+    print(f"serve_mixtral launches by kernel: {json.dumps(mixtral_launches)}", flush=True)
     launches.update(timed("serve_embed", serve_embed))
     timed("serve_whisper", serve_whisper)
     timed("serve_cli", serve_cli)
@@ -7150,6 +7665,7 @@ def main() -> None:
           "gemma int8", "Gemma-2-9B", True)
     timed("serve_cli_gemma1", serve_cli_gemma, GEMMA1_CLI_CONFIG, GEMMA1_CLI_LAYER_LEAVES,
           "gemma1", "Gemma-7B")
+    timed("serve_cli_mixtral", serve_cli_mixtral)
     print(f"phases: {time.perf_counter() - t_all:.2f} s in all", flush=True)
     kernels = []
     for name, m in measured.items():

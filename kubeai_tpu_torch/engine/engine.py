@@ -65,10 +65,11 @@ admission prefills the draft too (batched, chunked, prefix hit and
 handoff import); a chunk-mode window under spec_adaptive is followed by
 the catch-up program, which replays the chunk through the draft.
 
-Families: llama, qwen and gemma (models/registry.py). On a CUDA device
-the engine refuses, at construction, a model whose head_dim a kernel on
-its path has no build for (`refuse_kernel_head_dims`), and a family with
-no adapter buffers refuses adapter loads (ROADMAP fault C10).
+Families: llama, qwen, gemma and mixtral (models/registry.py). On a
+CUDA device the engine refuses, at construction, a model whose head_dim
+a kernel on its path has no build for (`refuse_kernel_head_dims`), and a
+family with no adapter buffers refuses adapter loads (ROADMAP fault
+C10).
 
 Ported: paged and slot modes, synchronous and overlapped stepping,
 preemption by recompute, the SLO scheduler, both decode layouts,

@@ -66,14 +66,14 @@ Embeddings run the family's `hidden_states` over the inputs right-padded
 to the engine's prefill bucket, in one batch, on the serve loop's thread
 between two steps (`_on_loop`): on the card its trunk attends through B2
 and must not run beside a CUDA-graph replay, so a batch delays the
-streams' next step by its own device time. Gemma has no embedding
-forward (400), as in the JAX package.
+streams' next step by its own device time. Gemma and mixtral have no
+embedding forward (400), as in the JAX package.
 
 `--quantization int8` loads the checkpoint in bf16, quantizes the llama
 family's layer weights on the device (engine/quantization.py) and logs
 the weights' GiB before and after; the engine's products then read them
-through the W8A16 kernel. A gemma checkpoint exits at boot naming ROADMAP
-fault C15; whisper ignores the flag, as in the JAX server.
+through the W8A16 kernel. A gemma or mixtral checkpoint exits at boot
+naming ROADMAP fault C15; whisper ignores the flag, as in the JAX server.
 
 A whisper checkpoint (WhisperForConditionalGeneration) boots
 engine/whisper_server.py's TranscriptionServer instead of the slot
@@ -91,11 +91,11 @@ the snapshot is published (not with --snapshot-no-publish).
 boot took and why; `kubeai_objstore_retries_total` counts the store's
 retries. --kv-spill-url spills evicted KV pages to a bucket.
 
-Not ported yet: the mixtral family (ROADMAP A item 10). Tenancy is the
-front door's; this server reads only the scheduling headers.
+Tenancy is the front door's; this server reads only the scheduling
+headers.
 
 Run: python -m kubeai_tpu_torch.engine.server --model-url <dir> [--port N]
-(a llama, mistral, qwen2, gemma, gemma2 or whisper checkpoint)
+(a llama, mistral, qwen2, gemma, gemma2, mixtral or whisper checkpoint)
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Checkpoint loading: Hugging Face-format directories to the port's
 parameter dict. Counterpart of kubeai_tpu/engine/weights.py (the llama,
-qwen, gemma and whisper loaders, `resolve_model_dir` and `load_params`).
+qwen, gemma, mixtral and whisper loaders, `resolve_model_dir` and
+`load_params`).
 
 Tensors are read lazily, as in the JAX package: safetensors headers are
 parsed once, and each tensor is seek-read from its shard only when its
@@ -17,8 +18,11 @@ Sources: local directories, `pvc://` (the operator mounts the PVC at
 /model), `hf://` (through huggingface_hub) and the object stores
 (`gs://`, `s3://`, `oss://`, `file://`; kubeai_tpu_torch/objstore.py),
 downloaded into the same `$KUBEAI_WEIGHTS_CACHE` directory the JAX
-package uses, so a node's replicas of either package share it. The
-mixtral family is not ported and raises naming its ROADMAP item.
+package uses, so a node's replicas of either package share it.
+Mixtral's expert stacks are filled expert by expert into their slots on
+the device, where the JAX loader builds a host buffer of each whole
+[NL, X, in, out] stack (30 GB each, 90 GB for the three, at
+Mixtral-8x7B's full depth).
 Whisper's loader keeps the JAX package's nested tree in f32 (the JAX
 entry point passes `load_params`' bf16 default to it, which its model
 cannot run: ROADMAP fault C13).
@@ -275,6 +279,58 @@ def load_gemma_params(
     }
 
 
+def load_mixtral_params(
+    model_dir: str, cfg, dtype=torch.bfloat16,
+    device: str | torch.device | None = None,
+) -> dict:
+    """Map a HF MixtralForCausalLM checkpoint onto the port's mixtral
+    dict (kubeai_tpu_torch.models.mixtral): llama's attention leaves,
+    `block_sparse_moe.gate` as the router [NL, E, X], and each expert's
+    w1 (gate), w3 (up) and w2 (down), stored [out, in], as slots of the
+    stacks `w_gate` / `w_up` [NL, E, X, M] and `w_down` [NL, X, M, E]. The
+    values are the JAX loader's bit for bit; only the gate and up stacks'
+    axis order differs (the JAX layout is [NL, X, E, M]). `device`
+    defaults to cuda."""
+    dev = resolve_device(device)
+    NL, X = cfg.num_layers, cfg.num_experts
+    E, M = cfg.hidden_size, cfg.intermediate_size
+    t, stack, leaf = _stream_helpers(model_dir, NL, dtype, dev)
+
+    def expert(i: int, e: int, w: str) -> torch.Tensor:
+        name = f"model.layers.{i}.block_sparse_moe.experts.{e}.{w}.weight"
+        if name not in t:
+            raise WeightLoadError(f"missing tensor {name}")
+        return t.stored(name).to(dev).T  # [in, out]
+
+    w_gate = torch.empty((NL, E, X, M), dtype=dtype, device=dev)
+    w_up = torch.empty((NL, E, X, M), dtype=dtype, device=dev)
+    w_down = torch.empty((NL, X, M, E), dtype=dtype, device=dev)
+    for i in range(NL):
+        for e in range(X):
+            w_gate[i, :, e].copy_(expert(i, e, "w1"))  # casts to dtype in place
+            w_up[i, :, e].copy_(expert(i, e, "w3"))
+            w_down[i, e].copy_(expert(i, e, "w2"))
+    return {
+        "embed": leaf("model.embed_tokens.weight"),
+        "layers": {
+            "input_norm": stack("model.layers.{i}.input_layernorm.weight", transpose=False),
+            "wq": stack("model.layers.{i}.self_attn.q_proj.weight"),
+            "wk": stack("model.layers.{i}.self_attn.k_proj.weight"),
+            "wv": stack("model.layers.{i}.self_attn.v_proj.weight"),
+            "wo": stack("model.layers.{i}.self_attn.o_proj.weight"),
+            "post_attn_norm": stack(
+                "model.layers.{i}.post_attention_layernorm.weight", transpose=False
+            ),
+            "router": stack("model.layers.{i}.block_sparse_moe.gate.weight"),
+            "w_gate": w_gate,
+            "w_up": w_up,
+            "w_down": w_down,
+        },
+        "final_norm": leaf("model.norm.weight"),
+        "lm_head": leaf("lm_head.weight"),
+    }
+
+
 def resolve_model_dir(model_url: str, model_dir: str = "") -> str:
     """Resolve a Model URL to a local directory.
 
@@ -472,13 +528,12 @@ _LOADERS = {
     "llama": load_llama_params,
     "qwen": load_llama_params,  # same layout + biases (attention_bias)
     "gemma": load_gemma_params,
+    "mixtral": load_mixtral_params,
     "whisper": load_whisper_params,
 }
 # Architectures of the JAX package's families whose models are not
-# ported yet (ROADMAP A item 10), with their family.
-UNPORTED_ARCHITECTURES = {
-    "MixtralForCausalLM": "mixtral",
-}
+# ported yet, with their family: none since mixtral (ROADMAP A item 10d).
+UNPORTED_ARCHITECTURES: dict[str, str] = {}
 
 
 def load_params(

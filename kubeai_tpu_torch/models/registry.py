@@ -1,9 +1,11 @@
 """Model-family registry: maps engine model ids and HF `architectures` to
 implementations. Counterpart of kubeai_tpu/models/registry.py, with the
 families this port serves: `llama` (also Mistral), `qwen` (the llama
-computation with q/k/v biases), `gemma` (Gemma 1 and 2) and `whisper`
+computation with q/k/v biases), `gemma` (Gemma 1 and 2), `mixtral`
+(Llama attention with a dense top-k mixture of experts) and `whisper`
 (the SpeechToText feature: served by engine/whisper_server.py, not by
-the slot engine, so it has no engine functions).
+the slot engine, so it has no engine functions). Every family of the JAX
+package's registry is here.
 """
 
 from __future__ import annotations
@@ -77,7 +79,7 @@ def _ensure_builtin() -> None:
     global _LOADED
     if _LOADED:
         return
-    from kubeai_tpu_torch.models import gemma, llama, whisper
+    from kubeai_tpu_torch.models import gemma, llama, mixtral, whisper
 
     register_model_family(
         ModelFamily(
@@ -133,6 +135,21 @@ def _ensure_builtin() -> None:
             prefill_chunk=gemma.prefill_chunk,
             hf_architectures=("GemmaForCausalLM", "Gemma2ForCausalLM"),
             prefill_uses_flash=gemma.prefill_uses_flash,
+        )
+    )
+    # Llama attention and a dense top-k MoE. As gemma: no verify forward,
+    # no adapters (C10), no int8 weights (C15), and no embedding forward.
+    register_model_family(
+        ModelFamily(
+            "mixtral",
+            config_from_hf=mixtral.MixtralConfig.from_hf_dict,
+            tiny_config=mixtral.MixtralConfig.tiny,
+            init_params=mixtral.init_params,
+            prefill=mixtral.prefill,
+            decode_step=mixtral.decode_step,
+            decode_step_paged=mixtral.decode_step_paged,
+            prefill_chunk=mixtral.prefill_chunk,
+            hf_architectures=("MixtralForCausalLM",),
         )
     )
     register_model_family(

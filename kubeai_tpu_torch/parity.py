@@ -1,10 +1,13 @@
 """Carry a parameter tree of the JAX package into the port.
 
-`params_from_numpy` takes the JAX `llama.init_params` or
-`gemma.init_params` dict after it was turned into numpy arrays (e.g.
-`jax.tree.map(np.asarray, params)`) and returns the port's parameter
-dict: the same keys, the stacked [NL, ...] layer dict with whatever
-stacks it holds (q/k/v biases, Gemma-2's three norm stacks), and a tied
+`params_from_numpy` takes the JAX `llama.init_params`,
+`gemma.init_params` or `mixtral.init_params` dict after it was turned
+into numpy arrays (e.g. `jax.tree.map(np.asarray, params)`) and returns
+the port's parameter dict: the same keys, the stacked [NL, ...] layer
+dict with whatever stacks it holds (q/k/v biases, Gemma-2's three norm
+stacks, mixtral's router and expert stacks; a mixtral tree's gate and up
+stacks go from the JAX [NL, X, E, M] to the port's [NL, E, X, M],
+contiguous, `MIXTRAL_EXPERT_MINOR`), and a tied
 `lm_head` when the tree shares one array with `embed` or has none (gemma
 ties its logits to `embed` and never reads it). The tests use it so that
 both packages compute with the same weights. bf16 arrays (numpy's
@@ -41,6 +44,11 @@ def _tensor(a, device, dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
 
 
+# Mixtral's stacks that the port keeps expert-minor (models/mixtral.py):
+# the JAX [NL, X, E, M] with the X and E axes swapped.
+MIXTRAL_EXPERT_MINOR = ("w_gate", "w_up")
+
+
 def _leaf(w, device, dtype):
     """A layer leaf; a quantized {"w8", "scale"} leaf keeps int8 and f32
     and takes no `dtype` cast."""
@@ -56,12 +64,14 @@ def params_from_numpy(
 ) -> dict:
     """numpy parameter tree -> torch parameter dict on `device`, cast to
     `dtype` when given."""
+    layers = dict(tree["layers"])
+    if "router" in layers:  # mixtral
+        for name in MIXTRAL_EXPERT_MINOR:
+            layers[name] = np.ascontiguousarray(np.swapaxes(np.asarray(layers[name]), 1, 2))
     out = {
         "embed": _tensor(tree["embed"], device, dtype),
         "final_norm": _tensor(tree["final_norm"], device, dtype),
-        "layers": {
-            name: _leaf(w, device, dtype) for name, w in tree["layers"].items()
-        },
+        "layers": {name: _leaf(w, device, dtype) for name, w in layers.items()},
     }
     head = tree.get("lm_head")
     if head is None or head is tree["embed"]:

@@ -44,6 +44,8 @@ import torch
 
 from testutil import http_post
 from torch_gemma_checkpoint import hf_config, write_gemma_checkpoint
+from torch_mixtral_fixtures import hf_config as mixtral_hf_config
+from torch_mixtral_fixtures import write_mixtral_checkpoint
 
 from kubeai_tpu.engine import Engine as JEngine
 from kubeai_tpu.engine import EngineConfig as JEngineConfig
@@ -391,16 +393,21 @@ def test_load_params_bit_equal_to_jax_loader(tmp_path, gemma2):
         assert np.array_equal(g.view(torch.int16).numpy(), w.view(np.int16)), name
 
 
-def test_mixtral_and_whisper_stay_refused():
-    """Mixtral stays refused. Whisper was refused too until the port took
-    it: its loader now reads the directory (tests/test_torch_whisper.py
-    holds the rest)."""
-    with pytest.raises(weights.WeightLoadError, match="ROADMAP A item 10"):
-        weights.load_params("mixtral", "/nonexistent", None, device="cpu")
+def test_mixtral_and_whisper_stay_refused(tmp_path):
+    """Mixtral and whisper were refused until the port took them: their
+    loaders now read the directory, and a mixtral checkpoint loads
+    (tests/test_torch_mixtral.py and tests/test_torch_whisper.py hold the
+    rest). No architecture stays refused."""
+    model_dir = write_mixtral_checkpoint(tmp_path, mixtral_hf_config(), seed=1)
+    hf = weights.load_hf_config(model_dir)
+    cfg = get_model_family(hf["architectures"][0]).config_from_hf(hf)
+    params = weights.load_params("mixtral", model_dir, cfg, device="cpu")
+    assert {"router", "w_gate", "w_up", "w_down"} <= set(params["layers"])
+    with pytest.raises(FileNotFoundError):
+        weights.load_params("mixtral", "/nonexistent", cfg, device="cpu")
     with pytest.raises(FileNotFoundError):
         weights.load_params("whisper", "/nonexistent", None, device="cpu")
-    for arch in ("Gemma2ForCausalLM", "WhisperForConditionalGeneration"):
-        assert arch not in weights.UNPORTED_ARCHITECTURES
+    assert weights.UNPORTED_ARCHITECTURES == {}
 
 
 # ---- the card's refusals, at construction -------------------------------------------

@@ -40,6 +40,8 @@ import torch
 
 from testutil import http_get, http_post
 from torch_gemma_checkpoint import hf_config, write_gemma_checkpoint
+from torch_mixtral_fixtures import hf_config as mixtral_hf_config
+from torch_mixtral_fixtures import write_mixtral_checkpoint
 from torch_objstore_fakes import FakeGCS, FakeS3
 
 from kubeai_tpu.engine import Engine as JEngine
@@ -65,6 +67,7 @@ from kubeai_tpu_torch.engine.tokenizer import (
 from kubeai_tpu_torch.fleet.profiler import PHASES
 from kubeai_tpu_torch.metrics import registry
 from kubeai_tpu_torch.models import llama as tl
+from kubeai_tpu_torch.models.registry import get_model_family
 from kubeai_tpu_torch.parity import params_from_numpy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -236,8 +239,14 @@ def test_resolve_model_dir(tmp_path):
         weights.resolve_model_dir(str(tmp_path / "absent"))
     with pytest.raises(weights.WeightLoadError, match="no safetensors"):
         weights.LazyTensors(str(tmp_path))
-    with pytest.raises(weights.WeightLoadError, match="ROADMAP A item 10"):
-        weights.load_params("mixtral", str(tmp_path), None, device="cpu")
+    # A mixtral checkpoint (refused, naming ROADMAP A item 10, until the
+    # port took the family) loads through the family-dispatching loader.
+    assert weights.UNPORTED_ARCHITECTURES == {}
+    model_dir = write_mixtral_checkpoint(tmp_path / "mixtral", mixtral_hf_config())
+    cfg = get_model_family("mixtral").config_from_hf(weights.load_hf_config(model_dir))
+    params = weights.load_params("mixtral", model_dir, cfg, device="cpu")
+    assert tuple(params["layers"]["router"].shape) == (2, 64, 4)
+    assert tuple(params["layers"]["w_gate"].shape) == (2, 64, 4, 96)
 
 
 # ---- /metrics and /v1/state against the JAX server ---------------------------------
@@ -871,18 +880,19 @@ def test_main_serves_roles_and_sharing(checkpoints, monkeypatch, argv, role, sha
 
 @pytest.mark.parametrize("arch,url,reason", [
     ("Gemma2ForCausalLM", None, None),
-    ("MixtralForCausalLM", None, "ROADMAP A item 10"),
+    ("MixtralForCausalLM", None, None),
     ("WhisperForConditionalGeneration", None, None),
     (None, "gs://bucket/llama", None),
     ("GPT2LMHeadModel", None, "unknown model family"),
     (None, None, "no config.json"),
 ], ids=["gemma", "mixtral", "whisper", "object-store", "unknown", "no-config"])
 def test_main_refuses_unported_models(checkpoints, tmp_path, monkeypatch, arch, url, reason):
-    """Each unported model exits naming its ROADMAP item. The gemma and
-    whisper cases were among them until the port took the families: main
-    now loads a Gemma-2 checkpoint on the CPU, with the default
-    --max-adapters 4, and builds its server (tests/test_torch_gemma.py
-    holds the rest), and loads a whisper checkpoint in f32 and builds a
+    """Each unported model exits naming its ROADMAP item. The gemma,
+    mixtral and whisper cases were among them until the port took the
+    families: main now loads a Gemma-2 or a mixtral checkpoint on the CPU,
+    with the default --max-adapters 4, and builds its server
+    (tests/test_torch_gemma.py and tests/test_torch_mixtral_engine.py
+    hold the rest), and loads a whisper checkpoint in f32 and builds a
     TranscriptionServer (tests/test_torch_whisper.py). The gs:// case was
     one until the port took the object store (ROADMAP A item 9): main
     downloads the llama checkpoint from a fake GCS into the weights cache
@@ -954,12 +964,18 @@ def test_main_refuses_unported_models(checkpoints, tmp_path, monkeypatch, arch, 
             raise _ServerBuilt
 
         monkeypatch.setattr(server_mod, "EngineServer", capture)
-        write_gemma_checkpoint(tmp_path, hf_config(True), seed=3)
+        if arch == "MixtralForCausalLM":
+            write_mixtral_checkpoint(tmp_path, mixtral_hf_config(), seed=3)
+        else:
+            write_gemma_checkpoint(tmp_path, hf_config(True), seed=3)
         with pytest.raises(_ServerBuilt):
             main(["--model-url", str(tmp_path), "--device", "cpu", "--num-slots", "2",
                   "--max-seq-len", "64"])
         engine = built["engine"]
-        assert engine.family.name == "gemma" and engine.model_cfg.sandwich_norms
+        if arch == "MixtralForCausalLM":
+            assert engine.family.name == "mixtral" and engine.model_cfg.num_experts == 4
+        else:
+            assert engine.family.name == "gemma" and engine.model_cfg.sandwich_norms
         assert engine.cfg.max_adapters == 4 and "C10" in engine.adapter_refusal
         return
     if arch is not None:
