@@ -340,6 +340,7 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
+import os
 import re
 import statistics
 import subprocess
@@ -2524,6 +2525,7 @@ def phase_kernels() -> dict:
     measured.update(check_head_dim_256())
     measured["flash_causal_prefill_d256"] = check_flash_prefill_d256()
     measured.update(check_int8_gemm())
+    check_rank_local_kernels()
     return measured
 
 
@@ -7621,6 +7623,609 @@ def serve_whisper() -> None:
         torch.cuda.empty_cache()
 
 
+# ---- phase 4g: serve_tp, tensor and expert parallelism -------------------------
+
+# The catalog's sharded entries at one rank's widths (D=128): Llama-3-8B at
+# tp=4 (llama-3.1-8b-instruct-tpu) and tp=8, the 70B at tp=8 (one KV head a
+# rank); the int8 GEMM's local weights (K, N): wk at tp=4 and 8, w_down at
+# tp=4.
+TP_LOCAL_HEADS = (("8B tp=4", 8, 2), ("8B tp=8", 4, 1), ("70B tp=8", 8, 1))
+TP_LOCAL_GEMMS = (("wk tp=4", 4096, 256), ("wk tp=8", 4096, 128),
+                  ("w_down tp=4", 3584, 4096))
+
+
+def check_rank_local_kernels() -> dict:
+    """B1, B1-int8, B2, B3 and B4 at the heads one rank of a sharded
+    catalog entry walks (TP_LOCAL_HEADS), and both W8A16 routes at its
+    local weights (TP_LOCAL_GEMMS), each against its plain version at its
+    own limits and timed beside its bound and its library call, as in the
+    kernel phase's serving cases. Returns {(kernel, shape label): line}."""
+    import torch
+
+    gen = torch.Generator().manual_seed(31)
+    out = {}
+    for label, H, KVH in TP_LOCAL_HEADS:
+        q, kp, vp, bt, lengths = _paged_inputs(gen, H=H, KVH=KVH)
+        for name, pools in (("paged_decode_attention", (kp, vp)),
+                            ("paged_decode_attention_int8",
+                             (_quantize_pool(kp), _quantize_pool(vp)))):
+            args = (q, *pools, bt, lengths)
+            _, err = _check_decode_case(label, args, {})
+            line = dict(_time_decode(args, {}, library=True), max_abs_err=err)
+            out[(name, label)] = line
+            print(f"kernel {name} rank-local {label} H={H} KVH={KVH} {json.dumps(line)}",
+                  flush=True)
+        # B4: the same pools as one layer of a 2-layer stack, the new token.
+        cg = torch.Generator("cuda").manual_seed(32)
+        B, D = q.shape[0], q.shape[2]
+        kn = torch.randn(B, KVH, D, generator=cg, device="cuda").to(torch.bfloat16)
+        vn = torch.randn(B, KVH, D, generator=cg, device="cuda").to(torch.bfloat16)
+        pos = (lengths - 1).clamp(min=0).to(torch.int32)
+        args = (q, torch.stack([kp, kp]), torch.stack([vp, vp]), kn, vn, bt, pos, 1)
+        _, err = _check_fused_case(label, args, {})
+        line = dict(_time_fused(args, {}, library=True), max_abs_err=err)
+        out[("paged_decode_attention_fused", label)] = line
+        print(f"kernel paged_decode_attention_fused rank-local {label} H={H} KVH={KVH} "
+              f"{json.dumps(line)}", flush=True)
+        # B3: a K = 5 window at the same positions.
+        K = 5
+        qv = torch.randn(B, K, H, D, generator=cg, device="cuda").to(torch.bfloat16)
+        pos = (lengths - K).clamp(min=0).to(torch.int32)
+        args = (qv, kp, vp, bt, pos)
+        _, err = _check_verify_case(label, args, {})
+        line = dict(_time_verify(args, {}, library=True), max_abs_err=err)
+        out[("paged_verify_attention", label)] = line
+        print(f"kernel paged_verify_attention rank-local {label} H={H} KVH={KVH} "
+              f"{json.dumps(line)}", flush=True)
+        del q, kp, vp, qv, args
+        # B2 at a 512-token admission and a batch of 4 at 1024.
+        for B2, S in ((1, 512), (4, 1024)):
+            line, call = _flash_case(B2, S, H, KVH, 128, gen)
+            out[("flash_causal_prefill", f"{label} B={B2} S={S}")] = line
+            del call
+        torch.cuda.empty_cache()
+    for label, K, N in TP_LOCAL_GEMMS:
+        leaf = _int8_leaf(K, N, gen)
+        for M in (8, 512):
+            line = _gemm_case(M, K, N, leaf, gen, timed=True)
+            out[(line["kernel"], f"{label} M={M}")] = line
+    return out
+
+
+# serve_tp: Llama-3-8B's width at TP_LAYERS of 32 layers (the 8B's
+# catalog entry runs tp=4) and Mixtral-8x7B's at TP_MIXTRAL_LAYERS (its
+# experts over tp=2), weights drawn from TP_SEED, four requests each.
+TP_WORLD = 4
+TP_LAYERS = SHALLOW_LAYERS
+TP_MIXTRAL_WORLD = 2
+TP_MIXTRAL_LAYERS = 2
+TP_SEED = 21
+TP_CONFIG = dict(num_slots=4, max_seq_len=1024, page_size=64, decode_chunk=4)
+# run -> (engine settings, the decode kernel's wrapper, its kernel's name in
+# a profile). B2 launches at every admission in each.
+TP_RUNS = {
+    "per_layer": (dict(decode_kernel="per_layer"), "paged_decode_attention",
+                  "paged_decode_combine_kernel"),
+    "fused": (dict(decode_kernel="fused"), "paged_decode_attention_fused",
+              "paged_fused_combine_kernel"),
+    "speculate": (dict(decode_kernel="per_layer", speculate=4, spec_adaptive=False),
+                  "paged_verify_attention", "paged_verify_split_kernel"),
+}
+# The first prefill's logits of a sharded engine against world 1's, both
+# in bf16, each held against the same weights in f32 on the CPU. Sharding
+# moves where bf16 rounds (each rank's partial sum of a row-parallel
+# product is rounded before the f32 all_reduce, where world 1 rounds the
+# whole product once), not how coarsely: its max |err| against f32 may be
+# at most TP_ERR_FACTOR times world 1's own.
+TP_ERR_FACTOR = 2.0
+# A rank's own limit; the whole world's runs under it.
+TP_RANK_TIMEOUT_S = 360
+
+
+def _tp_requests(vocab: int) -> list[tuple[list[int], dict]]:
+    """Four requests of 28, 60, 117 and 120 tokens drawn from a seed (three
+    prefill buckets): the second seeded, the rest greedy, 8 tokens each.
+    Each forward of a gloo rank waits on its collectives through the host,
+    so the runs are short."""
+    import torch
+
+    gen = torch.Generator().manual_seed(TP_SEED)
+    out = []
+    for i, n in enumerate((28, 60, 117, 120)):
+        prompt = torch.randint(1, vocab, (n,), generator=gen).tolist()
+        sp = dict(temperature=0.0, max_tokens=8)
+        if i == 1:
+            sp = dict(temperature=0.8, top_k=40, top_p=0.95, seed=7, max_tokens=8)
+        out.append((prompt, sp))
+    return out
+
+
+def _tp_generate(engine, requests) -> list[list[int]]:
+    from kubeai_tpu_torch.engine import SamplingParams
+
+    rids = [engine.add_request(p, SamplingParams(**sp)) for p, sp in requests]
+    out = {rid: [] for rid in rids}
+    while engine.has_work():
+        for ev in engine.step():
+            out[ev.rid].append(ev.token)
+    return [out[rid] for rid in rids]
+
+
+def _tp_prefill_batch(requests):
+    """The requests' first 2 prompts (28 and 60 tokens), right-padded to 64:
+    (tokens, lengths) on the CPU."""
+    import torch
+
+    prompts = [p for p, _ in requests[:2]]
+    tokens = torch.zeros((2, 64), dtype=torch.long)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = torch.tensor(p)
+    return tokens, torch.tensor([len(p) for p in prompts])
+
+
+def _tp_prefill_logits(engine, requests):
+    """The family's prefill over `_tp_prefill_batch` on the engine's params
+    and tp group: f32 logits on the CPU."""
+    import torch
+
+    tokens, lengths = _tp_prefill_batch(requests)
+    kw = {} if engine._tp is None else {"tp": engine._tp}
+    with torch.no_grad():
+        logits, _, _ = engine.family.prefill(engine.params, engine.model_cfg,
+                                             tokens.cuda(), lengths.cuda(), **kw)
+    return logits.float().cpu()
+
+
+def _tp_f32_logits(family: str, cfg, params, requests):
+    """The same prefill on the same weights in f32 on the CPU (the plain
+    versions of the kernels): the reference both bf16 logits are held
+    against."""
+    import dataclasses
+
+    import torch
+
+    from kubeai_tpu_torch.models import llama, mixtral
+
+    def cpu(tree):
+        if isinstance(tree, dict):
+            return {k: cpu(v) for k, v in tree.items()}
+        return tree.float().cpu()
+
+    model = mixtral if family == "mixtral" else llama
+    tokens, lengths = _tp_prefill_batch(requests)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, _, _ = model.prefill(cpu(params), dataclasses.replace(cfg, dtype=torch.float32),
+                                     tokens, lengths)
+    print(f"serve_tp {family}: the f32 reference prefill on the CPU took "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return logits
+
+
+def _tp_model(family: str, num_layers: int):
+    """(config, params) of `family` at its catalog width and `num_layers`,
+    drawn on the card from TP_SEED."""
+    import dataclasses
+
+    import torch
+
+    from kubeai_tpu_torch.models import llama, mixtral
+
+    if family == "mixtral":
+        cfg = mixtral.MixtralConfig(**dict(MIXTRAL_8X7B, num_layers=num_layers))
+        init = mixtral.init_params
+    else:
+        cfg = dataclasses.replace(llama.LlamaConfig(), num_layers=num_layers)
+        init = llama.init_params
+    return cfg, init(cfg, torch.Generator("cuda").manual_seed(TP_SEED), device="cuda")
+
+
+def _kernel_counts(fn, names) -> dict:
+    """torch.profiler's launches of each kernel whose name holds one of
+    `names`, over one call of fn (device activity only: the host ops of an
+    eager forward would cost more to record than the call takes)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    with torch.no_grad(), torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    return {n: sum(e.count for e in rows if n in e.key) for n in names}
+
+
+def tp_rank(spec_path: str, rank: int) -> None:
+    """One rank of serve_tp's sharded runs (a process of its own, over
+    gloo with the others on the one card): the spec's model drawn once
+    from TP_SEED, each run's engine built on the mesh from the full params
+    (which it cuts to this rank's shard), the four requests and the
+    wrapper launch counts of each run; then, in one torch.profiler pass
+    (gloo collectives cannot be captured, so every call is eager), B2's
+    launches over one admission and each run's decode kernel's over one
+    call of its device program; the first prefill's logits, memory and
+    seconds (`phases`). Writes its results next to the spec."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from kubeai_tpu_torch.engine import Engine, EngineConfig
+    from kubeai_tpu_torch.engine.quantization import weight_bytes
+    from kubeai_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    world = spec["world"]
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"file://{spec['rendezvous']}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=TP_RANK_TIMEOUT_S))
+    try:
+        mesh = build_mesh(MeshConfig(tp=world))
+        requests = _tp_requests(spec["vocab"])
+        out = {"rank": rank, "runs": {}, "phases": {"group": time.perf_counter() - t0}}
+        t = time.perf_counter()
+        cfg, params = _tp_model(spec["family"], spec["num_layers"])
+        out["full_weight_bytes"] = weight_bytes(params)
+        out["phases"]["draw"] = time.perf_counter() - t
+        engines = {}
+        for run, (extra, _, _) in TP_RUNS.items():
+            if run not in spec["runs"]:
+                continue
+            t = time.perf_counter()
+            engine = engines[run] = Engine(spec["family"], cfg, params, mesh=mesh,
+                                           cfg=EngineConfig(**TP_CONFIG, **extra))
+            res = out["runs"][run] = {
+                "build_s": time.perf_counter() - t,
+                "weight_bytes": weight_bytes(engine.params),
+                "allocated": torch.cuda.memory_allocated(),
+                "kv_heads": engine.cache.k_pages.shape[-2],
+                "q_columns": engine.params["layers"]["wq"].shape[-1],
+                "graphs": engine._decode_program.graph is not None}
+            if run == "per_layer":
+                res["logits"] = _tp_prefill_logits(engine, requests).tolist()
+            _zero_launches(engine)
+            t = time.perf_counter()
+            res["streams"] = _tp_generate(engine, requests)
+            res["generate_s"] = time.perf_counter() - t
+            res["launches"] = {k: v for k, v in _launches(engine).items() if v}
+        first = next(iter(engines.values()))
+        toks = torch.tensor([requests[2][0]], device="cuda")
+
+        def admission_and_calls():
+            first.family.prefill(first.params, cfg, toks,
+                                 torch.tensor([toks.shape[1]], device="cuda"), tp=first._tp)
+            for run, engine in engines.items():
+                (engine._spec_program if run == "speculate" else engine._decode_program).fn()
+
+        t = time.perf_counter()
+        counts = _kernel_counts(admission_and_calls, ["flash_prefill_kernel"] + [
+            TP_RUNS[run][2] for run in engines])
+        out["phases"]["profile"] = time.perf_counter() - t
+        out["b2_per_admission"] = counts["flash_prefill_kernel"]
+        for run in engines:
+            out["runs"][run]["walk_per_call"] = counts[TP_RUNS[run][2]]
+        out["peak_allocated"] = torch.cuda.max_memory_allocated()
+        del engines, first, admission_and_calls, params
+        out["seconds"] = time.perf_counter() - t0
+        path = f"{spec['out']}.rank{rank}.json"
+        with open(f"{path}.tmp", "w") as f:
+            json.dump(out, f)
+        os.replace(f"{path}.tmp", path)
+    finally:
+        dist.destroy_process_group()
+
+
+def _start_world(family: str, num_layers: int, world: int, vocab: int, runs,
+                 tmp: str) -> dict:
+    """Start serve_tp's sharded runs of `family` over `world` gloo ranks on
+    the card: each rank a `timeout`ed process in its own session, its
+    output in a log beside the spec."""
+    spec = dict(family=family, num_layers=num_layers, world=world, vocab=vocab,
+                runs=list(runs), rendezvous=os.path.join(tmp, f"rdv_{family}"),
+                out=os.path.join(tmp, f"tp_{family}"))
+    spec_path = os.path.join(tmp, f"tp_{family}.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    w = dict(family=family, out=spec["out"], procs=[], logs=[], t0=time.perf_counter())
+    for rank in range(world):
+        log_path = f"{spec['out']}.rank{rank}.log"
+        w["logs"].append(log_path)
+        with open(log_path, "w") as log:
+            w["procs"].append(subprocess.Popen(
+                ["timeout", "-k", "10", str(TP_RANK_TIMEOUT_S), sys.executable, "-c",
+                 f"import chip_smoke as c; c.tp_rank({spec_path!r}, {rank})"],
+                stdout=log, stderr=subprocess.STDOUT, start_new_session=True))
+    return w
+
+
+def _kill_worlds(worlds) -> None:
+    """Kill the process group of every rank still running."""
+    import signal
+
+    for w in worlds:
+        for p in w["procs"]:
+            if p.poll() is None:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(p.pid, signal.SIGKILL)
+                p.wait(timeout=30)
+
+
+def _finish_worlds(worlds) -> list:
+    """Wait for every rank of `worlds`: the first to fail (or the time
+    limit) ends them all. Returns each world's results, in rank order."""
+    t0 = min(w["t0"] for w in worlds)
+    failed = None
+    try:
+        # Poll every rank each round (any() would stop at the first alive).
+        while failed is None and None in [p.poll() for w in worlds for p in w["procs"]]:
+            failed = next(((w, r, p.returncode) for w in worlds
+                           for r, p in enumerate(w["procs"])
+                           if p.returncode not in (None, 0)), None)
+            for w in worlds:
+                if "seconds" not in w and all(p.poll() is not None for p in w["procs"]):
+                    w["seconds"] = time.perf_counter() - w["t0"]
+            if time.perf_counter() - t0 > TP_RANK_TIMEOUT_S + 30:
+                failed = (worlds[0], 0, "the time limit")
+            time.sleep(0.2)
+        failed = failed or next(((w, r, p.returncode) for w in worlds
+                                 for r, p in enumerate(w["procs"]) if p.returncode != 0),
+                                None)
+    finally:
+        _kill_worlds(worlds)
+    if failed is not None:
+        w, rank, code = failed
+        with open(w["logs"][rank]) as f:
+            tail = f.read()[-3000:]
+        fail(f"serve_tp {w['family']}: rank {rank} ended with {code}:\n{tail}")
+    out = []
+    for w in worlds:
+        print(f"serve_tp {w['family']}: {len(w['procs'])} ranks on the card in "
+              f"{w.get('seconds', time.perf_counter() - w['t0']):.2f} s", flush=True)
+        ranks = []
+        for rank in range(len(w["procs"])):
+            with open(f"{w['out']}.rank{rank}.json") as f:
+                ranks.append(json.load(f))
+        out.append(ranks)
+    return out
+
+
+def _tp_gates(family: str, ranks: list, ref: dict, num_heads: int, num_kv_heads: int) -> None:
+    """Every rank's streams identical; the first prefill's logits no
+    further from the f32 reference than TP_ERR_FACTOR times world 1's
+    (their distance to world 1's printed); the share of greedy
+    tokens equal to world 1's (printed, not gated); B2 num_layers times an
+    admission and the run's decode kernel in every run, at the rank's
+    heads; memory and seconds per rank."""
+    import torch
+
+    world = len(ranks)
+    for run in ranks[0]["runs"]:
+        res = [r["runs"][run] for r in ranks]
+        label = f"serve_tp {family} tp={world} {run}"
+        if any(r["streams"] != res[0]["streams"] for r in res):
+            fail(f"{label}: the ranks' streams differ")
+        if any(r["graphs"] for r in res):
+            fail(f"{label}: a gloo rank captured a graph")
+        wrapper, walk = TP_RUNS[run][1], TP_RUNS[run][2]
+        for rank, r in enumerate(res):
+            if r["kv_heads"] != max(num_kv_heads // world, 1) or \
+                    r["q_columns"] != num_heads // world * 128:
+                fail(f"{label} rank {rank}: {r['kv_heads']} KV heads and {r['q_columns']} "
+                     "q columns are not the rank's")
+            if not r["launches"].get(wrapper) or not r["launches"].get("flash_causal_prefill"):
+                fail(f"{label} rank {rank}: launches {r['launches']} lack {wrapper} or B2")
+            if ranks[rank]["b2_per_admission"] != ref["num_layers"]:
+                fail(f"{label} rank {rank}: {ranks[rank]['b2_per_admission']} B2 launches an "
+                     "admission")
+            want = ref["num_layers"] * (TP_CONFIG["decode_chunk"] if run != "speculate" else 1)
+            if r["walk_per_call"] != want:
+                fail(f"{label} rank {rank}: {r['walk_per_call']} {walk} launches a program "
+                     f"call, not {want}")
+        total = same = 0
+        for have, want, (_, sp) in zip(res[0]["streams"], ref["streams"][run],
+                                       _tp_requests(ref["vocab"])):
+            if sp["temperature"] == 0:
+                total += len(want)
+                same += next((j for j, (x, y) in enumerate(zip(have, want)) if x != y),
+                             min(len(have), len(want)))
+        print(f"{label}: the {world} ranks' streams identical; greedy tokens equal to "
+              f"world 1's up to the first difference: {same} of {total} ({same / total:.3f}); "
+              "per rank: " + "; ".join(
+                  f"rank {i} weights {r['weight_bytes'] / 2**30:.3f} GiB (of "
+                  f"{ranks[i]['full_weight_bytes'] / 2**30:.3f}), allocated "
+                  f"{r['allocated'] / 2**30:.3f} GiB after the build (the full tree and "
+                  f"the earlier runs' engines held beside it), peak "
+                  f"{ranks[i]['peak_allocated'] / 2**30:.3f} GiB, build {r['build_s']:.2f} s, "
+                  f"generate {r['generate_s']:.2f} s, launches {json.dumps(r['launches'])}"
+                  for i, r in enumerate(res)), flush=True)
+        print(f"{label}: B2 {ranks[0]['b2_per_admission']} launches an admission, "
+              f"{walk} {res[0]['walk_per_call']} a program call, at H={num_heads // world} "
+              f"KVH={res[0]['kv_heads']} (torch.profiler, every rank)", flush=True)
+    w1, f32 = torch.tensor(ref["logits"]), ref["f32_logits"]
+    w1_err = float((w1 - f32).abs().max())
+    for rank, r in enumerate(ranks):
+        got = torch.tensor(r["runs"]["per_layer"]["logits"])
+        if got.shape != w1.shape or not torch.isfinite(got).all():
+            fail(f"serve_tp {family} tp={world} rank {rank}: first prefill logits "
+                 f"{tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}")
+        err = float((got - f32).abs().max())
+        if err > TP_ERR_FACTOR * w1_err:
+            fail(f"serve_tp {family} tp={world} rank {rank}: first prefill logits max |err| "
+                 f"{err:.4e} against f32, beyond {TP_ERR_FACTOR} x world 1's {w1_err:.4e}")
+        if rank == 0:
+            agree = float((got.argmax(-1) == w1.argmax(-1)).float().mean())
+            print(f"serve_tp {family} tp={world}: first prefill logits max |err| against f32 "
+                  f"on the CPU {err:.4e}, world 1's {w1_err:.4e} (limit {TP_ERR_FACTOR} x); "
+                  f"against world 1 {float((got - w1).abs().max()):.4e}; |logit| up to "
+                  f"{float(f32.abs().max()):.3f}; argmax agreement with world 1 {agree:.3f}",
+                  flush=True)
+    print(f"serve_tp {family} tp={world}: per-rank seconds "
+          f"{[round(r['seconds'], 2) for r in ranks]}, rank 0's "
+          f"{json.dumps({k: round(v, 2) for k, v in ranks[0]['phases'].items()})}; "
+          f"device ms of the ranks are {world} "
+          f"processes time-sliced on one card; card: {gpu_line()}", flush=True)
+
+
+def _tp_world1(tmp: str) -> dict:
+    """serve_tp part 1: world 1 over NCCL, graphs and overlap. The 8B width
+    at TP_LAYERS, per_layer, fused and speculate=4, with
+    `mesh=build_mesh(MeshConfig())` beside the mesh-free engine: every
+    stream bit-equal, the first prefill's logits bit-equal, and each
+    program's device ms per step from its graph against the mesh-free
+    one's, with the kernels a replay adds (the collectives and their
+    casts). Returns the world-1 reference for part 2."""
+    import datetime
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from kubeai_tpu_torch.engine import Engine, EngineConfig
+    from kubeai_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'rdv_world1')}",
+                            rank=0, world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = build_mesh(MeshConfig())
+        cfg, params = _tp_model("llama", TP_LAYERS)
+        requests = _tp_requests(cfg.vocab_size)
+        ref = {"num_layers": TP_LAYERS, "vocab": cfg.vocab_size, "streams": {}}
+        for run, (extra, wrapper, _) in TP_RUNS.items():
+            label = f"serve_tp world 1 {run}"
+            engines = {}
+            for name, m in (("mesh", mesh), ("plain", None)):
+                engines[name] = Engine("llama", cfg, params, mesh=m,
+                                       cfg=EngineConfig(**TP_CONFIG, **extra))
+                if engines[name]._decode_program.graph is None:
+                    fail(f"{label} {name}: no graph was captured")
+                _zero_launches(engines[name])
+                streams = _tp_generate(engines[name], requests)
+                if name == "mesh":
+                    ref["streams"][run] = streams
+                    launches = _launches(engines[name])
+                    if not launches.get(wrapper):
+                        fail(f"{label}: {wrapper} did not launch ({launches})")
+                elif streams != ref["streams"][run]:
+                    fail(f"{label}: the world-1 mesh engine's streams differ from the "
+                         "mesh-free engine's")
+            print(f"{label}: streams of the mesh and mesh-free engines bit-equal "
+                  f"({sum(len(s) for s in streams)} tokens)", flush=True)
+            if run == "per_layer":
+                got = _tp_prefill_logits(engines["mesh"], requests)
+                if not torch.equal(got, _tp_prefill_logits(engines["plain"], requests)):
+                    fail(f"{label}: first prefill logits of world 1 differ from mesh-free")
+                ref["logits"] = got.tolist()
+                ref["f32_logits"] = _tp_f32_logits("llama", cfg, params, requests)
+            program = "verify window" if run == "speculate" else "decode chunk"
+            unit = "verify window" if run == "speculate" else "decode step"
+            prof = {name: profile_program(eng, f"tp world1 {name} {run} {unit}", program,
+                                          eager=False)
+                    for name, eng in engines.items()}
+            extra_kernels = {}
+            for name, rows in (("mesh", prof["mesh"]["rows"]), ("plain", prof["plain"]["rows"])):
+                for e in rows:
+                    extra_kernels.setdefault(e.key[:70], {})[name] = e.count / prof[name]["steps"]
+            added = {k: round(v.get("mesh", 0) - v.get("plain", 0), 2)
+                     for k, v in extra_kernels.items() if v.get("mesh", 0) != v.get("plain", 0)}
+            m, p = prof["mesh"]["device_ms"], prof["plain"]["device_ms"]
+            print(f"{label}: device {m:.4f} ms a {unit} with the mesh against {p:.4f} "
+                  f"mesh-free (x{m / p:.4f}, +{m - p:.4f} ms); kernels a {unit} "
+                  f"{prof['mesh']['kernels']:.1f} against {prof['plain']['kernels']:.1f}; "
+                  f"added by the collectives: {json.dumps(added)}; card: {gpu_line()}",
+                  flush=True)
+            engines.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        return ref
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_reference(family: str, num_layers: int) -> dict:
+    """A mesh-free engine's per_layer streams and first prefill logits:
+    world 1 for Mixtral's sharded run."""
+    import gc
+
+    import torch
+
+    from kubeai_tpu_torch.engine import Engine, EngineConfig
+
+    cfg, params = _tp_model(family, num_layers)
+    requests = _tp_requests(cfg.vocab_size)
+    engine = Engine(family, cfg, params, cfg=EngineConfig(**TP_CONFIG, **TP_RUNS["per_layer"][0]))
+    ref = {"num_layers": num_layers, "vocab": cfg.vocab_size,
+           "streams": {"per_layer": _tp_generate(engine, requests)},
+           "logits": _tp_prefill_logits(engine, requests).tolist(),
+           "f32_logits": _tp_f32_logits(family, cfg, params, requests)}
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def serve_tp() -> None:
+    """Phase 4g: tensor and expert parallelism on the one card.
+    1. World 1 over NCCL (`_tp_world1`): the 8B width at TP_LAYERS with a
+       world-1 mesh, graphs and overlap, bit-equal to the mesh-free
+       engine, and the collectives' cost in a replay.
+    2. The catalog's 8B at tp=4: four gloo ranks on the one card, eager
+       (`tp_rank`), per_layer, fused and speculate=4, gated by `_tp_gates`
+       against part 1.
+    3. Mixtral-8x7B's width at TP_MIXTRAL_LAYERS with its experts over
+       tp=2, per_layer, gated the same way against a mesh-free engine.
+    Parts 2 and 3 share the card at once (`_start_world`,
+    `_finish_worlds`: the first rank to fail ends every rank). NCCL
+    refuses two ranks on one device (`report_nccl_one_card`), so the
+    sharded runs use gloo; no multi-card speed is measured here."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = timed("serve_tp world 1", _tp_world1, tmp)
+        # Both sharded worlds share the card at once; the parent draws
+        # Mixtral's world-1 reference meanwhile.
+        worlds = [
+            _start_world("llama", TP_LAYERS, TP_WORLD, ref["vocab"], TP_RUNS, tmp),
+            _start_world("mixtral", TP_MIXTRAL_LAYERS, TP_MIXTRAL_WORLD,
+                         MIXTRAL_8X7B["vocab_size"], ("per_layer",), tmp),
+        ]
+        try:
+            mref = timed("serve_tp mixtral world 1", _tp_reference, "mixtral",
+                         TP_MIXTRAL_LAYERS)
+            ranks, mranks = timed("serve_tp sharded worlds", _finish_worlds, worlds)
+        finally:
+            _kill_worlds(worlds)
+        _tp_gates("llama", ranks, ref, 32, 8)
+        _tp_gates("mixtral", mranks, mref, 32, 8)
+
+
+def report_nccl_one_card() -> None:
+    """Two NCCL ranks on the one card: the error NCCL gives (not part of
+    the smoke)."""
+    import tempfile
+
+    code = ("import datetime, sys, torch, torch.distributed as dist; torch.cuda.set_device(0); "
+            "dist.init_process_group('nccl', init_method='file://' + sys.argv[1], "
+            "rank=int(sys.argv[2]), world_size=2, timeout=datetime.timedelta(seconds=60)); "
+            "x = torch.ones(4, device='cuda'); dist.all_reduce(x); torch.cuda.synchronize(); "
+            "print('all_reduce', x.tolist())")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(["timeout", "-k", "5", "120", sys.executable, "-c", code,
+                                   os.path.join(tmp, "rdv"), str(r)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        for r, p in enumerate(procs):
+            out, _ = p.communicate(timeout=150)
+            said = [ln for ln in out.splitlines() if "NCCL" in ln or "all_reduce" in ln
+                    or "Duplicate" in ln]
+            print(f"nccl two ranks on one card: rank {r} exit {p.returncode}: "
+                  + " | ".join(said[-4:]), flush=True)
+
+
 # ---- entry --------------------------------------------------------------------
 
 
@@ -7657,6 +8262,7 @@ def main() -> None:
                           f"Gemma-7B ({GEMMA_7B_LAYERS} of 28 layers)", "gemma1"))
     mixtral_launches = timed("serve_mixtral", serve_mixtral)
     print(f"serve_mixtral launches by kernel: {json.dumps(mixtral_launches)}", flush=True)
+    timed("serve_tp", serve_tp)
     launches.update(timed("serve_embed", serve_embed))
     timed("serve_whisper", serve_whisper)
     timed("serve_cli", serve_cli)

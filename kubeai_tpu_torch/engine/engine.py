@@ -85,6 +85,23 @@ fixed buffers, so no program is captured again, and int8 weights
 kernel of ops/int8_matmul.py on every product of a layer weight).
 Settings of the JAX engine that are not ported raise NotImplementedError
 naming their ROADMAP item.
+
+Tensor and expert parallelism (`mesh=`, a parallel.mesh.build_mesh
+DeviceMesh with tp >= 1 and dp = pp = sp = 1): SPMD ranks, one per
+device. Every rank of the initialised process group builds the engine
+with the full parameter tree and keeps its shard (the family's
+`param_specs`, after quantization as in the JAX engine), its pools hold
+its KV heads, and the forwards call the tp group's collectives
+(parallel/collectives.py). Every rank runs the same scheduler on the
+same operations: given the same requests in the same order, their
+streams are identical. The host decisions that read the clock agree
+across ranks: rank 0's adaptive speculation choice and its base seed
+for unseeded requests are broadcast. On NCCL the device programs are
+captured with their collectives inside; over gloo (several ranks on one
+card) they run eagerly. Under a mesh these still raise, naming their
+ROADMAP item: pp > 1, sp > 1, dp > 1, a family without param_specs
+(gemma), LoRA, a draft model, the slot cache, handoff and prefix-page
+export and import, and KV spill.
 """
 
 from __future__ import annotations
@@ -112,7 +129,11 @@ from kubeai_tpu_torch.engine.paged_cache import (
     PageAllocator,
     PagedKVCache,
 )
-from kubeai_tpu_torch.engine.quantization import is_quantized, quantize_params
+from kubeai_tpu_torch.engine.quantization import (
+    is_quantized,
+    quantize_params,
+    quantized_specs,
+)
 from kubeai_tpu_torch.engine.sampling import SamplingParams, sample
 from kubeai_tpu_torch.fleet.profiler import StepProfiler
 from kubeai_tpu_torch.models.registry import ModelFamily, get_model_family
@@ -133,6 +154,14 @@ from kubeai_tpu_torch.ops.paged_attention import (
     paged_verify_attention,
     resolve_decode_kernel,
     scatter_sequence_prequantized,
+)
+from kubeai_tpu_torch.parallel import sharding as psh
+from kubeai_tpu_torch.parallel.collectives import TensorParallel
+from kubeai_tpu_torch.parallel.mesh import (
+    AXIS_DATA,
+    AXIS_PIPELINE,
+    AXIS_SEQ,
+    axis_size,
 )
 from kubeai_tpu_torch.routing.prefixchain import page_hash_chain
 from kubeai_tpu_torch.scheduling.scheduler import (
@@ -386,9 +415,35 @@ def _refuse_unported(cfg: EngineConfig, mesh, draft, decode_kernel: str,
     if cfg.quantization not in ("", "int8"):
         raise ValueError(f"unknown quantization {cfg.quantization!r}")
     if mesh is not None:
-        raise NotImplementedError(
-            "meshes and parallelism are not ported yet (ROADMAP A14)"
-        )
+        _refuse_under_mesh(cfg, mesh, draft, cache_mode, family)
+
+
+# What still refuses under a mesh, with its ROADMAP item.
+MESH_ITEM = "ROADMAP A item 11a2"
+
+
+def _refuse_under_mesh(cfg: EngineConfig, mesh, draft, cache_mode: str,
+                       family: ModelFamily) -> None:
+    """Raise for a mesh setting, or a feature under a mesh, that is not
+    ported, naming its ROADMAP item."""
+    for axis, what, item in (
+        (AXIS_PIPELINE, "pipeline parallelism", "ROADMAP A item 11b"),
+        (AXIS_SEQ, "ring attention (sequence parallelism)", "ROADMAP A item 11c"),
+        (AXIS_DATA, "data parallelism", MESH_ITEM),
+    ):
+        if axis_size(mesh, axis) > 1:
+            raise NotImplementedError(
+                f"{what} ({axis} = {axis_size(mesh, axis)}) is not ported yet ({item})"
+            )
+    refused = [
+        (family.param_specs is None, f"the {family.name} family"),
+        (cfg.max_adapters > 0, "LoRA adapters"),
+        (draft is not None, "a draft model"),
+        (cache_mode == "slot", "the slot cache"),
+    ]
+    for hit, what in refused:
+        if hit:
+            raise NotImplementedError(f"{what} under a mesh is not ported yet ({MESH_ITEM})")
 
 
 # The kernels that have no build yet for a head dim a family's checkpoint
@@ -584,11 +639,18 @@ class Engine:
         refuse_kernel_head_dims(self.family, model_cfg, cfg, self.decode_kernel,
                                 self._spec, self.device, self.cache_mode, draft_cfg)
 
+        self._tp = None if mesh is None else TensorParallel(mesh)
+        if self._tp is not None:
+            # Unseeded requests draw from rank 0's base on every rank.
+            self._seed_base = self._tp.agree(self._seed_base)
         self.params = _to_device(params, self.device)
         if cfg.quantization == "int8":
             # On the engine's device, one layer slice at a time; the draft
             # stays unquantized, as in the JAX engine.
             self.params = quantize_params(self.params)
+        if self._tp is not None:
+            self.params = self._shard(self.params, mesh)
+        if cfg.quantization == "int8":
             if self.device.type == "cuda":
                 for name, leaf in self.params["layers"].items():
                     if is_quantized(leaf):
@@ -670,6 +732,45 @@ class Engine:
             self._adapter_free = list(range(1, cfg.max_adapters + 1))
         self._build_programs()
 
+    def _shard(self, params: dict, mesh) -> dict:
+        """The rank's shard of the (quantized) params. Where tp exceeds
+        the KV heads, wk/wv (and their biases) are taken whole and cut to
+        the one KV head this rank's q heads read; the pools then hold that
+        head (the JAX engine replicates every KV head across tp there)."""
+        tp, mcfg = self._tp, self.model_cfg
+        specs = self.family.param_specs(mcfg)
+        if self.cfg.quantization == "int8":
+            specs = quantized_specs(specs, params["layers"])
+        tp.local_heads(mcfg.num_heads)
+        replicated = tp.kv_replicated(mcfg.num_kv_heads)
+        rules = psh.DEFAULT_RULES
+        if replicated:
+            rules = rules.replicating(psh.KV_HEADS)
+        shard = psh.shard_params(params, specs, mesh, rules)
+        if replicated:
+            d = mcfg.head_size
+            first = tp.kv_head(mcfg.num_kv_heads) * d
+            layers = shard["layers"]
+            for name in ("wk", "wv", "bk", "bv"):
+                if name in layers:
+                    leaf = layers[name]
+                    cut = lambda t: t.narrow(-1, first, d).contiguous()  # noqa: E731
+                    layers[name] = ({k: cut(v) for k, v in leaf.items()}
+                                    if is_quantized(leaf) else cut(leaf))
+        if self.cfg.quantization == "int8":
+            # Row-parallel cuts leave w8 row-major: store it N-major again.
+            shard = quantize_params(shard)
+        return shard
+
+    def _refuse_mesh(self, what: str) -> None:
+        if self._tp is not None:
+            raise NotImplementedError(f"{what} under a mesh is not ported yet ({MESH_ITEM})")
+
+    def _kv_heads(self) -> int:
+        """The KV heads this rank's pools hold."""
+        n = self.model_cfg.num_kv_heads
+        return n if self._tp is None else self._tp.local_kv_heads(n)
+
     def _init_paged(self) -> None:
         """The paged cache: the page pools, their host allocator, the
         prefix cache's settings and the host mirror of the block
@@ -690,7 +791,7 @@ class Engine:
             cfg.page_size,
             cfg.num_slots,
             cfg.max_seq_len,
-            model_cfg.num_kv_heads,
+            self._kv_heads(),
             model_cfg.head_size,
             dtype="int8" if self._kv_quant else cfg.cache_dtype,
             device=self.device,
@@ -735,9 +836,19 @@ class Engine:
         to scratch page 0; the slot-cache and draft warm-ups write rows
         of the slot caches, and the decode warm-ups advance the slot
         state, so both are reset after; the staged-chunk warm-ups carry a
-        masked slot index, so they write no slot state."""
+        masked slot index, so they write no slot state. Under a mesh the
+        tp group's communicator is warmed up first; a gloo group's
+        collectives cannot be captured, so its programs run eagerly."""
         B, dev = self.cfg.num_slots, self.device
         capture = dev.type == "cuda" and self._capture_graphs
+        if self._tp is not None:
+            self._tp.warm_up(dev)
+            if capture and not self._tp.capturable:
+                capture = False
+                logging.getLogger(__name__).warning(
+                    "the tp group's %s collectives cannot be captured in a CUDA "
+                    "graph: the device programs run eagerly", self._tp.backend,
+                )
         pool = torch.cuda.graph_pool_handle() if capture else None
         self._chunk_out = torch.zeros(
             max(1, self.cfg.decode_chunk), B, dtype=torch.int64, device=dev
@@ -795,7 +906,7 @@ class Engine:
         cache) the gather of a block-table row into the staging
         buffers."""
         mcfg, cfg, dev = self.model_cfg, self.cfg, self.device
-        shape = (mcfg.num_layers, cfg.max_seq_len, mcfg.num_kv_heads,
+        shape = (mcfg.num_layers, cfg.max_seq_len, self._kv_heads(),
                  mcfg.head_size)
         self._stage_k = torch.zeros(shape, dtype=cfg.cache_dtype, device=dev)
         self._stage_v = torch.zeros(shape, dtype=cfg.cache_dtype, device=dev)
@@ -856,7 +967,7 @@ class Engine:
         forced = ints[:, 5]
         temp, topp = floats[:, 0], floats[:, 1]
         logits, k_all, v_all = self.family.prefill(
-            self.params, mcfg, tokens, lengths, **self._lora_kw(adapters)
+            self.params, mcfg, tokens, lengths, **self._model_kw(adapters)
         )
         page_ids, offsets = batched_sequence_page_coords(
             bt_rows, lengths, tokens.shape[1], page
@@ -880,12 +991,14 @@ class Engine:
         st["lora_idx"][s] = adapters[live]
         return toks
 
-    def _lora_kw(self, lora_idx: torch.Tensor) -> dict:
-        """The model functions' LoRA arguments: the adapter buffers and
-        each row's adapter index, or nothing when LoRA is off."""
-        if self._lora is None:
-            return {}
-        return {"lora": self._lora, "lora_idx": lora_idx}
+    def _model_kw(self, lora_idx: torch.Tensor) -> dict:
+        """The model functions' keyword arguments: the tp group under a
+        mesh, and the adapter buffers and each row's adapter index when
+        LoRA is on."""
+        kw = {} if self._tp is None else {"tp": self._tp}
+        if self._lora is not None:
+            kw.update(lora=self._lora, lora_idx=lora_idx)
+        return kw
 
     def _stage_mid(self) -> None:
         """The mid-chunk program: one non-final chunk (`_chunk_tokens` at
@@ -894,7 +1007,7 @@ class Engine:
         self._chunk_fn(
             self.params, self.model_cfg, self._chunk_tokens, ints[0], ints[1],
             self._stage_k, self._stage_v, want_logits=False,
-            **self._lora_kw(ints[3:4]),
+            **self._model_kw(ints[3:4]),
         )
 
     def _stage_last(self) -> None:
@@ -913,7 +1026,7 @@ class Engine:
         logits, _, _ = self._chunk_fn(
             self.params, self.model_cfg, self._chunk_tokens, start, length,
             self._stage_k, self._stage_v, want_logits=True,
-            **self._lora_kw(adapter),
+            **self._model_kw(adapter),
         )
         page_ids, offsets = batched_sequence_page_coords(
             bt_row[None], length[None], cfg.max_seq_len, cfg.page_size
@@ -973,12 +1086,12 @@ class Engine:
                     self.params, self.model_cfg, tokens, positions,
                     self.cache.k_pages, self.cache.v_pages,
                     self.cache.block_tables, attn_kernel=self.decode_kernel,
-                    **self._lora_kw(st["lora_idx"]),
+                    **self._model_kw(st["lora_idx"]),
                 )
             else:
                 logits, _, _ = self.family.decode_step(
                     self.params, self.model_cfg, tokens, positions,
-                    self.cache.k, self.cache.v, **self._lora_kw(st["lora_idx"]),
+                    self.cache.k, self.cache.v, **self._model_kw(st["lora_idx"]),
                 )
             tokens = sample(
                 logits, st["seeds"], positions + 1, st["temp"],
@@ -1007,7 +1120,7 @@ class Engine:
         logits, _, _ = self.family.decode_verify_paged(
             self.params, self.model_cfg, tokens_in, positions,
             self.cache.k_pages, self.cache.v_pages, self.cache.block_tables,
-            **self._lora_kw(st["lora_idx"]),
+            **self._model_kw(st["lora_idx"]),
         )
         choices = torch.stack([
             sample(logits[:, k], st["seeds"], positions + k + 1, st["temp"],
@@ -1358,7 +1471,7 @@ class Engine:
         with torch.no_grad():
             logits, k_all, v_all = self.family.prefill(
                 self.params, self.model_cfg, torch.from_numpy(tokens).to(dev),
-                torch.tensor([plen], device=dev), **self._lora_kw(adapter),
+                torch.tensor([plen], device=dev), **self._model_kw(adapter),
             )
             insert_sequence(self.cache.k, self.cache.v, k_all[:, 0], v_all[:, 0], slot)
             return self._sample_first(logits, req, slot, plen)
@@ -1380,7 +1493,7 @@ class Engine:
                     self.params, self.model_cfg,
                     torch.from_numpy(np.asarray(tokens, np.int64)).to(dev),
                     start, plen, k_slot, v_slot, want_logits=want,
-                    **self._lora_kw(adapter),
+                    **self._model_kw(adapter),
                 )
             return self._sample_first(logits, req, slot, plen)
 
@@ -1878,6 +1991,7 @@ class Engine:
         Raises EngineBusy when no slot or pages are free right now (the
         server sheds 429 and the router re-picks) and EngineDraining once
         drain has begun."""
+        self._refuse_mesh("handoff export")
         if self.cache_mode != "paged":
             raise RuntimeError(
                 "KV handoff export requires cache_mode='paged' (pages are "
@@ -1995,6 +2109,7 @@ class Engine:
         On an engine with a draft model the draft prefills the handoff's
         tokens into its slot row, as a direct admission does (the JAX
         engine leaves the row stale: ROADMAP fault C14)."""
+        self._refuse_mesh("handoff import")
         if self.cache_mode != "paged":
             raise RuntimeError("KV handoff import requires cache_mode='paged'")
         self._check_wire_geometry("handoff", handoff.k_pages)
@@ -2164,6 +2279,7 @@ class Engine:
         settled snapshot; an empty export means "hold nothing of that
         chain". None when the prefix cache is off or the chain is not
         hex."""
+        self._refuse_mesh("prefix-page export")
         if not self._prefix_cache:
             return None
         try:
@@ -2208,6 +2324,7 @@ class Engine:
         recompute. Geometry, page size and dtype must match exactly.
         Returns the number of pages written (0 when the pool refuses or
         every page was already held)."""
+        self._refuse_mesh("prefix-page import")
         if not self._prefix_cache or export.n_pages == 0:
             return 0
         self._check_wire_geometry("page export", export.k_pages)
@@ -2268,6 +2385,7 @@ class Engine:
         hot prefix can FILL from the store instead of recomputing. The
         hook runs under the engine lock on the eviction path; the
         allocator swallows its failures."""
+        self._refuse_mesh("KV spill")
 
         def _spill(page: int, h: bytes) -> None:
             k, k_scales = self._gather_pages_host(self.cache.k_pages, [page])
@@ -2301,8 +2419,14 @@ class Engine:
         if self._mode_calls.get("chunk", 0) < 2:
             return False
         if self._decode_calls % max(2, self.cfg.spec_probe_every) == 0:
-            return s <= c  # probe the currently losing arm
-        return s > c
+            pick = s <= c  # probe the currently losing arm
+        else:
+            pick = s > c
+        if self._tp is not None:
+            # Each rank's clock differs: rank 0 decides for every rank, or
+            # ranks would enter different programs' collectives.
+            pick = bool(self._tp.agree(int(pick)))
+        return pick
 
     def _spec_observe(self, mode: str, tokens: int, dt: float) -> None:
         """Fold one decode call's throughput into the mode's EMA. The

@@ -13,7 +13,11 @@ a capture must find ready (the kernels' library, the cuBLAS handles, the
 rope tables); each dispatch replays it, one host launch for the
 thousands of kernels of a decode chunk. On the CPU each dispatch calls
 the function eagerly through the same static tensors, so the CPU tests
-exercise the same buffer handling.
+exercise the same buffer handling. Under an NCCL mesh a capture takes the
+tp group's collectives into the graph with the kernels (the engine builds
+the communicator first, `TensorParallel.warm_up`); a gloo group's
+collectives run on the host and cannot be captured, so such an engine
+builds its programs with capture off.
 
 Overlapped stepping dispatches call N+1 before the host reads call N,
 and that dispatch overwrites the static outputs. So every dispatch also

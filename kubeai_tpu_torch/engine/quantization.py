@@ -99,6 +99,22 @@ def quantize_params(params: dict, targets=QUANTIZABLE) -> dict:
     return out
 
 
+def quantized_specs(specs: dict, layers_params: dict) -> dict:
+    """Mirror the sharding-spec tree onto the quantized structure: the w8
+    leaf keeps the weight's axes; scales shard like the output axis."""
+    out = dict(specs)
+    lspecs = dict(specs["layers"])
+    for name, leaf in layers_params.items():
+        if is_quantized(leaf) and name in lspecs:
+            axes = lspecs[name]
+            # scale shape [..., 1, out]: the singleton input axis must be
+            # replicated; the output axis shards like the weight's.
+            scale_axes = tuple(axes[:-2]) + (None,) + (axes[-1],)
+            lspecs[name] = {"w8": axes, "scale": scale_axes}
+    out["layers"] = lspecs
+    return out
+
+
 def weight_bytes(params: dict) -> int:
     """Resident bytes of a parameter tree (quantized leaves count their
     int8 values and f32 scales; a tied lm_head counts once)."""

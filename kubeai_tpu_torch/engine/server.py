@@ -2279,13 +2279,16 @@ class EngineServer:
 
 
 # Flags of the JAX entry point whose features are not ported, with the
-# ROADMAP item that brings each: (flag, is it set?, what it needs).
+# ROADMAP item that brings each: (flag, is it set?, what it needs). The
+# engine takes a mesh (one rank per device), but only rank 0 would hear
+# HTTP: a sharded server needs every request on every rank, which
+# lockstep serving brings.
 _UNPORTED_FLAGS = (
     ("--tpu-topology", lambda a: bool(a.tpu_topology),
-     "meshes and parallelism (ROADMAP A item 11)"),
+     "sharded serving: every request on every rank (ROADMAP A item 11d)"),
     ("--dcn-coordinator/--process-id/--num-processes",
      lambda a: bool(a.dcn_coordinator) or a.process_id != 0 or a.num_processes > 1,
-     "multihost lockstep serving (ROADMAP A item 11)"),
+     "multihost lockstep serving (ROADMAP A item 11d)"),
 )
 
 

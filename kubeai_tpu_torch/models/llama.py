@@ -15,8 +15,18 @@ can hand the same weights to both packages (kubeai_tpu_torch.parity):
      "layers": {"input_norm": [NL, E], "wq": [NL, E, H*D], ...}}
 
 Layers are stacked on a leading [NL] axis and walked with a Python loop
-(the JAX version scans). Weights are bf16 (or f32 for the parity tests);
-ring-attention prefill and pipeline parallelism are not ported and raise.
+(the JAX version scans). Weights are bf16 (or f32 for the parity tests).
+
+Tensor parallelism: `param_specs` gives each leaf's logical axes (the
+JAX version's table), and `prefill`, `prefill_chunk`, both layouts of
+`decode_step_paged` and `decode_verify_paged` take `tp` (a
+parallel.collectives.TensorParallel) with the rank's shard of the params
+(parallel.sharding.shard_params): the layer runs at the rank's heads and
+KV heads (H / tp, KV heads as `TensorParallel.local_kv_heads`), its MLP
+columns and its vocabulary block, with one all_reduce after `wo`, one
+after `w_down` and one in the embedding lookup, and the logits all
+gathered. Qwen2's q/k/v biases shard with their heads. Ring-attention
+prefill (an sp mesh dim) is not ported and raises.
 
 Int8 weights (EngineConfig.quantization="int8"): a layer weight may be a
 quantized leaf {"w8", "scale"} (engine/quantization.py). Every base
@@ -76,6 +86,9 @@ from kubeai_tpu_torch.ops.rope import (
     rope_attention_scaling,
     rope_frequencies,
 )
+from kubeai_tpu_torch.parallel import sharding as sh
+from kubeai_tpu_torch.parallel.collectives import all_reduce, embed, gather_vocab
+from kubeai_tpu_torch.parallel.mesh import AXIS_SEQ, axis_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,6 +149,33 @@ class LlamaConfig:
             rope_theta=10000.0,
             max_position_embeddings=1024,
         )
+
+
+def param_specs(cfg: LlamaConfig) -> dict:
+    """Logical sharding axes per parameter (leading axis = stacked layers,
+    sharded over the pp mesh dim when it exists, replicated otherwise)."""
+    L = sh.LAYERS
+    layers = {
+        "input_norm": (L, sh.EMBED),
+        "wq": (L, sh.EMBED, sh.HEADS),
+        "wk": (L, sh.EMBED, sh.KV_HEADS),
+        "wv": (L, sh.EMBED, sh.KV_HEADS),
+        "wo": (L, sh.HEADS, sh.EMBED),
+        "post_attn_norm": (L, sh.EMBED),
+        "w_gate": (L, sh.EMBED, sh.MLP),
+        "w_up": (L, sh.EMBED, sh.MLP),
+        "w_down": (L, sh.MLP, sh.EMBED),
+    }
+    if cfg.attention_bias:
+        layers["bq"] = (L, sh.HEADS)
+        layers["bk"] = (L, sh.KV_HEADS)
+        layers["bv"] = (L, sh.KV_HEADS)
+    return {
+        "embed": (sh.VOCAB, sh.EMBED),
+        "layers": layers,
+        "final_norm": (sh.EMBED,),
+        "lm_head": (sh.VOCAB, sh.EMBED),
+    }
 
 
 def init_params(
@@ -320,37 +360,47 @@ def _lora_rows(lora, lora_idx, B: int, device) -> torch.Tensor | None:
 
 
 def _refuse_unported(mesh=None) -> None:
-    if mesh is not None:
+    if axis_size(mesh, AXIS_SEQ) > 1:
         raise NotImplementedError(
-            "ring-attention prefill over a mesh is not ported yet "
-            "(ROADMAP A14)"
+            "ring-attention prefill over an sp mesh dim is not ported yet "
+            "(ROADMAP A item 11c)"
         )
 
 
-def _mlp(x, gate, up, down):
-    return _matmul(F.silu(_matmul(x, gate)) * _matmul(x, up), down)
+def _heads(cfg: LlamaConfig, tp) -> tuple[int, int, int]:
+    """(q heads, KV heads, head dim) of one rank's layer."""
+    if tp is None:
+        return cfg.num_heads, cfg.num_kv_heads, cfg.head_size
+    return tp.local_heads(cfg.num_heads), tp.local_kv_heads(cfg.num_kv_heads), cfg.head_size
 
 
-def _logits(x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
+def _mlp(x, gate, up, down, tp=None):
+    return all_reduce(_matmul(F.silu(_matmul(x, gate)) * _matmul(x, up), down), tp)
+
+
+def _logits(x: torch.Tensor, lm_head: torch.Tensor, tp=None) -> torch.Tensor:
     """[B, E] x [V, E] -> f32 [B, V]. On bf16 weights the product runs in
     bf16 and keeps its f32 accumulator as the output, as the JAX
     version's preferred_element_type=float32 does: on the card the GEMM
     writes f32 itself (torch.mm out_dtype); on the CPU the operands are
-    upcast."""
+    upcast. Under tp, `lm_head` is the rank's vocabulary block and the
+    blocks' logits are all gathered."""
     if x.dtype == torch.float32:
-        return torch.matmul(x, lm_head.t())
-    if x.is_cuda:
-        return torch.mm(x, lm_head.t(), out_dtype=torch.float32)
-    return torch.matmul(x.float(), lm_head.t().float())
+        out = torch.matmul(x, lm_head.t())
+    elif x.is_cuda:
+        out = torch.mm(x, lm_head.t(), out_dtype=torch.float32)
+    else:
+        out = torch.matmul(x.float(), lm_head.t().float())
+    return gather_vocab(out, tp)
 
 
-def _prefill_layer(x, lp, proj, cfg, inv_freq, msc, positions):
+def _prefill_layer(x, lp, proj, cfg, inv_freq, msc, positions, tp=None):
     """One layer over whole [B, S, E] sequences from position 0: project
     (proj: the base product, bias and adapter delta), rope, causal
     attention through flash_causal_prefill (B2 on the card), MLP.
     Returns (x, k [B, S, KVH, D], v [B, S, KVH, D])."""
     B, S, _ = x.shape
-    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
+    H, KVH, D = _heads(cfg, tp)
     h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
     q = proj(h, lp["wq"], "wq", lp.get("bq")).reshape(B, S, H, D)
     k = proj(h, lp["wk"], "wk", lp.get("bk")).reshape(B, S, KVH, D)
@@ -358,9 +408,9 @@ def _prefill_layer(x, lp, proj, cfg, inv_freq, msc, positions):
     q = apply_rope(q, positions, inv_freq, msc)
     k = apply_rope(k, positions, inv_freq, msc)
     attn = flash_causal_prefill(q, k, v.contiguous())
-    x = x + proj(attn.reshape(B, S, H * D), lp["wo"], "wo")
+    x = x + all_reduce(proj(attn.reshape(B, S, H * D), lp["wo"], "wo"), tp)
     h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
-    return x + _mlp(h2, lp["w_gate"], lp["w_up"], lp["w_down"]), k, v
+    return x + _mlp(h2, lp["w_gate"], lp["w_up"], lp["w_down"], tp), k, v
 
 
 def prefill(
@@ -371,27 +421,30 @@ def prefill(
     lora: dict | None = None,
     lora_idx: torch.Tensor | None = None,
     mesh=None,
+    tp=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-prompt forward. Returns (last_token_logits f32 [B, V],
-    k_all [NL, B, S, KVH, D], v_all [NL, B, S, KVH, D])."""
+    k_all [NL, B, S, KVH, D], v_all [NL, B, S, KVH, D]); under tp the
+    K/V are the rank's KV heads."""
     _refuse_unported(mesh)
     B, S = tokens.shape
     dev = tokens.device
     inv_freq, msc = _rope_tables(cfg, dev)
     positions = torch.arange(S, device=dev)[None, :].expand(B, S)
     lora_idx = _lora_rows(lora, lora_idx, B, dev)
-    x = params["embed"][tokens]  # [B, S, E]
+    x = embed(params["embed"], tokens, tp)  # [B, S, E]
     ks, vs = [], []
     for i in range(cfg.num_layers):
         proj = _projector(_layer_lora(lora, i), lora_idx)
-        x, k, v = _prefill_layer(x, _layer(params, i), proj, cfg, inv_freq, msc, positions)
+        x, k, v = _prefill_layer(x, _layer(params, i), proj, cfg, inv_freq, msc,
+                                 positions, tp)
         ks.append(k)
         vs.append(v)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     # Logits only for each sequence's final real token.
     idx = torch.clamp(lengths.to(dev).long() - 1, 0, S - 1)
     last = x[torch.arange(B, device=dev), idx]  # [B, E]
-    return _logits(last, params["lm_head"]), torch.stack(ks), torch.stack(vs)
+    return _logits(last, params["lm_head"], tp), torch.stack(ks), torch.stack(vs)
 
 
 def trunk_layer(x: torch.Tensor, lp: dict, cfg: LlamaConfig) -> torch.Tensor:
@@ -441,6 +494,7 @@ def prefill_chunk(
     want_logits: bool = False,
     lora: dict | None = None,
     lora_idx: torch.Tensor | None = None,
+    tp=None,
 ) -> tuple[torch.Tensor | None, torch.Tensor, torch.Tensor]:
     """One chunk of incremental prefill against one slot's cache. Every
     chunk of every prompt length has the same shapes, so one CUDA graph
@@ -451,7 +505,7 @@ def prefill_chunk(
     Returns (f32 [1, V] logits at position `length - 1` when want_logits,
     else None; k_slot; v_slot)."""
     B, C = tokens.shape
-    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
+    H, KVH, D = _heads(cfg, tp)
     dev = tokens.device
     inv_freq, msc = _rope_tables(cfg, dev)
     start = torch.as_tensor(start, device=dev).long().reshape(())
@@ -460,7 +514,7 @@ def prefill_chunk(
     positions = (start + offs)[None, :]  # [1, C]
     rows = start.clamp(0, k_slot.shape[1] - C) + offs
     lora_idx = _lora_rows(lora, lora_idx, B, dev)
-    x = params["embed"][tokens]  # [1, C, E]
+    x = embed(params["embed"], tokens, tp)  # [1, C, E]
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
         proj = _projector(_layer_lora(lora, i), lora_idx)
@@ -474,24 +528,24 @@ def prefill_chunk(
         kc.index_copy_(0, rows, k[0].to(kc.dtype))
         vc.index_copy_(0, rows, v[0].to(vc.dtype))
         attn = chunked_prefill_attention(q, kc[None], vc[None], start[None])
-        x = x + proj(attn.reshape(B, C, H * D), lp["wo"], "wo")
+        x = x + all_reduce(proj(attn.reshape(B, C, H * D), lp["wo"], "wo"), tp)
         h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
-        x = x + _mlp(h2, lp["w_gate"], lp["w_up"], lp["w_down"])
+        x = x + _mlp(h2, lp["w_gate"], lp["w_up"], lp["w_down"], tp)
     if not want_logits:
         return None, k_slot, v_slot
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     idx = torch.clamp(length - 1 - start, 0, C - 1)
     last = x.index_select(1, idx.reshape(1))[:, 0]  # [1, E]
-    return _logits(last, params["lm_head"]), k_slot, v_slot
+    return _logits(last, params["lm_head"], tp), k_slot, v_slot
 
 
-def _decode_layer_qkv(x, lp, lor, cfg, inv_freq, msc, pos1, lora_idx):
+def _decode_layer_qkv(x, lp, lor, cfg, inv_freq, msc, pos1, lora_idx, tp=None):
     """Decode-layer front half: norm, QKV projection (+bias, +LoRA),
     rope. One body for both decode layouts, so the projection and LoRA
     math cannot drift between them. Returns (q [B, H, D], k [B, KVH, D],
     v [B, KVH, D], proj); proj is reused for the output projection."""
     B = x.shape[0]
-    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
+    H, KVH, D = _heads(cfg, tp)
     proj = _projector(lor, lora_idx)
     h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
     q = proj(h, lp["wq"], "wq", lp.get("bq")).reshape(B, 1, H, D)
@@ -502,13 +556,11 @@ def _decode_layer_qkv(x, lp, lor, cfg, inv_freq, msc, pos1, lora_idx):
     return q, k, v[:, 0], proj
 
 
-def _decode_layer_finish(x, attn, lp, proj, cfg):
+def _decode_layer_finish(x, attn, lp, proj, cfg, tp=None):
     """Decode-layer back half: output projection, residual, MLP."""
-    B = x.shape[0]
-    H, D = cfg.num_heads, cfg.head_size
-    x = x + proj(attn.reshape(B, H * D), lp["wo"], "wo")
+    x = x + all_reduce(proj(attn.reshape(x.shape[0], -1), lp["wo"], "wo"), tp)
     h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
-    return x + _mlp(h2, lp["w_gate"], lp["w_up"], lp["w_down"])
+    return x + _mlp(h2, lp["w_gate"], lp["w_up"], lp["w_down"], tp)
 
 
 def decode_step(
@@ -552,17 +604,17 @@ def decode_step(
 
 def _paged_decode_layer(
     x, lp, lor, kp, vp, cfg, inv_freq, msc, positions, lengths,
-    page_ids, offsets, block_tables, lora_idx,
+    page_ids, offsets, block_tables, lora_idx, tp=None,
 ):
     """One decode layer against this layer's page pools: project, rope,
     scatter the new token's K/V through the block tables (in place),
     attend over resident pages, MLP."""
     q, k, v, proj = _decode_layer_qkv(
-        x, lp, lor, cfg, inv_freq, msc, positions[:, None], lora_idx
+        x, lp, lor, cfg, inv_freq, msc, positions[:, None], lora_idx, tp
     )
     scatter_decode_token(kp, vp, k, v, page_ids, offsets)
     attn = paged_decode_attention(q.contiguous(), kp, vp, block_tables, lengths)
-    return _decode_layer_finish(x, attn, lp, proj, cfg)
+    return _decode_layer_finish(x, attn, lp, proj, cfg, tp)
 
 
 def decode_step_paged(
@@ -577,6 +629,7 @@ def decode_step_paged(
     lora_idx: torch.Tensor | None = None,
     *,
     attn_kernel: str | None = None,
+    tp=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode step against the paged cache. Two layouts, selected by
     `attn_kernel` (None = $KUBEAI_TPU_DECODE_KERNEL, default "per_layer"):
@@ -603,7 +656,7 @@ def decode_step_paged(
     inv_freq, msc = _rope_tables(cfg, dev)
     page_size = k_pages.shape[2]
     lora_idx = _lora_rows(lora, lora_idx, tokens.shape[0], dev)
-    x = params["embed"][tokens]  # [B, E]
+    x = embed(params["embed"], tokens, tp)  # [B, E]
     page_ids, offsets = token_page_coords(block_tables, positions, page_size)
     if attn_kernel == "per_layer":
         lengths = (positions + 1).to(torch.int32)
@@ -611,7 +664,7 @@ def decode_step_paged(
             x = _paged_decode_layer(
                 x, _layer(params, i), _layer_lora(lora, i), k_pages[i],
                 v_pages[i], cfg, inv_freq, msc, positions, lengths, page_ids,
-                offsets, block_tables, lora_idx,
+                offsets, block_tables, lora_idx, tp,
             )
     else:
         pos32 = positions.to(torch.int32)
@@ -620,13 +673,13 @@ def decode_step_paged(
             lp = _layer(params, i)
             q, k, v, proj = _decode_layer_qkv(
                 x, lp, _layer_lora(lora, i), cfg, inv_freq, msc,
-                positions[:, None], lora_idx,
+                positions[:, None], lora_idx, tp,
             )
             k, v = k.contiguous(), v.contiguous()
             attn = paged_decode_attention_fused(
                 q.contiguous(), k_pages, v_pages, k, v, block_tables, pos32, i,
             )
-            x = _decode_layer_finish(x, attn, lp, proj, cfg)
+            x = _decode_layer_finish(x, attn, lp, proj, cfg, tp)
             k_new.append(k)
             v_new.append(v)
         # One write for every layer's new token ([NL, B, 1, KVH, D]).
@@ -635,7 +688,7 @@ def decode_step_paged(
             torch.stack(v_new)[:, :, None], page_ids[:, None], offsets[:, None],
         )
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return _logits(x, params["lm_head"]), k_pages, v_pages
+    return _logits(x, params["lm_head"], tp), k_pages, v_pages
 
 
 def _verify_page_coords(block_tables, positions, K, page_size):
@@ -649,14 +702,14 @@ def _verify_page_coords(block_tables, positions, K, page_size):
 
 def _paged_verify_layer(
     x, lp, lor, kp, vp, cfg, inv_freq, msc, pos_k, page_ids, offsets,
-    block_tables, positions, lora_idx,
+    block_tables, positions, lora_idx, tp=None,
 ):
     """One verify layer over a [B, K, E] window against this layer's page
     pools: project (+LoRA), rope, write the window's K/V through the
     block tables (in place), attend through paged_verify_attention,
     MLP."""
     B, K, _ = x.shape
-    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
+    H, KVH, D = _heads(cfg, tp)
     proj = _projector(lor, lora_idx)
     h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
     q = proj(h, lp["wq"], "wq", lp.get("bq")).reshape(B, K, H, D)
@@ -667,9 +720,9 @@ def _paged_verify_layer(
     kp[page_ids, offsets] = k.to(kp.dtype)
     vp[page_ids, offsets] = v.to(vp.dtype)
     attn = paged_verify_attention(q.contiguous(), kp, vp, block_tables, positions)
-    x = x + proj(attn.reshape(B, K, H * D), lp["wo"], "wo")
+    x = x + all_reduce(proj(attn.reshape(B, K, H * D), lp["wo"], "wo"), tp)
     h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
-    return x + _mlp(h2, lp["w_gate"], lp["w_up"], lp["w_down"])
+    return x + _mlp(h2, lp["w_gate"], lp["w_up"], lp["w_down"], tp)
 
 
 def decode_verify_paged(
@@ -682,6 +735,7 @@ def decode_verify_paged(
     block_tables: torch.Tensor,  # [B, MP] int32
     lora: dict | None = None,
     lora_idx: torch.Tensor | None = None,
+    tp=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Speculative verify: one forward over a K-token window per slot
     against the paged cache. Writes the window's K/V through the block
@@ -695,7 +749,7 @@ def decode_verify_paged(
     inv_freq, msc = _rope_tables(cfg, dev)
     page_size = k_pages.shape[2]
     pos_k = positions[:, None] + torch.arange(K, device=dev)[None, :]  # [B, K]
-    x = params["embed"][tokens]  # [B, K, E]
+    x = embed(params["embed"], tokens, tp)  # [B, K, E]
     page_ids, offsets = _verify_page_coords(block_tables, positions, K, page_size)
     pos32 = positions.to(torch.int32)
     lora_idx = _lora_rows(lora, lora_idx, B, dev)
@@ -703,8 +757,8 @@ def decode_verify_paged(
         x = _paged_verify_layer(
             x, _layer(params, i), _layer_lora(lora, i), k_pages[i],
             v_pages[i], cfg, inv_freq, msc, pos_k, page_ids, offsets,
-            block_tables, pos32, lora_idx,
+            block_tables, pos32, lora_idx, tp,
         )
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    logits = _logits(x.reshape(B * K, -1), params["lm_head"])
+    logits = _logits(x.reshape(B * K, -1), params["lm_head"], tp)
     return logits.reshape(B, K, -1), k_pages, v_pages

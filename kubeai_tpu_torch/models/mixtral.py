@@ -36,6 +36,16 @@ slot-cache step through the plain decode_attention (as the JAX version's
 jnp), paged decode through paged_decode_attention (B1, or B1-int8 on an
 int8 pool) or paged_decode_attention_fused (B4).
 
+Expert parallelism, as the JAX version shards it (`param_specs`: the
+expert axis on the tp mesh dim; attention and the router as in llama):
+`prefill`, `prefill_chunk` and `decode_step_paged` take `tp` (a
+parallel.collectives.TensorParallel) with the rank's shard of the params.
+Attention runs at the rank's heads with an all_reduce after `wo`, the
+router stays whole, and each rank combines its E / tp experts' outputs
+with their top-k weights before one all_reduce. The expert cut of the
+expert-minor gate and up stacks is along their axis 2, made contiguous
+once at load (parallel.sharding.shard_params).
+
 Not here, as in the JAX package: a verify forward (speculation falls back
 to vanilla decode and a draft model is refused), LoRA (the JAX family
 takes adapters and ignores them; the port's engine refuses them, ROADMAP
@@ -53,7 +63,7 @@ import torch.nn.functional as F
 
 from kubeai_tpu_torch.device import resolve_device
 from kubeai_tpu_torch.models.gemma import _inv_freq
-from kubeai_tpu_torch.models.llama import _layer, _logits
+from kubeai_tpu_torch.models.llama import _heads, _layer, _logits
 from kubeai_tpu_torch.ops.attention import chunked_prefill_attention, decode_attention
 from kubeai_tpu_torch.ops.flash_attention import flash_causal_prefill
 from kubeai_tpu_torch.ops.kv_quant import QuantizedPool
@@ -67,6 +77,8 @@ from kubeai_tpu_torch.ops.paged_attention import (
     token_page_coords,
 )
 from kubeai_tpu_torch.ops.rope import apply_rope
+from kubeai_tpu_torch.parallel import sharding as sh
+from kubeai_tpu_torch.parallel.collectives import all_reduce, embed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +131,31 @@ class MixtralConfig:
             num_experts_per_tok=2,
             rope_theta=10000.0,
         )
+
+
+def param_specs(cfg: MixtralConfig) -> dict:
+    """Logical sharding axes per parameter: the JAX version's table, with
+    the gate and up stacks' expert and embed axes swapped as the port
+    stores them (expert-minor)."""
+    L = None
+    return {
+        "embed": (sh.VOCAB, sh.EMBED),
+        "layers": {
+            "input_norm": (L, sh.EMBED),
+            "wq": (L, sh.EMBED, sh.HEADS),
+            "wk": (L, sh.EMBED, sh.KV_HEADS),
+            "wv": (L, sh.EMBED, sh.KV_HEADS),
+            "wo": (L, sh.HEADS, sh.EMBED),
+            "post_attn_norm": (L, sh.EMBED),
+            "router": (L, sh.EMBED, None),
+            # Expert axis sharded over the mesh (EP = tp axis reuse).
+            "w_gate": (L, sh.EMBED, sh.EXPERT, None),
+            "w_up": (L, sh.EMBED, sh.EXPERT, None),
+            "w_down": (L, sh.EXPERT, None, sh.EMBED),
+        },
+        "final_norm": (sh.EMBED,),
+        "lm_head": (sh.VOCAB, sh.EMBED),
+    }
 
 
 def init_params(
@@ -185,33 +222,37 @@ def top_k_stable(logits: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tens
     return values[..., :k], indices[..., :k]
 
 
-def _moe_ffn(x: torch.Tensor, lp: dict, cfg: MixtralConfig) -> torch.Tensor:
+def _moe_ffn(x: torch.Tensor, lp: dict, cfg: MixtralConfig, tp=None) -> torch.Tensor:
     """x: [..., E] -> [..., E]. Dense top-k MoE: the router's logits in
     f32 (a product in the activation dtype, then cast), a softmax over
     the selected experts' logits, scattered into a dense [T, X] weight
     map; every expert's SwiGLU FFN on every token; the combine weighted by
-    that map in the activation dtype."""
+    that map in the activation dtype. Under tp the rank runs its own
+    experts (the stacks' X is E / tp), combines them with their columns
+    of the map, and the ranks' combines are summed."""
     lead, E = x.shape[:-1], x.shape[-1]
-    X, M = cfg.num_experts, cfg.intermediate_size
+    X, M = lp["w_down"].shape[0], cfg.intermediate_size
     h = x.reshape(-1, E)  # [T, E]
-    router_logits = torch.matmul(h, lp["router"]).float()  # [T, X]
+    router_logits = torch.matmul(h, lp["router"]).float()  # [T, experts]
     topv, topi = top_k_stable(router_logits, cfg.num_experts_per_tok)
     probs = torch.softmax(topv, dim=-1)  # normalized over the selected only
     weights = torch.zeros_like(router_logits).scatter_(-1, topi, probs)
+    if tp is not None:
+        weights = weights[:, tp.rank * X:(tp.rank + 1) * X]
     # One GEMM a stack over the [E, X*M] view, then one bmm over X.
     g = F.silu(torch.matmul(h, lp["w_gate"].reshape(E, X * M)))
     u = torch.matmul(h, lp["w_up"].reshape(E, X * M))
     gu = (g * u).reshape(-1, X, M).transpose(0, 1)  # [X, T, M]
     y = torch.bmm(gu, lp["w_down"])  # [X, T, E]
     out = torch.bmm(weights.to(y.dtype)[:, None], y.transpose(0, 1))[:, 0]  # [T, E]
-    return out.reshape(*lead, E)
+    return all_reduce(out, tp).reshape(*lead, E)
 
 
-def _qkv(x, lp, cfg, positions, inv_freq):
+def _qkv(x, lp, cfg, positions, inv_freq, tp=None):
     """Norm, projections and rope of [..., S, E] activations: (q [..., S,
-    H, D], k [..., S, KVH, D], v [..., S, KVH, D])."""
+    H, D], k [..., S, KVH, D], v [..., S, KVH, D]) at the rank's heads."""
     lead = x.shape[:-1]
-    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
+    H, KVH, D = _heads(cfg, tp)
     h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
     q = torch.matmul(h, lp["wq"]).reshape(*lead, H, D)
     k = torch.matmul(h, lp["wk"]).reshape(*lead, KVH, D)
@@ -219,16 +260,16 @@ def _qkv(x, lp, cfg, positions, inv_freq):
     return apply_rope(q, positions, inv_freq), apply_rope(k, positions, inv_freq), v
 
 
-def _finish(x, attn, lp, cfg):
+def _finish(x, attn, lp, cfg, tp=None):
     """Output projection, the residual, the MoE FFN. attn: [..., H, D]."""
-    x = x + torch.matmul(attn.reshape(*attn.shape[:-2], -1), lp["wo"])
+    x = x + all_reduce(torch.matmul(attn.reshape(*attn.shape[:-2], -1), lp["wo"]), tp)
     h2 = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
-    return x + _moe_ffn(h2, lp, cfg)
+    return x + _moe_ffn(h2, lp, cfg, tp)
 
 
-def _final_logits(x, params, cfg):
+def _final_logits(x, params, cfg, tp=None):
     """[B, E] -> f32 [B, V]: the final norm, the head with f32 output."""
-    return _logits(rms_norm(x, params["final_norm"], cfg.rms_norm_eps), params["lm_head"])
+    return _logits(rms_norm(x, params["final_norm"], cfg.rms_norm_eps), params["lm_head"], tp)
 
 
 def prefill(
@@ -236,6 +277,7 @@ def prefill(
     cfg: MixtralConfig,
     tokens: torch.Tensor,  # [B, S] right-padded token ids
     lengths: torch.Tensor,  # [B] true prompt lengths
+    tp=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-prompt forward. Returns (last_token_logits f32 [B, V],
     k_all [NL, B, S, KVH, D], v_all [NL, B, S, KVH, D])."""
@@ -243,18 +285,18 @@ def prefill(
     dev = tokens.device
     inv_freq = _inv_freq(cfg, dev)
     positions = torch.arange(S, device=dev)[None, :].expand(B, S)
-    x = params["embed"][tokens]  # [B, S, E]
+    x = embed(params["embed"], tokens, tp)  # [B, S, E]
     ks, vs = [], []
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
-        q, k, v = _qkv(x, lp, cfg, positions, inv_freq)
+        q, k, v = _qkv(x, lp, cfg, positions, inv_freq, tp)
         attn = flash_causal_prefill(q, k, v.contiguous())
-        x = _finish(x, attn, lp, cfg)
+        x = _finish(x, attn, lp, cfg, tp)
         ks.append(k)
         vs.append(v)
     idx = torch.clamp(lengths.to(dev).long() - 1, 0, S - 1)
     last = x[torch.arange(B, device=dev), idx]  # [B, E]
-    return _final_logits(last, params, cfg), torch.stack(ks), torch.stack(vs)
+    return _final_logits(last, params, cfg, tp), torch.stack(ks), torch.stack(vs)
 
 
 def prefill_chunk(
@@ -266,6 +308,7 @@ def prefill_chunk(
     k_slot: torch.Tensor,  # [NL, L, KVH, D] one slot's staging cache
     v_slot: torch.Tensor,
     want_logits: bool = False,
+    tp=None,
 ) -> tuple[torch.Tensor | None, torch.Tensor, torch.Tensor]:
     """One chunk of incremental prefill against one slot's cache, as
     llama.prefill_chunk (the chunk's K/V written at `start` in place, the
@@ -281,20 +324,20 @@ def prefill_chunk(
     offs = torch.arange(C, device=dev)
     positions = (start + offs)[None, :]  # [1, C]
     rows = start.clamp(0, k_slot.shape[1] - C) + offs
-    x = params["embed"][tokens]  # [1, C, E]
+    x = embed(params["embed"], tokens, tp)  # [1, C, E]
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
-        q, k, v = _qkv(x, lp, cfg, positions, inv_freq)
+        q, k, v = _qkv(x, lp, cfg, positions, inv_freq, tp)
         kc, vc = k_slot[i], v_slot[i]  # [L, KVH, D]
         kc.index_copy_(0, rows, k[0].to(kc.dtype))
         vc.index_copy_(0, rows, v[0].to(vc.dtype))
         attn = chunked_prefill_attention(q, kc[None], vc[None], start[None])
-        x = _finish(x, attn, lp, cfg)
+        x = _finish(x, attn, lp, cfg, tp)
     if not want_logits:
         return None, k_slot, v_slot
     idx = torch.clamp(length - 1 - start, 0, C - 1)
     last = x.index_select(1, idx.reshape(1))[:, 0]  # [1, E]
-    return _final_logits(last, params, cfg), k_slot, v_slot
+    return _final_logits(last, params, cfg, tp), k_slot, v_slot
 
 
 def decode_step(
@@ -336,6 +379,7 @@ def decode_step_paged(
     block_tables: torch.Tensor,  # [B, MP] int32 page ids per slot (-1 = free)
     *,
     attn_kernel: str | None = None,
+    tp=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode step against the paged cache, in llama.decode_step_paged's
     two layouts: "per_layer" scatters each layer's new token, then
@@ -352,7 +396,7 @@ def decode_step_paged(
         )
     dev = tokens.device
     inv_freq = _inv_freq(cfg, dev)
-    x = params["embed"][tokens]  # [B, E]
+    x = embed(params["embed"], tokens, tp)  # [B, E]
     pos1 = positions[:, None]
     page_ids, offsets = token_page_coords(block_tables, positions, k_pages.shape[2])
     fused = attn_kernel == "fused"
@@ -361,7 +405,7 @@ def decode_step_paged(
     k_new, v_new = [], []
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
-        q, k, v = _qkv(x[:, None], lp, cfg, pos1, inv_freq)
+        q, k, v = _qkv(x[:, None], lp, cfg, pos1, inv_freq, tp)
         q, k, v = q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous()
         if fused:
             attn = paged_decode_attention_fused(
@@ -373,11 +417,11 @@ def decode_step_paged(
             kp, vp = k_pages[i], v_pages[i]
             scatter_decode_token(kp, vp, k, v, page_ids, offsets)
             attn = paged_decode_attention(q, kp, vp, block_tables, lengths)
-        x = _finish(x, attn, lp, cfg)
+        x = _finish(x, attn, lp, cfg, tp)
     if fused:
         # One write for every layer's new token ([NL, B, 1, KVH, D]).
         batched_scatter_sequence(
             k_pages, v_pages, torch.stack(k_new)[:, :, None],
             torch.stack(v_new)[:, :, None], page_ids[:, None], offsets[:, None],
         )
-    return _final_logits(x, params, cfg), k_pages, v_pages
+    return _final_logits(x, params, cfg, tp), k_pages, v_pages

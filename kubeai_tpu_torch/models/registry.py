@@ -24,6 +24,9 @@ class ModelFamily:
     config_from_hf: Callable
     tiny_config: Callable
     init_params: Callable
+    # Logical sharding axes of each parameter (parallel/sharding.py); None
+    # = the engine refuses the family under a mesh.
+    param_specs: Callable | None = None
     # The slot engine's forwards (None for a family the engine does not
     # serve, as whisper).
     prefill: Callable | None = None
@@ -87,6 +90,7 @@ def _ensure_builtin() -> None:
             config_from_hf=llama.LlamaConfig.from_hf_dict,
             tiny_config=llama.LlamaConfig.tiny,
             init_params=llama.init_params,
+            param_specs=llama.param_specs,
             prefill=llama.prefill,
             decode_step=llama.decode_step,
             decode_step_paged=llama.decode_step_paged,
@@ -108,6 +112,7 @@ def _ensure_builtin() -> None:
                 llama.LlamaConfig.tiny(), attention_bias=True
             ),
             init_params=llama.init_params,
+            param_specs=llama.param_specs,
             prefill=llama.prefill,
             decode_step=llama.decode_step,
             decode_step_paged=llama.decode_step_paged,
@@ -145,6 +150,7 @@ def _ensure_builtin() -> None:
             config_from_hf=mixtral.MixtralConfig.from_hf_dict,
             tiny_config=mixtral.MixtralConfig.tiny,
             init_params=mixtral.init_params,
+            param_specs=mixtral.param_specs,
             prefill=mixtral.prefill,
             decode_step=mixtral.decode_step,
             decode_step_paged=mixtral.decode_step_paged,

@@ -13,13 +13,17 @@ compile artefact: `installed_library` reads it for the current hash, and
 so `build` finds it and `nvcc` does not run.
 
 Each source compiles to its own object file, all at once, and one link
-makes the library. Nothing here includes PyTorch's headers: that keeps a
+makes the library. Several processes (the ranks of a mesh) may load at
+once: an exclusive `flock` on a lock file in BUILD_ROOT holds the check
+and the build, so one process compiles and the others wait, then load
+its library. Nothing here includes PyTorch's headers: that keeps a
 build to seconds. A failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -136,15 +140,24 @@ def install_library(src: str | Path) -> Path:
 
 def build() -> Path:
     """Compile csrc/*.cu into the shared library unless it exists.
-    Returns its path; the compiler's log is written beside it."""
-    global last_build_seconds
+    Returns its path; the compiler's log is written beside it. Across
+    processes, one builds and the others wait for it (`flock`)."""
     out_dir = build_dir()
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
         return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_ROOT / f"{out_dir.name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib_path.exists():  # else another process built it meanwhile
+            _compile(out_dir, lib_path)
+    return lib_path
+
+
+def _compile(out_dir: Path, lib_path: Path) -> None:
+    global last_build_seconds
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
     for src in sources():
         obj = out_dir / (src.stem + ".o")
@@ -175,7 +188,6 @@ def build() -> Path:
         raise KernelCompileError("nvcc link failed:\n" + link.stdout)
     os.replace(tmp, lib_path)
     last_build_seconds = time.perf_counter() - t0
-    return lib_path
 
 
 def load() -> ctypes.CDLL:

@@ -13,6 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
 
 from kubeai_tpu.engine import Engine as JEngine
 from kubeai_tpu.engine import EngineConfig as JEngineConfig
@@ -20,7 +22,18 @@ from kubeai_tpu.engine.sampling import SamplingParams as JSamplingParams
 from kubeai_tpu.models import llama as jl
 from kubeai_tpu_torch.engine import Engine, EngineConfig, SamplingParams
 from kubeai_tpu_torch.models import llama as tl
+from kubeai_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 from kubeai_tpu_torch.parity import params_from_numpy
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side runs thousands of tiny ops: one intra-op thread
+    keeps them from spinning against the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 BASE = dict(num_slots=4, max_seq_len=128, page_size=16, decode_chunk=4)
 POOLS = {"full": {}, "tight": {"num_pages": 1 + 9}}
@@ -159,11 +172,19 @@ def test_prefix_cache_needs_prefill_chunk(models):
 
 
 def test_mesh_raises_and_auto_overlap_is_synchronous(models):
-    """A mesh raises; step_overlap "auto" resolves to overlapped stepping,
-    as in the JAX engine at pp = 1, and "off" to synchronous."""
+    """The mesh dims that are not ported raise naming their item (pp > 1:
+    11b, sp > 1: 11c; a tp mesh is served, tests/test_torch_tp.py);
+    step_overlap "auto" resolves to overlapped stepping, as in the JAX
+    engine at pp = 1, and "off" to synchronous."""
     _, _, tcfg, tparams = models
-    with pytest.raises(NotImplementedError, match="A14"):
-        Engine("llama", tcfg, tparams, mesh=object(), device="cpu")
+    for mesh_kw, item in ((dict(pp=2, tp=2), "11b"), (dict(sp=2, tp=2), "11c")):
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+        try:
+            with pytest.raises(NotImplementedError, match=f"ROADMAP A item {item}"):
+                Engine("llama", tcfg, tparams, mesh=build_mesh(MeshConfig(**mesh_kw)),
+                       device="cpu")
+        finally:
+            dist.destroy_process_group()
     for overlap, want in (("auto", True), ("on", True), ("off", False)):
         eng = _torch_engine(models, step_overlap=overlap)
         assert eng._overlap is want

@@ -4,7 +4,10 @@ and the kernel wrappers launch nothing for CPU tensors."""
 
 import ast
 import ctypes
+import os
 import pathlib
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -21,6 +24,16 @@ from kubeai_tpu_torch.ops.paged_attention import (
     paged_decode_attention_fused,
     paged_verify_attention,
 )
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side runs thousands of tiny ops: one intra-op thread
+    keeps them from spinning against the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 WRAPPERS = (paged_decode_attention, paged_verify_attention,
             paged_decode_attention_fused, flash_causal_prefill, w8a16_skinny, w8a16_wgmma)
@@ -180,3 +193,36 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "kernels")
     with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
         _build.build()
+
+
+# A stand-in nvcc: each compile (-c) appends a line to $NVCC_COUNT and
+# takes two seconds, so that a second process arrives mid-build; every
+# call writes its -o file.
+FAKE_NVCC = """#!/bin/sh
+out=""; prev=""
+for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done
+case " $* " in *" -c "*) echo compile >> "$NVCC_COUNT"; sleep 2;; esac
+echo built > "$out"
+"""
+BUILD_IN = ("import pathlib, sys; from kubeai_tpu_torch.ops import _build; "
+            "_build.BUILD_ROOT = pathlib.Path(sys.argv[1]); print(_build.build())")
+
+
+def test_build_lock_one_compile_across_processes(tmp_path):
+    """Two processes (two ranks) loading at once: the build lock lets one
+    compile every source once while the other waits, then both get the
+    same library."""
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(0o755)
+    count = tmp_path / "count"
+    env = dict(os.environ, PATH=f"{bin_dir}:{os.environ['PATH']}", NVCC_COUNT=str(count),
+               PYTHONPATH=str(ROOT))
+    procs = [subprocess.Popen([sys.executable, "-c", BUILD_IN, str(tmp_path / "kernels")],
+                              env=env, stdout=subprocess.PIPE, text=True) for _ in range(2)]
+    outs = [p.communicate(timeout=120)[0].strip() for p in procs]
+    assert [p.returncode for p in procs] == [0, 0]
+    assert outs[0] == outs[1] and pathlib.Path(outs[0]).read_text() == "built\n"
+    assert len(count.read_text().splitlines()) == len(_build.sources())

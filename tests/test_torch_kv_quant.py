@@ -64,6 +64,16 @@ from kubeai_tpu_torch.ops import paged_attention as tpa
 from kubeai_tpu_torch.parity import params_from_numpy
 from torch_split_walk import constant, emulate_split_walk
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side runs thousands of tiny ops: one intra-op thread
+    keeps them from spinning against the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOK = ByteTokenizer()
 PAGE = 16
 BASE = dict(num_slots=4, max_seq_len=128, page_size=PAGE, decode_chunk=4)

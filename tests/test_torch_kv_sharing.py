@@ -53,6 +53,16 @@ from kubeai_tpu_torch.models import llama as tl
 from kubeai_tpu_torch.objstore import KVSpillStore
 from kubeai_tpu_torch.parity import params_from_numpy
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side runs thousands of tiny ops: one intra-op thread
+    keeps them from spinning against the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 pytestmark = pytest.mark.kvshare
 
 TOK = ByteTokenizer()

@@ -11,12 +11,25 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
 
 from kubeai_tpu.models import llama as jl
 from kubeai_tpu.ops import paged_attention as jpa
 from kubeai_tpu_torch.models import llama as tl
 from kubeai_tpu_torch.models.registry import get_model_family
+from kubeai_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 from kubeai_tpu_torch.parity import params_from_numpy
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side runs thousands of tiny ops: one intra-op thread
+    keeps them from spinning against the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ATOL = 1e-4
 PAGE, MP = 8, 6
@@ -150,8 +163,15 @@ def test_from_hf_dict_and_unported_options():
                            lora_idx=torch.tensor([1]))
     for got, want in zip(with_lora, tl.prefill(tp, tcfg, toks, torch.tensor([4]))):
         assert torch.equal(got, want)
-    with pytest.raises(NotImplementedError, match="A14"):
-        tl.prefill(tp, tcfg, toks, torch.tensor([4]), mesh=object())
+    # Ring attention over an sp mesh dim is not ported (a tp mesh is:
+    # tests/test_torch_tp.py).
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        with pytest.raises(NotImplementedError, match="ROADMAP A item 11c"):
+            tl.prefill(tp, tcfg, toks, torch.tensor([4]),
+                       mesh=build_mesh(MeshConfig(sp=2)))
+    finally:
+        dist.destroy_process_group()
 
 
 def test_init_params_shapes_and_tied_head():

@@ -15,6 +15,16 @@ from kubeai_tpu_torch.ops import attention as tattn
 from kubeai_tpu_torch.ops import norms as tnorms
 from kubeai_tpu_torch.ops import rope as trope
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side runs thousands of tiny ops: one intra-op thread
+    keeps them from spinning against the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = 1e-5
 
 SCALINGS = [

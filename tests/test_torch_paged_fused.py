@@ -16,6 +16,16 @@ from kubeai_tpu.ops import paged_attention as jpa
 from kubeai_tpu_torch.ops import paged_attention as tpa
 from torch_split_walk import emulate_split_walk
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side runs thousands of tiny ops: one intra-op thread
+    keeps them from spinning against the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B, KVH, G, D, PAGE, MP = 3, 2, 4, 32, 8, 4
 H = KVH * G
 P = 1 + B * MP

@@ -35,6 +35,16 @@ from kubeai_tpu_torch.ops.attention import chunked_prefill_attention
 from kubeai_tpu_torch.parity import params_from_numpy
 from kubeai_tpu_torch.routing.prefixchain import CHAIN_SEED_PREFIX, page_hash_chain
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side runs thousands of tiny ops: one intra-op thread
+    keeps them from spinning against the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = 1e-4  # f32 on both sides (tests/conftest.py pins JAX matmuls to f32)
 V = 512  # LlamaConfig.tiny() vocabulary
 

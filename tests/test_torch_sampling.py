@@ -13,6 +13,16 @@ import torch
 from kubeai_tpu.engine import sampling as js
 from kubeai_tpu_torch.engine import sampling as ts
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side runs thousands of tiny ops: one intra-op thread
+    keeps them from spinning against the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N = 300
 
 

@@ -25,6 +25,16 @@ from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
 from kubeai_tpu_torch.models import llama as tl
 from kubeai_tpu_torch.parity import params_from_numpy
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side runs thousands of tiny ops: one intra-op thread
+    keeps them from spinning against the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ENGINE = dict(num_slots=4, max_seq_len=256, page_size=16, decode_chunk=4)
 REQUESTS = [
     ("/v1/chat/completions", {

@@ -70,6 +70,16 @@ from kubeai_tpu_torch.models import llama as tl
 from kubeai_tpu_torch.models.registry import get_model_family
 from kubeai_tpu_torch.parity import params_from_numpy
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side runs thousands of tiny ops: one intra-op thread
+    keeps them from spinning against the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # /v1/state keys of features the port does not serve yet: none since the

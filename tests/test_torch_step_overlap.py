@@ -38,6 +38,16 @@ from kubeai_tpu_torch.fleet.profiler import PHASES, StepProfiler, phase_totals
 from kubeai_tpu_torch.models import llama as tl
 from kubeai_tpu_torch.parity import params_from_numpy
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side runs thousands of tiny ops: one intra-op thread
+    keeps them from spinning against the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOK = ByteTokenizer()
 BASE = dict(num_slots=4, max_seq_len=128, page_size=16, decode_chunk=4)
 # Five prompts for four slots: the fifth waits for a slot, so admission
