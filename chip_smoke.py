@@ -272,6 +272,32 @@ Phases, each fatal on failure:
                its bytes bound, a 512-bucket admission's device ms (B2 8
                launches), the MoE blocks' share of each, the weights' GiB
                and the peak memory;
+  4g. serve_sharded_cli — the entry point over ranks: checkpoints at the
+               8B width (4 of 32 layers) and Mixtral-8x7B's (2 layers);
+               `--tpu-topology 1x1` (world 1 over NCCL, graphs) bit-equal
+               to no topology, both in the fused layout from
+               KUBEAI_TPU_DECODE_KERNEL (B4 must launch); `--tpu-topology
+               2x2` (four gloo ranks sharing the card, default flags: an
+               adapter loaded through the lockstep broadcast and used)
+               and Mixtral over `1x2`, each one request at a time (unary
+               and streamed, greedy and seeded), with the lockstep
+               refusals of /v1/embeddings and kubeai_resume, /v1/state's
+               slice and SIGTERM ending every rank with exit 0. Gates:
+               every rank's stream digest equal; each rank's heads (H=8,
+               KVH=2 at 2x2), and its B2 and B1 launches (its wrappers'
+               counts in its log); rank 0's streams equal to in-process
+               engines over the same ranks (`sharded_ref_rank`, at 2x2
+               also in the fused layout and at speculate=4: ranks'
+               streams identical, B4 and B3 launching at the rank's
+               heads), whose torch.profiler shows B2 and B1 at those
+               heads. Then world 1 over NCCL in-process (per_layer and
+               speculate=4 in graphs, bit-equal to no mesh, the
+               collectives' device ms), whose first prefill logits and
+               an f32 CPU reference hold the 2x2 ranks' logits (max
+               |err| against f32 within 2x world 1's). Prints seconds to
+               Ready, each rank's weight GiB and peak host RSS and ms a
+               served token (the gloo parts' are time-sliced ranks on
+               one card, not a speed);
   5. serve_cli — the engine Pod's entry point: a random-weight Llama
                checkpoint at Llama-3-8B width (4 layers, bf16) written with
                `weights.save_safetensors`, uploaded to a fake S3 on
@@ -287,8 +313,7 @@ Phases, each fatal on failure:
                default config with --snapshot-no-publish must miss and
                load in full (events published, restored, absent; seconds
                to Ready, every phase, restore GB/s against load GB/s
-               through the fake S3). Then the fused layout through
-               KUBEAI_TPU_DECODE_KERNEL, `--speculate 4 --draft-url`
+               through the fake S3). Then `--speculate 4 --draft-url`
                with a 2-layer draft checkpoint at the same width written
                beside it, and `--quantization int8`, which must log the
                weights' GiB; each run: the four chat requests
@@ -5685,10 +5710,11 @@ def _get(port: int, path: str) -> tuple[int, str]:
 
 # The CLI runs of serve_cli: (label, extra flags, extra environment, the
 # in-process engine's EngineConfig settings for the same run). The default
-# runs B1 and B2; speculation runs B3 in every decode call; the fused
-# layout, chosen by the environment as an engine Pod would, runs B4.
-# "{draft}" in the flags is the draft checkpoint's directory, "{s3}" the
-# checkpoint's URL on a fake S3, "{gs}" a snapshot bucket on a fake GCS
+# runs B1 and B2; speculation runs B3 in every decode call. (The fused
+# layout chosen by the environment, B4, is served through the CLI by
+# serve_sharded_cli's part (a).) "{draft}" in the flags is the draft
+# checkpoint's directory, "{s3}" the checkpoint's URL on a fake S3, "{gs}"
+# a snapshot bucket on a fake GCS
 # and "{work}" the run's own staging directory. The first three runs are
 # the object-store boots: a full load that publishes its snapshot after
 # the warm-up; the same flags from a copy of the package whose build/ is
@@ -5702,7 +5728,6 @@ CLI_RUNS = (
     ("speculate", [*SPEC_FLAGS, *BOOT_FLAGS], {}, SPEC_CONFIG),
     ("restored", [*SPEC_FLAGS, *BOOT_FLAGS], {}, SPEC_CONFIG),
     ("default", [*BOOT_FLAGS, "--snapshot-no-publish"], {}, dict(decode_kernel="per_layer")),
-    ("fused", [], {"KUBEAI_TPU_DECODE_KERNEL": "fused"}, dict(decode_kernel="fused")),
     ("draft", ["--speculate", "4", "--spec-adaptive", "off", "--draft-url", "{draft}"], {},
      dict(decode_kernel="per_layer", speculate=4, spec_adaptive=False)),
     ("int8", ["--quantization", "int8"], {}, dict(decode_kernel="per_layer", quantization="int8")),
@@ -6290,14 +6315,14 @@ def serve_cli() -> None:
     checkpoint at Llama-3-8B width (CLI_LAYERS layers, bf16) with
     `weights.save_safetensors` into a temporary directory, uploads it to a
     fake S3 (FakeBucket, with a PEFT adapter) and serves it with `python -m
-    kubeai_tpu_torch.engine.server` six times (`cli_run`, CLI_RUNS): the
+    kubeai_tpu_torch.engine.server` five times (`cli_run`, CLI_RUNS): the
     object-store boots (`--speculate 4` from s3:// with a gs:// snapshot
     bucket on a fake GCS, publishing; the same again from a copy of the
     package with an empty build/, restoring, which also loads the adapter
     through lora_url s3://; the default config with --snapshot-no-publish,
-    missing; gated by `check_boots`), the fused layout from the
-    environment, `--speculate 4 --draft-url` with a 2-layer draft
-    checkpoint written beside it, and `--quantization int8`. Then it loads
+    missing; gated by `check_boots`), `--speculate 4 --draft-url` with a
+    2-layer draft checkpoint written beside it, and `--quantization
+    int8`. Then it loads
     the same checkpoint in-process with `weights.load_params` on the card
     and builds an engine of each run's configuration on it. Gates, besides
     `cli_run`'s: the loaded tensors bit-equal to those written; each run's
@@ -7623,7 +7648,7 @@ def serve_whisper() -> None:
         torch.cuda.empty_cache()
 
 
-# ---- phase 4g: serve_tp, tensor and expert parallelism -------------------------
+# ---- phase 4g: serve_sharded_cli, sharded serving through the entry point -----
 
 # The catalog's sharded entries at one rank's widths (D=128): Llama-3-8B at
 # tp=4 (llama-3.1-8b-instruct-tpu) and tp=8, the 70B at tp=8 (one KV head a
@@ -7692,83 +7717,104 @@ def check_rank_local_kernels() -> dict:
     return out
 
 
-# serve_tp: Llama-3-8B's width at TP_LAYERS of 32 layers (the 8B's
-# catalog entry runs tp=4) and Mixtral-8x7B's at TP_MIXTRAL_LAYERS (its
-# experts over tp=2), weights drawn from TP_SEED, four requests each.
-TP_WORLD = 4
-TP_LAYERS = SHALLOW_LAYERS
-TP_MIXTRAL_WORLD = 2
-TP_MIXTRAL_LAYERS = 2
-TP_SEED = 21
-TP_CONFIG = dict(num_slots=4, max_seq_len=1024, page_size=64, decode_chunk=4)
-# run -> (engine settings, the decode kernel's wrapper, its kernel's name in
-# a profile). B2 launches at every admission in each.
-TP_RUNS = {
-    "per_layer": (dict(decode_kernel="per_layer"), "paged_decode_attention",
-                  "paged_decode_combine_kernel"),
+# serve_sharded_cli: the entry point over ranks. Llama-3-8B's width at
+# SHARDED_LAYERS of 32 layers (its catalog entry runs tp=4) and
+# Mixtral-8x7B's at MIXTRAL_CLI_LAYERS (its experts over tp=2), from
+# checkpoints written with `weights.save_safetensors`. NCCL refuses two
+# ranks on one card ("Duplicate GPU detected", `report_nccl_one_card`), so
+# the sharded parts run their ranks over gloo, time-sliced on the card:
+# their times are no parallel speed. Their eager steps over gloo cost
+# time in proportion to depth: the parts take serve_cli's 4 layers.
+SHARDED_LAYERS = CLI_LAYERS
+SHARDED_CONFIG = dict(CLI_CONFIG, num_hidden_layers=SHARDED_LAYERS)
+# The 8B entry's --num-slots 64 --max-seq-len 8192 pools do not fit one
+# card next to four ranks: the served parts take the CLI runs' 8 x 2048.
+SHARDED_FLAGS = ["--num-slots", "8", "--max-seq-len", "2048", "--drain-timeout", "30",
+                 "--watchdog-timeout", "120"]
+SHARDED_ENGINE = dict(num_slots=8, max_seq_len=2048, max_adapters=4, step_overlap="off",
+                      decode_kernel="per_layer")
+# (label, flags, checkpoint, ranks, adapter): the sharded parts (b) and (c).
+SHARDED_PARTS = (
+    ("2x2", ["--tpu-topology", "2x2"], "llama", 4, True),
+    ("mixtral 1x2", ["--tpu-topology", "1x2"], "mixtral", 2, False),
+)
+# A served part's limit, its ranks included (the group is killed past it).
+SHARDED_TIMEOUT_S = 420
+
+
+def _sharded_bodies() -> list[dict]:
+    """The served parts' requests, sent one at a time so that each is
+    admitted alone, as the in-process reference admits it: greedy unary,
+    seeded streamed and greedy streamed, 8 tokens each."""
+    text = "The quick brown fox jumps over the lazy dog. "
+    return [
+        {"messages": [{"role": "user", "content": "Hello there"}], "max_tokens": 8,
+         "temperature": 0},
+        {"messages": [{"role": "user", "content": (text * 3)[:100]}], "max_tokens": 8,
+         "temperature": 0.8, "seed": 1, "stream": True},
+        {"messages": [{"role": "user", "content": (text * 7)[:300]}], "max_tokens": 8,
+         "temperature": 0, "stream": True},
+    ]
+
+
+ADAPTER_BODY = {"model": "tenant", "messages": [{"role": "user", "content": "Hello there"}],
+                "max_tokens": 8, "temperature": 0}
+
+
+def _request_specs(adapter: bool) -> list[tuple[list[int], dict, str | None]]:
+    """(prompt ids, sampling kwargs, adapter) of each served request, as
+    the server's ByteTokenizer chat template encodes it."""
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    bodies = _sharded_bodies() + ([ADAPTER_BODY] if adapter else [])
+    return [(tok.apply_chat_template(b["messages"]),
+             dict(temperature=b["temperature"], max_tokens=b["max_tokens"], seed=b.get("seed")),
+             "tenant" if b.get("model") == "tenant" else None) for b in bodies]
+
+
+# The in-process references' runs over the served part's ranks: run ->
+# (engine settings over SHARDED_ENGINE, the decode kernel's wrapper, its
+# kernel's name in a profile, its launches a program call in layers).
+# per_layer is the served configuration and runs every served request;
+# the fused layout and speculate=4 run the first, a greedy base request
+# (2x2 only).
+SHARDED_REF_RUNS = {
+    "per_layer": ({}, "paged_decode_attention", "paged_decode_combine_kernel", 8),
     "fused": (dict(decode_kernel="fused"), "paged_decode_attention_fused",
-              "paged_fused_combine_kernel"),
-    "speculate": (dict(decode_kernel="per_layer", speculate=4, spec_adaptive=False),
-                  "paged_verify_attention", "paged_verify_split_kernel"),
+              "paged_fused_combine_kernel", 8),
+    "speculate": (dict(speculate=4, spec_adaptive=False), "paged_verify_attention",
+                  "paged_verify_split_kernel", 1),
 }
 # The first prefill's logits of a sharded engine against world 1's, both
 # in bf16, each held against the same weights in f32 on the CPU. Sharding
 # moves where bf16 rounds (each rank's partial sum of a row-parallel
 # product is rounded before the f32 all_reduce, where world 1 rounds the
 # whole product once), not how coarsely: its max |err| against f32 may be
-# at most TP_ERR_FACTOR times world 1's own.
-TP_ERR_FACTOR = 2.0
-# A rank's own limit; the whole world's runs under it.
-TP_RANK_TIMEOUT_S = 360
+# at most SHARDED_ERR_FACTOR times world 1's own.
+SHARDED_ERR_FACTOR = 2.0
+# World 1 over NCCL (`sharded_world1`): the engine PR 26's serve_tp ran.
+WORLD1_ENGINE = dict(num_slots=4, max_seq_len=1024, page_size=64, decode_chunk=4)
 
 
-def _tp_requests(vocab: int) -> list[tuple[list[int], dict]]:
-    """Four requests of 28, 60, 117 and 120 tokens drawn from a seed (three
-    prefill buckets): the second seeded, the rest greedy, 8 tokens each.
-    Each forward of a gloo rank waits on its collectives through the host,
-    so the runs are short."""
+def _logits_batch(requests):
+    """The first two requests' prompts, each cut to its first 64 tokens
+    and right-padded to 64: (tokens, lengths) on the CPU."""
     import torch
 
-    gen = torch.Generator().manual_seed(TP_SEED)
-    out = []
-    for i, n in enumerate((28, 60, 117, 120)):
-        prompt = torch.randint(1, vocab, (n,), generator=gen).tolist()
-        sp = dict(temperature=0.0, max_tokens=8)
-        if i == 1:
-            sp = dict(temperature=0.8, top_k=40, top_p=0.95, seed=7, max_tokens=8)
-        out.append((prompt, sp))
-    return out
-
-
-def _tp_generate(engine, requests) -> list[list[int]]:
-    from kubeai_tpu_torch.engine import SamplingParams
-
-    rids = [engine.add_request(p, SamplingParams(**sp)) for p, sp in requests]
-    out = {rid: [] for rid in rids}
-    while engine.has_work():
-        for ev in engine.step():
-            out[ev.rid].append(ev.token)
-    return [out[rid] for rid in rids]
-
-
-def _tp_prefill_batch(requests):
-    """The requests' first 2 prompts (28 and 60 tokens), right-padded to 64:
-    (tokens, lengths) on the CPU."""
-    import torch
-
-    prompts = [p for p, _ in requests[:2]]
+    prompts = [p[:64] for p, *_ in requests[:2]]
     tokens = torch.zeros((2, 64), dtype=torch.long)
     for i, p in enumerate(prompts):
         tokens[i, :len(p)] = torch.tensor(p)
     return tokens, torch.tensor([len(p) for p in prompts])
 
 
-def _tp_prefill_logits(engine, requests):
-    """The family's prefill over `_tp_prefill_batch` on the engine's params
+def _prefill_logits(engine, requests):
+    """The family's prefill over `_logits_batch` on the engine's params
     and tp group: f32 logits on the CPU."""
     import torch
 
-    tokens, lengths = _tp_prefill_batch(requests)
+    tokens, lengths = _logits_batch(requests)
     kw = {} if engine._tp is None else {"tp": engine._tp}
     with torch.no_grad():
         logits, _, _ = engine.family.prefill(engine.params, engine.model_cfg,
@@ -7776,48 +7822,105 @@ def _tp_prefill_logits(engine, requests):
     return logits.float().cpu()
 
 
-def _tp_f32_logits(family: str, cfg, params, requests):
-    """The same prefill on the same weights in f32 on the CPU (the plain
-    versions of the kernels): the reference both bf16 logits are held
-    against."""
-    import dataclasses
+def _generate_each(engine, requests) -> list[list[int]]:
+    """Each (prompt, sampling kwargs, adapter) run alone, in order."""
+    from kubeai_tpu_torch.engine import SamplingParams
+
+    out = []
+    for prompt, sp, adapter in requests:
+        rid = engine.add_request(prompt, SamplingParams(**sp), adapter=adapter)
+        stream = []
+        while engine.has_work():
+            stream += [ev.token for ev in engine.step() if ev.rid == rid]
+        out.append(stream)
+    return out
+
+
+def sharded_ref_rank(spec_path: str, rank: int) -> None:
+    """One rank of an in-process reference for a served part (a process of
+    its own, over gloo with the others on the card): the spec's checkpoint
+    loaded rank-locally (`weights.ShardPlan`) into an engine of each of
+    the spec's runs (SHARDED_REF_RUNS) on the same params; per_layer, the
+    served configuration, runs each served request alone in order (the
+    adapter loaded from its PEFT directory first) and the first prefill's
+    logits (`_logits_batch`), the other runs the first request; then one
+    torch.profiler pass over one admission and one call of each run's
+    decode program. Writes its streams, launch counts and heads beside the
+    spec, and its logits in a file of their own."""
+    import datetime
 
     import torch
+    import torch.distributed as dist
 
-    from kubeai_tpu_torch.models import llama, mixtral
+    from kubeai_tpu_torch.engine import Engine, EngineConfig
+    from kubeai_tpu_torch.engine.lora_weights import load_peft_adapter
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from kubeai_tpu_torch.engine.weights import ShardPlan, load_hf_config, load_params
+    from kubeai_tpu_torch.models.registry import get_model_family
+    from kubeai_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 
-    def cpu(tree):
-        if isinstance(tree, dict):
-            return {k: cpu(v) for k, v in tree.items()}
-        return tree.float().cpu()
-
-    model = mixtral if family == "mixtral" else llama
-    tokens, lengths = _tp_prefill_batch(requests)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    world = spec["world"]
+    torch.cuda.set_device(0)
     t0 = time.perf_counter()
-    with torch.no_grad():
-        logits, _, _ = model.prefill(cpu(params), dataclasses.replace(cfg, dtype=torch.float32),
-                                     tokens, lengths)
-    print(f"serve_tp {family}: the f32 reference prefill on the CPU took "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    return logits
+    dist.init_process_group("gloo", init_method=f"file://{spec['rendezvous']}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=SHARDED_TIMEOUT_S))
+    try:
+        phases = {"group": time.perf_counter() - t0}
+        mesh = build_mesh(MeshConfig(tp=world))
+        hf = load_hf_config(spec["model_dir"])
+        family = get_model_family(hf["architectures"][0])
+        cfg = family.config_from_hf(hf)
+        params = load_params(family.name, spec["model_dir"], cfg, device="cuda",
+                             shard=ShardPlan(family, cfg, mesh))
+        engines = {run: Engine(family, cfg, params, mesh=mesh, presharded=True,
+                               eos_token_ids=ByteTokenizer().eos_token_ids,
+                               cfg=EngineConfig(**{**SHARDED_ENGINE,
+                                                   **SHARDED_REF_RUNS[run][0]}))
+                   for run in spec["runs"]}
+        engine = engines["per_layer"]
+        out = {"rank": rank, "runs": {}, "kv_heads": engine.cache.k_pages.shape[-2],
+               "q_columns": engine.params["layers"]["wq"].shape[-1], "phases": phases}
+        phases["load and build"] = time.perf_counter() - t0 - phases["group"]
+        t = time.perf_counter()
+        torch.save(_prefill_logits(engine, spec["requests"]), f"{spec['out']}.rank{rank}.pt")
+        if spec["adapter_dir"]:
+            engine.load_adapter("tenant", load_peft_adapter(
+                spec["adapter_dir"], cfg, max_rank=engine.cfg.max_lora_rank))
+        for run, eng in engines.items():
+            _zero_launches(eng)
+            requests = spec["requests"] if run == "per_layer" else spec["requests"][:1]
+            out["runs"][run] = {"streams": _generate_each(eng, requests),
+                                "launches": {k: v for k, v in _launches(eng).items() if v}}
+        out["streams"] = out["runs"]["per_layer"]["streams"]
+        out["launches"] = out["runs"]["per_layer"]["launches"]
+        phases["requests"] = time.perf_counter() - t
+        t = time.perf_counter()
+        toks = torch.tensor([spec["requests"][-1][0]], device="cuda")
 
+        def admission_and_calls():
+            engine.family.prefill(engine.params, cfg, toks,
+                                  torch.tensor([toks.shape[1]], device="cuda"), tp=engine._tp)
+            for run, eng in engines.items():
+                (eng._spec_program if run == "speculate" else eng._decode_program).fn()
 
-def _tp_model(family: str, num_layers: int):
-    """(config, params) of `family` at its catalog width and `num_layers`,
-    drawn on the card from TP_SEED."""
-    import dataclasses
-
-    import torch
-
-    from kubeai_tpu_torch.models import llama, mixtral
-
-    if family == "mixtral":
-        cfg = mixtral.MixtralConfig(**dict(MIXTRAL_8X7B, num_layers=num_layers))
-        init = mixtral.init_params
-    else:
-        cfg = dataclasses.replace(llama.LlamaConfig(), num_layers=num_layers)
-        init = llama.init_params
-    return cfg, init(cfg, torch.Generator("cuda").manual_seed(TP_SEED), device="cuda")
+        counts = _kernel_counts(admission_and_calls, ["flash_prefill_kernel"] + [
+            SHARDED_REF_RUNS[run][2] for run in engines])
+        phases["profile"] = time.perf_counter() - t
+        out["b2_per_admission"] = counts["flash_prefill_kernel"]
+        for run in engines:
+            out["runs"][run]["walk_per_call"] = counts[SHARDED_REF_RUNS[run][2]]
+        out["num_layers"] = cfg.num_layers
+        out["seconds"] = time.perf_counter() - t0
+        out["written"] = time.time()
+        path = f"{spec['out']}.rank{rank}.json"
+        with open(f"{path}.tmp", "w") as f:
+            json.dump(out, f)
+        os.replace(f"{path}.tmp", path)
+    finally:
+        dist.destroy_process_group()
 
 
 def _kernel_counts(fn, names) -> dict:
@@ -7834,108 +7937,28 @@ def _kernel_counts(fn, names) -> dict:
     return {n: sum(e.count for e in rows if n in e.key) for n in names}
 
 
-def tp_rank(spec_path: str, rank: int) -> None:
-    """One rank of serve_tp's sharded runs (a process of its own, over
-    gloo with the others on the one card): the spec's model drawn once
-    from TP_SEED, each run's engine built on the mesh from the full params
-    (which it cuts to this rank's shard), the four requests and the
-    wrapper launch counts of each run; then, in one torch.profiler pass
-    (gloo collectives cannot be captured, so every call is eager), B2's
-    launches over one admission and each run's decode kernel's over one
-    call of its device program; the first prefill's logits, memory and
-    seconds (`phases`). Writes its results next to the spec."""
-    import datetime
-
-    import torch
-    import torch.distributed as dist
-
-    from kubeai_tpu_torch.engine import Engine, EngineConfig
-    from kubeai_tpu_torch.engine.quantization import weight_bytes
-    from kubeai_tpu_torch.parallel.mesh import MeshConfig, build_mesh
-
-    with open(spec_path) as f:
-        spec = json.load(f)
-    world = spec["world"]
-    torch.cuda.set_device(0)
-    t0 = time.perf_counter()
-    dist.init_process_group("gloo", init_method=f"file://{spec['rendezvous']}", rank=rank,
-                            world_size=world,
-                            timeout=datetime.timedelta(seconds=TP_RANK_TIMEOUT_S))
-    try:
-        mesh = build_mesh(MeshConfig(tp=world))
-        requests = _tp_requests(spec["vocab"])
-        out = {"rank": rank, "runs": {}, "phases": {"group": time.perf_counter() - t0}}
-        t = time.perf_counter()
-        cfg, params = _tp_model(spec["family"], spec["num_layers"])
-        out["full_weight_bytes"] = weight_bytes(params)
-        out["phases"]["draw"] = time.perf_counter() - t
-        engines = {}
-        for run, (extra, _, _) in TP_RUNS.items():
-            if run not in spec["runs"]:
-                continue
-            t = time.perf_counter()
-            engine = engines[run] = Engine(spec["family"], cfg, params, mesh=mesh,
-                                           cfg=EngineConfig(**TP_CONFIG, **extra))
-            res = out["runs"][run] = {
-                "build_s": time.perf_counter() - t,
-                "weight_bytes": weight_bytes(engine.params),
-                "allocated": torch.cuda.memory_allocated(),
-                "kv_heads": engine.cache.k_pages.shape[-2],
-                "q_columns": engine.params["layers"]["wq"].shape[-1],
-                "graphs": engine._decode_program.graph is not None}
-            if run == "per_layer":
-                res["logits"] = _tp_prefill_logits(engine, requests).tolist()
-            _zero_launches(engine)
-            t = time.perf_counter()
-            res["streams"] = _tp_generate(engine, requests)
-            res["generate_s"] = time.perf_counter() - t
-            res["launches"] = {k: v for k, v in _launches(engine).items() if v}
-        first = next(iter(engines.values()))
-        toks = torch.tensor([requests[2][0]], device="cuda")
-
-        def admission_and_calls():
-            first.family.prefill(first.params, cfg, toks,
-                                 torch.tensor([toks.shape[1]], device="cuda"), tp=first._tp)
-            for run, engine in engines.items():
-                (engine._spec_program if run == "speculate" else engine._decode_program).fn()
-
-        t = time.perf_counter()
-        counts = _kernel_counts(admission_and_calls, ["flash_prefill_kernel"] + [
-            TP_RUNS[run][2] for run in engines])
-        out["phases"]["profile"] = time.perf_counter() - t
-        out["b2_per_admission"] = counts["flash_prefill_kernel"]
-        for run in engines:
-            out["runs"][run]["walk_per_call"] = counts[TP_RUNS[run][2]]
-        out["peak_allocated"] = torch.cuda.max_memory_allocated()
-        del engines, first, admission_and_calls, params
-        out["seconds"] = time.perf_counter() - t0
-        path = f"{spec['out']}.rank{rank}.json"
-        with open(f"{path}.tmp", "w") as f:
-            json.dump(out, f)
-        os.replace(f"{path}.tmp", path)
-    finally:
-        dist.destroy_process_group()
-
-
-def _start_world(family: str, num_layers: int, world: int, vocab: int, runs,
-                 tmp: str) -> dict:
-    """Start serve_tp's sharded runs of `family` over `world` gloo ranks on
-    the card: each rank a `timeout`ed process in its own session, its
-    output in a log beside the spec."""
-    spec = dict(family=family, num_layers=num_layers, world=world, vocab=vocab,
-                runs=list(runs), rendezvous=os.path.join(tmp, f"rdv_{family}"),
-                out=os.path.join(tmp, f"tp_{family}"))
-    spec_path = os.path.join(tmp, f"tp_{family}.json")
+def _start_ref_world(label: str, model_dir: str, world: int, requests, adapter_dir,
+                     runs, tmp: str) -> dict:
+    """Start a served part's in-process reference (`runs` of
+    SHARDED_REF_RUNS) over `world` gloo ranks on the card: each rank a
+    `timeout`ed process in its own session, its output in a log beside
+    the spec."""
+    tag = label.replace(" ", "_")
+    spec = dict(model_dir=model_dir, world=world, requests=requests, adapter_dir=adapter_dir,
+                runs=list(runs), rendezvous=os.path.join(tmp, f"rdv_{tag}"),
+                out=os.path.join(tmp, f"ref_{tag}"))
+    spec_path = os.path.join(tmp, f"ref_{tag}.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
-    w = dict(family=family, out=spec["out"], procs=[], logs=[], t0=time.perf_counter())
+    w = dict(label=label, out=spec["out"], procs=[], logs=[], t0=time.perf_counter(),
+             wall0=time.time())
     for rank in range(world):
         log_path = f"{spec['out']}.rank{rank}.log"
         w["logs"].append(log_path)
         with open(log_path, "w") as log:
             w["procs"].append(subprocess.Popen(
-                ["timeout", "-k", "10", str(TP_RANK_TIMEOUT_S), sys.executable, "-c",
-                 f"import chip_smoke as c; c.tp_rank({spec_path!r}, {rank})"],
+                ["timeout", "-k", "10", str(SHARDED_TIMEOUT_S), sys.executable, "-c",
+                 f"import chip_smoke as c; c.sharded_ref_rank({spec_path!r}, {rank})"],
                 stdout=log, stderr=subprocess.STDOUT, start_new_session=True))
     return w
 
@@ -7953,254 +7976,513 @@ def _kill_worlds(worlds) -> None:
 
 
 def _finish_worlds(worlds) -> list:
-    """Wait for every rank of `worlds`: the first to fail (or the time
-    limit) ends them all. Returns each world's results, in rank order."""
+    """Wait until every rank of `worlds` has written its results: the first
+    to fail (or the time limit) ends them all. A rank's exit after its
+    results (CUDA and CUPTI teardown, ~35 s a rank on a busy host) is not
+    waited for: every rank still running is killed. Returns each world's
+    results, in rank order."""
     t0 = min(w["t0"] for w in worlds)
     failed = None
+
+    def written(w) -> bool:
+        return all(os.path.exists(f"{w['out']}.rank{r}.json") for r in range(len(w["procs"])))
+
     try:
-        # Poll every rank each round (any() would stop at the first alive).
-        while failed is None and None in [p.poll() for w in worlds for p in w["procs"]]:
-            failed = next(((w, r, p.returncode) for w in worlds
-                           for r, p in enumerate(w["procs"])
-                           if p.returncode not in (None, 0)), None)
+        while failed is None and not all(written(w) for w in worlds):
+            # Poll every rank each round (any() would stop at the first alive).
+            codes = [[p.poll() for p in w["procs"]] for w in worlds]
+            failed = next(((w, r, code) for w, cs in zip(worlds, codes)
+                           for r, code in enumerate(cs) if code not in (None, 0)), None)
             for w in worlds:
-                if "seconds" not in w and all(p.poll() is not None for p in w["procs"]):
+                if "seconds" not in w and written(w):
                     w["seconds"] = time.perf_counter() - w["t0"]
-            if time.perf_counter() - t0 > TP_RANK_TIMEOUT_S + 30:
+            if time.perf_counter() - t0 > SHARDED_TIMEOUT_S + 30:
                 failed = (worlds[0], 0, "the time limit")
             time.sleep(0.2)
-        failed = failed or next(((w, r, p.returncode) for w in worlds
-                                 for r, p in enumerate(w["procs"]) if p.returncode != 0),
-                                None)
+        for w in worlds:
+            w.setdefault("seconds", time.perf_counter() - w["t0"])
     finally:
         _kill_worlds(worlds)
     if failed is not None:
         w, rank, code = failed
         with open(w["logs"][rank]) as f:
             tail = f.read()[-3000:]
-        fail(f"serve_tp {w['family']}: rank {rank} ended with {code}:\n{tail}")
+        fail(f"serve_sharded_cli {w['label']} reference: rank {rank} ended with {code}:\n{tail}")
     out = []
     for w in worlds:
-        print(f"serve_tp {w['family']}: {len(w['procs'])} ranks on the card in "
-              f"{w.get('seconds', time.perf_counter() - w['t0']):.2f} s", flush=True)
         ranks = []
         for rank in range(len(w["procs"])):
             with open(f"{w['out']}.rank{rank}.json") as f:
                 ranks.append(json.load(f))
         out.append(ranks)
+        print(f"serve_sharded_cli {w['label']} reference: {len(w['procs'])} ranks on the card "
+              f"in {w.get('seconds', time.perf_counter() - w['t0']):.2f} s; each rank's "
+              f"seconds from its process start to its results written: "
+              f"{[round(r['written'] - w['wall0'], 2) for r in ranks]}, of them in the "
+              f"function {[round(r['seconds'], 2) for r in ranks]}", flush=True)
     return out
 
 
-def _tp_gates(family: str, ranks: list, ref: dict, num_heads: int, num_kv_heads: int) -> None:
-    """Every rank's streams identical; the first prefill's logits no
-    further from the f32 reference than TP_ERR_FACTOR times world 1's
-    (their distance to world 1's printed); the share of greedy
-    tokens equal to world 1's (printed, not gated); B2 num_layers times an
-    admission and the run's decode kernel in every run, at the rank's
-    heads; memory and seconds per rank."""
+def sharded_cli_run(model_dir: str, label: str, flags: list, ranks: int,
+                    adapter_dir: str | None = None, root: str | None = None,
+                    env_extra: dict | None = None, running: list | None = None) -> dict:
+    """`python -m kubeai_tpu_torch.engine.server` with `flags` in a
+    subprocess of its own session under `timeout` (its spawned ranks in
+    that session too), from the checkout or from `root`, a copy of the
+    package, with `env_extra` in its environment (its process appended to
+    `running`, whose caller kills what a failure elsewhere leaves): ready, the `_sharded_bodies` one at a time (all 200), with
+    `adapter_dir` a PEFT adapter loaded through /v1/load_lora_adapter and
+    a request that names it; with more than one rank the lockstep
+    refusals of /v1/embeddings and `kubeai_resume` (400, the JAX server's
+    words) and /v1/state.parallel; then SIGTERM, which must end the
+    process (and its ranks) with exit 0 within the drain budget. On any
+    failure the group is killed. Returns each request's tokens (streamed
+    ids, or the unary text), seconds to Ready, ms a served token,
+    and the log's rank lines."""
+    import signal
+    import tempfile
+
+    # --port 0: the server binds a port the kernel picks and logs it. A
+    # port probed here would stay free only until the server binds it,
+    # after its load: the ranks' gloo and NCCL sockets beside it took one
+    # such port once on the card.
+    cmd = [sys.executable, "-m", "kubeai_tpu_torch.engine.server", "--model-url", model_dir,
+           "--port", "0", *SHARDED_FLAGS, *flags]
+    print(f"serve_sharded_cli {label} command: {' '.join(cmd[1:])}", flush=True)
+    here = root or os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "KUBEAI_TPU_DECODE_KERNEL"}
+    env.update(env_extra or {}, PYTHONPATH=here)
+    log_fd, log_path = tempfile.mkstemp(prefix="kubeai-sharded-", suffix=".log")
+    proc = None
+
+    def tail(n: int = 40) -> str:
+        with open(log_path) as f:
+            return "".join(f.readlines()[-n:])
+
+    try:
+        t_start = time.perf_counter()
+        # --foreground: SIGTERM reaches the server once (not its ranks
+        # through the group); a failure kills the whole session below.
+        proc = subprocess.Popen(["timeout", "--foreground", "-k", "10", str(SHARDED_TIMEOUT_S),
+                                 *cmd], cwd=here,
+                                env=env, stdout=log_fd, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        if running is not None:
+            running.append(proc)
+        port = None
+        while True:
+            if proc.poll() is not None:
+                fail(f"serve_sharded_cli {label}: the server exited {proc.returncode} before "
+                     f"it was ready:\n{tail()}")
+            if port is None:
+                with open(log_path) as f:
+                    said = re.search(r"engine serving on \S+:(\d+)", f.read())
+                port = int(said.group(1)) if said else None
+            try:
+                if port is not None and _get(port, "/health")[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.perf_counter() - t_start > SHARDED_TIMEOUT_S - 60:
+                fail(f"serve_sharded_cli {label}: not ready in time:\n{tail()}")
+            time.sleep(0.25)
+        ready_s = time.perf_counter() - t_start
+        bodies = _sharded_bodies()
+        if adapter_dir is not None:
+            status, res, _, _ = _post(port, {"lora_name": "tenant", "lora_path": adapter_dir},
+                                      path="/v1/load_lora_adapter")
+            if (status, res) != (200, {"status": "loaded", "lora_name": "tenant"}):
+                fail(f"serve_sharded_cli {label}: the adapter load got HTTP {status} {res}")
+            bodies.append(ADAPTER_BODY)
+        tokens, served_s, served_n = [], 0.0, 0
+        for i, body in enumerate(bodies):
+            status, res, _, total_s = _post(port, body)
+            if status != 200:
+                fail(f"serve_sharded_cli {label} request {i}: HTTP {status} {res}")
+            if body.get("stream"):
+                if not res["done"]:
+                    fail(f"serve_sharded_cli {label} request {i}: no [DONE]")
+                got = res["token_ids"]
+            else:
+                got = res["choices"][0]["message"]["content"]
+            tokens.append(got)
+            served_s += total_s
+            served_n += res["usage"]["completion_tokens"] if isinstance(got, str) else len(got)
+        state = json.loads(_get(port, "/v1/state")[1])
+        refusals = {}
+        if ranks > 1:
+            if state.get("parallel", {}).get("ranks") != ranks:
+                fail(f"serve_sharded_cli {label}: /v1/state.parallel {state.get('parallel')}")
+            e_status, e_res, _, _ = _post(port, {"input": ["hello"], "model": "model"},
+                                          path="/v1/embeddings")
+            r_status, r_res, _, _ = _post(port, {
+                **bodies[0], "kubeai_resume": {"token_ids": [65], "emitted": 1}})
+            refusals = {"embeddings": (e_status, e_res), "resume": (r_status, r_res)}
+            if e_status != 400 or "multi-host" not in json.dumps(e_res):
+                fail(f"serve_sharded_cli {label}: /v1/embeddings got HTTP {e_status} {e_res}")
+            if r_status != 400 or "multi-host" not in json.dumps(r_res):
+                fail(f"serve_sharded_cli {label}: kubeai_resume got HTTP {r_status} {r_res}")
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            fail(f"serve_sharded_cli {label}: no exit within 60 s of SIGTERM:\n{tail()}")
+        if rc != 0:
+            fail(f"serve_sharded_cli {label}: the server exited {rc} after SIGTERM:\n{tail()}")
+        with open(log_path) as f:
+            log = f.read().splitlines()
+    finally:
+        if proc is not None and proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        os.close(log_fd)
+        os.unlink(log_path)
+
+    def lines(key: str) -> list[str]:
+        return [ln for ln in log if key in ln]
+
+    return {"tokens": tokens, "ready_s": ready_s, "state": state, "refusals": refusals,
+            "ms_per_token": 1e3 * served_s / max(1, served_n), "served_tokens": served_n,
+            "digests": lines("lockstep digest"), "reports": lines(" KVH="),
+            "before_load": lines("loading model"),
+            "launches": lines("kernel launches"), "build": lines("kernel library:"),
+            "cold": lines("warm-up complete")}
+
+
+def _rank_fields(lines: list[str], key: str) -> dict[int, str]:
+    """{rank: the rest of the line after `key` <rank>} of the log lines."""
+    out = {}
+    for ln in lines:
+        m = re.search(rf"{key} (\d+):? (.*)$", ln)
+        if m:
+            out[int(m.group(1))] = m.group(2)
+    return out
+
+
+def _sharded_gates(label: str, run: dict, ranks: int, ref: list | None, heads) -> None:
+    """A sharded part's gates: every rank's digest equal to rank 0's; each
+    rank's heads, weights and peak host RSS (printed); each rank's B2 and
+    B1 launches (its wrappers' counts, in its log); rank 0's served tokens
+    equal to the in-process reference's, whose ranks' torch.profiler shows
+    B2 and B1 at the same heads."""
+    digests = {r: d.split("sha256 ")[-1] for r, d in
+               _rank_fields(run["digests"], "rank").items()}
+    if sorted(digests) != list(range(ranks)) or len(set(digests.values())) != 1:
+        fail(f"serve_sharded_cli {label}: lockstep digests {run['digests']}")
+    reports = _rank_fields(run["reports"], "rank")
+    launches = {r: json.loads(v) for r, v in _rank_fields(run["launches"], "rank").items()}
+    H, KVH = heads
+    for r in range(ranks):
+        if f"H={H} KVH={KVH}" not in reports.get(r, ""):
+            fail(f"serve_sharded_cli {label} rank {r}: {reports.get(r)} is not H={H} KVH={KVH}")
+        got = launches.get(r, {})
+        if not got.get("flash_causal_prefill") or not got.get("paged_decode_attention"):
+            fail(f"serve_sharded_cli {label} rank {r}: launches {got} lack B2 or B1")
+    before = [ln.split("(")[-1].rstrip(")") for ln in run["before_load"]]
+    print(f"serve_sharded_cli {label}: the {ranks} ranks' stream digests equal "
+          f"({list(digests.values())[0][:16]}...); per rank: " + "; ".join(
+              f"rank {r} {reports[r]}, launches since start {json.dumps(launches[r])}"
+              for r in range(ranks)) + f"; before the load: {before}", flush=True)
+    if ref is None:
+        return
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    want = ref[0]["streams"]
+    for i, (have, w) in enumerate(zip(run["tokens"], want)):
+        if have != (ByteTokenizer().decode(w) if isinstance(have, str) else w):
+            fail(f"serve_sharded_cli {label} request {i}: served {have}, the in-process "
+                 f"tp={ranks} engine {w}")
+    for name in ref[0]["runs"]:
+        want_run = ref[0]["runs"][name]["streams"]
+        wrapper, walk, per_layer = SHARDED_REF_RUNS[name][1:]
+        for r in ref:
+            res = r["runs"][name]
+            if res["streams"] != want_run:
+                fail(f"serve_sharded_cli {label} reference {name}: the ranks' streams differ")
+            if not res["launches"].get(wrapper) or not res["launches"].get(
+                    "flash_causal_prefill"):
+                fail(f"serve_sharded_cli {label} reference {name} rank {r['rank']}: launches "
+                     f"{res['launches']} lack {wrapper} or B2")
+            if res["walk_per_call"] != r["num_layers"] * per_layer:
+                fail(f"serve_sharded_cli {label} reference {name} rank {r['rank']}: "
+                     f"{res['walk_per_call']} {walk} launches a program call, not "
+                     f"{r['num_layers'] * per_layer}")
+        print(f"serve_sharded_cli {label} reference {name}: the {ranks} ranks' streams "
+              f"identical ({sum(len(x) for x in want_run)} tokens); {walk} "
+              f"{ref[0]['runs'][name]['walk_per_call']} launches a program call at H={H} "
+              f"KVH={KVH} (torch.profiler, every rank); rank 0's launches "
+              f"{json.dumps(ref[0]['runs'][name]['launches'])}", flush=True)
+    for r in ref:
+        if r["b2_per_admission"] != r["num_layers"]:
+            fail(f"serve_sharded_cli {label} reference rank {r['rank']}: B2 "
+                 f"{r['b2_per_admission']} an admission")
+        if r["q_columns"] != H * 128 or r["kv_heads"] != KVH:
+            fail(f"serve_sharded_cli {label} reference rank {r['rank']}: "
+                 f"{r['q_columns']} q columns, {r['kv_heads']} KV heads")
+    print(f"serve_sharded_cli {label}: rank 0's {len(want)} served streams equal the "
+          f"in-process tp={ranks} engine's token for token (its rank 0's seconds: "
+          f"{json.dumps({k: round(v, 2) for k, v in ref[0]['phases'].items()})}); B2 "
+          f"{ref[0]['b2_per_admission']} launches an admission at H={H} KVH={KVH}", flush=True)
+
+
+def _logits_gate(label: str, out: str, ranks: int, world1: dict) -> None:
+    """Each reference rank's first prefill logits (`<out>.rank<r>.pt`)
+    finite, of world 1's shape, and no further from the f32 CPU reference
+    than SHARDED_ERR_FACTOR times world 1's own."""
     import torch
 
-    world = len(ranks)
-    for run in ranks[0]["runs"]:
-        res = [r["runs"][run] for r in ranks]
-        label = f"serve_tp {family} tp={world} {run}"
-        if any(r["streams"] != res[0]["streams"] for r in res):
-            fail(f"{label}: the ranks' streams differ")
-        if any(r["graphs"] for r in res):
-            fail(f"{label}: a gloo rank captured a graph")
-        wrapper, walk = TP_RUNS[run][1], TP_RUNS[run][2]
-        for rank, r in enumerate(res):
-            if r["kv_heads"] != max(num_kv_heads // world, 1) or \
-                    r["q_columns"] != num_heads // world * 128:
-                fail(f"{label} rank {rank}: {r['kv_heads']} KV heads and {r['q_columns']} "
-                     "q columns are not the rank's")
-            if not r["launches"].get(wrapper) or not r["launches"].get("flash_causal_prefill"):
-                fail(f"{label} rank {rank}: launches {r['launches']} lack {wrapper} or B2")
-            if ranks[rank]["b2_per_admission"] != ref["num_layers"]:
-                fail(f"{label} rank {rank}: {ranks[rank]['b2_per_admission']} B2 launches an "
-                     "admission")
-            want = ref["num_layers"] * (TP_CONFIG["decode_chunk"] if run != "speculate" else 1)
-            if r["walk_per_call"] != want:
-                fail(f"{label} rank {rank}: {r['walk_per_call']} {walk} launches a program "
-                     f"call, not {want}")
-        total = same = 0
-        for have, want, (_, sp) in zip(res[0]["streams"], ref["streams"][run],
-                                       _tp_requests(ref["vocab"])):
-            if sp["temperature"] == 0:
-                total += len(want)
-                same += next((j for j, (x, y) in enumerate(zip(have, want)) if x != y),
-                             min(len(have), len(want)))
-        print(f"{label}: the {world} ranks' streams identical; greedy tokens equal to "
-              f"world 1's up to the first difference: {same} of {total} ({same / total:.3f}); "
-              "per rank: " + "; ".join(
-                  f"rank {i} weights {r['weight_bytes'] / 2**30:.3f} GiB (of "
-                  f"{ranks[i]['full_weight_bytes'] / 2**30:.3f}), allocated "
-                  f"{r['allocated'] / 2**30:.3f} GiB after the build (the full tree and "
-                  f"the earlier runs' engines held beside it), peak "
-                  f"{ranks[i]['peak_allocated'] / 2**30:.3f} GiB, build {r['build_s']:.2f} s, "
-                  f"generate {r['generate_s']:.2f} s, launches {json.dumps(r['launches'])}"
-                  for i, r in enumerate(res)), flush=True)
-        print(f"{label}: B2 {ranks[0]['b2_per_admission']} launches an admission, "
-              f"{walk} {res[0]['walk_per_call']} a program call, at H={num_heads // world} "
-              f"KVH={res[0]['kv_heads']} (torch.profiler, every rank)", flush=True)
-    w1, f32 = torch.tensor(ref["logits"]), ref["f32_logits"]
+    w1, f32 = world1["logits"], world1["f32_logits"]
     w1_err = float((w1 - f32).abs().max())
-    for rank, r in enumerate(ranks):
-        got = torch.tensor(r["runs"]["per_layer"]["logits"])
+    for rank in range(ranks):
+        got = torch.load(f"{out}.rank{rank}.pt")
         if got.shape != w1.shape or not torch.isfinite(got).all():
-            fail(f"serve_tp {family} tp={world} rank {rank}: first prefill logits "
+            fail(f"serve_sharded_cli {label} rank {rank}: first prefill logits "
                  f"{tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}")
         err = float((got - f32).abs().max())
-        if err > TP_ERR_FACTOR * w1_err:
-            fail(f"serve_tp {family} tp={world} rank {rank}: first prefill logits max |err| "
-                 f"{err:.4e} against f32, beyond {TP_ERR_FACTOR} x world 1's {w1_err:.4e}")
+        if err > SHARDED_ERR_FACTOR * w1_err:
+            fail(f"serve_sharded_cli {label} rank {rank}: first prefill logits max |err| "
+                 f"{err:.4e} against f32, beyond {SHARDED_ERR_FACTOR} x world 1's {w1_err:.4e}")
         if rank == 0:
             agree = float((got.argmax(-1) == w1.argmax(-1)).float().mean())
-            print(f"serve_tp {family} tp={world}: first prefill logits max |err| against f32 "
-                  f"on the CPU {err:.4e}, world 1's {w1_err:.4e} (limit {TP_ERR_FACTOR} x); "
+            print(f"serve_sharded_cli {label}: first prefill logits max |err| against f32 on "
+                  f"the CPU {err:.4e}, world 1's {w1_err:.4e} (limit {SHARDED_ERR_FACTOR} x); "
                   f"against world 1 {float((got - w1).abs().max()):.4e}; |logit| up to "
                   f"{float(f32.abs().max()):.3f}; argmax agreement with world 1 {agree:.3f}",
                   flush=True)
-    print(f"serve_tp {family} tp={world}: per-rank seconds "
-          f"{[round(r['seconds'], 2) for r in ranks]}, rank 0's "
-          f"{json.dumps({k: round(v, 2) for k, v in ranks[0]['phases'].items()})}; "
-          f"device ms of the ranks are {world} "
-          f"processes time-sliced on one card; card: {gpu_line()}", flush=True)
 
 
-def _tp_world1(tmp: str) -> dict:
-    """serve_tp part 1: world 1 over NCCL, graphs and overlap. The 8B width
-    at TP_LAYERS, per_layer, fused and speculate=4, with
-    `mesh=build_mesh(MeshConfig())` beside the mesh-free engine: every
-    stream bit-equal, the first prefill's logits bit-equal, and each
-    program's device ms per step from its graph against the mesh-free
-    one's, with the kernels a replay adds (the collectives and their
-    casts). Returns the world-1 reference for part 2."""
+def sharded_world1(model_dir: str, tmp: str) -> dict:
+    """World 1 over NCCL in this process, graphs and overlap: the 8B
+    checkpoint at SHARDED_LAYERS in per_layer and speculate=4, each with
+    `mesh=build_mesh(MeshConfig())` beside the mesh-free engine (the
+    served requests at once): every stream bit-equal, the first prefill's
+    logits bit-equal, and each program's device ms from its graph against
+    the mesh-free one's, with the kernels a replay adds (the collectives
+    and their casts). Returns world 1's first prefill logits and the same
+    prefill in f32 on the CPU, which the 2x2 ranks' logits are held to."""
+    import dataclasses
     import datetime
     import gc
 
     import torch
     import torch.distributed as dist
 
-    from kubeai_tpu_torch.engine import Engine, EngineConfig
+    from kubeai_tpu_torch.engine import Engine, EngineConfig, SamplingParams
+    from kubeai_tpu_torch.engine.weights import load_hf_config, load_params
+    from kubeai_tpu_torch.models.registry import get_model_family
     from kubeai_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 
+    requests = _request_specs(False)
     dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'rdv_world1')}",
                             rank=0, world_size=1, timeout=datetime.timedelta(seconds=120))
     try:
         mesh = build_mesh(MeshConfig())
-        cfg, params = _tp_model("llama", TP_LAYERS)
-        requests = _tp_requests(cfg.vocab_size)
-        ref = {"num_layers": TP_LAYERS, "vocab": cfg.vocab_size, "streams": {}}
-        for run, (extra, wrapper, _) in TP_RUNS.items():
-            label = f"serve_tp world 1 {run}"
-            engines = {}
+        hf = load_hf_config(model_dir)
+        family = get_model_family(hf["architectures"][0])
+        cfg = family.config_from_hf(hf)
+        params = load_params(family.name, model_dir, cfg, device="cuda")
+        ref = {}
+        for run in ("per_layer", "speculate"):
+            extra, wrapper = SHARDED_REF_RUNS[run][:2]
+            label = f"serve_sharded_cli world 1 {run}"
+            engines, streams, launches = {}, {}, {}
             for name, m in (("mesh", mesh), ("plain", None)):
-                engines[name] = Engine("llama", cfg, params, mesh=m,
-                                       cfg=EngineConfig(**TP_CONFIG, **extra))
-                if engines[name]._decode_program.graph is None:
+                eng = engines[name] = Engine(family, cfg, params, mesh=m,
+                                             cfg=EngineConfig(**WORLD1_ENGINE, **extra))
+                if eng._decode_program.graph is None:
                     fail(f"{label} {name}: no graph was captured")
-                _zero_launches(engines[name])
-                streams = _tp_generate(engines[name], requests)
-                if name == "mesh":
-                    ref["streams"][run] = streams
-                    launches = _launches(engines[name])
-                    if not launches.get(wrapper):
-                        fail(f"{label}: {wrapper} did not launch ({launches})")
-                elif streams != ref["streams"][run]:
-                    fail(f"{label}: the world-1 mesh engine's streams differ from the "
-                         "mesh-free engine's")
+                _zero_launches(eng)
+                rids = [eng.add_request(p, SamplingParams(**sp)) for p, sp, _ in requests]
+                got = {rid: [] for rid in rids}
+                while eng.has_work():
+                    for ev in eng.step():
+                        got[ev.rid].append(ev.token)
+                streams[name] = [got[rid] for rid in rids]
+                launches[name] = {k: v for k, v in _launches(eng).items() if v}
+                if not launches[name].get(wrapper):
+                    fail(f"{label} {name}: {wrapper} did not launch ({launches[name]})")
+            if streams["mesh"] != streams["plain"]:
+                fail(f"{label}: the world-1 mesh engine's streams differ from the mesh-free "
+                     "engine's")
             print(f"{label}: streams of the mesh and mesh-free engines bit-equal "
-                  f"({sum(len(s) for s in streams)} tokens)", flush=True)
+                  f"({sum(len(x) for x in streams['mesh'])} tokens); the mesh's launches "
+                  f"{json.dumps(launches['mesh'])}", flush=True)
             if run == "per_layer":
-                got = _tp_prefill_logits(engines["mesh"], requests)
-                if not torch.equal(got, _tp_prefill_logits(engines["plain"], requests)):
+                got = _prefill_logits(engines["mesh"], requests)
+                if not torch.equal(got, _prefill_logits(engines["plain"], requests)):
                     fail(f"{label}: first prefill logits of world 1 differ from mesh-free")
-                ref["logits"] = got.tolist()
-                ref["f32_logits"] = _tp_f32_logits("llama", cfg, params, requests)
-            program = "verify window" if run == "speculate" else "decode chunk"
+                ref["logits"] = got
             unit = "verify window" if run == "speculate" else "decode step"
-            prof = {name: profile_program(eng, f"tp world1 {name} {run} {unit}", program,
+            program = "verify window" if run == "speculate" else "decode chunk"
+            prof = {name: profile_program(eng, f"sharded world1 {name} {run} {unit}", program,
                                           eager=False)
                     for name, eng in engines.items()}
-            extra_kernels = {}
-            for name, rows in (("mesh", prof["mesh"]["rows"]), ("plain", prof["plain"]["rows"])):
-                for e in rows:
-                    extra_kernels.setdefault(e.key[:70], {})[name] = e.count / prof[name]["steps"]
+            rows = {}
+            for name in ("mesh", "plain"):
+                for e in prof[name]["rows"]:
+                    rows.setdefault(e.key[:70], {})[name] = e.count / prof[name]["steps"]
             added = {k: round(v.get("mesh", 0) - v.get("plain", 0), 2)
-                     for k, v in extra_kernels.items() if v.get("mesh", 0) != v.get("plain", 0)}
+                     for k, v in rows.items() if v.get("mesh", 0) != v.get("plain", 0)}
             m, p = prof["mesh"]["device_ms"], prof["plain"]["device_ms"]
             print(f"{label}: device {m:.4f} ms a {unit} with the mesh against {p:.4f} "
                   f"mesh-free (x{m / p:.4f}, +{m - p:.4f} ms); kernels a {unit} "
                   f"{prof['mesh']['kernels']:.1f} against {prof['plain']['kernels']:.1f}; "
                   f"added by the collectives: {json.dumps(added)}; card: {gpu_line()}",
                   flush=True)
-            engines.clear()
+            del engines, eng
             gc.collect()
             torch.cuda.empty_cache()
+        tokens, lengths = _logits_batch(requests)
+        def cpu(tree):
+            if isinstance(tree, dict):
+                return {k: cpu(v) for k, v in tree.items()}
+            return tree.float().cpu()
+
+        f32 = cpu(params)
         del params
         gc.collect()
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ref["f32_logits"], _, _ = family.prefill(
+                f32, dataclasses.replace(cfg, dtype=torch.float32), tokens, lengths)
+        print(f"serve_sharded_cli world 1: the f32 reference prefill on the CPU took "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
         return ref
     finally:
         dist.destroy_process_group()
 
 
-def _tp_reference(family: str, num_layers: int) -> dict:
-    """A mesh-free engine's per_layer streams and first prefill logits:
-    world 1 for Mixtral's sharded run."""
-    import gc
-
-    import torch
-
-    from kubeai_tpu_torch.engine import Engine, EngineConfig
-
-    cfg, params = _tp_model(family, num_layers)
-    requests = _tp_requests(cfg.vocab_size)
-    engine = Engine(family, cfg, params, cfg=EngineConfig(**TP_CONFIG, **TP_RUNS["per_layer"][0]))
-    ref = {"num_layers": num_layers, "vocab": cfg.vocab_size,
-           "streams": {"per_layer": _tp_generate(engine, requests)},
-           "logits": _tp_prefill_logits(engine, requests).tolist(),
-           "f32_logits": _tp_f32_logits(family, cfg, params, requests)}
-    del engine, params
-    gc.collect()
-    torch.cuda.empty_cache()
-    return ref
-
-
-def serve_tp() -> None:
-    """Phase 4g: tensor and expert parallelism on the one card.
-    1. World 1 over NCCL (`_tp_world1`): the 8B width at TP_LAYERS with a
-       world-1 mesh, graphs and overlap, bit-equal to the mesh-free
-       engine, and the collectives' cost in a replay.
-    2. The catalog's 8B at tp=4: four gloo ranks on the one card, eager
-       (`tp_rank`), per_layer, fused and speculate=4, gated by `_tp_gates`
-       against part 1.
-    3. Mixtral-8x7B's width at TP_MIXTRAL_LAYERS with its experts over
-       tp=2, per_layer, gated the same way against a mesh-free engine.
-    Parts 2 and 3 share the card at once (`_start_world`,
-    `_finish_worlds`: the first rank to fail ends every rank). NCCL
-    refuses two ranks on one device (`report_nccl_one_card`), so the
-    sharded runs use gloo; no multi-card speed is measured here."""
+def serve_sharded_cli(empty_build: bool = False) -> None:
+    """Phase 4g: sharded serving through the entry point.
+    (a) `main --tpu-topology 1x1` (a world-1 mesh over NCCL, graphs) and
+        `main` with no topology on the 8B width at SHARDED_LAYERS, both
+        with the fused layout chosen by KUBEAI_TPU_DECODE_KERNEL (B4 must
+        launch): every stream bit-equal, ready seconds and ms a served
+        token of each.
+    (b) `main --tpu-topology 2x2`: four ranks on the card over gloo (the 8B
+        catalog entry's tp=4), default flags (--max-adapters 4): unary and
+        streamed chat, an adapter loaded through the lockstep broadcast
+        and a request that uses it, the embeddings and resume refusals,
+        SIGTERM. With `empty_build`, from a copy of the package whose
+        kernel build directory is empty: exactly one rank runs nvcc while
+        the others wait for its library.
+    (c) `main --tpu-topology 1x2` on Mixtral-8x7B's width at
+        MIXTRAL_CLI_LAYERS, its experts over the two ranks.
+    (a), (b), (c) and the in-process engines of (b)'s and (c)'s
+    configuration over the same ranks (`sharded_ref_rank`; at 2x2 also
+    the fused layout and speculate=4), which gate them (`_sharded_gates`),
+    all run at once once the checkpoints are written: the ms and seconds
+    of each part are taken on a shared card and host. Then
+    (d) `sharded_world1`: world 1 over NCCL in this process, per_layer and
+        speculate=4 in graphs, bit-equal to no mesh, and the f32 CPU
+        reference that the 2x2 ranks' first prefill logits are held to
+        (`_logits_gate`)."""
+    import shutil
     import tempfile
 
-    with tempfile.TemporaryDirectory() as tmp:
-        ref = timed("serve_tp world 1", _tp_world1, tmp)
-        # Both sharded worlds share the card at once; the parent draws
-        # Mixtral's world-1 reference meanwhile.
+    from kubeai_tpu_torch.engine.weights import save_safetensors
+    from kubeai_tpu_torch.models import llama
+
+    root = tempfile.mkdtemp(prefix="kubeai-sharded-")
+    worlds, running = [], []
+    try:
+        t0 = time.perf_counter()
+        dirs = {"llama": os.path.join(root, "llama"), "mixtral": os.path.join(root, "mixtral")}
+        save_safetensors(dirs["llama"], cli_tensors(SHARDED_CONFIG), SHARDED_CONFIG)
+        save_safetensors(dirs["mixtral"], mixtral_cli_tensors(), MIXTRAL_CLI_CONFIG)
+        adapter_dir = write_peft_adapter(os.path.join(root, "lora"),
+                                         llama.LlamaConfig.from_hf_dict(SHARDED_CONFIG), 31)
+        print(f"serve_sharded_cli: checkpoints written in {time.perf_counter() - t0:.2f} s "
+              f"(8B width at {SHARDED_LAYERS} layers, "
+              f"{os.path.getsize(os.path.join(dirs['llama'], 'model.safetensors')) / 1e9:.3f} "
+              f"GB; Mixtral-8x7B width at {MIXTRAL_CLI_LAYERS} layers, "
+              f"{os.path.getsize(os.path.join(dirs['mixtral'], 'model.safetensors')) / 1e9:.3f}"
+              " GB)", flush=True)
         worlds = [
-            _start_world("llama", TP_LAYERS, TP_WORLD, ref["vocab"], TP_RUNS, tmp),
-            _start_world("mixtral", TP_MIXTRAL_LAYERS, TP_MIXTRAL_WORLD,
-                         MIXTRAL_8X7B["vocab_size"], ("per_layer",), tmp),
+            _start_ref_world("2x2", dirs["llama"], 4, _request_specs(True), adapter_dir,
+                             SHARDED_REF_RUNS, root),
+            _start_ref_world("mixtral 1x2", dirs["mixtral"], 2, _request_specs(False), None,
+                             ("per_layer",), root),
         ]
-        try:
-            mref = timed("serve_tp mixtral world 1", _tp_reference, "mixtral",
-                         TP_MIXTRAL_LAYERS)
-            ranks, mranks = timed("serve_tp sharded worlds", _finish_worlds, worlds)
-        finally:
-            _kill_worlds(worlds)
-        _tp_gates("llama", ranks, ref, 32, 8)
-        _tp_gates("mixtral", mranks, mref, 32, 8)
+        # (b) and (c) at once, beside (a) and the references.
+        copy_root = None
+        if empty_build:
+            copy_root = os.path.join(root, "package-copy")
+            shutil.copytree(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                         "kubeai_tpu_torch"),
+                            os.path.join(copy_root, "kubeai_tpu_torch"),
+                            ignore=shutil.ignore_patterns("__pycache__"))
+        results, errors = {}, []
+
+        def part(label, flags, model, ranks, adapter, at):
+            try:
+                results[label] = sharded_cli_run(dirs[model], label, flags, ranks,
+                                                 adapter_dir if adapter else None, at,
+                                                 running=running)
+            except SystemExit as e:  # fail() in this thread: raised again below
+                errors.append(e)
+
+        threads = [threading.Thread(target=part, args=(*SHARDED_PARTS[0], copy_root),
+                                    daemon=True),
+                   threading.Thread(target=part, args=(*SHARDED_PARTS[1], None), daemon=True)]
+        for t in threads:
+            t.start()
+        # (a): world 1 against no mesh, in the fused layout an engine Pod
+        # takes from its environment.
+        fused = {"KUBEAI_TPU_DECODE_KERNEL": "fused"}
+        plain = sharded_cli_run(dirs["llama"], "no topology", [], 1, env_extra=fused)
+        world1 = sharded_cli_run(dirs["llama"], "1x1", ["--tpu-topology", "1x1"], 1,
+                                 env_extra=fused)
+        if world1["tokens"] != plain["tokens"]:
+            fail(f"serve_sharded_cli 1x1: streams {world1['tokens']} differ from no "
+                 f"topology's {plain['tokens']}")
+        if world1["state"].get("parallel", {}).get("backend") != "nccl":
+            fail(f"serve_sharded_cli 1x1: /v1/state.parallel {world1['state'].get('parallel')}")
+        for name, run in (("no topology", plain), ("1x1", world1)):
+            launches = json.loads(_rank_fields(run["launches"], "rank")[0])
+            if not launches.get("paged_decode_attention_fused"):
+                fail(f"serve_sharded_cli {name}: KUBEAI_TPU_DECODE_KERNEL=fused launched no "
+                     f"B4: {launches}")
+            print(f"serve_sharded_cli {name} (fused from the environment): {run['reports']} "
+                  f"{run['before_load']}; ready "
+                  f"{run['ready_s']:.2f} s, {run['ms_per_token']:.3f} ms a served token over "
+                  f"{run['served_tokens']} tokens one request at a time (client clock, beside "
+                  f"the other parts); launches since start {json.dumps(launches)}; "
+                  f"{run['cold'][-1:]}; card: {gpu_line()}", flush=True)
+        print(f"serve_sharded_cli 1x1: the world-1 mesh's streams bit-equal to no "
+              f"topology's; ms a served token x"
+              f"{world1['ms_per_token'] / plain['ms_per_token']:.4f}", flush=True)
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        for label, *_ in SHARDED_PARTS:
+            if label not in results:
+                fail(f"serve_sharded_cli {label}: the part did not finish")
+        refs = _finish_worlds(worlds)
+        # (d): world 1 over NCCL in this process, once the card is free.
+        world1 = timed("serve_sharded_cli world 1", sharded_world1, dirs["llama"], root)
+        b = results["2x2"]
+        if empty_build:
+            builders = [ln for ln in b["build"] if "with nvcc" in ln]
+            if len(builders) != 1:
+                fail(f"serve_sharded_cli 2x2: {len(builders)} ranks built the kernels: "
+                     f"{b['build']}")
+            print("serve_sharded_cli 2x2 from an empty build directory: " + " | ".join(
+                ln.split("kernel library: ")[-1] for ln in b["build"]), flush=True)
+        _sharded_gates("2x2", b, 4, refs[0], (8, 2))
+        _logits_gate("2x2", worlds[0]["out"], 4, world1)
+        _sharded_gates("mixtral 1x2", results["mixtral 1x2"], 2, refs[1], (16, 4))
+        for label, *_ in SHARDED_PARTS:
+            run = results[label]
+            print(f"serve_sharded_cli {label}: ready {run['ready_s']:.2f} s, "
+                  f"{run['ms_per_token']:.3f} ms a served token (time-sliced gloo ranks on "
+                  f"one card, not a speed); refusals {json.dumps(run['refusals'])}; "
+                  f"{run['cold'][-1:]}; card: {gpu_line()}", flush=True)
+    finally:
+        _kill_worlds(worlds + [{"procs": running}])
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def report_nccl_one_card() -> None:
@@ -8262,7 +8544,7 @@ def main() -> None:
                           f"Gemma-7B ({GEMMA_7B_LAYERS} of 28 layers)", "gemma1"))
     mixtral_launches = timed("serve_mixtral", serve_mixtral)
     print(f"serve_mixtral launches by kernel: {json.dumps(mixtral_launches)}", flush=True)
-    timed("serve_tp", serve_tp)
+    timed("serve_sharded_cli", serve_sharded_cli)
     launches.update(timed("serve_embed", serve_embed))
     timed("serve_whisper", serve_whisper)
     timed("serve_cli", serve_cli)

@@ -13,10 +13,11 @@ timings. Counterpart of kubeai_tpu/engine/coldstart.py.
      `--quantization int8`) and the library the boot built or found.
      The next replica of this exact configuration restores.
 
-Two parts stand in for JAX parts: `device_signature` for the mesh
-signature (a tag of the port, the torch and CUDA versions, the card's
-compute capability and count, the kernel library's hash), so a port
-boot and a JAX boot never share a fingerprint; and the kernel library
+Two parts stand in for JAX parts: `device_signature` for the device
+half of the key (a tag of the port, the torch and CUDA versions, the
+card's compute capability and count, the kernel library's hash), so a
+port boot and a JAX boot never share a fingerprint (a rank of a mesh
+adds `mesh_signature`, the JAX package's mesh half); and the kernel library
 for the JAX persistent compilation cache. The CUDA graphs are captured
 when the engine is built and are not in a snapshot: a restored boot's
 `compile` phase still captures them.
@@ -109,6 +110,16 @@ class ColdStartTracker:
         }
 
 
+def mesh_signature(mesh, rank: int) -> list:
+    """The mesh half of the key, as the JAX package's `mesh_signature`:
+    the mesh's axis sizes, and the rank, whose shard the snapshot holds
+    (each rank acquires and publishes its own). Any change misses: a tree
+    sharded for another slice, or another rank's shard, is a stale
+    layout, and a mesh-free boot's snapshot never restores into a rank."""
+    names = mesh.mesh_dim_names
+    return [f"{n}={mesh.size(i)}" for i, n in enumerate(names)] + [f"rank={rank}"]
+
+
 def device_signature(device) -> list:
     """The device half of the snapshot key, where the JAX package puts
     its mesh shape: the port's tag, the torch and CUDA versions, the
@@ -132,7 +143,8 @@ class ColdStartManager:
     With no snapshot URL the manager degrades to a pure phase timer
     around the full load path — `/v1/state` and the coldstart metrics
     stay populated either way. `device` is where a restore puts the
-    tree (default cuda, raising without a card)."""
+    tree (default cuda, raising without a card). `mesh_sig` (a rank of a
+    mesh: `mesh_signature`) joins the key."""
 
     def __init__(
         self,
@@ -145,6 +157,7 @@ class ColdStartManager:
         clock=time.monotonic,
         store=None,
         publish: bool = True,
+        mesh_sig: list | None = None,
     ):
         self.enabled = bool(snapshot_url)
         # publish=False boots are restore-only consumers (CRD
@@ -162,7 +175,7 @@ class ColdStartManager:
             else dict(engine_config or {})
         )
         self.fingerprint = SnapshotStore.fingerprint(
-            model_name, cfg, device_signature(self.device)
+            model_name, cfg, device_signature(self.device) + list(mesh_sig or [])
         )
         self.tracker.fingerprint = self.fingerprint
         self.store = store or (

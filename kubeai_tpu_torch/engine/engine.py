@@ -90,8 +90,9 @@ Tensor and expert parallelism (`mesh=`, a parallel.mesh.build_mesh
 DeviceMesh with tp >= 1 and dp = pp = sp = 1): SPMD ranks, one per
 device. Every rank of the initialised process group builds the engine
 with the full parameter tree and keeps its shard (the family's
-`param_specs`, after quantization as in the JAX engine), its pools hold
-its KV heads, and the forwards call the tp group's collectives
+`param_specs`, after quantization as in the JAX engine), or with its
+shard already cut (`presharded=True`: weights.load_params(shard=)); its
+pools hold its KV heads, and the forwards call the tp group's collectives
 (parallel/collectives.py). Every rank runs the same scheduler on the
 same operations: given the same requests in the same order, their
 streams are identical. The host decisions that read the clock agree
@@ -100,8 +101,11 @@ for unseeded requests are broadcast. On NCCL the device programs are
 captured with their collectives inside; over gloo (several ranks on one
 card) they run eagerly. Under a mesh these still raise, naming their
 ROADMAP item: pp > 1, sp > 1, dp > 1, a family without param_specs
-(gemma), LoRA, a draft model, the slot cache, handoff and prefix-page
-export and import, and KV spill.
+(gemma), a draft model, the slot cache, handoff and prefix-page
+export and import, and KV spill. LoRA adapters run under a mesh: each
+rank's buffers hold its heads' part (models/llama.py, `lora_shard`), and
+`load_adapter` takes the whole adapter and cuts it. Requests reach every
+rank through engine/multihost.py's lockstep broadcast.
 """
 
 from __future__ import annotations
@@ -132,9 +136,9 @@ from kubeai_tpu_torch.engine.paged_cache import (
 from kubeai_tpu_torch.engine.quantization import (
     is_quantized,
     quantize_params,
-    quantized_specs,
 )
 from kubeai_tpu_torch.engine.sampling import SamplingParams, sample
+from kubeai_tpu_torch.engine.weights import ShardPlan
 from kubeai_tpu_torch.fleet.profiler import StepProfiler
 from kubeai_tpu_torch.models.registry import ModelFamily, get_model_family
 from kubeai_tpu_torch.ops.flash_attention import flash_causal_prefill
@@ -155,7 +159,6 @@ from kubeai_tpu_torch.ops.paged_attention import (
     resolve_decode_kernel,
     scatter_sequence_prequantized,
 )
-from kubeai_tpu_torch.parallel import sharding as psh
 from kubeai_tpu_torch.parallel.collectives import TensorParallel
 from kubeai_tpu_torch.parallel.mesh import (
     AXIS_DATA,
@@ -259,6 +262,13 @@ class EngineConfig:
             return self.num_pages
         per_slot = -(-self.max_seq_len // self.page_size)
         return 1 + self.num_slots * per_slot  # +1: reserved scratch page 0
+
+
+class StepOverlapUnsupported(ValueError):
+    """step_overlap='on' requested in a topology that cannot overlap
+    (lockstep multihost): a second in-flight program would desynchronize
+    the per-step cross-rank broadcast. 'auto' degrades to the synchronous
+    loop instead of raising."""
 
 
 class StepEvent(NamedTuple):
@@ -437,7 +447,6 @@ def _refuse_under_mesh(cfg: EngineConfig, mesh, draft, cache_mode: str,
             )
     refused = [
         (family.param_specs is None, f"the {family.name} family"),
-        (cfg.max_adapters > 0, "LoRA adapters"),
         (draft is not None, "a draft model"),
         (cache_mode == "slot", "the slot cache"),
     ]
@@ -526,12 +535,16 @@ class Engine:
         scheduler: RequestScheduler | None = None,
         device: str | torch.device | None = None,
         draft: tuple[Any, Any] | None = None,
+        presharded: bool = False,
     ):
         """`device` defaults to cuda (raising without a GPU); pass "cpu"
         to run the plain PyTorch versions of the kernels. `draft` =
         (draft config, draft params): a small model of the same family
         whose greedy chain proposes each speculative window (needs
-        cfg.speculate > 0 and the paged cache)."""
+        cfg.speculate > 0 and the paged cache). `presharded`: under a
+        mesh, `params` is already this rank's shard (quantized where
+        cfg.quantization asks), as weights.load_params(shard=) loads it,
+        and is not cut again."""
         self.device = resolve_device(device)
         self.decode_kernel = resolve_decode_kernel(cfg.decode_kernel)
         self.family = (
@@ -644,11 +657,14 @@ class Engine:
             # Unseeded requests draw from rank 0's base on every rank.
             self._seed_base = self._tp.agree(self._seed_base)
         self.params = _to_device(params, self.device)
+        if presharded and self._tp is None:
+            raise ValueError("presharded params need a mesh")
         if cfg.quantization == "int8":
             # On the engine's device, one layer slice at a time; the draft
-            # stays unquantized, as in the JAX engine.
+            # stays unquantized, as in the JAX engine. A quantized leaf is
+            # only packed N-major.
             self.params = quantize_params(self.params)
-        if self._tp is not None:
+        if self._tp is not None and not presharded:
             self.params = self._shard(self.params, mesh)
         if cfg.quantization == "int8":
             if self.device.type == "cuda":
@@ -727,36 +743,19 @@ class Engine:
             )
         elif cfg.max_adapters > 0:
             self._lora = self.family.init_lora_buffers(
-                model_cfg, cfg.max_adapters + 1, cfg.max_lora_rank, device=dev
+                model_cfg, cfg.max_adapters + 1, cfg.max_lora_rank, device=dev,
+                tp=self._tp,
             )
             self._adapter_free = list(range(1, cfg.max_adapters + 1))
         self._build_programs()
 
     def _shard(self, params: dict, mesh) -> dict:
-        """The rank's shard of the (quantized) params. Where tp exceeds
-        the KV heads, wk/wv (and their biases) are taken whole and cut to
-        the one KV head this rank's q heads read; the pools then hold that
-        head (the JAX engine replicates every KV head across tp there)."""
-        tp, mcfg = self._tp, self.model_cfg
-        specs = self.family.param_specs(mcfg)
-        if self.cfg.quantization == "int8":
-            specs = quantized_specs(specs, params["layers"])
-        tp.local_heads(mcfg.num_heads)
-        replicated = tp.kv_replicated(mcfg.num_kv_heads)
-        rules = psh.DEFAULT_RULES
-        if replicated:
-            rules = rules.replicating(psh.KV_HEADS)
-        shard = psh.shard_params(params, specs, mesh, rules)
-        if replicated:
-            d = mcfg.head_size
-            first = tp.kv_head(mcfg.num_kv_heads) * d
-            layers = shard["layers"]
-            for name in ("wk", "wv", "bk", "bv"):
-                if name in layers:
-                    leaf = layers[name]
-                    cut = lambda t: t.narrow(-1, first, d).contiguous()  # noqa: E731
-                    layers[name] = ({k: cut(v) for k, v in leaf.items()}
-                                    if is_quantized(leaf) else cut(leaf))
+        """The rank's shard of the (quantized) params, cut by
+        `weights.ShardPlan`. Where tp exceeds the KV heads, wk/wv (and
+        their biases) keep the one KV head this rank's q heads read; the
+        pools then hold that head (the JAX engine replicates every KV head
+        across tp there)."""
+        shard = ShardPlan(self.family, self.model_cfg, mesh).shard(params)
         if self.cfg.quantization == "int8":
             # Row-parallel cuts leave w8 row-major: store it N-major again.
             shard = quantize_params(shard)
@@ -2744,11 +2743,21 @@ class Engine:
     def loaded_adapters(self) -> list[str]:
         return sorted(self._adapter_slots)
 
+    def lora_shapes(self) -> dict[str, tuple[tuple, tuple]]:
+        """{target: (A shape, B shape)} of one whole adapter at rank
+        max_lora_rank, [NL, in, r] and [NL, r, out] (the model's dims, a
+        mesh or not): what load_adapter takes."""
+        NL, r = self.model_cfg.num_layers, self.cfg.max_lora_rank
+        return {t: ((NL, i, r), (NL, r, o))
+                for t, (i, o) in self.family.lora_dims(self.model_cfg).items()}
+
     def load_adapter(self, name: str, adapter_weights: dict) -> None:
         """Install adapter weights into a free buffer row. Weights:
         {target: (A [NL, in, r], B [NL, r, out])} (numpy arrays or CPU
         tensors) with r <= max_lora_rank; the alpha/r scaling must already
         be folded into B. Loading the same name again overwrites its row.
+        Under a mesh the weights are the whole adapter's, and the rank
+        keeps its heads' part (the family's `lora_shard`).
 
         The rows are written in place under the engine lock, on the
         engine's stream, behind any call already dispatched, and the
@@ -2783,6 +2792,8 @@ class Engine:
                 r = A.shape[-1]
                 if r > r_max:
                     raise ValueError(f"adapter rank {r} > max_lora_rank {r_max}")
+                if self._tp is not None:
+                    A, B = self.family.lora_shard(self.model_cfg, self._tp, target, A, B)
                 rows[target] = (A, B, r)
             if name not in self._adapter_slots:
                 slot = self._adapter_free.pop(0)

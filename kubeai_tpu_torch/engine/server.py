@@ -91,6 +91,14 @@ the snapshot is published (not with --snapshot-no-publish).
 boot took and why; `kubeai_objstore_retries_total` counts the store's
 retries. --kv-spill-url spills evicted KV pages to a bucket.
 
+A sharded replica (`--tpu-topology`, and for a slice of several
+processes `--num-processes`, `--process-id`, `--dcn-coordinator`) runs
+one rank a chip: each process spawns its local ranks, each rank loads
+only its shard of the checkpoint, global rank 0 serves HTTP through
+engine/multihost.py's LockstepEngine and the other ranks mirror it in
+`worker_loop`. A rank that dies, or a collective past
+COLLECTIVE_TIMEOUT_S, ends the replica with a nonzero exit.
+
 Tenancy is the front door's; this server reads only the scheduling
 headers.
 
@@ -105,18 +113,24 @@ import concurrent.futures
 import dataclasses
 import json
 import logging
+import multiprocessing.connection
 import os
 import queue
+import resource
+import shutil
 import signal
+import tempfile
 import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
+import torch.distributed as dist
 
 from kubeai_tpu_torch.device import resolve_device
-from kubeai_tpu_torch.engine.coldstart import ColdStartManager
+from kubeai_tpu_torch.engine.coldstart import ColdStartManager, mesh_signature
+from kubeai_tpu_torch.engine.graphs import DeviceProgram
 from kubeai_tpu_torch.disagg.handoff import (
     HandoffError,
     deserialize,
@@ -130,18 +144,22 @@ from kubeai_tpu_torch.disagg.transport import (
     read_chunked_body,
 )
 from kubeai_tpu_torch.engine.engine import (
+    MESH_ITEM,
     Engine,
     EngineBusy,
     EngineConfig,
     EngineDraining,
     StepEvent,
+    StepOverlapUnsupported,
 )
+from kubeai_tpu_torch.engine.multihost import LockstepEngine, worker_loop
 from kubeai_tpu_torch.engine.lora_weights import load_peft_adapter
 from kubeai_tpu_torch.engine.quantization import quantize_params, weight_bytes
 from kubeai_tpu_torch.engine.sampling import SamplingParams
 from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer, Tokenizer, load_tokenizer
 from kubeai_tpu_torch.engine.weights import (
     UNPORTED_ARCHITECTURES,
+    ShardPlan,
     WeightLoadError,
     load_hf_config,
     load_params,
@@ -159,6 +177,13 @@ from kubeai_tpu_torch.metrics.registry import (
 )
 from kubeai_tpu_torch.models.registry import get_model_family
 from kubeai_tpu_torch.objstore import KVSpillStore
+from kubeai_tpu_torch.ops import COUNTED_KERNELS
+from kubeai_tpu_torch.parallel.mesh import (
+    RankLayout,
+    init_rank,
+    rank_layout,
+    rendezvous_address,
+)
 from kubeai_tpu_torch.scheduling.scheduler import (
     PRIORITY_CLASSES,
     DeadlineInfeasible,
@@ -548,6 +573,7 @@ class EngineMetrics:
         loop has gone idle."""
         with self._sync_lock:
             snap = engine_state_snapshot(engine)
+            inner = getattr(engine, "inner", engine)  # LockstepEngine proxies
             self.slots_active.set(snap["slots_active"])
             self.requests_pending.set(snap["requests_pending"])
             stats = snap["spec_stats"]
@@ -568,7 +594,7 @@ class EngineMetrics:
                         - self.prefix_prompt_tokens.get(),
                     )
                 )
-            dstats = getattr(engine, "disagg_stats", None)
+            dstats = getattr(inner, "disagg_stats", None)
             if dstats:
                 for direction, count_key, bytes_key in (
                     ("export", "exported", "exported_bytes"),
@@ -584,7 +610,7 @@ class EngineMetrics:
                             - self.kv_transfer_bytes.get(direction=direction)),
                         direction=direction,
                     )
-            kstats = getattr(engine, "kv_share_stats", None)
+            kstats = getattr(inner, "kv_share_stats", None)
             if kstats:
                 for direction, key in (
                     ("exported", "exported_pages"),
@@ -609,14 +635,14 @@ class EngineMetrics:
                 self.kv_quant_capacity_factor.set(
                     kv_info.get("capacity_factor", 1.0)
                 )
-            drain = getattr(engine, "drain_timing", None)
+            drain = getattr(inner, "drain_timing", None)
             if drain is not None:
                 for rec in drain():
                     self.observe_timing(
                         rec[0], rec[1],
                         exemplar=rec[2] if len(rec) > 2 else None,
                     )
-            prof = getattr(engine, "profiler", None)
+            prof = getattr(inner, "profiler", None)
             if prof is not None:
                 # The JAX profiler queues every phase for this sync; the
                 # port's keeps only its ring, read past the last step seen.
@@ -649,10 +675,14 @@ class EngineMetrics:
 
 
 def engine_state_snapshot(engine) -> dict:
-    """Serving-state snapshot shared by /metrics and /v1/state."""
-    kvu = getattr(engine, "kv_utilization", None)
-    sched = getattr(engine, "scheduler", None)
-    kv_info = getattr(engine, "kv_cache_info", None)
+    """Serving-state snapshot shared by /metrics and /v1/state. Occupancy
+    comes from the OUTER engine (LockstepEngine's num_pending includes
+    adds buffered for the next broadcast, the same counts admission
+    uses); spec/prefix stats live only on the inner engine."""
+    inner = getattr(engine, "inner", engine)  # LockstepEngine proxies
+    kvu = getattr(inner, "kv_utilization", None)
+    sched = getattr(inner, "scheduler", None)
+    kv_info = getattr(inner, "kv_cache_info", None)
     return {
         "slots_active": engine.num_active,
         "requests_pending": engine.num_pending,
@@ -660,10 +690,10 @@ def engine_state_snapshot(engine) -> dict:
         # KV dtype / capacity block: what the autoscaler and capacity
         # planner size the replica's KV capacity by.
         "kv_cache": kv_info() if kv_info is not None else {},
-        "last_step": dict(getattr(engine, "last_step_stats", {}) or {}),
-        "spec_stats": dict(getattr(engine, "spec_stats", {}) or {}),
-        "prefix_stats": dict(getattr(engine, "prefix_stats", {}) or {}),
-        "kv_share": dict(getattr(engine, "kv_share_stats", {}) or {}),
+        "last_step": dict(getattr(inner, "last_step_stats", {}) or {}),
+        "spec_stats": dict(getattr(inner, "spec_stats", {}) or {}),
+        "prefix_stats": dict(getattr(inner, "prefix_stats", {}) or {}),
+        "kv_share": dict(getattr(inner, "kv_share_stats", {}) or {}),
         # Queue-pressure snapshot: per-class depth/oldest-wait/admitted/
         # shed plus drain rate and the current computed retry hint.
         "scheduler": sched.snapshot() if sched is not None else {},
@@ -693,6 +723,7 @@ class EngineServer:
         kv_spill_store=None,
         cold_start: dict | None = None,
         adapter_fetcher=None,  # (name, url) -> adapter weight tree
+        parallel: dict | None = None,
     ):
         self.engine = engine
         self.tokenizer = tokenizer
@@ -708,6 +739,9 @@ class EngineServer:
         # measured cold-start cost to the planner, and folded into the
         # kubeai_coldstart_* metrics.
         self.cold_start = dict(cold_start or {})
+        # The slice this replica spans (main: topology, ranks, backend,
+        # ranks per device); empty without --tpu-topology.
+        self.parallel = dict(parallel or {})
         if self.cold_start:
             self.metrics.record_coldstart(self.cold_start)
         # Disaggregated serving role: "prefill" turns every generate into
@@ -920,6 +954,9 @@ class EngineServer:
     def stop(self) -> None:
         self._stop.set()
         self._work.set()
+        # Join the serve loop BEFORE anything else broadcasts (lockstep
+        # shutdown): a step() collective in flight from this thread must
+        # finish first or two rank-0 collectives interleave undefined.
         if self._loop_thread.is_alive():
             self._loop_thread.join(timeout=30)
         # shutdown() handshakes with serve_forever; on a never-started
@@ -946,6 +983,8 @@ class EngineServer:
             # Boot cold-start record: per-phase timings; the aggregator
             # copies it to the planner as the model's cold-start cost.
             "cold_start": self.cold_start,
+            # A sharded replica's slice (a key the JAX server has not).
+            **({"parallel": self.parallel} if self.parallel else {}),
             # Last request per bucket: the "rid-<n>" tags that let an
             # operator jump from a latency bucket to a request.
             "exemplars": {
@@ -1349,6 +1388,14 @@ class EngineServer:
     # -- embeddings (TextEmbedding feature) ------------------------------------
 
     def _handle_embeddings(self, http, body: dict):
+        if getattr(self.engine, "is_lockstep", False):
+            # The embedding forward is a separate computation rank 0 would
+            # enter alone: under a mesh that deadlocks the tp collectives.
+            return http._json(
+                400,
+                {"error": {"message":
+                           "embeddings not supported on multi-host replicas"}},
+            )
         fam = self.engine.family
         if fam.hidden_states is None:
             return http._json(400, {"error": {"message": (
@@ -1458,6 +1505,8 @@ class EngineServer:
     def _validate_resume(self, raw_resume, n: int) -> str | None:
         """Shape-check a `kubeai_resume` continuation block; returns a
         client-readable error, or None when it is valid."""
+        if getattr(self.engine, "is_lockstep", False):
+            return "stream resume is not supported on multi-host replicas"
         if not isinstance(raw_resume, dict):
             return "kubeai_resume must be an object"
         if n != 1:
@@ -2278,24 +2327,9 @@ class EngineServer:
         http.wfile.flush()
 
 
-# Flags of the JAX entry point whose features are not ported, with the
-# ROADMAP item that brings each: (flag, is it set?, what it needs). The
-# engine takes a mesh (one rank per device), but only rank 0 would hear
-# HTTP: a sharded server needs every request on every rank, which
-# lockstep serving brings.
-_UNPORTED_FLAGS = (
-    ("--tpu-topology", lambda a: bool(a.tpu_topology),
-     "sharded serving: every request on every rank (ROADMAP A item 11d)"),
-    ("--dcn-coordinator/--process-id/--num-processes",
-     lambda a: bool(a.dcn_coordinator) or a.process_id != 0 or a.num_processes > 1,
-     "multihost lockstep serving (ROADMAP A item 11d)"),
-)
-
-
 def parse_args(argv=None) -> argparse.Namespace:
     """The entry point's flags, with the JAX entry point's names and
-    defaults. Exits naming the ROADMAP item of a flag whose feature is
-    not ported."""
+    defaults."""
     ap = argparse.ArgumentParser(prog="kubeai-tpu-torch-engine")
     ap.add_argument("--model-url", required=True)
     ap.add_argument("--served-model-name", default="model")
@@ -2307,15 +2341,23 @@ def parse_args(argv=None) -> argparse.Namespace:
         help="torch device the engine runs on; cpu runs the kernels' "
         "plain PyTorch versions (tests)",
     )
-    ap.add_argument("--tpu-topology", default="", help="not ported")
+    ap.add_argument(
+        "--tpu-topology", default="",
+        help="the slice's chip grid, e.g. 2x2: one rank per chip, the whole "
+        "slice tensor-parallel (mesh_from_topology); empty serves on one "
+        "device with no mesh")
+    # Multi-host slices: every process runs this entry point with the same
+    # flags; global rank 0 serves HTTP and the others mirror it in lockstep.
     ap.add_argument("--dcn-coordinator", default=os.environ.get("TPU_COORDINATOR", ""),
-                    help="not ported")
+                    help="host:port where the processes of a multi-process "
+                    "slice meet (process 0's address)")
     ap.add_argument("--process-id", type=int,
                     default=int(os.environ.get("TPU_PROCESS_ID", "0")),
-                    help="not ported")
+                    help="this process's index among --num-processes")
     ap.add_argument("--num-processes", type=int,
                     default=int(os.environ.get("TPU_PROCESS_COUNT", "1")),
-                    help="not ported")
+                    help="processes of the slice; each runs topology chips / "
+                    "num-processes ranks")
     ap.add_argument("--num-slots", type=int, default=32)
     ap.add_argument("--max-seq-len", type=int, default=4096)
     ap.add_argument(
@@ -2459,9 +2501,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         "a full-load boot (CRD coldStart.publish=false)",
     )
     args = ap.parse_args(argv)
-    for flag, is_set, needs in _UNPORTED_FLAGS:
-        if is_set(args):
-            raise SystemExit(f"{flag}: {needs} is not ported to this engine")
     if args.kv_sharing:
         args.prefix_cache = True  # holdings live in the paged prefix cache
     if args.prefix_cache and args.prefill_chunk <= 0:
@@ -2542,19 +2581,317 @@ def load_draft(args, family, arch: str, model_cfg, device, log) -> tuple:
     return draft_cfg, draft_params
 
 
+class _WorkerHealthServer:
+    """Minimal /health endpoint for the first rank of a process other
+    than process 0 (a worker process of a multi-process slice)."""
+
+    def __init__(self, host: str = "0.0.0.0", port: int = 8000):
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_GET(self):
+                body = b'{"status": "ok", "role": "worker"}'
+                status = 200 if self.path == "/health" else 404
+                self.send_response(status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+        self.httpd = _HTTPServer((host, port), Handler)
+        self._thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+
+    @property
+    def port(self) -> int:
+        return self.httpd.server_address[1]
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def stop(self) -> None:
+        if self._thread.is_alive():
+            self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+# How long a rank of a sharded replica waits in one collective (its gloo
+# and NCCL groups' timeout), and how often an idle rank 0 broadcasts a
+# heartbeat so that the workers' waits stay well inside it: a worker that
+# dies fails rank 0's next heartbeat, and a rank 0 that dies fails the
+# workers' wait.
+COLLECTIVE_TIMEOUT_S = 300.0
+HEARTBEAT_S = 10.0
+
+
+# Features of a replica that still refuse with more than one rank (the
+# engine refuses them under a mesh): the entry point exits before ranks
+# spawn and weights load.
+_MESH_REFUSED_FLAGS = (
+    ("--role prefill|decode", lambda a: a.role != "unified"),
+    ("--kv-sharing", lambda a: a.kv_sharing),
+    ("--draft-url", lambda a: bool(a.draft_url)),
+)
+
+
+def resolve_ranks(args: argparse.Namespace) -> RankLayout | None:
+    """The slice that --tpu-topology and the multihost flags describe
+    (None: no topology, one device and no mesh). With more than one rank
+    it resolves step overlap as the JAX entry point does before any
+    engine is built (on: StepOverlapUnsupported; auto: off), so every
+    rank's engine resolves alike, and exits for a feature that still
+    refuses under a mesh."""
+    if not args.tpu_topology:
+        if args.num_processes > 1 or args.process_id != 0:
+            raise SystemExit("--num-processes and --process-id describe the processes "
+                             "of a slice: give its --tpu-topology")
+        return None
+    try:
+        layout = rank_layout(args.tpu_topology, args.num_processes, args.process_id,
+                             args.dcn_coordinator)
+    except ValueError as e:
+        raise SystemExit(f"--tpu-topology {args.tpu_topology}: {e}") from e
+    if layout.world > 1:
+        # Lockstep: every rank must replay the SAME op/step sequence; an
+        # overlapped reap would reorder rank 0's broadcast schedule
+        # relative to the workers'.
+        if args.step_overlap == "on":
+            raise StepOverlapUnsupported(
+                "--step-overlap on does not compose with lockstep "
+                f"multihost ({layout.world} ranks): the overlapped reap would "
+                "desynchronize the per-step cross-host broadcast; use "
+                "--step-overlap auto or off"
+            )
+        args.step_overlap = "off"
+        for flag, is_set in _MESH_REFUSED_FLAGS:
+            if is_set(args):
+                raise SystemExit(f"{flag} under a mesh is not ported yet ({MESH_ITEM})")
+    return layout
+
+
+@dataclasses.dataclass
+class _Rank:
+    """One rank of a slice as `serve` runs it: its layout, its local rank,
+    the rendezvous, and (local rank 0) the local ranks it spawned."""
+
+    layout: RankLayout
+    local_rank: int
+    rendezvous: str
+    children: list = dataclasses.field(default_factory=list)
+
+    @property
+    def global_rank(self) -> int:
+        return self.layout.global_rank(self.local_rank)
+
+
+def _leave_group() -> None:
+    """Destroy this rank's process group: an NCCL group left to the
+    interpreter's exit can stall it."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _end_children(children, timeout: float = 30.0) -> None:
+    """Wait up to `timeout` for the spawned ranks, then kill the rest."""
+    deadline = time.monotonic() + timeout
+    for c in children:
+        c.join(max(0.0, deadline - time.monotonic()))
+    for c in children:
+        if c.is_alive():
+            c.kill()
+            c.join(5)
+
+
+def _abort(rank: _Rank, log, why: str) -> None:
+    """A rank died or a collective failed: kill this process's other ranks
+    and exit nonzero. A replica never serves on with fewer ranks."""
+    log.error("rank %d: %s; ending the replica", rank.global_rank, why)
+    for c in rank.children:
+        if c.is_alive():
+            c.kill()
+    os._exit(1)
+
+
+def _watch_children(rank: _Rank, log) -> None:
+    """Local rank 0: a spawned rank that exits nonzero ends the replica."""
+    waiting = list(rank.children)
+    while waiting:
+        multiprocessing.connection.wait([c.sentinel for c in waiting])
+        for c in [c for c in waiting if not c.is_alive()]:
+            waiting.remove(c)
+            if c.exitcode != 0:
+                _abort(rank, log, f"{c.name} exited {c.exitcode}")
+
+
+def _rank_process(args, layout: RankLayout, local_rank: int, rendezvous: str,
+                  parent: int) -> None:
+    """A spawned local rank (1 .. local - 1) of this process's slice. It
+    ends with the lockstep shutdown, a failed collective, or its parent."""
+    rank = _Rank(layout, local_rank, rendezvous)
+    logging.basicConfig(
+        level=logging.INFO,
+        format=f"[rank {rank.global_rank}] %(levelname)s:%(name)s:%(message)s")
+    log = logging.getLogger("kubeai-tpu-torch-engine")
+    # Rank 0 stops the ranks (its shutdown broadcast); a signal to the
+    # process group must not end one rank alone.
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    signal.signal(signal.SIGTERM, lambda *_: log.info(
+        "SIGTERM: rank %d waits for rank 0's shutdown", rank.global_rank))
+
+    def watch_parent():
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        _abort(rank, log, "its parent process is gone")
+
+    threading.Thread(target=watch_parent, daemon=True).start()
+    try:
+        code = serve(args, log, rank)
+    finally:
+        _leave_group()
+    raise SystemExit(code)
+
+
+def serve_slice(args, layout: RankLayout, log) -> int:
+    """This process's ranks of a slice: local ranks 1 .. local - 1 spawned
+    (spawn start method), local rank 0 in this process. They meet over
+    TCP at the coordinator (several processes) or a file store (one)."""
+    store = tempfile.mkdtemp(prefix="kubeai-ranks-")
+    rendezvous = rendezvous_address(layout, os.path.join(store, "rdv"))
+    ctx = multiprocessing.get_context("spawn")
+    rank = _Rank(layout, 0, rendezvous)
+    for r in range(1, layout.local):
+        rank.children.append(ctx.Process(
+            target=_rank_process, args=(args, layout, r, rendezvous, os.getpid()),
+            name=f"rank {layout.global_rank(r)}"))
+    log.info("slice %s: %d ranks over %d processes; process %d runs ranks %d..%d",
+             layout.topology, layout.world, layout.num_processes, layout.process_id,
+             layout.global_rank(0), layout.global_rank(layout.local - 1))
+    try:
+        for c in rank.children:
+            c.start()
+        threading.Thread(target=_watch_children, args=(rank, log), daemon=True).start()
+        return serve(args, log, rank)
+    finally:
+        _leave_group()
+        _end_children(rank.children)
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def _host_rss() -> str:
+    """This process's peak resident host memory so far (GiB)."""
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    return f"peak host RSS {peak / 2**30:.3f} GiB"
+
+
+def _rank_report(engine) -> str:
+    """This rank's heads, weight GiB and host memory."""
+    wq = engine.params["layers"]["wq"]
+    cols = (wq["w8"] if isinstance(wq, dict) else wq).shape[-1]
+    return (f"H={cols // engine.model_cfg.head_size} KVH={engine.cache.k_pages.shape[-2]}, "
+            f"weights {weight_bytes(engine.params) / 2**30:.3f} GiB, {_host_rss()}")
+
+
+def _kernel_launches(engine) -> str:
+    """The kernels this process launched since it started, by wrapper
+    (eager calls, and replays of the engine's captured programs), as JSON."""
+    out = {name: fn.launches for name, fn in COUNTED_KERNELS.items()}
+    for prog in vars(engine).values():
+        if isinstance(prog, DeviceProgram):
+            for name, n in prog.launches().items():
+                out[name] += n
+    return json.dumps({name: n for name, n in out.items() if n})
+
+
+def _serve_worker(args, log, engine, rank: _Rank, group) -> int:
+    """A worker rank: mirror rank 0's ops and steps until its shutdown
+    broadcast. The first rank of a process other than process 0 also
+    answers /health. A failed collective, or an op of rank 0's that fails
+    here, exits nonzero."""
+    health = None
+    if rank.local_rank == 0:
+        health = _WorkerHealthServer(host=args.host, port=args.port)
+        health.start()
+        log.info("worker process %d/%d: health on %s:%d", args.process_id,
+                 args.num_processes, args.host, health.port)
+        try:
+            signal.signal(signal.SIGTERM, lambda *_: log.info(
+                "SIGTERM: worker ranks wait for rank 0's shutdown"))
+        except ValueError:
+            pass  # not the main thread (embedded use)
+    try:
+        digest = worker_loop(engine, group)
+    except Exception:  # noqa: BLE001 — a failed collective or op ends the rank
+        log.exception("rank %d: the lockstep worker failed", rank.global_rank)
+        for c in rank.children:
+            if c.is_alive():
+                c.kill()
+        return 1
+    finally:
+        if health is not None:
+            health.stop()
+    log.info("lockstep digest: rank %d produced %d streams, %d tokens, sha256 %s",
+             rank.global_rank, digest.streams, digest.tokens, digest.hexdigest())
+    log.info("kernel launches: rank %d %s", rank.global_rank, _kernel_launches(engine))
+    return 0
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     log = logging.getLogger("kubeai-tpu-torch-engine")
+    layout = resolve_ranks(args)
+    if layout is None:
+        return serve(args, log)
+    try:
+        args.model_dir = resolve_model_dir(args.model_url, args.model_dir)
+        arch = (load_hf_config(args.model_dir).get("architectures")
+                or ["LlamaForCausalLM"])[0]
+        speech = (arch not in UNPORTED_ARCHITECTURES
+                  and get_model_family(arch).feature == "SpeechToText")
+    except (WeightLoadError, KeyError) as e:
+        raise SystemExit(f"cannot load {args.model_url}: {e}") from e
+    if speech:
+        # As the JAX entry point, which returns before it builds a mesh.
+        log.info("--tpu-topology %s: %s serves in this one process, on one device",
+                 args.tpu_topology, arch)
+        return serve(args, log)
+    return serve_slice(args, layout, log)
+
+
+def serve(args, log, rank: _Rank | None = None) -> int:
+    """Load the model, warm the engine up and serve until SIGTERM (rank 0
+    of a slice, or no slice), or mirror rank 0 (a worker rank)."""
+    mesh = group = None
     device = resolve_device(args.device)
+    parallel: dict = {}
+    if rank is not None:
+        layout = rank.layout
+        placement, mesh, group = init_rank(layout, rank.local_rank, args.device,
+                                           rank.rendezvous, COLLECTIVE_TIMEOUT_S)
+        device = placement.device
+        parallel = {
+            "topology": layout.topology, "ranks": layout.world,
+            "processes": layout.num_processes, "process_id": layout.process_id,
+            "ranks_per_process": layout.local, "device": str(device),
+            "backend": placement.backend, "ranks_per_device": placement.ranks_per_device,
+            "lockstep": layout.world > 1,
+        }
+        log.info("rank %d of %d on %s over %s (%d ranks a device)", rank.global_rank,
+                 layout.world, device, placement.backend, placement.ranks_per_device)
+        if device.type == "cuda" and placement.ranks_per_device > 1:
+            log.warning("%d ranks share %s over gloo: time-sliced on one card, not "
+                        "parallel speed (NCCL takes one rank a card)",
+                        placement.ranks_per_device, device)
+    lockstep = bool(parallel.get("lockstep"))
     engine_cfg = engine_config(args)
     # Restore-first boot: a complete snapshot under this (model, config,
-    # device) fingerprint skips the checkpoint conversion, and its kernel
-    # library skips nvcc. Absence, mismatch or a failed fetch falls back
-    # to the full load path, recording which.
+    # device, mesh and rank) fingerprint skips the checkpoint conversion,
+    # and its kernel library skips nvcc. Absence, mismatch or a failed
+    # fetch falls back to the full load path, recording which.
     coldstart = ColdStartManager(
         args.snapshot_url, args.served_model_name, engine_cfg, device,
         work_dir=args.snapshot_dir or None, publish=not args.snapshot_no_publish,
+        mesh_sig=None if mesh is None else mesh_signature(mesh, rank.global_rank),
     )
     tracker = coldstart.tracker
     try:
@@ -2577,16 +2914,27 @@ def main(argv=None) -> int:
                 "weights (ROADMAP fault C15); int8 weights serve the llama "
                 "family (llama, mistral, qwen)"
             )
-        log.info("loading %s (%s) from %s onto %s",
-                 args.served_model_name, arch, model_dir, device)
+        if mesh is not None and family.param_specs is None:
+            raise SystemExit(
+                f"the {family.name} family under a mesh is not ported yet ({MESH_ITEM})")
+        log.info("loading %s (%s) from %s onto %s (%s)",
+                 args.served_model_name, arch, model_dir, device, _host_rss())
 
         def full_load():
-            # Whisper runs in f32, as its loader makes it (fault C13).
-            params = load_params(
-                family.name, model_dir, model_cfg,
-                dtype=torch.float32 if speech else torch.bfloat16, device=device,
-            )
-            if args.quantization == "int8" and not speech:
+            if mesh is not None:
+                # Only this rank's shard, quantized as the engine would
+                # quantize the full tree.
+                params = load_params(
+                    family.name, model_dir, model_cfg, device=device,
+                    shard=ShardPlan(family, model_cfg, mesh,
+                                    quantize=args.quantization == "int8"))
+            else:
+                # Whisper runs in f32, as its loader makes it (fault C13).
+                params = load_params(
+                    family.name, model_dir, model_cfg,
+                    dtype=torch.float32 if speech else torch.bfloat16, device=device,
+                )
+            if args.quantization == "int8" and not speech and mesh is None:
                 # Layer by layer on the device; the bf16 stacks go with
                 # the old tree.
                 bf16_bytes = weight_bytes(params)
@@ -2603,7 +2951,7 @@ def main(argv=None) -> int:
                 params = full_load()
         else:
             # The snapshot holds the tree `full_load` returns (quantized
-            # with --quantization int8).
+            # with --quantization int8; the rank's shard under a mesh).
             params = coldstart.acquire_params(full_load)
     except (WeightLoadError, KeyError) as e:  # KeyError: an unknown family or field
         raise SystemExit(f"cannot load {args.model_url}: {e}") from e
@@ -2630,19 +2978,36 @@ def main(argv=None) -> int:
     # Warm-up before Ready. The engine captures its CUDA graphs when it
     # is built and the kernels' library is built at its first launch, so
     # `compile` covers both; `warmup` times a second, warmed generate.
+    # In lockstep the first generate is the first broadcast: every rank
+    # joins it.
     warm = SamplingParams(temperature=0.0, max_tokens=2)
     with tracker.phase("compile"):
         engine = Engine(
-            family, model_cfg, params, cfg=engine_cfg,
+            family, model_cfg, params, mesh=mesh, cfg=engine_cfg,
             eos_token_ids=tuple(getattr(tokenizer, "eos_token_ids", ())),
             scheduler=scheduler, device=device, draft=draft,
+            presharded=mesh is not None,
         )
+        if rank is not None:
+            log.info("rank %d: %s", rank.global_rank, _rank_report(engine))
+        if lockstep and rank.global_rank > 0:
+            # A worker's snapshot holds its shard; the kernel library its
+            # first generate builds travels in rank 0's.
+            coldstart.maybe_publish(params)
+            del params
+            return _serve_worker(args, log, engine, rank, group)
+        if lockstep:
+            engine = LockstepEngine(
+                engine, group, heartbeat_s=HEARTBEAT_S,
+                on_failure=lambda e: _abort(rank, log, f"a lockstep broadcast failed ({e})"),
+            )
         engine.generate([[1, 2, 3]], warm)
     with tracker.phase("warmup"):
         engine.generate([[1, 2, 3]], warm)
     # Write-back on a full-load boot, after the warm-up has built (or
     # found) the kernel library the snapshot carries.
     coldstart.maybe_publish(params)
+    del params
     tracker.finish()
     # The warm-up's latency records are dropped: /metrics counts served
     # requests.
@@ -2680,6 +3045,7 @@ def main(argv=None) -> int:
             KVSpillStore(args.kv_spill_url) if args.kv_sharing else None
         ),
         cold_start=tracker.snapshot(),
+        parallel=parallel,
     )
     tracing.configure(service_name=f"kubeai-tpu-engine.{args.served_model_name}")
     server.start()
@@ -2687,7 +3053,8 @@ def main(argv=None) -> int:
 
     # SIGTERM (pod deletion, rollout) starts the graceful drain: stop
     # admitting, flip /health so the LB ejects us, finish in-flight work
-    # within --drain-timeout, then exit 0.
+    # within --drain-timeout, then exit 0 (in lockstep after releasing
+    # the workers, which exit 0 too).
     exit_evt = threading.Event()
 
     def _drain_and_exit():
@@ -2705,10 +3072,18 @@ def main(argv=None) -> int:
         pass  # not the main thread (embedded use)
     try:
         while not exit_evt.wait(timeout=0.5):
-            pass
+            if lockstep and server._loop_dead:
+                # A step's collective failed: the mesh cannot go on.
+                _abort(rank, log, "the lockstep serve loop crashed")
     except KeyboardInterrupt:
         pass
     server.stop()
+    if lockstep:
+        engine.shutdown()  # release the workers
+        d = engine.digest
+        log.info("lockstep digest: rank 0 produced %d streams, %d tokens, sha256 %s",
+                 d.streams, d.tokens, d.hexdigest())
+    log.info("kernel launches: rank 0 %s", _kernel_launches(getattr(engine, "inner", engine)))
     return 0
 
 

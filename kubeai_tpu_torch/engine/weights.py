@@ -27,6 +27,17 @@ Whisper's loader keeps the JAX package's nested tree in f32 (the JAX
 entry point passes `load_params`' bf16 default to it, which its model
 cannot run: ROADMAP fault C13).
 
+Under a mesh each rank loads only its shard (`load_params(shard=
+ShardPlan(...))`): the cuts `Engine._shard` makes of the full tree (the
+family's `param_specs` over the tp dim, wk/wv cut to one KV head where
+tp exceeds the KV heads), read as slices of each checkpoint tensor, so
+no rank holds the full tree on the host or the card. With int8 weights
+(`ShardPlan(quantize=True)`) every layer weight is quantized as the
+engine quantizes the full tree: a row-parallel weight (wo, w_down), whose
+per-output-column scale spans the whole input dim, is read whole one
+layer at a time, quantized, then cut; the others are cut first, which
+gives the same bits.
+
 `save_safetensors` writes a checkpoint in the same format; tests and
 `chip_smoke.py` use it to make checkpoints from random weights.
 `save_native_checkpoint` / `load_native_checkpoint` keep the tree the
@@ -50,6 +61,9 @@ import torch
 
 from kubeai_tpu_torch import objstore
 from kubeai_tpu_torch.device import resolve_device
+from kubeai_tpu_torch.engine.quantization import QUANTIZABLE, quantize_tensor, quantized_specs
+from kubeai_tpu_torch.parallel import sharding as psh
+from kubeai_tpu_torch.parallel.collectives import TpLayout
 
 logger = logging.getLogger(__name__)
 
@@ -84,6 +98,10 @@ def _decode_raw(raw: np.ndarray, dtype_s: str, shape, name: str) -> torch.Tensor
     if dtype is None:
         raise WeightLoadError(f"unsupported dtype {dtype_s} for {name}")
     return torch.from_numpy(raw).view(dtype).reshape(shape)
+
+
+# Bytes of rows a column slice reads at a time (LazyTensors.stored_slice).
+SLICE_BLOCK = 32 << 20
 
 
 class LazyTensors:
@@ -158,29 +176,156 @@ class LazyTensors:
         """f32 CPU tensor of one tensor, freshly read."""
         return self.stored(name).to(torch.float32)
 
+    def stored_slice(self, name: str, axis: int, start: int, length: int) -> torch.Tensor:
+        """`stored(name).narrow(axis, start, length)`, holding no more of
+        the tensor on the host than the slice and one block of rows: a cut
+        of axis 0 is one read; a cut of a matrix's columns reads its rows
+        SLICE_BLOCK bytes at a time and keeps the slice's columns."""
+        if self._eager is not None:
+            return self._eager[name].narrow(axis, start, length).contiguous()
+        fpath, dtype_s, shape, offset, nbytes = self._index[name]
+        if dtype_s not in _ST_DTYPES:
+            raise WeightLoadError(f"unsupported dtype {dtype_s} for {name}")
+        size = _ST_DTYPES[dtype_s].itemsize
+        cut = list(shape)
+        cut[axis] = length
+        out = np.empty(int(np.prod(cut)) * size, np.uint8)
+        with open(fpath, "rb") as f:
+            if axis == 0:
+                f.seek(offset + start * (nbytes // shape[0]))
+                got = f.readinto(memoryview(out))
+            elif axis == 1 and len(shape) == 2:
+                width = shape[1] * size
+                cols = slice(start * size, (start + length) * size)
+                dst = out.reshape(shape[0], length * size)
+                per = max(1, SLICE_BLOCK // width)
+                got = out.size
+                for r in range(0, shape[0], per):
+                    block = np.empty((min(per, shape[0] - r), width), np.uint8)
+                    f.seek(offset + r * width)
+                    if f.readinto(memoryview(block).cast("B")) != block.size:
+                        got = -1
+                    dst[r:r + len(block)] = block[:, cols]
+            else:
+                raise WeightLoadError(f"{name}: no slice of axis {axis} of shape {shape}")
+        if got != out.size:
+            raise WeightLoadError(f"{fpath}: short read of {name}")
+        return _decode_raw(out, dtype_s, cut, name)
 
-def _stream_helpers(model_dir: str, NL: int, dtype, device: torch.device):
+
+class ShardPlan:
+    """This rank's cut of each leaf of a family's tree under a mesh, the
+    one owner of the rules: `param_specs` through the sharding rules over
+    the mesh (`sharding.leaf_cuts`), and where tp exceeds the KV heads,
+    wk/wv and their biases kept whole by the rules, then cut to the KV
+    head this rank's q heads read. The loaders read each leaf's cut from
+    the checkpoint (`load_params(shard=)`); `Engine` cuts a full tree in
+    memory with `shard`. `quantize`: the loaded layer weights come
+    quantized to int8, as the engine's EngineConfig(quantization="int8")
+    would make them."""
+
+    def __init__(self, family, model_cfg, mesh, quantize: bool = False):
+        if family.param_specs is None:
+            raise WeightLoadError(f"the {family.name} family has no sharding specs")
+        self.mesh = mesh
+        self.quantize = quantize
+        self.specs = family.param_specs(model_cfg)
+        tp = TpLayout.of(mesh)
+        tp.local_heads(model_cfg.num_heads)
+        kvh = model_cfg.num_kv_heads
+        self.rules = psh.DEFAULT_RULES
+        self.kv_cut = None
+        if tp.kv_replicated(kvh):
+            self.rules = self.rules.replicating(psh.KV_HEADS)
+            d = model_cfg.head_size
+            self.kv_cut = (tp.kv_head(kvh) * d, d)
+
+    def _kv_cuts(self, name: str, ndim: int) -> list[tuple[int, int, int]]:
+        """The cut to this rank's KV head of a leaf of layer weight `name`
+        (its last axis), where tp exceeds the KV heads."""
+        if self.kv_cut is not None and name in ("wk", "wv", "bk", "bv"):
+            return [(ndim - 1, *self.kv_cut)]
+        return []
+
+    def cut(self, path: str, shape) -> tuple[int, int, int] | None:
+        """(axis, start, length) of the rank's block of the leaf at `path`
+        ("embed", "layers.wq", ...) of full shape `shape`, or None when
+        the rank keeps it whole: what a loader reads of the tensor."""
+        axes = self.specs
+        for key in path.split("."):
+            axes = axes[key]
+        try:
+            cuts = psh.leaf_cuts(shape, self.rules.spec(axes), self.mesh)
+        except ValueError as e:
+            raise WeightLoadError(f"{path}: {e}") from None
+        cuts += self._kv_cuts(path.split(".")[-1], len(shape))
+        if len(cuts) > 1:
+            raise WeightLoadError(f"{path}: a rank-local load reads one cut a tensor, not {cuts}")
+        return cuts[0] if cuts else None
+
+    def shard(self, params: dict) -> dict:
+        """The rank's shard of a full in-memory tree (`sharding.shard_params`
+        under the plan's rules, quantized leaves too, then the KV-head
+        cut)."""
+        shard = psh.shard_params(params, quantized_specs(self.specs, params["layers"]),
+                                 self.mesh, self.rules)
+        layers = shard["layers"]
+        for name in ("wk", "wv", "bk", "bv"):
+            leaf = layers.get(name)
+            if isinstance(leaf, dict):  # quantized: w8 and its scale
+                layers[name] = {k: psh.narrow(v, self._kv_cuts(name, v.dim()))
+                                for k, v in leaf.items()}
+            elif leaf is not None:
+                layers[name] = psh.narrow(leaf, self._kv_cuts(name, leaf.dim()))
+        return shard
+
+
+def _stream_helpers(model_dir: str, NL: int, dtype, device: torch.device,
+                    shard: ShardPlan | None = None):
     """(tensors, stack, leaf): the streamed-assembly kit. `leaf` and
     `stack` fill tensors preallocated in `dtype` on `device`, one
     checkpoint tensor at a time, copied as stored; the cast runs on the
-    device."""
+    device. With a `shard`, each takes the port path of the leaf it
+    fills and keeps the rank's block of it (see ShardPlan), and `stack`
+    returns a quantized leaf for a layer weight when the plan quantizes."""
     t = LazyTensors(model_dir)
 
-    def get(name: str) -> torch.Tensor:
+    def shape_of(name: str) -> list:
         if name not in t:
             raise WeightLoadError(f"missing tensor {name}")
-        return t.stored(name).to(device)
+        return list(t.stored(name).shape) if t._eager is not None else list(t._index[name][2])
 
-    def leaf(name: str) -> torch.Tensor:
-        a = get(name)
+    def get(name: str, cut=None) -> torch.Tensor:
+        if name not in t:
+            raise WeightLoadError(f"missing tensor {name}")
+        if cut is None:
+            return t.stored(name).to(device)
+        return t.stored_slice(name, *cut).to(device)
+
+    def leaf(name: str, path: str = "") -> torch.Tensor:
+        cut = shard.cut(path, shape_of(name)) if shard is not None else None
+        a = get(name, cut)
         out = torch.empty(a.shape, dtype=dtype, device=device)
         out.copy_(a)
         return out
 
-    def stack(fmt: str, transpose: bool = True) -> torch.Tensor:
+    def stack(fmt: str, transpose: bool = True, path: str = ""):
+        cut = None
+        if shard is not None:
+            layer = shape_of(fmt.format(i=0))
+            full = [NL, *(layer[::-1] if transpose else layer)]
+            cut = shard.cut(path, full)
+        if cut is not None:
+            # The axis within one stored (untransposed) layer tensor.
+            axis = cut[0] - 1
+            if transpose:
+                axis = 1 - axis
+            cut = (axis, cut[1], cut[2])
+        if shard is not None and shard.quantize and path.split(".")[-1] in QUANTIZABLE:
+            return _quantized_stack(get, fmt, NL, dtype, device, cut)
         buf = None
         for i in range(NL):
-            a = get(fmt.format(i=i))
+            a = get(fmt.format(i=i), cut)
             if transpose:
                 a = a.T
             if buf is None:
@@ -192,49 +337,77 @@ def _stream_helpers(model_dir: str, NL: int, dtype, device: torch.device):
     return t, stack, leaf
 
 
+def _quantized_stack(get, fmt: str, NL: int, dtype, device, cut) -> dict:
+    """A quantized [NL, in, out] leaf of the layer weights `fmt` (stored
+    [out, in]) with the rank's cut `cut` of one stored layer (None: whole):
+    each layer cast to `dtype` and quantized as quantize_tensor quantizes
+    the engine's tree. A cut of the input axis (stored axis 1: a
+    row-parallel weight) reads the layer whole, quantizes it over its
+    whole rows, then keeps the rank's rows of w8 (the scales are per
+    output column); any other cut is taken first, as the scales of the
+    columns kept do not depend on the others."""
+    rows_cut = cut is not None and cut[0] == 1
+    w8 = scale = None
+    for i in range(NL):
+        a = get(fmt.format(i=i), None if rows_cut else cut)
+        w = torch.empty(a.shape[::-1], dtype=dtype, device=device)
+        w.copy_(a.T)
+        del a
+        q = quantize_tensor(w)
+        if rows_cut:
+            q["w8"] = q["w8"].narrow(0, cut[1], cut[2])
+        if w8 is None:
+            k, n = q["w8"].shape
+            w8 = torch.empty((NL, n, k), dtype=torch.int8, device=device).transpose(-1, -2)
+            scale = torch.empty((NL, 1, n), dtype=torch.float32, device=device)
+        w8[i].copy_(q["w8"])
+        scale[i].copy_(q["scale"])
+    return {"w8": w8, "scale": scale}
+
+
 def load_llama_params(
     model_dir: str, cfg, dtype=torch.bfloat16,
-    device: str | torch.device | None = None,
+    device: str | torch.device | None = None, shard: ShardPlan | None = None,
 ) -> dict:
     """Map a HF LlamaForCausalLM (or Qwen2ForCausalLM) checkpoint onto
     the port's stacked-layer dict (kubeai_tpu_torch.models.llama).
 
     HF stores per-layer `model.layers.{i}.self_attn.q_proj.weight` with
     shape [out, in]; the port's layout stacks layers and keeps
-    [in, out], as the JAX package's does. `device` defaults to cuda."""
+    [in, out], as the JAX package's does. `device` defaults to cuda.
+    `shard`: the rank's shard only (ShardPlan)."""
     dev = resolve_device(device)
-    t, stack, leaf = _stream_helpers(model_dir, cfg.num_layers, dtype, dev)
+    t, stack, leaf = _stream_helpers(model_dir, cfg.num_layers, dtype, dev, shard)
+
+    def layer(hf: str, name: str, transpose: bool = True):
+        return stack(f"model.layers.{{i}}.{hf}", transpose, f"layers.{name}")
 
     extra_layers = {}
     if getattr(cfg, "attention_bias", False):
         extra_layers = {
-            "bq": stack("model.layers.{i}.self_attn.q_proj.bias", transpose=False),
-            "bk": stack("model.layers.{i}.self_attn.k_proj.bias", transpose=False),
-            "bv": stack("model.layers.{i}.self_attn.v_proj.bias", transpose=False),
+            b: layer(f"self_attn.{p}_proj.bias", b, transpose=False)
+            for b, p in (("bq", "q"), ("bk", "k"), ("bv", "v"))
         }
     params = {
-        "embed": leaf("model.embed_tokens.weight"),
+        "embed": leaf("model.embed_tokens.weight", "embed"),
         "layers": {
-            "input_norm": stack(
-                "model.layers.{i}.input_layernorm.weight", transpose=False
+            "input_norm": layer("input_layernorm.weight", "input_norm", transpose=False),
+            "wq": layer("self_attn.q_proj.weight", "wq"),
+            "wk": layer("self_attn.k_proj.weight", "wk"),
+            "wv": layer("self_attn.v_proj.weight", "wv"),
+            "wo": layer("self_attn.o_proj.weight", "wo"),
+            "post_attn_norm": layer(
+                "post_attention_layernorm.weight", "post_attn_norm", transpose=False
             ),
-            "wq": stack("model.layers.{i}.self_attn.q_proj.weight"),
-            "wk": stack("model.layers.{i}.self_attn.k_proj.weight"),
-            "wv": stack("model.layers.{i}.self_attn.v_proj.weight"),
-            "wo": stack("model.layers.{i}.self_attn.o_proj.weight"),
-            "post_attn_norm": stack(
-                "model.layers.{i}.post_attention_layernorm.weight",
-                transpose=False,
-            ),
-            "w_gate": stack("model.layers.{i}.mlp.gate_proj.weight"),
-            "w_up": stack("model.layers.{i}.mlp.up_proj.weight"),
-            "w_down": stack("model.layers.{i}.mlp.down_proj.weight"),
+            "w_gate": layer("mlp.gate_proj.weight", "w_gate"),
+            "w_up": layer("mlp.up_proj.weight", "w_up"),
+            "w_down": layer("mlp.down_proj.weight", "w_down"),
             **extra_layers,
         },
-        "final_norm": leaf("model.norm.weight"),
+        "final_norm": leaf("model.norm.weight", "final_norm"),
     }
     if "lm_head.weight" in t:
-        params["lm_head"] = leaf("lm_head.weight")
+        params["lm_head"] = leaf("lm_head.weight", "lm_head")
     else:  # tied embeddings
         params["lm_head"] = params["embed"]
     return params
@@ -281,7 +454,7 @@ def load_gemma_params(
 
 def load_mixtral_params(
     model_dir: str, cfg, dtype=torch.bfloat16,
-    device: str | torch.device | None = None,
+    device: str | torch.device | None = None, shard: ShardPlan | None = None,
 ) -> dict:
     """Map a HF MixtralForCausalLM checkpoint onto the port's mixtral
     dict (kubeai_tpu_torch.models.mixtral): llama's attention leaves,
@@ -290,11 +463,19 @@ def load_mixtral_params(
     stacks `w_gate` / `w_up` [NL, E, X, M] and `w_down` [NL, X, M, E]. The
     values are the JAX loader's bit for bit; only the gate and up stacks'
     axis order differs (the JAX layout is [NL, X, E, M]). `device`
-    defaults to cuda."""
+    defaults to cuda. `shard`: the rank's shard only (ShardPlan): the
+    rank's experts are the only ones read."""
     dev = resolve_device(device)
     NL, X = cfg.num_layers, cfg.num_experts
     E, M = cfg.hidden_size, cfg.intermediate_size
-    t, stack, leaf = _stream_helpers(model_dir, NL, dtype, dev)
+    t, stack, leaf = _stream_helpers(model_dir, NL, dtype, dev, shard)
+    first = 0
+    if shard is not None:
+        cut = shard.cut("layers.w_down", (NL, X, M, E))
+        if cut is not None:
+            if cut[0] != 1 or shard.cut("layers.w_gate", (NL, E, X, M))[0] != 2:
+                raise WeightLoadError("mixtral's experts shard only over the expert axis")
+            first, X = cut[1], cut[2]
 
     def expert(i: int, e: int, w: str) -> torch.Tensor:
         name = f"model.layers.{i}.block_sparse_moe.experts.{e}.{w}.weight"
@@ -307,27 +488,31 @@ def load_mixtral_params(
     w_down = torch.empty((NL, X, M, E), dtype=dtype, device=dev)
     for i in range(NL):
         for e in range(X):
-            w_gate[i, :, e].copy_(expert(i, e, "w1"))  # casts to dtype in place
-            w_up[i, :, e].copy_(expert(i, e, "w3"))
-            w_down[i, e].copy_(expert(i, e, "w2"))
+            w_gate[i, :, e].copy_(expert(i, first + e, "w1"))  # casts to dtype in place
+            w_up[i, :, e].copy_(expert(i, first + e, "w3"))
+            w_down[i, e].copy_(expert(i, first + e, "w2"))
+
+    def layer(hf: str, name: str, transpose: bool = True):
+        return stack(f"model.layers.{{i}}.{hf}", transpose, f"layers.{name}")
+
     return {
-        "embed": leaf("model.embed_tokens.weight"),
+        "embed": leaf("model.embed_tokens.weight", "embed"),
         "layers": {
-            "input_norm": stack("model.layers.{i}.input_layernorm.weight", transpose=False),
-            "wq": stack("model.layers.{i}.self_attn.q_proj.weight"),
-            "wk": stack("model.layers.{i}.self_attn.k_proj.weight"),
-            "wv": stack("model.layers.{i}.self_attn.v_proj.weight"),
-            "wo": stack("model.layers.{i}.self_attn.o_proj.weight"),
-            "post_attn_norm": stack(
-                "model.layers.{i}.post_attention_layernorm.weight", transpose=False
+            "input_norm": layer("input_layernorm.weight", "input_norm", transpose=False),
+            "wq": layer("self_attn.q_proj.weight", "wq"),
+            "wk": layer("self_attn.k_proj.weight", "wk"),
+            "wv": layer("self_attn.v_proj.weight", "wv"),
+            "wo": layer("self_attn.o_proj.weight", "wo"),
+            "post_attn_norm": layer(
+                "post_attention_layernorm.weight", "post_attn_norm", transpose=False
             ),
-            "router": stack("model.layers.{i}.block_sparse_moe.gate.weight"),
+            "router": layer("block_sparse_moe.gate.weight", "router"),
             "w_gate": w_gate,
             "w_up": w_up,
             "w_down": w_down,
         },
-        "final_norm": leaf("model.norm.weight"),
-        "lm_head": leaf("lm_head.weight"),
+        "final_norm": leaf("model.norm.weight", "final_norm"),
+        "lm_head": leaf("lm_head.weight", "lm_head"),
     }
 
 
@@ -536,17 +721,26 @@ _LOADERS = {
 UNPORTED_ARCHITECTURES: dict[str, str] = {}
 
 
+# The loaders that take a ShardPlan (the families with sharding specs).
+_SHARDED_LOADERS = ("llama", "qwen", "mixtral")
+
+
 def load_params(
     family_name: str, model_dir: str, cfg, dtype=torch.bfloat16,
-    device: str | torch.device | None = None,
+    device: str | torch.device | None = None, shard: ShardPlan | None = None,
 ) -> dict:
-    """Family-dispatching checkpoint loader."""
+    """Family-dispatching checkpoint loader. `shard`: this rank's shard
+    only, for an engine built with `presharded=True`."""
     if family_name in UNPORTED_ARCHITECTURES.values():
         raise WeightLoadError(
             f"the {family_name} family is not ported yet (ROADMAP A item 10)"
         )
     if family_name not in _LOADERS:
         raise WeightLoadError(f"no weight loader for family {family_name!r}")
+    if shard is not None:
+        if family_name not in _SHARDED_LOADERS:
+            raise WeightLoadError(f"the {family_name} family loads no shard")
+        return _LOADERS[family_name](model_dir, cfg, dtype, device, shard)
     return _LOADERS[family_name](model_dir, cfg, dtype, device)
 
 

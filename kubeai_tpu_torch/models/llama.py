@@ -42,7 +42,12 @@ all-zero "no adapter" row). Each of `LORA_TARGETS`' projections adds
 `_lora_delta` after its base product and bias, so one batch serves a mix
 of adapters. The delta is two small batched products per projection
 (torch.bmm on the gathered slices), as the JAX version computes it with
-jnp.einsum outside any Pallas kernel.
+jnp.einsum outside any Pallas kernel. Under a mesh the buffers are the
+rank's (`init_lora_buffers(..., tp=)`, `lora_shard`): wq/wk/wv's B
+columns of the rank's heads (of the one KV head it keeps where tp
+exceeds the KV heads) and wo's A rows of its heads, so wo's delta is a
+partial sum that joins the base product before the all_reduce that
+follows wo; no collective is added.
 
 Prefill and trunk attention go through ops.flash_attention.flash_causal_prefill
 for every bucket (the CUDA kernel on the card); a staged chunk attends
@@ -286,10 +291,33 @@ def _matmul(h, w):
 LORA_TARGETS = ("wq", "wk", "wv", "wo")
 
 
-def lora_dims(cfg: LlamaConfig) -> dict[str, tuple[int, int]]:
-    """(in, out) of each LoRA target's projection."""
+def lora_dims(cfg: LlamaConfig, tp=None) -> dict[str, tuple[int, int]]:
+    """(in, out) of each LoRA target's projection: the whole model's, or
+    the rank's under `tp` (its heads' q/k/v columns, its heads' wo rows)."""
     E, H, KVH, D = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_size
+    if tp is not None:
+        H, KVH = tp.local_heads(H), tp.local_kv_heads(KVH)
     return {"wq": (E, H * D), "wk": (E, KVH * D), "wv": (E, KVH * D), "wo": (H * D, E)}
+
+
+def lora_shard(cfg: LlamaConfig, tp, target: str, A: torch.Tensor, B: torch.Tensor):
+    """The rank's part of one adapter target, A [NL, in, r] and B [NL, r,
+    out] whole: cut as the projection is cut (parallel/sharding.py and
+    Engine._shard). wq, wk, wv keep A and the B columns of the rank's
+    heads (wk/wv of the one KV head its q heads read where tp exceeds the
+    KV heads); wo keeps the A rows of its heads and B whole."""
+    D = cfg.head_size
+    if target == "wo":
+        h = tp.local_heads(cfg.num_heads) * D
+        return A.narrow(-2, tp.rank * h, h), B
+    if target == "wq":
+        h = tp.local_heads(cfg.num_heads) * D
+        return A, B.narrow(-1, tp.rank * h, h)
+    kvh = cfg.num_kv_heads
+    if tp.kv_replicated(kvh):
+        return A, B.narrow(-1, tp.kv_head(kvh) * D, D)
+    h = tp.local_kv_heads(kvh) * D
+    return A, B.narrow(-1, tp.rank * h, h)
 
 
 def init_lora_buffers(
@@ -298,10 +326,11 @@ def init_lora_buffers(
     max_rank: int,
     dtype=None,
     device: str | torch.device | None = None,
+    tp=None,
 ) -> dict:
     """All-zero adapter buffers {target: {"A": [NL, n, in, r], "B": [NL, n,
     r, out]}} in `dtype` (default: the model's) on `device` (default:
-    cuda)."""
+    cuda), at the rank's dims under `tp`."""
     dtype = dtype or cfg.dtype
     dev = resolve_device(device)
     NL = cfg.num_layers
@@ -310,7 +339,7 @@ def init_lora_buffers(
             "A": torch.zeros((NL, n_adapters, i, max_rank), dtype=dtype, device=dev),
             "B": torch.zeros((NL, n_adapters, max_rank, o), dtype=dtype, device=dev),
         }
-        for t, (i, o) in lora_dims(cfg).items()
+        for t, (i, o) in lora_dims(cfg, tp).items()
     }
 
 

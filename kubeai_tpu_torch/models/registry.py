@@ -42,8 +42,11 @@ class ModelFamily:
     prefill_chunk: Callable | None = None
     hf_architectures: tuple[str, ...] = ()
     # LoRA adapter buffers (None = the family takes no adapters; the
-    # engine refuses them).
+    # engine refuses them), the whole (in, out) of each target, and the
+    # rank's part of an adapter under a mesh.
     init_lora_buffers: Callable | None = None
+    lora_dims: Callable | None = None
+    lora_shard: Callable | None = None
     # Whether whole-prompt prefill attends through flash_causal_prefill
     # (B2) for a config: the engine checks B2's head dims on the card then.
     prefill_uses_flash: Callable = lambda cfg: True
@@ -98,6 +101,8 @@ def _ensure_builtin() -> None:
             prefill_chunk=llama.prefill_chunk,
             hf_architectures=("LlamaForCausalLM", "MistralForCausalLM"),
             init_lora_buffers=llama.init_lora_buffers,
+            lora_dims=llama.lora_dims,
+            lora_shard=llama.lora_shard,
             hidden_states=llama.hidden_states,
             int8_weights=True,
         )
@@ -121,6 +126,8 @@ def _ensure_builtin() -> None:
             prefill_chunk=llama.prefill_chunk,
             hf_architectures=("Qwen2ForCausalLM",),
             init_lora_buffers=llama.init_lora_buffers,
+            lora_dims=llama.lora_dims,
+            lora_shard=llama.lora_shard,
             hidden_states=llama.hidden_states,
             int8_weights=True,
         )

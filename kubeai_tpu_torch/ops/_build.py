@@ -25,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
@@ -88,6 +89,7 @@ class KernelCompileError(RuntimeError):
     """nvcc is missing or refused a source."""
 
 
+logger = logging.getLogger(__name__)
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 # Seconds the last compile and link took in this process (0.0: none ran).
@@ -148,9 +150,18 @@ def build() -> Path:
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     with open(BUILD_ROOT / f"{out_dir.name}.lock", "w") as lock:
+        t0 = time.perf_counter()
         fcntl.flock(lock, fcntl.LOCK_EX)
+        waited = time.perf_counter() - t0
         if not lib_path.exists():  # else another process built it meanwhile
+            logger.info("kernel library: pid %d builds %s with nvcc (waited %.2f s "
+                        "for the build lock)", os.getpid(), out_dir.name, waited)
             _compile(out_dir, lib_path)
+            logger.info("kernel library: pid %d built %s in %.2f s", os.getpid(),
+                        out_dir.name, last_build_seconds)
+        else:
+            logger.info("kernel library: pid %d waited %.2f s for another process's "
+                        "build of %s, then loads it", os.getpid(), waited, out_dir.name)
     return lib_path
 
 

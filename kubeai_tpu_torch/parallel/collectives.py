@@ -38,23 +38,19 @@ import torch.distributed as dist
 from kubeai_tpu_torch.parallel.mesh import AXIS_TENSOR
 
 
-class TensorParallel:
-    """The tp dim of a mesh, as the sharded forwards use it: its group,
-    size, this rank's coordinate, and the rank-local head counts."""
+class TpLayout:
+    """The tp dim's size and this rank's coordinate, and the rank-local
+    head counts they give: what cutting weights needs (weights.ShardPlan),
+    without the group."""
 
-    def __init__(self, mesh):
-        self.group = mesh.get_group(AXIS_TENSOR)
-        self.size = mesh.size(mesh.mesh_dim_names.index(AXIS_TENSOR))
-        self.rank = mesh.get_local_rank(AXIS_TENSOR)
-        self.backend = dist.get_backend(self.group)
-        # A CUDA graph captures NCCL collectives; gloo's run on the host.
-        self.capturable = self.backend == "nccl"
-        self._host_group = None
-        if self.size > 1:
-            self._host_group = (
-                self.group if self.backend == "gloo" else dist.new_group(
-                    dist.get_process_group_ranks(self.group), backend="gloo")
-            )
+    def __init__(self, size: int, rank: int):
+        self.size = size
+        self.rank = rank
+
+    @classmethod
+    def of(cls, mesh) -> "TpLayout":
+        return cls(mesh.size(mesh.mesh_dim_names.index(AXIS_TENSOR)),
+                   mesh.get_local_rank(AXIS_TENSOR))
 
     # ---- head layout ---------------------------------------------------
 
@@ -81,6 +77,25 @@ class TensorParallel:
         """The KV head this rank holds when they are replicated: the one
         its q heads read (rank * num_kv_heads // tp)."""
         return self.rank * num_kv_heads // self.size
+
+
+class TensorParallel(TpLayout):
+    """The tp dim of a mesh, as the sharded forwards use it: its group,
+    size, this rank's coordinate, and the rank-local head counts."""
+
+    def __init__(self, mesh):
+        layout = TpLayout.of(mesh)
+        super().__init__(layout.size, layout.rank)
+        self.group = mesh.get_group(AXIS_TENSOR)
+        self.backend = dist.get_backend(self.group)
+        # A CUDA graph captures NCCL collectives; gloo's run on the host.
+        self.capturable = self.backend == "nccl"
+        self._host_group = None
+        if self.size > 1:
+            self._host_group = (
+                self.group if self.backend == "gloo" else dist.new_group(
+                    dist.get_process_group_ranks(self.group), backend="gloo")
+            )
 
     # ---- collectives ---------------------------------------------------
 

@@ -10,8 +10,10 @@ Megatron-style as in the JAX package:
   - embeddings, lm_head:     vocab on tp
   - MoE experts:             expert dim on tp (expert parallelism)
 
-`shard_params` cuts each leaf to the calling rank's shard, the block a
-`NamedSharding` of the same spec places on that rank's device. In JAX,
+`shard_params` cuts each leaf to the calling rank's shard (`leaf_cuts`),
+the block a `NamedSharding` of the same spec places on that rank's
+device; `engine.weights.ShardPlan` applies it to an engine's tree, and
+the same cuts to a checkpoint's tensors. In JAX,
 GSPMD then inserts the collectives; here the sharded forwards call them
 (parallel/collectives.py). `named_sharding` and `param_shardings` have
 no counterpart: torch has no jit in/out shardings, and a rank's tensors
@@ -96,30 +98,44 @@ def logical_to_physical(
     return rules.spec(logical_axes)
 
 
-def shard_leaf(x: torch.Tensor, physical: tuple[str | None, ...], mesh) -> torch.Tensor:
-    """This rank's block of `x` under a spec of mesh dims: each sharded
-    axis cut into equal parts, one per rank of its dim, the part at the
-    rank's coordinate. A cut block is a new contiguous tensor, so `x` can
-    be freed; a leaf that nothing cuts (replicated, or every dim of its
-    axes of size 1) is `x` itself. Raises where a dim does not divide its
-    axis (the JAX sharding would pad the last block)."""
-    if len(physical) != x.dim():
-        raise ValueError(f"spec {physical} does not match a tensor of shape {tuple(x.shape)}")
-    whole = x
+def leaf_cuts(shape, physical: tuple[str | None, ...], mesh) -> list[tuple[int, int, int]]:
+    """(axis, start, length) of this rank's block along each axis that a
+    spec of mesh dims cuts: the axis in equal parts, one per rank of its
+    dim, the part at the rank's coordinate; an axis whose dim is None or
+    of size 1 is not cut. Raises where a dim does not divide its axis (the
+    JAX sharding would pad the last block)."""
+    if len(physical) != len(shape):
+        raise ValueError(f"spec {physical} does not match a tensor of shape {tuple(shape)}")
+    cuts = []
     for axis, dim in enumerate(physical):
         if dim is None:
             continue
         n = mesh.size(mesh.mesh_dim_names.index(dim))
         if n == 1:
             continue
-        if x.shape[axis] % n:
+        if shape[axis] % n:
             raise ValueError(
-                f"axis {axis} of shape {tuple(x.shape)} does not divide over "
+                f"axis {axis} of shape {tuple(shape)} does not divide over "
                 f"{n} ranks of mesh dim {dim!r}"
             )
-        part = x.shape[axis] // n
-        x = x.narrow(axis, mesh.get_local_rank(dim) * part, part)
-    return x if x is whole else x.clone(memory_format=torch.contiguous_format)
+        part = shape[axis] // n
+        cuts.append((axis, mesh.get_local_rank(dim) * part, part))
+    return cuts
+
+
+def narrow(x: torch.Tensor, cuts: list[tuple[int, int, int]]) -> torch.Tensor:
+    """`x` narrowed by `cuts` ((axis, start, length) each): a new
+    contiguous tensor, so `x` can be freed; with no cut, `x` itself."""
+    for axis, start, length in cuts:
+        x = x.narrow(axis, start, length)
+    return x.clone(memory_format=torch.contiguous_format) if cuts else x
+
+
+def shard_leaf(x: torch.Tensor, physical: tuple[str | None, ...], mesh) -> torch.Tensor:
+    """This rank's block of `x` under a spec of mesh dims (`leaf_cuts`). A
+    leaf that nothing cuts (replicated, or every dim of its axes of size
+    1) is `x` itself."""
+    return narrow(x, leaf_cuts(x.shape, physical, mesh))
 
 
 def shard_params(

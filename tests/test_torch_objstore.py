@@ -235,7 +235,7 @@ def test_download_prefix_and_upload_dir_match_jax(kind, gcs, s3, frozen_clock, t
             pkg.download_prefix(f"{scheme}://bkt/absent", str(tmp_path / "none"))
 
 
-def test_weights_cache_shared_with_jax(s3, monkeypatch, tmp_path):
+def test_weights_cache_shared_with_jax(s3, frozen_clock, monkeypatch, tmp_path):
     """The JAX loader's cache directory for an s3:// checkpoint is the
     port's: the port resolves it without a request. In a cache of its
     own the port writes the same directory, marker included, from the

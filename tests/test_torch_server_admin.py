@@ -750,8 +750,41 @@ def test_main_refuses_unported_flags(checkpoints, monkeypatch, tmp_path, argv, i
     --snapshot-url (here a temporary file:// bucket) records `absent`,
     loads in full and publishes after the warm-up; --snapshot-dir (here a
     temporary directory) and --snapshot-no-publish alone leave snapshots
-    off, as in the JAX server."""
+    off, as in the JAX server. --tpu-topology and the multihost flags were
+    until lockstep serving (ROADMAP A item 11d): --tpu-topology 2x2 now
+    starts a slice of four ranks (here `serve_slice` is stood in for, and
+    receives the layout); --num-processes without a topology exits asking
+    for one; --dcn-coordinator alone (one process) serves with no mesh."""
     model_dir, _ = checkpoints["llama-safetensors"]
+    if argv[0] in ("--tpu-topology", "--num-processes", "--dcn-coordinator"):
+        from kubeai_tpu_torch.engine import server as server_mod
+
+        built = {}
+
+        def capture_slice(args, layout, log):
+            built["layout"] = layout
+            return 0
+
+        def capture_server(engine, tokenizer, name, **kw):
+            built.update(kw, engine=engine)
+            raise _ServerBuilt
+
+        monkeypatch.setattr(server_mod, "serve_slice", capture_slice)
+        monkeypatch.setattr(server_mod, "EngineServer", capture_server)
+        flags = ["--model-url", model_dir, "--device", "cpu", "--num-slots", "2",
+                 "--max-seq-len", "128", *argv]
+        if argv[0] == "--tpu-topology":
+            assert main(flags) == 0
+            layout = built["layout"]
+            assert (layout.world, layout.local, layout.num_processes) == (4, 4, 1)
+        elif argv[0] == "--num-processes":
+            with pytest.raises(SystemExit, match="give its --tpu-topology"):
+                main(flags)
+        else:
+            with pytest.raises(_ServerBuilt):
+                main(flags)
+            assert built["parallel"] == {} and built["engine"]._tp is None
+        return
     if argv[0].startswith(("--kv-spill-url", "--snapshot")):
         from kubeai_tpu.objstore import KVSpillStore as JKVSpillStore
         from kubeai_tpu_torch.engine import server as server_mod

@@ -10,15 +10,18 @@ with q/k/v biases, llama on int8 weights, llama on int8 pools and
 mixtral (its 4 experts over the tp ranks), in the per_layer and fused
 layouts, with prompt-lookup speculation (adaptive, so rank 0's choice is
 broadcast) and with chunked prefill and the prefix cache, where the
-family and pools take them. Every rank's greedy and seeded streams must
+family and pools take them, and tiny llama with two LoRA adapters
+(loaded whole; each rank keeps its heads' part) serving a mix of base
+and adapter requests. Every rank's greedy and seeded streams must
 be identical to each other and to `kubeai_tpu.engine.Engine` on the same
 weights, unsharded; prefill, both decode layouts and the verify window
 on the ranks' shards must give logits within 1e-4 of the JAX functions
 in f32, and each rank's K/V must be its KV heads of JAX's.
 
 Also here: what still refuses under a mesh (in one process, over torch's
-fake process-group backend or a world-1 gloo group), and a world-1 mesh
-equal to no mesh."""
+fake process-group backend or a world-1 gloo group), the rank-local
+adapter buffers, a world-1 mesh equal to no mesh, and the topology
+flags."""
 
 import dataclasses
 import datetime
@@ -44,7 +47,8 @@ from kubeai_tpu.engine.sampling import SamplingParams as JSamplingParams
 from kubeai_tpu.models import llama as jl
 from kubeai_tpu.models import mixtral as jm
 from kubeai_tpu_torch.engine import Engine, EngineConfig
-from kubeai_tpu_torch.engine.server import parse_args
+from kubeai_tpu_torch.engine.engine import _refuse_unported
+from kubeai_tpu_torch.engine.server import parse_args, resolve_ranks
 from kubeai_tpu_torch.models import gemma as tg
 from kubeai_tpu_torch.models import llama as tl
 from kubeai_tpu_torch.ops.int8_matmul import (
@@ -55,6 +59,8 @@ from kubeai_tpu_torch.ops.int8_matmul import (
     check_weight,
     gemm_plan,
 )
+from kubeai_tpu_torch.models.registry import get_model_family
+from kubeai_tpu_torch.parallel.collectives import TpLayout
 from kubeai_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 
 ATOL = 1e-4
@@ -76,8 +82,11 @@ CASES = {
     "int8_weights": ("llama", dict(quantization="int8"), tuple(MODES)),
     "int8_pools": ("llama", dict(kv_dtype="int8"), ("per_layer", "prefix")),
     "mixtral": ("mixtral", {}, ("per_layer", "fused", "prefix")),
+    "lora": ("llama", dict(max_adapters=2), ("per_layer", "fused", "prefix")),
 }
-LOGITS = {"llama": 4, "qwen": 4, "int8_weights": 4, "mixtral": 3}
+LOGITS = {"llama": 4, "qwen": 4, "int8_weights": 4, "mixtral": 3, "lora": 4}
+# The lora case's adapter rows of the forwards' rows.
+LORA_IDX = {"prefill": [1, 0, 2], "decode": [2, 1, 0, 1], "verify": [1, 2, 0, 2]}
 FORWARDS = ("prefill", "decode_per_layer", "decode_fused", "verify")
 SAMPLING = [
     dict(temperature=0.0, max_tokens=10),
@@ -108,6 +117,26 @@ def _waves() -> list[list[tuple]]:
                rng.integers(1, 256, 27).tolist(),
                rng.integers(1, 256, 19).tolist()]
     return [[(p, SAMPLING[i % 2]) for i, p in enumerate(prompts)]]
+
+
+def _adapters() -> dict:
+    """Two rank-4 adapters over wq, wk, wv and wo of tiny llama, whole."""
+    rng = np.random.default_rng(9)
+    jcfg = jl.LlamaConfig.tiny()
+    E, H, KVH, D, NL = (jcfg.hidden_size, jcfg.num_heads, jcfg.num_kv_heads, jcfg.head_size,
+                        jcfg.num_layers)
+    dims = {"wq": (E, H * D), "wk": (E, KVH * D), "wv": (E, KVH * D), "wo": (H * D, E)}
+    return {name: {t: ((rng.standard_normal((NL, i, 4)) * 0.3).astype(np.float32),
+                       (rng.standard_normal((NL, 4, o)) * 0.3).astype(np.float32))
+                   for t, (i, o) in dims.items()} for name in ("a1", "a2")}
+
+
+def _lora_waves() -> list[list[tuple]]:
+    """`_waves` with the requests spread over the base model and both
+    adapters, the two over the system prompt on one adapter (the prefix
+    cache's hit)."""
+    names = ["a1", "a1", "a2", None, "a2"]
+    return [[(p, sp, names[i]) for i, (p, sp) in enumerate(wave)] for wave in _waves()]
 
 
 def _llama_tree(bias: bool) -> dict:
@@ -151,7 +180,8 @@ def _inputs() -> dict:
     verify = _pools(2, 16, rng, vpos, 5)
     verify.update(tokens=rng.integers(1, 512, (4, 5)), positions=vpos)
     prefill = dict(tokens=rng.integers(1, 512, (3, 16)), lengths=np.array([16, 5, 11]))
-    return dict(prefill=prefill, decode=decode, verify=verify)
+    return dict(prefill=prefill, decode=decode, verify=verify,
+                lora_idx={k: np.array(v) for k, v in LORA_IDX.items()})
 
 
 @pytest.fixture(scope="module")
@@ -184,7 +214,8 @@ def spawned(models, tmp_path_factory):
             name=name, family=family, tree=tree, engine=engine,
             config={f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)
                     if f.name != "dtype"},
-            modes={m: MODES[m] for m in modes}, logits=name in LOGITS))
+            modes={m: MODES[m] for m in modes}, logits=name in LOGITS,
+            **(dict(adapters=_adapters(), waves=_lora_waves()) if name == "lora" else {})))
     inputs = root / "inputs.pkl"
     inputs.write_bytes(pickle.dumps(dict(base=BASE, waves=_waves(), cases=cases,
                                          inputs=_inputs())))
@@ -205,18 +236,23 @@ def spawned(models, tmp_path_factory):
                 p.kill()
 
 
-def _jax_streams(jcfg, jp, family: str, engine: dict) -> list[list[int]]:
+def _jax_streams(jcfg, jp, family: str, engine: dict, adapters=None, waves=None):
+    """The JAX engine's streams of the waves (and the engine, whose adapter
+    buffers the forwards read)."""
     eng = JEngine(family, jcfg, jp, cfg=JEngineConfig(
         cache_dtype=jnp.float32, step_overlap="off", **BASE, **engine))
+    for name, weights in (adapters or {}).items():
+        eng.load_adapter(name, weights)
     streams = []
-    for wave in _waves():
-        rids = [eng.add_request(p, JSamplingParams(**sp)) for p, sp in wave]
+    for wave in waves or _waves():
+        rids = [eng.add_request(p, JSamplingParams(**sp), adapter=(a[0] if a else None))
+                for p, sp, *a in wave]
         out = {rid: [] for rid in rids}
         while eng.has_work():
             for ev in eng.step():
                 out[ev.rid].append(ev.token)
         streams += [out[rid] for rid in rids]
-    return streams
+    return streams, eng
 
 
 @pytest.fixture(scope="module")
@@ -228,24 +264,32 @@ def jax_side(models, spawned):
     out = {}
     for name, (family, engine, _) in CASES.items():
         jcfg, jp, tree = models[name]
-        streams = _jax_streams(jcfg, jax.tree.map(jnp.asarray, tree), family, engine)
+        lora = name == "lora"
+        streams, jeng = _jax_streams(jcfg, jax.tree.map(jnp.asarray, tree), family, engine,
+                                     *((_adapters(), _lora_waves()) if lora else ()))
+
+        def kw(fn):  # the adapter buffers and rows of a forward
+            return dict(lora=jeng._lora, lora_idx=jnp.asarray(LORA_IDX[fn])) if lora else {}
+
         fwd = {}
         if name in LOGITS:
             mod = jm if family == "mixtral" else jl
             pre, dec = inputs["prefill"], inputs["decode"]
-            fwd["prefill"] = jax.jit(mod.prefill, static_argnums=1)(
+            fwd["prefill"] = jax.jit(functools.partial(mod.prefill, **kw("prefill")),
+                                     static_argnums=1)(
                 jp, jcfg, jnp.asarray(pre["tokens"], jnp.int32), jnp.asarray(pre["lengths"]))
             for layout in ("per_layer", "fused"):
                 # The layouts differ only in the free slot's junk row.
-                step = jax.jit(functools.partial(mod.decode_step_paged, attn_kernel=layout),
-                               static_argnums=1)
+                step = jax.jit(functools.partial(mod.decode_step_paged, attn_kernel=layout,
+                                                 **kw("decode")), static_argnums=1)
                 fwd[f"decode_{layout}"] = step(
                     jp, jcfg, jnp.asarray(dec["tokens"], jnp.int32),
                     jnp.asarray(dec["positions"], jnp.int32), jnp.asarray(dec["k_pages"]),
                     jnp.asarray(dec["v_pages"]), jnp.asarray(dec["block_tables"]))
             if family != "mixtral":
                 ver = inputs["verify"]
-                fwd["verify"] = jax.jit(jl.decode_verify_paged, static_argnums=1)(
+                fwd["verify"] = jax.jit(functools.partial(jl.decode_verify_paged, **kw("verify")),
+                                        static_argnums=1)(
                     jp, jcfg, jnp.asarray(ver["tokens"], jnp.int32),
                     jnp.asarray(ver["positions"], jnp.int32), jnp.asarray(ver["k_pages"]),
                     jnp.asarray(ver["v_pages"]), jnp.asarray(ver["block_tables"]))
@@ -360,6 +404,10 @@ def test_mesh_dims_still_refused(fake_world, mesh_kw, item):
 
 @pytest.mark.parametrize("what", ["gemma", "lora", "draft", "slot"])
 def test_features_still_refused_under_a_mesh(fake_world, what):
+    """Gemma, a draft and the slot cache still refuse under a mesh. LoRA
+    did until lockstep serving (ROADMAP A item 11d): its case now checks
+    that the mesh refusals pass it and that a rank's adapter buffers and
+    cuts are its heads' (the parity is the worlds' `lora` case)."""
     fake_world(2)
     mesh = build_mesh(MeshConfig(tp=2))
     cfg, params = _tiny()
@@ -368,7 +416,20 @@ def test_features_still_refused_under_a_mesh(fake_world, what):
         family, cfg = "gemma", tg.GemmaConfig.tiny()
         params = tg.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     elif what == "lora":
-        ecfg = dict(max_adapters=2)
+        fam = get_model_family("llama")
+        _refuse_unported(EngineConfig(max_adapters=2), mesh, None, "per_layer", "paged", fam)
+        tp = TpLayout.of(mesh)
+        bufs = tl.init_lora_buffers(cfg, 3, 8, device="cpu", tp=tp)
+        D = cfg.head_size
+        assert bufs["wq"]["B"].shape[-1] == bufs["wo"]["A"].shape[-2] == 2 * D
+        assert bufs["wk"]["B"].shape[-1] == bufs["wv"]["B"].shape[-1] == D
+        A = torch.arange(2 * 64 * 4, dtype=torch.float32).reshape(2, 64, 4)
+        B = torch.arange(2 * 4 * 64, dtype=torch.float32).reshape(2, 4, 64)
+        a, b = tl.lora_shard(cfg, tp, "wo", A, B)
+        assert torch.equal(a, A[:, :2 * D]) and b is B
+        a, b = tl.lora_shard(cfg, tp, "wq", A, B)
+        assert a is A and torch.equal(b, B[..., :2 * D])
+        return
     elif what == "draft":
         kw, ecfg = dict(draft=(cfg, params)), dict(speculate=2)
     else:
@@ -410,10 +471,18 @@ def test_prefill_refuses_only_an_sp_dim(fake_world):
 
 
 def test_tpu_topology_flag_names_11d():
-    with pytest.raises(SystemExit, match="ROADMAP A item 11d"):
-        parse_args(["--model-url", "/m", "--tpu-topology", "2x2"])
-    with pytest.raises(SystemExit, match="ROADMAP A item 11d"):
-        parse_args(["--model-url", "/m", "--num-processes", "2"])
+    """--tpu-topology and the multihost flags exited naming ROADMAP A item
+    11d until it was done: main now takes them (a slice of ranks in
+    lockstep); what still refuses under a mesh names 11a2."""
+    args = parse_args(["--model-url", "/m", "--tpu-topology", "2x2"])
+    assert resolve_ranks(args).world == 4 and args.step_overlap == "off"
+    args = parse_args(["--model-url", "/m", "--tpu-topology", "2x2", "--num-processes", "2",
+                       "--process-id", "1", "--dcn-coordinator", "127.0.0.1:1"])
+    layout = resolve_ranks(args)
+    assert (layout.local, layout.global_rank(0)) == (2, 2)
+    with pytest.raises(SystemExit, match="ROADMAP A item 11a2"):
+        resolve_ranks(parse_args(["--model-url", "/m", "--tpu-topology", "2x2",
+                                  "--role", "decode"]))
 
 
 @pytest.mark.parametrize("k,n", [(4096, 256), (4096, 128), (3584, 4096), (8192, 128)],

@@ -8,9 +8,10 @@ rank writes what it computed into a pickle of its own. The ranks meet
 through a `file://` rendezvous under the test's tmp_path, over gloo with
 a timeout, so a rank that desyncs fails the test instead of hanging it.
 
-For each case (a model, its numpy parameter tree and engine settings)
-every rank builds `Engine(..., mesh=build_mesh(MeshConfig(tp=world)))`
-in each of the case's modes and runs the same requests; with `logits`,
+For each case (a model, its numpy parameter tree and engine settings,
+and the whole adapters it loads) every rank builds `Engine(...,
+mesh=build_mesh(MeshConfig(tp=world)))` in each of the case's modes and
+runs the same requests; with `logits`,
 it also runs the sharded forwards (prefill, both decode layouts, the
 verify window for the llama family) on the engine's shard of the
 params and the rank's KV heads of the parent's pools.
@@ -39,11 +40,12 @@ CONFIGS = {"llama": tl.LlamaConfig, "qwen": tl.LlamaConfig, "mixtral": tm.Mixtra
 
 
 def run_waves(eng, waves) -> list[list[int]]:
-    """Each wave's (prompt, sampling kwargs) requests added at once and
-    stepped until done; the streams in request order."""
+    """Each wave's (prompt, sampling kwargs[, adapter]) requests added at
+    once and stepped until done; the streams in request order."""
     streams = []
     for wave in waves:
-        rids = [eng.add_request(p, SamplingParams(**sp)) for p, sp in wave]
+        rids = [eng.add_request(p, SamplingParams(**sp), adapter=(a[0] if a else None))
+                for p, sp, *a in wave]
         out = {rid: [] for rid in rids}
         while eng.has_work():
             for ev in eng.step():
@@ -62,13 +64,21 @@ def _local_heads(pages: np.ndarray, eng) -> torch.Tensor:
 
 def forward_logits(eng, inputs: dict, verify: bool) -> dict:
     """The sharded forwards on the engine's params: {name: (logits, the
-    rank's K, the rank's V)} as numpy."""
-    fam, cfg, params, kw = eng.family, eng.model_cfg, eng.params, {"tp": eng._tp}
+    rank's K, the rank's V)} as numpy. With adapters loaded, each forward
+    takes the engine's (rank-local) buffers and the inputs' `lora_idx`."""
+    fam, cfg, params = eng.family, eng.model_cfg, eng.params
+
+    def kw(name):
+        if eng._lora is None:
+            return {"tp": eng._tp}
+        return {"tp": eng._tp, "lora": eng._lora,
+                "lora_idx": torch.from_numpy(inputs["lora_idx"][name]).long()}
+
     out = {}
     with torch.no_grad():
         pre = inputs["prefill"]
         logits, k, v = fam.prefill(params, cfg, torch.from_numpy(pre["tokens"]).long(),
-                                   torch.from_numpy(pre["lengths"]), **kw)
+                                   torch.from_numpy(pre["lengths"]), **kw("prefill"))
         out["prefill"] = (logits.numpy(), k.numpy(), v.numpy())
         dec = inputs["decode"]
         for layout in ("per_layer", "fused"):
@@ -76,7 +86,7 @@ def forward_logits(eng, inputs: dict, verify: bool) -> dict:
             logits, kp, vp = fam.decode_step_paged(
                 params, cfg, torch.from_numpy(dec["tokens"]).long(),
                 torch.from_numpy(dec["positions"]).long(), kp, vp,
-                torch.from_numpy(dec["block_tables"]), attn_kernel=layout, **kw)
+                torch.from_numpy(dec["block_tables"]), attn_kernel=layout, **kw("decode"))
             out[f"decode_{layout}"] = (logits.numpy(), kp.numpy(), vp.numpy())
         if verify:
             ver = inputs["verify"]
@@ -84,7 +94,7 @@ def forward_logits(eng, inputs: dict, verify: bool) -> dict:
             logits, kp, vp = fam.decode_verify_paged(
                 params, cfg, torch.from_numpy(ver["tokens"]).long(),
                 torch.from_numpy(ver["positions"]).long(), kp, vp,
-                torch.from_numpy(ver["block_tables"]), **kw)
+                torch.from_numpy(ver["block_tables"]), **kw("verify"))
             out["verify"] = (logits.numpy(), kp.numpy(), vp.numpy())
     return out
 
@@ -97,7 +107,9 @@ def run_case(case: dict, spec: dict, mesh) -> dict:
     for mode, kw in case["modes"].items():
         eng = Engine(fam, cfg, params, mesh=mesh, device="cpu", cfg=EngineConfig(
             cache_dtype=torch.float32, **spec["base"], **case["engine"], **kw))
-        res["streams"][mode] = run_waves(eng, spec["waves"])
+        for name, weights in case.get("adapters", {}).items():
+            eng.load_adapter(name, weights)
+        res["streams"][mode] = run_waves(eng, case.get("waves") or spec["waves"])
         res["prefix_stats"][mode] = dict(eng.prefix_stats)
         if mode == "per_layer":
             res["kv_heads"] = eng.cache.k_pages.shape[-2]
