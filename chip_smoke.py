@@ -7650,64 +7650,92 @@ def serve_whisper() -> None:
 
 # ---- phase 4g: serve_sharded_cli, sharded serving through the entry point -----
 
-# The catalog's sharded entries at one rank's widths (D=128): Llama-3-8B at
-# tp=4 (llama-3.1-8b-instruct-tpu) and tp=8, the 70B at tp=8 (one KV head a
-# rank); the int8 GEMM's local weights (K, N): wk at tp=4 and 8, w_down at
-# tp=4.
-TP_LOCAL_HEADS = (("8B tp=4", 8, 2), ("8B tp=8", 4, 1), ("70B tp=8", 8, 1))
+# The catalog's sharded entries at one rank's heads: Llama-3-8B at tp=4
+# (llama-3.1-8b-instruct-tpu) and tp=8, the 70B at tp=8 (one KV head a
+# rank), every kernel at D=128 on ragged lengths to 2048; gemma2-9b-it-tpu
+# at tp=4 (B1, B4 and B1-int8 at D=256, plain and with Gemma-2's window
+# 4096 and softcap 50), gemma-7b-it-tpu at tp=4 (B2 and B1-int8 at D=256)
+# and gemma2-27b-it-tpu at tp=8 (B1 and B4 at D=128 with the window and
+# softcap), on ragged lengths to 8192 so that the window masks keys.
+# (label, H, KVH, D, max_len, kernels, (softcap, window) cases)
+_TP_KERNELS = ("B1", "B1-int8", "B4", "B3", "B2")
+_PLAIN = ((None, None),)
+_GEMMA2_MASKS = ((None, None), (50.0, 4096))
+TP_LOCAL_HEADS = (
+    ("8B tp=4", 8, 2, 128, 2048, _TP_KERNELS, _PLAIN),
+    ("8B tp=8", 4, 1, 128, 2048, _TP_KERNELS, _PLAIN),
+    ("70B tp=8", 8, 1, 128, 2048, _TP_KERNELS, _PLAIN),
+    ("Gemma-2-9B tp=4", 4, 2, 256, 8192, ("B1", "B1-int8", "B4"), _GEMMA2_MASKS),
+    ("Gemma-7B tp=4", 4, 4, 256, 8192, ("B1-int8", "B2"), _PLAIN),
+    ("Gemma-2-27B tp=8", 4, 2, 128, 8192, ("B1", "B4"), ((50.0, 4096),)),
+)
+# The int8 GEMM's local weights (K, N): wk at tp=4 and 8, w_down at tp=4.
 TP_LOCAL_GEMMS = (("wk tp=4", 4096, 256), ("wk tp=8", 4096, 128),
                   ("w_down tp=4", 3584, 4096))
 
 
 def check_rank_local_kernels() -> dict:
     """B1, B1-int8, B2, B3 and B4 at the heads one rank of a sharded
-    catalog entry walks (TP_LOCAL_HEADS), and both W8A16 routes at its
-    local weights (TP_LOCAL_GEMMS), each against its plain version at its
-    own limits and timed beside its bound and its library call, as in the
-    kernel phase's serving cases. Returns {(kernel, shape label): line}."""
+    catalog entry walks (TP_LOCAL_HEADS: each case's kernels, with its
+    softcap and window cases), and both W8A16 routes at its local weights
+    (TP_LOCAL_GEMMS), each against its plain version at its own limits and
+    timed beside its bound and its library call, as in the kernel phase's
+    serving cases. Returns {(kernel, shape label): line}."""
     import torch
 
     gen = torch.Generator().manual_seed(31)
     out = {}
-    for label, H, KVH in TP_LOCAL_HEADS:
-        q, kp, vp, bt, lengths = _paged_inputs(gen, H=H, KVH=KVH)
-        for name, pools in (("paged_decode_attention", (kp, vp)),
-                            ("paged_decode_attention_int8",
-                             (_quantize_pool(kp), _quantize_pool(vp)))):
-            args = (q, *pools, bt, lengths)
-            _, err = _check_decode_case(label, args, {})
-            line = dict(_time_decode(args, {}, library=True), max_abs_err=err)
-            out[(name, label)] = line
-            print(f"kernel {name} rank-local {label} H={H} KVH={KVH} {json.dumps(line)}",
-                  flush=True)
-        # B4: the same pools as one layer of a 2-layer stack, the new token.
+    for label, H, KVH, D, max_len, kernels, masks in TP_LOCAL_HEADS:
+        q, kp, vp, bt, lengths = _paged_inputs(gen, H=H, KVH=KVH, D=D, max_len=max_len)
+        shape = f"H={H} KVH={KVH} D={D} max_len={max_len}"
         cg = torch.Generator("cuda").manual_seed(32)
-        B, D = q.shape[0], q.shape[2]
+        B = q.shape[0]
         kn = torch.randn(B, KVH, D, generator=cg, device="cuda").to(torch.bfloat16)
         vn = torch.randn(B, KVH, D, generator=cg, device="cuda").to(torch.bfloat16)
-        pos = (lengths - 1).clamp(min=0).to(torch.int32)
-        args = (q, torch.stack([kp, kp]), torch.stack([vp, vp]), kn, vn, bt, pos, 1)
-        _, err = _check_fused_case(label, args, {})
-        line = dict(_time_fused(args, {}, library=True), max_abs_err=err)
-        out[("paged_decode_attention_fused", label)] = line
-        print(f"kernel paged_decode_attention_fused rank-local {label} H={H} KVH={KVH} "
-              f"{json.dumps(line)}", flush=True)
-        # B3: a K = 5 window at the same positions.
-        K = 5
-        qv = torch.randn(B, K, H, D, generator=cg, device="cuda").to(torch.bfloat16)
-        pos = (lengths - K).clamp(min=0).to(torch.int32)
-        args = (qv, kp, vp, bt, pos)
-        _, err = _check_verify_case(label, args, {})
-        line = dict(_time_verify(args, {}, library=True), max_abs_err=err)
-        out[("paged_verify_attention", label)] = line
-        print(f"kernel paged_verify_attention rank-local {label} H={H} KVH={KVH} "
-              f"{json.dumps(line)}", flush=True)
-        del q, kp, vp, qv, args
-        # B2 at a 512-token admission and a batch of 4 at 1024.
-        for B2, S in ((1, 512), (4, 1024)):
-            line, call = _flash_case(B2, S, H, KVH, 128, gen)
-            out[("flash_causal_prefill", f"{label} B={B2} S={S}")] = line
-            del call
+        for cap, win in masks:
+            kw = dict(logit_softcap=cap, window=win)
+            tag = label if cap is None and win is None else f"{label} softcap={cap} window={win}"
+            for name, kernel, pools in (("paged_decode_attention", "B1", (kp, vp)),
+                                        ("paged_decode_attention_int8", "B1-int8", None)):
+                if kernel not in kernels:
+                    continue
+                if pools is None:
+                    pools = (_quantize_pool(kp), _quantize_pool(vp))
+                args = (q, *pools, bt, lengths)
+                _, err = _check_decode_case(tag, args, kw)
+                line = dict(_time_decode(args, kw, library=True), max_abs_err=err)
+                out[(name, tag)] = line
+                print(f"kernel {name} rank-local {tag} {shape} {json.dumps(line)}", flush=True)
+                del pools, args
+            if "B4" in kernels:
+                # The same pools as one layer of a 2-layer stack, the new token.
+                pos = (lengths - 1).clamp(min=0).to(torch.int32)
+                args = (q, torch.stack([kp, kp]), torch.stack([vp, vp]), kn, vn, bt, pos, 1)
+                _, err = _check_fused_case(tag, args, kw)
+                line = dict(_time_fused(args, kw, library=True), max_abs_err=err)
+                out[("paged_decode_attention_fused", tag)] = line
+                print(f"kernel paged_decode_attention_fused rank-local {tag} {shape} "
+                      f"{json.dumps(line)}", flush=True)
+                del args
+        if "B3" in kernels:
+            # A K = 5 window at the same positions.
+            K = 5
+            qv = torch.randn(B, K, H, D, generator=cg, device="cuda").to(torch.bfloat16)
+            pos = (lengths - K).clamp(min=0).to(torch.int32)
+            args = (qv, kp, vp, bt, pos)
+            _, err = _check_verify_case(label, args, {})
+            line = dict(_time_verify(args, {}, library=True), max_abs_err=err)
+            out[("paged_verify_attention", label)] = line
+            print(f"kernel paged_verify_attention rank-local {label} {shape} "
+                  f"{json.dumps(line)}", flush=True)
+            del qv, args
+        del q, kp, vp, kn, vn
+        if "B2" in kernels:
+            # B2 at a 512-token admission and a batch of 4 at 1024.
+            for B2, S in ((1, 512), (4, 1024)):
+                line, call = _flash_case(B2, S, H, KVH, D, gen)
+                out[("flash_causal_prefill", f"{label} B={B2} S={S}")] = line
+                del call
         torch.cuda.empty_cache()
     for label, K, N in TP_LOCAL_GEMMS:
         leaf = _int8_leaf(K, N, gen)
@@ -7740,6 +7768,26 @@ SHARDED_PARTS = (
 )
 # A served part's limit, its ranks included (the group is killed past it).
 SHARDED_TIMEOUT_S = 420
+# The gemma parts, a second wave once (a)-(c) and their references have
+# ended (the host holds each wave's rank processes at once): the catalog's
+# gemma2-9b-it-tpu and gemma-7b-it-tpu at tp=4 (2x2, `catalog/models.yaml`
+# :37-42 and :187-192) at GEMMA_CLI_LAYERS of their layers (Gemma-2-9B's:
+# one windowed, one global), from checkpoints written as serve_cli_gemma
+# writes them. (label, HF config, layer leaves, flags, reference runs (the
+# served one first), the wrappers each served rank must launch, heads a
+# rank, head dim)
+GEMMA_SHARDED_PARTS = (
+    ("gemma2 2x2", GEMMA_CLI_CONFIG, GEMMA_CLI_LAYER_LEAVES, ["--tpu-topology", "2x2"],
+     ("per_layer", "fused"), ("paged_decode_attention",), (4, 2), 256),
+    ("gemma1 int8 2x2", GEMMA1_CLI_CONFIG, GEMMA1_CLI_LAYER_LEAVES,
+     ["--tpu-topology", "2x2", "--kv-dtype", "int8"], ("int8",),
+     ("flash_causal_prefill", "paged_decode_attention_int8"), (4, 4), 256),
+)
+# Part (b)'s /v1/embeddings inputs (its one process holds every rank, so
+# it serves them through the lockstep op), held to world 1's
+# hidden_states at EMBED_ATOL and EMBED_MIN_COS.
+SHARDED_EMBED_TEXTS = ["hello", "The quick brown fox jumps over the lazy dog.",
+                       ("The quick brown fox jumps over the lazy dog. " * 7)[:300]]
 
 
 def _sharded_bodies() -> list[dict]:
@@ -7776,15 +7824,18 @@ def _request_specs(adapter: bool) -> list[tuple[list[int], dict, str | None]]:
 # The in-process references' runs over the served part's ranks: run ->
 # (engine settings over SHARDED_ENGINE, the decode kernel's wrapper, its
 # kernel's name in a profile, its launches a program call in layers).
-# per_layer is the served configuration and runs every served request;
-# the fused layout and speculate=4 run the first, a greedy base request
-# (2x2 only).
+# A reference's first run is the served configuration (per_layer, or
+# int8 for the gemma part served on --kv-dtype int8) and runs every
+# served request; the others (the fused layout, speculate=4) run the
+# first, a greedy base request.
 SHARDED_REF_RUNS = {
     "per_layer": ({}, "paged_decode_attention", "paged_decode_combine_kernel", 8),
     "fused": (dict(decode_kernel="fused"), "paged_decode_attention_fused",
               "paged_fused_combine_kernel", 8),
     "speculate": (dict(speculate=4, spec_adaptive=False), "paged_verify_attention",
                   "paged_verify_split_kernel", 1),
+    "int8": (dict(kv_dtype="int8"), "paged_decode_attention_int8",
+             "paged_decode_combine_kernel", 8),
 }
 # The first prefill's logits of a sharded engine against world 1's, both
 # in bf16, each held against the same weights in f32 on the CPU. Sharding
@@ -7822,6 +7873,26 @@ def _prefill_logits(engine, requests):
     return logits.float().cpu()
 
 
+def _f32_prefill_logits(family, params, cfg, requests):
+    """`family.prefill` over `_logits_batch` with `params` (moved off the
+    card as they are read) in f32 on the CPU: the reference the sharded
+    logits are held to."""
+    import dataclasses
+
+    import torch
+
+    def cpu(tree):
+        if isinstance(tree, dict):
+            return {k: cpu(v) for k, v in tree.items()}
+        return tree.float().cpu()
+
+    tokens, lengths = _logits_batch(requests)
+    with torch.no_grad():
+        logits, _, _ = family.prefill(cpu(params), dataclasses.replace(cfg, dtype=torch.float32),
+                                      tokens, lengths)
+    return logits
+
+
 def _generate_each(engine, requests) -> list[list[int]]:
     """Each (prompt, sampling kwargs, adapter) run alone, in order."""
     from kubeai_tpu_torch.engine import SamplingParams
@@ -7840,13 +7911,14 @@ def sharded_ref_rank(spec_path: str, rank: int) -> None:
     """One rank of an in-process reference for a served part (a process of
     its own, over gloo with the others on the card): the spec's checkpoint
     loaded rank-locally (`weights.ShardPlan`) into an engine of each of
-    the spec's runs (SHARDED_REF_RUNS) on the same params; per_layer, the
+    the spec's runs (SHARDED_REF_RUNS) on the same params; the first, the
     served configuration, runs each served request alone in order (the
     adapter loaded from its PEFT directory first) and the first prefill's
     logits (`_logits_batch`), the other runs the first request; then one
-    torch.profiler pass over one admission and one call of each run's
-    decode program. Writes its streams, launch counts and heads beside the
-    spec, and its logits in a file of their own."""
+    admission and one call of each run's decode program, which rank 0
+    alone records with torch.profiler (the other ranks run the same
+    collectives unrecorded). Writes its streams, launch counts and heads
+    beside the spec, and its logits in a file of their own."""
     import datetime
 
     import torch
@@ -7880,9 +7952,11 @@ def sharded_ref_rank(spec_path: str, rank: int) -> None:
                                cfg=EngineConfig(**{**SHARDED_ENGINE,
                                                    **SHARDED_REF_RUNS[run][0]}))
                    for run in spec["runs"]}
-        engine = engines["per_layer"]
+        served = spec["runs"][0]
+        engine = engines[served]
         out = {"rank": rank, "runs": {}, "kv_heads": engine.cache.k_pages.shape[-2],
-               "q_columns": engine.params["layers"]["wq"].shape[-1], "phases": phases}
+               "q_columns": engine.params["layers"]["wq"].shape[-1], "phases": phases,
+               "b2_expected": family.prefill_uses_flash(cfg)}
         phases["load and build"] = time.perf_counter() - t0 - phases["group"]
         t = time.perf_counter()
         torch.save(_prefill_logits(engine, spec["requests"]), f"{spec['out']}.rank{rank}.pt")
@@ -7891,11 +7965,11 @@ def sharded_ref_rank(spec_path: str, rank: int) -> None:
                 spec["adapter_dir"], cfg, max_rank=engine.cfg.max_lora_rank))
         for run, eng in engines.items():
             _zero_launches(eng)
-            requests = spec["requests"] if run == "per_layer" else spec["requests"][:1]
+            requests = spec["requests"] if run == served else spec["requests"][:1]
             out["runs"][run] = {"streams": _generate_each(eng, requests),
                                 "launches": {k: v for k, v in _launches(eng).items() if v}}
-        out["streams"] = out["runs"]["per_layer"]["streams"]
-        out["launches"] = out["runs"]["per_layer"]["launches"]
+        out["streams"] = out["runs"][served]["streams"]
+        out["launches"] = out["runs"][served]["launches"]
         phases["requests"] = time.perf_counter() - t
         t = time.perf_counter()
         toks = torch.tensor([spec["requests"][-1][0]], device="cuda")
@@ -7906,12 +7980,17 @@ def sharded_ref_rank(spec_path: str, rank: int) -> None:
             for run, eng in engines.items():
                 (eng._spec_program if run == "speculate" else eng._decode_program).fn()
 
-        counts = _kernel_counts(admission_and_calls, ["flash_prefill_kernel"] + [
-            SHARDED_REF_RUNS[run][2] for run in engines])
-        phases["profile"] = time.perf_counter() - t
-        out["b2_per_admission"] = counts["flash_prefill_kernel"]
-        for run in engines:
-            out["runs"][run]["walk_per_call"] = counts[SHARDED_REF_RUNS[run][2]]
+        if rank == 0:
+            counts = _kernel_counts(admission_and_calls, ["flash_prefill_kernel"] + [
+                SHARDED_REF_RUNS[run][2] for run in engines])
+            out["b2_per_admission"] = counts["flash_prefill_kernel"]
+            for run in engines:
+                out["runs"][run]["walk_per_call"] = counts[SHARDED_REF_RUNS[run][2]]
+        else:
+            with torch.no_grad():
+                admission_and_calls()
+            torch.cuda.synchronize()
+        phases["profile" if rank == 0 else "admission and calls"] = time.perf_counter() - t
         out["num_layers"] = cfg.num_layers
         out["seconds"] = time.perf_counter() - t0
         out["written"] = time.time()
@@ -8025,16 +8104,19 @@ def _finish_worlds(worlds) -> list:
 
 def sharded_cli_run(model_dir: str, label: str, flags: list, ranks: int,
                     adapter_dir: str | None = None, root: str | None = None,
-                    env_extra: dict | None = None, running: list | None = None) -> dict:
+                    env_extra: dict | None = None, running: list | None = None,
+                    embeds: bool = False) -> dict:
     """`python -m kubeai_tpu_torch.engine.server` with `flags` in a
     subprocess of its own session under `timeout` (its spawned ranks in
     that session too), from the checkout or from `root`, a copy of the
     package, with `env_extra` in its environment (its process appended to
     `running`, whose caller kills what a failure elsewhere leaves): ready, the `_sharded_bodies` one at a time (all 200), with
     `adapter_dir` a PEFT adapter loaded through /v1/load_lora_adapter and
-    a request that names it; with more than one rank the lockstep
-    refusals of /v1/embeddings and `kubeai_resume` (400, the JAX server's
-    words) and /v1/state.parallel; then SIGTERM, which must end the
+    a request that names it; with more than one rank (all in one
+    process) /v1/embeddings of SHARDED_EMBED_TEXTS (200 with `embeds`, the
+    vectors returned; else the family's 400), the lockstep refusal of
+    `kubeai_resume` (400, the JAX server's words) and /v1/state.parallel;
+    then SIGTERM, which must end the
     process (and its ranks) with exit 0 within the drain budget. On any
     failure the group is killed. Returns each request's tokens (streamed
     ids, or the unary text), seconds to Ready, ms a served token,
@@ -8109,17 +8191,23 @@ def sharded_cli_run(model_dir: str, label: str, flags: list, ranks: int,
             served_s += total_s
             served_n += res["usage"]["completion_tokens"] if isinstance(got, str) else len(got)
         state = json.loads(_get(port, "/v1/state")[1])
-        refusals = {}
+        refusals, vectors, embed_s = {}, None, None
         if ranks > 1:
             if state.get("parallel", {}).get("ranks") != ranks:
                 fail(f"serve_sharded_cli {label}: /v1/state.parallel {state.get('parallel')}")
-            e_status, e_res, _, _ = _post(port, {"input": ["hello"], "model": "model"},
-                                          path="/v1/embeddings")
+            t = time.perf_counter()
+            e_status, e_res, _, _ = _post(port, {"input": SHARDED_EMBED_TEXTS,
+                                                 "model": "model"}, path="/v1/embeddings")
+            embed_s = time.perf_counter() - t
             r_status, r_res, _, _ = _post(port, {
                 **bodies[0], "kubeai_resume": {"token_ids": [65], "emitted": 1}})
-            refusals = {"embeddings": (e_status, e_res), "resume": (r_status, r_res)}
-            if e_status != 400 or "multi-host" not in json.dumps(e_res):
+            refusals = {"resume": (r_status, r_res)}
+            if embeds and e_status == 200:
+                vectors = [d["embedding"] for d in e_res["data"]]
+            elif embeds or e_status != 400 or "has no embedding support" not in json.dumps(e_res):
                 fail(f"serve_sharded_cli {label}: /v1/embeddings got HTTP {e_status} {e_res}")
+            else:
+                refusals["embeddings"] = (e_status, e_res)
             if r_status != 400 or "multi-host" not in json.dumps(r_res):
                 fail(f"serve_sharded_cli {label}: kubeai_resume got HTTP {r_status} {r_res}")
         proc.send_signal(signal.SIGTERM)
@@ -8142,6 +8230,7 @@ def sharded_cli_run(model_dir: str, label: str, flags: list, ranks: int,
         return [ln for ln in log if key in ln]
 
     return {"tokens": tokens, "ready_s": ready_s, "state": state, "refusals": refusals,
+            "embeddings": vectors, "embed_s": embed_s,
             "ms_per_token": 1e3 * served_s / max(1, served_n), "served_tokens": served_n,
             "digests": lines("lockstep digest"), "reports": lines(" KVH="),
             "before_load": lines("loading model"),
@@ -8159,12 +8248,16 @@ def _rank_fields(lines: list[str], key: str) -> dict[int, str]:
     return out
 
 
-def _sharded_gates(label: str, run: dict, ranks: int, ref: list | None, heads) -> None:
+def _sharded_gates(label: str, run: dict, ranks: int, ref: list | None, heads,
+                   head_dim: int = 128,
+                   served=("flash_causal_prefill", "paged_decode_attention")) -> None:
     """A sharded part's gates: every rank's digest equal to rank 0's; each
-    rank's heads, weights and peak host RSS (printed); each rank's B2 and
-    B1 launches (its wrappers' counts, in its log); rank 0's served tokens
-    equal to the in-process reference's, whose ranks' torch.profiler shows
-    B2 and B1 at the same heads."""
+    rank's heads, weights and peak host RSS (printed); each rank's
+    launches of the `served` wrappers (its counts, in its log); rank 0's
+    served tokens equal to the in-process reference's, whose ranks'
+    streams agree and whose rank 0's torch.profiler shows each run's
+    decode kernel, and B2 where the family's prefill takes it, at the same
+    heads."""
     digests = {r: d.split("sha256 ")[-1] for r, d in
                _rank_fields(run["digests"], "rank").items()}
     if sorted(digests) != list(range(ranks)) or len(set(digests.values())) != 1:
@@ -8176,8 +8269,8 @@ def _sharded_gates(label: str, run: dict, ranks: int, ref: list | None, heads) -
         if f"H={H} KVH={KVH}" not in reports.get(r, ""):
             fail(f"serve_sharded_cli {label} rank {r}: {reports.get(r)} is not H={H} KVH={KVH}")
         got = launches.get(r, {})
-        if not got.get("flash_causal_prefill") or not got.get("paged_decode_attention"):
-            fail(f"serve_sharded_cli {label} rank {r}: launches {got} lack B2 or B1")
+        if not all(got.get(w) for w in served):
+            fail(f"serve_sharded_cli {label} rank {r}: launches {got} lack one of {served}")
     before = [ln.split("(")[-1].rstrip(")") for ln in run["before_load"]]
     print(f"serve_sharded_cli {label}: the {ranks} ranks' stream digests equal "
           f"({list(digests.values())[0][:16]}...); per rank: " + "; ".join(
@@ -8192,6 +8285,7 @@ def _sharded_gates(label: str, run: dict, ranks: int, ref: list | None, heads) -
         if have != (ByteTokenizer().decode(w) if isinstance(have, str) else w):
             fail(f"serve_sharded_cli {label} request {i}: served {have}, the in-process "
                  f"tp={ranks} engine {w}")
+    b2 = ref[0]["num_layers"] if ref[0]["b2_expected"] else 0
     for name in ref[0]["runs"]:
         want_run = ref[0]["runs"][name]["streams"]
         wrapper, walk, per_layer = SHARDED_REF_RUNS[name][1:]
@@ -8199,30 +8293,30 @@ def _sharded_gates(label: str, run: dict, ranks: int, ref: list | None, heads) -
             res = r["runs"][name]
             if res["streams"] != want_run:
                 fail(f"serve_sharded_cli {label} reference {name}: the ranks' streams differ")
-            if not res["launches"].get(wrapper) or not res["launches"].get(
-                    "flash_causal_prefill"):
+            if not res["launches"].get(wrapper) or (
+                    b2 and not res["launches"].get("flash_causal_prefill")):
                 fail(f"serve_sharded_cli {label} reference {name} rank {r['rank']}: launches "
-                     f"{res['launches']} lack {wrapper} or B2")
-            if res["walk_per_call"] != r["num_layers"] * per_layer:
-                fail(f"serve_sharded_cli {label} reference {name} rank {r['rank']}: "
-                     f"{res['walk_per_call']} {walk} launches a program call, not "
-                     f"{r['num_layers'] * per_layer}")
+                     f"{res['launches']} lack {wrapper}" + (" or B2" if b2 else ""))
+        calls = ref[0]["runs"][name]["walk_per_call"]
+        if calls != ref[0]["num_layers"] * per_layer:
+            fail(f"serve_sharded_cli {label} reference {name} rank 0: {calls} {walk} launches "
+                 f"a program call, not {ref[0]['num_layers'] * per_layer}")
         print(f"serve_sharded_cli {label} reference {name}: the {ranks} ranks' streams "
-              f"identical ({sum(len(x) for x in want_run)} tokens); {walk} "
-              f"{ref[0]['runs'][name]['walk_per_call']} launches a program call at H={H} "
-              f"KVH={KVH} (torch.profiler, every rank); rank 0's launches "
-              f"{json.dumps(ref[0]['runs'][name]['launches'])}", flush=True)
+              f"identical ({sum(len(x) for x in want_run)} tokens); {walk} {calls} launches a "
+              f"program call at H={H} KVH={KVH} D={head_dim} (torch.profiler, rank 0); rank "
+              f"0's launches {json.dumps(ref[0]['runs'][name]['launches'])}", flush=True)
+    if ref[0]["b2_per_admission"] != b2:
+        fail(f"serve_sharded_cli {label} reference rank 0: B2 {ref[0]['b2_per_admission']} "
+             f"an admission, not {b2}")
     for r in ref:
-        if r["b2_per_admission"] != r["num_layers"]:
-            fail(f"serve_sharded_cli {label} reference rank {r['rank']}: B2 "
-                 f"{r['b2_per_admission']} an admission")
-        if r["q_columns"] != H * 128 or r["kv_heads"] != KVH:
+        if r["q_columns"] != H * head_dim or r["kv_heads"] != KVH:
             fail(f"serve_sharded_cli {label} reference rank {r['rank']}: "
                  f"{r['q_columns']} q columns, {r['kv_heads']} KV heads")
     print(f"serve_sharded_cli {label}: rank 0's {len(want)} served streams equal the "
           f"in-process tp={ranks} engine's token for token (its rank 0's seconds: "
           f"{json.dumps({k: round(v, 2) for k, v in ref[0]['phases'].items()})}); B2 "
-          f"{ref[0]['b2_per_admission']} launches an admission at H={H} KVH={KVH}", flush=True)
+          f"{ref[0]['b2_per_admission']} launches an admission at H={H} KVH={KVH} "
+          f"D={head_dim}", flush=True)
 
 
 def _logits_gate(label: str, out: str, ranks: int, world1: dict) -> None:
@@ -8251,6 +8345,94 @@ def _logits_gate(label: str, out: str, ranks: int, world1: dict) -> None:
                   flush=True)
 
 
+def _embed_batch(texts: list[str], max_seq_len: int):
+    """(tokens, lengths) of `texts` on the CPU as the server batches them
+    for /v1/embeddings: ByteTokenizer ids right-padded to the prefill
+    bucket of the longest."""
+    import torch
+
+    from kubeai_tpu_torch.engine import EngineConfig
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    ids = [ByteTokenizer().encode(t) or [0] for t in texts]
+    n = max(map(len, ids))
+    bucket = next((b for b in EngineConfig(max_seq_len=max_seq_len).buckets() if n <= b),
+                  max_seq_len)
+    tokens = torch.zeros((len(ids), bucket), dtype=torch.long)
+    for row, i in enumerate(ids):
+        tokens[row, :len(i)] = torch.tensor(i)
+    return tokens, torch.tensor([len(i) for i in ids])
+
+
+def _embeddings_gate(label: str, run: dict, want) -> None:
+    """A served part's /v1/embeddings vectors against world 1's on the same
+    checkpoint and batch: within EMBED_ATOL, each cosine at least
+    EMBED_MIN_COS."""
+    import torch
+
+    got = torch.tensor(run["embeddings"], dtype=torch.float32)
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        fail(f"serve_sharded_cli {label}: /v1/embeddings {tuple(got.shape)}, not "
+             f"{tuple(want.shape)}")
+    err = float((got - want).abs().max())
+    cos = float(torch.nn.functional.cosine_similarity(got, want, dim=-1).min())
+    if err > EMBED_ATOL or cos < EMBED_MIN_COS:
+        fail(f"serve_sharded_cli {label}: /v1/embeddings max |err| {err:.3e} (limit "
+             f"{EMBED_ATOL}), least cosine {cos:.6f} (limit {EMBED_MIN_COS}) against world 1")
+    print(f"serve_sharded_cli {label}: /v1/embeddings of {len(SHARDED_EMBED_TEXTS)} texts "
+          f"through the lockstep op in {run['embed_s']:.3f} s (client clock), max |err| "
+          f"{err:.3e} against world 1 (limit {EMBED_ATOL}), least cosine {cos:.6f} (limit "
+          f"{EMBED_MIN_COS})", flush=True)
+
+
+def _host_available() -> str:
+    """The host's available memory (GiB, /proc/meminfo)."""
+    with open("/proc/meminfo") as f:
+        kb = next(int(ln.split()[1]) for ln in f if ln.startswith("MemAvailable:"))
+    return f"{kb / 2**20:.1f} GiB available on the host"
+
+
+def gemma_world1(model_dir: str) -> dict:
+    """World 1 for a gemma part: its checkpoint whole on the card, no mesh;
+    the first prefill's logits (`_logits_batch`) in bf16 and the same
+    prefill in f32 on the CPU, which the 2x2 ranks' logits are held to."""
+    import torch
+
+    from kubeai_tpu_torch.engine.weights import load_hf_config, load_params
+    from kubeai_tpu_torch.models.registry import get_model_family
+
+    requests = _request_specs(False)
+    hf = load_hf_config(model_dir)
+    family = get_model_family(hf["architectures"][0])
+    cfg = family.config_from_hf(hf)
+    params = load_params(family.name, model_dir, cfg, device="cuda")
+    tokens, lengths = _logits_batch(requests)
+    with torch.no_grad():
+        logits = family.prefill(params, cfg, tokens.cuda(), lengths.cuda())[0].float().cpu()
+    t0 = time.perf_counter()
+    f32 = _f32_prefill_logits(family, params, cfg, requests)
+    del params
+    torch.cuda.empty_cache()
+    print(f"serve_sharded_cli gemma world 1 ({hf['architectures'][0]}): the f32 reference "
+          f"prefill on the CPU took {time.perf_counter() - t0:.2f} s (the weights' copy to "
+          "the host included)", flush=True)
+    return {"logits": logits, "f32_logits": f32}
+
+
+def _gemma_launches(runs: dict) -> dict:
+    """The gemma parts' kernel launches for the kernels line: every rank's
+    count since its start (warm-up included), summed, under the
+    head_dim-256 entries of KERNELS."""
+    out: dict = {}
+    for run in runs.values():
+        for counts in _rank_fields(run["launches"], "rank").values():
+            for name, n in json.loads(counts).items():
+                key = f"{name}_d256"
+                if key in KERNELS:
+                    out[key] = out.get(key, 0) + n
+    return out
+
+
 def sharded_world1(model_dir: str, tmp: str) -> dict:
     """World 1 over NCCL in this process, graphs and overlap: the 8B
     checkpoint at SHARDED_LAYERS in per_layer and speculate=4, each with
@@ -8259,8 +8441,9 @@ def sharded_world1(model_dir: str, tmp: str) -> dict:
     logits bit-equal, and each program's device ms from its graph against
     the mesh-free one's, with the kernels a replay adds (the collectives
     and their casts). Returns world 1's first prefill logits and the same
-    prefill in f32 on the CPU, which the 2x2 ranks' logits are held to."""
-    import dataclasses
+    prefill in f32 on the CPU, which the 2x2 ranks' logits are held to,
+    and world 1's embeddings of SHARDED_EMBED_TEXTS, which part (b)'s
+    served vectors are held to."""
     import datetime
     import gc
 
@@ -8281,7 +8464,10 @@ def sharded_world1(model_dir: str, tmp: str) -> dict:
         family = get_model_family(hf["architectures"][0])
         cfg = family.config_from_hf(hf)
         params = load_params(family.name, model_dir, cfg, device="cuda")
-        ref = {}
+        tokens, lengths = _embed_batch(SHARDED_EMBED_TEXTS, SHARDED_ENGINE["max_seq_len"])
+        with torch.no_grad():
+            ref = {"embeddings": family.hidden_states(params, cfg, tokens.cuda(),
+                                                      lengths.cuda()).float().cpu()}
         for run in ("per_layer", "speculate"):
             extra, wrapper = SHARDED_REF_RUNS[run][:2]
             label = f"serve_sharded_cli world 1 {run}"
@@ -8332,28 +8518,17 @@ def sharded_world1(model_dir: str, tmp: str) -> dict:
             del engines, eng
             gc.collect()
             torch.cuda.empty_cache()
-        tokens, lengths = _logits_batch(requests)
-        def cpu(tree):
-            if isinstance(tree, dict):
-                return {k: cpu(v) for k, v in tree.items()}
-            return tree.float().cpu()
-
-        f32 = cpu(params)
-        del params
-        gc.collect()
-        torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        with torch.no_grad():
-            ref["f32_logits"], _, _ = family.prefill(
-                f32, dataclasses.replace(cfg, dtype=torch.float32), tokens, lengths)
+        ref["f32_logits"] = _f32_prefill_logits(family, params, cfg, requests)
         print(f"serve_sharded_cli world 1: the f32 reference prefill on the CPU took "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
+              f"{time.perf_counter() - t0:.2f} s (the weights' copy to the host included)",
+              flush=True)
         return ref
     finally:
         dist.destroy_process_group()
 
 
-def serve_sharded_cli(empty_build: bool = False) -> None:
+def serve_sharded_cli(empty_build: bool = False, gemma: bool = True) -> dict:
     """Phase 4g: sharded serving through the entry point.
     (a) `main --tpu-topology 1x1` (a world-1 mesh over NCCL, graphs) and
         `main` with no topology on the 8B width at SHARDED_LAYERS, both
@@ -8363,8 +8538,9 @@ def serve_sharded_cli(empty_build: bool = False) -> None:
     (b) `main --tpu-topology 2x2`: four ranks on the card over gloo (the 8B
         catalog entry's tp=4), default flags (--max-adapters 4): unary and
         streamed chat, an adapter loaded through the lockstep broadcast
-        and a request that uses it, the embeddings and resume refusals,
-        SIGTERM. With `empty_build`, from a copy of the package whose
+        and a request that uses it, /v1/embeddings through the lockstep
+        op (held to world 1's vectors), the resume refusal, SIGTERM.
+        With `empty_build`, from a copy of the package whose
         kernel build directory is empty: exactly one rank runs nvcc while
         the others wait for its library.
     (c) `main --tpu-topology 1x2` on Mixtral-8x7B's width at
@@ -8374,10 +8550,17 @@ def serve_sharded_cli(empty_build: bool = False) -> None:
     the fused layout and speculate=4), which gate them (`_sharded_gates`),
     all run at once once the checkpoints are written: the ms and seconds
     of each part are taken on a shared card and host. Then
+    (e) with `gemma`, a second wave (GEMMA_SHARDED_PARTS): `main
+        --tpu-topology 2x2` on Gemma-2-9B's width (per_layer; its
+        reference ranks also fused) and on Gemma-7B's (--kv-dtype int8),
+        each beside its in-process reference over the same ranks, then
+        each checkpoint's world 1 on the card (`gemma_world1`) for the
+        logits gate. Then
     (d) `sharded_world1`: world 1 over NCCL in this process, per_layer and
-        speculate=4 in graphs, bit-equal to no mesh, and the f32 CPU
+        speculate=4 in graphs, bit-equal to no mesh, the f32 CPU
         reference that the 2x2 ranks' first prefill logits are held to
-        (`_logits_gate`)."""
+        (`_logits_gate`), and world 1's embeddings that (b)'s are held
+        to. Returns the gemma parts' launches for the kernels line."""
     import shutil
     import tempfile
 
@@ -8391,6 +8574,9 @@ def serve_sharded_cli(empty_build: bool = False) -> None:
         dirs = {"llama": os.path.join(root, "llama"), "mixtral": os.path.join(root, "mixtral")}
         save_safetensors(dirs["llama"], cli_tensors(SHARDED_CONFIG), SHARDED_CONFIG)
         save_safetensors(dirs["mixtral"], mixtral_cli_tensors(), MIXTRAL_CLI_CONFIG)
+        for label, config, leaves, *_ in GEMMA_SHARDED_PARTS if gemma else ():
+            dirs[label] = os.path.join(root, label.replace(" ", "_"))
+            save_safetensors(dirs[label], gemma_cli_tensors(config, leaves), config)
         adapter_dir = write_peft_adapter(os.path.join(root, "lora"),
                                          llama.LlamaConfig.from_hf_dict(SHARDED_CONFIG), 31)
         print(f"serve_sharded_cli: checkpoints written in {time.perf_counter() - t0:.2f} s "
@@ -8398,10 +8584,14 @@ def serve_sharded_cli(empty_build: bool = False) -> None:
               f"{os.path.getsize(os.path.join(dirs['llama'], 'model.safetensors')) / 1e9:.3f} "
               f"GB; Mixtral-8x7B width at {MIXTRAL_CLI_LAYERS} layers, "
               f"{os.path.getsize(os.path.join(dirs['mixtral'], 'model.safetensors')) / 1e9:.3f}"
-              " GB)", flush=True)
+              " GB" + "".join(
+                  f"; {label} at {GEMMA_CLI_LAYERS} layers, "
+                  f"{os.path.getsize(os.path.join(dirs[label], 'model.safetensors')) / 1e9:.3f} GB"
+                  for label, *_ in GEMMA_SHARDED_PARTS if label in dirs) + ")", flush=True)
+        print(f"serve_sharded_cli wave 1: {_host_available()}", flush=True)
         worlds = [
             _start_ref_world("2x2", dirs["llama"], 4, _request_specs(True), adapter_dir,
-                             SHARDED_REF_RUNS, root),
+                             ("per_layer", "fused", "speculate"), root),
             _start_ref_world("mixtral 1x2", dirs["mixtral"], 2, _request_specs(False), None,
                              ("per_layer",), root),
         ]
@@ -8419,7 +8609,7 @@ def serve_sharded_cli(empty_build: bool = False) -> None:
             try:
                 results[label] = sharded_cli_run(dirs[model], label, flags, ranks,
                                                  adapter_dir if adapter else None, at,
-                                                 running=running)
+                                                 running=running, embeds=model == "llama")
             except SystemExit as e:  # fail() in this thread: raised again below
                 errors.append(e)
 
@@ -8461,6 +8651,30 @@ def serve_sharded_cli(empty_build: bool = False) -> None:
             if label not in results:
                 fail(f"serve_sharded_cli {label}: the part did not finish")
         refs = _finish_worlds(worlds)
+        gemma_refs, gemma_world1s = [], {}
+        if gemma:
+            # (e): the gemma parts and their references, a wave of their own.
+            print(f"serve_sharded_cli wave 2 (gemma): {_host_available()}", flush=True)
+            t_wave = time.perf_counter()
+            gemma_worlds = [
+                _start_ref_world(label, dirs[label], 4, _request_specs(False), None, runs, root)
+                for label, _, _, _, runs, *_ in GEMMA_SHARDED_PARTS]
+            worlds += gemma_worlds
+            threads = [threading.Thread(target=part, args=(label, flags, label, 4, False, None),
+                                        daemon=True)
+                       for label, _, _, flags, *_ in GEMMA_SHARDED_PARTS]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            if errors:
+                raise errors[0]
+            gemma_refs = _finish_worlds(gemma_worlds)
+            print(f"serve_sharded_cli wave 2 (gemma): {time.perf_counter() - t_wave:.2f} s",
+                  flush=True)
+            for label, *_ in GEMMA_SHARDED_PARTS:
+                gemma_world1s[label] = timed(f"serve_sharded_cli {label} world 1", gemma_world1,
+                                             dirs[label])
         # (d): world 1 over NCCL in this process, once the card is free.
         world1 = timed("serve_sharded_cli world 1", sharded_world1, dirs["llama"], root)
         b = results["2x2"]
@@ -8473,13 +8687,20 @@ def serve_sharded_cli(empty_build: bool = False) -> None:
                 ln.split("kernel library: ")[-1] for ln in b["build"]), flush=True)
         _sharded_gates("2x2", b, 4, refs[0], (8, 2))
         _logits_gate("2x2", worlds[0]["out"], 4, world1)
+        _embeddings_gate("2x2", b, world1["embeddings"])
         _sharded_gates("mixtral 1x2", results["mixtral 1x2"], 2, refs[1], (16, 4))
-        for label, *_ in SHARDED_PARTS:
+        for (label, _, _, _, _, served, heads, head_dim), ref, w in zip(
+                GEMMA_SHARDED_PARTS, gemma_refs, worlds[2:]):
+            _sharded_gates(label, results[label], 4, ref, heads, head_dim, served)
+            _logits_gate(label, w["out"], 4, gemma_world1s[label])
+        for label, *_ in SHARDED_PARTS + (GEMMA_SHARDED_PARTS if gemma else ()):
             run = results[label]
             print(f"serve_sharded_cli {label}: ready {run['ready_s']:.2f} s, "
                   f"{run['ms_per_token']:.3f} ms a served token (time-sliced gloo ranks on "
                   f"one card, not a speed); refusals {json.dumps(run['refusals'])}; "
                   f"{run['cold'][-1:]}; card: {gpu_line()}", flush=True)
+        return _gemma_launches({label: results[label] for label, *_ in GEMMA_SHARDED_PARTS
+                                if label in results})
     finally:
         _kill_worlds(worlds + [{"procs": running}])
         shutil.rmtree(root, ignore_errors=True)
@@ -8544,7 +8765,8 @@ def main() -> None:
                           f"Gemma-7B ({GEMMA_7B_LAYERS} of 28 layers)", "gemma1"))
     mixtral_launches = timed("serve_mixtral", serve_mixtral)
     print(f"serve_mixtral launches by kernel: {json.dumps(mixtral_launches)}", flush=True)
-    timed("serve_sharded_cli", serve_sharded_cli)
+    for name, n in timed("serve_sharded_cli", serve_sharded_cli).items():
+        launches[name] = launches.get(name, 0) + n
     launches.update(timed("serve_embed", serve_embed))
     timed("serve_whisper", serve_whisper)
     timed("serve_cli", serve_cli)

@@ -99,10 +99,12 @@ streams are identical. The host decisions that read the clock agree
 across ranks: rank 0's adaptive speculation choice and its base seed
 for unseeded requests are broadcast. On NCCL the device programs are
 captured with their collectives inside; over gloo (several ranks on one
-card) they run eagerly. Under a mesh these still raise, naming their
-ROADMAP item: pp > 1, sp > 1, dp > 1, a family without param_specs
-(gemma), a draft model, the slot cache, handoff and prefix-page
-export and import, and KV spill. LoRA adapters run under a mesh: each
+card) they run eagerly. The llama family (llama, mistral, qwen), gemma
+(Gemma 1 and 2: the tied embedding cut over the vocabulary, the
+all_reduce before Gemma-2's post norms) and mixtral shard. Under a mesh
+these still raise, naming their ROADMAP item: pp > 1, sp > 1, dp > 1, a
+family without param_specs, a draft model, the slot cache, handoff and
+prefix-page export and import, and KV spill. LoRA adapters run under a mesh: each
 rank's buffers hold its heads' part (models/llama.py, `lora_shard`), and
 `load_adapter` takes the whole adapter and cuts it. Requests reach every
 rank through engine/multihost.py's lockstep broadcast.

@@ -33,6 +33,16 @@ under the same I/O lock step() holds across its descriptor -> tokens ->
 engine.step() sequence, so the collective order stays identical on every
 rank.
 
+The embedding forward is lockstep too, on a slice whose ranks all run
+in one process (the server serves /v1/embeddings there, as the JAX
+server does under its one-process mesh; a slice of several processes
+keeps the JAX 400): `embed` broadcasts a control descriptor whose op is
+EMBED with the batch's [B, S] in its first meta row, then the tokens and
+lengths as one int64 [B, S + 1] payload, under the same I/O lock; every
+rank then runs the family's `hidden_states` on its shard under its tp
+group, and rank 0 returns the vectors. The descriptor keeps the JAX
+module's layout: EMBED is one more code of the op column.
+
 Two additions the JAX package does not need: a gloo collective has a
 timeout, so while rank 0 idles it broadcasts a descriptor that runs no
 step every `heartbeat_s` (a worker would otherwise time out waiting); and
@@ -82,8 +92,9 @@ class _PendingAdd:
     cancelled: bool = False
 
 
-# header[4] adapter op codes
-_ADAPTER_NONE, _ADAPTER_LOAD, _ADAPTER_UNLOAD = 0, 1, 2
+# header[4] op codes: the adapter ops, and the embedding forward (its
+# [B, S] in meta[0, :2])
+_ADAPTER_NONE, _ADAPTER_LOAD, _ADAPTER_UNLOAD, _EMBED = 0, 1, 2, 3
 _ADAPTER_NAME_BYTES = 64
 
 
@@ -138,6 +149,25 @@ def _payload_to_weights(engine: Engine, payload: dict) -> dict:
     }
 
 
+def _embed_payload_zeros(desc: dict) -> np.ndarray:
+    """The embedding op's payload, shaped by its descriptor: each row's
+    right-padded tokens, then its length."""
+    B, S = (int(x) for x in desc["meta"][0, :2])
+    return np.zeros((B, S + 1), np.int64)
+
+
+def _embed(engine: Engine, payload: np.ndarray) -> torch.Tensor:
+    """The family's hidden_states over the payload's rows on this rank's
+    shard (its tp group's collectives inside): f32 [B, E] on the host."""
+    dev = engine.device
+    rows = torch.from_numpy(payload)
+    kw = {} if engine._tp is None else {"tp": engine._tp}
+    with torch.no_grad():
+        vecs = engine.family.hidden_states(
+            engine.params, engine.model_cfg, rows[:, :-1].to(dev), rows[:, -1].to(dev), **kw)
+    return vecs.cpu()
+
+
 def _broadcast(desc, group, is_source: bool):
     """`desc` (a dict of numpy arrays, or one array) as global rank 0 holds
     it, on every rank of `group`: one `dist.broadcast` of the arrays'
@@ -189,7 +219,7 @@ class LockstepEngine:
     theirs. Exposes the Engine surface EngineServer consumes. `group` is a
     gloo group of every rank (None: the default group)."""
 
-    is_lockstep = True  # server gates non-lockstep paths (embeddings)
+    is_lockstep = True  # server gates non-lockstep paths (embeddings, resume)
 
     def __init__(self, inner: Engine, group=None, heartbeat_s: float = 0.0,
                  on_failure=None):
@@ -387,6 +417,23 @@ class LockstepEngine:
             self.inner.load_adapter(
                 name, _payload_to_weights(self.inner, payload)
             )
+
+    def embed(self, tokens: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        """Lockstep embedding forward: the op's descriptor and its payload
+        broadcast, then the family's hidden_states on every rank. `tokens`
+        [B, S] right-padded, `lengths` [B]; f32 [B, E] on the host."""
+        if self.inner.family.hidden_states is None:
+            raise ValueError(f"model family {self.family.name} has no embedding support")
+        B, S = tokens.shape
+        desc = _control_zeros()
+        desc["header"][4] = _EMBED
+        desc["meta"][0, :2] = (B, S)
+        payload = _embed_payload_zeros(desc)
+        payload[:, :-1] = tokens.cpu().numpy()
+        payload[:, -1] = lengths.cpu().numpy()
+        with self._io_lock:
+            self._send(desc)
+            return _embed(self.inner, self._send(payload))
 
     def unload_adapter(self, name: str) -> bool:
         if self.inner._lora is None or name not in self.inner._adapter_slots:
@@ -675,8 +722,9 @@ def worker_loop(engine: Engine, group=None, digest: StreamDigest | None = None) 
     """WORKER ranks (global rank > 0): receive descriptors until rank 0's
     shutdown, mirroring its ops and steps. Blocks inside the broadcast
     collective while rank 0 is idle. A failed collective (rank 0 gone, a
-    timeout) raises, and so does an adapter load or unload, or an
-    admission's adapter, that fails on this rank after rank 0 took it.
+    timeout) raises, and so does an adapter load or unload, an embedding
+    forward, or an admission's adapter, that fails on this rank after
+    rank 0 took it.
     Returns the digest of the streams it produced."""
     engine._overlap = False
     digest = digest if digest is not None else StreamDigest()
@@ -700,6 +748,8 @@ def worker_loop(engine: Engine, group=None, digest: StreamDigest | None = None) 
             )
         elif adapter_op == _ADAPTER_UNLOAD:
             engine.unload_adapter(_decode_name(desc["adapter_name"]))
+        elif adapter_op == _EMBED:
+            _embed(engine, _broadcast(_embed_payload_zeros(desc), group, is_source=False))
         tokens = None
         if int(desc["header"][0]):
             tokens = _broadcast(

@@ -67,7 +67,12 @@ to the engine's prefill bucket, in one batch, on the serve loop's thread
 between two steps (`_on_loop`): on the card its trunk attends through B2
 and must not run beside a CUDA-graph replay, so a batch delays the
 streams' next step by its own device time. Gemma and mixtral have no
-embedding forward (400), as in the JAX package.
+embedding forward (400), as in the JAX package. On a sharded replica
+whose ranks all run in this process (`--tpu-topology` with
+`--num-processes 1`) the forward runs on every rank through the lockstep
+embedding op (engine/multihost.py), as the JAX server's runs under its
+one-process mesh; a slice of several processes answers JAX's 400
+("embeddings not supported on multi-host replicas").
 
 `--quantization int8` loads the checkpoint in bf16, quantizes the llama
 family's layer weights on the device (engine/quantization.py) and logs
@@ -1388,9 +1393,11 @@ class EngineServer:
     # -- embeddings (TextEmbedding feature) ------------------------------------
 
     def _handle_embeddings(self, http, body: dict):
-        if getattr(self.engine, "is_lockstep", False):
-            # The embedding forward is a separate computation rank 0 would
-            # enter alone: under a mesh that deadlocks the tp collectives.
+        if getattr(self.engine, "is_lockstep", False) and self.parallel.get("processes") != 1:
+            # As the JAX server's lockstep (a slice of several processes).
+            # A slice whose ranks all run in this process serves through
+            # the lockstep embedding op, as the JAX server serves under
+            # its one-process mesh.
             return http._json(
                 400,
                 {"error": {"message":
@@ -1429,7 +1436,10 @@ class EngineServer:
 
     def embed(self, tokens: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         """The family's hidden_states over right-padded `tokens` [B, S] with
-        `lengths` [B], on the engine's device: f32 [B, E] on the host."""
+        `lengths` [B], on the engine's device: f32 [B, E] on the host. A
+        lockstep engine runs it on every rank (LockstepEngine.embed)."""
+        if getattr(self.engine, "is_lockstep", False):
+            return self.engine.embed(tokens, lengths)
         dev = self.engine.device
         with torch.no_grad():
             vecs = self.engine.family.hidden_states(

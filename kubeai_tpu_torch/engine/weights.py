@@ -267,8 +267,12 @@ class ShardPlan:
         """The rank's shard of a full in-memory tree (`sharding.shard_params`
         under the plan's rules, quantized leaves too, then the KV-head
         cut)."""
-        shard = psh.shard_params(params, quantized_specs(self.specs, params["layers"]),
-                                 self.mesh, self.rules)
+        specs = quantized_specs(self.specs, params["layers"])
+        if "lm_head" in params and "lm_head" not in specs:
+            # A tree that carries gemma's tied head beside `embed`
+            # (parity.params_from_numpy): the same tensor, the same cut.
+            specs = {**specs, "lm_head": specs["embed"]}
+        shard = psh.shard_params(params, specs, self.mesh, self.rules)
         layers = shard["layers"]
         for name in ("wk", "wv", "bk", "bv"):
             leaf = layers.get(name)
@@ -415,40 +419,42 @@ def load_llama_params(
 
 def load_gemma_params(
     model_dir: str, cfg, dtype=torch.bfloat16,
-    device: str | torch.device | None = None,
+    device: str | torch.device | None = None, shard: ShardPlan | None = None,
 ) -> dict:
     """Map a HF GemmaForCausalLM or Gemma2ForCausalLM checkpoint onto the
     port's stacked-layer dict (kubeai_tpu_torch.models.gemma). Gemma-1's
     `post_attention_layernorm` is its pre-MLP norm; Gemma-2 names the
     pre-MLP norm `pre_feedforward_layernorm` and adds the post-attention
     and post-MLP norms. Logits are tied to the embedding: no lm_head.
-    `device` defaults to cuda."""
+    `device` defaults to cuda. `shard`: the rank's shard only (ShardPlan);
+    the embedding is read once, as the rank's vocabulary block, and
+    serves as both the embedding and the lm_head block."""
     dev = resolve_device(device)
-    _, stack, leaf = _stream_helpers(model_dir, cfg.num_layers, dtype, dev)
+    _, stack, leaf = _stream_helpers(model_dir, cfg.num_layers, dtype, dev, shard)
 
-    def norms(name: str) -> torch.Tensor:
-        return stack(f"model.layers.{{i}}.{name}.weight", transpose=False)
+    def layer(hf: str, name: str, transpose: bool = True):
+        return stack(f"model.layers.{{i}}.{hf}.weight", transpose, f"layers.{name}")
 
     layers = {
-        "input_norm": norms("input_layernorm"),
-        "wq": stack("model.layers.{i}.self_attn.q_proj.weight"),
-        "wk": stack("model.layers.{i}.self_attn.k_proj.weight"),
-        "wv": stack("model.layers.{i}.self_attn.v_proj.weight"),
-        "wo": stack("model.layers.{i}.self_attn.o_proj.weight"),
-        "w_gate": stack("model.layers.{i}.mlp.gate_proj.weight"),
-        "w_up": stack("model.layers.{i}.mlp.up_proj.weight"),
-        "w_down": stack("model.layers.{i}.mlp.down_proj.weight"),
+        "input_norm": layer("input_layernorm", "input_norm", transpose=False),
+        "wq": layer("self_attn.q_proj", "wq"),
+        "wk": layer("self_attn.k_proj", "wk"),
+        "wv": layer("self_attn.v_proj", "wv"),
+        "wo": layer("self_attn.o_proj", "wo"),
+        "w_gate": layer("mlp.gate_proj", "w_gate"),
+        "w_up": layer("mlp.up_proj", "w_up"),
+        "w_down": layer("mlp.down_proj", "w_down"),
     }
     if cfg.sandwich_norms:
-        layers["post_attn_norm"] = norms("post_attention_layernorm")
-        layers["pre_mlp_norm"] = norms("pre_feedforward_layernorm")
-        layers["post_mlp_norm"] = norms("post_feedforward_layernorm")
+        layers["post_attn_norm"] = layer("post_attention_layernorm", "post_attn_norm", False)
+        layers["pre_mlp_norm"] = layer("pre_feedforward_layernorm", "pre_mlp_norm", False)
+        layers["post_mlp_norm"] = layer("post_feedforward_layernorm", "post_mlp_norm", False)
     else:
-        layers["pre_mlp_norm"] = norms("post_attention_layernorm")
+        layers["pre_mlp_norm"] = layer("post_attention_layernorm", "pre_mlp_norm", False)
     return {
-        "embed": leaf("model.embed_tokens.weight"),
+        "embed": leaf("model.embed_tokens.weight", "embed"),
         "layers": layers,
-        "final_norm": leaf("model.norm.weight"),
+        "final_norm": leaf("model.norm.weight", "final_norm"),
     }
 
 
@@ -722,7 +728,7 @@ UNPORTED_ARCHITECTURES: dict[str, str] = {}
 
 
 # The loaders that take a ShardPlan (the families with sharding specs).
-_SHARDED_LOADERS = ("llama", "qwen", "mixtral")
+_SHARDED_LOADERS = ("llama", "qwen", "gemma", "mixtral")
 
 
 def load_params(

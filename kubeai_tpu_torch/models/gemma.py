@@ -37,6 +37,20 @@ window: the layer loop is Python, so each layer passes its window as
 the int the wrappers take and a captured graph bakes it in. Int8 pools run per_layer only, as in the
 JAX version.
 
+Tensor parallelism: `param_specs` gives each leaf's logical axes (the
+JAX version's table), and `prefill`, `prefill_chunk` and both layouts of
+`decode_step_paged` take `tp` (a parallel.collectives.TensorParallel)
+with the rank's shard of the params, as llama's do: the layer runs at
+the rank's heads and KV heads (one KV head, the one its q heads read,
+where tp exceeds the KV heads), its MLP columns and its vocabulary block
+of the tied embedding, which serves as the embedding table (an
+all_reduce, then the sqrt(E) scale) and as the lm_head block (its
+logits all gathered, then the final softcap). The all_reduce after `wo`
+and after `w_down` comes before Gemma-2's post norms: they normalize the
+whole product, not a rank's partial sum. The query scale, the windows
+and the softcaps do not change with tp. The slot-cache `decode_step`
+takes no `tp`: the engine refuses the slot cache under a mesh.
+
 Not here: a verify forward (the JAX family has none: speculation falls
 back to vanilla decode, and a draft model is refused) and LoRA (the JAX
 family takes adapters and ignores them; the port's engine refuses them,
@@ -56,7 +70,7 @@ import torch
 import torch.nn.functional as F
 
 from kubeai_tpu_torch.device import resolve_device
-from kubeai_tpu_torch.models.llama import _logits
+from kubeai_tpu_torch.models.llama import _heads, _logits
 from kubeai_tpu_torch.ops.attention import (
     causal_prefill_attention,
     chunked_prefill_attention,
@@ -74,6 +88,8 @@ from kubeai_tpu_torch.ops.paged_attention import (
     token_page_coords,
 )
 from kubeai_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from kubeai_tpu_torch.parallel import sharding as sh
+from kubeai_tpu_torch.parallel.collectives import all_reduce, embed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,6 +170,32 @@ class GemmaConfig:
             num_kv_heads=2,
             head_dim=16,
         )
+
+
+def param_specs(cfg: GemmaConfig) -> dict:
+    """Logical sharding axes per parameter, the JAX version's table: the
+    stacked-layer axis is never sharded, and the tied embedding is cut
+    over the vocabulary."""
+    L = None
+    layers = {
+        "input_norm": (L, sh.EMBED),
+        "wq": (L, sh.EMBED, sh.HEADS),
+        "wk": (L, sh.EMBED, sh.KV_HEADS),
+        "wv": (L, sh.EMBED, sh.KV_HEADS),
+        "wo": (L, sh.HEADS, sh.EMBED),
+        "pre_mlp_norm": (L, sh.EMBED),
+        "w_gate": (L, sh.EMBED, sh.MLP),
+        "w_up": (L, sh.EMBED, sh.MLP),
+        "w_down": (L, sh.MLP, sh.EMBED),
+    }
+    if cfg.sandwich_norms:
+        layers["post_attn_norm"] = (L, sh.EMBED)
+        layers["post_mlp_norm"] = (L, sh.EMBED)
+    return {
+        "embed": (sh.VOCAB, sh.EMBED),
+        "layers": layers,
+        "final_norm": (sh.EMBED,),
+    }
 
 
 def init_params(
@@ -243,9 +285,9 @@ def _softcap(x, cap):
     return torch.tanh(x / cap) * cap
 
 
-def _mlp(x, gate, up, down):
+def _mlp(x, gate, up, down, tp=None):
     g = F.gelu(torch.matmul(x, gate), approximate="tanh")
-    return torch.matmul(g * torch.matmul(x, up), down)
+    return all_reduce(torch.matmul(g * torch.matmul(x, up), down), tp)
 
 
 def _q_scale(cfg: GemmaConfig) -> float:
@@ -254,18 +296,19 @@ def _q_scale(cfg: GemmaConfig) -> float:
     return cfg.head_size ** -0.5
 
 
-def _embed(params: dict, cfg: GemmaConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """The scaled embedding: the product in f32, then the embedding's
-    dtype."""
-    x = params["embed"][tokens].float() * (cfg.hidden_size ** 0.5)
+def _embed(params: dict, cfg: GemmaConfig, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """The scaled embedding: the rows (under tp, summed from the ranks'
+    vocabulary blocks), the product in f32, then the embedding's dtype."""
+    x = embed(params["embed"], tokens, tp).float() * (cfg.hidden_size ** 0.5)
     return x.to(params["embed"].dtype)
 
 
-def _qkv(x, lp, cfg, positions, inv_freq):
-    """Norm, projections and rope of [..., S, E] activations; q carries
-    the query scale (the attention's own D^-0.5 then gives _q_scale)."""
+def _qkv(x, lp, cfg, positions, inv_freq, tp=None):
+    """Norm, projections and rope of [..., S, E] activations at the rank's
+    heads; q carries the query scale (the attention's own D^-0.5 then
+    gives _q_scale)."""
     lead = x.shape[:-1]
-    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
+    H, KVH, D = _heads(cfg, tp)
     h = _norm(x, lp["input_norm"], cfg.rms_norm_eps)
     q = torch.matmul(h, lp["wq"]).reshape(*lead, H, D)
     k = torch.matmul(h, lp["wk"]).reshape(*lead, KVH, D)
@@ -275,25 +318,27 @@ def _qkv(x, lp, cfg, positions, inv_freq):
     return q * (_q_scale(cfg) * D ** 0.5), k, v
 
 
-def _finish(x, attn, lp, cfg):
+def _finish(x, attn, lp, cfg, tp=None):
     """Output projection, the residual, the MLP, with Gemma-2's post
-    norms. attn: [..., H, D]."""
-    a_out = torch.matmul(attn.reshape(*attn.shape[:-2], -1), lp["wo"])
+    norms. attn: [..., H, D]. Under tp the row-parallel products are
+    summed over the ranks before the post norms see them."""
+    a_out = all_reduce(torch.matmul(attn.reshape(*attn.shape[:-2], -1), lp["wo"]), tp)
     if cfg.sandwich_norms:
         a_out = _norm(a_out, lp["post_attn_norm"], cfg.rms_norm_eps)
     x = x + a_out
     h2 = _norm(x, lp["pre_mlp_norm"], cfg.rms_norm_eps)
-    m_out = _mlp(h2, lp["w_gate"], lp["w_up"], lp["w_down"])
+    m_out = _mlp(h2, lp["w_gate"], lp["w_up"], lp["w_down"], tp)
     if cfg.sandwich_norms:
         m_out = _norm(m_out, lp["post_mlp_norm"], cfg.rms_norm_eps)
     return x + m_out
 
 
-def _final_logits(x, params, cfg):
+def _final_logits(x, params, cfg, tp=None):
     """[B, E] -> f32 [B, V]: the final norm, the tied product with f32
-    accumulation, the final softcap."""
+    accumulation (under tp the rank's vocabulary block, all gathered), the
+    final softcap."""
     x = _norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return _softcap(_logits(x, params["embed"]), cfg.final_logit_softcapping)
+    return _softcap(_logits(x, params["embed"], tp), cfg.final_logit_softcapping)
 
 
 def prefill(
@@ -301,19 +346,21 @@ def prefill(
     cfg: GemmaConfig,
     tokens: torch.Tensor,  # [B, S] right-padded token ids
     lengths: torch.Tensor,  # [B] true prompt lengths
+    tp=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-prompt forward. Returns (last_token_logits f32 [B, V],
-    k_all [NL, B, S, KVH, D], v_all [NL, B, S, KVH, D])."""
+    k_all [NL, B, S, KVH, D], v_all [NL, B, S, KVH, D]); under tp the
+    K/V are the rank's KV heads."""
     B, S = tokens.shape
     dev = tokens.device
     inv_freq = _inv_freq(cfg, dev)
     positions = torch.arange(S, device=dev)[None, :].expand(B, S)
-    x = _embed(params, cfg, tokens)  # [B, S, E]
+    x = _embed(params, cfg, tokens, tp)  # [B, S, E]
     flash = prefill_uses_flash(cfg)
     ks, vs = [], []
     for i, win in enumerate(cfg.layer_windows()):
         lp = _layer(params, i)
-        q, k, v = _qkv(x, lp, cfg, positions, inv_freq)
+        q, k, v = _qkv(x, lp, cfg, positions, inv_freq, tp)
         if flash:
             attn = flash_causal_prefill(q, k, v.contiguous())
         else:
@@ -321,12 +368,12 @@ def prefill(
                 q, k, v, logit_softcap=cfg.attn_logit_softcapping,
                 window=win,
             )
-        x = _finish(x, attn, lp, cfg)
+        x = _finish(x, attn, lp, cfg, tp)
         ks.append(k)
         vs.append(v)
     idx = torch.clamp(lengths.to(dev).long() - 1, 0, S - 1)
     last = x[torch.arange(B, device=dev), idx]  # [B, E]
-    return _final_logits(last, params, cfg), torch.stack(ks), torch.stack(vs)
+    return _final_logits(last, params, cfg, tp), torch.stack(ks), torch.stack(vs)
 
 
 def prefill_chunk(
@@ -338,11 +385,13 @@ def prefill_chunk(
     k_slot: torch.Tensor,  # [NL, L, KVH, D] one slot's staging cache
     v_slot: torch.Tensor,
     want_logits: bool = False,
+    tp=None,
 ) -> tuple[torch.Tensor | None, torch.Tensor, torch.Tensor]:
     """One chunk of incremental prefill against one slot's cache, as
     llama.prefill_chunk (the chunk's K/V written at `start` in place, the
     write start clamped so the chunk fits; attention over the whole
-    cache, masked by position), with each layer's softcap and window.
+    cache, masked by position), with each layer's softcap and window;
+    under tp the staging cache holds the rank's KV heads.
     Returns (f32 [1, V] logits at position `length - 1` when want_logits,
     else None; k_slot; v_slot)."""
     B, C = tokens.shape
@@ -353,10 +402,10 @@ def prefill_chunk(
     offs = torch.arange(C, device=dev)
     positions = (start + offs)[None, :]  # [1, C]
     rows = start.clamp(0, k_slot.shape[1] - C) + offs
-    x = _embed(params, cfg, tokens)  # [1, C, E]
+    x = _embed(params, cfg, tokens, tp)  # [1, C, E]
     for i, win in enumerate(cfg.layer_windows()):
         lp = _layer(params, i)
-        q, k, v = _qkv(x, lp, cfg, positions, inv_freq)
+        q, k, v = _qkv(x, lp, cfg, positions, inv_freq, tp)
         kc, vc = k_slot[i], v_slot[i]  # [L, KVH, D]
         kc.index_copy_(0, rows, k[0].to(kc.dtype))
         vc.index_copy_(0, rows, v[0].to(vc.dtype))
@@ -364,12 +413,12 @@ def prefill_chunk(
             q, kc[None], vc[None], start[None],
             logit_softcap=cfg.attn_logit_softcapping, window=win,
         )
-        x = _finish(x, attn, lp, cfg)
+        x = _finish(x, attn, lp, cfg, tp)
     if not want_logits:
         return None, k_slot, v_slot
     idx = torch.clamp(length - 1 - start, 0, C - 1)
     last = x.index_select(1, idx.reshape(1))[:, 0]  # [1, E]
-    return _final_logits(last, params, cfg), k_slot, v_slot
+    return _final_logits(last, params, cfg, tp), k_slot, v_slot
 
 
 def decode_step(
@@ -416,14 +465,15 @@ def decode_step_paged(
     block_tables: torch.Tensor,  # [B, MP] int32 page ids per slot (-1 = free)
     *,
     attn_kernel: str | None = None,
+    tp=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode step against the paged cache, in llama.decode_step_paged's
     two layouts: "per_layer" scatters each layer's new token, then
     attends through paged_decode_attention (the only layout for an int8
     pool); "fused" attends through paged_decode_attention_fused and
     writes every layer's new token in one scatter after the layer loop.
-    Each layer passes its softcap and window. The pools are updated in
-    place and returned."""
+    Each layer passes its softcap and window. The pools (under tp, of the
+    rank's KV heads) are updated in place and returned."""
     attn_kernel = resolve_decode_kernel(attn_kernel)
     if isinstance(k_pages, QuantizedPool) and attn_kernel != "per_layer":
         raise ValueError(
@@ -433,7 +483,7 @@ def decode_step_paged(
     dev = tokens.device
     inv_freq = _inv_freq(cfg, dev)
     cap = cfg.attn_logit_softcapping
-    x = _embed(params, cfg, tokens)  # [B, E]
+    x = _embed(params, cfg, tokens, tp)  # [B, E]
     pos1 = positions[:, None]
     page_ids, offsets = token_page_coords(block_tables, positions, k_pages.shape[2])
     fused = attn_kernel == "fused"
@@ -442,7 +492,7 @@ def decode_step_paged(
     k_new, v_new = [], []
     for i, win in enumerate(cfg.layer_windows()):
         lp = _layer(params, i)
-        q, k, v = _qkv(x[:, None], lp, cfg, pos1, inv_freq)
+        q, k, v = _qkv(x[:, None], lp, cfg, pos1, inv_freq, tp)
         q, k, v = q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous()
         if fused:
             attn = paged_decode_attention_fused(
@@ -458,11 +508,11 @@ def decode_step_paged(
                 q, kp, vp, block_tables, lengths,
                 logit_softcap=cap, window=win,
             )
-        x = _finish(x, attn, lp, cfg)
+        x = _finish(x, attn, lp, cfg, tp)
     if fused:
         # One write for every layer's new token ([NL, B, 1, KVH, D]).
         batched_scatter_sequence(
             k_pages, v_pages, torch.stack(k_new)[:, :, None],
             torch.stack(v_new)[:, :, None], page_ids[:, None], offsets[:, None],
         )
-    return _final_logits(x, params, cfg), k_pages, v_pages
+    return _final_logits(x, params, cfg, tp), k_pages, v_pages

@@ -19,7 +19,7 @@ Layers are stacked on a leading [NL] axis and walked with a Python loop
 
 Tensor parallelism: `param_specs` gives each leaf's logical axes (the
 JAX version's table), and `prefill`, `prefill_chunk`, both layouts of
-`decode_step_paged` and `decode_verify_paged` take `tp` (a
+`decode_step_paged`, `decode_verify_paged` and the trunk take `tp` (a
 parallel.collectives.TensorParallel) with the rank's shard of the params
 (parallel.sharding.shard_params): the layer runs at the rank's heads and
 KV heads (H / tp, KV heads as `TensorParallel.local_kv_heads`), its MLP
@@ -476,20 +476,23 @@ def prefill(
     return _logits(last, params["lm_head"], tp), torch.stack(ks), torch.stack(vs)
 
 
-def trunk_layer(x: torch.Tensor, lp: dict, cfg: LlamaConfig) -> torch.Tensor:
-    """One trunk layer [B, S, E] -> [B, S, E] (per-layer params `lp`): the
-    prefill layer without adapters, its K/V dropped."""
+def trunk_layer(x: torch.Tensor, lp: dict, cfg: LlamaConfig, tp=None) -> torch.Tensor:
+    """One trunk layer [B, S, E] -> [B, S, E] (per-layer params `lp`, the
+    rank's under tp): the prefill layer without adapters, its K/V
+    dropped."""
     B, S, _ = x.shape
     inv_freq, msc = _rope_tables(cfg, x.device)
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    return _prefill_layer(x, lp, _projector(None, None), cfg, inv_freq, msc, positions)[0]
+    return _prefill_layer(x, lp, _projector(None, None), cfg, inv_freq, msc, positions,
+                          tp)[0]
 
 
-def _trunk(params: dict, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Transformer trunk: [B, S] tokens -> [B, S, E] final hidden states."""
-    x = params["embed"][tokens]
+def _trunk(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """Transformer trunk: [B, S] tokens -> [B, S, E] final hidden states
+    (whole on every rank under tp)."""
+    x = embed(params["embed"], tokens, tp)
     for i in range(cfg.num_layers):
-        x = trunk_layer(x, _layer(params, i), cfg)
+        x = trunk_layer(x, _layer(params, i), cfg, tp)
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
 
@@ -498,12 +501,14 @@ def hidden_states(
     cfg: LlamaConfig,
     tokens: torch.Tensor,  # [B, S] right-padded
     lengths: torch.Tensor,  # [B]
+    tp=None,
 ) -> torch.Tensor:
     """Mean-pooled, L2-normalized embeddings, f32 [B, E]: the mean of each
     row's first `lengths` final hidden states in f32, over its norm
     floored at 1e-9. Causal attention keeps the right padding out of the
-    valid rows, so the padded rows are computed and then masked."""
-    x = _trunk(params, cfg, tokens)  # [B, S, E]
+    valid rows, so the padded rows are computed and then masked. Under tp
+    every rank runs its shard and returns the same vectors."""
+    x = _trunk(params, cfg, tokens, tp)  # [B, S, E]
     S = tokens.shape[1]
     lengths = lengths.to(tokens.device)
     mask = (torch.arange(S, device=tokens.device)[None, :] < lengths[:, None]).float()

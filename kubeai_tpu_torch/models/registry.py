@@ -141,6 +141,7 @@ def _ensure_builtin() -> None:
             config_from_hf=gemma.GemmaConfig.from_hf_dict,
             tiny_config=gemma.GemmaConfig.tiny,
             init_params=gemma.init_params,
+            param_specs=gemma.param_specs,
             prefill=gemma.prefill,
             decode_step=gemma.decode_step,
             decode_step_paged=gemma.decode_step_paged,

@@ -23,8 +23,10 @@ the entry point over ranks, against the JAX package, on the CPU.
    processes (`--num-processes 2 --dcn-coordinator`): unary and streamed
    greedy and seeded chat, an adapter loaded and used, equal to the
    unsharded port's engine and the JAX engine on the same bf16
-   checkpoint; the lockstep refusals of /v1/embeddings and
-   `kubeai_resume`; the worker process's /health; SIGTERM ends every rank
+   checkpoint; /v1/embeddings served in one process through the lockstep
+   op (equal to the SPMD oracle's hidden_states) and refused in two with
+   the JAX server's 400; the refusal of `kubeai_resume`; the worker
+   process's /health; SIGTERM ends every rank
    with exit 0; a killed worker ends rank 0 nonzero; `--step-overlap on`
    and a slice's refused features exit at boot.
 5. Snapshots under a mesh: a mesh-free snapshot misses on a tp rank, and
@@ -295,7 +297,7 @@ def lockstep_world(tmp_path_factory, checkpoints, references):
     tok = ByteTokenizer()
     spec["served"] = dict(
         model_dir=checkpoints["llama"], adapter_dir=references[0], engine=SERVED_ENGINE,
-        requests=[(tok.apply_chat_template(b["messages"]),
+        embed_inputs=EMBED_INPUTS, requests=[(tok.apply_chat_template(b["messages"]),
                    dict(temperature=b["temperature"], max_tokens=b["max_tokens"],
                         seed=b.get("seed")), b.get("model"), bool(b.get("stream")))
                   for b in BODIES])
@@ -474,11 +476,13 @@ def test_stored_slice_reads_the_slice(checkpoints, monkeypatch, axis, start, len
 
 
 def test_rank_local_load_refuses_an_unsharded_family(tmp_path):
+    """A family with no sharding specs: whisper (gemma was one until its
+    specs were ported; tests/test_torch_gemma_tp.py loads its shards)."""
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
     try:
         mesh = build_mesh(MeshConfig(tp=2))
         with pytest.raises(Exception, match="no sharding specs"):
-            ShardPlan(get_model_family("gemma"), None, mesh)
+            ShardPlan(get_model_family("whisper"), None, mesh)
     finally:
         dist.destroy_process_group()
 
@@ -582,9 +586,15 @@ def references(checkpoints, tmp_path_factory):
     return adapter_dir, out
 
 
-def _drive(port, adapter_dir):
+# The served runs' /v1/embeddings inputs.
+EMBED_INPUTS = ["hi", "The quick brown fox"]
+
+
+def _drive(port, adapter_dir, processes: int):
     """The served run: the two base requests, the adapter load, the adapter
-    request, then the lockstep refusals."""
+    request, /v1/embeddings, then the lockstep refusals. A slice of one
+    process serves the embeddings (through the lockstep op; returned for
+    `_assert_served`), one of several answers the JAX server's 400."""
     got = []
     for body in BODIES[:2]:
         status, stream, _ = _chat(port, body)
@@ -596,24 +606,33 @@ def _drive(port, adapter_dir):
     status, stream, _ = _chat(port, BODIES[2])
     assert status == 200
     got.append(stream)
-    status, raw = http_post(f"127.0.0.1:{port}", "/v1/embeddings", {"input": "hi"})
-    assert (status, json.loads(raw)) == (
-        400, {"error": {"message": "embeddings not supported on multi-host replicas"}})
+    status, raw = http_post(f"127.0.0.1:{port}", "/v1/embeddings", {"input": EMBED_INPUTS})
+    vectors = None
+    if processes > 1:
+        assert (status, json.loads(raw)) == (
+            400, {"error": {"message": "embeddings not supported on multi-host replicas"}})
+    else:
+        assert status == 200, raw
+        vectors = [d["embedding"] for d in json.loads(raw)["data"]]
     status, _, res = _chat(port, {**BODIES[0], "kubeai_resume": {"token_ids": [72],
                                                                  "emitted": 1}})
     assert status == 400 and "stream resume is not supported on multi-host" in json.dumps(res)
-    return got
+    return got, vectors
 
 
-def _assert_served(got, ref, lockstep_world):
+def _assert_served(served, ref, lockstep_world):
     """A served run's streams equal the plain SPMD tp=2 oracle's on the same
     bf16 weights token for token, and its greedy ones the unsharded port
     and JAX engines' (which agree on all three). A seeded stream is held
     to the SPMD oracle only: in bf16 a tp rank rounds its partial sums
-    before the all_reduce, which can move a sampled token."""
+    before the all_reduce, which can move a sampled token. Served
+    embeddings equal the oracle's hidden_states under its tp group."""
+    got, vectors = served
     (r0, _), _ = lockstep_world
     assert ref["port"] == ref["jax"]
     assert got == r0["spmd"]
+    if vectors is not None:
+        assert vectors == r0["spmd_embed"]
     for body, have, want in zip(BODIES, got, ref["jax"]):
         if body["temperature"] == 0:
             assert have == want
@@ -632,7 +651,7 @@ def test_main_two_ranks_in_one_process(checkpoints, references, lockstep_world, 
     log = tmp_path / "one.log"
     try:
         _wait_ready([proc], port, [log])
-        got = _drive(port, adapter_dir)
+        got = _drive(port, adapter_dir, processes=1)
         state = json.loads(http_get(f"127.0.0.1:{port}", "/v1/state")[1])
         assert state["parallel"] == {
             "topology": "1x2", "ranks": 2, "processes": 1, "process_id": 0,
@@ -661,7 +680,7 @@ def test_main_two_processes(checkpoints, references, lockstep_world, tmp_path):
         # The worker process answers /health only.
         assert http_get(f"127.0.0.1:{ports[1]}", "/health")[0] == 200
         assert http_get(f"127.0.0.1:{ports[1]}", "/v1/models")[0] == 404
-        got = _drive(ports[0], adapter_dir)
+        got = _drive(ports[0], adapter_dir, processes=2)
         state = json.loads(http_get(f"127.0.0.1:{ports[0]}", "/v1/state")[1])
         assert state["parallel"]["processes"] == 2 and state["parallel"]["ranks_per_process"] == 1
         procs[0].send_signal(signal.SIGTERM)

@@ -18,6 +18,8 @@ weights, unsharded; prefill, both decode layouts and the verify window
 on the ranks' shards must give logits within 1e-4 of the JAX functions
 in f32, and each rank's K/V must be its KV heads of JAX's.
 
+Gemma's worlds are tests/test_torch_gemma_tp.py's.
+
 Also here: what still refuses under a mesh (in one process, over torch's
 fake process-group backend or a world-1 gloo group), the rank-local
 adapter buffers, a world-1 mesh equal to no mesh, and the topology
@@ -59,6 +61,7 @@ from kubeai_tpu_torch.ops.int8_matmul import (
     check_weight,
     gemm_plan,
 )
+from kubeai_tpu_torch.engine.weights import ShardPlan
 from kubeai_tpu_torch.models.registry import get_model_family
 from kubeai_tpu_torch.parallel.collectives import TpLayout
 from kubeai_tpu_torch.parallel.mesh import MeshConfig, build_mesh
@@ -404,17 +407,31 @@ def test_mesh_dims_still_refused(fake_world, mesh_kw, item):
 
 @pytest.mark.parametrize("what", ["gemma", "lora", "draft", "slot"])
 def test_features_still_refused_under_a_mesh(fake_world, what):
-    """Gemma, a draft and the slot cache still refuse under a mesh. LoRA
-    did until lockstep serving (ROADMAP A item 11d): its case now checks
-    that the mesh refusals pass it and that a rank's adapter buffers and
-    cuts are its heads' (the parity is the worlds' `lora` case)."""
+    """A draft and the slot cache still refuse under a mesh. LoRA did
+    until lockstep serving (ROADMAP A item 11d) and gemma until its
+    sharding specs (ROADMAP A item 11a2): their cases now check that the
+    mesh refusals pass them and that a rank's adapter buffers and cuts,
+    and a rank's gemma shard, are its heads' and its vocabulary block's
+    (the parity is the worlds' `lora` case here and
+    tests/test_torch_gemma_tp.py)."""
     fake_world(2)
     mesh = build_mesh(MeshConfig(tp=2))
     cfg, params = _tiny()
     family, kw, ecfg = "llama", {}, {}
     if what == "gemma":
-        family, cfg = "gemma", tg.GemmaConfig.tiny()
+        cfg = tg.GemmaConfig.tiny()
+        fam = get_model_family("gemma")
+        _refuse_unported(EngineConfig(), mesh, None, "per_layer", "paged", fam)
         params = tg.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        shard = ShardPlan(fam, cfg, mesh).shard(params)
+        D = cfg.head_size
+        assert set(shard) == {"embed", "layers", "final_norm"}
+        assert torch.equal(shard["embed"], params["embed"][:cfg.vocab_size // 2])
+        assert torch.equal(shard["layers"]["wq"], params["layers"]["wq"][..., :2 * D])
+        assert torch.equal(shard["layers"]["wk"], params["layers"]["wk"][..., :D])
+        assert torch.equal(shard["layers"]["wo"], params["layers"]["wo"][:, :2 * D])
+        assert shard["layers"]["input_norm"] is params["layers"]["input_norm"]
+        return
     elif what == "lora":
         fam = get_model_family("llama")
         _refuse_unported(EngineConfig(max_adapters=2), mesh, None, "per_layer", "paged", fam)

@@ -28,10 +28,13 @@ def hf_config(gemma2: bool, **overrides) -> dict:
 
 
 def write_gemma_checkpoint(path, cfg: dict, seed: int = 0,
-                           dtype: torch.dtype = torch.bfloat16) -> str:
+                           dtype: torch.dtype = torch.bfloat16,
+                           ascii_scale: float = 1.0) -> str:
     """`path`/model.safetensors and config.json for `cfg` (hf_config's
     keys). Projections are stored [out, in], as HF stores them; norms are
-    zero-centred values near 0."""
+    zero-centred values near 0. `ascii_scale` multiplies the embedding's
+    rows of the printable bytes (32-126): the logits are tied to it, so a
+    large scale makes greedy picks bytes that ByteTokenizer decodes."""
     rng = np.random.default_rng(seed)
     E, M, V = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
     H, KVH, D = cfg["num_attention_heads"], cfg["num_key_value_heads"], cfg["head_dim"]
@@ -40,8 +43,9 @@ def write_gemma_checkpoint(path, cfg: dict, seed: int = 0,
     def rnd(*shape, scale=0.05):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale).to(dtype)
 
-    tensors = {"model.embed_tokens.weight": rnd(V, E, scale=0.2),
-               "model.norm.weight": rnd(E, scale=0.1)}
+    embed = rnd(V, E, scale=0.2)
+    embed[32:127] *= ascii_scale
+    tensors = {"model.embed_tokens.weight": embed, "model.norm.weight": rnd(E, scale=0.1)}
     norms = ["input_layernorm", "post_attention_layernorm"]
     if gemma2:
         norms += ["pre_feedforward_layernorm", "post_feedforward_layernorm"]

@@ -124,7 +124,8 @@ def run_spmd(served: dict, mesh) -> list:
     """The plain SPMD oracle of a served run (no lockstep: every rank runs
     the same requests itself): the checkpoint's rank-local shard in bf16
     in an engine of the server's configuration, the adapter loaded, each
-    request run alone in order. Streams of unary requests as text."""
+    request run alone in order. Streams of unary requests as text; and
+    the served run's embedding vectors (`embed_oracle`)."""
     hf = load_hf_config(served["model_dir"])
     family = get_model_family(hf["architectures"][0])
     cfg = family.config_from_hf(hf)
@@ -138,7 +139,22 @@ def run_spmd(served: dict, mesh) -> list:
     for ids, sp, adapter, stream in served["requests"]:
         toks = eng.generate([ids], SamplingParams(**sp), adapter=adapter)[0]
         out.append(toks if stream else tok.decode(toks))
-    return out
+    return out, embed_oracle(eng, served["embed_inputs"])
+
+
+def embed_oracle(eng, texts: list[str]) -> list[list[float]]:
+    """/v1/embeddings' vectors of `texts` as a server on `eng` computes
+    them: the ids right-padded to the engine's bucket, one batch, the
+    family's hidden_states (under the engine's tp group)."""
+    tok = ByteTokenizer()
+    ids = [tok.encode(t) or [0] for t in texts]
+    tokens = torch.zeros((len(ids), eng._bucket(max(map(len, ids)))), dtype=torch.long)
+    for row, i in enumerate(ids):
+        tokens[row, :len(i)] = torch.tensor(i)
+    kw = {} if eng._tp is None else {"tp": eng._tp}
+    with torch.no_grad():
+        return eng.family.hidden_states(eng.params, eng.model_cfg, tokens,
+                                        torch.tensor([len(i) for i in ids]), **kw).tolist()
 
 
 def run_lockstep(rank: int, world: int, rendezvous: str, inputs_path: str,
@@ -185,7 +201,7 @@ def run_lockstep(rank: int, world: int, rendezvous: str, inputs_path: str,
         out["wq_columns"] = eng.params["layers"]["wq"].shape[-1]
         out["lora_b_columns"] = eng._lora["wq"]["B"].shape[-1]
         if "served" in spec:
-            out["spmd"] = run_spmd(spec["served"], mesh)
+            out["spmd"], out["spmd_embed"] = run_spmd(spec["served"], mesh)
         tmp = f"{out_path}.tmp"
         with open(tmp, "wb") as f:
             pickle.dump(out, f)
